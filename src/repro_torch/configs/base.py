@@ -1,0 +1,134 @@
+"""Model configs: per-layer specs, ``ModelConfig``, ``reduced()`` and the
+registry.
+
+Copied from ``repro/configs/base.py`` and trimmed to what the dense
+attention path of the port runs: a layer is an attention mixer plus a
+dense FFN.  The fields that select features of other families (MoE, MLA,
+SSM/xLSTM mixers, encoders, vision, MTP, softcaps, QK-norm, biases,
+sliding windows) are kept with their reference defaults so a config
+says what it needs, and the model raises ``NotImplementedError`` naming
+the ROADMAP item when one is set.  ``reduced()`` gives the reference's
+smoke-test shapes for the dense family.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+__all__ = ["LayerSpec", "ModelConfig", "register", "get_config", "list_archs"]
+
+
+@dataclass(frozen=True)
+class LayerSpec:
+    """One decoder layer = mixer + FFN (``moe`` must stay None in the port)."""
+
+    mixer: str = "attn"
+    window: Optional[int] = None
+    moe: Optional[object] = None
+    use_ffn: bool = True
+    cross_source: bool = False
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    arch_type: str
+    source: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    layers: tuple  # tuple[LayerSpec, ...], length n_layers
+    head_dim: int = 0  # 0 -> d_model // n_heads
+    qkv_bias: bool = False
+    attn_softcap: float = 0.0
+    final_softcap: float = 0.0
+    qk_norm: bool = False
+    rope_base: float = 10_000.0
+    rope_base_local: float = 0.0
+    activation: str = "silu"
+    norm: str = "rms"
+    post_norm: bool = False
+    tie_embeddings: bool = True
+    scale_embed: bool = False
+    mtp_depth: int = 0
+    dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    remat: str = "none"
+    attn_chunk: int = 1024
+    max_seq: int = 131_072
+
+    def __post_init__(self):
+        if self.head_dim == 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+        if len(self.layers) != self.n_layers:
+            raise ValueError(
+                f"{self.name}: len(layers)={len(self.layers)} != n_layers={self.n_layers}"
+            )
+        if self.n_kv_heads and self.n_heads % self.n_kv_heads != 0:
+            raise ValueError(f"{self.name}: n_heads % n_kv_heads != 0")
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+    def reduced(self, n_layers: int = 2, d_model: int = 256, seq_cap: int = 512) -> "ModelConfig":
+        """Smoke-test variant: same family, tiny dims (the reference's
+        ``reduced`` for the dense family)."""
+        scale = d_model / self.d_model
+        n_heads = max(2, min(4, self.n_heads))
+        n_kv = 1 if self.n_kv_heads == 1 else max(1, min(2, self.n_kv_heads))
+        while n_heads % n_kv:
+            n_kv -= 1
+        head_dim = max(16, d_model // n_heads)
+
+        def shrink_layer(l: LayerSpec) -> LayerSpec:
+            if l.moe is not None:
+                raise NotImplementedError("MoE layers are not ported yet (ROADMAP 1.9)")
+            window = None if l.window is None else min(l.window, seq_cap // 2)
+            return dataclasses.replace(l, window=window)
+
+        layers = tuple(shrink_layer(l) for l in self.layers[:n_layers])
+        return self.replace(
+            n_layers=n_layers,
+            d_model=d_model,
+            n_heads=n_heads,
+            n_kv_heads=n_kv,
+            head_dim=head_dim,
+            d_ff=0 if self.d_ff == 0 else max(64, int(self.d_ff * scale)),
+            vocab=512,
+            layers=layers,
+            max_seq=seq_cap * 2,
+            attn_chunk=128,
+            remat="none",
+            dtype="float32",
+            mtp_depth=min(self.mtp_depth, 1),
+        )
+
+
+_REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
+
+
+def register(arch_id: str):
+    def deco(fn: Callable[[], ModelConfig]):
+        _REGISTRY[arch_id] = fn
+        return fn
+
+    return deco
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    import repro_torch.configs  # noqa: F401  (populates the registry)
+
+    if arch_id not in _REGISTRY:
+        raise KeyError(f"unknown arch '{arch_id}'; the port has: "
+                       f"{sorted(_REGISTRY)} (others: ROADMAP 1.9)")
+    return _REGISTRY[arch_id]()
+
+
+def list_archs() -> list[str]:
+    import repro_torch.configs  # noqa: F401
+
+    return sorted(_REGISTRY)

@@ -1,0 +1,186 @@
+"""The parameter tree of the dense LM as an ``nn.Module``.
+
+Parameter names are the reference's key paths (``embed.tok``,
+``stack.0.mixer.wq``, ...), and a run of identical layers holds its
+leaves stacked along a leading ``(count, ...)`` axis, as
+``repro/models/stack.py::init_stack`` stacks them.  So one ``Plan`` and
+one ``FlatLayout`` bind to both packages.
+
+``GCLM.leaves()`` returns the parameters in ``jax.tree.leaves`` order —
+dict keys sorted at every level, list entries in index order — which is
+NOT ``nn.Module`` registration order (ROADMAP 3.4).  For gc-lm-110m that
+is the 11 leaves ``embed.tok``, ``final_norm.scale``,
+``stack.0.ffn.{wg,wi,wo}``, ``stack.0.mixer.{wk,wo,wq,wv}``,
+``stack.0.norm_ffn.scale``, ``stack.0.norm_mix.scale``.
+
+Weights are drawn from a ``torch.Generator`` with the law of the
+reference's ``dense_init`` (truncated normal on [-2, 2], std 1/sqrt(fan_in)
+of the per-layer shape); ``torch`` cannot reproduce ``jax.random``, so
+parity tests carry the reference's arrays across with
+``params_from_numpy``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..device import resolve_device
+from .stack import plan_segments
+
+__all__ = ["ParamNode", "GCLM", "params_from_numpy", "params_to_numpy",
+           "count_params"]
+
+
+class ParamNode(nn.Module):
+    """A dict node of the parameter tree: named parameters and children."""
+
+    def __init__(self, params: dict = None, children: dict = None):
+        super().__init__()
+        for name, value in (params or {}).items():
+            self.register_parameter(name, nn.Parameter(value))
+        for name, child in (children or {}).items():
+            self.add_module(name, child)
+
+
+def _zeros(shape, device):
+    return torch.zeros(shape, dtype=torch.float32, device=device)
+
+
+def _layer_node(cfg, spec, count: int, device) -> ParamNode:
+    """One layer's parameters; leaves carry a leading (count,) axis when
+    the run stacks more than one layer."""
+    if spec.mixer != "attn" or spec.window is not None or spec.moe is not None \
+            or spec.cross_source or not spec.use_ffn:
+        raise NotImplementedError(
+            f"layer {spec} is not ported yet: the port runs global attention "
+            "+ dense FFN layers only (other mixers, windows, MoE: ROADMAP 1.9)")
+    lead = (count,) if count > 1 else ()
+    d, h, kv, dh, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                        cfg.d_ff)
+
+    def z(*shape):
+        return _zeros(lead + shape, device)
+
+    return ParamNode(children={
+        "norm_mix": ParamNode({"scale": z(d)}),
+        "mixer": ParamNode({"wq": z(d, h, dh), "wk": z(d, kv, dh),
+                            "wv": z(d, kv, dh), "wo": z(h, dh, d)}),
+        "norm_ffn": ParamNode({"scale": z(d)}),
+        "ffn": ParamNode({"wi": z(d, ff), "wo": z(ff, d), "wg": z(d, ff)}),
+    })
+
+
+def check_supported(cfg) -> None:
+    """Raise ``NotImplementedError`` for features outside the dense
+    attention path the port runs."""
+    unsupported = {
+        "qkv_bias": cfg.qkv_bias, "attn_softcap": cfg.attn_softcap,
+        "final_softcap": cfg.final_softcap, "qk_norm": cfg.qk_norm,
+        "post_norm": cfg.post_norm, "scale_embed": cfg.scale_embed,
+        "mtp_depth": cfg.mtp_depth, "untied embeddings": not cfg.tie_embeddings,
+        "layer norm": cfg.norm != "rms", "non-silu activation": cfg.activation != "silu",
+        "remat": cfg.remat != "none", "dtype other than float32": cfg.dtype != "float32",
+    }
+    on = [k for k, v in unsupported.items() if v]
+    if on:
+        raise NotImplementedError(
+            f"{cfg.name}: {on} not ported yet (other model families: ROADMAP 1.9)")
+
+
+class GCLM(nn.Module):
+    """Decoder LM parameters: ``embed``, ``stack`` (one node per run of
+    identical layers) and ``final_norm``, initialized from ``seed``."""
+
+    def __init__(self, cfg, *, device="cuda", seed: int = 0):
+        super().__init__()
+        check_supported(cfg)
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.embed = ParamNode({"tok": _zeros((cfg.vocab, cfg.d_model), dev)})
+        self.stack = nn.ModuleList(
+            _layer_node(cfg, seg.spec, seg.count, dev)
+            for seg in plan_segments(cfg.layers))
+        self.final_norm = ParamNode({"scale": _zeros((cfg.d_model,), dev)})
+        if dev.type != "meta":  # a meta model carries shapes only
+            self.reset_parameters(seed)
+
+    # ----------------------------------------------------------- leaf order
+    def leaf_items(self) -> list:
+        """[(path, parameter)] in ``jax.tree.leaves`` order."""
+        return list(_walk(self, ()))
+
+    def leaf_paths(self) -> list:
+        return [".".join(p) for p, _ in self.leaf_items()]
+
+    def leaves(self) -> list:
+        return [t for _, t in self.leaf_items()]
+
+    # ----------------------------------------------------------------- init
+    @torch.no_grad()
+    def reset_parameters(self, seed: int = 0) -> None:
+        """``dense_init`` law for matrices, zeros for rms-norm scales
+        (which store scale - 1)."""
+        gen = torch.Generator(device=self.embed.tok.device).manual_seed(int(seed))
+        stacked = {seg_i for seg_i, seg in enumerate(plan_segments(self.cfg.layers))
+                   if seg.count > 1}
+        for path, t in self.leaf_items():
+            if path[-1] == "scale":
+                t.zero_()
+                continue
+            per_layer = tuple(t.shape[1:]) if (
+                path[0] == "stack" and int(path[1]) in stacked) else tuple(t.shape)
+            fan_in = per_layer[0] if len(per_layer) == 1 else int(np.prod(per_layer[:-1]))
+            std = 1.0 / np.sqrt(max(fan_in, 1))
+            nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+            t.mul_(std)
+
+
+def _walk(node, prefix):
+    if isinstance(node, nn.ModuleList):
+        for i, child in enumerate(node):
+            yield from _walk(child, prefix + (str(i),))
+        return
+    items = {**node._parameters, **node._modules}
+    for name in sorted(items):
+        value = items[name]
+        if isinstance(value, nn.Parameter):
+            yield prefix + (name,), value
+        elif value is not None:
+            yield from _walk(value, prefix + (name,))
+
+
+def _lookup(tree, path):
+    for key in path:
+        tree = tree[int(key)] if isinstance(tree, (list, tuple)) else tree[key]
+    return tree
+
+
+@torch.no_grad()
+def params_from_numpy(model: GCLM, tree) -> GCLM:
+    """Copy a reference parameter tree (nested dicts/lists of arrays, the
+    JAX keys and shapes) into ``model``; every leaf must match."""
+    for path, t in model.leaf_items():
+        value = np.array(_lookup(tree, path), dtype=np.float32)  # writable copy
+        if tuple(value.shape) != tuple(t.shape):
+            raise ValueError(f"{'.'.join(path)}: shape {value.shape} vs "
+                             f"{tuple(t.shape)}")
+        t.copy_(torch.from_numpy(value))
+    return model
+
+
+def params_to_numpy(model: GCLM) -> dict:
+    """The reference's parameter tree (nested dicts/lists of fp32 arrays)."""
+    def build(node):
+        if isinstance(node, nn.ModuleList):
+            return [build(c) for c in node]
+        out = {n: p.detach().cpu().numpy().copy() for n, p in node._parameters.items()}
+        out.update({n: build(c) for n, c in node._modules.items()})
+        return out
+
+    return {"embed": build(model.embed), "stack": build(model.stack),
+            "final_norm": build(model.final_norm)}
+
+
+def count_params(model: GCLM) -> int:
+    return int(sum(t.numel() for t in model.leaves()))

@@ -1,0 +1,176 @@
+"""Coded training in the port against the JAX reference, on the CPU.
+
+* the flat coded gradient equals the reference's
+  ``make_coded_grad_fn(mode="sim", pipeline="flat")`` and the port's own
+  uncoded gradient for every straggler count 0..s_max — the bounds of
+  ``tests/test_flat_pipeline.py`` (1e-5 between two coded forms, 1e-4
+  against the uncoded mean, fp32);
+* one clip + AdamW + cosine update equals ``repro.optim.optim``;
+* three ``Trainer`` steps from the same initial parameters and seed give
+  the same ledger bit for bit, and the same losses and parameters to
+  tolerance.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.core import Plan as JPlan
+from repro.core import ShiftedExponential as JShiftedExp
+from repro.data.pipeline import DataConfig as JDataConfig
+from repro.data.pipeline import SyntheticTokens as JSyntheticTokens
+from repro.optim import optim as joptim
+from repro.train.coded import make_coded_grad_fn as jax_coded_grad_fn
+from repro.train.state import init_train_state as jax_init_train_state
+from repro.train.trainer import TrainConfig as JTrainConfig
+from repro.train.trainer import Trainer as JTrainer
+from repro_torch.configs import get_config
+from repro_torch.core import Plan, ShiftedExponential
+from repro_torch.data.pipeline import DataConfig, SyntheticTokens, coded_worker_batches
+from repro_torch.kernels import gc_fused
+from repro_torch.launch import train as launch_train
+from repro_torch.models.params import GCLM, params_from_numpy, params_to_numpy
+from repro_torch.optim import optim
+from repro_torch.train.coded import make_coded_grad_fn, uncoded_grad_fn
+from repro_torch.train.trainer import TrainConfig, Trainer
+
+N = 4
+KW = dict(n_layers=2, d_model=128)
+
+
+def _max_err(a, b):
+    return max(float(np.abs(np.asarray(x, np.float32) - np.asarray(y, np.float32)).max())
+               for x, y in zip(a, b))
+
+
+@pytest.fixture(scope="module")
+def sim_setup():
+    cfg_t = get_config("gc-lm-110m").reduced(**KW)
+    cfg_j = jax_get_config("gc-lm-110m").reduced(**KW)
+    state, _ = jax_init_train_state(cfg_j, jax.random.PRNGKey(0))
+    model = params_from_numpy(GCLM(cfg_t, device="cpu"),
+                              jax.tree.map(np.asarray, state.params))
+    plan_j = JPlan.build(state.params, JShiftedExp(mu=1e-3, t0=50.0), N, scheme="xf")
+    plan_t = Plan.build(model, ShiftedExponential(mu=1e-3, t0=50.0), N, scheme="xf")
+    data = SyntheticTokens(DataConfig(vocab=cfg_t.vocab, seq_len=48, global_batch=8))
+    wb = coded_worker_batches(data, 0, N, plan_t.s_max)
+    shards = np.stack([data.shard(0, i, N) for i in range(N)])
+    g_unc = uncoded_grad_fn(cfg_t, N)(model, shards)
+    return cfg_t, cfg_j, state, model, plan_t, plan_j, wb, g_unc
+
+
+def test_flat_coded_grads_match_jax_and_uncoded_every_straggler_count(sim_setup):
+    cfg_t, cfg_j, state, model, plan_t, plan_j, wb, g_unc = sim_setup
+    assert plan_t.to_dict() == plan_j.to_dict()
+    ours = make_coded_grad_fn(cfg_t, plan_t, mode="sim", pipeline="flat")
+    theirs = jax.jit(jax_coded_grad_fn(cfg_j, plan_j, mode="sim", pipeline="flat"))
+    for u in range(plan_t.s_max + 1):
+        times = np.ones(N)
+        times[:u] = 1e6  # u realized stragglers
+        dec_w = plan_t.decode_weights(times).astype(np.float32)
+        g_t = ours(model, wb, dec_w)
+        g_j = jax.tree.leaves(theirs(state.params, jnp.asarray(wb), jnp.asarray(dec_w)))
+        assert [tuple(g.shape) for g in g_t] == [g.shape for g in g_j]
+        assert _max_err(g_t, g_j) < 1e-5, u      # port flat == reference flat
+        assert _max_err(g_t, g_unc) < 1e-4, u    # port flat == port uncoded
+
+
+def test_coded_grad_fn_scope_raises(sim_setup):
+    cfg_t, _, _, _, plan_t, *_ = sim_setup
+    with pytest.raises(NotImplementedError, match="ROADMAP 1.6"):
+        make_coded_grad_fn(cfg_t, plan_t, mode="spmd")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_coded_grad_fn(cfg_t, plan_t, pipeline="tree")
+
+
+@pytest.mark.parametrize("step", [0, 3, 50, 120])
+def test_one_update_matches_reference_optim(step):
+    rng = np.random.default_rng(step)
+    shapes = [(7,), (3, 5), (2, 4, 6)]
+    params = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    grads = [(3.0 * rng.standard_normal(s)).astype(np.float32) for s in shapes]
+    m = [(0.1 * rng.standard_normal(s)).astype(np.float32) for s in shapes]
+    v = [np.abs(0.01 * rng.standard_normal(s)).astype(np.float32) for s in shapes]
+    count = 4
+
+    lr_j = joptim.cosine_schedule(step, 3e-4, 10, 100)
+    gj, norm_j = joptim.clip_by_global_norm([jnp.asarray(g) for g in grads], 1.0)
+    pj, oj = joptim.adamw_update(
+        gj, {"m": [jnp.asarray(x) for x in m], "v": [jnp.asarray(x) for x in v],
+             "count": jnp.asarray(count, jnp.int32)},
+        [jnp.asarray(p) for p in params], lr_j, weight_decay=0.01)
+
+    lr_t = optim.cosine_schedule(step, 3e-4, 10, 100)
+    gt, norm_t = optim.clip_by_global_norm([torch.from_numpy(g) for g in grads], 1.0)
+    pt = [torch.from_numpy(p.copy()) for p in params]
+    ot = optim.adamw_update(gt, {"m": [torch.from_numpy(x.copy()) for x in m],
+                                 "v": [torch.from_numpy(x.copy()) for x in v],
+                                 "count": count}, pt, lr_t, weight_decay=0.01)
+    np.testing.assert_allclose(float(lr_t), float(lr_j), rtol=1e-6)  # cos: an ulp
+    # fp32 elementwise math in the same order: equal to the last ulp or two
+    np.testing.assert_allclose(float(norm_t), float(norm_j), rtol=1e-6)
+    assert ot["count"] == int(oj["count"]) == count + 1
+    for got, want in ((pt, pj), (ot["m"], oj["m"]), (ot["v"], oj["v"])):
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6, atol=1e-9)
+
+
+def test_three_trainer_steps_match_reference_trainer():
+    cfg_t = get_config("gc-lm-110m").reduced(**KW)
+    cfg_j = jax_get_config("gc-lm-110m").reduced(**KW)
+    seq = 32
+    ref = JTrainer(cfg_j, JTrainConfig(warmup=1, total_steps=10),
+                   JShiftedExp(mu=1e-3, t0=50.0), n_workers=N, scheme="xf",
+                   global_batch=8, seed=0)
+    ref.data = JSyntheticTokens(JDataConfig(vocab=cfg_j.vocab, seq_len=seq,
+                                            global_batch=8, seed=0))
+    init = jax.tree.map(np.asarray, ref.state.params)
+    ours = Trainer(cfg_t, TrainConfig(warmup=1, total_steps=10),
+                   ShiftedExponential(mu=1e-3, t0=50.0), n_workers=N, scheme="xf",
+                   global_batch=8, seed=0, device="cpu", params=init, seq_len=seq)
+    assert ours.plan.to_dict() == ref.plan.to_dict()
+    before = gc_fused.launches
+    _, sum_t = ours.run(3, log_every=0)
+    _, sum_j = ref.run(3, log_every=0)
+    assert gc_fused.launches == before  # the CPU path never launches the kernel
+    # the ledger is the same numpy simulation: bit-identical
+    assert sum_t == sum_j
+    for rt, rj in zip(ours.sim.ledger, ref.sim.ledger):
+        np.testing.assert_array_equal(rt["times"], rj["times"])
+        assert (rt["tau_coded"], rt["tau_uncoded"]) == (rj["tau_coded"], rj["tau_uncoded"])
+    for ht, hj in zip(ours.history, ref.history):
+        assert ht["step"] == hj["step"]
+        assert (ht["tau_coded"], ht["tau_uncoded"]) == (hj["tau_coded"], hj["tau_uncoded"])
+        # fp32 sums in another order: the loss and gradient norm agree to 1e-5
+        for key in ("loss", "xent", "grad_norm"):
+            np.testing.assert_allclose(ht[key], hj[key], rtol=1e-5)
+        # torch's and XLA's cos may differ by an ulp
+        np.testing.assert_allclose(ht["lr"], hj["lr"], rtol=1e-6)
+    # two non-zero updates (lr is 0 at step 0 during warmup) each move a
+    # weight by at most about lr = 3e-4; the two packages agree to 1% of it
+    params_t = params_to_numpy(ours.state.params)
+    for a, b in zip(jax.tree.leaves(params_t),
+                    jax.tree.leaves(jax.tree.map(np.asarray, ref.state.params))):
+        np.testing.assert_allclose(a, b, rtol=0, atol=3e-6)
+    assert ours.state.step == int(ref.state.step) == 3
+
+
+def test_trainer_unported_options_raise():
+    cfg = get_config("gc-lm-110m").reduced(**KW)
+    dist = ShiftedExponential()
+    for kw in (dict(adapt=object()), dict(wave=object()), dict(ckpt=object()),
+               dict(scheme="auto"), dict(mode="spmd"), dict(grad_dtype="bf16")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Trainer(cfg, TrainConfig(), dist, n_workers=N, device="cpu", **kw)
+
+
+def test_launch_cli_runs_on_cpu(capsys):
+    trainer = launch_train.main(["--reduced", "--steps", "2", "--seq", "16",
+                                 "--global-batch", "8", "--device", "cpu",
+                                 "--log-every", "0"])
+    out = capsys.readouterr().out
+    assert "s_max=3" in out and "simulated runtime" in out
+    assert len(trainer.history) == 2
+    assert all(np.isfinite(h["loss"]) for h in trainer.history)
