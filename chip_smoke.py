@@ -27,7 +27,26 @@ port's sources beside it.  Phases; any failure raises:
    the per-shard rows, the combine, the update), host clock around
    synchronized calls, and one coded-gradient call under
    ``torch.profiler`` (device time by kernel, device busy share).
-7. reference: three steps at a reduced size on the CPU (the plain
+7. ckpt: a fresh full-width trainer (as in 2) with erasure-coded
+   checkpoints, ``CodedSpec(n_shards=4, parity=1)`` every 2 steps, and
+   worker 1 (which owns data stripe 1) 1000x slower from round 0, so the
+   ``DeathWatch`` trips after step 4 (seed 0).  5 steps with every count
+   set to 0 just before: a save at step 2 (parity through ``gc_encode``),
+   a restore from the 3 survivors (``gc_encode`` on the survivors), one
+   replayed step.  The restored state must be byte-equal to the saved
+   one and the replayed loss equal to the first; the save, restore,
+   snapshot and training times, the pieces of the save and the restore,
+   and the host's peak RSS after each are printed.
+8. encode: ``gc_encode`` at the checkpoint's shapes (NB = 1, K = 3 and
+   2, the stripe's integer digits) equal to its plain version and to an
+   int64 host product, and at ragged widths in fp32 and bf16 (NB = 3,
+   K = 5 and NB = K = 12); times against the memory bound.
+9. decode: ``gc_decode`` at ``benchmarks/kernel_bench.py``'s shapes and
+   ragged widths against its plain version, then the reference's coded
+   round trip through both kernels (counts set to 0 just before): encode
+   with the (6, 6) cyclic code, strike 2 stragglers, decode, recover
+   ``g.sum(0)``.
+10. reference: three steps at a reduced size on the CPU (the plain
    versions) and on the card, from the same weights, agree.
 
 The line before the last is the card's name and power limit; before it
@@ -39,9 +58,12 @@ from __future__ import annotations
 import json
 import math
 import os
+import resource
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -55,6 +77,11 @@ TOL = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": dict(rtol=2e-2, atol=1
 #: coded vs uncoded gradient, relative max error per leaf (fp32, TF32 off)
 EXACT_RTOL = 1e-4
 STEPS = 3
+#: worker 1 dies (1000x slower from round 0): with seed 0 the DeathWatch
+#: (factor 20, 4 rounds) trips after the 4th step (found on the CPU with
+#: the port's PlanSimulator and DeathWatch alone)
+DEATH = dict(worker=1, factor=1000.0, from_round=0)
+CKPT_STEPS = 5
 
 
 def log(*args):
@@ -86,7 +113,7 @@ def time_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def check_close(got, want, dtype_name: str, what: str) -> float:
+def check_close(kernel: str, got, want, dtype_name: str, what: str) -> float:
     import torch
 
     tol = TOL[dtype_name]
@@ -94,9 +121,28 @@ def check_close(got, want, dtype_name: str, what: str) -> float:
     err = (g - w).abs()
     bad = err > tol["atol"] + tol["rtol"] * w.abs()
     if bool(bad.any()) or not bool(torch.isfinite(g).all()):
-        raise AssertionError(f"gc_fused disagrees with its plain version at {what}: "
+        raise AssertionError(f"{kernel} disagrees with its plain version at {what}: "
                              f"max abs err {err.max().item():.3e}")
     return err.max().item()
+
+
+def bounds_ms(n_bytes: float, n_ops: float) -> tuple:
+    """(bytes time, operations time) in ms at the card's peaks: the least
+    time is the larger of the two."""
+    return n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / FP32_FLOPS * 1e3
+
+
+def reset_counts() -> None:
+    from repro_torch.kernels import gc_decode, gc_encode, gc_fused
+
+    gc_fused.launches = gc_encode.launches = gc_decode.launches = 0
+
+
+def read_counts() -> dict:
+    from repro_torch.kernels import gc_decode, gc_encode, gc_fused
+
+    return {"gc_fused": gc_fused.launches, "gc_encode": gc_encode.launches,
+            "gc_decode": gc_decode.launches}
 
 
 # --------------------------------------------------------------- phases
@@ -118,17 +164,22 @@ def phase_device():
             f"spilling entries {len(spills)}")
 
 
-def phase_setup():
+def make_trainer(ckpt=None):
+    """Full-width gc-lm-110m in a ``Trainer`` on the card (seed 0)."""
     from repro_torch.configs import get_config
     from repro_torch.core import ShiftedExponential
     from repro_torch.train.trainer import TrainConfig, Trainer
 
     cfg = get_config("gc-lm-110m").replace(max_seq=512)
+    return Trainer(cfg, TrainConfig(lr=3e-4, warmup=10, total_steps=300),
+                   ShiftedExponential(mu=1e-3, t0=50.0), n_workers=4,
+                   scheme="xf", global_batch=8, seed=0, device="cuda",
+                   seq_len=256, ckpt=ckpt)
+
+
+def phase_setup():
     t0 = time.perf_counter()
-    trainer = Trainer(cfg, TrainConfig(lr=3e-4, warmup=10, total_steps=300),
-                      ShiftedExponential(mu=1e-3, t0=50.0), n_workers=4,
-                      scheme="xf", global_batch=8, seed=0, device="cuda",
-                      seq_len=256)
+    trainer = make_trainer()
     plan = trainer.plan
     n_params = sum(t.numel() for t in trainer.state.params.leaves())
     log(f"[setup] gc-lm-110m: {n_params} params in {len(plan.flat_layout.leaf_shapes)} "
@@ -158,7 +209,7 @@ def phase_kernel(trainer):
         a = torch.full((1,), 1.0 / plan.n_workers, device="cuda")
         b = torch.randn((1, nk), device="cuda", generator=gen)
         g = torch.randn((nk, d), device="cuda", generator=gen)
-        max_err = max(max_err, check_close(gc_fused.encode_decode(a, b, g),
+        max_err = max(max_err, check_close("gc_fused", gc_fused.encode_decode(a, b, g),
                                            ref.encode_decode_ref(a, b, g),
                                            "float32", f"NB=1 K={nk} D={d}"))
         w = (a[:, None] * b).contiguous()
@@ -168,8 +219,7 @@ def phase_kernel(trainer):
         l_ms = time_ms(lambda: torch.matmul(w, g), reps)
         # each input read once, the output written once; one multiply-add
         # per element of G
-        bytes_ms = ((1 + nk) * d * 4 + (nk + 1) * 4) / HBM_BYTES_PER_S * 1e3
-        ops_ms = 2.0 * nk * d / FP32_FLOPS * 1e3
+        bytes_ms, ops_ms = bounds_ms((1 + nk) * d * 4 + (nk + 1) * 4, 2.0 * nk * d)
         bound = max(bytes_ms, ops_ms)
         log(f"[kernel] NB=1 K={nk} D={d} fp32 x{count}/step: kernel_ms {k_ms:.4f} "
             f"plain_ms {p_ms:.4f} library_ms {l_ms:.4f} bound_ms {bound:.4f} "
@@ -190,7 +240,8 @@ def phase_kernel(trainer):
                 y = gc_fused.encode_decode(a, b, g)
                 if y.dtype != dtype or tuple(y.shape) != (nb, d):
                     raise AssertionError(f"gc_fused output {y.dtype}{tuple(y.shape)}")
-                max_err = max(max_err, check_close(y, ref.encode_decode_ref(a, b, g),
+                max_err = max(max_err, check_close("gc_fused", y,
+                                                   ref.encode_decode_ref(a, b, g),
                                                    name, f"NB={nb} K={k} D={d} {name}"))
     torch.cuda.synchronize()
     log(f"[kernel] gc_fused agrees with its plain version at every shape; "
@@ -232,14 +283,12 @@ def phase_exactness(trainer):
 def phase_train(trainer):
     import torch
 
-    from repro_torch.kernels import gc_fused
-
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    gc_fused.launches = 0
+    reset_counts()
     trainer.run(STEPS, log_every=1, log_fn=lambda s: log(f"[train] {s}"))
     torch.cuda.synchronize()
-    launches = {"gc_fused": gc_fused.launches}
+    launches = read_counts()
     n_leaves = trainer.plan.flat_layout.n_leaves
     if launches["gc_fused"] != n_leaves * STEPS:
         raise AssertionError(f"gc_fused launched {launches['gc_fused']} times in "
@@ -328,6 +377,326 @@ def phase_breakdown(trainer):
             f"{e.key[:90]}")
 
 
+def _snapshot(tree) -> dict:
+    """{key: device copy} of every leaf of a state, for a byte comparison."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint.ckpt import tree_items
+
+    return {k: v.detach().clone() if isinstance(v, torch.Tensor) else np.array(v)
+            for k, v in tree_items(tree)}
+
+
+def _same_bytes(a: dict, b: dict) -> bool:
+    import numpy as np
+    import torch
+
+    if list(a) != list(b):
+        return False
+    for k, x in a.items():
+        y = b[k]
+        if isinstance(x, torch.Tensor):
+            if not (isinstance(y, torch.Tensor) and x.dtype == y.dtype and x.shape == y.shape
+                    and torch.equal(x.reshape(-1).view(torch.uint8),
+                                    y.reshape(-1).view(torch.uint8))):
+                return False
+        elif np.asarray(x).tobytes() != np.asarray(y).tobytes():
+            return False
+    return True
+
+
+class Pieces:
+    """Exclusive host time of named module functions while installed: a
+    function's own time, less that of the timed functions it calls."""
+
+    def __init__(self, module, names):
+        self.module, self.names = module, names
+        self.spent: dict = {}
+        self._stack: list = []
+        self._orig: dict = {}
+
+    def _timed(self, name, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            self._stack.append(0.0)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                dt = time.perf_counter() - t0
+                inner = self._stack.pop()
+                self.spent[name] = self.spent.get(name, 0.0) + dt - inner
+                if self._stack:
+                    self._stack[-1] += dt
+        return call
+
+    def __enter__(self):
+        for name in self.names:
+            self._orig[name] = getattr(self.module, name)
+            setattr(self.module, name, self._timed(name, self._orig[name]))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            setattr(self.module, name, fn)
+
+    def take(self) -> dict:
+        out, self.spent = self.spent, {}
+        return out
+
+
+def _peak_rss_gb() -> float:
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
+
+def _pieces_line(total: float, pieces: dict) -> str:
+    rest = total - sum(pieces.values())
+    return ", ".join(f"{k} {v:.3f}" for k, v in pieces.items()) + f", rest {rest:.3f}"
+
+
+#: the host and device pieces of a coded save and restore, timed apart
+SAVE_PIECES = ("_leaf_records", "_encode_digits", "_pack_uints", "_crc", "write_durable")
+RESTORE_PIECES = ("_read_shard", "_crc", "_unpack_uints", "_encode_digits", "_solve_digits",
+                  "_digits_to_stripe", "loaded_array", "fill_tree")
+
+
+def phase_ckpt():
+    """Erasure-coded checkpoints and worker-death recovery of full-width
+    gc-lm-110m: save at step 2, worker 1 dies, restore from the three
+    survivors, replay.  Returns the counts of this path and its timings.
+    The save and the restore are split into their pieces (exclusive host
+    time of ``checkpoint/coded.py``'s functions)."""
+    import torch
+
+    from repro_torch.checkpoint import CkptConfig, CodedSpec
+    from repro_torch.checkpoint import coded
+    from repro_torch.core import DegradedWorker
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=os.path.join(ROOT, "build"))
+    try:
+        t0 = time.perf_counter()
+        trainer = make_trainer(ckpt=CkptConfig(dir=ckpt_dir, every=2,
+                                               coded=CodedSpec(n_shards=4, parity=1)))
+        trainer.sim.env = trainer.env.with_faults(DegradedWorker(**DEATH))
+        log(f"[ckpt] trainer with CodedSpec(4, 1) every 2 steps, {DEATH}; "
+            f"{time.perf_counter() - t0:.2f} s; host peak RSS {_peak_rss_gb():.2f} GB")
+        manager = trainer.manager
+        saved, restored = {}, {}
+        spent = {"save": 0.0, "restore": 0.0, "snapshot": 0.0}
+        pieces = {}
+        orig_save, orig_restore = manager.save, manager.restore_from_survivors
+
+        def snapshot(into, step, tree):
+            t = time.perf_counter()
+            into[step] = _snapshot(tree)
+            torch.cuda.synchronize()
+            spent["snapshot"] += time.perf_counter() - t
+
+        def save(step, tree, extra=None):
+            snapshot(saved, int(step), tree)
+            t = time.perf_counter()
+            with Pieces(coded, SAVE_PIECES) as timer:
+                path = orig_save(step, tree, extra=extra)
+            spent["save"] += time.perf_counter() - t
+            pieces["save"] = timer.take()
+            log(f"[ckpt] save at step {step}: {spent['save']:.2f} s; host peak RSS "
+                f"{_peak_rss_gb():.2f} GB")
+            return path
+
+        def restore(template, missing, step=None):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with Pieces(coded, RESTORE_PIECES) as timer:
+                state, at = orig_restore(template, missing, step)
+                torch.cuda.synchronize()
+            spent["restore"] += time.perf_counter() - t
+            pieces["restore"] = timer.take()
+            log(f"[ckpt] restore of step {at}: {spent['restore']:.2f} s; host peak RSS "
+                f"{_peak_rss_gb():.2f} GB")
+            snapshot(restored, at, state)
+            return state, at
+
+        manager.save, manager.restore_from_survivors = save, restore
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer.run(CKPT_STEPS, log_every=1, log_fn=lambda m: log(f"[ckpt] {m}"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        step_dir = os.path.join(ckpt_dir, "step_00000002")
+        disk = sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir))
+        with open(os.path.join(step_dir, "manifest.json")) as f:
+            manifest = json.load(f)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    evs = trainer.recoveries
+    if len(evs) != 1 or evs[0].dead_workers != (1,) or evs[0].ckpt_step != 2 \
+            or evs[0].swap is not None:
+        raise AssertionError(f"expected one recovery of worker 1 to step 2, got {evs}")
+    if sorted(saved) != [2] or sorted(restored) != [2]:
+        raise AssertionError(f"saves at {sorted(saved)}, restores to {sorted(restored)}")
+    if not _same_bytes(restored[2], saved[2]):
+        raise AssertionError("the state restored from the survivors differs from the "
+                             "state saved at step 2")
+    hist = trainer.history
+    steps = [h["step"] for h in hist]
+    if steps != [1, 2, 3, 4, 3]:
+        raise AssertionError(f"step sequence {steps}, expected [1, 2, 3, 4, 3]")
+    first, replay = hist[2]["loss"], hist[4]["loss"]
+    if not abs(replay - first) <= 1e-6 * abs(first):
+        raise AssertionError(f"replayed step 2->3 loss {replay} != {first}")
+    n_leaves = trainer.plan.flat_layout.n_leaves
+    if launches["gc_encode"] < 2 or launches["gc_fused"] != n_leaves * CKPT_STEPS:
+        raise AssertionError(f"launches {launches}: want gc_encode >= 2 (save and "
+                             f"restore) and gc_fused {n_leaves} per step")
+    for what in ("save", "restore"):
+        log(f"[ckpt] {what} pieces, s: {_pieces_line(spent[what], pieces[what])}")
+    log(f"[ckpt] {CKPT_STEPS} steps in {wall:.2f} s: save {spent['save']:.2f} s, "
+        f"restore from survivors {spent['restore']:.2f} s, state snapshots for the "
+        f"byte check {spent['snapshot']:.2f} s, training "
+        f"{wall - spent['save'] - spent['restore'] - spent['snapshot']:.2f} s "
+        f"(step wall_s {[round(h['wall_s'], 3) for h in hist]}); payload "
+        f"{manifest['payload_bytes']} bytes, stripe {manifest['stripe_bytes']} bytes, "
+        f"{disk} bytes on disk; losses {[round(h['loss'], 6) for h in hist]}, replayed "
+        f"loss {replay} == {first}; restored state byte-equal to the step-2 save; "
+        f"launches {launches}; host peak RSS {_peak_rss_gb():.2f} GB")
+    del trainer, saved, restored
+    torch.cuda.empty_cache()
+    return launches, manifest["stripe_bytes"] // 2
+
+
+def phase_encode(n_digits: int):
+    """``gc_encode`` at the checkpoint's shapes (integer digits: exact) and
+    at ragged widths; times against the memory bound."""
+    import torch
+
+    from repro_torch.kernels import gc_encode, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
+                  ops_ms=0.0)
+    for k, what in ((3, "save"), (2, "restore")):
+        p = torch.ones((1, k), device="cuda")  # CodedSpec(4, 1)'s parity rows
+        g = torch.randint(0, 2 ** 16, (k, n_digits), device="cuda", generator=gen,
+                          dtype=torch.float32)
+        c = gc_encode.encode(p, g)
+        if not torch.equal(c, ref.encode_ref(p, g)):
+            raise AssertionError(f"gc_encode != its plain version at K={k} D={n_digits}")
+        cols = slice(n_digits - 1_000_000, n_digits)  # the tail: the last blocks
+        want = p.cpu().long() @ g[:, cols].cpu().long()
+        if not torch.equal(c[:, cols].cpu().long(), want):
+            raise AssertionError(f"gc_encode != the int64 product at K={k}")
+        k_ms = time_ms(lambda: gc_encode.encode(p, g), 20)
+        p_ms = time_ms(lambda: ref.encode_ref(p, g), 20)
+        l_ms = time_ms(lambda: torch.matmul(p, g), 20)
+        bytes_ms, ops_ms = bounds_ms((1 + k) * n_digits * 4 + k * 4, 2.0 * k * n_digits)
+        bound = max(bytes_ms, ops_ms)
+        log(f"[encode] {what}: NB=1 K={k} D={n_digits} integer fp32: exact (== plain, "
+            f"== int64 on the last 1e6 columns); kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
+            f"library_ms {l_ms:.4f} bound_ms {bound:.4f} share_of_bound {bound / k_ms:.3f}")
+        for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("library_ms", l_ms),
+                       ("bound_ms", bound), ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
+            totals[key] += v
+        del g, c
+    max_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for nb, k in ((3, 5), (12, 12)):
+            for d in (1, 127, 129, 513, 1021):
+                b = torch.randn((nb, k), device="cuda", generator=gen)
+                g = torch.randn((k, d), device="cuda", generator=gen).to(dtype)
+                y = gc_encode.encode(b, g)
+                if y.dtype != dtype or tuple(y.shape) != (nb, d):
+                    raise AssertionError(f"gc_encode output {y.dtype}{tuple(y.shape)}")
+                max_err = max(max_err, check_close("gc_encode", y, ref.encode_ref(b, g),
+                                                   name, f"NB={nb} K={k} D={d} {name}"))
+    torch.cuda.synchronize()
+    totals["bound_by"] = "bytes" if totals["bytes_ms"] >= totals["ops_ms"] else "operations"
+    log(f"[encode] ragged widths agree (fp32/bf16, NB=3 K=5 and NB=K=12), max abs err "
+        f"{max_err:.3e}; save + restore: " + " ".join(
+            f"{k} {v:.4f}" for k, v in totals.items() if k != "bound_by"))
+    return max_err, totals
+
+
+def phase_decode():
+    """``gc_decode`` at kernel_bench's shapes and ragged widths, then the
+    coded round trip through both kernels.  Returns (counts of the round
+    trip, max error, times at the round trip's full width)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.coding import decode_weights, make_code
+    from repro_torch.kernels import gc_decode, gc_encode, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    max_err = 0.0
+    for n, d, dtype in ((4, 2 ** 20, torch.float32), (8, 2 ** 22, torch.float32),
+                        (4, 2 ** 22, torch.bfloat16)):
+        name = str(dtype).split(".")[-1]
+        a = torch.randn((n,), device="cuda", generator=gen)
+        c = torch.randn((n, d), device="cuda", generator=gen).to(dtype)
+        max_err = max(max_err, check_close("gc_decode", gc_decode.decode(a, c),
+                                           ref.decode_ref(a, c), name, f"N={n} D={d}"))
+        k_ms = time_ms(lambda: gc_decode.decode(a, c), 50)
+        p_ms = time_ms(lambda: ref.decode_ref(a, c), 50)
+        l_ms = time_ms(lambda: torch.matmul(a.to(dtype)[None], c), 50)
+        item = c.element_size()
+        bound = max(bounds_ms((1 + n) * d * item + n * 4, 2.0 * n * d))
+        log(f"[decode] N={n} D={d} {name}: kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
+            f"library_ms {l_ms:.4f} bound_ms {bound:.4f} share_of_bound {bound / k_ms:.3f}")
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for d in (1, 127, 129, 513, 1021):
+            a = torch.randn((6,), device="cuda", generator=gen)
+            c = torch.randn((6, d), device="cuda", generator=gen).to(dtype)
+            y = gc_decode.decode(a, c)
+            if y.dtype != dtype or tuple(y.shape) != (d,):
+                raise AssertionError(f"gc_decode output {y.dtype}{tuple(y.shape)}")
+            max_err = max(max_err, check_close("gc_decode", y, ref.decode_ref(a, c), name,
+                                               f"N=6 D={d} {name}"))
+
+    n, s = 6, 2
+    rng = np.random.default_rng(3)
+    b_mat = make_code(n, s, rng=3, prefer_fractional=False)
+    widths = (257, 2 ** 22)  # a ragged width (the reference's tile_d + 129), full width
+    inputs = []
+    for d in widths:
+        g = rng.standard_normal((n, d))
+        fastest = np.setdiff1d(np.arange(n), rng.choice(n, size=s, replace=False))
+        inputs.append((g, torch.tensor(decode_weights(b_mat, fastest), dtype=torch.float32,
+                                       device="cuda"),
+                       torch.tensor(g, dtype=torch.float32, device="cuda")))
+    b = torch.tensor(b_mat, dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    reset_counts()
+    results = [gc_decode.decode(a, gc_encode.encode(b, g_dev)) for _, a, g_dev in inputs]
+    torch.cuda.synchronize()
+    launches = read_counts()
+    for (g, _, _), y, d in zip(inputs, results, widths):
+        np.testing.assert_allclose(y.cpu().numpy(), g.sum(axis=0), rtol=1e-4, atol=1e-4,
+                                   err_msg=f"round trip at D={d}")
+    if launches["gc_encode"] < 1 or launches["gc_decode"] < 1:
+        raise AssertionError(f"round trip launches {launches}")
+    g, a, g_dev = inputs[-1]
+    coded = gc_encode.encode(b, g_dev)
+    d = widths[-1]
+    times = {"ms": time_ms(lambda: gc_decode.decode(a, coded), 50),
+             "plain_ms": time_ms(lambda: ref.decode_ref(a, coded), 50),
+             "library_ms": time_ms(lambda: torch.matmul(a[None], coded), 50)}
+    bytes_ms, ops_ms = bounds_ms((1 + n) * d * 4 + n * 4, 2.0 * n * d)
+    times.update(bound_ms=max(bytes_ms, ops_ms),
+                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    log(f"[decode] kernel_bench shapes and ragged widths agree, max abs err {max_err:.3e}; "
+        f"round trip (6, 6) cyclic code, 2 stragglers, D in {widths}: recovers g.sum(0) "
+        f"(1e-4), launches {launches}; decode at N=6 D={d} fp32: "
+        + " ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                   for k, v in times.items()))
+    return launches, max_err, times
+
+
 def phase_reference():
     from repro_torch.configs import get_config
     from repro_torch.core import ShiftedExponential
@@ -385,16 +754,26 @@ def main() -> int:
     phase_breakdown(trainer)
     del trainer
     torch.cuda.empty_cache()
+    ckpt_launches, n_digits = phase_ckpt()
+    enc_err, enc_times = phase_encode(n_digits)
+    trip_launches, dec_err, dec_times = phase_decode()
     phase_reference()
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [{
-        "name": "gc_fused", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/gc_fused.cu",
-        "replaces": "src/repro/kernels/gc_fused.py:57",
-        "launches": launches["gc_fused"], "max_abs_err": max_err,
-        "ms": kernel_times["ms"], "plain_ms": kernel_times["plain_ms"],
-        "bound_ms": kernel_times["bound_ms"], "bound_by": kernel_times["bound_by"],
-        "library_ms": kernel_times["library_ms"]}]}))
+
+    def row(name, tpu_kernel, n_launches, err, times):
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                "replaces": tpu_kernel, "launches": n_launches, "max_abs_err": err,
+                **{k: times[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms")}}
+
+    print(json.dumps({"kernels": [
+        row("gc_fused", "src/repro/kernels/gc_fused.py:57", launches["gc_fused"],
+            max_err, kernel_times),
+        row("gc_encode", "src/repro/kernels/gc_encode.py:56", ckpt_launches["gc_encode"],
+            enc_err, enc_times),
+        row("gc_decode", "src/repro/kernels/gc_decode.py:51", trip_launches["gc_decode"],
+            dec_err, dec_times)]}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,13 @@
 """The worker-population model ``Env``.
 
 Copied from ``repro/core/env.py`` and trimmed to what the training slice
-calls: ``Env.iid``, ``coerce``, ``sample``, ``degradation_factors``,
-``has_deaths``, the i.i.d. order statistics the closed-form schemes read,
-and the exact ``to_dict``/``from_dict`` (an env embeds bit-identically
-inside ``Plan.to_dict``).  The declarative faults round-trip and fold into
-the simulator's draws as in the reference; solving against a faulted or
-heterogeneous population (Monte-Carlo / quadrature order statistics) is
-ROADMAP work and raises.
+calls: ``Env.iid``, ``with_faults``, ``coerce``, ``sample``,
+``degradation_factors``, ``has_deaths``, the i.i.d. order statistics the
+closed-form schemes read, and the exact ``to_dict``/``from_dict`` (an env
+embeds bit-identically inside ``Plan.to_dict``).  The declarative faults
+round-trip and fold into the simulator's draws as in the reference;
+solving against a faulted or heterogeneous population (Monte-Carlo /
+quadrature order statistics) is ROADMAP work and raises.
 """
 from __future__ import annotations
 
@@ -105,6 +105,10 @@ class Env:
         if n_workers < 1:
             raise ValueError("n_workers must be >= 1")
         return cls(dists=(dist,) * int(n_workers), **kw)
+
+    def with_faults(self, *faults) -> "Env":
+        """A copy of this env with declarative faults appended."""
+        return dataclasses.replace(self, faults=self.faults + tuple(faults))
 
     @classmethod
     def coerce(cls, obj, n_workers: Optional[int] = None) -> "Env":

@@ -70,6 +70,18 @@ class FlatLayout:
                    level_used=tuple(level_used),
                    level_sizes=tuple(level_sizes))
 
+    @classmethod
+    def for_bytes(cls, byte_sizes: Sequence[int], n_shards: int, *,
+                  lane: int = LANE) -> "FlatLayout":
+        """Single-level byte-stripe layout: every leaf is a flat run of
+        ``byte_sizes[j]`` bytes in one level-0 buffer padded to
+        ``lcm(lane, n_shards)``, so the buffer splits into ``n_shards``
+        equal stripes — the erasure-coded checkpoint's packing plan
+        (``repro_torch.checkpoint.coded``)."""
+        sizes = [int(n) for n in byte_sizes]
+        return cls.build([(n,) for n in sizes], [0] * len(sizes), n_shards,
+                         lane=lane)
+
     # --------------------------------------------------------------- queries
     @property
     def n_levels(self) -> int:

@@ -5,7 +5,8 @@ shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds) under ``build/repro_torch/`` at the repository root, a
 directory ``.gitignore`` lists.  The library name carries a hash of the
 source and the flags, so an edited source is rebuilt and a stale library
-is never loaded.  A failed build raises with the compiler's output.
+is never loaded.  The hash covers the source, every header of ``csrc/``
+and the flags.  A failed build raises with the compiler's output.
 
 ``build_all`` starts one ``nvcc`` per source, all at once, so the build
 time of a run is that of the slowest source.
@@ -43,7 +44,10 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
 
 

@@ -2,15 +2,34 @@
 
 A CUDA tensor launches the hand-written kernel (a failure raises — there
 is no fallback); a CPU tensor takes the plain PyTorch version, the same
-math.  The choice follows the device of the tensor alone.
+math.  The choice follows the device of the data tensor alone.
 """
 from __future__ import annotations
 
 import torch
 
-from . import gc_fused, ref
+from . import gc_decode, gc_encode, gc_fused, ref
 
-__all__ = ["encode_decode"]
+__all__ = ["encode", "decode", "encode_decode"]
+
+
+def _route(data: torch.Tensor, kernel, plain):
+    if data.is_cuda:
+        return kernel
+    if data.device.type == "cpu":
+        return plain
+    raise ValueError(f"unsupported device {data.device}")
+
+
+def encode(b_code: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Coded blocks C = B_code @ G.  b_code: (NB, K), g: (K, D) -> (NB, D)
+    in G's dtype."""
+    return _route(g, gc_encode.encode, ref.encode_ref)(b_code, g)
+
+
+def decode(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Decoded gradient y = a @ C.  a: (N,), c: (N, D) -> (D,) in C's dtype."""
+    return _route(c, gc_decode.decode, ref.decode_ref)(a, c)
 
 
 def encode_decode(a: torch.Tensor, b_code: torch.Tensor,
@@ -18,8 +37,4 @@ def encode_decode(a: torch.Tensor, b_code: torch.Tensor,
     """Fused coded combine y = (a ⊙ B_code) @ G — encode and decode weight
     folded into one streaming pass.  a: (NB,), b_code: (NB, K),
     g: (K, D) -> (NB, D) in G's dtype."""
-    if g.is_cuda:
-        return gc_fused.encode_decode(a, b_code, g)
-    if g.device.type == "cpu":
-        return ref.encode_decode_ref(a, b_code, g)
-    raise ValueError(f"encode_decode: unsupported device {g.device}")
+    return _route(g, gc_fused.encode_decode, ref.encode_decode_ref)(a, b_code, g)

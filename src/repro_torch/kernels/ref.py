@@ -1,19 +1,35 @@
-"""Plain PyTorch version of the gradient-coding combine.
+"""Plain PyTorch versions of the gradient-coding kernels.
 
-Fold order (ROADMAP 3.2): the decode weight is folded on the
-coefficients in fp32 — ``w = a[:, None] * B_code`` — and ``w`` is then
-cast to G's dtype, exactly as ``repro/kernels/ref.py::_encode_decode_math``
-does, which is what ``repro.kernels.ops.encode_decode`` computes on every
-backend but a TPU.  (The TPU kernel itself casts ``a`` and ``B`` to G's
-dtype first and folds in that dtype.)  The CUDA kernel follows this
-file's order, so for fp32 the two agree up to summation order and for
-bf16 they agree to bf16 rounding.
+Each follows ``repro/kernels/ref.py`` — the math ``repro.kernels.ops``
+computes on every backend but a TPU — and its CUDA kernel follows this
+file's order, so in fp32 the two agree up to summation order (exactly,
+for integer operands inside the 2^24 budget) and in bf16 up to one
+rounding of the output.  Products run in full fp32: TF32 is off
+(``repro_torch/device.py``).
+
+Fold order of the fused combine (ROADMAP 3.2): the decode weight is
+folded on the coefficients in fp32 — ``w = a[:, None] * B_code`` — and
+``w`` is then cast to G's dtype, as ``_encode_decode_math`` does.  (The
+TPU kernel itself casts ``a`` and ``B`` to G's dtype first and folds in
+that dtype.)
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["encode_decode_ref"]
+__all__ = ["encode_ref", "decode_ref", "encode_decode_ref"]
+
+
+def encode_ref(b_code: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """C = B_code @ G: B rounded to G's dtype, fp32 accumulation, C in
+    G's dtype.  b_code: (NB, K), g: (K, D) -> (NB, D)."""
+    return torch.matmul(b_code.to(g.dtype).float(), g.float()).to(g.dtype)
+
+
+def decode_ref(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """y = a @ C: a rounded to C's dtype, fp32 accumulation, y in C's
+    dtype.  a: (N,), c: (N, D) -> (D,)."""
+    return torch.matmul(a.to(c.dtype).float()[None, :], c.float())[0].to(c.dtype)
 
 
 def encode_decode_ref(a: torch.Tensor, b_code: torch.Tensor,

@@ -8,12 +8,19 @@ combine on CUDA) and prints the loss and the simulated-runtime ledger
 (tau_coded vs the wait-for-slowest tau_uncoded).  ``--device`` defaults
 to ``cuda`` and fails without CUDA; pass ``--device cpu`` to run the
 plain versions on the CPU.
+
+``--ckpt DIR`` checkpoints under DIR (every ``--ckpt-every`` steps, and
+once when training ends) and resumes from the newest intact checkpoint
+there, training on up to ``--steps`` in all; ``--ckpt-coded S``
+erasure-codes each checkpoint across the workers with S parity shards
+(parity through the ``gc_encode`` kernel on CUDA).
 """
 from __future__ import annotations
 
 import argparse
 import time
 
+from repro_torch.checkpoint import CkptConfig, CodedSpec
 from repro_torch.configs import get_config
 from repro_torch.core import ShiftedExponential, available_schemes, get_scheme
 from repro_torch.models.params import count_params
@@ -37,6 +44,15 @@ def parse_args(argv=None):
                     help="shrink the model for a fast smoke run")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--ckpt", default="", help="checkpoint directory")
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="checkpoint every N steps (0: once, after training "
+                         "ends); resumes from the newest intact checkpoint "
+                         "under --ckpt on startup")
+    ap.add_argument("--ckpt-coded", type=int, default=0, metavar="S",
+                    help="erasure-code checkpoints across the workers with S "
+                         "parity shards (any workers-S survivors restore "
+                         "bit-exactly; 0: monolithic npz)")
     return ap.parse_args(argv)
 
 
@@ -50,17 +66,30 @@ def main(argv=None):
     dist = ShiftedExponential(mu=args.mu, t0=args.t0)
     cfg_t = TrainConfig(lr=args.lr, warmup=max(args.steps // 10, 10),
                         total_steps=args.steps)
+    ckpt = None
+    if args.ckpt:
+        spec = CodedSpec(n_shards=args.workers, parity=args.ckpt_coded) \
+            if args.ckpt_coded else None
+        ckpt = CkptConfig(dir=args.ckpt, every=args.ckpt_every, coded=spec)
     trainer = Trainer(cfg, cfg_t, dist, n_workers=args.workers,
                       scheme=args.scheme, global_batch=args.global_batch,
-                      seed=0, device=args.device, seq_len=args.seq)
+                      seed=0, device=args.device, seq_len=args.seq, ckpt=ckpt)
+    if trainer.manager is not None and trainer.manager.latest() is not None:
+        print(f"resumed from checkpoint step {trainer.state.step} under {args.ckpt}")
     print(f"arch={cfg.name} params={count_params(trainer.state.params) / 1e6:.1f}M "
           f"workers={args.workers} scheme={args.scheme} s_max={trainer.plan.s_max} "
           f"x={trainer.plan.x.tolist()} device={args.device}")
     t0 = time.time()
-    _, summary = trainer.run(args.steps, log_every=args.log_every)
+    _, summary = trainer.run(max(args.steps - trainer.state.step, 0),
+                             log_every=args.log_every)
     losses = [h["loss"] for h in trainer.history]
-    print(f"wall {time.time() - t0:.1f}s  loss {losses[0]:.3f} -> {losses[-1]:.3f}")
+    if losses:
+        print(f"wall {time.time() - t0:.1f}s  loss {losses[0]:.3f} -> {losses[-1]:.3f}")
     print(f"simulated runtime: {summary}")
+    manager = trainer.manager
+    if manager is not None and manager.last_saved != trainer.state.step:
+        print("saved:", manager.save(trainer.state.step, trainer.state,
+                                     extra={"plan": trainer.plan.to_dict()}))
     return trainer
 
 

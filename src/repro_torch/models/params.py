@@ -116,6 +116,19 @@ class GCLM(nn.Module):
     def leaves(self) -> list:
         return [t for _, t in self.leaf_items()]
 
+    def tree(self, leaves=None) -> dict:
+        """The reference's parameter tree — nested dicts, ``stack`` a list —
+        holding ``leaves`` (leaf order; default: the parameters) by
+        reference, not copied."""
+        leaves = self.leaves() if leaves is None else list(leaves)
+        out = {"stack": [{} for _ in self.stack]}
+        for (path, _), leaf in zip(self.leaf_items(), leaves, strict=True):
+            node = out
+            for key in path[:-1]:
+                node = node[int(key)] if isinstance(node, list) else node.setdefault(key, {})
+            node[path[-1]] = leaf
+        return out
+
     # ----------------------------------------------------------------- init
     @torch.no_grad()
     def reset_parameters(self, seed: int = 0) -> None:
@@ -171,15 +184,14 @@ def params_from_numpy(model: GCLM, tree) -> GCLM:
 
 def params_to_numpy(model: GCLM) -> dict:
     """The reference's parameter tree (nested dicts/lists of fp32 arrays)."""
-    def build(node):
-        if isinstance(node, nn.ModuleList):
-            return [build(c) for c in node]
-        out = {n: p.detach().cpu().numpy().copy() for n, p in node._parameters.items()}
-        out.update({n: build(c) for n, c in node._modules.items()})
-        return out
+    def copy(node):
+        if isinstance(node, dict):
+            return {k: copy(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [copy(v) for v in node]
+        return node.detach().cpu().numpy().copy()
 
-    return {"embed": build(model.embed), "stack": build(model.stack),
-            "final_norm": build(model.final_norm)}
+    return copy(model.tree())
 
 
 def count_params(model: GCLM) -> int:

@@ -1,13 +1,33 @@
 """TrainState: the model (its parameters), the AdamW state and the step,
-after ``repro/train/state.py``."""
+after ``repro/train/state.py``.
+
+A checkpoint of either package is a checkpoint of the other: the port's
+state presents itself to ``repro_torch.checkpoint`` as the reference's
+``TrainState`` pytree (``checkpoint_tree``), whose flattened keys are
+``params/<path>``, ``opt/count``, ``opt/m/<path>``, ``opt/v/<path>`` and
+``step`` — list indices written ``[i]``, ``count`` and ``step`` int32
+0-d arrays — 35 leaves for gc-lm-110m.
+"""
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
-from ..models.params import GCLM, params_from_numpy
+import numpy as np
+import torch
+
+from ..models.params import GCLM, _lookup, params_from_numpy
 from ..optim.optim import adamw_init
 
-__all__ = ["TrainState", "init_train_state"]
+__all__ = ["TrainState", "StateTree", "init_train_state", "opt_from_numpy"]
+
+
+class StateTree(NamedTuple):
+    """The reference ``TrainState``'s pytree; its fields flatten in this
+    order (a NamedTuple's), not sorted."""
+    params: dict
+    opt: dict
+    step: np.ndarray
 
 
 @dataclass
@@ -15,6 +35,24 @@ class TrainState:
     params: GCLM      # parameters, leaves in the reference's order
     opt: dict         # {"m": [...], "v": [...], "count": int}, leaf order
     step: int
+
+    def checkpoint_tree(self) -> StateTree:
+        """The reference's pytree over this state's tensors (by reference,
+        not copied): moments keyed by parameter path, ``count`` and
+        ``step`` as int32 0-d arrays."""
+        model = self.params
+        return StateTree(
+            params=model.tree(),
+            opt={"count": np.asarray(self.opt["count"], np.int32),
+                 "m": model.tree(self.opt["m"]), "v": model.tree(self.opt["v"])},
+            step=np.asarray(self.step, np.int32))
+
+    def from_checkpoint_tree(self, tree: StateTree) -> "TrainState":
+        """This state after a restore filled its tensors in place from
+        ``tree``; ``count`` and ``step`` come from ``tree``."""
+        return TrainState(params=self.params,
+                          opt=dict(self.opt, count=int(tree.opt["count"])),
+                          step=int(tree.step))
 
 
 def init_train_state(cfg, *, device="cuda", seed: int = 0,
@@ -25,3 +63,15 @@ def init_train_state(cfg, *, device="cuda", seed: int = 0,
     if params is not None:
         params_from_numpy(model, params)
     return TrainState(params=model, opt=adamw_init(model.leaves()), step=0)
+
+
+def opt_from_numpy(model: GCLM, opt) -> dict:
+    """The port's AdamW state from a reference optimizer tree
+    (``{"m": tree, "v": tree, "count": ...}`` of arrays): the moments in
+    ``model``'s leaf order, on its device."""
+    def moments(tree):
+        return [torch.tensor(np.array(_lookup(tree, path), np.float32), device=t.device)
+                for path, t in model.leaf_items()]
+
+    return {"m": moments(opt["m"]), "v": moments(opt["v"]),
+            "count": int(np.asarray(opt["count"]))}

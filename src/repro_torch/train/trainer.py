@@ -6,8 +6,9 @@ combine, then clip, AdamW and the cosine LR.  The decode weights (the
 straggler realization) are a per-step input sampled host-side by the
 plan's numpy simulator, so the ledger is the reference's, draw for draw.
 
-``Trainer`` — the loop: data, straggler simulation, ledger, metrics.
-Adaptive re-planning, the wave-pipelined loop, checkpoints, spmd mode and
+``Trainer`` — the loop: data, straggler simulation, ledger, metrics,
+checkpoints (plain or erasure-coded) and worker-death recovery.
+Adaptive re-planning, the wave-pipelined loop, spmd mode and
 ``scheme="auto"`` raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -18,6 +19,8 @@ from typing import Callable
 
 import torch
 
+from ..adapt import DeathWatch, RecoveryEvent
+from ..checkpoint.manager import CheckpointManager
 from ..core import Env, Plan
 from ..data.pipeline import DataConfig, SyntheticTokens, coded_worker_batches
 from ..models.model import train_loss
@@ -74,6 +77,17 @@ class Trainer:
     ``seed``.  ``seq_len`` defaults to the reference's
     ``min(cfg.max_seq, 512)``.  ``device`` defaults to CUDA and raises
     when CUDA is absent.
+
+    ``ckpt`` is an optional ``repro_torch.checkpoint.CkptConfig``: the
+    trainer then checkpoints every ``ckpt.every`` steps at step
+    boundaries (erasure-coded across the workers when ``ckpt.coded`` is
+    set), resumes from the newest intact checkpoint on construction
+    (``ckpt.resume``), and arms
+    worker-death recovery: a ``DeathWatch`` over the realized round times
+    triggers a restore from the surviving shards, recorded as a
+    ``RecoveryEvent`` in ``self.recoveries``.  Without the adaptive
+    controller (ROADMAP 1.8) recovery does no re-plan (``swap=None``),
+    exactly as the reference does without one.
     """
 
     def __init__(self, cfg, cfg_t: TrainConfig, env, *, n_workers: int = None,
@@ -83,7 +97,7 @@ class Trainer:
                  budget=None, grad_dtype=None, device="cuda", params=None,
                  seq_len: int = None):
         for name, value, item in (("adapt", adapt, "1.8"), ("wave", wave, "1.8"),
-                                  ("ckpt", ckpt, "1.7"), ("budget", budget, "1.11"),
+                                  ("budget", budget, "1.11"),
                                   ("grad_dtype", grad_dtype, "1.6")):
             if value is not None:
                 raise NotImplementedError(f"Trainer({name}=...) is not ported "
@@ -115,6 +129,41 @@ class Trainer:
         self.step_fn = make_coded_train_step(cfg, cfg_t, self.plan, mode=mode,
                                              pipeline=pipeline)
         self.history: list = []
+        self.recoveries: list = []
+        self.manager = self.deathwatch = None
+        if ckpt is not None:
+            self.manager = CheckpointManager(ckpt)
+            if n_workers >= 2:
+                self.deathwatch = DeathWatch(n_workers)
+            if ckpt.resume:
+                restored = self.manager.restore_latest(self.state)
+                if restored is not None:
+                    self.state = restored[0]
+
+    def recover_from_deaths(self, newly_dead, log_fn=None):
+        """Worker-death recovery: restore from the surviving shards of the
+        last checkpoint (the dead workers' shards count as lost), rewinding
+        the state.  Returns the ``RecoveryEvent``, or ``None`` when there is
+        no checkpoint (training continues on gradient-level redundancy).
+        The data stream is keyed by ``state.step``, so the rewound steps
+        replay deterministically.  ``run`` calls it when its ``DeathWatch``
+        trips, so every worker that watch holds dead counts as lost."""
+        dead = tuple(sorted(self.deathwatch.dead))
+        detected_at = int(self.state.step)
+        if self.manager.latest() is None:
+            if log_fn:
+                log_fn(f"step {detected_at:5d}  worker death {list(newly_dead)}"
+                       " — no checkpoint to restore; continuing on redundancy")
+            return None
+        self.state, ckpt_step = self.manager.restore_from_survivors(
+            self.state, missing=dead)
+        ev = RecoveryEvent(step=detected_at, dead_workers=dead,
+                           ckpt_step=ckpt_step, swap=None)
+        self.recoveries.append(ev)
+        if log_fn:
+            log_fn(f"step {detected_at:5d}  worker death {list(newly_dead)} -> "
+                   f"re-plan skipped, coded restore from survivors @ step {ckpt_step}")
+        return ev
 
     def run(self, n_steps: int, log_every: int = 10, log_fn=print):
         """Run ``n_steps`` barrier steps; returns (state, ledger summary)."""
@@ -129,6 +178,16 @@ class Trainer:
                            wall_s=time.perf_counter() - t0,
                            tau_coded=rec["tau_coded"],
                            tau_uncoded=rec["tau_uncoded"])
+            if self.deathwatch is not None:
+                newly = self.deathwatch.observe(rec["times"])
+                if newly:
+                    ev = self.recover_from_deaths(newly, log_fn if log_every else None)
+                    if ev is not None:
+                        metrics["recovery"] = 1
+                        metrics["recovery_ckpt_step"] = ev.ckpt_step
+            if self.manager is not None:
+                self.manager.maybe_save(int(self.state.step), self.state,
+                                        extra={"plan": self.plan.to_dict()})
             self.history.append(metrics)
             if log_every and (i % log_every == 0 or i == n_steps - 1):
                 log_fn(f"step {metrics['step']:5d}  loss {metrics['loss']:.4f}  "

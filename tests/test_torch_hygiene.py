@@ -1,11 +1,13 @@
 """Import hygiene and device policy of the PyTorch port.
 
-The port imports ``torch``, ``numpy`` and ``scipy`` — never ``jax`` and
-never any module of the ``repro`` package (it keeps its own copies) — and
-its entry points default to CUDA and raise without it rather than fall
-back to the CPU.
+The port imports ``torch``, ``numpy`` and ``scipy`` — never ``jax``,
+``ml_dtypes`` or any module of the ``repro`` package (it keeps its own
+copies) — and its entry points default to CUDA and raise without it
+rather than fall back to the CPU.
 """
 import ast
+import importlib
+import inspect
 import json
 import os
 import subprocess
@@ -15,6 +17,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.checkpoint import load_coded_checkpoint
 from repro_torch.configs import get_config
 from repro_torch.core import ShiftedExponential
 from repro_torch.device import resolve_device
@@ -23,7 +26,8 @@ from repro_torch.train.trainer import TrainConfig, Trainer
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+#: ml_dtypes is JAX's dtype package; the GPU host does not have it
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _imported_roots(path: Path):
@@ -72,7 +76,36 @@ def test_cuda_request_without_cuda_raises(monkeypatch):
         GCLM(cfg)  # the default device is CUDA
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Trainer(cfg, TrainConfig(), ShiftedExponential(), n_workers=4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_coded_checkpoint("no-such-dir")  # the survivors' encode: CUDA
     assert resolve_device("cpu").type == "cpu"
+
+
+def _is_cpu(value) -> bool:
+    return (isinstance(value, str) and value.split(":")[0] == "cpu") or \
+        (isinstance(value, torch.device) and value.type == "cpu")
+
+
+def test_no_public_entry_defaults_to_the_cpu():
+    """Every public function or class of the port that takes a device
+    defaults to CUDA (or takes it from its inputs), never to the CPU."""
+    seen = 0
+    for path in sorted((ROOT / "src" / "repro_torch").rglob("*.py")):
+        module = importlib.import_module(_module_name(path))
+        for name in getattr(module, "__all__", ()):
+            obj = getattr(module, name)
+            if not callable(obj):
+                continue
+            try:
+                params = inspect.signature(obj).parameters
+            except (TypeError, ValueError):
+                continue
+            for p in params.values():
+                if "device" in p.name and p.default is not p.empty:
+                    seen += 1
+                    assert not _is_cpu(p.default), \
+                        f"{module.__name__}.{name}({p.name}={p.default!r})"
+    assert seen >= 4  # GCLM, init_train_state, Trainer, load_coded_checkpoint
 
 
 def test_tf32_is_off():

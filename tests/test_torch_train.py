@@ -160,7 +160,8 @@ def test_three_trainer_steps_match_reference_trainer():
 def test_trainer_unported_options_raise():
     cfg = get_config("gc-lm-110m").reduced(**KW)
     dist = ShiftedExponential()
-    for kw in (dict(adapt=object()), dict(wave=object()), dict(ckpt=object()),
+    # ckpt= is ported (tests/test_torch_checkpoint.py)
+    for kw in (dict(adapt=object()), dict(wave=object()),
                dict(scheme="auto"), dict(mode="spmd"), dict(grad_dtype="bf16")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(cfg, TrainConfig(), dist, n_workers=N, device="cpu", **kw)
