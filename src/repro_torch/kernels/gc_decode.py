@@ -5,7 +5,8 @@
 Replaces ``repro/kernels/gc_decode.py::decode_pallas``.  ``a`` is rounded
 to C's dtype, the products accumulate in fp32 and y is rounded once, as
 in ``repro/kernels/ref.py::_decode_math``.  Zero weights drop the
-stragglers' rows.
+stragglers' rows.  The kernel is ``csrc/gc_pipe.cuh``'s grouped kernel
+with one leaf, NB = 1 and K = N.
 
 ``launches`` counts the kernel launches this wrapper has made (one per
 call); a run resets it to 0 to show that its path went through the
@@ -13,11 +14,9 @@ kernel.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from ._launch import c_call, check_operands
+from ._launch import as_f32, check_operands, launch_grouped
 
 __all__ = ["decode", "launches"]
 
@@ -25,7 +24,6 @@ __all__ = ["decode", "launches"]
 launches = 0
 
 _ENTRY = {torch.float32: "gc_decode_f32", torch.bfloat16: "gc_decode_bf16"}
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int64, ctypes.c_void_p]
 
 
 def decode(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -37,12 +35,8 @@ def decode(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"shapes a{tuple(a.shape)} c{tuple(c.shape)}: "
                          "want (N,), (N, D) with N >= 1")
     n, d = c.shape
-    check_operands("gc_decode.decode", c, n, a=a)
-    a32 = a.to(torch.float32).contiguous()
+    check_operands("gc_decode.decode", c, None, a=a)
     out = torch.empty((d,), dtype=c.dtype, device=c.device)
-    with torch.cuda.device(c.device):
-        stream = torch.cuda.current_stream(c.device).cuda_stream
-        c_call("gc_decode", _ENTRY[c.dtype], _ARGTYPES, a32.data_ptr(),
-               c.data_ptr(), out.data_ptr(), n, d, stream)
-    launches += 1
+    launches += launch_grouped("gc_decode", _ENTRY[c.dtype], None, as_f32(a), 1, 1, n,
+                               [c], [out], (0,))
     return out

@@ -10,7 +10,7 @@ import torch
 
 from . import gc_decode, gc_encode, gc_fused, ref
 
-__all__ = ["encode", "decode", "encode_decode"]
+__all__ = ["encode", "decode", "encode_decode", "encode_decode_leaves"]
 
 
 def _route(data: torch.Tensor, kernel, plain):
@@ -38,3 +38,15 @@ def encode_decode(a: torch.Tensor, b_code: torch.Tensor,
     folded into one streaming pass.  a: (NB,), b_code: (NB, K),
     g: (K, D) -> (NB, D) in G's dtype."""
     return _route(g, gc_fused.encode_decode, ref.encode_decode_ref)(a, b_code, g)
+
+
+def encode_decode_leaves(a: torch.Tensor, b_codes: torch.Tensor, which,
+                         gs: list) -> list:
+    """The fused coded combine of many leaves in one call:
+    y_j = (a ⊙ B_code[which[j]]) @ G_j.  a: (NB,), b_codes: (n_w, NB, K),
+    gs[j]: (K, D_j) on one device -> the (NB, D_j) outputs in leaf order.
+    On CUDA one kernel launch covers up to 32 leaves."""
+    if not gs:
+        return []
+    return _route(gs[0], gc_fused.encode_decode_leaves,
+                  ref.encode_decode_leaves_ref)(a, b_codes, which, gs)

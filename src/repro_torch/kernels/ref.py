@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["encode_ref", "decode_ref", "encode_decode_ref"]
+__all__ = ["encode_ref", "decode_ref", "encode_decode_ref", "encode_decode_leaves_ref"]
 
 
 def encode_ref(b_code: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -40,3 +40,11 @@ def encode_decode_ref(a: torch.Tensor, b_code: torch.Tensor,
     """
     w = (a.float()[:, None] * b_code.float()).to(g.dtype)
     return torch.matmul(w.float(), g.float()).to(g.dtype)
+
+
+def encode_decode_leaves_ref(a: torch.Tensor, b_codes: torch.Tensor, which,
+                             gs: list) -> list:
+    """The grouped fused combine: ``encode_decode_ref(a, b_codes[which[j]],
+    gs[j])`` for every leaf j, in leaf order.  a: (NB,), b_codes:
+    (n_w, NB, K), gs[j]: (K, D_j) -> (NB, D_j) each."""
+    return [encode_decode_ref(a, b_codes[i], g) for i, g in zip(which, gs)]

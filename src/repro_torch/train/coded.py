@@ -8,9 +8,11 @@ Per step, for a plan over N workers with K = s_max + 1 shards each:
 * N·K backward passes (``torch.autograd.grad`` of ``train_loss``) run in
   worker-major order, each copied into its row — the honest redundancy
   work eq. (2) prices;
-* one ``ops.encode_decode(1/N, dec_w ⊙ b_rows, G)`` call per leaf folds
-  encode, decode weight, worker sum and the 1/N mean into a single
-  streaming pass — the hand-written ``gc_fused`` kernel on CUDA.
+* one ``ops.encode_decode_leaves(1/N, dec_w ⊙ b_rows, level, G)`` call
+  for all leaves folds encode, decode weight, worker sum and the 1/N
+  mean into a single streaming pass per leaf, each leaf with its level's
+  weights — one launch of the hand-written ``gc_fused`` kernel per step
+  on CUDA.
 
 For every straggler realization the result equals the plain
 data-parallel mean gradient over the same global batch (tested).
@@ -58,21 +60,22 @@ def per_shard_grad_rows(cfg, model, worker_batches) -> list:
 
 
 def combine_rows(plan: Plan, g_rows, dec_w) -> list:
-    """The fused combine of already-computed per-shard rows: per leaf, one
-    ``ops.encode_decode(1/N, dec_w ⊙ b_rows, G)`` call over its
-    ``(N·K, size)`` rows.  Returns the decoded mean gradient in leaf order."""
+    """The fused combine of already-computed per-shard rows: one
+    ``ops.encode_decode_leaves(1/N, w, level, G)`` call over every leaf's
+    ``(N·K, size)`` rows, where ``w`` holds one weight set
+    ``dec_w ⊙ b_rows`` per level, (n_levels, 1, N·K).  Returns the decoded
+    mean gradient in leaf order."""
     layout = _require_layout(plan)
     dev = g_rows[0].device
+    n_levels = layout.n_levels
     b_rows = torch.as_tensor(plan.b_rows, dtype=torch.float32, device=dev)
     dec_w = torch.as_tensor(dec_w, dtype=torch.float32, device=dev)
     inv_n = torch.ones((1,), dtype=torch.float32, device=dev) / plan.n_workers
-    out = [None] * layout.n_leaves
-    for li in range(layout.n_levels):
-        w = (dec_w[li][:, None] * b_rows[:, li, :]).reshape(1, -1)  # (1, N*K)
-        for j in layout.level_leaves[li]:
-            y = ops.encode_decode(inv_n, w, g_rows[j])[0]
-            out[j] = y.reshape(layout.leaf_shapes[j])
-    return out
+    # w[li, 0, n*K + k] = dec_w[li, n] * b_rows[n, li, k]
+    w = (dec_w[:n_levels, :, None] * b_rows[:, :n_levels, :].transpose(0, 1)) \
+        .reshape(n_levels, 1, -1)
+    ys = ops.encode_decode_leaves(inv_n, w, layout.leaf_level, list(g_rows))
+    return [y[0].reshape(shape) for y, shape in zip(ys, layout.leaf_shapes)]
 
 
 def make_coded_grad_fn(cfg, plan: Plan, *, mode: str = "sim",

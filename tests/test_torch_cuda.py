@@ -13,7 +13,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import ShiftedExponential
 from repro_torch.data.pipeline import DataConfig, SyntheticTokens, coded_worker_batches
 from repro_torch.checkpoint import CodedSpec, restore_coded_train_state, save_coded_checkpoint
-from repro_torch.kernels import gc_decode, gc_encode, gc_fused, ops, ref
+from repro_torch.kernels import _pipe, gc_decode, gc_encode, gc_fused, ops, ref
 from repro_torch.models.params import params_to_numpy
 from repro_torch.train.coded import make_coded_grad_fn, uncoded_grad_fn
 from repro_torch.train.trainer import TrainConfig, Trainer
@@ -47,6 +47,80 @@ def test_gc_fused_matches_plain_version(cuda, dtype):
         np.testing.assert_allclose(got.float().cpu().numpy(),
                                    ref.encode_decode_ref(a, b, g).float().cpu().numpy(),
                                    **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gc_fused_grouped_matches_plain_version_and_splits(cuda, dtype):
+    """Mixed aligned and ragged leaves, two weight sets, NB 1 / 3 / 8; a
+    list longer than one launch holds takes ceil(n / 32) launches."""
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    for nb, k, n_leaves in [(1, 16, 11), (3, 4, 9), (8, 16, 7), (1, 16, 70)]:
+        widths = [(1, 127, 129, 513, 1021, 1024, 768, 4100, 9216)[j % 9] + 8 * (j // 9)
+                  for j in range(n_leaves)]
+        a = torch.randn(nb, generator=gen).to(cuda)
+        b = torch.randn(2, nb, k, generator=gen).to(cuda)
+        which = [j % 2 for j in range(n_leaves)]
+        gs = [torch.randn(k, d, generator=gen).to(dtype).to(cuda) for d in widths]
+        before = gc_fused.launches
+        got = ops.encode_decode_leaves(a, b, which, gs)
+        torch.cuda.synchronize()
+        assert gc_fused.launches == before + -(-n_leaves // _pipe.MAX_LEAVES)
+        for y, want in zip(got, ref.encode_decode_leaves_ref(a, b, which, gs)):
+            assert y.dtype == dtype and y.shape == want.shape
+            np.testing.assert_allclose(y.float().cpu().numpy(), want.float().cpu().numpy(),
+                                       **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gc_fused_and_gc_decode_are_bit_equal_to_the_streaming_loop(cuda, dtype):
+    """The grouped kernel runs each column's fmaf chain over K in order,
+    as gc_stream.cuh's loop (reached through gc_encode with the folded
+    weights w = a * B) does: the outputs are equal bit for bit."""
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    a = torch.full((1,), 0.25).to(cuda)
+    b = torch.randn(3, 1, 16, generator=gen).to(cuda)
+    widths = [768, 9216, 70_000, 1021, 1 << 20]
+    which = [0, 0, 1, 2, 2]
+    gs = [torch.randn(16, d, generator=gen).to(dtype).to(cuda) for d in widths]
+    for y, g, i in zip(gc_fused.encode_decode_leaves(a, b, which, gs), gs, which):
+        assert torch.equal(y, gc_encode.encode((a[:, None] * b[i]).contiguous(), g))
+    for n, d in [(4, 1 << 20), (8, 1 << 22), (6, 257)]:
+        w = torch.randn(n, generator=gen).to(cuda)
+        c = torch.randn(n, d, generator=gen).to(dtype).to(cuda)
+        assert torch.equal(gc_decode.decode(w, c), gc_encode.encode(w[None], c)[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gc_fused_and_gc_decode_serve_every_k(cuda, dtype):
+    """K too wide for a ring of two stages (N = 20 workers: K = 100 at
+    s_max = 4, K = 400 at s_max = 19) and weight tables past 4096 floats
+    run without a ring, still bit-equal to the streaming loop; only a
+    table past the card's shared memory is refused."""
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    widths = [1024, 1021, 70_000, 1, 4100]
+    for nb, k, n_w in [(1, 100, 5), (1, 400, 20), (8, 400, 4), (3, 96, 2)]:
+        a = torch.randn(nb, generator=gen).to(cuda)
+        b = torch.randn(n_w, nb, k, generator=gen).to(cuda)
+        which = [j % n_w for j in range(len(widths))]
+        gs = [torch.randn(k, d, generator=gen).to(dtype).to(cuda) for d in widths]
+        got = gc_fused.encode_decode_leaves(a, b, which, gs)
+        for y, g, i in zip(got, gs, which):
+            w = (a[:, None] * b[i]).contiguous()
+            # two fp32 sums of K products in different orders each lie
+            # within K·2^-24·(|w| @ |G|) of the exact sum
+            want = ref.encode_decode_ref(a, b[i], g).double()
+            spread = 2 * k * 2.0 ** -24 * (w.to(dtype).double().abs() @ g.double().abs())
+            lim = TOL[dtype]["atol"] + TOL[dtype]["rtol"] * want.abs() + spread
+            assert bool(((y.double() - want).abs() <= lim).all())
+            assert torch.equal(y, gc_encode.encode(w, g))
+    for n, d in [(100, 4096), (400, 1021)]:
+        w = torch.randn(n, generator=gen).to(cuda)
+        c = torch.randn(n, d, generator=gen).to(dtype).to(cuda)
+        assert torch.equal(gc_decode.decode(w, c), gc_encode.encode(w[None], c)[0])
+    with pytest.raises(ValueError, match="shared memory"):
+        gc_fused.encode_decode_leaves(torch.ones(1, device=cuda),
+                                      torch.ones(4000, 1, 16, device=cuda), [0],
+                                      [torch.ones(16, 64, device=cuda, dtype=dtype)])
 
 
 def test_gc_fused_rejects_what_it_cannot_run(cuda):
@@ -111,9 +185,9 @@ def test_coded_checkpoint_of_cuda_tensors_goes_through_gc_encode(cuda, tmp_path)
     assert torch.equal(got["h"].view(torch.int16), tree["h"].view(torch.int16))
 
 
-def test_coded_step_on_cuda_matches_uncoded_and_launches_per_leaf(cuda):
+def test_coded_step_on_cuda_matches_uncoded_and_launches_once_per_step(cuda):
     """Reduced gc-lm-110m on the card: coded == uncoded for 0 and s_max
-    stragglers (fp32, TF32 off), one kernel launch per leaf per step."""
+    stragglers (fp32, TF32 off), one grouped kernel launch per step."""
     cfg = get_config("gc-lm-110m").reduced(n_layers=2, d_model=128)
     tr = Trainer(cfg, TrainConfig(), ShiftedExponential(), n_workers=4,
                  global_batch=8, device="cuda", seq_len=32)
@@ -128,7 +202,7 @@ def test_coded_step_on_cuda_matches_uncoded_and_launches_per_leaf(cuda):
         times[:u] = 1e6
         before = gc_fused.launches
         g = coded(model, wb, plan.decode_weights(times).astype(np.float32))
-        assert gc_fused.launches == before + plan.flat_layout.n_leaves
+        assert gc_fused.launches == before + 1
         for gc, gu in zip(g, g_ref):
             assert float((gc - gu).abs().max()) <= 1e-4 * float(gu.abs().max())
     cpu = Trainer(cfg, TrainConfig(), ShiftedExponential(), n_workers=4,

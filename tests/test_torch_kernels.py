@@ -6,7 +6,11 @@ the jnp oracle ``repro.kernels.ref.encode_decode_ref`` and the Pallas
 kernel ``encode_decode_pallas`` in interpret mode — over ragged widths,
 fp32/bf16 and NB in {1, 3}; ``ops.encode`` and ``ops.decode`` likewise
 against ``_encode_math``/``encode_pallas`` and ``_decode_math``/
-``decode_pallas``, and the kernel-level coded round trip.  Inputs are drawn with numpy and rounded to
+``decode_pallas``, and the kernel-level coded round trip.  The grouped
+combine ``ops.encode_decode_leaves`` (many leaves, one weight set each)
+is held to the per-leaf forms, and the pure-Python launch planner of the
+grouped CUDA kernel (``kernels/_pipe.py``) to its contract.  Inputs are
+drawn with numpy and rounded to
 the working dtype once, so both packages see the same values; the
 coefficients a and B go in as fp32, as on the training path.  The CUDA
 kernel itself is checked on the card (tests/test_torch_cuda.py, chip_smoke.py).
@@ -29,7 +33,7 @@ from repro.kernels.gc_decode import decode_pallas
 from repro.kernels.gc_encode import encode_pallas
 from repro.kernels.gc_fused import encode_decode_pallas
 from repro_torch.core.coding import decode_weights, make_code
-from repro_torch.kernels import _build, gc_decode, gc_encode, gc_fused, ops, ref
+from repro_torch.kernels import _build, _pipe, gc_decode, gc_encode, gc_fused, ops, ref
 
 RAGGED_D = [1, 127, 129, 512, 513, 1021]
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -125,6 +129,167 @@ def test_decode_matches_jax_oracle_and_pallas(d, name):
                                    **_tol(name))
 
 
+GROUPED_D = [1, 127, 129, 513, 1021, 1024]
+
+
+@pytest.mark.parametrize("nb", [1, 3])
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_grouped_combine_matches_per_leaf_and_pallas(name, nb):
+    """``ops.encode_decode_leaves`` on the CPU over a mixed list of leaves
+    with two weight sets: bit-equal to ``ref.encode_decode_ref`` leaf by
+    leaf, and within the file's tolerances of the Pallas kernel."""
+    jdt, tdt = DTYPES[name]
+    rng = np.random.default_rng(40 + nb)
+    a = _rounded(rng, (nb,), "float32")
+    b_codes = _rounded(rng, (2, nb, 5), "float32")
+    which = [j % 2 for j in range(len(GROUPED_D))]
+    gs = [_rounded(rng, (5, d), name) for d in GROUPED_D]
+    got = ops.encode_decode_leaves(torch.from_numpy(a), torch.from_numpy(b_codes), which,
+                                   [torch.from_numpy(g).to(tdt) for g in gs])
+    assert len(got) == len(gs)
+    for y, g, i, d in zip(got, gs, which, GROUPED_D):
+        assert y.dtype == tdt and tuple(y.shape) == (nb, d)
+        want = ref.encode_decode_ref(torch.from_numpy(a), torch.from_numpy(b_codes[i]),
+                                     torch.from_numpy(g).to(tdt))
+        assert torch.equal(y, want), f"d={d}"
+        want_pallas = np.asarray(encode_decode_pallas(
+            jnp.asarray(a), jnp.asarray(b_codes[i]), jnp.asarray(g, jdt), tile_d=128,
+            interpret=True), np.float32)
+        tol = _tol(name)
+        bound = tol["atol"] + tol["rtol"] * np.abs(want_pallas) + \
+            _fold_slack(a, b_codes[i], g, name)
+        assert np.all(np.abs(y.float().numpy() - want_pallas) <= bound), f"d={d}"
+
+
+def _columns_of(launch, widths, tile_cols):
+    """{leaf: list of (first column, columns)} that gc_pipe.cuh's tile
+    walk gives each leaf of one launch: tiles in order, a leaf cursor that
+    moves past every leaf whose tiles start at or before the tile."""
+    seen, slot = {}, 0
+    for t in range(launch.n_tiles):
+        while slot + 1 < len(launch.leaves) and t >= launch.tile0[slot + 1]:
+            slot += 1
+        leaf = launch.leaves[slot]
+        c0 = (t - launch.tile0[slot]) * tile_cols
+        seen.setdefault(leaf, []).append((c0, min(tile_cols, widths[leaf] - c0)))
+    return seen
+
+
+#: an H100's opt-in shared memory of one block, bytes (227 KB)
+H100_SMEM = 232_448
+
+
+@pytest.mark.parametrize("n_leaves,itemsize,k", [(1, 4, 16), (11, 4, 16), (32, 2, 4),
+                                                 (33, 4, 6), (70, 2, 16), (65, 4, 40),
+                                                 (11, 4, 100), (40, 2, 400)])
+def test_launch_planner_covers_every_column_once(n_leaves, itemsize, k):
+    """Every column of every leaf lies in exactly one tile of one launch,
+    and a list of n leaves takes ceil(n / MAX_LEAVES) launches."""
+    rng = np.random.default_rng(n_leaves)
+    widths = [int(w) for w in rng.integers(1, 40_000, n_leaves)]
+    widths[0] = 28_311_552 if n_leaves == 11 else widths[0]
+    tile_cols, stages = _pipe.tile_shape(k, itemsize, 4 * k, H100_SMEM)
+    launches = _pipe.plan_launches(widths, tile_cols)
+    assert len(launches) == -(-n_leaves // _pipe.MAX_LEAVES)
+    assert [j for ln in launches for j in ln.leaves] == list(range(n_leaves))
+    for ln in launches:
+        assert len(ln.leaves) <= _pipe.MAX_LEAVES and ln.tile0[0] == 0
+        cols = _columns_of(ln, widths, tile_cols)
+        for j in ln.leaves:
+            spans = sorted(cols[j])
+            assert spans[0][0] == 0 and all(c > 0 for _, c in spans)
+            assert all(s0 + c == s1 for (s0, c), (s1, _) in zip(spans, spans[1:]))
+            assert spans[-1][0] + spans[-1][1] == widths[j]
+    if k * 32 * 16 * 2 <= _pipe.RING_BYTES:
+        # the ring: at least two stages, within its budget, 512-byte rows
+        assert 2 <= stages <= _pipe.MAX_STAGES
+        assert stages * k * tile_cols * itemsize <= _pipe.RING_BYTES
+        assert (tile_cols * itemsize) % 512 == 0
+    else:  # too wide for two stages: no ring, one 16-byte group per thread
+        assert (tile_cols, stages) == (_pipe.CONSUMERS * 16 // itemsize, 0)
+
+
+def test_launch_planner_tile_shape_and_limits():
+    # the main path: K = 16 fp32 -> up to 512 columns, 3 stages of 32 KB
+    assert _pipe.tile_shape(16, 4, 48, H100_SMEM) == (512, 3)
+    assert _pipe.tile_shape(6, 4, 6, H100_SMEM) == (1024, 4)  # the round trip's decode
+    assert _pipe.tile_shape(16, 2, 16, H100_SMEM) == (1024, 3)
+    assert _pipe.tile_shape(40, 4, 40, H100_SMEM) == (256, 2)  # wide K: narrower tiles
+    assert _pipe.tile_shape(96, 4, 96, H100_SMEM) == (128, 2)  # the widest K with a ring
+    # every K runs: past two stages of 128 fp32 columns there is no ring
+    # (N = 20 workers: s_max = 4 gives K = 100, s_max = 19 gives K = 400)
+    for k in (97, 100, 400, 4096):
+        assert _pipe.tile_shape(k, 4, k, H100_SMEM) == (1024, 0)
+    assert _pipe.tile_shape(400, 2, 20 * 400, H100_SMEM) == (2048, 0)
+    # the weight table shares the block's shared memory with the ring
+    assert _pipe.tile_shape(16, 4, 40_000, H100_SMEM) == (512, 2)
+    assert _pipe.tile_shape(16, 4, 56_000, H100_SMEM) == (1024, 0)
+    # every table the loop took (48 KB) fits; only one past the card's is refused
+    assert _pipe.tile_shape(12288, 4, 12288, H100_SMEM) == (1024, 0)
+    with pytest.raises(ValueError, match="shared memory"):
+        _pipe.tile_shape(16, 4, H100_SMEM // 4, H100_SMEM)
+    # gc-lm-110m's step: one launch of 269,222 tiles of 512 columns
+    widths = [24_576_000, 768] + [28_311_552] * 3 + [7_077_888] * 4 + [9_216] * 2
+    (step,) = _pipe.plan_launches(widths, 512)
+    assert step.leaves == tuple(range(11)) and step.n_tiles == 269_222
+    # empty leaves take no tile; a launch of only empty leaves is dropped
+    assert _pipe.plan_launches([0, 5, 0], 1024) == [_pipe.Launch((0, 1, 2), (0, 0, 1), 1)]
+    assert _pipe.plan_launches([0] * 3, 1024) == []
+
+
+def test_launch_planner_aligned_class_and_descriptors():
+    """A leaf goes to the TMA ring (or, with no ring, to 16-byte loads)
+    only with 16-byte rows and pointers; the descriptors pack
+    gc_pipe.cuh's 40-byte ``Leaf`` in launch order."""
+    ring, direct, col = _pipe.RING, _pipe.DIRECT, _pipe.PER_COLUMN
+    assert _pipe.leaf_mode(1024, 4, 256, 512, 3) == ring
+    assert _pipe.leaf_mode(1024, 4, 256, 512, 0) == direct
+    assert _pipe.leaf_mode(8, 2, 16, 32, 2) == ring
+    assert _pipe.leaf_mode(1021, 4, 256, 512, 3) == col   # ragged width
+    assert _pipe.leaf_mode(1021, 4, 256, 512, 0) == col
+    assert _pipe.leaf_mode(4, 2, 256, 512, 3) == col      # 8-byte rows in bf16
+    assert _pipe.leaf_mode(1024, 4, 260, 512, 3) == col   # unaligned G
+    assert _pipe.leaf_mode(1024, 4, 256, 520, 3) == col   # unaligned output
+    widths = [1024, 127, 3000]
+    launch = _pipe.plan_launches(widths, 1024)[0]
+    blob = _pipe.descriptors(launch, [4096, 8192, 12288], [16, 32, 48], widths, [1, 0, 2],
+                             [ring, col, direct])
+    assert _pipe.LEAF.size == 40 and len(blob) == 3 * 40
+    rows = [_pipe.LEAF.unpack_from(blob, 40 * i) for i in range(3)]
+    assert rows == [(4096, 16, 1024, 0, 1, 1), (8192, 32, 127, 1, 0, 0),
+                    (12288, 48, 3000, 2, 2, 2)]
+    assert launch.n_tiles == 5
+
+
+@pytest.mark.parametrize("k,modes", [(16, (_pipe.RING, _pipe.PER_COLUMN)),
+                                     (100, (_pipe.DIRECT, _pipe.PER_COLUMN))])
+def test_wrapper_launch_arguments_serve_every_k(k, modes):
+    """The wrappers' cached launch arguments: the main path's K takes the
+    ring, N = 20 workers' K = 100 takes 16-byte loads without one, ragged
+    leaves take per-column loads in either, and a split list packs each
+    launch's descriptors with its own tile prefix sums."""
+    from repro_torch.kernels import _launch
+
+    n = _pipe.MAX_LEAVES + 3
+    widths = tuple(1024 if j % 2 == 0 else 1021 for j in range(n))
+    g_ptrs = tuple(4096 * (j + 1) for j in range(n))
+    out_ptrs = tuple(1 << 20 | 4096 * j for j in range(n))
+    launches = _launch.pipe_launches(widths, k, 4, 5 * k, H100_SMEM, g_ptrs, out_ptrs,
+                                     tuple(j % 5 for j in range(n)))
+    assert [ln[2] for ln in launches] == [_pipe.MAX_LEAVES, 3]
+    first = 0
+    for tile_cols, stages, n_leaves, blob, n_tiles in launches:
+        assert (tile_cols, stages) == _pipe.tile_shape(k, 4, 5 * k, H100_SMEM)
+        rows = [_pipe.LEAF.unpack_from(blob, 40 * i) for i in range(n_leaves)]
+        assert [r[0] for r in rows] == list(g_ptrs[first:first + n_leaves])
+        assert [r[5] for r in rows] == [modes[(first + i) % 2] for i in range(n_leaves)]
+        assert rows[0][3] == 0 and n_tiles == sum(-(-r[2] // tile_cols) for r in rows)
+        first += n_leaves
+    with pytest.raises(ValueError, match="shared memory"):
+        _launch.pipe_launches(widths, k, 4, H100_SMEM, H100_SMEM, g_ptrs, out_ptrs,
+                              (0,) * n)
+
+
 def test_encode_is_exact_on_integer_digits_at_the_2_24_bound():
     """The coded checkpoint's contract (ROADMAP 3.3): integer digits whose
     parity sums reach 2^24 - 1 come out exact, as the int64 product."""
@@ -176,6 +341,10 @@ def test_ops_takes_the_plain_version_on_cpu_without_launching():
     before = (gc_fused.launches, gc_encode.launches, gc_decode.launches)
     out = ops.encode_decode(a, b, g)
     assert torch.equal(out, ref.encode_decode_ref(a, b, g))
+    grouped = ops.encode_decode_leaves(a, b[None], [0, 0], [g, g[:, :7].contiguous()])
+    assert torch.equal(grouped[0], out)
+    assert torch.equal(grouped[1], ref.encode_decode_ref(a, b, g[:, :7]))
+    assert ops.encode_decode_leaves(a, b[None], [], []) == []
     assert torch.equal(ops.encode(b, g), ref.encode_ref(b, g))
     assert torch.equal(ops.decode(b[0], g), ref.decode_ref(b[0], g))
     assert (gc_fused.launches, gc_encode.launches, gc_decode.launches) == before
@@ -189,6 +358,8 @@ def test_kernel_wrapper_refuses_non_cuda_tensors():
     for args in ((a, b, g), meta):
         with pytest.raises(ValueError, match="CUDA"):
             gc_fused.encode_decode(*args)
+        with pytest.raises(ValueError, match="CUDA"):
+            gc_fused.encode_decode_leaves(args[0], args[1][None], [0], [args[2]])
         with pytest.raises(ValueError, match="CUDA"):
             gc_encode.encode(*args[1:])
         with pytest.raises(ValueError, match="CUDA"):

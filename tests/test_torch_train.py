@@ -4,7 +4,8 @@
   ``make_coded_grad_fn(mode="sim", pipeline="flat")`` and the port's own
   uncoded gradient for every straggler count 0..s_max — the bounds of
   ``tests/test_flat_pipeline.py`` (1e-5 between two coded forms, 1e-4
-  against the uncoded mean, fp32);
+  against the uncoded mean, fp32); its combine is one grouped call per
+  step (one kernel launch on CUDA);
 * one clip + AdamW + cosine update equals ``repro.optim.optim``;
 * three ``Trainer`` steps from the same initial parameters and seed give
   the same ledger bit for bit, and the same losses and parameters to
@@ -29,11 +30,12 @@ from repro.train.trainer import Trainer as JTrainer
 from repro_torch.configs import get_config
 from repro_torch.core import Plan, ShiftedExponential
 from repro_torch.data.pipeline import DataConfig, SyntheticTokens, coded_worker_batches
-from repro_torch.kernels import gc_fused
+from repro_torch.kernels import gc_fused, ops, ref
 from repro_torch.launch import train as launch_train
 from repro_torch.models.params import GCLM, params_from_numpy, params_to_numpy
 from repro_torch.optim import optim
-from repro_torch.train.coded import make_coded_grad_fn, uncoded_grad_fn
+from repro_torch.train.coded import (combine_rows, make_coded_grad_fn, per_shard_grad_rows,
+                                     uncoded_grad_fn)
 from repro_torch.train.trainer import TrainConfig, Trainer
 
 N = 4
@@ -75,6 +77,40 @@ def test_flat_coded_grads_match_jax_and_uncoded_every_straggler_count(sim_setup)
         assert [tuple(g.shape) for g in g_t] == [g.shape for g in g_j]
         assert _max_err(g_t, g_j) < 1e-5, u      # port flat == reference flat
         assert _max_err(g_t, g_unc) < 1e-4, u    # port flat == port uncoded
+
+
+def test_combine_makes_one_grouped_call_per_step(sim_setup, monkeypatch):
+    """Each coded gradient makes one grouped combine call over all leaves
+    (one gc_fused launch per step on CUDA), never one call per leaf; its
+    outputs, in leaf order, are those of the per-leaf combine."""
+    cfg_t, _, _, model, plan_t, _, wb, _ = sim_setup
+    calls = []
+    grouped = ref.encode_decode_leaves_ref
+
+    def counted(a, b_codes, which, gs):
+        calls.append((tuple(b_codes.shape), tuple(which), len(gs)))
+        return grouped(a, b_codes, which, gs)
+
+    def per_leaf(*args):
+        raise AssertionError("combine_rows made a per-leaf call")
+
+    monkeypatch.setattr(ref, "encode_decode_leaves_ref", counted)
+    monkeypatch.setattr(ops, "encode_decode", per_leaf)
+    layout = plan_t.flat_layout
+    dec_w = plan_t.decode_weights(np.ones(N)).astype(np.float32)
+    rows = per_shard_grad_rows(cfg_t, model, wb)
+    got = combine_rows(plan_t, rows, dec_w)
+    nk = N * plan_t.k_shards
+    assert calls == [((layout.n_levels, 1, nk), layout.leaf_level, layout.n_leaves)]
+    inv_n = torch.ones(1) / N
+    b_rows = torch.as_tensor(plan_t.b_rows, dtype=torch.float32)
+    for j, y in enumerate(got):
+        li = layout.leaf_level[j]
+        w = (torch.from_numpy(dec_w[li])[:, None] * b_rows[:, li, :]).reshape(1, -1)
+        want = ref.encode_decode_ref(inv_n, w, rows[j])[0].reshape(layout.leaf_shapes[j])
+        assert torch.equal(y, want), j
+    make_coded_grad_fn(cfg_t, plan_t)(model, wb, dec_w)
+    assert len(calls) == 2
 
 
 def test_coded_grad_fn_scope_raises(sim_setup):
