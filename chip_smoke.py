@@ -36,6 +36,26 @@ port's sources beside it.  Phases; any failure raises:
    the per-shard rows, the combine, the update), host clock around
    synchronized calls, and one coded-gradient call under
    ``torch.profiler`` (device time by kernel, device busy share).
+6a. levels: one step's full-width per-shard rows combined per level
+   (``combine_level``: one ``gc_fused`` launch per level, 3, 1 and 7
+   leaves) are bit-equal to the step's one grouped launch; device-only
+   times of the three launches and of the one, in turns, against the
+   same bound.
+6b. tree: the tree pipeline (per-leaf torch ops) against the flat one on
+   the same rows (1e-5 per leaf), both equal to the uncoded gradient
+   (1e-4), with 0 and s_max stragglers; device-only time of each combine.
+6c. adapt: a fresh full-width ``Trainer(adapt=AdaptConfig(window=16,
+   min_rounds=8, check_every=2))`` on workers 2 and 3 five times slower
+   from round 2, 26 steps with the counts set to 0 just before: the
+   controller swaps the plan after step 24 (the step the port's numpy
+   layer predicts on the CPU: tests/test_torch_adapt.py), ``gc_fused``
+   launches once per step across the swap, and the coded gradient under
+   the new plan equals the uncoded one.
+6d. wave: 3 barrier steps, then a fresh trainer from the same weights
+   with ``WaveConfig(staleness=0)``: parameters and moments byte-equal;
+   then 6 rounds at staleness 1: the executed events are the simulator's
+   ``WaveTrace``, one ``gc_fused`` launch per decode event (3 per round),
+   finite losses, and the peak device memory.
 7. ckpt: a fresh full-width trainer (as in 2) with erasure-coded
    checkpoints, ``CodedSpec(n_shards=4, parity=1)`` every 2 steps, and
    worker 1 (which owns data stripe 1) 1000x slower from round 0, so the
@@ -90,6 +110,16 @@ TOL = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": dict(rtol=2e-2, atol=1
 #: coded vs uncoded gradient, relative max error per leaf (fp32, TF32 off)
 EXACT_RTOL = 1e-4
 STEPS = 3
+#: the [adapt] phase: workers 2 and 3 five times slower from round 2; with
+#: seed 0 the controller swaps after step 24 (tests/test_torch_adapt.py
+#: holds the port's numpy layer to the reference on this stream)
+ADAPT_FAULTS = (dict(worker=2, factor=5.0, from_round=2), dict(worker=3, factor=5.0, from_round=2))
+ADAPT_SWAP_STEP = 24
+ADAPT_STEPS = 26
+#: the [wave] phase: the master's update cost and broadcast latency per
+#: round, in simulated time (a barrier round here is about 1e8 to 8e8)
+WAVE_COSTS = dict(update_cost=3e7, broadcast_latency=1e6)
+WAVE_ROUNDS = 6
 #: worker 1 dies (1000x slower from round 0): with seed 0 the DeathWatch
 #: (factor 20, 4 rounds) trips after the 4th step (found on the CPU with
 #: the port's PlanSimulator and DeathWatch alone)
@@ -265,17 +295,18 @@ def phase_device():
             f"spilling entries {len(spills)}")
 
 
-def make_trainer(ckpt=None):
-    """Full-width gc-lm-110m in a ``Trainer`` on the card (seed 0)."""
+def make_trainer(env=None, **kw):
+    """Full-width gc-lm-110m in a ``Trainer`` on the card (seed 0); ``kw``
+    goes to the ``Trainer`` (ckpt, adapt, wave, params)."""
     from repro_torch.configs import get_config
     from repro_torch.core import ShiftedExponential
     from repro_torch.train.trainer import TrainConfig, Trainer
 
     cfg = get_config("gc-lm-110m").replace(max_seq=512)
     return Trainer(cfg, TrainConfig(lr=3e-4, warmup=10, total_steps=300),
-                   ShiftedExponential(mu=1e-3, t0=50.0), n_workers=4,
+                   env or ShiftedExponential(mu=1e-3, t0=50.0), n_workers=4,
                    scheme="xf", global_batch=8, seed=0, device="cuda",
-                   seq_len=256, ckpt=ckpt)
+                   seq_len=256, **kw)
 
 
 def phase_setup():
@@ -451,33 +482,62 @@ def phase_kernel(trainer):
     return max_err, totals
 
 
-def phase_exactness(trainer):
+def _uncoded_grads(trainer, step: int) -> list:
+    """The port's plain data-parallel mean gradient over step ``step``'s
+    global batch, at the trainer's current parameters."""
     import numpy as np
+
+    from repro_torch.train.coded import uncoded_grad_fn
+
+    n = trainer.n_workers
+    shards = np.stack([trainer.data.shard(step, i, n) for i in range(n)])
+    return uncoded_grad_fn(trainer.cfg, n)(trainer.state.params, shards)
+
+
+def _straggler_dec_w(plan, u: int):
+    """Decode weights with the first ``u`` workers straggling."""
+    import numpy as np
+
+    times = np.ones(plan.n_workers)
+    times[:u] = 1e6
+    return plan.decode_weights(times).astype(np.float32)
+
+
+def _worst_rel(got, want, paths, bound: float, what: str) -> float:
+    """Largest per-leaf relative max error of ``got`` against ``want``;
+    raises past ``bound``."""
+    worst = 0.0
+    for path, a, b in zip(paths, got, want, strict=True):
+        rel = ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+        if not rel <= bound:
+            raise AssertionError(f"{what} at {path}: relative max error {rel:.3e} > {bound}")
+        worst = max(worst, rel)
+    return worst
+
+
+def check_coded_equals_uncoded(trainer, tag: str) -> None:
+    """At the trainer's current step and plan, the coded gradient equals
+    the uncoded one with 0 and s_max stragglers."""
     import torch
 
     from repro_torch.data.pipeline import coded_worker_batches
-    from repro_torch.train.coded import make_coded_grad_fn, uncoded_grad_fn
+    from repro_torch.train.coded import make_coded_grad_fn
 
-    plan, model, n = trainer.plan, trainer.state.params, trainer.n_workers
-    wb = coded_worker_batches(trainer.data, 0, n, plan.s_max)
-    shards = np.stack([trainer.data.shard(0, i, n) for i in range(n)])
-    g_ref = uncoded_grad_fn(trainer.cfg, n)(model, shards)
+    plan, model, step = trainer.plan, trainer.state.params, int(trainer.state.step)
+    wb = coded_worker_batches(trainer.data, step, trainer.n_workers, plan.s_max)
+    g_ref = _uncoded_grads(trainer, step)
     coded = make_coded_grad_fn(trainer.cfg, plan)
     for u in (0, plan.s_max):
-        times = np.ones(n)
-        times[:u] = 1e6  # u realized stragglers
-        dec_w = plan.decode_weights(times).astype(np.float32)
-        worst = 0.0
-        for path, gc, gu in zip(model.leaf_paths(), coded(model, wb, dec_w), g_ref):
-            rel = ((gc - gu).abs().max() / gu.abs().max().clamp_min(1e-30)).item()
-            if not rel <= EXACT_RTOL:
-                raise AssertionError(f"coded != uncoded at {path}, {u} stragglers: "
-                                     f"relative max error {rel:.3e}")
-            worst = max(worst, rel)
-        log(f"[exactness] {u} stragglers: coded == uncoded, worst leaf relative "
+        worst = _worst_rel(coded(model, wb, _straggler_dec_w(plan, u)), g_ref,
+                           model.leaf_paths(), EXACT_RTOL, f"coded != uncoded, {u} stragglers")
+        log(f"[{tag}] step {step}, {u} stragglers: coded == uncoded, worst leaf relative "
             f"max error {worst:.3e} (bound {EXACT_RTOL})")
     del g_ref
     torch.cuda.synchronize()
+
+
+def phase_exactness(trainer):
+    check_coded_equals_uncoded(trainer, "exactness")
 
 
 def phase_train(trainer):
@@ -574,6 +634,237 @@ def phase_breakdown(trainer):
     for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:10]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.2f} ms  x{e.count:<5d} "
             f"{e.key[:90]}")
+
+
+def phase_levels(trainer):
+    """The wave loop's per-level combine on one step's full-width rows:
+    one ``gc_fused`` launch per level (``combine_level``), their union
+    bit-equal to the step's one grouped launch (``combine_rows``);
+    device-only times of both patterns in turns against the same bound.
+    Returns the rows (the [tree] phase reuses them) and the times."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.pipeline import coded_worker_batches
+    from repro_torch.kernels import gc_fused
+    from repro_torch.train.coded import (combine_level, combine_rows, level_weights,
+                                         per_shard_grad_rows)
+
+    plan, n = trainer.plan, trainer.n_workers
+    layout = plan.flat_layout
+    wb = coded_worker_batches(trainer.data, int(trainer.state.step), n, plan.s_max)
+    rows = per_shard_grad_rows(trainer.cfg, trainer.state.params, wb)
+    dec_w = plan.decode_weights(np.asarray([3.0, 1.0, 4.0, 2.0])[:n])
+    sizes = [len(ids) for ids in layout.level_leaves]
+    before = gc_fused.launches
+    full = combine_rows(plan, rows, dec_w.astype(np.float32))
+    grouped_launches = gc_fused.launches - before
+    got = {}
+    for li in range(layout.n_levels):
+        got.update(combine_level(plan, rows, li, dec_w[li]))
+    level_launches = gc_fused.launches - before - grouped_launches
+    torch.cuda.synchronize()
+    if (grouped_launches, level_launches) != (1, layout.n_levels):
+        raise AssertionError(f"grouped combine took {grouped_launches} launches, the "
+                             f"per-level one {level_launches}; expected 1 and {layout.n_levels}")
+    for j, y in enumerate(full):
+        if not torch.equal(got[j], y):
+            raise AssertionError(f"per-level combine of leaf {j} is not bit-equal to the "
+                                 "grouped launch")
+    del full, got
+
+    # the two launch patterns on the same tensors, device-only in turns
+    nk = n * plan.k_shards
+    inv_n = torch.full((1,), 1.0 / n, device="cuda")
+    n_lv = layout.n_levels
+    w_all = level_weights(plan, dec_w, "cuda")
+    w_lv = [level_weights(plan, dec_w[li:li + 1], "cuda", levels=[li]) for li in range(n_lv)]
+    ids = layout.level_leaves
+    pattern = {
+        "grouped": lambda: gc_fused.encode_decode_leaves(inv_n, w_all, layout.leaf_level, rows),
+        "levels": lambda: [gc_fused.encode_decode_leaves(inv_n, w_lv[li], [0] * len(ids[li]),
+                                                         [rows[j] for j in ids[li]])
+                           for li in range(n_lv)]}
+    dev = device_in_turns(pattern, 10)
+    n_cols = sum(layout.leaf_size(j) for j in range(layout.n_leaves))
+    bound = max(bounds_ms((1 + nk) * n_cols * 4 + (n_lv + 1) * nk * 4, 2.0 * nk * n_cols))
+    times = {"grouped_device_ms": _mean(dev["grouped"]), "levels_device_ms": _mean(dev["levels"]),
+             "grouped_ms": time_ms(pattern["grouped"], 10),
+             "levels_ms": time_ms(pattern["levels"], 10), "bound_ms": bound}
+    log(f"[levels] levels of {sizes} leaves: {level_launches} per-level launches bit-equal to "
+        f"{grouped_launches} grouped launch; device-only ms in turns grouped/levels/levels/grouped "
+        f"{dev}; means grouped {times['grouped_device_ms']:.4f} levels "
+        f"{times['levels_device_ms']:.4f}, bound_ms {bound:.4f} (share grouped "
+        f"{bound / times['grouped_device_ms']:.3f}, levels {bound / times['levels_device_ms']:.3f}); "
+        f"host-inclusive ms grouped {times['grouped_ms']:.4f} levels {times['levels_ms']:.4f}")
+    return rows, times
+
+
+def phase_tree(trainer, rows):
+    """The tree pipeline against the flat one on the same rows (1e-5 per
+    leaf), both equal to the uncoded gradient (1e-4); device-only time of
+    each combine in turns."""
+    import torch
+
+    from repro_torch.kernels import gc_fused
+    from repro_torch.train.coded import combine_grads, level_weights, tree_combine
+
+    plan, model = trainer.plan, trainer.state.params
+    paths = model.leaf_paths()
+    g_ref = _uncoded_grads(trainer, int(trainer.state.step))
+    worst = {"tree_flat": 0.0, "tree_uncoded": 0.0, "flat_uncoded": 0.0}
+    for u in (0, plan.s_max):
+        dec_w = _straggler_dec_w(plan, u)
+        tree = combine_grads(plan, rows, dec_w, pipeline="tree")
+        flat = combine_grads(plan, rows, dec_w, pipeline="flat")
+        what = f"{u} stragglers"
+        worst["tree_flat"] = max(worst["tree_flat"], _worst_rel(
+            tree, flat, paths, 1e-5, f"tree != flat, {what}"))
+        worst["tree_uncoded"] = max(worst["tree_uncoded"], _worst_rel(
+            tree, g_ref, paths, EXACT_RTOL, f"tree != uncoded, {what}"))
+        worst["flat_uncoded"] = max(worst["flat_uncoded"], _worst_rel(
+            flat, g_ref, paths, EXACT_RTOL, f"flat != uncoded, {what}"))
+        del tree, flat
+    del g_ref
+    dec_w = _straggler_dec_w(plan, plan.s_max)
+    n, layout = plan.n_workers, plan.flat_layout
+    b_rows = torch.as_tensor(plan.b_rows, dtype=torch.float32, device="cuda")
+    dw = torch.as_tensor(dec_w, dtype=torch.float32, device="cuda")
+    inv_n = torch.full((1,), 1.0 / n, device="cuda")
+    w_all = level_weights(plan, dec_w, "cuda")
+    level_idx = plan.level_index().tolist()
+    dev = device_in_turns({
+        "flat": lambda: gc_fused.encode_decode_leaves(inv_n, w_all, layout.leaf_level, rows),
+        "tree": lambda: tree_combine(b_rows, dw, level_idx, rows)}, 5)
+    log(f"[tree] tree vs flat on one step's rows, 0 and {plan.s_max} stragglers: worst leaf "
+        f"relative max error tree/flat {worst['tree_flat']:.3e} (bound 1e-5), tree/uncoded "
+        f"{worst['tree_uncoded']:.3e}, flat/uncoded {worst['flat_uncoded']:.3e} (bound "
+        f"{EXACT_RTOL}); combine device-only ms in turns flat/tree/tree/flat {dev}: flat "
+        f"{_mean(dev['flat']):.4f}, tree {_mean(dev['tree']):.4f}")
+    torch.cuda.synchronize()
+    return {"flat_device_ms": _mean(dev["flat"]), "tree_device_ms": _mean(dev["tree"])}
+
+
+def phase_adapt():
+    """Adaptive re-planning at full width: the swap comes after the
+    predicted step, ``gc_fused`` launches once per step across it, and
+    the coded gradient under the new plan equals the uncoded one.
+    Returns the counts of this path."""
+    import torch
+
+    from repro_torch.adapt import AdaptConfig
+    from repro_torch.core import DegradedWorker, Env, ShiftedExponential
+
+    env = Env.iid(ShiftedExponential(mu=1e-3, t0=50.0), 4).with_faults(
+        *(DegradedWorker(**f) for f in ADAPT_FAULTS))
+    t0 = time.perf_counter()
+    trainer = make_trainer(env, adapt=AdaptConfig(window=16, min_rounds=8, check_every=2))
+    old = trainer.plan
+    log(f"[adapt] trainer on {ADAPT_FAULTS}, AdaptConfig(window=16, min_rounds=8, "
+        f"check_every=2); {time.perf_counter() - t0:.2f} s")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer.run(ADAPT_STEPS, log_every=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    swapped = [h["step"] for h in trainer.history if h.get("plan_swap")]
+    if swapped != [ADAPT_SWAP_STEP]:
+        raise AssertionError(f"plan swaps after steps {swapped}, predicted "
+                             f"[{ADAPT_SWAP_STEP}]")
+    if launches["gc_fused"] != ADAPT_STEPS:
+        raise AssertionError(f"gc_fused launched {launches['gc_fused']} times in "
+                             f"{ADAPT_STEPS} steps across the swap, expected one per step")
+    losses = [h["loss"] for h in trainer.history]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss {losses}")
+    new, ev = trainer.plan, trainer.controller.swaps[0]
+    log(f"[adapt] {ADAPT_STEPS} steps in {wall:.2f} s (step wall_s "
+        f"{[round(h['wall_s'], 3) for h in trainer.history]}); swap after step {swapped[0]} "
+        f"(round {ev.round_idx}, predicted gain {ev.predicted_gain:.4f}): x {old.x.tolist()} "
+        f"-> {new.x.tolist()}, leaf levels {old.leaf_levels.tolist()} -> "
+        f"{new.leaf_levels.tolist()}; launches {launches}; losses "
+        f"{[round(x, 4) for x in losses]}")
+    check_coded_equals_uncoded(trainer, "adapt")
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_wave():
+    """The wave-pipelined loop at full width: staleness 0 is byte-equal
+    to the barrier loop; at staleness 1 the executed events are the
+    simulator's, with one ``gc_fused`` launch per decode event.  Returns
+    the counts of the three runs, summed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.params import params_to_numpy
+    from repro_torch.train.wave import WaveConfig, WaveRunner
+
+    total = {}
+
+    def counted(trainer, steps):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer.run(steps, log_every=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_counts()
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        return got, wall
+
+    bar = make_trainer()
+    init = params_to_numpy(bar.state.params)
+    bar_launches, bar_wall = counted(bar, 3)
+    want = _snapshot(bar.state.checkpoint_tree())
+    bar_losses = [h["loss"] for h in bar.history]
+    bar_times = [r["times"] for r in bar.sim.ledger]
+    del bar
+    torch.cuda.empty_cache()
+    trainer = make_trainer(params=init, wave=WaveConfig(staleness=0, **WAVE_COSTS))
+    del init
+    wave0_launches, wave0_wall = counted(trainer, 3)
+    if not _same_bytes(_snapshot(trainer.state.checkpoint_tree()), want):
+        raise AssertionError("staleness 0: parameters or moments differ from the barrier loop's")
+    if [h["loss"] for h in trainer.history] != bar_losses or not all(
+            np.array_equal(a, r["times"]) for a, r in zip(bar_times, trainer.sim.ledger)):
+        raise AssertionError("staleness 0: losses or ledger differ from the barrier loop's")
+    if bar_launches["gc_fused"] != 3 or wave0_launches["gc_fused"] != 3:
+        raise AssertionError(f"launches barrier {bar_launches}, staleness 0 {wave0_launches}: "
+                             "want one per step")
+    del want
+    log(f"[wave] staleness 0, 3 rounds: parameters, moments, losses and ledger byte-equal to "
+        f"3 barrier steps (barrier {bar_wall:.2f} s, wave {wave0_wall:.2f} s); launches "
+        f"{wave0_launches}")
+
+    trainer.wave = WaveRunner(trainer, WaveConfig(staleness=1, **WAVE_COSTS))
+    first = len(trainer.history)
+    torch.cuda.reset_peak_memory_stats()
+    wave1_launches, wave1_wall = counted(trainer, WAVE_ROUNDS)
+    [trace], [executed] = trainer.wave.traces, trainer.wave.executed
+    if executed != list(trace.events):
+        raise AssertionError("staleness 1: the executed events differ from the WaveTrace")
+    n_decode = sum(e.kind == "decode" for e in trace.events)
+    if wave1_launches["gc_fused"] != n_decode or n_decode != 3 * WAVE_ROUNDS:
+        raise AssertionError(f"staleness 1: {wave1_launches['gc_fused']} gc_fused launches for "
+                             f"{n_decode} decode events")
+    hist = trainer.history[first:]
+    losses = [h["loss"] for h in hist]
+    if len(hist) != WAVE_ROUNDS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"staleness 1: losses {losses}")
+    log(f"[wave] staleness 1, {WAVE_ROUNDS} rounds in {wave1_wall:.2f} s: executed events == "
+        f"WaveTrace ({len(trace.events)} events, {n_decode} decodes), realized staleness "
+        f"{trace.realized_staleness().tolist()}, update wall_s "
+        f"{[round(h['wall_s'], 3) for h in hist]}, launches {wave1_launches}, losses "
+        f"{[round(x, 4) for x in losses]}; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} bytes")
+    del trainer
+    torch.cuda.empty_cache()
+    return total
 
 
 def _snapshot(tree) -> dict:
@@ -978,30 +1269,49 @@ def main() -> int:
     import repro_torch.device  # noqa: F401  (TF32 off, before any product)
 
     t_start = time.perf_counter()
-    phase_device()
-    trainer = phase_setup()
-    max_err, kernel_times = phase_kernel(trainer)
-    phase_exactness(trainer)
-    launches = phase_train(trainer)
-    phase_breakdown(trainer)
-    del trainer
-    torch.cuda.empty_cache()
-    ckpt_launches, n_digits = phase_ckpt()
-    enc_err, enc_times = phase_encode(n_digits)
-    trip_launches, dec_err, dec_times = phase_decode()
-    phase_reference()
-    log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
+    spent = {}
 
-    def row(name, tpu_kernel, n_launches, err, times):
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        spent[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    timed("device", phase_device)
+    trainer = timed("setup", phase_setup)
+    max_err, kernel_times = timed("kernel", phase_kernel, trainer)
+    timed("exactness", phase_exactness, trainer)
+    launches = timed("train", phase_train, trainer)
+    timed("breakdown", phase_breakdown, trainer)
+    rows, level_times = timed("levels", phase_levels, trainer)
+    tree_times = timed("tree", phase_tree, trainer, rows)
+    del trainer, rows
+    torch.cuda.empty_cache()
+    adapt_launches = timed("adapt", phase_adapt)
+    wave_launches = timed("wave", phase_wave)
+    ckpt_launches, n_digits = timed("ckpt", phase_ckpt)
+    enc_err, enc_times = timed("encode", phase_encode, n_digits)
+    trip_launches, dec_err, dec_times = timed("decode", phase_decode)
+    timed("reference", phase_reference)
+    log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s; seconds by "
+        f"phase {spent}")
+
+    def row(name, tpu_kernel, n_launches, err, times, **extra):
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{name}.cu",
                 "replaces": tpu_kernel, "launches": n_launches, "max_abs_err": err,
                 **{k: times[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                         "library_ms", "device_ms", "host_ms")}}
+                                         "library_ms", "device_ms", "host_ms")}, **extra}
 
+    # gc_fused's main paths: barrier training, adaptive re-planning, wave
+    fused_launches = {"train": launches["gc_fused"], "adapt": adapt_launches["gc_fused"],
+                      "wave": wave_launches["gc_fused"]}
     print(json.dumps({"kernels": [
-        row("gc_fused", "src/repro/kernels/gc_fused.py:57", launches["gc_fused"],
-            max_err, kernel_times),
+        row("gc_fused", "src/repro/kernels/gc_fused.py:57", sum(fused_launches.values()),
+            max_err, kernel_times, launches_by_path=fused_launches,
+            per_level_device_ms=level_times["levels_device_ms"],
+            grouped_device_ms=level_times["grouped_device_ms"],
+            tree_combine_device_ms=tree_times["tree_device_ms"]),
         row("gc_encode", "src/repro/kernels/gc_encode.py:56", ckpt_launches["gc_encode"],
             enc_err, enc_times),
         row("gc_decode", "src/repro/kernels/gc_decode.py:51", trip_launches["gc_decode"],

@@ -1,17 +1,21 @@
 """Straggler models: distributions of per-worker CPU cycle times T_n.
 
 Copied from ``repro/core/distributions.py`` (the port keeps its own copy
-of the numpy plan layer) and trimmed to what the training slice calls:
-the ``StragglerDistribution`` base, the shifted exponential (paper §V-C)
-with its closed-form order statistics, and the exact JSON registry that
-lets an ``Env`` embed bit-identically inside ``Plan.to_dict``.  The other
-distributions of the reference are ROADMAP work.
+of the numpy plan layer) and trimmed to what the port's slices call: the
+``StragglerDistribution`` base with its Monte-Carlo order statistics, the
+shifted exponential (paper §V-C) with its closed forms, the empirical
+(trace-bootstrap) model the adaptive re-planner fits, the scaled model
+that folds a static degradation into a worker, and the exact JSON
+registry that lets an ``Env`` embed bit-identically inside
+``Plan.to_dict``.  The other distributions of the reference are ROADMAP
+work.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 from scipy import integrate, special
@@ -19,6 +23,8 @@ from scipy import integrate, special
 __all__ = [
     "StragglerDistribution",
     "ShiftedExponential",
+    "EmpiricalStraggler",
+    "ScaledStraggler",
     "register_distribution",
     "dist_to_dict",
     "dist_from_dict",
@@ -44,6 +50,22 @@ def register_distribution(cls):
     return cls
 
 
+def _encode_field(v):
+    if isinstance(v, StragglerDistribution):
+        return {"__dist__": dist_to_dict(v)}
+    if isinstance(v, (tuple, list)):
+        return [_encode_field(x) for x in v]
+    return v
+
+
+def _decode_field(v):
+    if isinstance(v, dict) and "__dist__" in v:
+        return dist_from_dict(v["__dist__"])
+    if isinstance(v, list):  # all sequence-valued fields are stored as tuples
+        return tuple(_decode_field(x) for x in v)
+    return v
+
+
 def dist_to_dict(d: "StragglerDistribution") -> dict:
     """JSON-able snapshot {type, **fields}; exact (no float formatting)."""
     name = type(d).__name__
@@ -52,7 +74,7 @@ def dist_to_dict(d: "StragglerDistribution") -> dict:
             f"{name} is not registered; decorate it with @register_distribution")
     out = {"type": name}
     for f in dataclasses.fields(d):
-        out[f.name] = getattr(d, f.name)
+        out[f.name] = _encode_field(getattr(d, f.name))
     return out
 
 
@@ -62,28 +84,46 @@ def dist_from_dict(blob: dict) -> "StragglerDistribution":
     if cls is None:
         raise KeyError(f"unknown distribution type {blob.get('type')!r}; "
                        f"registered: {sorted(_DIST_REGISTRY)}")
-    return cls(**{k: v for k, v in blob.items() if k != "type"})
+    return cls(**{k: _decode_field(v) for k, v in blob.items() if k != "type"})
 
 
 @dataclass(frozen=True)
 class StragglerDistribution:
-    """Base class.  Subclasses implement ``sample`` and the order
-    statistics the closed-form schemes need."""
+    """Base class.  Subclasses must implement ``sample``."""
 
-    #: Monte-Carlo sample count of the reference's default estimators
-    #: (kept so serialized distributions match the reference field by field)
+    #: Monte-Carlo sample count used by the default order-statistic
+    #: estimators
     mc_samples: int = 200_000
 
     def sample(self, rng, shape) -> np.ndarray:  # pragma: no cover - abstract
         raise NotImplementedError
 
+    def cdf(self, t) -> np.ndarray:
+        """Pr[T <= t].  Subclasses with a closed form override; the
+        Monte-Carlo order statistics do not need it."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no cdf; use the Monte-Carlo "
+            "order-statistic estimators")
+
+    def mean(self) -> float:
+        rng = np.random.default_rng(0)
+        return float(self.sample(rng, (self.mc_samples,)).mean())
+
+    def sample_sorted(self, rng, n_workers: int, n_draws: int) -> np.ndarray:
+        """(n_draws, n_workers) of order statistics T_(1) <= ... <= T_(N)."""
+        t = self.sample(_as_rng(rng), (n_draws, n_workers))
+        t.sort(axis=1)
+        return t
+
     def expected_order_stats(self, n_workers: int, rng=0) -> np.ndarray:
-        raise NotImplementedError(f"{type(self).__name__} has no order "
-                                  "statistics in the port (ROADMAP)")
+        """t with t[k-1] = E[T_(k)]  (Monte-Carlo default)."""
+        draws = self.sample_sorted(rng, n_workers, self.mc_samples)
+        return draws.mean(axis=0)
 
     def inv_expected_inv_order_stats(self, n_workers: int, rng=0) -> np.ndarray:
-        raise NotImplementedError(f"{type(self).__name__} has no order "
-                                  "statistics in the port (ROADMAP)")
+        """t' with t'[k-1] = 1 / E[1/T_(k)]  (Monte-Carlo default)."""
+        draws = self.sample_sorted(rng, n_workers, self.mc_samples)
+        return 1.0 / (1.0 / draws).mean(axis=0)
 
 
 # ---------------------------------------------------------------------------
@@ -101,6 +141,10 @@ class ShiftedExponential(StragglerDistribution):
 
     def mean(self) -> float:
         return self.t0 + 1.0 / self.mu
+
+    def cdf(self, t):
+        t = np.asarray(t, dtype=np.float64)
+        return np.where(t >= self.t0, 1.0 - np.exp(-self.mu * (t - self.t0)), 0.0)
 
     # ---- paper eq. (11):  t_n = (H_N - H_{N-n}) / mu + t0  (Renyi 1953)
     def expected_order_stats(self, n_workers: int, rng=None) -> np.ndarray:
@@ -136,3 +180,60 @@ class ShiftedExponential(StragglerDistribution):
             val, _ = integrate.quad(integrand, 0.0, 1.0, limit=200)
             out[n - 1] = 1.0 / val
         return out
+
+
+@register_distribution
+@dataclass(frozen=True)
+class EmpiricalStraggler(StragglerDistribution):
+    """Bootstrap-resamples a measured trace of cycle times."""
+
+    trace: Optional[tuple] = None  # tuple for hashability/frozen
+
+    def sample(self, rng, shape) -> np.ndarray:
+        if not self.trace:
+            raise ValueError("EmpiricalStraggler needs a non-empty trace")
+        rng = _as_rng(rng)
+        arr = np.asarray(self.trace, dtype=np.float64)
+        return rng.choice(arr, size=shape, replace=True)
+
+    def cdf(self, t) -> np.ndarray:
+        if not self.trace:
+            raise ValueError("EmpiricalStraggler needs a non-empty trace")
+        arr = np.sort(np.asarray(self.trace, np.float64))
+        t = np.asarray(t, np.float64)
+        return np.searchsorted(arr, t, side="right") / arr.size
+
+    def mean(self) -> float:
+        return float(np.mean(np.asarray(self.trace)))
+
+
+@register_distribution
+@dataclass(frozen=True)
+class ScaledStraggler(StragglerDistribution):
+    """``factor`` x a base distribution: a worker slowed by a static
+    degradation (``Env.effective_dists``)."""
+
+    base: Optional[StragglerDistribution] = None
+    factor: float = 1.0
+
+    def __post_init__(self):
+        if self.base is None:
+            raise ValueError("ScaledStraggler needs a base distribution")
+        if not hasattr(self.base, "sample"):
+            # the classic misbinding: ScaledStraggler(dist, 2.5) binds the
+            # inherited mc_samples field first — insist on keywords
+            raise TypeError(
+                f"base must be a StragglerDistribution, got "
+                f"{type(self.base).__name__!r}; construct with keywords: "
+                "ScaledStraggler(base=dist, factor=2.5)")
+        if self.factor <= 0:
+            raise ValueError("factor must be positive")
+
+    def sample(self, rng, shape) -> np.ndarray:
+        return self.factor * self.base.sample(rng, shape)
+
+    def cdf(self, t) -> np.ndarray:
+        return self.base.cdf(np.asarray(t, np.float64) / self.factor)
+
+    def mean(self) -> float:
+        return self.factor * self.base.mean()

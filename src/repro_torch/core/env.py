@@ -1,24 +1,26 @@
 """The worker-population model ``Env``.
 
-Copied from ``repro/core/env.py`` and trimmed to what the training slice
-calls: ``Env.iid``, ``with_faults``, ``coerce``, ``sample``,
-``degradation_factors``, ``has_deaths``, the i.i.d. order statistics the
-closed-form schemes read, and the exact ``to_dict``/``from_dict`` (an env
-embeds bit-identically inside ``Plan.to_dict``).  The declarative faults
-round-trip and fold into the simulator's draws as in the reference;
-solving against a faulted or heterogeneous population (Monte-Carlo /
-quadrature order statistics) is ROADMAP work and raises.
+Copied from ``repro/core/env.py`` and trimmed to what the port's slices
+call: ``Env.iid``, ``heterogeneous``, ``with_faults``, ``from_trace``,
+``coerce``, ``sample``, ``degradation_factors``, ``has_deaths``, the
+solver view (static degradations folded in, transient faults dropped),
+the per-worker means, the order statistics the schemes read (delegated
+to the wrapped distribution for an i.i.d. env, Monte-Carlo over
+``mc_samples`` joint draws otherwise, in the reference's draw order), and
+the exact ``to_dict``/``from_dict`` (an env embeds bit-identically inside
+``Plan.to_dict``).  The Poisson-binomial quadrature (``method="quad"``)
+is ROADMAP work.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
-from .distributions import (StragglerDistribution, _as_rng, dist_from_dict,
-                            dist_to_dict)
+from .distributions import (ScaledStraggler, StragglerDistribution, _as_rng,
+                            dist_from_dict, dist_to_dict)
 
 __all__ = ["Env", "WorkerDeath", "DegradedWorker", "fault_to_dict",
            "fault_from_dict"]
@@ -106,9 +108,29 @@ class Env:
             raise ValueError("n_workers must be >= 1")
         return cls(dists=(dist,) * int(n_workers), **kw)
 
+    @classmethod
+    def heterogeneous(cls, dists: Sequence[StragglerDistribution],
+                      **kw) -> "Env":
+        """Per-worker distribution list (mixed machine generations)."""
+        return cls(dists=tuple(dists), **kw)
+
     def with_faults(self, *faults) -> "Env":
         """A copy of this env with declarative faults appended."""
         return dataclasses.replace(self, faults=self.faults + tuple(faults))
+
+    @classmethod
+    def from_trace(cls, trace_or_path, per_worker: bool = True, **kw) -> "Env":
+        """Bootstrap an env from a recorded ``repro_torch.sim.Trace``
+        (object or JSON path): worker j resamples column j
+        (``per_worker=True``) or the pooled marginals."""
+        from ..sim.trace import Trace  # deferred: sim imports core
+
+        trace = (trace_or_path if isinstance(trace_or_path, Trace)
+                 else Trace.load(trace_or_path))
+        emp = trace.to_empirical(per_worker=per_worker)
+        if per_worker:
+            return cls.heterogeneous(emp, **kw)
+        return cls.iid(emp, trace.n_workers, **kw)
 
     @classmethod
     def coerce(cls, obj, n_workers: Optional[int] = None) -> "Env":
@@ -125,7 +147,7 @@ class Env:
                 raise ValueError("coercing a bare distribution needs n_workers")
             return cls.iid(obj, n_workers)
         if isinstance(obj, (list, tuple)):
-            env = cls(dists=tuple(obj))
+            env = cls.heterogeneous(obj)
             if n_workers is not None and env.n_workers != int(n_workers):
                 raise ValueError(f"{env.n_workers} per-worker dists, caller "
                                  f"expects {n_workers}")
@@ -152,50 +174,89 @@ class Env:
                 fac[f.worker] *= f.factor
         return fac
 
+    def effective_dists(self) -> tuple:
+        """Per-worker distributions as the solver should see them: static
+        degradations (``from_round == 0``) folded in; deaths and mid-run
+        throttling are event-level and excluded."""
+        fac = self.degradation_factors(0)
+        return tuple(d if fac[j] == 1.0 else ScaledStraggler(base=d, factor=float(fac[j]))
+                     for j, d in enumerate(self.dists))
+
     def solver_view(self) -> "Env":
-        """The population the schemes solve against; fault-free envs pass
-        through unchanged.  Folding faults in is ROADMAP work."""
-        if self.faults:
-            raise NotImplementedError(
-                "solving against a faulted Env is not ported yet (ROADMAP)")
-        return self
+        """The population as the block-partition solvers see it: static
+        degradations folded into the per-worker distributions, all other
+        faults dropped.  Fault-free envs pass through unchanged (keeps
+        the i.i.d. fast path bit-identical)."""
+        if not self.faults:
+            return self
+        return Env(dists=self.effective_dists(), mc_samples=self.mc_samples)
 
     # ------------------------------------------------------------- sampling
     def sample(self, rng, shape) -> np.ndarray:
-        """Draw base cycle times (no faults); the i.i.d. path delegates to
-        the wrapped distribution (identical stream to the bare one)."""
+        """Draw base cycle times (no faults).  For a non-identical
+        population the trailing axis must be ``n_workers`` (column j ~
+        worker j); the i.i.d. path delegates to the wrapped distribution
+        (identical stream to the bare one)."""
+        return self._sample(rng, shape, self.dists)
+
+    def sample_effective(self, rng, shape) -> np.ndarray:
+        """Like ``sample`` but from ``effective_dists()``."""
+        return self._sample(rng, shape, self.effective_dists())
+
+    def _sample(self, rng, shape, dists) -> np.ndarray:
         rng = _as_rng(rng)
-        if all(d == self.dists[0] for d in self.dists):
-            return self.dists[0].sample(rng, shape)
+        if all(d == dists[0] for d in dists):
+            return dists[0].sample(rng, shape)
         shape = (shape,) if isinstance(shape, int) else tuple(shape)
         if not shape or shape[-1] != self.n_workers:
             raise ValueError(
                 f"heterogeneous Env.sample needs a (..., {self.n_workers}) "
                 f"shape (one column per worker); got {shape}")
-        cols = [d.sample(rng, shape[:-1]) for d in self.dists]
+        cols = [d.sample(rng, shape[:-1]) for d in dists]
         return np.stack(cols, axis=-1).astype(np.float64)
 
+    def mean(self) -> float:
+        """Mean cycle time of a uniformly random worker."""
+        return float(np.mean([d.mean() for d in self.effective_dists()]))
+
+    def means(self) -> np.ndarray:
+        """(N,) per-worker mean cycle times (solver view)."""
+        return np.asarray([d.mean() for d in self.effective_dists()])
+
+    def sample_sorted(self, rng, n_workers: Optional[int] = None,
+                      n_draws: int = 0) -> np.ndarray:
+        """(n_draws, N) of order statistics T_(1) <= ... <= T_(N) of the
+        effective population."""
+        self._check_n(n_workers)
+        t = self.sample_effective(rng, (int(n_draws), self.n_workers))
+        t.sort(axis=1)
+        return t
+
     # ------------------------------------------------------ order statistics
-    def _iid_dist(self, n_workers) -> StragglerDistribution:
+    def _check_n(self, n_workers) -> int:
         if n_workers is not None and int(n_workers) != self.n_workers:
             raise ValueError(f"env has {self.n_workers} workers, caller "
                              f"expects {n_workers}")
-        if not self.is_iid:
-            raise NotImplementedError(
-                "order statistics of a non-i.i.d. Env are not ported yet "
-                "(ROADMAP)")
-        return self.dists[0]
+        return self.n_workers
 
     def expected_order_stats(self, n_workers: Optional[int] = None,
                              rng=0) -> np.ndarray:
-        """t with t[k-1] = E[T_(k)] (i.i.d. populations)."""
-        return self._iid_dist(n_workers).expected_order_stats(self.n_workers, rng)
+        """t with t[k-1] = E[T_(k)]: the wrapped distribution's for an
+        i.i.d. env, else Monte-Carlo over ``mc_samples`` joint draws."""
+        n = self._check_n(n_workers)
+        if self.is_iid:
+            return self.dists[0].expected_order_stats(n, rng)
+        return self.sample_sorted(rng, n, self.mc_samples).mean(axis=0)
 
     def inv_expected_inv_order_stats(self, n_workers: Optional[int] = None,
                                      rng=0) -> np.ndarray:
-        """t' with t'[k-1] = 1 / E[1/T_(k)] (i.i.d. populations)."""
-        return self._iid_dist(n_workers).inv_expected_inv_order_stats(
-            self.n_workers, rng)
+        """t' with t'[k-1] = 1 / E[1/T_(k)] (paper Lemma 2, generalized to
+        non-identical populations as ``expected_order_stats``)."""
+        n = self._check_n(n_workers)
+        if self.is_iid:
+            return self.dists[0].inv_expected_inv_order_stats(n, rng)
+        draws = self.sample_sorted(rng, n, self.mc_samples)
+        return 1.0 / (1.0 / draws).mean(axis=0)
 
     # ------------------------------------------------------- serialization
     def to_dict(self) -> dict:

@@ -86,16 +86,18 @@ class Plan:
     def build(cls, params_or_costs, env, n_workers: Optional[int] = None, *,
               scheme: str = "xf", rng: int = 0, cost: CostModel = DEFAULT_COST,
               prefer_fractional: bool = False, s_cap=None,
-              total: int = UNIT_RESOLUTION) -> "Plan":
-        """Optimize the partition and bind it to this model's leaves
-        (``scheme="auto"`` — the autotuner — is ROADMAP work)."""
+              total: int = UNIT_RESOLUTION, warm_start=None) -> "Plan":
+        """Optimize the partition and bind it to this model's leaves.
+        ``warm_start`` seeds iterative schemes (``spsg``) from a previous
+        block vector — the adaptive re-planning path; closed forms ignore
+        it.  ``scheme="auto"`` — the autotuner — is ROADMAP work."""
         if scheme == "auto":
             raise NotImplementedError(
                 "scheme='auto' (the autotuner) is not ported yet (ROADMAP)")
         env = Env.coerce(env, n_workers)
         n_workers = env.n_workers
         x = solve_scheme(scheme, env, n_workers, total, cost=cost, rng=rng,
-                         s_cap=s_cap)
+                         s_cap=s_cap, warm_start=warm_start)
         costs = leaf_costs_of(params_or_costs)
         levels = assign_levels_to_layers(costs, x)
         used = np.unique(levels)
@@ -133,6 +135,24 @@ class Plan:
     @property
     def k_shards(self) -> int:
         return self.s_max + 1
+
+    def partition_key(self) -> tuple:
+        """Hashable structural identity of the coded computation: two
+        plans with equal keys produce bit-identical coded steps (same
+        partition, same leaf levels, same code bank seed)."""
+        return (
+            int(self.n_workers),
+            tuple(int(v) for v in np.asarray(self.x)),
+            tuple(int(s) for s in self.leaf_levels),
+            tuple(int(s) for s in self.used_levels),
+            int(self.codes.rng_seed),
+            bool(self.codes.prefer_fractional),
+        )
+
+    def level_index(self) -> np.ndarray:
+        """Per-leaf index into ``used_levels``."""
+        lookup = {int(s): i for i, s in enumerate(self.used_levels)}
+        return np.asarray([lookup[int(s)] for s in self.leaf_levels], np.int64)
 
     def decode_weights(self, times: np.ndarray) -> np.ndarray:
         """(n_used, N) decode vectors for a realization T (zeros on the

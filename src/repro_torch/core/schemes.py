@@ -1,12 +1,15 @@
-"""The scheme registry, trimmed to the paper's two closed forms.
+"""The scheme registry, trimmed to the paper's proposed schemes.
 
 Copied from ``repro/core/schemes.py``.  The port registers ``xt``
-(Theorem 2) and ``xf`` (Theorem 3); any other name raises ``KeyError``
-— SPSG, the §VI baselines and the realized-cost single level are ROADMAP
-work.
+(Theorem 2), ``xf`` (Theorem 3) and ``spsg`` (the stochastic projected
+subgradient optimum of Problem 3, which takes a ``warm_start``); any
+other name raises ``KeyError`` — the §VI baselines and the realized-cost
+single level are ROADMAP work.
 """
 from __future__ import annotations
 
+import inspect
+import warnings
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
@@ -15,10 +18,15 @@ import numpy as np
 from .assignment import round_x
 from .env import Env
 from .runtime import CostModel, DEFAULT_COST
-from .solvers import solve_xf, solve_xt
+from .solvers import solve_xf, solve_xt, spsg
 
-__all__ = ["Scheme", "register_scheme", "get_scheme", "available_schemes",
-           "solve_scheme"]
+__all__ = ["Scheme", "SchemeWarning", "register_scheme", "get_scheme",
+           "available_schemes", "solve_scheme", "scheme_accepts_warm_start"]
+
+
+class SchemeWarning(UserWarning):
+    """A usability warning of the scheme registry (a ``warm_start`` seed
+    discarded by a seed-free scheme)."""
 
 
 @dataclass(frozen=True)
@@ -81,14 +89,47 @@ def available_schemes() -> list[str]:
 
 def solve_scheme(name: str, env, n_workers: int, total: int, *,
                  cost: CostModel = DEFAULT_COST, rng=0, s_cap=None,
-                 integer: bool = True) -> np.ndarray:
-    """Solve the block partition with the named scheme; ``integer=True``
-    largest-remainder-rounds so ``sum(x) == total`` exactly."""
+                 integer: bool = True, warm_start=None) -> np.ndarray:
+    """Solve the block partition with the named scheme against the env's
+    solver view; ``integer=True`` largest-remainder-rounds so
+    ``sum(x) == total`` exactly.
+
+    ``warm_start`` (a previous block vector) is forwarded only to schemes
+    whose solve function declares a ``warm_start`` parameter (``spsg``);
+    the others' solutions are seed-free, so they discard it with a
+    ``SchemeWarning``.
+    """
     scheme = get_scheme(name)
     env = Env.coerce(env, n_workers).solver_view()
-    x = scheme.solve(env, n_workers, total, cost=cost, rng=rng, s_cap=s_cap)
+    kw = {}
+    if warm_start is not None:
+        if _accepts_warm_start(scheme):
+            kw["warm_start"] = np.asarray(warm_start, np.float64)
+        else:
+            warnings.warn(
+                f"scheme {scheme.name!r} does not declare a warm_start "
+                "parameter; the provided seed vector is discarded (its "
+                "solution is seed-free). Pass warm_start only to "
+                "iterative schemes (check scheme_accepts_warm_start).",
+                SchemeWarning, stacklevel=2)
+    x = scheme.solve(env, n_workers, total, cost=cost, rng=rng, s_cap=s_cap,
+                     **kw)
     x = np.asarray(x, np.float64)
     return round_x(x, total) if integer else x
+
+
+def _accepts_warm_start(scheme: Scheme) -> bool:
+    """True when the scheme's solve function declares ``warm_start``."""
+    try:
+        return "warm_start" in inspect.signature(scheme.solve).parameters
+    except (TypeError, ValueError):  # builtins/C callables: assume not
+        return False
+
+
+def scheme_accepts_warm_start(name: str) -> bool:
+    """Does scheme ``name`` consume a ``warm_start`` seed?  The adaptive
+    re-planner gates on this instead of tripping the discard warning."""
+    return _accepts_warm_start(get_scheme(name))
 
 
 # ------------------------------------------------------------ registrations
@@ -102,3 +143,15 @@ def _solve_xt(dist, n_workers, total, *, cost=DEFAULT_COST, rng=0, s_cap=None):
                  description="Theorem 3 closed form at t'_n = 1/E[1/T_(n)]")
 def _solve_xf(dist, n_workers, total, *, cost=DEFAULT_COST, rng=0, s_cap=None):
     return solve_xf(dist, n_workers, total, rng=rng, s_cap=s_cap)
+
+
+@register_scheme("spsg", display="x_dagger (SPSG)", kind="proposed",
+                 aliases=("x_dagger",),
+                 description="stochastic projected subgradient on Problem 3")
+def _solve_spsg(dist, n_workers, total, *, cost=DEFAULT_COST, rng=0, s_cap=None,
+                warm_start=None):
+    # s_cap is honored by the closed forms; the subgradient iteration has
+    # no level cap.  A warm start seeds the iteration from the current
+    # plan's x; cold solves are unchanged bit for bit.
+    return spsg(dist, n_workers, total, n_iters=2000, batch=128, rng=rng,
+                cost=cost, warm_start=warm_start).x

@@ -14,15 +14,24 @@ once when training ends) and resumes from the newest intact checkpoint
 there, training on up to ``--steps`` in all; ``--ckpt-coded S``
 erasure-codes each checkpoint across the workers with S parity shards
 (parity through the ``gc_encode`` kernel on CUDA).
+
+The worker population is ``Env.iid(ShiftedExponential(mu, t0), workers)``
+by default; ``--env FILE`` loads a full one (heterogeneous per-worker
+distributions, degradations) from an ``Env.to_dict()`` JSON file and
+sets the worker count.  ``--adapt`` re-plans under drift: the realized
+per-worker times feed an ``AdaptiveController`` (window
+``--adapt-window`` rounds) that hot-swaps the plan when re-planning pays.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import time
 
+from repro_torch.adapt import AdaptConfig
 from repro_torch.checkpoint import CkptConfig, CodedSpec
 from repro_torch.configs import get_config
-from repro_torch.core import ShiftedExponential, available_schemes, get_scheme
+from repro_torch.core import Env, ShiftedExponential, available_schemes, get_scheme
 from repro_torch.models.params import count_params
 from repro_torch.train.trainer import TrainConfig, Trainer
 
@@ -40,6 +49,14 @@ def parse_args(argv=None):
     ap.add_argument("--mu", type=float, default=1e-3)
     ap.add_argument("--t0", type=float, default=50.0)
     ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--env", default="",
+                    help="JSON file with an Env.to_dict() worker-population "
+                         "model (overrides --mu/--t0/--workers)")
+    ap.add_argument("--adapt", action="store_true",
+                    help="adaptive re-planning: monitor the realized per-worker "
+                         "completion times, re-solve and hot-swap the plan on drift")
+    ap.add_argument("--adapt-window", type=int, default=128,
+                    help="sliding-window rounds of the runtime monitor")
     ap.add_argument("--reduced", action="store_true",
                     help="shrink the model for a fast smoke run")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -63,7 +80,12 @@ def main(argv=None):
     if args.reduced:
         cfg = cfg.reduced(n_layers=2, d_model=128)
     cfg = cfg.replace(max_seq=args.seq * 2)
-    dist = ShiftedExponential(mu=args.mu, t0=args.t0)
+    if args.env:
+        with open(args.env) as f:
+            env = Env.from_dict(json.load(f))
+        args.workers = env.n_workers
+    else:
+        env = Env.iid(ShiftedExponential(mu=args.mu, t0=args.t0), args.workers)
     cfg_t = TrainConfig(lr=args.lr, warmup=max(args.steps // 10, 10),
                         total_steps=args.steps)
     ckpt = None
@@ -71,14 +93,15 @@ def main(argv=None):
         spec = CodedSpec(n_shards=args.workers, parity=args.ckpt_coded) \
             if args.ckpt_coded else None
         ckpt = CkptConfig(dir=args.ckpt, every=args.ckpt_every, coded=spec)
-    trainer = Trainer(cfg, cfg_t, dist, n_workers=args.workers,
-                      scheme=args.scheme, global_batch=args.global_batch,
-                      seed=0, device=args.device, seq_len=args.seq, ckpt=ckpt)
+    adapt = AdaptConfig(window=args.adapt_window) if args.adapt else None
+    trainer = Trainer(cfg, cfg_t, env, scheme=args.scheme,
+                      global_batch=args.global_batch, seed=0, device=args.device,
+                      seq_len=args.seq, ckpt=ckpt, adapt=adapt)
     if trainer.manager is not None and trainer.manager.latest() is not None:
         print(f"resumed from checkpoint step {trainer.state.step} under {args.ckpt}")
     print(f"arch={cfg.name} params={count_params(trainer.state.params) / 1e6:.1f}M "
           f"workers={args.workers} scheme={args.scheme} s_max={trainer.plan.s_max} "
-          f"x={trainer.plan.x.tolist()} device={args.device}")
+          f"x={trainer.plan.x.tolist()} device={args.device} adapt={args.adapt}")
     t0 = time.time()
     _, summary = trainer.run(max(args.steps - trainer.state.step, 0),
                              log_every=args.log_every)
@@ -86,6 +109,9 @@ def main(argv=None):
     if losses:
         print(f"wall {time.time() - t0:.1f}s  loss {losses[0]:.3f} -> {losses[-1]:.3f}")
     print(f"simulated runtime: {summary}")
+    if trainer.controller is not None:
+        print(f"adaptive: {len(trainer.controller.swaps)} plan swap(s), "
+              f"{trainer.controller.checks} drift check(s)")
     manager = trainer.manager
     if manager is not None and manager.last_saved != trainer.state.step:
         print("saved:", manager.save(trainer.state.step, trainer.state,

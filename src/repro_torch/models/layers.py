@@ -43,7 +43,11 @@ def _dtype(cfg):
 
 
 def embed_tokens(cfg, tok, tokens):
-    return tok[tokens].to(_dtype(cfg))
+    """Row lookup.  ``F.embedding``'s backward sums each vocabulary row's
+    gradient in a fixed order on the CPU and on CUDA; the backward of
+    ``tok[tokens]`` (an accumulating ``index_put_``) does not, and then
+    two runs of the same step differ in their last bits."""
+    return F.embedding(tokens, tok).to(_dtype(cfg))
 
 
 def unembed(cfg, tok, x):

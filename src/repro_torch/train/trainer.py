@@ -7,9 +7,11 @@ straggler realization) are a per-step input sampled host-side by the
 plan's numpy simulator, so the ledger is the reference's, draw for draw.
 
 ``Trainer`` — the loop: data, straggler simulation, ledger, metrics,
-checkpoints (plain or erasure-coded) and worker-death recovery.
-Adaptive re-planning, the wave-pipelined loop, spmd mode and
-``scheme="auto"`` raise ``NotImplementedError`` naming their ROADMAP item.
+adaptive re-planning with plan hot-swaps, the wave-pipelined schedule
+(``train/wave.py``), checkpoints (plain or erasure-coded) and
+worker-death recovery.  spmd mode, ``grad_dtype``, ``budget`` and
+``scheme="auto"`` raise ``NotImplementedError`` naming their ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ from typing import Callable
 
 import torch
 
-from ..adapt import DeathWatch, RecoveryEvent
+from ..adapt import AdaptiveController, DeathWatch, RecoveryEvent
 from ..checkpoint.manager import CheckpointManager
 from ..core import Env, Plan
 from ..data.pipeline import DataConfig, SyntheticTokens, coded_worker_batches
@@ -52,27 +54,34 @@ def _apply_update(cfg_t: TrainConfig, state: TrainState, grads, metrics):
 
 
 def make_coded_train_step(cfg, cfg_t: TrainConfig, plan: Plan, *,
-                          mode: str = "sim", pipeline: str = "flat") -> Callable:
+                          mode: str = "sim", pipeline: str = "auto") -> Callable:
     """step(state, worker_batches, dec_w) -> (state, metrics); the
     parameters and optimizer moments are updated in place."""
     grad_fn = make_coded_grad_fn(cfg, plan, mode=mode, pipeline=pipeline)
 
     def step(state: TrainState, worker_batches, dec_w):
         grads = grad_fn(state.params, worker_batches, dec_w)
-        # monitoring loss on shard 0 with the pre-update parameters
-        with torch.no_grad():
-            _, metrics = train_loss(cfg, state.params,
-                                    {"tokens": worker_batches[0, 0]})
-        return _apply_update(cfg_t, state, grads, metrics)
+        return coded_update(cfg, cfg_t, state, grads, worker_batches)
 
     return step
+
+
+def coded_update(cfg, cfg_t: TrainConfig, state: TrainState, grads, worker_batches):
+    """The coded step after its gradients: the monitoring loss on shard 0
+    with the pre-update parameters, then clip, AdamW and the cosine LR
+    (in place).  Returns (state, metrics)."""
+    with torch.no_grad():
+        _, metrics = train_loss(cfg, state.params, {"tokens": worker_batches[0, 0]})
+    return _apply_update(cfg_t, state, grads, metrics)
 
 
 class Trainer:
     """End-to-end coded-training driver in sim mode (one device).
 
     ``env`` is the worker population (an ``Env`` or a bare distribution
-    with ``n_workers``).  ``params`` optionally carries initial parameters
+    with ``n_workers``).  ``pipeline`` is the coded combine: 'auto' (the
+    fused flat one: the trainer's plans carry a ``FlatLayout``), 'flat'
+    or 'tree'.  ``params`` optionally carries initial parameters
     as a reference tree of numpy arrays; otherwise they are drawn from
     ``seed``.  ``seq_len`` defaults to the reference's
     ``min(cfg.max_seq, 512)``.  ``device`` defaults to CUDA and raises
@@ -85,19 +94,27 @@ class Trainer:
     (``ckpt.resume``), and arms
     worker-death recovery: a ``DeathWatch`` over the realized round times
     triggers a restore from the surviving shards, recorded as a
-    ``RecoveryEvent`` in ``self.recoveries``.  Without the adaptive
-    controller (ROADMAP 1.8) recovery does no re-plan (``swap=None``),
-    exactly as the reference does without one.
+    ``RecoveryEvent`` in ``self.recoveries``; with a controller the
+    recovery first forces a re-plan (``RecoveryEvent.swap``).
+
+    ``adapt`` is an optional ``repro_torch.adapt.AdaptConfig``: every
+    round's realized per-worker completion times feed an
+    ``AdaptiveController``, which hands back a new plan when drift makes
+    re-planning pay; ``swap_plan`` installs it at the step boundary
+    (optimizer state, RNG stream and step count untouched).
+
+    ``wave`` is an optional ``repro_torch.train.wave.WaveConfig``: ``run``
+    then executes rounds on the wave-pipelined schedule of the event
+    simulator (staleness 0 bit-identical to the barrier loop).
     """
 
     def __init__(self, cfg, cfg_t: TrainConfig, env, *, n_workers: int = None,
                  scheme: str = "xf", global_batch: int = 32, seed: int = 0,
                  mode: str = "sim", data_kind: str = "zipf",
-                 pipeline: str = "flat", adapt=None, wave=None, ckpt=None,
+                 pipeline: str = "auto", adapt=None, wave=None, ckpt=None,
                  budget=None, grad_dtype=None, device="cuda", params=None,
                  seq_len: int = None):
-        for name, value, item in (("adapt", adapt, "1.8"), ("wave", wave, "1.8"),
-                                  ("budget", budget, "1.11"),
+        for name, value, item in (("budget", budget, "1.11"),
                                   ("grad_dtype", grad_dtype, "1.6")):
             if value is not None:
                 raise NotImplementedError(f"Trainer({name}=...) is not ported "
@@ -119,6 +136,7 @@ class Trainer:
         self.cfg, self.cfg_t = cfg, cfg_t
         self.env = env
         self.n_workers = n_workers
+        self.pipeline = pipeline
         self.state = init_train_state(cfg, device=device, seed=seed, params=params)
         self.plan = Plan.build(self.state.params, env, scheme=scheme, rng=seed)
         self.sim = self.plan.simulator(env, seed=seed)
@@ -128,6 +146,9 @@ class Trainer:
             global_batch=global_batch, seed=seed, kind=data_kind))
         self.step_fn = make_coded_train_step(cfg, cfg_t, self.plan, mode=mode,
                                              pipeline=pipeline)
+        self.controller = None
+        if adapt is not None:
+            self.controller = AdaptiveController(adapt, self.plan, self.state.params)
         self.history: list = []
         self.recoveries: list = []
         self.manager = self.deathwatch = None
@@ -139,17 +160,50 @@ class Trainer:
                 restored = self.manager.restore_latest(self.state)
                 if restored is not None:
                     self.state = restored[0]
+        self.wave = None
+        if wave is not None:
+            from .wave import WaveRunner  # wave.py imports this module
+
+            self.wave = WaveRunner(self, wave)
+
+    def swap_plan(self, plan: Plan) -> None:
+        """Hot-swap the coding plan at a step boundary: optimizer state,
+        data stream, RNG stream and step count are untouched; only the
+        plan the next step codes against changes (the simulator keeps
+        its env, rng and ledger and prices future rounds with it).  A
+        swap the controller did not initiate re-baselines the controller
+        too.  The port runs eagerly: the new step function is built
+        anew, with nothing to compile."""
+        if plan.n_workers != self.n_workers:
+            raise ValueError(f"plan has {plan.n_workers} workers, trainer "
+                             f"runs {self.n_workers}")
+        self.plan = plan
+        self.sim.plan = plan
+        if self.controller is not None and self.controller.plan is not plan:
+            self.controller.plan = plan
+            self.controller.monitor.reset()
+        self.step_fn = make_coded_train_step(self.cfg, self.cfg_t, plan,
+                                             pipeline=self.pipeline)
 
     def recover_from_deaths(self, newly_dead, log_fn=None):
-        """Worker-death recovery: restore from the surviving shards of the
-        last checkpoint (the dead workers' shards count as lost), rewinding
-        the state.  Returns the ``RecoveryEvent``, or ``None`` when there is
-        no checkpoint (training continues on gradient-level redundancy).
-        The data stream is keyed by ``state.step``, so the rewound steps
-        replay deterministically.  ``run`` calls it when its ``DeathWatch``
-        trips, so every worker that watch holds dead counts as lost."""
+        """Worker-death recovery: a forced re-plan when a controller runs
+        (routes future work off the dead workers), then a restore from
+        the surviving shards of the last checkpoint (the dead workers'
+        shards count as lost), rewinding the state.  Returns the
+        ``RecoveryEvent``, or ``None`` when there is no checkpoint
+        (training continues on gradient-level redundancy).  The data
+        stream is keyed by ``state.step``, so the rewound steps replay
+        deterministically under the new plan.  ``run`` calls it when its
+        ``DeathWatch`` trips, so every worker that watch holds dead counts
+        as lost."""
         dead = tuple(sorted(self.deathwatch.dead))
         detected_at = int(self.state.step)
+        swap = None
+        if self.controller is not None:
+            new_plan = self.controller.replan_now()
+            if new_plan is not None:
+                swap = self.controller.swaps[-1]
+                self.swap_plan(new_plan)
         if self.manager.latest() is None:
             if log_fn:
                 log_fn(f"step {detected_at:5d}  worker death {list(newly_dead)}"
@@ -158,15 +212,19 @@ class Trainer:
         self.state, ckpt_step = self.manager.restore_from_survivors(
             self.state, missing=dead)
         ev = RecoveryEvent(step=detected_at, dead_workers=dead,
-                           ckpt_step=ckpt_step, swap=None)
+                           ckpt_step=ckpt_step, swap=swap)
         self.recoveries.append(ev)
         if log_fn:
             log_fn(f"step {detected_at:5d}  worker death {list(newly_dead)} -> "
-                   f"re-plan skipped, coded restore from survivors @ step {ckpt_step}")
+                   f"re-plan{' + swap' if swap else ' skipped'}, coded restore "
+                   f"from survivors @ step {ckpt_step}")
         return ev
 
     def run(self, n_steps: int, log_every: int = 10, log_fn=print):
-        """Run ``n_steps`` barrier steps; returns (state, ledger summary)."""
+        """Run ``n_steps`` steps (barrier, or the wave schedule when the
+        trainer has one); returns (state, ledger summary)."""
+        if self.wave is not None:
+            return self.wave.run(n_steps, log_every, log_fn)
         for i in range(n_steps):
             wb = coded_worker_batches(self.data, int(self.state.step),
                                       self.n_workers, self.plan.s_max)
@@ -178,6 +236,15 @@ class Trainer:
                            wall_s=time.perf_counter() - t0,
                            tau_coded=rec["tau_coded"],
                            tau_uncoded=rec["tau_uncoded"])
+            if self.controller is not None:
+                new_plan = self.controller.observe(rec["times"])
+                if new_plan is not None:
+                    self.swap_plan(new_plan)
+                    metrics["plan_swap"] = 1
+                    if log_every:
+                        log_fn(f"step {metrics['step']:5d}  plan swap -> "
+                               f"x={new_plan.x.tolist()} (predicted gain "
+                               f"{self.controller.swaps[-1].predicted_gain:.1%})")
             if self.deathwatch is not None:
                 newly = self.deathwatch.observe(rec["times"])
                 if newly:

@@ -13,7 +13,8 @@
   ``ShardLossError`` beyond s, a crc flip demotes a shard, bf16/fp8
   bytes round-trip without ``ml_dtypes``, crash atomicity at every stage;
 * ``Trainer(ckpt=...)``: resume is bitwise, and worker-death recovery
-  matches the reference ``Trainer`` step for step;
+  matches the reference ``Trainer`` step for step, with and without an
+  adaptive controller (whose forced re-plan is ``RecoveryEvent.swap``);
 * the launcher's ``--ckpt*`` flags.
 
 Everything runs on the CPU, where the encode is the plain version; the
@@ -33,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.adapt import AdaptConfig as JAdaptConfig
 from repro.checkpoint import CkptConfig as JCkptConfig
 from repro.checkpoint import CodedSpec as JCodedSpec
 from repro.checkpoint import restore_coded_train_state as jax_restore_coded
@@ -50,7 +52,7 @@ from repro.sim.faults import drop_shard, flip_bit, torn_write
 from repro.train.state import init_train_state as jax_init_train_state
 from repro.train.trainer import TrainConfig as JTrainConfig
 from repro.train.trainer import Trainer as JTrainer
-from repro_torch.adapt import RecoveryEvent
+from repro_torch.adapt import AdaptConfig, RecoveryEvent
 from repro_torch.checkpoint import (
     CheckpointManager,
     CkptConfig,
@@ -81,6 +83,18 @@ N = 4
 #: worker 1 runs 1000x slower from round 0: with seed 0 the DeathWatch
 #: (factor 20, 4 rounds) trips after the 4th step
 FAULT = dict(worker=1, factor=1000.0, from_round=0)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tensors here are small: one intra-op thread keeps torch's
+    thread pool from spinning on cores that other test processes share
+    (a run of this module's trainers went from minutes to seconds under
+    a loaded pytest-xdist run).  Every comparison runs in one setting."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 # ------------------------------------------------------------------ states
@@ -405,13 +419,14 @@ def test_manager_cadence_retention_and_dispatch(tmp_path):
 
 
 # ----------------------------------------------------------------- trainer
-def _port_trainer(tmp, *, init=None, every=2, parity=1, seq=32):
+def _port_trainer(tmp, *, init=None, every=2, parity=1, seq=32, adapt=None):
     cfg = get_config("gc-lm-110m").reduced(**KW)
     return Trainer(cfg, TrainConfig(warmup=1, total_steps=16),
                    Env.iid(ShiftedExponential(mu=1e-3, t0=50.0), N), scheme="xf",
                    global_batch=8, seed=0, device="cpu", seq_len=seq, params=init,
                    ckpt=CkptConfig(dir=str(tmp), every=every,
-                                   coded=CodedSpec(n_shards=N, parity=parity)))
+                                   coded=CodedSpec(n_shards=N, parity=parity)),
+                   adapt=adapt)
 
 
 def test_trainer_checkpoints_on_cadence_and_resumes_bitwise(tmp_path):
@@ -466,6 +481,45 @@ def test_trainer_death_recovery_matches_reference_trainer(tmp_path):
     # the replayed step's monitoring loss uses the restored parameters
     assert ours.history[4]["loss"] == ours.history[2]["loss"]
     assert ours.deathwatch.dead == {1} and ours.state.step == 4
+
+
+def test_death_recovery_with_a_controller_replans_like_reference(tmp_path):
+    """Worker 1 dies from round 6: both trainers trip the DeathWatch after
+    step 10, force a re-plan from the 5 newest of the 10 observed rounds
+    (the drift checks are still gated off) and restore step 8 from the
+    survivors; the forced swap and the plan after it are the
+    reference's exactly."""
+    seq, fault = 16, dict(FAULT, from_round=6)
+    ad = dict(window=64, min_rounds=48)
+    cfg_j = jax_get_config("gc-lm-110m").reduced(**KW)
+    ref = JTrainer(cfg_j, JTrainConfig(warmup=1, total_steps=16),
+                   JEnv.iid(JShiftedExp(mu=1e-3, t0=50.0), N), scheme="xf",
+                   global_batch=8, seed=0, adapt=JAdaptConfig(**ad),
+                   ckpt=JCkptConfig(dir=str(tmp_path / "jax"), every=2,
+                                    coded=JCodedSpec(n_shards=N, parity=1)))
+    ref.data = JSyntheticTokens(JDataConfig(vocab=cfg_j.vocab, seq_len=seq,
+                                            global_batch=8, seed=0))
+    ref.sim.env = ref.env.with_faults(JDegradedWorker(**fault))
+    ours = _port_trainer(tmp_path / "port", init=jax.tree.map(np.asarray, ref.state.params),
+                         seq=seq, adapt=AdaptConfig(**ad))
+    ours.sim.env = ours.env.with_faults(DegradedWorker(**fault))
+    ours.run(11, log_every=0)
+    ref.run(11, log_every=0)
+    assert len(ours.recoveries) == len(ref.recoveries) == 1
+    ev, ev_j = ours.recoveries[0], ref.recoveries[0]
+    assert (ev.step, ev.dead_workers, ev.ckpt_step) == \
+        (ev_j.step, ev_j.dead_workers, ev_j.ckpt_step) == (10, (1,), 8)
+    assert ev.swap is not None and ev_j.swap is not None
+    assert (ev.swap.round_idx, ev.swap.x_old.tolist(), ev.swap.x_new.tolist(),
+            ev.swap.predicted_gain) == (ev_j.swap.round_idx, ev_j.swap.x_old.tolist(),
+                                        ev_j.swap.x_new.tolist(), ev_j.swap.predicted_gain)
+    assert ev.swap.round_idx == 10 and ev.swap.x_new.tolist() != ev.swap.x_old.tolist()
+    assert json.dumps(ours.plan.to_dict(), sort_keys=True) == \
+        json.dumps(ref.plan.to_dict(), sort_keys=True)
+    assert ours.controller.swaps == [ev.swap] and len(ours.controller.monitor) == 1
+    for ht, hj in zip(ours.history, ref.history, strict=True):
+        assert (ht["step"], ht.get("recovery")) == (hj["step"], hj.get("recovery"))
+        np.testing.assert_allclose(ht["loss"], hj["loss"], rtol=1e-5)
 
 
 def test_recovery_without_a_checkpoint_continues(tmp_path):

@@ -10,12 +10,14 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.core import ShiftedExponential
+from repro_torch.core import Env, ScaledStraggler, ShiftedExponential
+from repro_torch.core.plan import Plan
 from repro_torch.data.pipeline import DataConfig, SyntheticTokens, coded_worker_batches
 from repro_torch.checkpoint import CodedSpec, restore_coded_train_state, save_coded_checkpoint
-from repro_torch.kernels import _pipe, gc_decode, gc_encode, gc_fused, ops, ref
-from repro_torch.models.params import params_to_numpy
-from repro_torch.train.coded import make_coded_grad_fn, uncoded_grad_fn
+from repro_torch.kernels import _launch, _pipe, gc_decode, gc_encode, gc_fused, ops, ref
+from repro_torch.models.params import GCLM, params_to_numpy
+from repro_torch.train.coded import (combine_grads, combine_level, combine_rows,
+                                     make_coded_grad_fn, uncoded_grad_fn)
 from repro_torch.train.trainer import TrainConfig, Trainer
 
 pytestmark = pytest.mark.cuda
@@ -212,3 +214,69 @@ def test_coded_step_on_cuda_matches_uncoded_and_launches_once_per_step(cuda):
     cpu.run(2, log_every=0)
     for hg, hc in zip(tr.history, cpu.history):
         np.testing.assert_allclose(hg["loss"], hc["loss"], rtol=1e-4)
+
+
+def _level_setup(cuda, seed):
+    """Reduced gc-lm-110m's plan and random per-shard rows on the card."""
+    model = GCLM(get_config("gc-lm-110m").reduced(n_layers=2, d_model=128), device="meta")
+    plan = Plan.build(model, ShiftedExponential(mu=1e-3, t0=50.0), 4)
+    layout = plan.flat_layout
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    rows = [torch.randn(4 * plan.k_shards, layout.leaf_size(j), generator=gen).to(cuda)
+            for j in range(layout.n_leaves)]
+    return model, plan, rows
+
+
+def test_per_level_launches_are_bit_equal_to_one_grouped_launch(cuda):
+    """The wave loop's per-level combines: one launch per level, their
+    union bit-equal to the step's one grouped launch."""
+    _, plan, rows = _level_setup(cuda, 5)
+    dec_w = plan.decode_weights(np.asarray([3.0, 1.0, 4.0, 2.0]))
+    before = gc_fused.launches
+    full = combine_rows(plan, rows, dec_w.astype(np.float32))
+    torch.cuda.synchronize()
+    assert gc_fused.launches == before + 1
+    got = {}
+    for li in range(plan.flat_layout.n_levels):
+        got.update(combine_level(plan, rows, li, dec_w[li]))
+    torch.cuda.synchronize()
+    assert gc_fused.launches == before + 1 + plan.flat_layout.n_levels
+    for j, y in enumerate(full):
+        assert torch.equal(got[j], y), j
+
+
+def test_replanned_leaf_levels_launch_correctly_through_the_cached_planner(cuda):
+    """A swap gives the same leaves (same pointers, same widths) new
+    levels: the cached launch plan is keyed by the leaf-to-level map, so
+    the new map is planned anew, and every plan, and a swap back,
+    combines with its own weights."""
+    model, plan_a, rows = _level_setup(cuda, 6)
+    se = ShiftedExponential(mu=1e-3, t0=50.0)
+    plan_b = Plan.build(model, Env.heterogeneous(
+        [se, se, ScaledStraggler(base=se, factor=6.0), ScaledStraggler(base=se, factor=6.0)]), 4)
+    assert plan_b.leaf_levels.tolist() != plan_a.leaf_levels.tolist()
+    assert plan_b.k_shards == plan_a.k_shards
+    times = np.asarray([3.0, 1.0, 4.0, 2.0])
+    for i, plan in enumerate((plan_a, plan_b, plan_a)):
+        dec_w = plan.decode_weights(times).astype(np.float32)
+        misses = _launch.pipe_launches.cache_info().misses
+        got = combine_rows(plan, rows, dec_w)
+        if i == 1:
+            assert _launch.pipe_launches.cache_info().misses > misses
+        want = combine_rows(plan, [r.cpu() for r in rows], dec_w)
+        for y, w in zip(got, want, strict=True):
+            np.testing.assert_allclose(y.cpu().numpy(), w.numpy(), **TOL[torch.float32])
+        assert all(torch.equal(a, b) for a, b in zip(combine_rows(plan, rows, dec_w), got))
+
+
+def test_tree_pipeline_matches_flat_on_cuda(cuda):
+    _, plan, rows = _level_setup(cuda, 7)
+    for u in (0, plan.s_max):
+        times = np.ones(4)
+        times[:u] = 1e6
+        dec_w = plan.decode_weights(times)
+        tree = combine_grads(plan, rows, dec_w, pipeline="tree")
+        flat = combine_grads(plan, rows, dec_w, pipeline="flat")
+        for t, f in zip(tree, flat, strict=True):
+            assert t.is_cuda and t.shape == f.shape
+            assert float((t - f).abs().max()) <= 1e-5 * float(f.abs().max())

@@ -149,8 +149,8 @@ def test_flat_layout_pack_unpack_matches_reference(batch):
 def test_unknown_scheme_and_autotune_raise():
     model = GCLM(get_config("gc-lm-110m").reduced(n_layers=2, d_model=128),
                  device="meta")
-    with pytest.raises(KeyError, match="ROADMAP"):
-        Plan.build(model, ShiftedExponential(), N, scheme="spsg")
+    with pytest.raises(KeyError, match="ROADMAP"):  # a §VI baseline of the reference
+        Plan.build(model, ShiftedExponential(), N, scheme="tandon-alpha")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Plan.build(model, ShiftedExponential(), N, scheme="auto")
     plan = Plan.build(model, ShiftedExponential(), N, scheme="x_f")  # alias

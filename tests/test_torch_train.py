@@ -11,6 +11,8 @@
   the same ledger bit for bit, and the same losses and parameters to
   tolerance.
 """
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,7 +30,7 @@ from repro.train.state import init_train_state as jax_init_train_state
 from repro.train.trainer import TrainConfig as JTrainConfig
 from repro.train.trainer import Trainer as JTrainer
 from repro_torch.configs import get_config
-from repro_torch.core import Plan, ShiftedExponential
+from repro_torch.core import Env, Plan, ShiftedExponential
 from repro_torch.data.pipeline import DataConfig, SyntheticTokens, coded_worker_batches
 from repro_torch.kernels import gc_fused, ops, ref
 from repro_torch.launch import train as launch_train
@@ -40,6 +42,18 @@ from repro_torch.train.trainer import TrainConfig, Trainer
 
 N = 4
 KW = dict(n_layers=2, d_model=128)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tensors here are small: one intra-op thread keeps torch's
+    thread pool from spinning on cores that other test processes share
+    (a run of this module's trainers went from minutes to seconds under
+    a loaded pytest-xdist run).  Every comparison runs in one setting."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _max_err(a, b):
@@ -114,11 +128,13 @@ def test_combine_makes_one_grouped_call_per_step(sim_setup, monkeypatch):
 
 
 def test_coded_grad_fn_scope_raises(sim_setup):
+    """spmd mode is still to be ported; the tree pipeline is ported
+    (tests/test_torch_wave.py), and an unknown pipeline is refused."""
     cfg_t, _, _, _, plan_t, *_ = sim_setup
     with pytest.raises(NotImplementedError, match="ROADMAP 1.6"):
         make_coded_grad_fn(cfg_t, plan_t, mode="spmd")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_coded_grad_fn(cfg_t, plan_t, pipeline="tree")
+    with pytest.raises(ValueError, match="unknown pipeline"):
+        make_coded_grad_fn(cfg_t, plan_t, pipeline="ring")
 
 
 @pytest.mark.parametrize("step", [0, 3, 50, 120])
@@ -196,9 +212,10 @@ def test_three_trainer_steps_match_reference_trainer():
 def test_trainer_unported_options_raise():
     cfg = get_config("gc-lm-110m").reduced(**KW)
     dist = ShiftedExponential()
-    # ckpt= is ported (tests/test_torch_checkpoint.py)
-    for kw in (dict(adapt=object()), dict(wave=object()),
-               dict(scheme="auto"), dict(mode="spmd"), dict(grad_dtype="bf16")):
+    # ckpt=, adapt= and wave= are ported (tests/test_torch_checkpoint.py,
+    # tests/test_torch_adapt.py, tests/test_torch_wave.py)
+    for kw in (dict(budget=object()), dict(scheme="auto"), dict(mode="spmd"),
+               dict(grad_dtype="bf16")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(cfg, TrainConfig(), dist, n_workers=N, device="cpu", **kw)
 
@@ -211,3 +228,21 @@ def test_launch_cli_runs_on_cpu(capsys):
     assert "s_max=3" in out and "simulated runtime" in out
     assert len(trainer.history) == 2
     assert all(np.isfinite(h["loss"]) for h in trainer.history)
+
+
+def test_launch_cli_env_and_adapt_flags(tmp_path, capsys):
+    """``--env`` loads an ``Env.to_dict()`` file (its worker count wins)
+    and ``--adapt`` runs the controller with ``--adapt-window`` rounds."""
+    env = Env.heterogeneous([ShiftedExponential(mu=1e-3, t0=50.0)] * 2
+                            + [ShiftedExponential(mu=5e-4, t0=50.0)] * 3)
+    path = tmp_path / "env.json"
+    path.write_text(json.dumps(env.to_dict()))
+    trainer = launch_train.main(["--reduced", "--steps", "3", "--seq", "16",
+                                 "--global-batch", "10", "--device", "cpu",
+                                 "--log-every", "0", "--env", str(path), "--adapt",
+                                 "--adapt-window", "8"])
+    out = capsys.readouterr().out
+    assert "workers=5" in out and "adapt=True" in out and "plan swap(s)" in out
+    assert trainer.env.to_dict() == env.to_dict() and trainer.n_workers == 5
+    assert trainer.controller.monitor.window == 8
+    assert len(trainer.controller.monitor) == 3 and len(trainer.history) == 3
