@@ -56,6 +56,22 @@ port's sources beside it.  Phases; any failure raises:
    then 6 rounds at staleness 1: the executed events are the simulator's
    ``WaveTrace``, one ``gc_fused`` launch per decode event (3 per round),
    finite losses, and the peak device memory.
+6e. spmd: four ranks on card 0 over gloo (``repro_torch.dist.spawn``;
+   NCCL takes one card per rank), each a full-width
+   ``Trainer(mode="spmd")`` with K = s_max + 1 shards per rank.  A probe
+   says whether gloo reduce-scatters CUDA tensors on this torch
+   (``psum_scatter`` runs only if it does).  At step 0, with 0 and s_max
+   stragglers, the spmd gradient (``psum``, bf16, ``psum_scatter``) has
+   the same bytes on every rank and equals rank 0's sim-mode gradient
+   of the same weights and batches (1e-5 per leaf) and the uncoded one
+   (1e-4; bf16 5e-2).  Three steps with the counts set to 0 just
+   before: one ``gc_fused`` launch per rank per step, one ``psum`` per
+   level per step, parameters byte-equal across ranks after every step,
+   losses within 1e-4 of ``[train]``'s.  The time of one psum per level
+   (gloo, host-staged, one card: no collective figure); rank 0's
+   per-rank combine (one launch into the level buffers, bit-equal to
+   the allocating call) device-only against its bound and
+   ``torch.matmul`` in turns.  A rank's failure fails the script.
 7. ckpt: a fresh full-width trainer (as in 2) with erasure-coded
    checkpoints, ``CodedSpec(n_shards=4, parity=1)`` every 2 steps, and
    worker 1 (which owns data stripe 1) 1000x slower from round 0, so the
@@ -88,6 +104,7 @@ last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import os
@@ -120,6 +137,10 @@ ADAPT_STEPS = 26
 #: round, in simulated time (a barrier round here is about 1e8 to 8e8)
 WAVE_COSTS = dict(update_cost=3e7, broadcast_latency=1e6)
 WAVE_ROUNDS = 6
+#: the [spmd] phase: ranks on one card over gloo (NCCL takes one card per
+#: rank) and the job's time limit, seconds
+SPMD_RANKS = 4
+SPMD_LIMIT_S = 600.0
 #: worker 1 dies (1000x slower from round 0): with seed 0 the DeathWatch
 #: (factor 20, 4 rounds) trips after the 4th step (found on the CPU with
 #: the port's PlanSimulator and DeathWatch alone)
@@ -867,6 +888,265 @@ def phase_wave():
     return total
 
 
+def _spmd_rank(rank, world, train_losses):
+    """One rank of the [spmd] phase (``dist.spawn``: every rank on card 0
+    over gloo).  Rank 0 logs; every check raises, and a rank's failure
+    fails the whole job.  Returns this rank's counts and times."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import coded_worker_batches
+    from repro_torch.dist import collectives
+    from repro_torch.kernels import gc_fused, ref
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.train.coded import make_coded_grad_fn
+
+    say = log if rank == 0 else (lambda *args: None)
+    mesh = make_local_mesh(world, device="cuda:0", backend="gloo")
+    dev = mesh.device
+
+    # does gloo reduce-scatter (and all-gather) CUDA tensors on this torch?
+    try:
+        collectives.all_gather(collectives.psum_scatter(
+            torch.ones(world * 32, device=dev), mesh.data_group), mesh.data_group)
+        scatter = None
+    except RuntimeError as exc:
+        scatter = str(exc).strip().splitlines()[0][:160]
+    say(f"[spmd] probe: gloo reduce-scatter of CUDA tensors "
+        f"{'works' if scatter is None else 'refused (' + scatter + ')'}; psum_scatter "
+        f"{'runs on the card' if scatter is None else 'waits for a four-card run'}")
+
+    t0 = time.perf_counter()
+    trainer = make_trainer(mesh=mesh, mode="spmd")
+    cfg, plan, model = trainer.cfg, trainer.plan, trainer.state.params
+    layout, paths = plan.flat_layout, model.leaf_paths()
+    wb = coded_worker_batches(trainer.data, 0, world, plan.s_max)
+    say(f"[spmd] {world} ranks on {torch.cuda.get_device_name(dev)} over gloo, each a "
+        f"full-width trainer (mode='spmd', K = {plan.k_shards} shards per rank); "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # step 0: spmd == sim mode (rank 0 computes it from the same weights
+    # and batches while the other ranks wait) and == uncoded
+    sim, unc, scales = {}, None, {}
+    if rank == 0:
+        unc = _uncoded_grads(trainer, 0)
+        coded = make_coded_grad_fn(cfg, plan)
+        rows = coded.rows(model, wb)
+        for u in (0, plan.s_max):
+            dec_w = _straggler_dec_w(plan, u)
+            sim[u] = coded.combine(rows, dec_w)
+            scales[u] = _contribution_scales(plan, rows, dec_w)
+        del coded, rows
+        torch.cuda.synchronize()
+    dist.barrier()
+    variants = {"psum": {}, "bf16": {"grad_dtype": torch.bfloat16}}
+    if scatter is None:
+        variants["psum_scatter"] = {"reduce_mode": "psum_scatter"}
+    worst = {}
+    for name, kw in variants.items():
+        fn = make_coded_grad_fn(cfg, plan, mode="spmd", mesh=mesh, **kw)
+        for u in (0, plan.s_max):
+            g = fn(model, wb, _straggler_dec_w(plan, u))
+            torch.cuda.synchronize()
+            digest = hashlib.sha256(b"".join(
+                t.reshape(-1).view(torch.uint8).cpu().numpy().tobytes() for t in g)).digest()
+            collectives.check_replicated(digest, dev, f"the {name} gradient, {u} stragglers")
+            if rank == 0:
+                what = f"spmd {name}, {u} stragglers"
+                if name == "bf16":
+                    worst[name, u] = (_worst_abs(g, unc, paths, 5e-2, what + " != uncoded"),
+                                      _worst_bf16(g, unc, scales[u], paths, what))
+                else:
+                    worst[name, u] = (_worst_rel(g, sim[u], paths, 1e-5, what + " != sim mode"),
+                                      _worst_rel(g, unc, paths, EXACT_RTOL, what + " != uncoded"))
+            del g
+        del fn
+    del sim, unc
+    torch.cuda.empty_cache()
+    say(f"[spmd] step 0, 0 and {plan.s_max} stragglers, every rank's gradient byte-equal: "
+        + "; ".join(f"{n} u={u}: " + (f"vs uncoded max abs {w[0]:.3e} (bound 5e-2), "
+                                      f"{w[1]:.3f} of 2^-7 sum_n |c_n|" if n == "bf16"
+                                      else f"vs sim mode {w[0]:.3e} (bound 1e-5), vs uncoded "
+                                           f"{w[1]:.3e} (bound {EXACT_RTOL})")
+                    for (n, u), w in worst.items()))
+
+    # the main path: Trainer(mode="spmd"), counts set to 0 just before
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    collectives.reset_counts()
+    for i in range(STEPS):
+        trainer.run(1, log_every=0)
+        torch.cuda.synchronize()
+        for t in trainer.state.params.leaves():  # byte-equal to rank 0's
+            theirs = t.detach().clone()
+            dist.broadcast(theirs, src=0)
+            if not torch.equal(theirs.view(torch.int32), t.detach().view(torch.int32)):
+                raise AssertionError(f"rank {rank}: parameters differ from rank 0's after "
+                                     f"step {i + 1}")
+    counts = dict(collectives.counts)
+    launches = read_counts()
+    mem = torch.cuda.max_memory_allocated(dev)
+    if launches["gc_fused"] != STEPS:
+        raise AssertionError(f"rank {rank}: gc_fused launched {launches['gc_fused']} times "
+                             f"in {STEPS} steps, expected one per step")
+    if counts != dict(psum=STEPS * layout.n_levels, psum_scatter=0, all_gather=0,
+                      broadcast=STEPS):
+        raise AssertionError(f"rank {rank}: collectives {counts} in {STEPS} steps, expected "
+                             f"one psum per level and one draw check per step")
+    losses = [h["loss"] for h in trainer.history]
+    for a, b in zip(losses, train_losses, strict=True):
+        if not abs(a - b) <= 1e-4 * abs(b):
+            raise AssertionError(f"spmd losses {losses} vs [train]'s {train_losses}")
+    walls = [h["wall_s"] for h in trainer.history]
+    say(f"[spmd] {STEPS} steps of Trainer(mode='spmd'): losses {losses} (== [train]'s within "
+        f"1e-4), parameters byte-equal across ranks after every step; rank 0 launches "
+        f"{launches}, collectives {counts}, step wall_s {[round(w, 3) for w in walls]}, "
+        f"max_memory_allocated {mem} bytes")
+
+    # the collectives' time: gloo, host-staged, one card (no collective figure)
+    bufs = {dt: [torch.zeros(n, dtype=dt, device=dev) for n in layout.level_sizes]
+            for dt in (torch.float32, torch.bfloat16)}
+    coll_ms = {}
+    for dt, b in bufs.items():
+        reps = []
+        for _ in range(2):
+            dist.barrier()
+            t0 = time.perf_counter()
+            collectives.psum(b, mesh.data_group)
+            torch.cuda.synchronize()
+            reps.append((time.perf_counter() - t0) * 1e3)
+        coll_ms[str(dt).split(".")[-1]] = reps
+    del bufs
+    say(f"[spmd] one psum per level over {world} ranks (gloo, host-staged, one card; no "
+        f"collective figure), ms per step: {coll_ms}")
+
+    # the per-rank combine on rank 0 while the others wait at a barrier
+    times = {}
+    dist.barrier()
+    if rank == 0:
+        k = plan.k_shards
+        rows = trainer.step_fn.grad_fn.rows(model, wb)
+        dec_w = _straggler_dec_w(plan, plan.s_max)
+        w = torch.as_tensor(dec_w[:, mesh.data_index], device=dev) / plan.n_workers
+        b = torch.as_tensor(plan.b_rows[mesh.data_index], dtype=torch.float32, device=dev)
+        table = (w[:, None] * b)[:, None, :].contiguous()
+        one = torch.ones((1,), device=dev)
+        which = list(layout.leaf_level)
+        buf = [torch.zeros(n, device=dev) for n in layout.level_sizes]
+        views = [None] * layout.n_leaves
+        for j, li, off, size in layout.leaf_slices():
+            views[j] = buf[li][off:off + size].view(1, size)
+        before = gc_fused.launches
+        gc_fused.encode_decode_leaves(one, table, which, rows, out=views)
+        if gc_fused.launches - before != 1:
+            raise AssertionError(f"the per-rank combine took {gc_fused.launches - before} "
+                                 "launches, expected 1")
+        err = 0.0
+        alloc = gc_fused.encode_decode_leaves(one, table, which, rows)
+        for j, (v, y, want) in enumerate(zip(views, alloc, ref.encode_decode_leaves_ref(
+                one, table, which, rows))):
+            if not torch.equal(v, y):
+                raise AssertionError(f"out= leaf {j}: not bit-equal to the allocating call")
+            err = max(err, check_close("gc_fused", v, want, "float32",
+                                       f"spmd leaf {j} NB=1 K={k} D={v.shape[1]}"))
+        del alloc
+        ws = [table[i] for i in which]
+        fns = {"kernel": lambda: gc_fused.encode_decode_leaves(one, table, which, rows,
+                                                               out=views),
+               "library": lambda: [torch.matmul(wt, g) for wt, g in zip(ws, rows)]}
+        dev_ms = device_in_turns(fns, 10)
+        n_cols = sum(layout.leaf_size(j) for j in range(layout.n_leaves))
+        bytes_ms, ops_ms = bounds_ms((1 + k) * n_cols * 4 + layout.n_levels * k * 4,
+                                     2.0 * k * n_cols)
+        times = {"device_ms": _mean(dev_ms["kernel"]),
+                 "library_device_ms": _mean(dev_ms["library"]),
+                 "bound_ms": max(bytes_ms, ops_ms),
+                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                 "ms": time_ms(fns["kernel"], 10), "library_ms": time_ms(fns["library"], 10),
+                 "plain_ms": time_ms(lambda: ref.encode_decode_leaves_ref(one, table, which,
+                                                                          rows), 10),
+                 "max_abs_err": err}
+        say(f"[spmd] per-rank combine (NB=1, K={k}, {layout.n_leaves} leaves in one launch "
+            f"into the level buffers, out= bit-equal to the allocating call, max abs err "
+            f"{err:.3e} vs the plain version): device-only ms in turns kernel/library/"
+            f"library/kernel {dev_ms}; means kernel {times['device_ms']:.4f} library "
+            f"{times['library_device_ms']:.4f}; bound_ms {times['bound_ms']:.4f} (share "
+            f"{times['bound_ms'] / times['device_ms']:.3f}); host-inclusive ms kernel "
+            f"{times['ms']:.4f} library {times['library_ms']:.4f} plain {times['plain_ms']:.4f}")
+        del rows, buf, views
+    dist.barrier()
+    return {"launches": launches["gc_fused"], "counts": counts, "walls": walls, "mem": mem,
+            "coll_ms": coll_ms, "times": times, "scatter": scatter is None}
+
+
+def _contribution_scales(plan, rows, dec_w) -> list:
+    """Per leaf, max over its elements of sum_n |c_n|, c_n = (dec_w[l, n]
+    / N) b_rows[n, l] @ G_n worker n's coded contribution (``rows``: the
+    sim-mode (N·K, size) rows): the largest partial sum a reduction of
+    the contributions forms, the scale of a bf16 reduction's rounding."""
+    import torch
+
+    n, k = plan.n_workers, plan.k_shards
+    b = torch.as_tensor(plan.b_rows, dtype=torch.float32, device=rows[0].device)
+    out = []
+    for j, g in enumerate(rows):
+        li = plan.flat_layout.leaf_level[j]
+        total = sum(((float(dec_w[li, w]) / n) * b[w, li] @ g[w * k:(w + 1) * k]).abs()
+                    for w in range(n))
+        out.append(float(total.max()))
+    return out
+
+
+def _worst_abs(got, want, paths, bound: float, what: str) -> float:
+    """Largest per-leaf max abs error; raises past ``bound``."""
+    worst = 0.0
+    for path, a, b in zip(paths, got, want, strict=True):
+        err = (a.float() - b).abs().max().item()
+        if not err <= bound:
+            raise AssertionError(f"{what} at {path}: max abs error {err:.3e} > {bound}")
+        worst = max(worst, err)
+    return worst
+
+
+def _worst_bf16(got, want, scales, paths, what: str) -> float:
+    """Largest per-leaf max abs error of a bf16 reduction over 2^-7 of the
+    leaf's contribution scale (``_contribution_scales``: four roundings of
+    2^-9 each, the terms' and the sums'); raises past 1."""
+    worst = 0.0
+    for path, a, b, scale in zip(paths, got, want, scales, strict=True):
+        ratio = (a.float() - b).abs().max().item() / (2.0 ** -7 * max(scale, 1e-30))
+        if not ratio <= 1.0:
+            raise AssertionError(f"{what} at {path}: max abs error {ratio:.3f} x 2^-7 of "
+                                 "sum_n |c_n|, past the bound")
+        worst = max(worst, ratio)
+    return worst
+
+
+def phase_spmd(train_losses):
+    """spmd coded training on one card: ``SPMD_RANKS`` ranks on card 0
+    over gloo (NCCL takes one card per rank), each a full-width
+    ``Trainer(mode="spmd")``.  Returns the ranks' gc_fused launches on
+    the main path, summed, and rank 0's combine times."""
+    from repro_torch.dist.spawn import spawn
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    store = tempfile.mkdtemp(prefix="chip_smoke_spmd_", dir=os.path.join(ROOT, "build"))
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn(_spmd_rank, SPMD_RANKS, train_losses, store_dir=store, backend="gloo",
+                      timeout=SPMD_LIMIT_S)
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    log(f"[spmd] {SPMD_RANKS} ranks done in {time.perf_counter() - t0:.1f} s; per rank "
+        f"gc_fused launches {[r['launches'] for r in ranks]}, step wall_s "
+        f"{[[round(w, 3) for w in r['walls']] for r in ranks]}, max_memory_allocated "
+        f"{[r['mem'] for r in ranks]} bytes, psum ms per step {[r['coll_ms'] for r in ranks]}")
+    return sum(r["launches"] for r in ranks), ranks[0]["times"]
+
+
 def _snapshot(tree) -> dict:
     """{key: device copy} of every leaf of a state, for a byte comparison."""
     import numpy as np
@@ -1282,6 +1562,7 @@ def main() -> int:
     max_err, kernel_times = timed("kernel", phase_kernel, trainer)
     timed("exactness", phase_exactness, trainer)
     launches = timed("train", phase_train, trainer)
+    train_losses = [h["loss"] for h in trainer.history]
     timed("breakdown", phase_breakdown, trainer)
     rows, level_times = timed("levels", phase_levels, trainer)
     tree_times = timed("tree", phase_tree, trainer, rows)
@@ -1289,6 +1570,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     adapt_launches = timed("adapt", phase_adapt)
     wave_launches = timed("wave", phase_wave)
+    spmd_launches, spmd_times = timed("spmd", phase_spmd, train_losses)
     ckpt_launches, n_digits = timed("ckpt", phase_ckpt)
     enc_err, enc_times = timed("encode", phase_encode, n_digits)
     trip_launches, dec_err, dec_times = timed("decode", phase_decode)
@@ -1303,15 +1585,18 @@ def main() -> int:
                 **{k: times[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                          "library_ms", "device_ms", "host_ms")}, **extra}
 
-    # gc_fused's main paths: barrier training, adaptive re-planning, wave
+    # gc_fused's main paths: barrier training, adaptive re-planning, wave,
+    # spmd (every rank's launches)
     fused_launches = {"train": launches["gc_fused"], "adapt": adapt_launches["gc_fused"],
-                      "wave": wave_launches["gc_fused"]}
+                      "wave": wave_launches["gc_fused"], "spmd": spmd_launches}
     print(json.dumps({"kernels": [
         row("gc_fused", "src/repro/kernels/gc_fused.py:57", sum(fused_launches.values()),
             max_err, kernel_times, launches_by_path=fused_launches,
             per_level_device_ms=level_times["levels_device_ms"],
             grouped_device_ms=level_times["grouped_device_ms"],
-            tree_combine_device_ms=tree_times["tree_device_ms"]),
+            tree_combine_device_ms=tree_times["tree_device_ms"],
+            spmd_device_ms=spmd_times["device_ms"], spmd_bound_ms=spmd_times["bound_ms"],
+            spmd_library_ms=spmd_times["library_device_ms"]),
         row("gc_encode", "src/repro/kernels/gc_encode.py:56", ckpt_launches["gc_encode"],
             enc_err, enc_times),
         row("gc_decode", "src/repro/kernels/gc_decode.py:51", trip_launches["gc_decode"],

@@ -66,13 +66,16 @@ class CheckpointManager:
         self._retain()
         return path
 
+    def due(self, step: int) -> bool:
+        """Whether ``maybe_save`` saves at ``step``: a multiple of ``every``
+        and not a re-save of the same step after a rewind."""
+        return self.cfg.every > 0 and step % self.cfg.every == 0 \
+            and self.last_saved != int(step)
+
     def maybe_save(self, step: int, tree: Any,
                    extra: Optional[dict] = None) -> Optional[str]:
-        """Save when ``step`` is a multiple of ``every`` and not a re-save of
-        the same step after a rewind."""
-        if self.cfg.every <= 0 or step % self.cfg.every or self.last_saved == int(step):
-            return None
-        return self.save(step, tree, extra=extra)
+        """Save when ``due(step)``."""
+        return self.save(step, tree, extra=extra) if self.due(step) else None
 
     def _retain(self) -> None:
         if self.cfg.keep <= 0:

@@ -103,6 +103,12 @@ class FlatLayout:
     def leaf_size(self, j: int) -> int:
         return int(np.prod(self.leaf_shapes[j], dtype=np.int64))
 
+    def leaf_slices(self):
+        """Yield ``(leaf_id, level, offset, size)`` for every leaf."""
+        for li, (ids, offs) in enumerate(zip(self.level_leaves, self.level_offsets)):
+            for j, off in zip(ids, offs):
+                yield j, li, off, self.leaf_size(j)
+
     # ------------------------------------------------------------ pack/unpack
     def pack(self, leaves) -> list:
         """Pack flat-order ``leaves`` into one buffer per level; each leaf

@@ -23,7 +23,7 @@ import torch
 from . import _pipe
 from ._build import load_library
 
-__all__ = ["c_call", "check_operands", "as_f32", "launch_grouped", "pipe_launches",
+__all__ = ["c_call", "check_operands", "check_outputs", "as_f32", "launch_grouped", "pipe_launches",
            "smem_per_block", "MAX_SMEM_FLOATS", "PIPE_ARGTYPES"]
 
 #: per-block weights live in dynamic shared memory, 48 KB without opt-in
@@ -60,6 +60,19 @@ def check_operands(kernel: str, data: torch.Tensor, n_weights: int | None,
     if n_weights is not None and n_weights > MAX_SMEM_FLOATS:
         raise ValueError(f"{kernel}: {n_weights} weights exceed shared memory "
                          f"({MAX_SMEM_FLOATS} floats)")
+
+
+def check_outputs(kernel: str, outs: list, gs: list, nb: int) -> None:
+    """Raise unless ``outs[j]`` can take leaf j's (NB, D_j) output as it
+    is: that shape, contiguous, G's dtype, on G's device."""
+    if len(outs) != len(gs):
+        raise ValueError(f"{kernel}: {len(outs)} outputs for {len(gs)} leaves")
+    for j, (o, g) in enumerate(zip(outs, gs)):
+        if tuple(o.shape) != (nb, g.shape[1]) or o.dtype != g.dtype \
+                or o.device != g.device or not o.is_contiguous():
+            raise ValueError(f"{kernel}: output {j} is {o.dtype}{tuple(o.shape)} on {o.device}"
+                             f"{'' if o.is_contiguous() else ', not contiguous'}; want "
+                             f"contiguous {g.dtype}{(nb, g.shape[1])} on {g.device}")
 
 
 def as_f32(t: torch.Tensor) -> torch.Tensor:

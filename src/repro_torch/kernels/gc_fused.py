@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from ._launch import as_f32, check_operands, launch_grouped
+from ._launch import as_f32, check_operands, check_outputs, launch_grouped
 
 __all__ = ["encode_decode", "encode_decode_leaves", "launches", "MAX_NB"]
 
@@ -32,12 +32,15 @@ _ENTRY = {torch.float32: "gc_fused_f32", torch.bfloat16: "gc_fused_bf16"}
 
 
 def encode_decode_leaves(a: torch.Tensor, b_codes: torch.Tensor, which,
-                         gs: list) -> list:
+                         gs: list, out: list = None) -> list:
     """Launch the kernel over every leaf: y_j = (a ⊙ B_code[which[j]]) @ G_j
     in G's dtype.  a: (NB,), b_codes: (n_w, NB, K), taken as fp32;
     ``gs[j]``: (K, D_j), contiguous fp32 or bf16 CUDA tensors of one dtype
-    on one card.  Returns the (NB, D_j) outputs in leaf order; raises on
-    any launch error."""
+    on one card.  ``out``, when given, holds the (NB, D_j) outputs to
+    write: contiguous tensors (views, such as slices of a level buffer,
+    are fine) of G's dtype on G's card; anything else raises, nothing is
+    copied.  Returns the (NB, D_j) outputs in leaf order; raises on any
+    launch error."""
     global launches
     if a.ndim != 1 or b_codes.ndim != 3 or b_codes.shape[1] != a.shape[0] \
             or len(which) != len(gs):
@@ -61,7 +64,11 @@ def encode_decode_leaves(a: torch.Tensor, b_codes: torch.Tensor, which,
                              f"contiguous {g0.dtype} on {g0.device} like leaf 0")
         if not 0 <= which[j] < n_w:
             raise ValueError(f"weight index {which[j]} of leaf {j} outside 0..{n_w - 1}")
-    outs = [torch.empty((nb, g.shape[1]), dtype=g0.dtype, device=g0.device) for g in gs]
+    if out is None:
+        outs = [torch.empty((nb, g.shape[1]), dtype=g0.dtype, device=g0.device) for g in gs]
+    else:
+        outs = list(out)
+        check_outputs("gc_fused.encode_decode", outs, gs, nb)
     launches += launch_grouped("gc_fused", _ENTRY[g0.dtype], as_f32(a), as_f32(b_codes),
                                n_w, nb, k, gs, outs, which)
     return outs

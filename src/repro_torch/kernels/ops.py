@@ -41,12 +41,14 @@ def encode_decode(a: torch.Tensor, b_code: torch.Tensor,
 
 
 def encode_decode_leaves(a: torch.Tensor, b_codes: torch.Tensor, which,
-                         gs: list) -> list:
+                         gs: list, out: list = None) -> list:
     """The fused coded combine of many leaves in one call:
     y_j = (a ⊙ B_code[which[j]]) @ G_j.  a: (NB,), b_codes: (n_w, NB, K),
-    gs[j]: (K, D_j) on one device -> the (NB, D_j) outputs in leaf order.
-    On CUDA one kernel launch covers up to 32 leaves."""
+    gs[j]: (K, D_j) on one device -> the (NB, D_j) outputs in leaf order,
+    written into ``out`` (contiguous (NB, D_j) tensors or views of G's
+    dtype and device) when it is given.  On CUDA one kernel launch covers
+    up to 32 leaves."""
     if not gs:
         return []
-    return _route(gs[0], gc_fused.encode_decode_leaves,
-                  ref.encode_decode_leaves_ref)(a, b_codes, which, gs)
+    fn = _route(gs[0], gc_fused.encode_decode_leaves, ref.encode_decode_leaves_ref)
+    return fn(a, b_codes, which, gs) if out is None else fn(a, b_codes, which, gs, out=out)

@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from ._launch import check_outputs
+
 __all__ = ["encode_ref", "decode_ref", "encode_decode_ref", "encode_decode_leaves_ref"]
 
 
@@ -43,8 +45,16 @@ def encode_decode_ref(a: torch.Tensor, b_code: torch.Tensor,
 
 
 def encode_decode_leaves_ref(a: torch.Tensor, b_codes: torch.Tensor, which,
-                             gs: list) -> list:
+                             gs: list, out: list = None) -> list:
     """The grouped fused combine: ``encode_decode_ref(a, b_codes[which[j]],
     gs[j])`` for every leaf j, in leaf order.  a: (NB,), b_codes:
-    (n_w, NB, K), gs[j]: (K, D_j) -> (NB, D_j) each."""
-    return [encode_decode_ref(a, b_codes[i], g) for i, g in zip(which, gs)]
+    (n_w, NB, K), gs[j]: (K, D_j) -> (NB, D_j) each, written into
+    ``out[j]`` when ``out`` is given (the kernel's checks: shape, G's
+    dtype and device, contiguous)."""
+    ys = [encode_decode_ref(a, b_codes[i], g) for i, g in zip(which, gs)]
+    if out is None:
+        return ys
+    check_outputs("encode_decode_leaves_ref", out, gs, a.shape[0])
+    for o, y in zip(out, ys):
+        o.copy_(y)
+    return list(out)

@@ -1,0 +1,53 @@
+"""Meshes of local ranks, after ``repro/launch/mesh.py::make_local_mesh``.
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --data-par 4
+
+``make_local_mesh`` joins the default process group — from
+``torchrun``'s environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
+``MASTER_PORT``, ``LOCAL_RANK``) unless ``dist.spawn`` already did — and
+builds the ``(pod, data)`` mesh over it.  The backend is explicit: it
+defaults from the device (``nccl`` for CUDA, ``gloo`` for the CPU) and
+is never switched after a failure; ``backend="gloo"`` with CUDA tensors
+rehearses several ranks on one card, which NCCL refuses.
+"""
+from __future__ import annotations
+
+import datetime
+import os
+
+import torch
+import torch.distributed as dist
+
+from ..device import resolve_device
+from ..dist.mesh import Mesh, build_mesh, check_backend, default_backend
+
+__all__ = ["make_local_mesh"]
+
+
+def make_local_mesh(data: int = 1, model: int = 1, pod: int = 1, *, device="cuda",
+                    backend: str = None, timeout: float = 1800.0) -> Mesh:
+    """This rank's mesh of ``pod · data`` data-parallel ranks.  ``device``
+    ``"cuda"`` takes card ``LOCAL_RANK`` modulo the cards of the host;
+    ``timeout`` (seconds) bounds every collective.  A tensor-parallel
+    ``model`` axis is not ported: ``model > 1`` raises."""
+    if model != 1:
+        raise NotImplementedError(f"model={model}: a tensor-parallel model axis is not "
+                                  "ported (ROADMAP 1.6); the spmd ranks are data-parallel")
+    dev = resolve_device(device)
+    backend = backend or default_backend(dev)
+    local_rank = int(os.environ.get("LOCAL_RANK", dist.get_rank() if dist.is_initialized()
+                                    else 0))
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", local_rank % torch.cuda.device_count())
+    if dist.is_initialized():
+        if dist.get_backend() != backend:
+            raise ValueError(f"the process group runs {dist.get_backend()!r}, the mesh asks "
+                             f"for {backend!r}")
+        check_backend(backend, 0, dev)
+    else:
+        n_local = int(os.environ.get("LOCAL_WORLD_SIZE", os.environ.get("WORLD_SIZE", "1")))
+        check_backend(backend, n_local, dev)
+        dist.init_process_group(backend, timeout=datetime.timedelta(seconds=timeout))
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    return build_mesh(data, pod, dev)

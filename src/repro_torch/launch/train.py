@@ -21,6 +21,18 @@ distributions, degradations) from an ``Env.to_dict()`` JSON file and
 sets the worker count.  ``--adapt`` re-plans under drift: the realized
 per-worker times feed an ``AdaptiveController`` (window
 ``--adapt-window`` rounds) that hot-swaps the plan when re-planning pays.
+
+spmd: ``--data-par N`` equal to ``--workers`` trains the N workers as N
+data-parallel ranks over ``torch.distributed``, one process each, with
+the rank and world from ``torchrun``'s environment:
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --data-par 4
+
+``--backend`` defaults from the device (``nccl`` on CUDA, one card per
+rank; ``gloo`` on the CPU; ``--backend gloo`` rehearses several ranks on
+one card).  Only rank 0 prints.  ``--model-par`` above 1 (a
+tensor-parallel axis) is not ported and raises.  ``--uncoded`` trains
+the plain data-parallel step instead of the coded one.
 """
 from __future__ import annotations
 
@@ -28,12 +40,17 @@ import argparse
 import json
 import time
 
+import torch.distributed as dist
+
 from repro_torch.adapt import AdaptConfig
 from repro_torch.checkpoint import CkptConfig, CodedSpec
 from repro_torch.configs import get_config
 from repro_torch.core import Env, ShiftedExponential, available_schemes, get_scheme
+from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models.params import count_params
-from repro_torch.train.trainer import TrainConfig, Trainer
+from repro_torch.train.state import init_train_state
+from repro_torch.train.trainer import TrainConfig, Trainer, make_train_step
 
 
 def parse_args(argv=None):
@@ -70,6 +87,16 @@ def parse_args(argv=None):
                     help="erasure-code checkpoints across the workers with S "
                          "parity shards (any workers-S survivors restore "
                          "bit-exactly; 0: monolithic npz)")
+    ap.add_argument("--data-par", type=int, default=1,
+                    help="data-parallel ranks: 1 (sim mode, one process) or --workers "
+                         "(spmd, one rank per worker, under torchrun)")
+    ap.add_argument("--model-par", type=int, default=1,
+                    help="tensor-parallel ranks (not ported: only 1)")
+    ap.add_argument("--backend", default=None,
+                    help="torch.distributed backend of spmd: nccl or gloo (default: "
+                         "nccl on CUDA, gloo on the CPU)")
+    ap.add_argument("--uncoded", action="store_true",
+                    help="train the plain data-parallel step instead of the coded one")
     return ap.parse_args(argv)
 
 
@@ -86,8 +113,26 @@ def main(argv=None):
         args.workers = env.n_workers
     else:
         env = Env.iid(ShiftedExponential(mu=args.mu, t0=args.t0), args.workers)
+    if args.data_par not in (1, args.workers):
+        raise ValueError(f"--data-par {args.data_par}: 1 (sim mode) or --workers "
+                         f"{args.workers} (spmd, one rank per worker)")
+    mesh = None
+    if args.data_par > 1 or args.model_par > 1:
+        mesh = make_local_mesh(args.data_par, args.model_par, device=args.device,
+                               backend=args.backend)
+    try:
+        return _train(args, cfg, env, mesh)
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
+
+
+def _train(args, cfg, env, mesh):
+    log = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
     cfg_t = TrainConfig(lr=args.lr, warmup=max(args.steps // 10, 10),
                         total_steps=args.steps)
+    if args.uncoded:
+        return _train_uncoded(args, cfg, cfg_t, mesh, log)
     ckpt = None
     if args.ckpt:
         spec = CodedSpec(n_shards=args.workers, parity=args.ckpt_coded) \
@@ -96,27 +141,50 @@ def main(argv=None):
     adapt = AdaptConfig(window=args.adapt_window) if args.adapt else None
     trainer = Trainer(cfg, cfg_t, env, scheme=args.scheme,
                       global_batch=args.global_batch, seed=0, device=args.device,
-                      seq_len=args.seq, ckpt=ckpt, adapt=adapt)
+                      seq_len=args.seq, ckpt=ckpt, adapt=adapt, mesh=mesh,
+                      mode="sim" if mesh is None else "spmd")
     if trainer.manager is not None and trainer.manager.latest() is not None:
-        print(f"resumed from checkpoint step {trainer.state.step} under {args.ckpt}")
-    print(f"arch={cfg.name} params={count_params(trainer.state.params) / 1e6:.1f}M "
-          f"workers={args.workers} scheme={args.scheme} s_max={trainer.plan.s_max} "
-          f"x={trainer.plan.x.tolist()} device={args.device} adapt={args.adapt}")
+        log(f"resumed from checkpoint step {trainer.state.step} under {args.ckpt}")
+    log(f"arch={cfg.name} params={count_params(trainer.state.params) / 1e6:.1f}M "
+        f"workers={args.workers} scheme={args.scheme} s_max={trainer.plan.s_max} "
+        f"x={trainer.plan.x.tolist()} device={args.device} adapt={args.adapt} "
+        f"mode={trainer.mode}")
     t0 = time.time()
     _, summary = trainer.run(max(args.steps - trainer.state.step, 0),
-                             log_every=args.log_every)
+                             log_every=args.log_every, log_fn=log)
     losses = [h["loss"] for h in trainer.history]
     if losses:
-        print(f"wall {time.time() - t0:.1f}s  loss {losses[0]:.3f} -> {losses[-1]:.3f}")
-    print(f"simulated runtime: {summary}")
+        log(f"wall {time.time() - t0:.1f}s  loss {losses[0]:.3f} -> {losses[-1]:.3f}")
+    log(f"simulated runtime: {summary}")
     if trainer.controller is not None:
-        print(f"adaptive: {len(trainer.controller.swaps)} plan swap(s), "
-              f"{trainer.controller.checks} drift check(s)")
+        log(f"adaptive: {len(trainer.controller.swaps)} plan swap(s), "
+            f"{trainer.controller.checks} drift check(s)")
     manager = trainer.manager
     if manager is not None and manager.last_saved != trainer.state.step:
-        print("saved:", manager.save(trainer.state.step, trainer.state,
-                                     extra={"plan": trainer.plan.to_dict()}))
+        log("saved:", trainer.save_checkpoint())
     return trainer
+
+
+def _train_uncoded(args, cfg, cfg_t, mesh, log):
+    """The plain data-parallel baseline: ``make_train_step`` on each
+    step's global batch (in spmd each rank takes its rows)."""
+    if args.ckpt or args.adapt:
+        raise ValueError("--uncoded trains without --ckpt and --adapt")
+    state = init_train_state(cfg, device=args.device if mesh is None else mesh.device, seed=0)
+    data = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
+                                      global_batch=args.global_batch, seed=0))
+    step = make_train_step(cfg, cfg_t, mesh=mesh)
+    log(f"arch={cfg.name} params={count_params(state.params) / 1e6:.1f}M uncoded "
+        f"ranks={1 if mesh is None else mesh.size} device={args.device}")
+    t0, losses = time.time(), []
+    while (i := int(state.step)) < args.steps:
+        state, metrics = step(state, {"tokens": data.batch(i)})
+        losses.append(float(metrics["loss"]))
+        if args.log_every and (i % args.log_every == 0 or i == args.steps - 1):
+            log(f"step {i + 1:5d}  loss {losses[-1]:.4f}")
+    if losses:
+        log(f"wall {time.time() - t0:.1f}s  loss {losses[0]:.3f} -> {losses[-1]:.3f}")
+    return state
 
 
 if __name__ == "__main__":

@@ -24,9 +24,29 @@ leaf, encode its K shard rows with the coding row, scale by the decode
 weight, then sum over workers and take the mean (the reference computes
 it outside any Pallas kernel too).
 
+``mode="spmd"`` is the same system on N data-parallel ranks over
+``torch.distributed`` (a ``repro_torch.dist.mesh.Mesh``), after the
+reference's ``_make_flat_spmd_grad_fn`` and tree spmd path: each rank
+runs only its own K per-shard passes, and
+
+* ``pipeline="flat"``: one grouped ``ops.encode_decode_leaves`` call
+  over all leaves (one ``gc_fused`` launch on CUDA), weight set ``li``
+  the fp32 fold ``(dec_w[li, rank] / (N·P)) · b_rows[rank, li]``, each
+  leaf written straight into its slice of the plan's per-level
+  buffers, which are allocated once and reused every step; one bf16
+  cast of the packed buffers when ``grad_dtype`` asks; one ``psum`` per
+  level over the pod ranks when there are any, then one ``psum`` — or
+  one reduce-scatter and one all-gather — per level over the data
+  ranks; the leaves are views of the level buffers;
+* ``pipeline="tree"``: the per-leaf encode and scale in plain torch,
+  then one collective per leaf (the reduce-scatter along
+  ``scatter_dims``' dimension of each leaf).
+
+Every rank returns bit-identical gradients, so replicated optimizers
+stay replicated.
+
 For every straggler realization the result equals the plain
 data-parallel mean gradient over the same global batch (tested).
-The spmd mode over ``torch.distributed`` is ROADMAP 1.6.
 """
 from __future__ import annotations
 
@@ -36,12 +56,15 @@ import numpy as np
 import torch
 
 from ..core import Plan
+from ..dist.collectives import all_gather, psum, psum_scatter
 from ..kernels import ops
 from ..models.model import train_loss
 
 __all__ = ["make_coded_grad_fn", "uncoded_grad_fn", "per_shard_grad_rows",
            "level_weights", "combine_rows", "combine_level", "combine_grads",
-           "tree_combine"]
+           "tree_combine", "scatter_dims", "CodedGrads"]
+
+REDUCE_MODES = ("psum", "psum_scatter")
 
 
 def _require_layout(plan: Plan):
@@ -96,18 +119,20 @@ def level_weights(plan: Plan, dec_w, device, levels=None) -> torch.Tensor:
         .reshape(len(levels), 1, -1)
 
 
-def combine_rows(plan: Plan, g_rows, dec_w) -> list:
+def combine_rows(plan: Plan, g_rows, dec_w, *, grad_dtype=None) -> list:
     """The fused combine of already-computed per-shard rows: one
     ``ops.encode_decode_leaves(1/N, w, level, G)`` call over every leaf's
     ``(N·K, size)`` rows, where ``w = level_weights(plan, dec_w)`` holds
     one weight set per level.  Returns the decoded mean gradient in leaf
-    order."""
+    order, cast to ``grad_dtype`` when one is given (the reference's
+    sim-mode ``grad_dtype``)."""
     layout = _require_layout(plan)
     dev = g_rows[0].device
     inv_n = torch.ones((1,), dtype=torch.float32, device=dev) / plan.n_workers
     ys = ops.encode_decode_leaves(inv_n, level_weights(plan, dec_w, dev),
                                   layout.leaf_level, list(g_rows))
-    return [y[0].reshape(shape) for y, shape in zip(ys, layout.leaf_shapes)]
+    ys = [y[0].reshape(shape) for y, shape in zip(ys, layout.leaf_shapes)]
+    return ys if grad_dtype is None else [y.to(grad_dtype) for y in ys]
 
 
 def combine_level(plan: Plan, g_rows, level_idx: int, dec_w_row) -> dict:
@@ -132,12 +157,14 @@ def combine_level(plan: Plan, g_rows, level_idx: int, dec_w_row) -> dict:
     return {j: y[0].reshape(layout.leaf_shapes[j]) for j, y in zip(ids, ys)}
 
 
-def tree_combine(b_rows: torch.Tensor, dec_w: torch.Tensor, level_idx, g_rows) -> list:
+def tree_combine(b_rows: torch.Tensor, dec_w: torch.Tensor, level_idx, g_rows,
+                 grad_dtype=None) -> list:
     """The per-leaf tree combine on tensors: for leaf j at level
     l = level_idx[j], sum over workers n of dec_w[l, n] · (b_rows[n, l] @
     G_j[n]), over N, where G_j[n] is worker n's (K, size) block of the
-    leaf's ``(N·K, size)`` rows.  Returns the flat (size,) means in leaf
-    order."""
+    leaf's ``(N·K, size)`` rows; each worker's term is cast to
+    ``grad_dtype`` before the sum, as the spmd reduce casts before it
+    sums.  Returns the flat (size,) means in leaf order."""
     n_workers = b_rows.shape[0]
     out = []
     for li, rows in zip(level_idx, g_rows):
@@ -145,54 +172,190 @@ def tree_combine(b_rows: torch.Tensor, dec_w: torch.Tensor, level_idx, g_rows) -
         total = None
         for n in range(n_workers):
             c = (b_rows[n, li].to(rows.dtype) @ g[n]) * dec_w[li, n].to(rows.dtype)
+            if grad_dtype is not None:
+                c = c.to(grad_dtype)
             total = c if total is None else total + c
         out.append(total / n_workers)
     return out
 
 
-def combine_grads(plan: Plan, g_rows, dec_w, *, pipeline: str = "flat") -> list:
+def combine_grads(plan: Plan, g_rows, dec_w, *, pipeline: str = "flat",
+                  grad_dtype=None) -> list:
     """Decode-weighted mean combine of already-computed per-shard rows
     (``(N·K, size)`` per leaf; dec_w: (n_used, N)): the decoded mean
     gradient in leaf order, through the fused flat pipeline
-    (``combine_rows``) or the per-leaf tree (``tree_combine``).  Leaves
-    take the plan's leaf shapes; a tree combine of a plan without a
-    layout returns flat (size,) leaves."""
+    (``combine_rows``) or the per-leaf tree (``tree_combine``), in
+    ``grad_dtype`` when one is given.  Leaves take the plan's leaf
+    shapes; a tree combine of a plan without a layout returns flat
+    (size,) leaves."""
     if _resolve_pipeline(pipeline, plan) == "flat":
-        return combine_rows(plan, g_rows, dec_w)
+        return combine_rows(plan, g_rows, dec_w, grad_dtype=grad_dtype)
     dev = g_rows[0].device
     ys = tree_combine(torch.as_tensor(plan.b_rows, dtype=torch.float32, device=dev),
                       torch.as_tensor(np.asarray(dec_w), dtype=torch.float32, device=dev),
-                      plan.level_index().tolist(), g_rows)
+                      plan.level_index().tolist(), g_rows, grad_dtype)
     if plan.flat_layout is None:
         return ys
     return [y.reshape(shape) for y, shape in zip(ys, plan.flat_layout.leaf_shapes)]
 
 
-def make_coded_grad_fn(cfg, plan: Plan, *, mode: str = "sim",
-                       pipeline: str = "auto") -> Callable:
+def scatter_dims(leaf_shapes, n_workers: int) -> list:
+    """Per leaf, the dimension the tree pipeline's ``psum_scatter`` splits:
+    the first one divisible by N (and at least N), else ``None`` (that
+    leaf takes a plain ``psum``) — the reference's ``_scatter_dims``
+    without logical axis names, which the port's parameters do not
+    carry."""
+    out = []
+    for shape in leaf_shapes:
+        out.append(next((i for i, n in enumerate(shape) if n % n_workers == 0
+                         and n >= n_workers), None))
+    return out
+
+
+class CodedGrads:
+    """A coded gradient function in its two stages:
+    ``grad_fn(model, worker_batches, dec_w)`` is
+    ``combine(rows(model, worker_batches), dec_w)`` with the leaves in
+    the model's shapes.  ``rows`` runs the per-shard backward passes
+    (all N·K in sim mode, this rank's K in spmd), ``combine`` the coded
+    combine and, in spmd, the collectives.  The wave loop calls the two
+    at a round's dispatch and at its update."""
+
+    def __init__(self, rows: Callable, combine: Callable):
+        self.rows, self.combine = rows, combine
+
+    def __call__(self, model, worker_batches, dec_w) -> list:
+        ys = self.combine(self.rows(model, worker_batches), dec_w)
+        return [y.reshape(t.shape) for y, t in zip(ys, model.leaves())]
+
+
+def make_coded_grad_fn(cfg, plan: Plan, *, mode: str = "sim", mesh=None,
+                       reduce_mode: str = "psum", grad_dtype=None,
+                       pipeline: str = "auto") -> CodedGrads:
     """grad_fn(model, worker_batches, dec_w) -> decoded mean gradient,
     a list of tensors in leaf order.
 
-    worker_batches: (N, K, rows, S+1) tokens from
-    ``data.pipeline.coded_worker_batches``; dec_w: (n_used, N) decode
-    weights of this step's straggler realization.  pipeline: 'flat' (the
-    fused combine), 'tree' (the per-leaf baseline) or 'auto' (flat when
-    the plan carries a ``FlatLayout``).
+    worker_batches: the global (N, K, rows, S+1) tokens from
+    ``data.pipeline.coded_worker_batches`` (in spmd every rank takes the
+    same array and slices its part: its data index on axis 0, its pod's
+    rows on axis 2); dec_w: (n_used, N) decode weights of this step's
+    straggler realization.  pipeline: 'flat' (the fused combine), 'tree'
+    (the per-leaf baseline) or 'auto' (flat when the plan carries a
+    ``FlatLayout``).  ``grad_dtype`` (e.g. ``torch.bfloat16``) casts the
+    decoded gradient — in spmd the coded contribution, before the
+    reduction, halving its bytes.
+
+    ``mode="spmd"`` needs ``mesh`` (a ``repro_torch.dist.mesh.Mesh``
+    whose ``data`` axis has the plan's N ranks); ``reduce_mode``
+    'psum_scatter' reduce-scatters each level buffer (or leaf) over the
+    data ranks and all-gathers it back for the replicated optimizer.
+    The flat spmd gradients are views of level buffers that the next
+    call overwrites.
     """
-    if mode != "sim":
-        raise NotImplementedError(
-            f"mode={mode!r}: the spmd mode over torch.distributed is not "
-            "ported yet (ROADMAP 1.6)")
+    if reduce_mode not in REDUCE_MODES:
+        raise ValueError(f"unknown reduce_mode {reduce_mode!r}; expected one of {REDUCE_MODES}")
+    if grad_dtype is not None and not (isinstance(grad_dtype, torch.dtype)
+                                       and grad_dtype.is_floating_point):
+        raise ValueError(f"grad_dtype must be None or a floating torch dtype, got "
+                         f"{grad_dtype!r}")
     pipeline = _resolve_pipeline(pipeline, plan)
+    if mode == "sim":
+        return CodedGrads(
+            lambda model, wb: per_shard_grad_rows(cfg, model, wb),
+            lambda rows, dec_w: combine_grads(plan, rows, dec_w, pipeline=pipeline,
+                                              grad_dtype=grad_dtype))
+    if mode != "spmd":
+        raise ValueError(f"unknown mode {mode!r}; expected 'sim' or 'spmd'")
+    if mesh is None:
+        raise ValueError("mode='spmd' needs a mesh (repro_torch.launch.mesh.make_local_mesh)")
+    if mesh.data != plan.n_workers:
+        raise ValueError(f"the plan codes {plan.n_workers} workers, the mesh has "
+                         f"{mesh.data} data ranks")
+    d, p = mesh.data_index, mesh.pod_index
 
-    def grad_fn(model, worker_batches, dec_w):
-        rows = per_shard_grad_rows(cfg, model, worker_batches)
-        if pipeline == "flat":
-            return combine_rows(plan, rows, dec_w)
-        ys = combine_grads(plan, rows, dec_w, pipeline="tree")
-        return [y.reshape(t.shape) for y, t in zip(ys, model.leaves())]
+    def rows(model, worker_batches):
+        n_rows = worker_batches.shape[2]
+        if n_rows % mesh.pod:
+            raise ValueError(f"{n_rows} rows per shard do not split over {mesh.pod} pods")
+        h = n_rows // mesh.pod
+        return per_shard_grad_rows(cfg, model, worker_batches[d:d + 1, :, p * h:(p + 1) * h])
 
-    return grad_fn
+    make = _flat_spmd_combine if pipeline == "flat" else _tree_spmd_combine
+    return CodedGrads(rows, make(plan, mesh, reduce_mode, grad_dtype))
+
+
+def _flat_spmd_combine(plan: Plan, mesh, reduce_mode: str, grad_dtype) -> Callable:
+    """The flat spmd combine over level buffers allocated here, once: the
+    grouped launch writes each leaf into its slice, so the launch's
+    pointers stay put from step to step (the launch cache hits)."""
+    layout = plan.flat_layout
+    dev, n = mesh.device, plan.n_workers
+    bufs = [torch.zeros(size, dtype=torch.float32, device=dev) for size in layout.level_sizes]
+    views = [None] * layout.n_leaves
+    for j, li, off, size in layout.leaf_slices():
+        views[j] = bufs[li][off:off + size].view(1, size)
+    send = bufs if grad_dtype is None else [torch.zeros_like(b, dtype=grad_dtype) for b in bufs]
+    tiles = [torch.empty(b.numel() // n, dtype=b.dtype, device=dev) for b in send] \
+        if reduce_mode == "psum_scatter" else None
+    b_rows = torch.as_tensor(plan.b_rows[mesh.data_index], dtype=torch.float32, device=dev)
+    one = torch.ones((1,), dtype=torch.float32, device=dev)
+
+    def combine(rows, dec_w):
+        # (dec_w[li, rank] / (N·P)) · b_rows[rank, li], folded in fp32 once
+        w = torch.as_tensor(np.asarray(dec_w, np.float32)[:, mesh.data_index],
+                            device=dev) / (n * mesh.pod)
+        ops.encode_decode_leaves(one, (w[:, None] * b_rows)[:, None, :], layout.leaf_level,
+                                 rows, out=views)
+        if grad_dtype is not None:
+            for s, b in zip(send, bufs):
+                s.copy_(b)
+        if mesh.pod > 1:
+            psum(send, mesh.pod_group)
+        if tiles is None:
+            psum(send, mesh.data_group)
+        else:
+            for s, t in zip(send, tiles):
+                psum_scatter(s, mesh.data_group, out=t)
+                all_gather(t, mesh.data_group, out=s)
+        return layout.unpack(send)
+
+    return combine
+
+
+def _tree_spmd_combine(plan: Plan, mesh, reduce_mode: str, grad_dtype) -> Callable:
+    """The tree spmd combine: per leaf, this rank's encode and decode
+    weight in plain torch, the cast, then one collective per leaf
+    (over the pod ranks first when there are any)."""
+    dev, n = mesh.device, plan.n_workers
+    level_idx = plan.level_index().tolist()
+    dims = [None] * len(level_idx)
+    if reduce_mode == "psum_scatter":
+        if plan.flat_layout is None:
+            raise ValueError("pipeline='tree' with reduce_mode='psum_scatter' needs the "
+                             "plan's leaf shapes (Plan.build(model, ...))")
+        dims = scatter_dims(plan.flat_layout.leaf_shapes, n)
+    b_rows = torch.as_tensor(plan.b_rows[mesh.data_index], dtype=torch.float32, device=dev)
+    denom = n * mesh.pod
+
+    def combine(rows, dec_w):
+        w = torch.as_tensor(np.asarray(dec_w, np.float32)[:, mesh.data_index], device=dev)
+        out = []
+        for j, (li, g) in enumerate(zip(level_idx, rows)):
+            c = (b_rows[li].to(g.dtype) @ g) * w[li].to(g.dtype)
+            if grad_dtype is not None:
+                c = c.to(grad_dtype)
+            if mesh.pod > 1:
+                psum([c], mesh.pod_group)
+            if dims[j] is None:
+                psum([c], mesh.data_group)
+            else:
+                c = c.reshape(plan.flat_layout.leaf_shapes[j])
+                c = all_gather(psum_scatter(c, mesh.data_group, dim=dims[j]),
+                               mesh.data_group, dim=dims[j])
+            out.append(c / denom)
+        return out
+
+    return combine
 
 
 def uncoded_grad_fn(cfg, n_workers: int) -> Callable:

@@ -10,12 +10,14 @@ state presents itself to ``repro_torch.checkpoint`` as the reference's
 """
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ..checkpoint.ckpt import tree_items
 from ..models.params import GCLM, _lookup, params_from_numpy
 from ..optim.optim import adamw_init
 
@@ -46,6 +48,16 @@ class TrainState:
             opt={"count": np.asarray(self.opt["count"], np.int32),
                  "m": model.tree(self.opt["m"]), "v": model.tree(self.opt["v"])},
             step=np.asarray(self.step, np.int32))
+
+    def digest(self) -> bytes:
+        """sha256 over every leaf of ``checkpoint_tree`` (key and bytes):
+        two states with one digest are byte-equal."""
+        h = hashlib.sha256()
+        for key, leaf in tree_items(self.checkpoint_tree()):
+            h.update(key.encode())
+            t = torch.as_tensor(leaf).detach().contiguous().reshape(-1)
+            h.update(t.view(torch.uint8).cpu().numpy().tobytes())
+        return h.digest()
 
     def from_checkpoint_tree(self, tree: StateTree) -> "TrainState":
         """This state after a restore filled its tensors in place from

@@ -1,36 +1,46 @@
-"""The coded training step and the barrier ``Trainer``, after
-``repro/train/trainer.py``.
+"""The training steps and the ``Trainer``, after ``repro/train/trainer.py``.
 
-``make_coded_train_step`` — coded per-shard gradients, the fused flat
-combine, then clip, AdamW and the cosine LR.  The decode weights (the
-straggler realization) are a per-step input sampled host-side by the
-plan's numpy simulator, so the ledger is the reference's, draw for draw.
+``make_train_step`` — the uncoded step: the plain mean gradient of a
+batch (in spmd each rank takes its rows, then one ``all_reduce``).
+``make_coded_train_step`` — coded per-shard gradients, the coded
+combine (sim mode, or spmd over a ``Mesh``), then clip, AdamW and the
+cosine LR.  The decode weights (the straggler realization) are a
+per-step input sampled host-side by the plan's numpy simulator, so the
+ledger is the reference's, draw for draw.
 
 ``Trainer`` — the loop: data, straggler simulation, ledger, metrics,
 adaptive re-planning with plan hot-swaps, the wave-pipelined schedule
 (``train/wave.py``), checkpoints (plain or erasure-coded) and
-worker-death recovery.  spmd mode, ``grad_dtype``, ``budget`` and
+worker-death recovery, in sim mode on one device or in spmd mode on N
+data-parallel ranks.  In spmd every rank builds the same plan and
+simulator from the same seed, so every rank draws the same decode
+weights and takes the same decisions (swaps, deaths, restores); a
+broadcast from rank 0 checks each draw.  ``budget`` and
 ``scheme="auto"`` raise ``NotImplementedError`` naming their ROADMAP
 item.
 """
 from __future__ import annotations
 
+import hashlib
 import time
 from dataclasses import dataclass
 from typing import Callable
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..adapt import AdaptiveController, DeathWatch, RecoveryEvent
 from ..checkpoint.manager import CheckpointManager
 from ..core import Env, Plan
 from ..data.pipeline import DataConfig, SyntheticTokens, coded_worker_batches
+from ..dist.collectives import check_replicated, psum
 from ..models.model import train_loss
 from ..optim.optim import adamw_update, clip_by_global_norm, cosine_schedule
 from .coded import make_coded_grad_fn
 from .state import TrainState, init_train_state
 
-__all__ = ["TrainConfig", "make_coded_train_step", "Trainer"]
+__all__ = ["TrainConfig", "make_train_step", "make_coded_train_step", "Trainer"]
 
 
 @dataclass
@@ -53,16 +63,50 @@ def _apply_update(cfg_t: TrainConfig, state: TrainState, grads, metrics):
     return TrainState(params=state.params, opt=opt, step=state.step + 1), metrics
 
 
+def make_train_step(cfg, cfg_t: TrainConfig, *, mesh=None) -> Callable:
+    """The uncoded step: step(state, batch) -> (state, metrics) on the
+    plain mean gradient of ``batch["tokens"]`` (B, S+1).  With a ``mesh``
+    each rank takes its B / ranks rows (rank-th block) and one
+    ``all_reduce`` over all ranks sums the gradients and the metrics
+    before the mean: the plain data-parallel step."""
+    def step(state: TrainState, batch):
+        leaves = state.params.leaves()
+        tokens = batch["tokens"]
+        if mesh is not None:
+            if tokens.shape[0] % mesh.size:
+                raise ValueError(f"{tokens.shape[0]} rows do not split over {mesh.size} ranks")
+            h = tokens.shape[0] // mesh.size
+            tokens = tokens[mesh.rank * h:(mesh.rank + 1) * h]
+        loss, metrics = train_loss(cfg, state.params, {"tokens": tokens})
+        grads = list(torch.autograd.grad(loss, leaves))
+        keys = sorted(metrics)
+        values = torch.stack([metrics[k].detach().float() for k in keys])
+        if mesh is not None:
+            flat = torch.cat([g.reshape(-1) for g in grads] + [values])
+            flat = psum([flat], mesh.world_group)[0] / mesh.size
+            parts = torch.split(flat, [g.numel() for g in grads] + [len(keys)])
+            grads = [part.view_as(g) for part, g in zip(parts, grads)]
+            values = parts[-1]
+        return _apply_update(cfg_t, state, grads, dict(zip(keys, values)))
+
+    return step
+
+
 def make_coded_train_step(cfg, cfg_t: TrainConfig, plan: Plan, *,
-                          mode: str = "sim", pipeline: str = "auto") -> Callable:
+                          mode: str = "sim", mesh=None, reduce_mode: str = "psum",
+                          grad_dtype=None, pipeline: str = "auto") -> Callable:
     """step(state, worker_batches, dec_w) -> (state, metrics); the
-    parameters and optimizer moments are updated in place."""
-    grad_fn = make_coded_grad_fn(cfg, plan, mode=mode, pipeline=pipeline)
+    parameters and optimizer moments are updated in place.  The keywords
+    go to ``make_coded_grad_fn``, whose ``CodedGrads`` the step keeps as
+    ``step.grad_fn``."""
+    grad_fn = make_coded_grad_fn(cfg, plan, mode=mode, mesh=mesh, reduce_mode=reduce_mode,
+                                 grad_dtype=grad_dtype, pipeline=pipeline)
 
     def step(state: TrainState, worker_batches, dec_w):
         grads = grad_fn(state.params, worker_batches, dec_w)
         return coded_update(cfg, cfg_t, state, grads, worker_batches)
 
+    step.grad_fn = grad_fn
     return step
 
 
@@ -76,12 +120,17 @@ def coded_update(cfg, cfg_t: TrainConfig, state: TrainState, grads, worker_batch
 
 
 class Trainer:
-    """End-to-end coded-training driver in sim mode (one device).
+    """The end-to-end coded-training loop.
 
     ``env`` is the worker population (an ``Env`` or a bare distribution
     with ``n_workers``).  ``pipeline`` is the coded combine: 'auto' (the
     fused flat one: the trainer's plans carry a ``FlatLayout``), 'flat'
-    or 'tree'.  ``params`` optionally carries initial parameters
+    or 'tree'.  ``mode`` 'sim' simulates the N workers on one device;
+    'spmd' runs them as the ``data`` ranks of ``mesh`` (a
+    ``repro_torch.dist.mesh.Mesh``; the state lives on its device), with
+    ``reduce_mode`` 'psum' or 'psum_scatter'.  ``grad_dtype`` (None or
+    e.g. ``torch.bfloat16``) casts the coded gradients (in spmd, before
+    the reduction).  ``params`` optionally carries initial parameters
     as a reference tree of numpy arrays; otherwise they are drawn from
     ``seed``.  ``seq_len`` defaults to the reference's
     ``min(cfg.max_seq, 512)``.  ``device`` defaults to CUDA and raises
@@ -90,8 +139,10 @@ class Trainer:
     ``ckpt`` is an optional ``repro_torch.checkpoint.CkptConfig``: the
     trainer then checkpoints every ``ckpt.every`` steps at step
     boundaries (erasure-coded across the workers when ``ckpt.coded`` is
-    set), resumes from the newest intact checkpoint on construction
-    (``ckpt.resume``), and arms
+    set; in spmd rank 0 writes while the others wait at a barrier),
+    resumes from the newest intact checkpoint on construction
+    (``ckpt.resume``; in spmd every rank restores and checks its state
+    against rank 0's), and arms
     worker-death recovery: a ``DeathWatch`` over the realized round times
     triggers a restore from the surviving shards, recorded as a
     ``RecoveryEvent`` in ``self.recoveries``; with a controller the
@@ -110,21 +161,26 @@ class Trainer:
 
     def __init__(self, cfg, cfg_t: TrainConfig, env, *, n_workers: int = None,
                  scheme: str = "xf", global_batch: int = 32, seed: int = 0,
-                 mode: str = "sim", data_kind: str = "zipf",
+                 mesh=None, mode: str = "sim", data_kind: str = "zipf",
                  pipeline: str = "auto", adapt=None, wave=None, ckpt=None,
-                 budget=None, grad_dtype=None, device="cuda", params=None,
-                 seq_len: int = None):
-        for name, value, item in (("budget", budget, "1.11"),
-                                  ("grad_dtype", grad_dtype, "1.6")):
-            if value is not None:
-                raise NotImplementedError(f"Trainer({name}=...) is not ported "
-                                          f"yet (ROADMAP {item})")
+                 budget=None, reduce_mode: str = "psum", grad_dtype=None,
+                 device="cuda", params=None, seq_len: int = None):
+        if budget is not None:
+            raise NotImplementedError("Trainer(budget=...) is not ported yet (ROADMAP 1.11)")
         if scheme == "auto":
             raise NotImplementedError("scheme='auto' (the autotuner) is not "
                                       "ported yet (ROADMAP 1.11)")
-        if mode != "sim":
-            raise NotImplementedError(f"mode={mode!r} is not ported yet "
-                                      "(ROADMAP 1.6)")
+        if mode == "spmd":
+            if mesh is None:
+                raise ValueError("mode='spmd' needs a mesh "
+                                 "(repro_torch.launch.mesh.make_local_mesh)")
+            if torch.device(device).type != mesh.device.type:
+                raise ValueError(f"device={device!r}, but the mesh runs on {mesh.device}")
+            device = mesh.device
+        elif mode == "sim":
+            mesh = None
+        else:
+            raise ValueError(f"unknown mode {mode!r}; expected 'sim' or 'spmd'")
         if n_workers is None:
             if isinstance(env, Env):
                 n_workers = env.n_workers
@@ -136,7 +192,8 @@ class Trainer:
         self.cfg, self.cfg_t = cfg, cfg_t
         self.env = env
         self.n_workers = n_workers
-        self.pipeline = pipeline
+        self.mesh, self.mode, self.pipeline = mesh, mode, pipeline
+        self.reduce_mode, self.grad_dtype = reduce_mode, grad_dtype
         self.state = init_train_state(cfg, device=device, seed=seed, params=params)
         self.plan = Plan.build(self.state.params, env, scheme=scheme, rng=seed)
         self.sim = self.plan.simulator(env, seed=seed)
@@ -144,8 +201,7 @@ class Trainer:
             vocab=cfg.vocab,
             seq_len=min(cfg.max_seq, 512) if seq_len is None else seq_len,
             global_batch=global_batch, seed=seed, kind=data_kind))
-        self.step_fn = make_coded_train_step(cfg, cfg_t, self.plan, mode=mode,
-                                             pipeline=pipeline)
+        self.step_fn = self._step_fn_for(self.plan)
         self.controller = None
         if adapt is not None:
             self.controller = AdaptiveController(adapt, self.plan, self.state.params)
@@ -156,15 +212,54 @@ class Trainer:
             self.manager = CheckpointManager(ckpt)
             if n_workers >= 2:
                 self.deathwatch = DeathWatch(n_workers)
-            if ckpt.resume:
-                restored = self.manager.restore_latest(self.state)
-                if restored is not None:
-                    self.state = restored[0]
+            if ckpt.resume and self.manager.latest() is not None:
+                self.restore_checkpoint()
         self.wave = None
         if wave is not None:
             from .wave import WaveRunner  # wave.py imports this module
 
             self.wave = WaveRunner(self, wave)
+
+    def _step_fn_for(self, plan: Plan) -> Callable:
+        return make_coded_train_step(self.cfg, self.cfg_t, plan, mode=self.mode, mesh=self.mesh,
+                                     reduce_mode=self.reduce_mode, grad_dtype=self.grad_dtype,
+                                     pipeline=self.pipeline)
+
+    def check_draw(self, dec_w, times) -> None:
+        """spmd: raise unless this rank's straggler draw (decode weights
+        and round times) is rank 0's — one broadcast of a digest.  Every
+        rank's plan, decisions and ledger rest on identical draws."""
+        if self.mesh is not None:
+            digest = hashlib.sha256(np.asarray(dec_w, np.float64).tobytes()
+                                    + np.asarray(times, np.float64).tobytes()).digest()
+            check_replicated(digest, self.mesh.device, "the straggler draw")
+
+    def restore_checkpoint(self, missing=()) -> int:
+        """Restore the newest checkpoint into the state, treating the shards
+        ``missing`` as lost (a coded checkpoint decodes from the survivors);
+        returns its step.  In spmd every rank restores and checks its state
+        against rank 0's."""
+        self.state, step = self.manager.restore_from_survivors(self.state, missing=missing)
+        if self.mesh is not None:
+            check_replicated(self.state.digest(), self.mesh.device, "the restored state")
+        return step
+
+    def save_checkpoint(self):
+        """Checkpoint the state now, with the plan; returns the path.  In
+        spmd rank 0 writes and the other ranks wait for it at a barrier
+        (their path is ``None``)."""
+        step, path = int(self.state.step), None
+        if self.mesh is None or self.mesh.rank == 0:
+            path = self.manager.save(step, self.state, extra={"plan": self.plan.to_dict()})
+        else:
+            self.manager.last_saved = step
+        if self.mesh is not None:
+            dist.barrier()
+        return path
+
+    def _maybe_save(self) -> None:
+        if self.manager is not None and self.manager.due(int(self.state.step)):
+            self.save_checkpoint()
 
     def swap_plan(self, plan: Plan) -> None:
         """Hot-swap the coding plan at a step boundary: optimizer state,
@@ -182,8 +277,7 @@ class Trainer:
         if self.controller is not None and self.controller.plan is not plan:
             self.controller.plan = plan
             self.controller.monitor.reset()
-        self.step_fn = make_coded_train_step(self.cfg, self.cfg_t, plan,
-                                             pipeline=self.pipeline)
+        self.step_fn = self._step_fn_for(plan)
 
     def recover_from_deaths(self, newly_dead, log_fn=None):
         """Worker-death recovery: a forced re-plan when a controller runs
@@ -209,8 +303,7 @@ class Trainer:
                 log_fn(f"step {detected_at:5d}  worker death {list(newly_dead)}"
                        " — no checkpoint to restore; continuing on redundancy")
             return None
-        self.state, ckpt_step = self.manager.restore_from_survivors(
-            self.state, missing=dead)
+        ckpt_step = self.restore_checkpoint(missing=dead)
         ev = RecoveryEvent(step=detected_at, dead_workers=dead,
                            ckpt_step=ckpt_step, swap=swap)
         self.recoveries.append(ev)
@@ -229,6 +322,7 @@ class Trainer:
             wb = coded_worker_batches(self.data, int(self.state.step),
                                       self.n_workers, self.plan.s_max)
             dec_w, rec = self.sim.step()
+            self.check_draw(dec_w, rec["times"])
             t0 = time.perf_counter()
             self.state, metrics = self.step_fn(self.state, wb, dec_w)
             metrics = {k: float(v) for k, v in metrics.items()}
@@ -252,9 +346,7 @@ class Trainer:
                     if ev is not None:
                         metrics["recovery"] = 1
                         metrics["recovery_ckpt_step"] = ev.ckpt_step
-            if self.manager is not None:
-                self.manager.maybe_save(int(self.state.step), self.state,
-                                        extra={"plan": self.plan.to_dict()})
+            self._maybe_save()
             self.history.append(metrics)
             if log_every and (i % log_every == 0 or i == n_steps - 1):
                 log_fn(f"step {metrics['step']:5d}  loss {metrics['loss']:.4f}  "

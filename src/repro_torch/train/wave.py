@@ -27,9 +27,13 @@ later update changes.
 
 Strategies: staleness 0 (``barrier``) calls the trainer's own step
 function at each update event, so a run is bit-identical to
-``Trainer.run``; staleness >= 1 with the flat pipeline (``staged``)
-combines per level at the decode events; the tree pipeline
-(``deferred``) combines the whole round at its update event.
+``Trainer.run``; staleness >= 1 with the flat pipeline in sim mode
+(``staged``) combines per level at the decode events; the tree pipeline
+and spmd mode (``deferred``) combine the whole round at its update
+event, through the step's ``CodedGrads`` (in spmd: this rank's rows at
+the dispatch, the combine and its collectives at the update, in the
+trace's order on every rank).  In spmd a broadcast checks each round's
+draw at its update, as the barrier loop checks each step's.
 
 Hot-swap quiesce: when the adaptive controller accepts a re-plan
 mid-wave, rounds already dispatched under the old plan drain to their
@@ -48,7 +52,7 @@ import numpy as np
 
 from ..data.pipeline import coded_worker_batches
 from ..sim import ClusterConfig, ClusterSim, schedule_from_plan_levels
-from .coded import _resolve_pipeline, combine_grads, combine_level, per_shard_grad_rows
+from .coded import _resolve_pipeline, combine_level, per_shard_grad_rows
 from .trainer import coded_update
 
 __all__ = ["WaveConfig", "WaveRunner"]
@@ -121,12 +125,13 @@ class WaveRunner:
         self._raw_queue: list = []
 
     def _strategy(self, plan) -> str:
-        """'barrier' (staleness 0: the trainer's step), 'staged' (flat
-        pipeline: per-level combines at decode events) or 'deferred'
-        (tree pipeline: the whole round's combine at its update)."""
+        """'barrier' (staleness 0: the trainer's step), 'staged' (sim-mode
+        flat pipeline: per-level combines at decode events) or 'deferred'
+        (spmd, or the tree pipeline: the whole round's combine at its
+        update)."""
         if self.cfg_w.staleness == 0:
             return "barrier"
-        if _resolve_pipeline(self.tr.pipeline, plan) == "flat":
+        if self.tr.mesh is None and _resolve_pipeline(self.tr.pipeline, plan) == "flat":
             return "staged"
         return "deferred"
 
@@ -184,8 +189,10 @@ class WaveRunner:
                                           tr.n_workers, plan.s_max)
                 rd = _Round(data_base + ev.round, ev.version, wb, eff[ev.round],
                             n_used, tr.n_workers)
-                if strategy != "barrier":
+                if strategy == "staged":
                     rd.rows = per_shard_grad_rows(tr.cfg, tr.state.params, wb)
+                elif strategy == "deferred":
+                    rd.rows = tr.step_fn.grad_fn.rows(tr.state.params, wb)
                 rounds[ev.round] = rd
                 last_dispatched = ev.round
 
@@ -210,6 +217,7 @@ class WaveRunner:
                     raise RuntimeError(f"update of round {ev.round} after "
                                        f"{rd.decoded} of {n_used} decodes")
                 dec_w = np.asarray(rd.dec_w, np.float32)
+                tr.check_draw(dec_w, rd.times)
                 t0 = time.perf_counter()
                 if strategy == "barrier":
                     # the synchronous Trainer's own step: the staleness-0
@@ -220,7 +228,7 @@ class WaveRunner:
                         grads = [rd.combined[j] for j in range(plan.flat_layout.n_leaves)]
                     else:
                         grads = [g.reshape(t.shape) for g, t in zip(
-                            combine_grads(plan, rd.rows, dec_w, pipeline="tree"),
+                            tr.step_fn.grad_fn.combine(rd.rows, dec_w),
                             tr.state.params.leaves())]
                     rd.rows = rd.combined = None
                     tr.state, metrics = coded_update(tr.cfg, tr.cfg_t, tr.state, grads,

@@ -14,7 +14,9 @@ from repro_torch.core import Env, ScaledStraggler, ShiftedExponential
 from repro_torch.core.plan import Plan
 from repro_torch.data.pipeline import DataConfig, SyntheticTokens, coded_worker_batches
 from repro_torch.checkpoint import CodedSpec, restore_coded_train_state, save_coded_checkpoint
+from repro_torch.dist.spawn import spawn
 from repro_torch.kernels import _launch, _pipe, gc_decode, gc_encode, gc_fused, ops, ref
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models.params import GCLM, params_to_numpy
 from repro_torch.train.coded import (combine_grads, combine_level, combine_rows,
                                      make_coded_grad_fn, uncoded_grad_fn)
@@ -280,3 +282,60 @@ def test_tree_pipeline_matches_flat_on_cuda(cuda):
         for t, f in zip(tree, flat, strict=True):
             assert t.is_cuda and t.shape == f.shape
             assert float((t - f).abs().max()) <= 1e-5 * float(f.abs().max())
+
+
+def _spmd_rank(rank, world):
+    """A rank on card 0 over gloo: ``out=`` views of level buffers take
+    the grouped launch bit-equal to the allocating call, on the TMA ring;
+    the spmd flat gradient equals sim mode's.  Returns the gradients'
+    bytes digest."""
+    import hashlib
+
+    mesh = make_local_mesh(world, device="cuda:0", backend="gloo")
+    cfg = get_config("gc-lm-110m").reduced(n_layers=2, d_model=128)
+    model = GCLM(cfg, device="cuda", seed=0)  # the same weights on every rank
+    plan = Plan.build(model, ShiftedExponential(mu=1e-3, t0=50.0), world)
+    layout, k = plan.flat_layout, plan.k_shards
+    gen = torch.Generator(device="cpu").manual_seed(rank)
+    rows = [torch.randn(k, layout.leaf_size(j), generator=gen).cuda()
+            for j in range(layout.n_leaves)]
+    table = torch.randn(layout.n_levels, 1, k, generator=gen).cuda()
+    one = torch.ones(1, device="cuda")
+    bufs = [torch.zeros(n, device="cuda") for n in layout.level_sizes]
+    views = [None] * layout.n_leaves
+    for j, li, off, size in layout.leaf_slices():
+        views[j] = bufs[li][off:off + size].view(1, size)
+    before = gc_fused.launches
+    got = gc_fused.encode_decode_leaves(one, table, layout.leaf_level, rows, out=views)
+    want = gc_fused.encode_decode_leaves(one, table, layout.leaf_level, rows)
+    torch.cuda.synchronize()
+    assert gc_fused.launches == before + 2
+    stages = _pipe.tile_shape(k, 4, layout.n_levels * k, _launch.smem_per_block("gc_fused", 0))[1]
+    for v, g, w, r in zip(views, got, want, rows, strict=True):
+        assert g is v and torch.equal(v, w)
+        assert _pipe.leaf_mode(v.shape[1], 4, r.data_ptr(), v.data_ptr(), stages) == _pipe.RING
+    for li, b in enumerate(bufs):  # the padding past the leaves stays zero
+        assert not bool(b[layout.level_used[li]:].any())
+    data = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=8))
+    wb = coded_worker_batches(data, 0, world, plan.s_max)
+    spmd = make_coded_grad_fn(cfg, plan, mode="spmd", mesh=mesh)
+    sim = make_coded_grad_fn(cfg, plan)
+    h = hashlib.sha256()
+    for u in (0, plan.s_max):
+        times = np.ones(world)
+        times[:u] = 1e6
+        dec_w = plan.decode_weights(times).astype(np.float32)
+        g_spmd, g_sim = spmd(model, wb, dec_w), sim(model, wb, dec_w)
+        for a, b in zip(g_spmd, g_sim, strict=True):
+            assert a.is_cuda and float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+            h.update(a.reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def test_spmd_ranks_share_one_card_over_gloo(cuda, tmp_path):
+    """Two spmd ranks on card 0 over gloo (NCCL takes one card per rank):
+    the grouped launch writes into level-buffer views bit-equal to the
+    allocating call, and the spmd flat gradient equals the sim-mode one
+    with the same bytes on both ranks."""
+    digests = spawn(_spmd_rank, 2, store_dir=str(tmp_path), backend="gloo", timeout=600.0)
+    assert len(set(digests)) == 1

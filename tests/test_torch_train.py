@@ -128,11 +128,14 @@ def test_combine_makes_one_grouped_call_per_step(sim_setup, monkeypatch):
 
 
 def test_coded_grad_fn_scope_raises(sim_setup):
-    """spmd mode is still to be ported; the tree pipeline is ported
-    (tests/test_torch_wave.py), and an unknown pipeline is refused."""
+    """spmd mode is ported (tests/test_torch_spmd.py) and needs a mesh;
+    the tree pipeline is ported (tests/test_torch_wave.py); an unknown
+    mode or pipeline is refused."""
     cfg_t, _, _, _, plan_t, *_ = sim_setup
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.6"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         make_coded_grad_fn(cfg_t, plan_t, mode="spmd")
+    with pytest.raises(ValueError, match="unknown mode"):
+        make_coded_grad_fn(cfg_t, plan_t, mode="pmap")
     with pytest.raises(ValueError, match="unknown pipeline"):
         make_coded_grad_fn(cfg_t, plan_t, pipeline="ring")
 
@@ -212,10 +215,9 @@ def test_three_trainer_steps_match_reference_trainer():
 def test_trainer_unported_options_raise():
     cfg = get_config("gc-lm-110m").reduced(**KW)
     dist = ShiftedExponential()
-    # ckpt=, adapt= and wave= are ported (tests/test_torch_checkpoint.py,
-    # tests/test_torch_adapt.py, tests/test_torch_wave.py)
-    for kw in (dict(budget=object()), dict(scheme="auto"), dict(mode="spmd"),
-               dict(grad_dtype="bf16")):
+    # ckpt=, adapt=, wave=, mode="spmd" and grad_dtype= are ported
+    # (tests/test_torch_{checkpoint,adapt,wave,spmd}.py)
+    for kw in (dict(budget=object()), dict(scheme="auto")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(cfg, TrainConfig(), dist, n_workers=N, device="cpu", **kw)
 
