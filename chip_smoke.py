@@ -95,8 +95,29 @@ port's sources beside it.  Phases; any failure raises:
    round trip through both kernels (counts set to 0 just before): encode
    with the (6, 6) cyclic code, strike 2 stragglers, decode, recover
    ``g.sum(0)``; times at the round trip's full width.
-10. reference: three steps at a reduced size on the CPU (the plain
-   versions) and on the card, from the same weights, agree.
+9a. serve: full-width gc-lm-110m (random weights, seed 0) in a
+   ``ServeEngine`` (8 slots of 320, bf16 slab) behind the coded decode
+   tier ``CodedDecode.solve(Env.iid(ShiftedExponential(mu=1e-3, t0=50),
+   8), objective="p99", seed=0)``: 32 requests, Poisson arrivals at rate
+   2e-3 (seed 0), 256-token prompts (numpy, seed 0), 64 new tokens each,
+   greedy, with every count set to 0 just before.  Every request ends
+   with 64 tokens, every slot serves more than one, the engine's step
+   latencies are the tier's stream element for element, and no ``gc_*``
+   kernel launches (the tier prices steps and calls none).  Teacher
+   forcing: each decode step's logits against prefill logits of prompt
+   + generated tokens at that position, two requests on a bf16 slab
+   (``SERVE_BF16_REL``) and one on an fp32 slab (``SERVE_FP32_REL``).
+   Prints prefill (256 tokens, batch 1) and one ``decode_step`` (batch 8,
+   full slab), host-inclusive and device-only, beside their bounds; the
+   engine's tokens/s by the wall clock; one engine step under
+   ``torch.profiler`` (device-busy share, host syncs); peak device
+   memory; the simulated step-latency p50 and p99 beside the tier's
+   closed-form p99.
+10. reference: three training steps at a reduced size on the CPU (the
+   plain versions) and on the card, from the same weights, agree; the
+   same weights and prompts through ``ServeEngine`` (fp32 slab, greedy)
+   on both give equal tokens, timestamps and step latencies, and
+   teacher-forced logits within 1e-4 of the largest.
 
 The line before the last is the card's name and power limit; before it
 a JSON line lists every kernel with its launches, error and times; the
@@ -146,6 +167,16 @@ SPMD_LIMIT_S = 600.0
 #: the port's PlanSimulator and DeathWatch alone)
 DEATH = dict(worker=1, factor=1000.0, from_round=0)
 CKPT_STEPS = 5
+#: the [serve] phase: slab, load and the launcher's default coded tier
+SERVE = dict(n_slots=8, max_len=320, n_requests=32, prompt_len=256, max_new=64,
+             rate=2e-3, workers=8, profile_step=120)
+#: teacher-forced decode logits against prefill logits of the same tokens,
+#: relative to the largest logit: a bf16 slab rounds every cached K/V to
+#: 8 bits (full width on an H100 80GB HBM3 at 700.00 W: 6.425e-3; the
+#: reduced model on the CPU: 1.54e-3, tests/test_torch_serve.py); an fp32
+#: slab sums the same fp32 terms in another order (the same card: 3.825e-6)
+SERVE_BF16_REL = 2e-2
+SERVE_FP32_REL = 1e-4
 
 
 def log(*args):
@@ -1500,6 +1531,206 @@ def phase_decode():
     return launches, max_err, times
 
 
+def teacher_forced(cfg, model, reqs, dtype, device):
+    """Decode logits ``(T-1, B, V)`` on a fresh slab of ``dtype``, each row
+    fed its own generated tokens, and the fp32 prefill logits of prompt +
+    generated tokens at the same positions.  The requests share one
+    prompt length and one token count."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.model import decode_step, prefill
+    from repro_torch.serve import insert_request, make_slab
+
+    s, n = len(reqs[0].prompt), len(reqs[0].tokens)
+    max_len = s + n
+    outputs = torch.from_numpy(np.stack([r.output for r in reqs]).astype(np.int64)).to(device)
+    slab = make_slab(cfg, len(reqs), max_len, dtype=dtype, device=device)
+    for slot, r in enumerate(reqs):
+        _, pref = prefill(cfg, model, outputs[slot:slot + 1, :s], target_len=max_len)
+        insert_request(cfg, slab, pref, slot)
+    steps = []
+    for t in range(n - 1):
+        logits, _ = decode_step(cfg, model, slab, outputs[:, s + t, None])
+        steps.append(logits[:, -1])
+    full, _ = prefill(cfg, model, outputs)
+    return torch.stack(steps), full[:, s:s + n - 1].transpose(0, 1)
+
+
+def _rel_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()) / float(want.float().abs().max())
+
+
+def phase_serve():
+    """Full-width serving through ``ServeEngine`` and the coded tier."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import Env, ShiftedExponential
+    from repro_torch.models.model import decode_step, prefill
+    from repro_torch.models.params import GCLM, count_params
+    from repro_torch.serve import CodedDecode, ServeConfig, ServeEngine
+    from repro_torch.sim.arrivals import poisson_arrivals
+
+    cfg = get_config("gc-lm-110m")
+    model = GCLM(cfg, device="cuda", seed=0)
+    env = Env.iid(ShiftedExponential(mu=1e-3, t0=50.0), SERVE["workers"])
+    coded = CodedDecode.solve(env, objective="p99", seed=0)
+    plan = coded.plan
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(SERVE["n_requests"], SERVE["prompt_len"]))
+    arrivals = poisson_arrivals(SERVE["n_requests"], SERVE["rate"], seed=0)
+    eng = ServeEngine(cfg, model, ServeConfig(n_slots=SERVE["n_slots"],
+                                              max_len=SERVE["max_len"]),
+                      coded=coded, device="cuda")
+    reqs = [eng.submit(p, max_new=SERVE["max_new"], arrival=float(t))
+            for p, t in zip(prompts, arrivals)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    served_by = {}
+    n_steps, prof, step_wall, walls = 0, None, None, []
+    t0 = time.perf_counter()
+    while True:
+        if n_steps == SERVE["profile_step"]:  # one steady engine step, profiled
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                more = eng.step()
+                torch.cuda.synchronize()
+                step_wall = (time.perf_counter() - t1) * 1e3
+        else:
+            t1 = time.perf_counter()
+            more = eng.step()  # ends in the host's read of the sampled tokens
+            walls.append((time.perf_counter() - t1) * 1e3)
+        if not more:
+            break
+        n_steps += 1
+        for i, r in enumerate(reqs):
+            if r.slot is not None:
+                served_by.setdefault(r.slot, set()).add(i)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_tokens = sum(len(r.tokens) for r in reqs)
+
+    if not all(r.done and len(r.tokens) == SERVE["max_new"] for r in reqs):
+        raise AssertionError(f"[serve] unfinished requests: {[r.summary() for r in reqs if not r.done]}")
+    if sorted(served_by) != list(range(SERVE["n_slots"])) or \
+            min(len(v) for v in served_by.values()) < 2:
+        raise AssertionError(f"[serve] not every slot was reused: {served_by}")
+    replay = CodedDecode(env, plan, seed=0).step_latencies(len(eng.step_latencies), seed=0)
+    if not np.array_equal(np.asarray(eng.step_latencies), replay):
+        raise AssertionError("[serve] the engine's clock is not the coded tier's stream")
+    if any(counts.values()):
+        raise AssertionError(f"[serve] the coded tier launched kernels: {counts}")
+    if prof is None:
+        raise AssertionError(f"[serve] only {n_steps} engine steps; none was profiled")
+
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    syncs = {e.key: e.count for e in prof.key_averages()
+             if e.device_type == DeviceType.CPU and any(
+                 w in e.key for w in ("Synchronize", "Memcpy", "_local_scalar_dense"))}
+    n_kernels = sum(e.count for e in events)
+
+    bf16_got, bf16_want = teacher_forced(cfg, model, reqs[:2], torch.bfloat16, "cuda")
+    fp32_got, fp32_want = teacher_forced(cfg, model, reqs[2:3], torch.float32, "cuda")
+    bf16_err, fp32_err = _rel_err(bf16_got, bf16_want), _rel_err(fp32_got, fp32_want)
+    if not bf16_err <= SERVE_BF16_REL or not fp32_err <= SERVE_FP32_REL:
+        raise AssertionError(f"[serve] teacher-forced logits: bf16 slab {bf16_err:.3e} "
+                             f"(bound {SERVE_BF16_REL}), fp32 slab {fp32_err:.3e} "
+                             f"(bound {SERVE_FP32_REL})")
+    del bf16_got, bf16_want, fp32_got, fp32_want
+
+    # prefill of one prompt and one decode step of the full slab
+    n_params, s, b, cap = count_params(model), SERVE["prompt_len"], SERVE["n_slots"], \
+        SERVE["max_len"]
+    L, d, vocab = cfg.n_layers, cfg.d_model, cfg.vocab
+    tokens = torch.from_numpy(prompts[:1]).cuda()
+    slab = [{k: v.clone() for k, v in seg.items()} for seg in eng.slab]
+    for seg in slab:
+        seg["pos"].fill_(cap - 1)
+    tok = torch.arange(1, b + 1, device="cuda")[:, None]
+    kv_bytes = L * 2 * cap * cfg.n_kv_heads * cfg.head_dim
+    pre = {"ms": time_ms(lambda: prefill(cfg, model, tokens, target_len=cap), 10),
+           "device_ms": device_ms(lambda: prefill(cfg, model, tokens, target_len=cap), 10)}
+    pre_bytes, pre_ops = bounds_ms(4 * n_params + 8 * s + 4 * s * vocab + 4 * kv_bytes,
+                                   2 * n_params * s + 4 * L * d * s * (s + 1) / 2)
+    dec = {"ms": time_ms(lambda: decode_step(cfg, model, slab, tok), 20),
+           "device_ms": device_ms(lambda: decode_step(cfg, model, slab, tok), 20)}
+    dec_bytes, dec_ops = bounds_ms(4 * n_params + 2 * b * kv_bytes + 8 * b + 4 * b * vocab,
+                                   2 * n_params * b + 4 * L * d * b * cap)
+    steps = np.asarray(eng.step_latencies)
+    log(f"[serve] coded tier R={plan.r} s={plan.s} (work {plan.work_factor:.3f}); "
+        f"{len(reqs)} requests, {n_tokens} tokens in {wall:.3f} s wall over {n_steps} engine "
+        f"steps: {n_tokens / wall:.1f} tok/s (one step under the profiler included); every "
+        f"request {SERVE['max_new']} tokens, slots served "
+        f"{sorted(len(v) for v in served_by.values())} "
+        f"requests each; step latencies == the tier's stream; gc_* launches {counts}; "
+        f"max_memory_allocated {peak} bytes")
+    log(f"[serve] engine step wall, host clock (ms): first {walls[0]:.3f}, median "
+        f"{statistics.median(walls):.3f}, mean {statistics.mean(walls):.3f}, max "
+        f"{max(walls):.3f} over {len(walls)} unprofiled steps")
+    log(f"[serve] teacher forcing: bf16 slab (2 requests, {bf16_err:.3e} of the largest "
+        f"logit, bound {SERVE_BF16_REL}), fp32 slab (1 request, {fp32_err:.3e}, bound "
+        f"{SERVE_FP32_REL})")
+    log(f"[serve] prefill S={s} B=1: incl {pre['ms']:.4f} ms, device-only "
+        f"{pre['device_ms']:.4f} ms, bound {max(pre_bytes, pre_ops):.4f} ms "
+        f"(operations {pre_ops:.4f}, bytes {pre_bytes:.4f}); share of bound (device-only) "
+        f"{max(pre_bytes, pre_ops) / pre['device_ms']:.3f}")
+    log(f"[serve] decode_step B={b} cap={cap} bf16 slab full: incl {dec['ms']:.4f} ms, "
+        f"device-only {dec['device_ms']:.4f} ms, bound {max(dec_bytes, dec_ops):.4f} ms "
+        f"(bytes {dec_bytes:.4f}, operations {dec_ops:.4f}); share of bound (device-only) "
+        f"{max(dec_bytes, dec_ops) / dec['device_ms']:.3f}")
+    log(f"[serve] one engine step under the profiler: wall {step_wall:.3f} ms, device busy "
+        f"{busy_ms:.3f} ms ({busy_ms / step_wall:.1%}), {n_kernels} kernels; host syncs and "
+        f"copies {syncs}")
+    log(f"[serve] simulated step latency p50 {np.quantile(steps, 0.5):.3f} p99 "
+        f"{np.quantile(steps, 0.99):.3f} over {steps.size} steps; tier closed form p99 "
+        f"{coded.predicted_quantile(0.99):.3f}, mean {coded.predicted_mean():.3f}")
+
+
+def _reference_serve(cfg, init):
+    """The same weights and prompts through ``ServeEngine`` on the CPU
+    (plain versions) and on the card, fp32 slab, greedy."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import Env, ShiftedExponential
+    from repro_torch.models.params import GCLM, params_from_numpy
+    from repro_torch.serve import CodedDecode, ServeConfig, ServeEngine
+
+    env = Env.iid(ShiftedExponential(mu=1e-3, t0=50.0), 8)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, size=(6, 16))
+    runs = {}
+    for device in ("cpu", "cuda"):
+        model = params_from_numpy(GCLM(cfg, device=device), init)
+        eng = ServeEngine(cfg, model, ServeConfig(n_slots=3, max_len=32,
+                                                  dtype=torch.float32),
+                          coded=CodedDecode.solve(env, seed=0), device=device)
+        reqs = [eng.submit(p, max_new=12, arrival=100.0 * i) for i, p in enumerate(prompts)]
+        eng.run()
+        got, want = teacher_forced(cfg, model, reqs, torch.float32, device)
+        runs[device] = (eng, reqs, got.cpu(), want.cpu())
+    (eng_c, reqs_c, got_c, want_c), (eng_g, reqs_g, got_g, want_g) = runs["cpu"], runs["cuda"]
+    for rc, rg in zip(reqs_c, reqs_g, strict=True):
+        if rc.tokens != rg.tokens or (rc.t_admit, rc.t_done, rc.n_steps) != \
+                (rg.t_admit, rg.t_done, rg.n_steps):
+            raise AssertionError(f"[reference] serve: cpu {rc.tokens} vs cuda {rg.tokens}")
+    if eng_c.step_latencies != eng_g.step_latencies:
+        raise AssertionError("[reference] serve: step latencies differ")
+    errs = (_rel_err(got_g, got_c), _rel_err(want_g, want_c))
+    if not max(errs) <= 1e-4:
+        raise AssertionError(f"[reference] serve: logits differ by {errs} of the largest")
+    return errs
+
+
 def phase_reference():
     from repro_torch.configs import get_config
     from repro_torch.core import ShiftedExponential
@@ -1529,6 +1760,11 @@ def phase_reference():
         "(plain versions) and cuda agree; losses "
         f"{[h['loss'] for h in histories['cpu']]} vs "
         f"{[h['loss'] for h in histories['cuda']]}")
+    errs = _reference_serve(cfg, init)
+    log("[reference] serving, the same weights and prompts (6 requests, 12 tokens, fp32 "
+        "slab, greedy): equal tokens, timestamps and step latencies on cpu and cuda; "
+        f"teacher-forced decode / prefill logits differ by {errs[0]:.3e} / {errs[1]:.3e} "
+        "of the largest")
 
 
 def main() -> int:
@@ -1574,6 +1810,7 @@ def main() -> int:
     ckpt_launches, n_digits = timed("ckpt", phase_ckpt)
     enc_err, enc_times = timed("encode", phase_encode, n_digits)
     trip_launches, dec_err, dec_times = timed("decode", phase_decode)
+    timed("serve", phase_serve)
     timed("reference", phase_reference)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s; seconds by "
         f"phase {spent}")

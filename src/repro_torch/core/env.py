@@ -4,12 +4,14 @@ Copied from ``repro/core/env.py`` and trimmed to what the port's slices
 call: ``Env.iid``, ``heterogeneous``, ``with_faults``, ``from_trace``,
 ``coerce``, ``sample``, ``degradation_factors``, ``has_deaths``, the
 solver view (static degradations folded in, transient faults dropped),
-the per-worker means, the order statistics the schemes read (delegated
-to the wrapped distribution for an i.i.d. env, Monte-Carlo over
-``mc_samples`` joint draws otherwise, in the reference's draw order), and
-the exact ``to_dict``/``from_dict`` (an env embeds bit-identically inside
-``Plan.to_dict``).  The Poisson-binomial quadrature (``method="quad"``)
-is ROADMAP work.
+the per-worker means, ``subset`` (the replica group of the coded serving
+tier), the order statistics the schemes read (delegated to the wrapped
+distribution for an i.i.d. env; otherwise Monte-Carlo over
+``mc_samples`` joint draws, in the reference's draw order, or
+Poisson-binomial quadrature over the per-worker CDFs with
+``method="quad"``), ``order_stat_quantile`` (the serving tier's
+tail-latency primitive), and the exact ``to_dict``/``from_dict`` (an env
+embeds bit-identically inside ``Plan.to_dict``).
 """
 from __future__ import annotations
 
@@ -191,6 +193,23 @@ class Env:
             return self
         return Env(dists=self.effective_dists(), mc_samples=self.mc_samples)
 
+    def subset(self, workers: Sequence[int]) -> "Env":
+        """The sub-population of the selected workers (the replica group a
+        coded serving step fans out to).  Faults follow their worker into
+        the subset with re-indexed worker ids; faults on excluded workers
+        are dropped."""
+        idx = [int(w) for w in workers]
+        if not idx:
+            raise ValueError("subset needs at least one worker")
+        for w in idx:
+            if not (0 <= w < self.n_workers):
+                raise ValueError(f"worker {w} out of range [0,{self.n_workers})")
+        remap = {w: j for j, w in enumerate(idx)}
+        faults = tuple(dataclasses.replace(f, worker=remap[f.worker])
+                       for f in self.faults if f.worker in remap)
+        return Env(dists=tuple(self.dists[w] for w in idx), faults=faults,
+                   mc_samples=self.mc_samples)
+
     # ------------------------------------------------------------- sampling
     def sample(self, rng, shape) -> np.ndarray:
         """Draw base cycle times (no faults).  For a non-identical
@@ -239,24 +258,110 @@ class Env:
                              f"expects {n_workers}")
         return self.n_workers
 
-    def expected_order_stats(self, n_workers: Optional[int] = None,
-                             rng=0) -> np.ndarray:
+    def expected_order_stats(self, n_workers: Optional[int] = None, rng=0,
+                             method: str = "auto") -> np.ndarray:
         """t with t[k-1] = E[T_(k)]: the wrapped distribution's for an
-        i.i.d. env, else Monte-Carlo over ``mc_samples`` joint draws."""
+        i.i.d. env; otherwise Monte-Carlo over ``mc_samples`` joint draws
+        (``method="auto"`` or ``"mc"``) or Poisson-binomial quadrature
+        over the per-worker CDFs (``method="quad"``, deterministic)."""
         n = self._check_n(n_workers)
         if self.is_iid:
             return self.dists[0].expected_order_stats(n, rng)
+        if method == "quad":
+            return self._order_stats_quad("mean")
         return self.sample_sorted(rng, n, self.mc_samples).mean(axis=0)
 
     def inv_expected_inv_order_stats(self, n_workers: Optional[int] = None,
-                                     rng=0) -> np.ndarray:
+                                     rng=0, method: str = "auto") -> np.ndarray:
         """t' with t'[k-1] = 1 / E[1/T_(k)] (paper Lemma 2, generalized to
-        non-identical populations as ``expected_order_stats``)."""
+        non-identical populations; the same ``method`` choice as
+        ``expected_order_stats``)."""
         n = self._check_n(n_workers)
         if self.is_iid:
             return self.dists[0].inv_expected_inv_order_stats(n, rng)
+        if method == "quad":
+            return 1.0 / self._order_stats_quad("inv")
         draws = self.sample_sorted(rng, n, self.mc_samples)
         return 1.0 / (1.0 / draws).mean(axis=0)
+
+    def order_stat_quantile(self, k: int, q: float, *, rtol: float = 1e-6,
+                            n_workers: Optional[int] = None) -> float:
+        """The ``q``-quantile of T_(k), the k-th smallest of the (effective)
+        population: a decode step fanned out to R workers and accepted at
+        the (R-s)-th delivery has its p99 at ``order_stat_quantile(R - s,
+        0.99)``.  Inverts P[T_(k) <= t] (the count DP of
+        ``_order_stat_tails``) by bracketed bisection."""
+        n = self._check_n(n_workers)
+        if not (1 <= int(k) <= n):
+            raise ValueError(f"order statistic k={k} out of range [1,{n}]")
+        if not (0.0 < q < 1.0):
+            raise ValueError(f"quantile q={q} must be in (0, 1)")
+        k = int(k)
+        tails = self._order_stat_tails()
+        target = 1.0 - float(q)          # find t with P[T_(k) > t] <= target
+
+        hi = max(d.mean() for d in self.effective_dists())
+        hi = max(hi, 1e-12)
+        for _ in range(200):
+            if tails(hi)[k - 1] <= target:
+                break
+            hi *= 2.0
+        else:
+            raise RuntimeError("order_stat_quantile: bracket expansion failed")
+        lo = 0.0
+        while hi - lo > rtol * max(hi, 1.0):
+            mid = 0.5 * (lo + hi)
+            if tails(mid)[k - 1] <= target:
+                hi = mid
+            else:
+                lo = mid
+        return float(hi)
+
+    def _order_stat_tails(self):
+        """t -> (N,) tail P[T_(k) > t], k = 1..N, by the Poisson-binomial
+        count DP (P[#{T_i <= t} = c] for independent non-identical
+        workers, O(N^2) per t), memoized per t."""
+        n = self.n_workers
+        cdfs = [d.cdf for d in self.effective_dists()]
+        cache: dict = {}
+
+        def tails(t: float) -> np.ndarray:
+            out = cache.get(t)
+            if out is None:
+                count = np.zeros(n + 1)
+                count[0] = 1.0
+                for c in cdfs:
+                    pi = float(c(t))
+                    count[1:] = count[1:] * (1.0 - pi) + count[:-1] * pi
+                    count[0] *= 1.0 - pi
+                below = np.cumsum(count)  # P[#{T_i <= t} <= c], c = 0..N
+                out = cache[t] = below[:-1]  # P[T_(k) > t] = P[count <= k-1]
+            return out
+
+        return tails
+
+    def _order_stats_quad(self, kind: str) -> np.ndarray:
+        """E[T_(k)] ("mean") or E[1/T_(k)] ("inv") for every k by
+        quadrature over the order-statistic tail."""
+        from scipy import integrate
+
+        n = self.n_workers
+        tails = self._order_stat_tails()
+        out = np.empty(n)
+        for k in range(1, n + 1):
+            if kind == "mean":
+                # E[T_(k)] = int_0^inf P[T_(k) > t] dt   (T > 0)
+                def integrand(t, k=k):
+                    return float(tails(t)[k - 1])
+            else:
+                # E[1/T_(k)] = int_0^inf P[T_(k) < 1/u] du
+                def integrand(u, k=k):
+                    if u <= 0.0:
+                        return 1.0
+                    return 1.0 - float(tails(1.0 / u)[k - 1])
+            val, _ = integrate.quad(integrand, 0.0, np.inf, limit=400)
+            out[k - 1] = val
+        return out
 
     # ------------------------------------------------------- serialization
     def to_dict(self) -> dict:

@@ -3,6 +3,8 @@ rms norm with ``(1 + scale)``, the half-split RoPE, the gated-silu MLP,
 and the tied embedding / unembedding."""
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -17,12 +19,21 @@ def rms_norm(x, scale, eps: float = 1e-6):
     return (out * (1.0 + scale.float())).to(x.dtype)
 
 
+@functools.lru_cache(maxsize=16)
+def _rope_freq(base: float, half: int, device: torch.device):
+    """The (half,) fp32 frequencies, computed in numpy as the reference
+    does and copied to ``device`` once: a decode step then makes no host
+    to device copy (and can be captured in a CUDA graph)."""
+    freq = base ** (-np.arange(0, half, dtype=np.float32) / half)
+    return torch.from_numpy(freq).to(device)
+
+
 def rope(x, positions, base: float = 10_000.0):
     """Rotary embedding.  x: (..., S, H, D) or (..., S, D); positions: (..., S)."""
     d = x.shape[-1]
     half = d // 2
-    freq = torch.from_numpy(base ** (-np.arange(0, half, dtype=np.float32) / half))
-    ang = positions[..., None].float() * freq.to(x.device)  # (..., S, half)
+    freq = _rope_freq(float(base), half, x.device)
+    ang = positions[..., None].float() * freq  # (..., S, half)
     if x.ndim == ang.ndim + 1:  # head axis present
         ang = ang[..., None, :]
     cos, sin = torch.cos(ang), torch.sin(ang)

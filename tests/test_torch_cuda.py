@@ -16,8 +16,13 @@ from repro_torch.data.pipeline import DataConfig, SyntheticTokens, coded_worker_
 from repro_torch.checkpoint import CodedSpec, restore_coded_train_state, save_coded_checkpoint
 from repro_torch.dist.spawn import spawn
 from repro_torch.kernels import _launch, _pipe, gc_decode, gc_encode, gc_fused, ops, ref
+from repro_torch.launch import serve as launch_serve
 from repro_torch.launch.mesh import make_local_mesh
-from repro_torch.models.params import GCLM, params_to_numpy
+from repro_torch.models.model import decode_step, prefill
+from repro_torch.models.params import GCLM, params_from_numpy, params_to_numpy
+from repro_torch.serve import (CodedDecode, ServeConfig, ServeEngine, generate,
+                               insert_request, make_slab)
+from repro_torch.sim.arrivals import poisson_arrivals
 from repro_torch.train.coded import (combine_grads, combine_level, combine_rows,
                                      make_coded_grad_fn, uncoded_grad_fn)
 from repro_torch.train.trainer import TrainConfig, Trainer
@@ -339,3 +344,72 @@ def test_spmd_ranks_share_one_card_over_gloo(cuda, tmp_path):
     with the same bytes on both ranks."""
     digests = spawn(_spmd_rank, 2, store_dir=str(tmp_path), backend="gloo", timeout=600.0)
     assert len(set(digests)) == 1
+
+
+def _serve_run(cfg, model, device, dtype=torch.float32):
+    """Six greedy requests over three slots, Poisson arrivals, the coded
+    tier of an 8-worker env; returns (engine, requests)."""
+    env = Env.iid(ShiftedExponential(mu=1e-3, t0=50.0), 8)
+    eng = ServeEngine(cfg, model, ServeConfig(n_slots=3, max_len=32, dtype=dtype),
+                      coded=CodedDecode.solve(env, seed=0), device=device)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, size=(6, 12))
+    times = poisson_arrivals(6, 2e-3, seed=0)
+    reqs = [eng.submit(p, max_new=n, arrival=float(t))
+            for p, n, t in zip(prompts, (8, 12, 5, 20, 9, 14), times)]
+    eng.run()
+    return eng, reqs
+
+
+def test_serve_engine_on_cuda_matches_cpu(cuda):
+    """The same weights, prompts, arrivals and coded tier through the
+    engine on the card and on the CPU (plain PyTorch), fp32 slab, greedy:
+    the same tokens, timestamps and step latencies; the coded tier
+    launches no kernel."""
+    cfg = get_config("gc-lm-110m").reduced(n_layers=2, d_model=128)
+    cpu_model = GCLM(cfg, device="cpu", seed=0)
+    gpu_model = params_from_numpy(GCLM(cfg, device="cuda"), params_to_numpy(cpu_model))
+    before = (gc_fused.launches, gc_encode.launches, gc_decode.launches)
+    eng_g, reqs_g = _serve_run(cfg, gpu_model, "cuda")
+    assert (gc_fused.launches, gc_encode.launches, gc_decode.launches) == before
+    eng_c, reqs_c = _serve_run(cfg, cpu_model, "cpu")
+    assert eng_g.step_latencies == eng_c.step_latencies
+    for rg, rc in zip(reqs_g, reqs_c, strict=True):
+        assert rg.tokens == rc.tokens
+        assert (rg.t_admit, rg.t_done, rg.n_steps) == (rc.t_admit, rc.t_done, rc.n_steps)
+    prompt = torch.from_numpy(reqs_c[3].output[None].astype(np.int64))
+    got = prefill(cfg, gpu_model, prompt.cuda())[0].cpu()
+    want = prefill(cfg, cpu_model, prompt)[0]
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def test_serve_slab_is_written_in_place_on_cuda(cuda):
+    cfg = get_config("gc-lm-110m").reduced(n_layers=2, d_model=128)
+    model = GCLM(cfg, device="cuda", seed=0)
+    slab = make_slab(cfg, 4, 32)
+    ptrs = [(t["k"].data_ptr(), t["v"].data_ptr(), t["pos"].data_ptr()) for t in slab]
+    _, pref = prefill(cfg, model, torch.arange(1, 9, device="cuda")[None], target_len=32)
+    insert_request(cfg, slab, pref, 2)
+    before = slab[0]["k"][:, 2, :8].clone()
+    logits, out = decode_step(cfg, model, slab, torch.full((4, 1), 7, device="cuda"))
+    torch.cuda.synchronize()
+    assert out is slab and logits.is_cuda
+    assert ptrs == [(t["k"].data_ptr(), t["v"].data_ptr(), t["pos"].data_ptr()) for t in slab]
+    assert torch.equal(slab[0]["k"][:, 2, :8], before)  # the prompt's rows stay
+    assert slab[0]["pos"][:, 2].tolist() == [9] * cfg.n_layers
+    assert bool(slab[0]["k"][:, 2, 8].any())            # this step's K at pos 8
+    eng, _ = _serve_run(cfg, model, "cuda", dtype=torch.bfloat16)
+    slab = eng.slab
+    assert all(t["k"].dtype == torch.bfloat16 for t in slab)
+
+
+def test_serve_entry_points_default_to_cuda(cuda, capsys):
+    cfg = get_config("gc-lm-110m").reduced(n_layers=2, d_model=128)
+    model = GCLM(cfg, seed=0)
+    eng = ServeEngine(cfg, model)
+    assert eng.device.type == "cuda" and eng.slab[0]["k"].is_cuda
+    req = eng.submit(np.arange(1, 9), max_new=3)
+    eng.run()
+    assert req.done and len(req.tokens) == 3
+    assert generate(cfg, model, np.arange(1, 9)[None], 2).shape == (1, 10)
+    launch_serve.main(["--reduced", "--stream", "3", "--prompt-len", "8", "--new", "3"])
+    assert "served 3 requests / 9 tokens" in capsys.readouterr().out

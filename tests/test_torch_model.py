@@ -105,7 +105,7 @@ def test_forward_loss_and_every_leaf_gradient_match_jax(carried):
     jparams = jax.tree.map(jnp.asarray, tree)
     logits_j = jax_forward(cfg_j, jparams, jnp.asarray(tokens[:, :-1]))[0]
     with torch.no_grad():
-        logits_t, _ = forward(cfg_t, model, torch.from_numpy(tokens[:, :-1]).long())
+        logits_t = forward(cfg_t, model, torch.from_numpy(tokens[:, :-1]).long())[0]
     _close(logits_t, logits_j, what="logits")
 
     def loss_fn(p):
