@@ -56,7 +56,22 @@ port's sources beside it.  Phases; any failure raises:
    then 6 rounds at staleness 1: the executed events are the simulator's
    ``WaveTrace``, one ``gc_fused`` launch per decode event (3 per round),
    finite losses, and the peak device memory.
-6e. spmd: four ranks on card 0 over gloo (``repro_torch.dist.spawn``;
+6e. tune: the autotuner at full width (gc-lm-110m, seq 256, global batch
+   8) on workers 2 and 3 five times slower (``Env.heterogeneous``, N = 4,
+   so the ``mc`` backend prices on the card) under a 3 GiB memory cap
+   per worker: the report equals the same search on the CPU (the same
+   candidates in the same order, pruned for the same reasons, the same
+   best, times within 1e-6), and the cap prunes some and admits some.
+   The winning plan through ``Plan.simulate`` for 20,000 steps: ``mc`` on
+   the card against ``eq2`` (equal times, ``tau_coded`` within 1e-4),
+   the mc call's device time beside the eq2 loop's host time.  Then a
+   fresh full-width ``Trainer(scheme="auto", budget=...)``: it adopts the
+   report's knobs, its coded gradient equals the uncoded one at step 0
+   with 0 and s_max stragglers, and 3 steps with the counts set to 0
+   just before launch ``gc_fused`` once per step with finite losses;
+   ``max_memory_allocated`` beside the tuner's per-worker estimate (sim
+   mode holds all N·K rows on one card: no gate).
+6f. spmd: four ranks on card 0 over gloo (``repro_torch.dist.spawn``;
    NCCL takes one card per rank), each a full-width
    ``Trainer(mode="spmd")`` with K = s_max + 1 shards per rank.  A probe
    says whether gloo reduce-scatters CUDA tensors on this torch
@@ -158,6 +173,14 @@ ADAPT_STEPS = 26
 #: round, in simulated time (a barrier round here is about 1e8 to 8e8)
 WAVE_COSTS = dict(update_cost=3e7, broadcast_latency=1e6)
 WAVE_ROUNDS = 6
+#: the [tune] phase: the memory cap per worker (at N = 4 the tuner's
+#: estimate prices fp32 with K = 4 under psum at 4.27 GiB and bf16 with
+#: K = 4 under psum_scatter at 2.80 GiB, so 3 GiB prunes 46 of 136
+#: candidates; found on the CPU with the port's numpy layer), the steps
+#: of the mc-against-eq2 ledger and its bound (tests/test_sim_mc.py)
+TUNE_HBM_GB = 3.0
+TUNE_SIM_STEPS = 20_000
+MC_EQ2_RTOL = 1e-4
 #: the [spmd] phase: ranks on one card over gloo (NCCL takes one card per
 #: rank) and the job's time limit, seconds
 SPMD_RANKS = 4
@@ -347,9 +370,9 @@ def phase_device():
             f"spilling entries {len(spills)}")
 
 
-def make_trainer(env=None, **kw):
+def make_trainer(env=None, scheme="xf", **kw):
     """Full-width gc-lm-110m in a ``Trainer`` on the card (seed 0); ``kw``
-    goes to the ``Trainer`` (ckpt, adapt, wave, params)."""
+    goes to the ``Trainer`` (ckpt, adapt, wave, params, budget)."""
     from repro_torch.configs import get_config
     from repro_torch.core import ShiftedExponential
     from repro_torch.train.trainer import TrainConfig, Trainer
@@ -357,7 +380,7 @@ def make_trainer(env=None, **kw):
     cfg = get_config("gc-lm-110m").replace(max_seq=512)
     return Trainer(cfg, TrainConfig(lr=3e-4, warmup=10, total_steps=300),
                    env or ShiftedExponential(mu=1e-3, t0=50.0), n_workers=4,
-                   scheme="xf", global_batch=8, seed=0, device="cuda",
+                   scheme=scheme, global_batch=8, seed=0, device="cuda",
                    seq_len=256, **kw)
 
 
@@ -917,6 +940,133 @@ def phase_wave():
     del trainer
     torch.cuda.empty_cache()
     return total
+
+
+def _tune_env():
+    """Workers 2 and 3 five times slower than 0 and 1 (the [adapt]
+    phase's population from its first round): not i.i.d., so the tuner
+    prices with the ``mc`` backend."""
+    from repro_torch.core import Env, ScaledStraggler, ShiftedExponential
+
+    fast = ShiftedExponential(mu=1e-3, t0=50.0)
+    return Env.heterogeneous([fast] * 2 + [ScaledStraggler(base=fast, factor=5.0)] * 2)
+
+
+def _same_reports(got, want) -> float:
+    """Raise unless two ``TuneReport``s hold the same candidates in the same
+    order, pruned for the same reasons, with equal memory and the same
+    best; returns the largest relative time difference (bound 1e-6)."""
+    worst = 0.0
+    for part in ("candidates", "pruned"):
+        a, b = getattr(got, part), getattr(want, part)
+        if [c.key() for c in a] != [c.key() for c in b] \
+                or [c.prune_reason for c in a] != [c.prune_reason for c in b]:
+            raise AssertionError(f"[tune] the card's {part} differ from the CPU's")
+        for ca, cb in zip(a, b):
+            if ca.mem.to_dict() != cb.mem.to_dict() or ca.x != cb.x:
+                raise AssertionError(f"[tune] {ca.label()}: memory or x differ")
+            rel = abs(ca.time - cb.time) / abs(cb.time)
+            if not rel <= 1e-6:
+                raise AssertionError(f"[tune] {ca.label()}: time {ca.time} on the card, "
+                                     f"{cb.time} on the CPU")
+            worst = max(worst, rel)
+    if got.best.key() != want.best.key():
+        raise AssertionError(f"[tune] best {got.best.label()} != {want.best.label()}")
+    return worst
+
+
+def phase_tune():
+    """The autotuner at full width: its report on the card equals the CPU's;
+    the winning plan's ``mc`` ledger on the card agrees with ``eq2``; a
+    ``Trainer(scheme="auto")`` adopts the winner and launches ``gc_fused``
+    once per step.  Returns the counts of the training path."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.sim import mc
+    from repro_torch.tune import MemBudget, autotune
+
+    env, budget = _tune_env(), MemBudget.from_gb(TUNE_HBM_GB)
+    cfg = get_config("gc-lm-110m").replace(max_seq=512)
+    kw = dict(global_batch=8, seq_len=256, seed=0)
+    t0 = time.perf_counter()
+    res = autotune(cfg, env, budget, device="cuda", **kw)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res_cpu = autotune(cfg, env, budget, device="cpu", **kw)
+    t_cpu = time.perf_counter() - t0
+    report, best = res.report, res.best
+    if report.backend != "mc":
+        raise AssertionError(f"[tune] backend {report.backend}, expected mc")
+    if not report.pruned or not report.candidates:
+        raise AssertionError(f"[tune] the {budget} cap must prune some and admit some: "
+                             f"{len(report.candidates)} admissible, {len(report.pruned)} pruned")
+    worst = _same_reports(report, res_cpu.report)
+    log(f"[tune] autotune(gc-lm-110m, workers 2 and 3 5x slower, {budget}): backend mc on the "
+        f"card, {len(report.candidates)} admissible, {len(report.pruned)} pruned; winner "
+        f"{best.label()} x={best.x} s_max={best.s_max} time {best.time!r} (straggler "
+        f"{best.straggler_time!r} + overhead {best.overhead_time!r}), estimate "
+        f"{best.mem.total / 2**30:.4f} GiB; equal to the CPU's search (times within "
+        f"{worst:.3e}); {t_card:.2f} s on the card, {t_cpu:.2f} s on the CPU")
+    log("[tune] " + report.table(8).replace("\n", "\n[tune] "))
+
+    plan = res.plan
+    t0 = time.perf_counter()
+    eq2 = plan.simulate(env, TUNE_SIM_STEPS, seed=0, backend="eq2")
+    eq2_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mcs = plan.simulate(env, TUNE_SIM_STEPS, seed=0, backend="mc", device="cuda")
+    mc_s = time.perf_counter() - t0
+    a = np.asarray([r["tau_coded"] for r in mcs.ledger])
+    b = np.asarray([r["tau_coded"] for r in eq2.ledger])
+    rel = float(np.max(np.abs(a - b) / np.abs(b)))
+    if not all(np.array_equal(x["times"], y["times"]) for x, y in zip(mcs.ledger, eq2.ledger)) \
+            or len(a) != TUNE_SIM_STEPS or not rel <= MC_EQ2_RTOL:
+        raise AssertionError(f"[tune] mc vs eq2 over {TUNE_SIM_STEPS} steps: relative "
+                             f"{rel:.3e} (bound {MC_EQ2_RTOL}) or times differ")
+    times = np.stack([r["times"] for r in mcs.ledger])
+    sched = mc.as_schedule(plan)
+    call_ms = time_ms(lambda: mc.runtime_batch(sched, times, device="cuda"), 20)
+    log(f"[tune] Plan.simulate({TUNE_SIM_STEPS} steps): mc tau_coded within {rel:.3e} of eq2 "
+        f"(bound {MC_EQ2_RTOL}), times equal; mean tau_coded mc {float(a.mean())!r} eq2 "
+        f"{float(b.mean())!r}; host time of the whole call: eq2 loop {eq2_s:.3f} s, mc "
+        f"{mc_s:.3f} s (draws included); one mc.runtime_batch of the {TUNE_SIM_STEPS} x 4 "
+        f"draws {call_ms:.4f} ms (CUDA events, host copy in and out included)")
+
+    t0 = time.perf_counter()
+    trainer = make_trainer(env, scheme="auto", budget=budget)
+    if trainer.tune_report.best.key() != best.key() or \
+            trainer.plan.to_dict() != plan.to_dict():
+        raise AssertionError("[tune] the trainer's search differs from autotune's")
+    knobs = (trainer.pipeline, trainer.reduce_mode, trainer.grad_dtype)
+    if knobs != (best.pipeline, best.reduce_mode, best.grad_dtype):
+        raise AssertionError(f"[tune] trainer knobs {knobs} != the report's best {best.label()}")
+    log(f"[tune] Trainer(scheme='auto', budget={budget}): plan {trainer.plan.scheme} "
+        f"x={trainer.plan.x.tolist()}, leaf levels {trainer.plan.leaf_levels.tolist()}, "
+        f"knobs {knobs}; {time.perf_counter() - t0:.2f} s")
+    check_coded_equals_uncoded(trainer, "tune")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer.run(STEPS, log_every=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    if launches["gc_fused"] != STEPS:
+        raise AssertionError(f"[tune] gc_fused launched {launches['gc_fused']} times in "
+                             f"{STEPS} steps, expected one per step")
+    losses = [h["loss"] for h in trainer.history]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"[tune] non-finite loss {losses}")
+    peak, est = torch.cuda.max_memory_allocated(), best.mem.total
+    log(f"[tune] {STEPS} steps in {wall:.2f} s, losses {losses}, launches {launches}; "
+        f"max_memory_allocated {peak} bytes against the tuner's per-worker estimate "
+        f"{est:.0f} bytes (ratio {peak / est:.4f}; sim mode holds all N·K rows on one card)")
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _spmd_rank(rank, world, train_losses):
@@ -1806,6 +1956,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     adapt_launches = timed("adapt", phase_adapt)
     wave_launches = timed("wave", phase_wave)
+    tune_launches = timed("tune", phase_tune)
     spmd_launches, spmd_times = timed("spmd", phase_spmd, train_losses)
     ckpt_launches, n_digits = timed("ckpt", phase_ckpt)
     enc_err, enc_times = timed("encode", phase_encode, n_digits)
@@ -1823,9 +1974,10 @@ def main() -> int:
                                          "library_ms", "device_ms", "host_ms")}, **extra}
 
     # gc_fused's main paths: barrier training, adaptive re-planning, wave,
-    # spmd (every rank's launches)
+    # the tuned trainer, spmd (every rank's launches)
     fused_launches = {"train": launches["gc_fused"], "adapt": adapt_launches["gc_fused"],
-                      "wave": wave_launches["gc_fused"], "spmd": spmd_launches}
+                      "wave": wave_launches["gc_fused"], "tune": tune_launches["gc_fused"],
+                      "spmd": spmd_launches}
     print(json.dumps({"kernels": [
         row("gc_fused", "src/repro/kernels/gc_fused.py:57", sum(fused_launches.values()),
             max_err, kernel_times, launches_by_path=fused_launches,

@@ -1,14 +1,15 @@
 """Straggler models: distributions of per-worker CPU cycle times T_n.
 
 Copied from ``repro/core/distributions.py`` (the port keeps its own copy
-of the numpy plan layer) and trimmed to what the port's slices call: the
-``StragglerDistribution`` base with its Monte-Carlo order statistics, the
-shifted exponential (paper §V-C) with its closed forms, the empirical
-(trace-bootstrap) model the adaptive re-planner fits, the scaled model
-that folds a static degradation into a worker, and the exact JSON
-registry that lets an ``Env`` embed bit-identically inside
-``Plan.to_dict``.  The other distributions of the reference are ROADMAP
-work.
+of the numpy plan layer): the ``StragglerDistribution`` base with its
+Monte-Carlo order statistics, the shifted exponential (paper §V-C) with
+its closed forms (Lemma 2 by the quadrature form only), the two-point
+Bernoulli model (the full straggler model of the §VI baselines), Pareto,
+log-normal and uniform cycle times, the empirical (trace-bootstrap) model
+the adaptive re-planner fits, the scaled model that folds a static
+degradation into a worker, the finite mixture (``Env.pooled``), and the
+exact JSON registry that lets an ``Env`` embed bit-identically inside
+``Plan.to_dict``.
 """
 from __future__ import annotations
 
@@ -23,8 +24,13 @@ from scipy import integrate, special
 __all__ = [
     "StragglerDistribution",
     "ShiftedExponential",
+    "BernoulliStraggler",
+    "ParetoStraggler",
+    "LogNormalStraggler",
+    "UniformStraggler",
     "EmpiricalStraggler",
     "ScaledStraggler",
+    "MixtureStraggler",
     "register_distribution",
     "dist_to_dict",
     "dist_from_dict",
@@ -125,6 +131,9 @@ class StragglerDistribution:
         draws = self.sample_sorted(rng, n_workers, self.mc_samples)
         return 1.0 / (1.0 / draws).mean(axis=0)
 
+    def replace(self, **kw) -> "StragglerDistribution":
+        return dataclasses.replace(self, **kw)
+
 
 # ---------------------------------------------------------------------------
 # Shifted exponential (paper §V-C):  Pr[T <= t] = 1 - exp(-mu (t - t0)), t>=t0
@@ -145,6 +154,9 @@ class ShiftedExponential(StragglerDistribution):
     def cdf(self, t):
         t = np.asarray(t, dtype=np.float64)
         return np.where(t >= self.t0, 1.0 - np.exp(-self.mu * (t - self.t0)), 0.0)
+
+    def median(self) -> float:
+        return self.t0 + math.log(2.0) / self.mu
 
     # ---- paper eq. (11):  t_n = (H_N - H_{N-n}) / mu + t0  (Renyi 1953)
     def expected_order_stats(self, n_workers: int, rng=None) -> np.ndarray:
@@ -180,6 +192,93 @@ class ShiftedExponential(StragglerDistribution):
             val, _ = integrate.quad(integrand, 0.0, 1.0, limit=200)
             out[n - 1] = 1.0 / val
         return out
+
+
+# ---------------------------------------------------------------------------
+# Two-point (Bernoulli) model: recovers the FULL straggler model of [1]-[3]
+# when t_slow -> inf (a straggler contributes nothing in finite time).
+# ---------------------------------------------------------------------------
+@register_distribution
+@dataclass(frozen=True)
+class BernoulliStraggler(StragglerDistribution):
+    p_straggle: float = 0.1
+    t_fast: float = 1.0
+    t_slow: float = 100.0
+
+    def sample(self, rng, shape) -> np.ndarray:
+        rng = _as_rng(rng)
+        is_slow = rng.random(shape) < self.p_straggle
+        return np.where(is_slow, self.t_slow, self.t_fast)
+
+    def cdf(self, t) -> np.ndarray:
+        t = np.asarray(t, np.float64)
+        return np.where(t >= self.t_slow, 1.0,
+                        np.where(t >= self.t_fast, 1.0 - self.p_straggle, 0.0))
+
+    def mean(self) -> float:
+        return self.p_straggle * self.t_slow + (1 - self.p_straggle) * self.t_fast
+
+
+@register_distribution
+@dataclass(frozen=True)
+class ParetoStraggler(StragglerDistribution):
+    alpha: float = 2.5
+    t_min: float = 1.0
+
+    def sample(self, rng, shape) -> np.ndarray:
+        rng = _as_rng(rng)
+        return self.t_min * (1.0 + rng.pareto(self.alpha, size=shape))
+
+    def cdf(self, t) -> np.ndarray:
+        t = np.asarray(t, np.float64)
+        with np.errstate(divide="ignore"):
+            tail = np.power(np.where(t > 0, self.t_min / t, np.inf), self.alpha)
+        return np.where(t >= self.t_min, 1.0 - tail, 0.0)
+
+    def mean(self) -> float:
+        if self.alpha <= 1:
+            return math.inf
+        return self.t_min * self.alpha / (self.alpha - 1.0)
+
+
+@register_distribution
+@dataclass(frozen=True)
+class LogNormalStraggler(StragglerDistribution):
+    mu_log: float = 0.0
+    sigma_log: float = 0.75
+    shift: float = 0.0
+
+    def sample(self, rng, shape) -> np.ndarray:
+        rng = _as_rng(rng)
+        return self.shift + rng.lognormal(self.mu_log, self.sigma_log, size=shape)
+
+    def cdf(self, t) -> np.ndarray:
+        t = np.asarray(t, np.float64)
+        z = np.where(t > self.shift, t - self.shift, np.nan)
+        out = 0.5 * (1.0 + special.erf(
+            (np.log(z) - self.mu_log) / (self.sigma_log * math.sqrt(2.0))))
+        return np.where(t > self.shift, out, 0.0)
+
+    def mean(self) -> float:
+        return self.shift + math.exp(self.mu_log + 0.5 * self.sigma_log**2)
+
+
+@register_distribution
+@dataclass(frozen=True)
+class UniformStraggler(StragglerDistribution):
+    lo: float = 0.5
+    hi: float = 1.5
+
+    def sample(self, rng, shape) -> np.ndarray:
+        rng = _as_rng(rng)
+        return rng.uniform(self.lo, self.hi, size=shape)
+
+    def cdf(self, t) -> np.ndarray:
+        t = np.asarray(t, np.float64)
+        return np.clip((t - self.lo) / (self.hi - self.lo), 0.0, 1.0)
+
+    def mean(self) -> float:
+        return 0.5 * (self.lo + self.hi)
 
 
 @register_distribution
@@ -237,3 +336,45 @@ class ScaledStraggler(StragglerDistribution):
 
     def mean(self) -> float:
         return self.factor * self.base.mean()
+
+
+@register_distribution
+@dataclass(frozen=True)
+class MixtureStraggler(StragglerDistribution):
+    """Finite mixture: each draw picks a component (the i.i.d. marginal
+    of a heterogeneous population, ``Env.pooled()``)."""
+
+    components: tuple = ()
+    weights: Optional[tuple] = None  # None -> uniform
+
+    def __post_init__(self):
+        if not self.components:
+            raise ValueError("MixtureStraggler needs components")
+        if self.weights is not None and len(self.weights) != len(self.components):
+            raise ValueError("weights/components length mismatch")
+
+    def _p(self):
+        if self.weights is None:
+            return None
+        w = np.asarray(self.weights, np.float64)
+        return w / w.sum()
+
+    def sample(self, rng, shape) -> np.ndarray:
+        rng = _as_rng(rng)
+        shape = (shape,) if isinstance(shape, int) else tuple(shape)
+        idx = rng.choice(len(self.components), size=shape, p=self._p())
+        draws = np.stack([c.sample(rng, shape) for c in self.components],
+                         axis=-1)
+        return np.take_along_axis(draws, idx[..., None], axis=-1)[..., 0]
+
+    def cdf(self, t) -> np.ndarray:
+        p = self._p()
+        if p is None:
+            p = np.full(len(self.components), 1.0 / len(self.components))
+        return sum(w * c.cdf(t) for w, c in zip(p, self.components))
+
+    def mean(self) -> float:
+        p = self._p()
+        if p is None:
+            p = np.full(len(self.components), 1.0 / len(self.components))
+        return float(sum(w * c.mean() for w, c in zip(p, self.components)))

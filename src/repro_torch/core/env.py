@@ -5,7 +5,8 @@ call: ``Env.iid``, ``heterogeneous``, ``with_faults``, ``from_trace``,
 ``coerce``, ``sample``, ``degradation_factors``, ``has_deaths``, the
 solver view (static degradations folded in, transient faults dropped),
 the per-worker means, ``subset`` (the replica group of the coded serving
-tier), the order statistics the schemes read (delegated to the wrapped
+tier), ``iid_dist`` and ``pooled`` (the i.i.d. marginal the §VI baselines
+read), the order statistics the schemes read (delegated to the wrapped
 distribution for an i.i.d. env; otherwise Monte-Carlo over
 ``mc_samples`` joint draws, in the reference's draw order, or
 Poisson-binomial quadrature over the per-worker CDFs with
@@ -21,8 +22,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from .distributions import (ScaledStraggler, StragglerDistribution, _as_rng,
-                            dist_from_dict, dist_to_dict)
+from .distributions import (MixtureStraggler, ScaledStraggler, StragglerDistribution,
+                            _as_rng, dist_from_dict, dist_to_dict)
 
 __all__ = ["Env", "WorkerDeath", "DegradedWorker", "fault_to_dict",
            "fault_from_dict"]
@@ -165,6 +166,11 @@ class Env:
     def is_iid(self) -> bool:
         return not self.faults and all(d == self.dists[0] for d in self.dists)
 
+    @property
+    def iid_dist(self) -> Optional[StragglerDistribution]:
+        """The single shared distribution when ``is_iid``, else None."""
+        return self.dists[0] if self.is_iid else None
+
     def has_deaths(self) -> bool:
         return any(isinstance(f, WorkerDeath) for f in self.faults)
 
@@ -209,6 +215,15 @@ class Env:
                        for f in self.faults if f.worker in remap)
         return Env(dists=tuple(self.dists[w] for w in idx), faults=faults,
                    mc_samples=self.mc_samples)
+
+    def pooled(self) -> StragglerDistribution:
+        """The i.i.d. marginal of this population: what a uniformly random
+        worker looks like (the homogeneous approximation a
+        heterogeneity-blind baseline uses)."""
+        eff = self.effective_dists()
+        if all(d == eff[0] for d in eff):
+            return eff[0]
+        return MixtureStraggler(components=eff)
 
     # ------------------------------------------------------------- sampling
     def sample(self, rng, shape) -> np.ndarray:

@@ -10,6 +10,12 @@ them in that same order from the model (``GCLM.leaves()``), from a
 sequence of shaped objects, or as a bare 1-D cost vector.  The same
 model therefore binds the same plan in both packages, and ``to_dict``
 is the reference's schema, field for field.
+
+``Plan.simulate`` prices straggler realizations with three backends: the
+closed-form ``eq2`` (numpy), the ``event`` engine (``repro_torch.sim``)
+and the batched ``mc`` backend (torch, on the card by default), all on
+one draw stream.  ``Plan.build(scheme="auto")`` searches the schemes
+with the autotuner (``repro_torch.tune``).
 """
 from __future__ import annotations
 
@@ -86,14 +92,28 @@ class Plan:
     def build(cls, params_or_costs, env, n_workers: Optional[int] = None, *,
               scheme: str = "xf", rng: int = 0, cost: CostModel = DEFAULT_COST,
               prefer_fractional: bool = False, s_cap=None,
-              total: int = UNIT_RESOLUTION, warm_start=None) -> "Plan":
+              total: int = UNIT_RESOLUTION, warm_start=None, budget=None,
+              device="cuda") -> "Plan":
         """Optimize the partition and bind it to this model's leaves.
         ``warm_start`` seeds iterative schemes (``spsg``) from a previous
         block vector — the adaptive re-planning path; closed forms ignore
-        it.  ``scheme="auto"`` — the autotuner — is ROADMAP work."""
+        it.  ``scheme="auto"`` searches (scheme x s_cap) with
+        ``repro_torch.tune.autotune_plan``, runtime-priced through
+        ``simulate`` and optionally pruned by a ``MemBudget`` passed as
+        ``budget`` (only meaningful with ``"auto"``); the winner carries
+        its search record as ``plan.tune_report``.  ``device`` is where
+        that search runs the ``mc`` backend (a non-i.i.d. env)."""
         if scheme == "auto":
-            raise NotImplementedError(
-                "scheme='auto' (the autotuner) is not ported yet (ROADMAP)")
+            from ..tune import autotune_plan  # deferred: tune imports this module
+
+            return autotune_plan(
+                params_or_costs, env, n_workers, budget=budget, rng=rng,
+                cost=cost, total=total, s_cap=s_cap,
+                prefer_fractional=prefer_fractional, device=device)
+        if budget is not None:
+            raise ValueError(
+                "budget= is only meaningful with scheme='auto' — a fixed "
+                "scheme solves one plan and has nothing to prune")
         env = Env.coerce(env, n_workers)
         n_workers = env.n_workers
         x = solve_scheme(scheme, env, n_workers, total, cost=cost, rng=rng,
@@ -136,6 +156,11 @@ class Plan:
     def k_shards(self) -> int:
         return self.s_max + 1
 
+    @property
+    def solver(self) -> str:
+        """The reference's name for ``scheme`` (its legacy field name)."""
+        return self.scheme
+
     def partition_key(self) -> tuple:
         """Hashable structural identity of the coded computation: two
         plans with equal keys produce bit-identical coded steps (same
@@ -163,6 +188,10 @@ class Plan:
             out[i] = self.codes.decode(int(s), fastest)
         return out
 
+    def full_decode_weights(self) -> np.ndarray:
+        """Decode weights when nobody straggles (all workers kept)."""
+        return self.decode_weights(np.arange(self.n_workers, dtype=np.float64))
+
     def tau(self, times: np.ndarray, cost: CostModel = DEFAULT_COST) -> float:
         """Eq. (2) on the leaf-block layout (per-leaf cost weights stand in
         for the unit coordinates)."""
@@ -172,16 +201,93 @@ class Plan:
         work = np.cumsum((s + 1.0) * self.leaf_costs) * self.total_units
         return float(cost.scale(self.n_workers) * np.max(t_term * work))
 
+    def _env_of(self, env) -> Env:
+        """The population to simulate against: the argument if given,
+        else the env this plan was built for."""
+        if env is None:
+            if self.env is None:
+                raise ValueError("plan has no bound env; pass one explicitly")
+            return self.env
+        return Env.coerce(env, self.n_workers)
+
     def simulator(self, env=None, seed: int = 0,
                   cost: CostModel = DEFAULT_COST) -> "PlanSimulator":
         """Per-step straggler sampler + runtime ledger (``env`` defaults to
         the plan's bound env)."""
-        if env is None:
-            if self.env is None:
-                raise ValueError("plan has no bound env; pass one explicitly")
-            env = self.env
-        return PlanSimulator(self, Env.coerce(env, self.n_workers), seed=seed,
-                             cost=cost)
+        return PlanSimulator(self, self._env_of(env), seed=seed, cost=cost)
+
+    def simulate(self, env=None, steps: int = 1, *, seed: int = 0,
+                 cost: CostModel = DEFAULT_COST, backend: str = "eq2",
+                 device="cuda") -> "PlanSimulator":
+        """Run ``steps`` straggler realizations; returns the simulator
+        with its ledger filled (``.ledger``, ``.summary()``).
+
+        ``env`` is an ``Env`` / bare distribution / None (the plan's bound
+        env).  ``backend`` selects how each round is priced:
+
+        * ``"eq2"``  — eq. (2) on the leaf-block layout, one numpy
+          evaluation per draw (the default);
+        * ``"event"`` — the discrete-event engine of ``repro_torch.sim``
+          runs the plan (barrier rounds, leaf-form schedule): the same
+          draws, round durations equal to eq. (2) to float precision;
+        * ``"mc"``  — ``repro_torch.sim.mc`` prices all ``steps``
+          realizations in one batched fp32 call on ``device`` (the only
+          backend that reads it): ~1e-4 relative to the fp64 backends.
+
+        Every backend draws one (N,) base row per step from one stream and
+        folds in the ``DegradedWorker`` factors, so the ledgers' times
+        agree.  ``WorkerDeath`` is realizable only by the event engine
+        (eq2 and mc raise), where an uncovered death prices a round at
+        infinity; the uncoded ledger stalls from the round the death hits.
+        """
+        env = self._env_of(env)
+        sim = PlanSimulator(self, env, seed=seed, cost=cost)
+        if backend == "eq2":
+            for _ in range(steps):
+                sim.step()
+            return sim
+        if backend not in ("event", "mc"):
+            raise ValueError(f"unknown backend {backend!r}; "
+                             "expected 'eq2', 'event', or 'mc'")
+        # identical draw stream to the eq2 path: one (N,) base row per step
+        times = np.stack([env.sample(sim.rng, (self.n_workers,))
+                          for _ in range(steps)])
+        from ..sim import ClusterSim, mc, schedule_from_plan  # deferred: sim imports core
+        from ..sim.faults import apply_faults
+
+        eff_times, deaths = apply_faults(times, env.faults)
+        if backend == "event":
+            # ClusterSim absorbs the env's declarative faults itself
+            res = ClusterSim(schedule_from_plan(self), env, self.n_workers,
+                             cost=cost, wave=False).run(rounds=steps, times=times)
+            tau_coded = res.round_durations()
+        else:
+            if deaths:
+                raise ValueError("backend 'mc' cannot price WorkerDeath "
+                                 "faults; use backend='event'")
+            tau_coded = mc.runtime_batch(mc.as_schedule(self), eff_times, cost=cost,
+                                         device=device)
+        unc_scale = cost.scale(self.n_workers) * self.total_units
+        tau_unc = unc_scale * eff_times.max(axis=1)
+        if deaths:
+            # uncoded data-parallel waits on every worker each round, so
+            # a death stalls it from that round (at_round) / from the
+            # round in flight when the death hits (at_time) onward.
+            cum = np.cumsum(tau_unc)
+            stall_from = steps
+            for d_time, d_round in deaths.values():
+                if np.isfinite(d_round):
+                    stall_from = min(stall_from, int(d_round))
+                if np.isfinite(d_time):
+                    stall_from = min(stall_from, int(np.searchsorted(cum, d_time)))
+            tau_unc[stall_from:] = np.inf
+        for r in range(steps):
+            sim.ledger.append({
+                "times": eff_times[r],
+                "tau_coded": float(tau_coded[r]),
+                "tau_uncoded": float(tau_unc[r]),
+            })
+        return sim
 
     # --------------------------------------------------------- serialization
     def to_dict(self) -> dict:
@@ -241,7 +347,8 @@ class PlanSimulator:
 
     Per step the base population is sampled and the env's
     ``DegradedWorker`` factors in effect at that round are folded in;
-    ``WorkerDeath`` cannot be priced by eq. (2) and raises.
+    ``WorkerDeath`` cannot be priced by eq. (2) and raises (use
+    ``plan.simulate(backend="event")``).
     """
 
     def __init__(self, plan: Plan, env, seed: int = 0,
@@ -256,7 +363,8 @@ class PlanSimulator:
         record) and appends to the ledger."""
         plan = self.plan
         if self.env.has_deaths():
-            raise ValueError("eq.(2) cannot price WorkerDeath faults")
+            raise ValueError("eq.(2) cannot price WorkerDeath faults; "
+                             "use plan.simulate(backend='event')")
         times = self.env.sample(self.rng, (plan.n_workers,))
         times = times * self.env.degradation_factors(len(self.ledger))
         dec_w = plan.decode_weights(times)

@@ -1,10 +1,12 @@
 """Runtime cost model of the paper (eqs. 2 and 5) and its Monte-Carlo
 estimators.
 
-Copied from ``repro/core/runtime.py``, trimmed to the ``CostModel``, the
-eq. (2) and eq. (5) runtimes, their batched form (the adaptive
-re-planner's pricing) and the noisy subgradient SPSG descends; the
-realized-cost model and the timeline helper are ROADMAP work.
+Copied from ``repro/core/runtime.py``: the ``CostModel``, the eq. (2) and
+eq. (5) runtimes, their batched form (the adaptive re-planner's pricing),
+the noisy subgradient SPSG descends, the per-coordinate completion
+timeline (``completion_trace``), and the realized-cost model of a neural
+gradient (one full backward pass per redundancy slot) that the
+``single-real`` scheme minimizes.
 
 Conventions: numpy arrays, 0-based.  ``T_(k)`` (k-th smallest of N) is
 ``np.sort(T)[k-1]``.  The scale factor (M/N)*b multiplies every runtime.
@@ -16,7 +18,9 @@ from dataclasses import dataclass
 import numpy as np
 
 __all__ = ["CostModel", "DEFAULT_COST", "tau", "tau_hat", "tau_hat_batch",
-           "expected_tau_hat", "subgradient_tau_hat"]
+           "expected_tau_hat", "subgradient_tau_hat", "completion_trace",
+           "tau_hat_realized_batch", "expected_tau_hat_realized",
+           "subgradient_tau_hat_realized"]
 
 
 @dataclass(frozen=True)
@@ -102,3 +106,82 @@ def subgradient_tau_hat(
     mask = i[None, :] <= n_star[:, None]  # (S, N)
     g = cost.scale(n_workers) * t_active[:, None] * (i + 1.0)[None, :] * mask
     return g.mean(axis=0)
+
+
+# ---------------------------------------------------------------------------
+# REALIZED cost model of a neural gradient (beyond the paper).
+#
+# A neural gradient does not decompose per coordinate: each redundancy
+# slot k is one FULL backward pass over shard k (cost L work units),
+# and a leaf's gradient is emitted partway through that pass.  With the
+# blocks laid out in backward-emission order (Lemma-1 monotone levels
+# along the emission axis), block level n becomes decodable at
+#     T_(N-n) * ( n*L  +  sum_{i<=n} x_i )
+# — n full slots plus the cumulative emission inside slot n.  This
+# replaces eq. (5)'s per-coordinate work sum_{i<=n}(i+1)x_i.
+# ---------------------------------------------------------------------------
+def _terms_realized(x: np.ndarray, times_sorted: np.ndarray, cost: CostModel):
+    n_workers = times_sorted.shape[1]
+    x = np.asarray(x, dtype=np.float64)
+    total = x.sum()
+    work = np.arange(n_workers) * total + np.cumsum(x)
+    t_term = times_sorted[:, ::-1]
+    return cost.scale(n_workers) * t_term * work[None, :]
+
+
+def tau_hat_realized_batch(x, times_batch, cost: CostModel = DEFAULT_COST,
+                           active_only: bool = True) -> np.ndarray:
+    """Vectorized realized runtime over (S, N) samples -> (S,).
+
+    active_only: levels with x_i == 0 cost nothing and impose no term
+    (their slot still runs but nothing waits on it beyond later levels,
+    which already include it in n*L)."""
+    x = np.asarray(x, dtype=np.float64)
+    times_sorted = np.sort(np.asarray(times_batch, dtype=np.float64), axis=1)
+    terms = _terms_realized(x, times_sorted, cost)
+    if active_only:
+        mask = x > 0
+        if not mask.any():
+            return np.zeros(times_sorted.shape[0])
+        terms = terms[:, mask]
+    return terms.max(axis=1)
+
+
+def expected_tau_hat_realized(x, dist, n_workers: int, n_samples: int = 100_000,
+                              rng=0, cost: CostModel = DEFAULT_COST) -> float:
+    draws = dist.sample(np.random.default_rng(rng), (n_samples, n_workers))
+    return float(tau_hat_realized_batch(x, draws, cost).mean())
+
+
+def subgradient_tau_hat_realized(x, times_batch,
+                                 cost: CostModel = DEFAULT_COST) -> np.ndarray:
+    """Noisy subgradient of E[tau_realized] (terms are linear in x:
+    d term_n / d x_i = T_(N-n) * (n + [i <= n]))."""
+    x = np.asarray(x, dtype=np.float64)
+    times_sorted = np.sort(np.asarray(times_batch, dtype=np.float64), axis=1)
+    terms = _terms_realized(x, times_sorted, cost)
+    n_workers = times_sorted.shape[1]
+    n_star = terms.argmax(axis=1)
+    t_active = times_sorted[:, ::-1][np.arange(len(n_star)), n_star]
+    i = np.arange(n_workers)
+    g = (n_star[:, None] + (i[None, :] <= n_star[:, None])).astype(np.float64)
+    g = cost.scale(n_workers) * t_active[:, None] * g
+    return g.mean(axis=0)
+
+
+def completion_trace(s: np.ndarray, times: np.ndarray, cost: CostModel = DEFAULT_COST):
+    """Per-(worker, coordinate) completion + per-coordinate recovery times.
+
+    Returns (worker_done, master_done):
+      worker_done[n, l] = (M/N) b T_n  sum_{i<=l}(s_i+1)   — §III
+      master_done[l]    = (M/N) b T_(N-s_l) sum_{i<=l}(s_i+1)
+    Used by examples/quickstart.py to draw Fig. 1-style timelines.
+    """
+    s = np.asarray(s, dtype=np.int64)
+    times = np.asarray(times, dtype=np.float64)
+    n_workers = times.shape[0]
+    work = np.cumsum(s + 1.0)
+    worker_done = cost.scale(n_workers) * times[:, None] * work[None, :]
+    t_sorted = np.sort(times)
+    master_done = cost.scale(n_workers) * t_sorted[n_workers - s - 1] * work
+    return worker_done, master_done

@@ -1,10 +1,18 @@
-"""The scheme registry, trimmed to the paper's proposed schemes.
+"""The ``Scheme`` registry: every way of partitioning the L coordinates.
 
-Copied from ``repro/core/schemes.py``.  The port registers ``xt``
-(Theorem 2), ``xf`` (Theorem 3) and ``spsg`` (the stochastic projected
-subgradient optimum of Problem 3, which takes a ``warm_start``); any
-other name raises ``KeyError`` — the §VI baselines and the realized-cost
-single level are ROADMAP work.
+Copied from ``repro/core/schemes.py``, with the reference's nine schemes
+under their canonical names, display names, kinds and aliases: the
+paper's proposed ``xt`` (Theorem 2), ``xf`` (Theorem 3) and ``spsg`` (the
+stochastic projected subgradient optimum of Problem 3, which takes a
+``warm_start``); the uncoded ``uniform``; the §VI baselines
+``single-bcgc``, ``tandon-alpha``, ``ferdinand-l`` and ``ferdinand-l2``;
+and ``single-real``, the one level that minimizes the realized cost of a
+neural gradient.  Each solves with the uniform signature
+
+    solve(env, n_workers, total, *, cost=DEFAULT_COST, rng=0, s_cap=None)
+        -> x  (N,) nonnegative, sum(x) == total
+
+against the env's solver view; only the closed forms honor ``s_cap``.
 """
 from __future__ import annotations
 
@@ -16,12 +24,14 @@ from typing import Callable, Optional
 import numpy as np
 
 from .assignment import round_x
+from .baselines import ferdinand_x, single_bcgc, tandon_alpha_x
 from .env import Env
-from .runtime import CostModel, DEFAULT_COST
+from .runtime import CostModel, DEFAULT_COST, tau_hat_realized_batch
 from .solvers import solve_xf, solve_xt, spsg
 
 __all__ = ["Scheme", "SchemeWarning", "register_scheme", "get_scheme",
-           "available_schemes", "solve_scheme", "scheme_accepts_warm_start"]
+           "available_schemes", "solve_scheme", "scheme_accepts_warm_start",
+           "scheme_bank"]
 
 
 class SchemeWarning(UserWarning):
@@ -76,9 +86,7 @@ def get_scheme(name: str) -> Scheme:
     key = _ALIASES.get(name)
     if key is None:
         raise KeyError(
-            f"unknown scheme {name!r}; available in the port: "
-            f"{available_schemes()} (the other schemes of the reference are "
-            "still to be ported, see ROADMAP)")
+            f"unknown scheme {name!r}; available: {available_schemes()}")
     return _REGISTRY[key]
 
 
@@ -132,6 +140,22 @@ def scheme_accepts_warm_start(name: str) -> bool:
     return _accepts_warm_start(get_scheme(name))
 
 
+def scheme_bank(env, n_workers: int, total: int, rng=0,
+                cost: CostModel = DEFAULT_COST) -> dict:
+    """All §VI baseline x's, keyed by *canonical* scheme name.
+
+    The paper's plot-legend strings live on each registered scheme's
+    ``display`` attribute — presentation metadata, not lookup keys.
+    """
+    env = Env.coerce(env, n_workers).solver_view()
+    return {
+        name: _REGISTRY[name].solve(env, n_workers, total, cost=cost,
+                                    rng=rng, s_cap=None)
+        for name in available_schemes()
+        if _REGISTRY[name].kind == "baseline"
+    }
+
+
 # ------------------------------------------------------------ registrations
 @register_scheme("xt", display="x_t (Thm 2)", kind="proposed", aliases=("x_t",),
                  description="Theorem 2 closed form at t_n = E[T_(n)]")
@@ -155,3 +179,68 @@ def _solve_spsg(dist, n_workers, total, *, cost=DEFAULT_COST, rng=0, s_cap=None,
     # plan's x; cold solves are unchanged bit for bit.
     return spsg(dist, n_workers, total, n_iters=2000, batch=128, rng=rng,
                 cost=cost, warm_start=warm_start).x
+
+
+@register_scheme("uniform", display="uncoded", kind="uncoded",
+                 aliases=("uncoded",),
+                 description="no redundancy: every coordinate at level 0")
+def _solve_uniform(dist, n_workers, total, *, cost=DEFAULT_COST, rng=0,
+                   s_cap=None):
+    x = np.zeros(n_workers)
+    x[0] = total
+    return x
+
+
+@register_scheme("single-bcgc", display="single-BCGC", kind="baseline",
+                 aliases=("single-BCGC",),
+                 description="Problem 2 restricted to one redundancy level")
+def _solve_single_bcgc(dist, n_workers, total, *, cost=DEFAULT_COST, rng=0,
+                       s_cap=None):
+    return single_bcgc(dist, n_workers, total, rng=rng, cost=cost)
+
+
+@register_scheme("tandon-alpha", display="Tandon et al. (alpha)",
+                 kind="baseline", aliases=("tandon", "Tandon et al. (alpha)"),
+                 description="gradient coding of [1], alpha-partial-straggler level")
+def _solve_tandon(dist, n_workers, total, *, cost=DEFAULT_COST, rng=0,
+                  s_cap=None):
+    return tandon_alpha_x(dist, n_workers, total, rng=rng)
+
+
+@register_scheme("ferdinand-l", display="Ferdinand et al. (r=L)",
+                 kind="baseline", aliases=("Ferdinand et al. (r=L)",),
+                 description="hierarchical coded computation [8], r = L layers")
+def _solve_ferdinand_l(dist, n_workers, total, *, cost=DEFAULT_COST, rng=0,
+                       s_cap=None):
+    return ferdinand_x(dist, n_workers, total, n_layers=total, rng=rng)
+
+
+@register_scheme("ferdinand-l2", display="Ferdinand et al. (r=L/2)",
+                 kind="baseline", aliases=("Ferdinand et al. (r=L/2)",),
+                 description="hierarchical coded computation [8], r = L/2 layers")
+def _solve_ferdinand_l2(dist, n_workers, total, *, cost=DEFAULT_COST, rng=0,
+                        s_cap=None):
+    return ferdinand_x(dist, n_workers, total, n_layers=max(total // 2, 1),
+                       rng=rng)
+
+
+@register_scheme("single-real", display="single level (realized cost)",
+                 kind="extra",
+                 description="argmin_s of the NN/SPMD realized runtime at one level")
+def _solve_single_real(dist, n_workers, total, *, cost=DEFAULT_COST, rng=0,
+                       s_cap=None):
+    # realized-cost-optimal single level: the per-slot realization of a
+    # neural gradient prices level s at (s+1) full passes, so
+    # argmin_s E[T_(N-s)] * (s+1).
+    draws = dist.sample(np.random.default_rng(rng), (30_000, n_workers))
+    top = n_workers if s_cap is None else min(int(s_cap) + 1, n_workers)
+    best_s, best_v = 0, np.inf
+    for s in range(top):
+        xs = np.zeros(n_workers)
+        xs[s] = total
+        v = float(tau_hat_realized_batch(xs, draws, cost).mean())
+        if v < best_v:
+            best_s, best_v = s, v
+    x = np.zeros(n_workers)
+    x[best_s] = total
+    return x

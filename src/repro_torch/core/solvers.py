@@ -1,9 +1,9 @@
 """Closed-form block-size solvers (Theorems 2 and 3 of the paper).
 
-Copied from ``repro/core/solvers.py``, trimmed to ``solve_xt``/``solve_xf``
-and their water-filling, and the stochastic projected subgradient method
-(``spsg``, the paper's model only) with its simplex projection; the
-realized-cost model and the brute-force solver are ROADMAP work.
+Copied from ``repro/core/solvers.py``: ``solve_xt``/``solve_xf`` and their
+water-filling, the stochastic projected subgradient method (``spsg``, the
+paper's model only) with its simplex projection, and the exhaustive
+integer Problem-2 solver ``brute_force_int`` (tiny N and L; tests).
 ``dist`` is anything with the order-statistic and sampling protocol: a
 ``StragglerDistribution`` or an ``Env``.
 """
@@ -16,7 +16,7 @@ import numpy as np
 from .runtime import CostModel, DEFAULT_COST, subgradient_tau_hat, tau_hat_batch
 
 __all__ = ["solve_xt", "solve_xf", "closed_form_x", "closed_form_x_capped",
-           "project_block_simplex", "spsg", "SPSGResult"]
+           "project_block_simplex", "spsg", "SPSGResult", "brute_force_int"]
 
 
 def closed_form_x(t_det: np.ndarray, total: float) -> np.ndarray:
@@ -165,3 +165,32 @@ def spsg(
             history.append((k + 1, float(tau_hat_batch(point, eval_draws, cost).mean())))
     x_avg = avg / max(n_avg, 1) if n_avg else x
     return SPSGResult(x=x_avg, x_last=x, history=history)
+
+
+def brute_force_int(
+    dist,
+    n_workers: int,
+    total: int,
+    n_samples: int = 20_000,
+    rng=0,
+    cost: CostModel = DEFAULT_COST,
+):
+    """Exhaustive integer Problem-2 solver (tests only; tiny N, L)."""
+    draws = dist.sample(np.random.default_rng(rng), (n_samples, n_workers))
+
+    best_val, best_x = np.inf, None
+
+    def compositions(remaining: int, slots: int):
+        if slots == 1:
+            yield (remaining,)
+            return
+        for head in range(remaining + 1):
+            for rest in compositions(remaining - head, slots - 1):
+                yield (head, *rest)
+
+    for comp in compositions(total, n_workers):
+        x = np.asarray(comp, dtype=np.float64)
+        val = float(tau_hat_batch(x, draws, cost).mean())
+        if val < best_val:
+            best_val, best_x = val, x
+    return best_x.astype(np.int64), best_val

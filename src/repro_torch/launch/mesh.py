@@ -9,6 +9,10 @@ builds the ``(pod, data)`` mesh over it.  The backend is explicit: it
 defaults from the device (``nccl`` for CUDA, ``gloo`` for the CPU) and
 is never switched after a failure; ``backend="gloo"`` with CUDA tensors
 rehearses several ranks on one card, which NCCL refuses.
+
+``HW`` holds the card's constants the autotuner's roofline overhead term
+reads (``repro_torch.tune.tune._overhead_units``), under the reference's
+names.
 """
 from __future__ import annotations
 
@@ -21,7 +25,17 @@ import torch.distributed as dist
 from ..device import resolve_device
 from ..dist.mesh import Mesh, build_mesh, check_backend, default_backend
 
-__all__ = ["make_local_mesh"]
+__all__ = ["make_local_mesh", "HW"]
+
+
+class HW:
+    """NVIDIA H100 SXM5 80GB (700 W) constants for the autotuner's
+    roofline, per card, under the names of the reference's TPU v5e
+    ``HW``.  They are the data sheet's figures, not measurements: no
+    collective on the card has been timed over NVLink yet."""
+
+    HBM_BW = 3.35e12   # B/s, HBM3
+    ICI_BW = 450e9     # B/s per direction, NVLink 4 (the interconnect)
 
 
 def make_local_mesh(data: int = 1, model: int = 1, pod: int = 1, *, device="cuda",

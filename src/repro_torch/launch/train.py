@@ -22,6 +22,14 @@ sets the worker count.  ``--adapt`` re-plans under drift: the realized
 per-worker times feed an ``AdaptiveController`` (window
 ``--adapt-window`` rounds) that hot-swaps the plan when re-planning pays.
 
+``--autotune`` (or ``--scheme auto``) searches scheme x redundancy cap x
+pipeline x reduce mode x gradient dtype with ``repro_torch.tune``, under
+a per-worker memory cap of ``--hbm-gb`` GiB when it is given (which
+implies ``--autotune``), and prints the reference launcher's
+``autotune: ...`` line, the ranked table and the selected candidate:
+
+    python -m repro_torch.launch.train --autotune --hbm-gb 3 --steps 3
+
 spmd: ``--data-par N`` equal to ``--workers`` trains the N workers as N
 data-parallel ranks over ``torch.distributed``, one process each, with
 the rank and world from ``torchrun``'s environment:
@@ -51,6 +59,7 @@ from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models.params import count_params
 from repro_torch.train.state import init_train_state
 from repro_torch.train.trainer import TrainConfig, Trainer, make_train_step
+from repro_torch.tune import MemBudget
 
 
 def parse_args(argv=None):
@@ -60,7 +69,12 @@ def parse_args(argv=None):
     ap.add_argument("--workers", type=int, default=4)
     ap.add_argument("--scheme", "--solver", dest="scheme", default="xf",
                     metavar="SCHEME",
-                    help="scheme name or alias; one of " + ", ".join(available_schemes()))
+                    help="scheme name or alias; one of " + ", ".join(available_schemes())
+                    + "; or 'auto' to search the launch space (repro_torch.tune)")
+    ap.add_argument("--autotune", action="store_true", help="shorthand for --scheme auto")
+    ap.add_argument("--hbm-gb", type=float, default=0.0,
+                    help="per-worker memory cap in GiB for the autotuner "
+                         "(0: uncapped); implies --autotune")
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--mu", type=float, default=1e-3)
@@ -102,7 +116,10 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    args.scheme = get_scheme(args.scheme).name
+    if args.autotune or args.hbm_gb or args.scheme == "auto":
+        args.scheme = "auto"
+    else:
+        args.scheme = get_scheme(args.scheme).name
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced(n_layers=2, d_model=128)
@@ -139,14 +156,21 @@ def _train(args, cfg, env, mesh):
             if args.ckpt_coded else None
         ckpt = CkptConfig(dir=args.ckpt, every=args.ckpt_every, coded=spec)
     adapt = AdaptConfig(window=args.adapt_window) if args.adapt else None
+    budget = MemBudget.from_gb(args.hbm_gb) if args.hbm_gb else None
     trainer = Trainer(cfg, cfg_t, env, scheme=args.scheme,
                       global_batch=args.global_batch, seed=0, device=args.device,
                       seq_len=args.seq, ckpt=ckpt, adapt=adapt, mesh=mesh,
-                      mode="sim" if mesh is None else "spmd")
+                      mode="sim" if mesh is None else "spmd", budget=budget)
+    report = trainer.tune_report
+    if report is not None:
+        log(f"autotune: {len(report.candidates)} admissible, {len(report.pruned)} pruned "
+            f"(budget {budget or 'uncapped'})")
+        log(report.table())
+        log(f"selected {report.best.label()}")
     if trainer.manager is not None and trainer.manager.latest() is not None:
         log(f"resumed from checkpoint step {trainer.state.step} under {args.ckpt}")
     log(f"arch={cfg.name} params={count_params(trainer.state.params) / 1e6:.1f}M "
-        f"workers={args.workers} scheme={args.scheme} s_max={trainer.plan.s_max} "
+        f"workers={args.workers} scheme={trainer.plan.scheme} s_max={trainer.plan.s_max} "
         f"x={trainer.plan.x.tolist()} device={args.device} adapt={args.adapt} "
         f"mode={trainer.mode}")
     t0 = time.time()

@@ -1,19 +1,19 @@
 """Deterministic event-driven coded-cluster simulator, copied from
-``repro/sim/cluster.py`` and trimmed to what the wave-pipelined loop
-(``repro_torch.train.wave``) runs: the level-form schedule of a ``Plan``,
-the engine (``ClusterSim.run``) and the normalized, replayable
-``WaveTrace`` it exports.  The other entry points of the reference's
-simulator (``simulate_plan``, the x-form and leaf-form schedules, the
-Monte-Carlo backend) are ROADMAP work.
+``repro/sim/cluster.py``: the x-form, leaf-form and level-form schedules,
+the engine (``ClusterSim.run``), the normalized, replayable ``WaveTrace``
+it exports (the contract of ``repro_torch.train.wave``), and the
+``simulate_plan``/``simulate_x`` conveniences.
 
 Each worker n draws a cycle time T_n per round and computes its blocks in
-sequence, delivering each to the master as it finishes; the master
-decodes block b (level s_b) at its (N - s_b)-th delivery.  Two event
-kinds flow through one time-ordered heap, ``finish`` (a worker completes
-a block's compute) and ``deliver`` (the block reaches the master, at
-the same instant: this copy models no delivery latency); ties
-break by a monotone sequence number, so a run is a pure function of
-(schedule, times, faults, config).
+the sequential order of §III, delivering each to the master as it
+finishes; the master decodes block b (level s_b) at its (N - s_b)-th
+distinct delivery.  Two event kinds flow through one time-ordered heap,
+``finish`` (a worker completes a block's compute) and ``deliver`` (the
+block reaches the master ``comm_delay`` later; a message in flight dies
+with its sender).  Ties break by a monotone sequence number, so a run is
+a pure function of (schedule, times, faults, config) and replays exactly
+from a ``Trace``.  With ``wave=False`` and zero latencies a round lasts
+``tau_hat(x, T)`` (x-form) or ``Plan.tau(T)`` (leaf- and level-form).
 
 ``wave=True`` lets a worker start block b of round r+1 as soon as it has
 finished its own earlier round-(r+1) blocks and the master has decoded
@@ -22,6 +22,7 @@ only once round r - 1 - staleness's update is applied: 0 reproduces the
 barrier schedule event for event, None is unbounded), and
 ``update_cost`` is the master's serialized decode + update time.
 ``wave=False`` inserts a full barrier between rounds.
+``cancel_decoded`` lets a worker skip blocks already decoded.
 """
 from __future__ import annotations
 
@@ -42,7 +43,11 @@ __all__ = [
     "ClusterSim",
     "WaveEvent",
     "WaveTrace",
+    "schedule_from_x",
+    "schedule_from_plan",
     "schedule_from_plan_levels",
+    "simulate_plan",
+    "simulate_x",
     "draw_times",
 ]
 
@@ -62,6 +67,41 @@ class Block:
     level: int
     work: float
 
+
+def schedule_from_x(x) -> tuple:
+    """Block schedule of an eq.(5) block solution x (skips empty levels).
+
+    Level n contributes (n+1) * x_n cumulative work units.  Skipping
+    x_n == 0 blocks is exact: an empty block's max-term is dominated by
+    its predecessor (same work, larger order statistic).
+    """
+    x = np.asarray(x, dtype=np.float64)
+    blocks, cum, idx = [], 0.0, 0
+    for n, xn in enumerate(x):
+        if xn <= 0:
+            continue
+        cum += (n + 1.0) * float(xn)
+        blocks.append(Block(index=idx, level=n, work=cum))
+        idx += 1
+    if not blocks:
+        raise ValueError("schedule_from_x: x has no positive mass")
+    return tuple(blocks)
+
+
+def schedule_from_plan(plan) -> tuple:
+    """Leaf-form schedule of a ``Plan``: one block per parameter leaf.
+
+    Mirrors ``Plan.tau``: leaf j (level s_j, normalized cost w_j)
+    contributes (s_j + 1) * w_j * total_units cumulative work, so the
+    barrier round duration equals ``plan.tau(T)`` for the same draw.
+    """
+    levels = np.asarray(plan.leaf_levels, np.int64)
+    costs = np.asarray(plan.leaf_costs, np.float64)
+    cum = np.cumsum((levels + 1.0) * costs) * float(plan.total_units)
+    return tuple(
+        Block(index=j, level=int(levels[j]), work=float(cum[j]))
+        for j in range(len(levels))
+    )
 
 
 def schedule_from_plan_levels(plan) -> tuple:
@@ -90,9 +130,13 @@ def schedule_from_plan_levels(plan) -> tuple:
 
 
 def draw_times(dist, rng, rounds: int, n_workers: int) -> np.ndarray:
-    """(rounds, N) cycle-time draws from an ``Env`` (column j ~ worker j)
-    or a single distribution (i.i.d. workers), or a ready (rounds, N)
-    array (trace replay)."""
+    """(rounds, N) cycle-time draws.
+
+    ``dist`` is an ``Env`` (base population, column j ~ worker j), a
+    single ``StragglerDistribution`` (i.i.d. workers), a length-N
+    sequence of per-worker distributions (heterogeneous cluster), or a
+    ready (rounds, N) array (trace replay).
+    """
     if isinstance(dist, np.ndarray):
         t = np.asarray(dist, np.float64)
         if t.shape != (rounds, n_workers):
@@ -103,6 +147,11 @@ def draw_times(dist, rng, rounds: int, n_workers: int) -> np.ndarray:
             raise ValueError(f"env has {dist.n_workers} workers, "
                              f"simulator expects {n_workers}")
         return np.asarray(dist.sample(rng, (rounds, n_workers)), np.float64)
+    if isinstance(dist, (list, tuple)):
+        if len(dist) != n_workers:
+            raise ValueError(f"need {n_workers} per-worker dists, got {len(dist)}")
+        cols = [d.sample(rng, (rounds,)) for d in dist]
+        return np.stack(cols, axis=1).astype(np.float64)
     return np.asarray(dist.sample(rng, (rounds, n_workers)), np.float64)
 
 
@@ -127,8 +176,13 @@ class ClusterConfig:
     #: The barrier pays it between every pair of rounds; waves overlap
     #: it with the next round's compute (subject to ``staleness``).
     update_cost: float = 0.0
+    #: workers skip blocks the master has already decoded (jump ahead).
+    #: Off by default: eq. (5) assumes every worker computes every block.
+    cancel_decoded: bool = False
     #: master -> worker update latency added to every dependency.
     broadcast_latency: float = 0.0
+    #: worker -> master delivery latency added to every completion.
+    comm_delay: float = 0.0
 
 
 class _Worker:
@@ -271,6 +325,12 @@ class ClusterResult:
         starts = np.concatenate([[0.0], self.round_done[:-1]])
         return self.round_done - starts
 
+    def trace(self, meta: Optional[dict] = None):
+        """Record the drawn per-(round, worker) times for replay."""
+        from .trace import Trace
+
+        return Trace.from_times(self.times, meta=meta)
+
     def wave_trace(self) -> WaveTrace:
         """Normalize this run into a replayable ``WaveTrace``.
 
@@ -306,6 +366,21 @@ class ClusterResult:
             update_cost=float(self.config.update_cost),
             events=tuple(events))
 
+    def summary(self) -> dict:
+        dur = self.round_durations()
+        finite = dur[np.isfinite(dur)]
+        util = (self.worker_busy / self.makespan
+                if np.isfinite(self.makespan) and self.makespan > 0
+                else np.zeros_like(self.worker_busy))
+        return {
+            "rounds": int(len(self.round_done)),
+            "makespan": float(self.makespan),
+            "mean_round": float(finite.mean()) if finite.size else float("inf"),
+            "stalled": bool(self.stalled),
+            "mean_utilization": float(util.mean()),
+            "wave": bool(self.config.wave),
+        }
+
 
 # ------------------------------------------------------------------ engine
 class ClusterSim:
@@ -313,13 +388,13 @@ class ClusterSim:
 
     Parameters
     ----------
-    schedule : tuple[Block, ...] from ``schedule_from_plan_levels``.
+    schedule : tuple[Block, ...] from ``schedule_from_x``/``schedule_from_plan``.
     dist     : straggler model — an ``Env`` (its declarative faults are
-               absorbed into ``faults``), one distribution, or a
-               (rounds, N) array (see ``draw_times``).
+               absorbed into ``faults``), one distribution, a per-worker
+               list, or a (rounds, N) array (see ``draw_times``).
     n_workers: cluster size N.
-    faults   : iterable of ``WorkerDeath`` / ``DegradedWorker`` (appended
-               to any env faults).
+    faults   : iterable of fault objects from ``repro_torch.core.env`` /
+               ``repro_torch.sim.faults`` (appended to any env faults).
     """
 
     def __init__(self, schedule, dist, n_workers: int, *,
@@ -348,7 +423,8 @@ class ClusterSim:
         self.config = config if config is not None else ClusterConfig(**config_kw)
         if self.config.staleness is not None and self.config.staleness < 0:
             raise ValueError("staleness must be >= 0 (or None = unbounded)")
-        if self.config.update_cost < 0 or self.config.broadcast_latency < 0:
+        if self.config.update_cost < 0 or self.config.broadcast_latency < 0 \
+                or self.config.comm_delay < 0:
             raise ValueError("latencies/update_cost must be >= 0")
 
     # ------------------------------------------------------------- running
@@ -421,6 +497,9 @@ class ClusterSim:
                 if r >= w.dead_round:
                     w.stopped = True
                     return
+                if cfg.cancel_decoded and np.isfinite(decoded_at[r, pos]):
+                    _advance(w)
+                    continue
                 key, ready = dep_of(r, pos)
                 if not np.isfinite(ready):
                     waiters.setdefault(key, []).append(w)
@@ -481,11 +560,13 @@ class ClusterSim:
                     continue
                 w.running = False
                 w.busy += t - w.cur_start
-                push(t, "deliver", widx, r, pos)  # delivery is instant
+                push(t + cfg.comm_delay, "deliver", widx, r, pos)
                 _advance(w)
                 try_start(w)
             else:  # deliver
                 widx, r, pos = payload
+                if t >= workers[widx].dead_at:
+                    continue    # in-flight message dies with its sender
                 delivered[r, pos] += 1
                 need = n - self.schedule[pos].level
                 if delivered[r, pos] <= need:
@@ -512,3 +593,26 @@ class ClusterSim:
             round_start=round_start, deliver_sets=deliver_sets,
         )
 
+
+# ------------------------------------------------------------ conveniences
+def simulate_plan(plan, dist=None, rounds: int = 1, *, seed: int = 0,
+                  cost: CostModel = DEFAULT_COST, faults: Sequence = (),
+                  **config_kw) -> ClusterResult:
+    """Run a ``Plan`` end-to-end on the event engine (leaf-form
+    schedule).  ``dist=None`` uses the plan's bound env."""
+    if dist is None:
+        if plan.env is None:
+            raise ValueError("plan has no bound env; pass dist/env explicitly")
+        dist = plan.env
+    sim = ClusterSim(schedule_from_plan(plan), dist, plan.n_workers,
+                     cost=cost, seed=seed, faults=faults, **config_kw)
+    return sim.run(rounds)
+
+
+def simulate_x(x, dist, n_workers: int, rounds: int = 1, *, seed: int = 0,
+               cost: CostModel = DEFAULT_COST, faults: Sequence = (),
+               **config_kw) -> ClusterResult:
+    """Run an eq.(5) block solution x on the event engine."""
+    sim = ClusterSim(schedule_from_x(x), dist, n_workers,
+                     cost=cost, seed=seed, faults=faults, **config_kw)
+    return sim.run(rounds)

@@ -1,7 +1,9 @@
 """Cycle-time traces, copied from ``repro/sim/trace.py``: an immutable
-(rounds, N) record of per-worker cycle times that bootstraps an
-``EmpiricalStraggler`` population (the adaptive re-planner's estimate of
-the live cluster).
+(rounds, N) record of per-worker cycle times, sampled from a straggler
+model (``record``) or measured, that replays exactly through
+``ClusterSim.run(times=trace.replay())`` (a run is a pure function of its
+times) and bootstraps an ``EmpiricalStraggler`` population (the adaptive
+re-planner's estimate of the live cluster).
 
 Format (JSON-able, version-tagged)::
 
@@ -40,6 +42,16 @@ class Trace:
             raise ValueError("trace times must be finite and positive")
         return cls(times=t, meta=dict(meta or {}))
 
+    @classmethod
+    def record(cls, dist, rounds: int, n_workers: int, *, seed: int = 0,
+               meta: Optional[dict] = None) -> "Trace":
+        """Sample a fresh trace from a straggler model (an ``Env``, one
+        distribution, or a per-worker list — see ``draw_times``)."""
+        from .cluster import draw_times
+
+        rng = np.random.default_rng(seed)
+        return cls.from_times(draw_times(dist, rng, rounds, n_workers), meta=meta)
+
     @property
     def rounds(self) -> int:
         return int(self.times.shape[0])
@@ -47,6 +59,10 @@ class Trace:
     @property
     def n_workers(self) -> int:
         return int(self.times.shape[1])
+
+    def replay(self) -> np.ndarray:
+        """The exact times matrix for ``ClusterSim.run(times=...)``."""
+        return np.array(self.times, copy=True)
 
     def to_empirical(self, per_worker: bool = False):
         """Bootstrap distribution(s) over the recorded cycle times: one

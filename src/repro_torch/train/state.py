@@ -21,7 +21,8 @@ from ..checkpoint.ckpt import tree_items
 from ..models.params import GCLM, _lookup, params_from_numpy
 from ..optim.optim import adamw_init
 
-__all__ = ["TrainState", "StateTree", "init_train_state", "opt_from_numpy"]
+__all__ = ["TrainState", "StateTree", "init_train_state", "abstract_train_state",
+           "opt_from_numpy"]
 
 
 class StateTree(NamedTuple):
@@ -75,6 +76,13 @@ def init_train_state(cfg, *, device="cuda", seed: int = 0,
     if params is not None:
         params_from_numpy(model, params)
     return TrainState(params=model, opt=adamw_init(model.leaves()), step=0)
+
+
+def abstract_train_state(cfg) -> TrainState:
+    """The state of ``cfg`` on the meta device: every tensor's shape and
+    dtype, no storage (the reference builds it with ``jax.eval_shape``).
+    The autotuner prices candidates and binds plans to it."""
+    return init_train_state(cfg, device="meta")
 
 
 def opt_from_numpy(model: GCLM, opt) -> dict:

@@ -15,9 +15,8 @@ worker-death recovery, in sim mode on one device or in spmd mode on N
 data-parallel ranks.  In spmd every rank builds the same plan and
 simulator from the same seed, so every rank draws the same decode
 weights and takes the same decisions (swaps, deaths, restores); a
-broadcast from rank 0 checks each draw.  ``budget`` and
-``scheme="auto"`` raise ``NotImplementedError`` naming their ROADMAP
-item.
+broadcast from rank 0 checks each draw.  ``scheme="auto"`` searches the
+launch space with the autotuner (``repro_torch.tune``).
 """
 from __future__ import annotations
 
@@ -157,6 +156,15 @@ class Trainer:
     ``wave`` is an optional ``repro_torch.train.wave.WaveConfig``: ``run``
     then executes rounds on the wave-pipelined schedule of the event
     simulator (staleness 0 bit-identical to the barrier loop).
+
+    ``scheme="auto"`` searches the joint launch space with
+    ``repro_torch.tune.autotune`` (optionally under a ``budget=MemBudget``;
+    the ``mc`` backend of a non-i.i.d. env runs on ``device``): the
+    winning candidate sets the plan AND every step knob the caller left
+    at its open default — ``pipeline`` ('auto'), ``reduce_mode`` ('psum'),
+    ``grad_dtype`` (None; the tuner's 'fp32' or 'bf16') — and the search
+    record lands on ``self.tune_report``.  ``budget`` without ``"auto"``
+    raises ``ValueError``.
     """
 
     def __init__(self, cfg, cfg_t: TrainConfig, env, *, n_workers: int = None,
@@ -165,11 +173,6 @@ class Trainer:
                  pipeline: str = "auto", adapt=None, wave=None, ckpt=None,
                  budget=None, reduce_mode: str = "psum", grad_dtype=None,
                  device="cuda", params=None, seq_len: int = None):
-        if budget is not None:
-            raise NotImplementedError("Trainer(budget=...) is not ported yet (ROADMAP 1.11)")
-        if scheme == "auto":
-            raise NotImplementedError("scheme='auto' (the autotuner) is not "
-                                      "ported yet (ROADMAP 1.11)")
         if mode == "spmd":
             if mesh is None:
                 raise ValueError("mode='spmd' needs a mesh "
@@ -194,13 +197,33 @@ class Trainer:
         self.n_workers = n_workers
         self.mesh, self.mode, self.pipeline = mesh, mode, pipeline
         self.reduce_mode, self.grad_dtype = reduce_mode, grad_dtype
+        self.tune_report = None
+        seq_len = min(cfg.max_seq, 512) if seq_len is None else seq_len
         self.state = init_train_state(cfg, device=device, seed=seed, params=params)
-        self.plan = Plan.build(self.state.params, env, scheme=scheme, rng=seed)
+        if scheme == "auto":
+            # model-aware search: the winner sets the plan AND the step
+            # knobs (pipeline/reduce_mode/grad_dtype) the user left open
+            from ..tune import autotune  # deferred: tune imports train.state
+
+            res = autotune(cfg, env, budget, global_batch=global_batch,
+                           seq_len=seq_len, seed=seed, device=device)
+            self.plan = res.plan
+            self.tune_report = res.report
+            best = res.best
+            if pipeline == "auto":
+                self.pipeline = best.pipeline
+            if reduce_mode == "psum":       # the open default
+                self.reduce_mode = best.reduce_mode
+            if grad_dtype is None:
+                self.grad_dtype = best.grad_dtype
+        elif budget is not None:
+            raise ValueError("budget= requires scheme='auto'")
+        else:
+            self.plan = Plan.build(self.state.params, env, scheme=scheme, rng=seed)
         self.sim = self.plan.simulator(env, seed=seed)
         self.data = SyntheticTokens(DataConfig(
-            vocab=cfg.vocab,
-            seq_len=min(cfg.max_seq, 512) if seq_len is None else seq_len,
-            global_batch=global_batch, seed=seed, kind=data_kind))
+            vocab=cfg.vocab, seq_len=seq_len, global_batch=global_batch, seed=seed,
+            kind=data_kind))
         self.step_fn = self._step_fn_for(self.plan)
         self.controller = None
         if adapt is not None:
@@ -221,8 +244,10 @@ class Trainer:
             self.wave = WaveRunner(self, wave)
 
     def _step_fn_for(self, plan: Plan) -> Callable:
+        # the tuner names its gradient dtypes 'fp32' and 'bf16'
+        grad_dtype = {"fp32": None, "bf16": torch.bfloat16}.get(self.grad_dtype, self.grad_dtype)
         return make_coded_train_step(self.cfg, self.cfg_t, plan, mode=self.mode, mesh=self.mesh,
-                                     reduce_mode=self.reduce_mode, grad_dtype=self.grad_dtype,
+                                     reduce_mode=self.reduce_mode, grad_dtype=grad_dtype,
                                      pipeline=self.pipeline)
 
     def check_draw(self, dec_w, times) -> None:

@@ -413,3 +413,51 @@ def test_serve_entry_points_default_to_cuda(cuda, capsys):
     assert generate(cfg, model, np.arange(1, 9)[None], 2).shape == (1, 10)
     launch_serve.main(["--reduced", "--stream", "3", "--prompt-len", "8", "--new", "3"])
     assert "served 3 requests / 9 tokens" in capsys.readouterr().out
+
+
+def _slow_pair_env(n=4):
+    fast = ShiftedExponential(mu=1e-3, t0=50.0)
+    return Env.heterogeneous([fast] * (n - 2) + [ScaledStraggler(base=fast, factor=5.0)] * 2)
+
+
+def test_mc_backend_on_cuda_matches_cpu(cuda):
+    """The batched Monte-Carlo backend on the card against itself on the
+    CPU (the same fp32 sort, gather, products and max): within 1e-6, and
+    ``Plan.simulate(backend="mc")`` defaults to the card."""
+    from repro_torch.sim import mc, schedule_from_plan
+
+    env = _slow_pair_env()
+    plan = Plan.build(np.asarray([3.0, 1.0, 4.0, 1.0, 5.0]), env, scheme="xf")
+    times = env.sample(np.random.default_rng(0), (2000, 4))
+    for t in (times, times.reshape(400, 5, 4)):
+        np.testing.assert_allclose(mc.runtime_batch(schedule_from_plan(plan), t),
+                                   mc.runtime_batch(schedule_from_plan(plan), t, device="cpu"),
+                                   rtol=1e-6)
+    got = plan.simulate(env, 300, seed=2, backend="mc").ledger
+    want = plan.simulate(env, 300, seed=2, backend="mc", device="cpu").ledger
+    for a, b in zip(got, want, strict=True):
+        np.testing.assert_array_equal(a["times"], b["times"])
+        np.testing.assert_allclose(a["tau_coded"], b["tau_coded"], rtol=1e-6)
+
+
+def test_autotune_report_on_cuda_matches_cpu(cuda):
+    """The tuner on a heterogeneous env prices with mc on the card (its
+    default device): the same candidates, order, memory, prunes and best
+    as the same search on the CPU, times within 1e-6."""
+    from repro_torch.tune import MemBudget, autotune
+
+    cfg = get_config("gc-lm-110m").reduced(n_layers=2, d_model=128)
+    kw = dict(global_batch=8, seq_len=32, steps=60)
+    mems = sorted(c.mem.total for c in autotune(cfg, _slow_pair_env(), device="cpu",
+                                                **kw).report.candidates)
+    cap = MemBudget(0.5 * (mems[0] + mems[-1]))  # prunes some, admits some
+    got = autotune(cfg, _slow_pair_env(), cap, **kw).report
+    want = autotune(cfg, _slow_pair_env(), cap, device="cpu", **kw).report
+    assert got.backend == "mc" and got.pruned and got.best.key() == want.best.key()
+    for part in ("candidates", "pruned"):
+        a, b = getattr(got, part), getattr(want, part)
+        assert [c.key() for c in a] == [c.key() for c in b]
+        assert [c.prune_reason for c in a] == [c.prune_reason for c in b]
+        for ca, cb in zip(a, b):
+            assert ca.mem.to_dict() == cb.mem.to_dict()
+            np.testing.assert_allclose(ca.time, cb.time, rtol=1e-6)

@@ -147,11 +147,41 @@ def test_flat_layout_pack_unpack_matches_reference(batch):
 
 
 def test_unknown_scheme_and_autotune_raise():
+    """A name neither package registers raises ``KeyError`` in both;
+    ``scheme="auto"`` builds the tuner's winning plan, carrying its
+    search record, equal to the reference's."""
     model = GCLM(get_config("gc-lm-110m").reduced(n_layers=2, d_model=128),
                  device="meta")
-    with pytest.raises(KeyError, match="ROADMAP"):  # a §VI baseline of the reference
-        Plan.build(model, ShiftedExponential(), N, scheme="tandon-alpha")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Plan.build(model, ShiftedExponential(), N, scheme="auto")
+    shapes = abstract_train_state(jax_get_config("gc-lm-110m").reduced(n_layers=2,
+                                                                       d_model=128))[0].params
+    for build in (lambda **kw: Plan.build(model, ShiftedExponential(), N, **kw),
+                  lambda **kw: JPlan.build(shapes, JShiftedExp(), N, **kw)):
+        with pytest.raises(KeyError, match="unknown scheme"):
+            build(scheme="no-such-scheme")
+    port = Plan.build(model, ShiftedExponential(), N, scheme="auto", device="cpu")
+    ref = JPlan.build(shapes, JShiftedExp(), N, scheme="auto")
+    assert port.tune_report.best.scheme == port.scheme == ref.scheme
+    assert port.tune_report.n_workers == N and port.tune_report.backend == "eq2"
+    assert [c.key() for c in port.tune_report.candidates] \
+        == [c.key() for c in ref.tune_report.candidates]
+    assert _json(port.to_dict()) == _json(ref.to_dict())
     plan = Plan.build(model, ShiftedExponential(), N, scheme="x_f")  # alias
     assert plan.scheme == "x_f" and plan.flat_layout is not None
+
+
+@pytest.mark.parametrize("backend", ["eq2", "event", "mc"])
+def test_full_width_simulate_ledgers_match_reference(plan_pair, backend):
+    """``Plan.simulate`` on full-width gc-lm-110m's plan: eq2 and event
+    bit-identical to the reference's; mc (fp32) within 1e-6 of the
+    reference's mc, with the same draws."""
+    port, ref = plan_pair
+    env_t = Env.heterogeneous([ShiftedExponential(mu=MU, t0=T0)] * 2
+                              + [ShiftedExponential(mu=MU / 5, t0=T0 * 5)] * 2)
+    env_j = JEnv.from_dict(env_t.to_dict())
+    sim_t = port.simulate(env_t, 50, seed=3, backend=backend, device="cpu")
+    sim_j = ref.simulate(env_j, 50, seed=3, backend=backend)
+    rtol = 1e-6 if backend == "mc" else 0.0
+    for a, b in zip(sim_t.ledger, sim_j.ledger, strict=True):
+        np.testing.assert_array_equal(a["times"], b["times"])
+        assert a["tau_uncoded"] == b["tau_uncoded"]
+        np.testing.assert_allclose(a["tau_coded"], b["tau_coded"], rtol=rtol)

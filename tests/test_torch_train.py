@@ -213,13 +213,21 @@ def test_three_trainer_steps_match_reference_trainer():
 
 
 def test_trainer_unported_options_raise():
-    cfg = get_config("gc-lm-110m").reduced(**KW)
+    """Every option of the reference trainer is ported (ckpt=, adapt=,
+    wave=, mode="spmd", grad_dtype=, and scheme="auto" with budget=:
+    tests/test_torch_{checkpoint,adapt,wave,spmd,tune}.py); ``budget=``
+    without ``scheme="auto"`` raises the reference's ``ValueError`` in
+    both packages."""
+    from repro.tune import MemBudget as JMemBudget
+    from repro_torch.tune import MemBudget
+
     dist = ShiftedExponential()
-    # ckpt=, adapt=, wave=, mode="spmd" and grad_dtype= are ported
-    # (tests/test_torch_{checkpoint,adapt,wave,spmd}.py)
-    for kw in (dict(budget=object()), dict(scheme="auto")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(cfg, TrainConfig(), dist, n_workers=N, device="cpu", **kw)
+    with pytest.raises(ValueError, match="scheme='auto'"):
+        Trainer(get_config("gc-lm-110m").reduced(**KW), TrainConfig(), dist, n_workers=N,
+                device="cpu", budget=MemBudget.from_gb(1))
+    with pytest.raises(ValueError, match="scheme='auto'"):
+        JTrainer(jax_get_config("gc-lm-110m").reduced(**KW), JTrainConfig(),
+                 JShiftedExp(), n_workers=N, scheme="xf", budget=JMemBudget.from_gb(1))
 
 
 def test_launch_cli_runs_on_cpu(capsys):
