@@ -133,6 +133,31 @@ port's sources beside it.  Phases; any failure raises:
    same weights and prompts through ``ServeEngine`` (fp32 slab, greedy)
    on both give equal tokens, timestamps and step latencies, and
    teacher-forced logits within 1e-4 of the largest.
+11. gemma-train: full-width gemma-2b (d_model 2048, MQA, head_dim 256,
+   d_ff 16384, vocab 256,000, GeGLU, the embedding scale, bf16
+   activations, ``remat="dots"``) cut to 2 layers, in a sim-mode
+   ``Trainer`` as in 2 (N = 4, ``xf``, s_max = 3: 16 fp32 rows of every
+   parameter).  At step 0 the coded gradient equals the uncoded one with
+   0 and s_max stragglers: fp32 activations within 1e-4 per leaf (the
+   gate), the config's bf16 within ``GEMMA_BF16_RTOL``.  3 steps with the
+   counts set to 0 just before: one ``gc_fused`` launch per step, finite
+   losses, ``max_memory_allocated`` beside the 62.5 GB reckoning.  The
+   step combine (11 leaves, 744,499,200 columns, one launch) against its
+   plain version, device-only in turns with ``torch.matmul``, against its
+   memory bound; the pieces of a step by the host clock.
+12. gemma3-serve: full-width gemma3-27b (QK-norm, sandwich norms, local
+   RoPE base 1e4 and global 1e6, windows of 1,024) cut to 14 layers (a
+   pattern of 6 over 2 repeats and a tail run of 2) in a ``ServeEngine``
+   (8 slots, bf16 slab, the launcher's coded tier), 16 requests of
+   1,536-token prompts and 64 new tokens, greedy, counts set to 0 just
+   before: every request completes, the clock is the tier's stream, the
+   local layers' rings wrap, no ``gc_*`` launch; seconds and tokens/s.
+   Teacher forcing: fp32 activations on an fp32 slab within 1e-4 of the
+   largest logit, the config's bf16 on a bf16 slab within 2e-2.
+13. gemma2: full-width gemma2-27b (softcaps 50 and 30) cut to 4 layers (a
+   pattern of 2 over 2 repeats): a 4,352-token prefill past the 4,096
+   window (the rings rolled at prefill), then 16 teacher-forced decode
+   steps at 12's bounds.
 
 The line before the last is the card's name and power limit; before it
 a JSON line lists every kernel with its launches, error and times; the
@@ -200,6 +225,24 @@ SERVE = dict(n_slots=8, max_len=320, n_requests=32, prompt_len=256, max_new=64,
 #: slab sums the same fp32 terms in another order (the same card: 3.825e-6)
 SERVE_BF16_REL = 2e-2
 SERVE_FP32_REL = 1e-4
+#: the Gemma phases, at the configs' published widths, cut in depth only.
+#: [gemma-train]: gemma-2b at 2 layers (one run, 11 leaves): sim mode holds
+#: N·K = 16 fp32 rows of every parameter, 47.65 GB at P = 744,499,200;
+#: with parameters and AdamW moments (8.93 GB), one pass's gradients and
+#: the decoded gradient (2.98 GB each) the reckoning is 62.5 GB plus
+#: activations (3 layers: ~72 GB)
+GEMMA_TRAIN_LAYERS = 2
+#: coded vs uncoded with the config's bf16 activations, per leaf: both
+#: sides run the same bf16 per-shard passes; only the fp32 combine differs
+GEMMA_BF16_RTOL = 1e-4
+#: [gemma3-serve]: gemma3-27b at 14 layers (a pattern of 6 over 2 repeats
+#: and a tail run of 2, the segmenting of the full 62), 1,536-token
+#: prompts past the 1,024 window
+GEMMA3_SERVE = dict(n_layers=14, n_slots=8, n_requests=16, prompt_len=1536, max_new=64,
+                    rate=2e-3, workers=8)
+#: [gemma2]: gemma2-27b at 4 layers (a pattern of 2 over 2 repeats), a
+#: 4,352-token prompt past the 4,096 window
+GEMMA2 = dict(n_layers=4, prompt_len=4352, decode_steps=16)
 
 
 def log(*args):
@@ -1683,26 +1726,37 @@ def phase_decode():
 
 def teacher_forced(cfg, model, reqs, dtype, device):
     """Decode logits ``(T-1, B, V)`` on a fresh slab of ``dtype``, each row
-    fed its own generated tokens, and the fp32 prefill logits of prompt +
+    fed its own generated tokens, and the prefill logits of prompt +
     generated tokens at the same positions.  The requests share one
     prompt length and one token count."""
     import numpy as np
     import torch
 
+    outputs = torch.from_numpy(np.stack([r.output for r in reqs]).astype(np.int64)).to(device)
+    return teacher_forced_tokens(cfg, model, outputs, len(reqs[0].prompt), dtype, device)
+
+
+def teacher_forced_tokens(cfg, model, outputs, s: int, dtype, device):
+    """``teacher_forced`` of token rows ``outputs`` (B, S + T) whose first
+    ``s`` are the prompt: each row prefilled at batch 1 into a slab of
+    capacity S + T, then T - 1 decode steps fed the next tokens."""
+    import torch
+
     from repro_torch.models.model import decode_step, prefill
     from repro_torch.serve import insert_request, make_slab
 
-    s, n = len(reqs[0].prompt), len(reqs[0].tokens)
-    max_len = s + n
-    outputs = torch.from_numpy(np.stack([r.output for r in reqs]).astype(np.int64)).to(device)
-    slab = make_slab(cfg, len(reqs), max_len, dtype=dtype, device=device)
-    for slot, r in enumerate(reqs):
+    max_len = outputs.shape[1]
+    n = max_len - s
+    slab = make_slab(cfg, outputs.shape[0], max_len, dtype=dtype, device=device)
+    for slot in range(outputs.shape[0]):
         _, pref = prefill(cfg, model, outputs[slot:slot + 1, :s], target_len=max_len)
         insert_request(cfg, slab, pref, slot)
+        del pref
     steps = []
     for t in range(n - 1):
         logits, _ = decode_step(cfg, model, slab, outputs[:, s + t, None])
         steps.append(logits[:, -1])
+    del slab
     full, _ = prefill(cfg, model, outputs)
     return torch.stack(steps), full[:, s:s + n - 1].transpose(0, 1)
 
@@ -1917,6 +1971,303 @@ def phase_reference():
         "of the largest")
 
 
+# ------------------------------------------------------------ the Gemma family
+def _cut(arch: str, n_layers: int, **kw):
+    """The registered config at its published widths, cut in depth to its
+    first ``n_layers`` layers."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return cfg.replace(n_layers=n_layers, layers=cfg.layers[:n_layers], **kw)
+
+
+def _free_card() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def phase_gemma_train():
+    """Coded training of full-width gemma-2b (2 layers: one run of 11
+    leaves) in sim mode: coded == uncoded at step 0 in fp32 (the gate)
+    and in the config's bf16 (recorded against its own bound), then
+    ``Trainer.run`` for 3 steps with every count set to 0 just before
+    (``gc_fused``: one launch per step, over 16 fp32 rows of every
+    parameter), then the step combine at full width — the kernel,
+    ``torch.matmul`` (device-only, in turns) and the plain version —
+    against its memory bound, and the pieces of a step."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import ShiftedExponential
+    from repro_torch.data.pipeline import coded_worker_batches
+    from repro_torch.kernels import gc_fused, ref
+    from repro_torch.models.model import train_loss
+    from repro_torch.optim.optim import adamw_update, clip_by_global_norm
+    from repro_torch.train.coded import (combine_rows, level_weights, per_shard_grad_rows,
+                                         uncoded_grad_fn)
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    _free_card()
+    cfg = _cut("gemma-2b", GEMMA_TRAIN_LAYERS, max_seq=512)
+    trainer = Trainer(cfg, TrainConfig(lr=3e-4, warmup=10, total_steps=300),
+                      ShiftedExponential(mu=1e-3, t0=50.0), n_workers=4, scheme="xf",
+                      global_batch=8, seed=0, device="cuda", seq_len=256)
+    plan, model, n = trainer.plan, trainer.state.params, trainer.n_workers
+    leaves = model.leaves()
+    n_params = sum(t.numel() for t in leaves)
+    nk = n * plan.k_shards
+    reckon = {"rows": 4 * nk * n_params, "params+adamw": 12 * n_params,
+              "one pass's gradients": 4 * n_params, "decoded gradient": 4 * n_params}
+    log(f"[gemma-train] gemma-2b at full width, {cfg.n_layers} layers: {n_params} params in "
+        f"{len(leaves)} leaves (embed.tok {leaves[0].numel()} columns), x={plan.x.tolist()}, "
+        f"leaf levels {plan.leaf_levels.tolist()}, N*K={nk}, dtype {cfg.dtype}, remat "
+        f"{cfg.remat}; memory reckoning {sum(reckon.values()) / 1e9:.2f} GB ("
+        + ", ".join(f"{k} {v / 1e9:.2f}" for k, v in reckon.items()) + ") plus activations")
+
+    wb = coded_worker_batches(trainer.data, 0, n, plan.s_max)
+    shards = np.stack([trainer.data.shard(0, i, n) for i in range(n)])
+    gaps = {}
+    for dtype, bound in (("float32", EXACT_RTOL), ("bfloat16", GEMMA_BF16_RTOL)):
+        c = cfg.replace(dtype=dtype)
+        rows = per_shard_grad_rows(c, model, wb)
+        coded = {u: combine_rows(plan, rows, _straggler_dec_w(plan, u))
+                 for u in (0, plan.s_max)}
+        del rows
+        g_ref = uncoded_grad_fn(c, n)(model, shards)
+        for u, got in coded.items():
+            gaps[dtype, u] = _worst_rel(got, g_ref, model.leaf_paths(), bound,
+                                        f"[gemma-train] {dtype}: coded != uncoded, {u} stragglers")
+        del coded, g_ref
+        log(f"[gemma-train] step 0, {dtype} activations: coded == uncoded, worst leaf relative "
+            f"max error {gaps[dtype, 0]:.3e} / {gaps[dtype, plan.s_max]:.3e} at 0 / "
+            f"{plan.s_max} stragglers (bound {bound})")
+    _free_card()
+
+    reset_counts()
+    trainer.run(STEPS, log_every=1, log_fn=lambda m: log(f"[gemma-train] {m}"))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in trainer.history]
+    if launches != {"gc_fused": STEPS, "gc_encode": 0, "gc_decode": 0}:
+        raise AssertionError(f"[gemma-train] launches {launches} in {STEPS} steps, expected "
+                             "one gc_fused launch per step")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"[gemma-train] non-finite loss {losses}")
+    log(f"[gemma-train] {STEPS} steps, losses {losses}, step wall_s "
+        f"{[h['wall_s'] for h in trainer.history]}, launches {launches}; max_memory_allocated "
+        f"{peak} bytes ({peak / 1e9:.2f} GB) against the {sum(reckon.values()) / 1e9:.2f} GB "
+        f"reckoning (ratio {peak / sum(reckon.values()):.4f})")
+
+    # where a step's time goes, and the step combine at full width
+    tokens = torch.as_tensor(wb[0, 0], device="cuda")
+
+    def ms(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    parts = {"fwd_bwd": ms(lambda: torch.autograd.grad(
+        train_loss(cfg, model, {"tokens": tokens})[0], leaves))}
+    t0 = time.perf_counter()
+    rows = per_shard_grad_rows(cfg, model, wb)
+    torch.cuda.synchronize()
+    parts["rows"] = (time.perf_counter() - t0) * 1e3
+    dec_w = _straggler_dec_w(plan, plan.s_max)
+    layout = plan.flat_layout
+    a = torch.full((1,), 1.0 / n, device="cuda")
+    table = level_weights(plan, dec_w, "cuda")
+    which = list(layout.leaf_level)
+    outs = [torch.empty((1, g.shape[1]), device="cuda") for g in rows]
+    ws = [(a[:, None] * table[i]).contiguous() for i in which]
+    before = gc_fused.launches
+    gc_fused.encode_decode_leaves(a, table, which, rows, out=outs)
+    if gc_fused.launches - before != 1:
+        raise AssertionError(f"[gemma-train] the combine took {gc_fused.launches - before} "
+                             "launches, expected 1")
+    max_err = 0.0
+    for j, (y, g) in enumerate(zip(outs, rows)):
+        want = ref.encode_decode_ref(a, table[which[j]], g)
+        max_err = max(max_err, check_close("gc_fused", y, want, "float32",
+                                           f"gemma-2b leaf {j} NB=1 K={nk} D={g.shape[1]}"))
+        del want
+    fns = {"new": lambda: gc_fused.encode_decode_leaves(a, table, which, rows, out=outs),
+           "library": lambda: [torch.matmul(w, g, out=o) for w, g, o in zip(ws, rows, outs)]}
+    dev = device_in_turns(fns, 3)
+    n_cols = sum(g.shape[1] for g in rows)
+    bytes_ms, ops_ms = bounds_ms((1 + nk) * n_cols * 4 + (layout.n_levels + 1) * nk * 4,
+                                 2.0 * nk * n_cols)
+    times = {"device_ms": _mean(dev["new"]), "ms": time_ms(fns["new"], 3),
+             "plain_ms": time_ms(lambda: ref.encode_decode_leaves_ref(a, table, which, rows), 3),
+             "library_ms": _mean(dev["library"]), "bound_ms": max(bytes_ms, ops_ms),
+             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    parts["combine"] = times["ms"]
+    grads = [o.view_as(t) for o, t in zip(outs, leaves)]
+    del rows
+    parts["update"] = ms(lambda: adamw_update(clip_by_global_norm(grads, 1.0)[0],
+                                              trainer.state.opt, leaves, 1e-12))
+    log(f"[gemma-train] step combine, {len(outs)} leaves, NB=1 K={nk}, {n_cols} columns in one "
+        f"launch: agrees with the plain version (max abs err {max_err:.3e}); device-only ms in "
+        "turns new/library/library/new: " + ", ".join(f"{k} {v[0]:.4f} {v[1]:.4f}"
+                                                       for k, v in dev.items())
+        + f"; host-inclusive {times['ms']:.4f}, plain {times['plain_ms']:.4f}; bound "
+        f"{times['bound_ms']:.4f} ms ({times['bound_by']}; bytes {bytes_ms:.4f}, operations "
+        f"{ops_ms:.4f}); share of bound {times['bound_ms'] / times['device_ms']:.3f}, "
+        f"torch.matmul {times['bound_ms'] / times['library_ms']:.3f}")
+    log(f"[gemma-train] one step's pieces, host clock: fwd+bwd {parts['fwd_bwd']:.2f} ms "
+        f"(x{nk} = {nk * parts['fwd_bwd']:.1f} ms); rows incl. copies {parts['rows']:.1f} ms; "
+        f"combine (1 launch) {parts['combine']:.2f} ms; clip+adamw {parts['update']:.2f} ms")
+    del outs, grads, trainer, model, leaves
+    _free_card()
+    return dict(times, launches=launches["gc_fused"], max_abs_err=max_err, peak=peak)
+
+
+def phase_gemma3_serve():
+    """Full-width gemma3-27b cut to 14 layers (a pattern of 6 over 2
+    repeats and a tail run of 2) in a ``ServeEngine`` (8 slots, bf16 slab,
+    the launcher's default coded tier): 16 requests of 1,536-token prompts
+    (past the 1,024 window: local layers take ``local_attention`` in
+    prefill and their ring caches wrap in decode) and 64 new tokens each,
+    greedy, with the counts set to 0 just before: every request
+    completes, the engine's clock is the tier's stream, no ``gc_*``
+    launch.  Teacher forcing against prefill logits: fp32 activations on
+    an fp32 slab, the config's bf16 on a bf16 slab."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import Env, ShiftedExponential
+    from repro_torch.models.params import GCLM, count_params
+    from repro_torch.serve import CodedDecode, ServeConfig, ServeEngine
+    from repro_torch.sim.arrivals import poisson_arrivals
+
+    _free_card()
+    g = GEMMA3_SERVE
+    cfg = _cut("gemma3-27b", g["n_layers"])
+    model = GCLM(cfg, device="cuda", seed=0)
+    n_params = count_params(model)
+    env = Env.iid(ShiftedExponential(mu=1e-3, t0=50.0), g["workers"])
+    coded = CodedDecode.solve(env, objective="p99", seed=0)
+    max_len = g["prompt_len"] + g["max_new"]
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab,
+                                                size=(g["n_requests"], g["prompt_len"]))
+    arrivals = poisson_arrivals(g["n_requests"], g["rate"], seed=0)
+    eng = ServeEngine(cfg, model, ServeConfig(n_slots=g["n_slots"], max_len=max_len),
+                      coded=coded, device="cuda")
+    reqs = [eng.submit(p, max_new=g["max_new"], arrival=float(t))
+            for p, t in zip(prompts, arrivals)]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_tokens = sum(len(r.tokens) for r in reqs)
+    if len(done) != len(reqs) or not all(r.done and len(r.tokens) == g["max_new"] for r in reqs):
+        raise AssertionError(f"[gemma3-serve] unfinished: {[r.summary() for r in reqs if not r.done]}")
+    replay = CodedDecode(env, coded.plan, seed=0).step_latencies(len(eng.step_latencies), seed=0)
+    if not np.array_equal(np.asarray(eng.step_latencies), replay):
+        raise AssertionError("[gemma3-serve] the engine's clock is not the coded tier's stream")
+    if any(counts.values()):
+        raise AssertionError(f"[gemma3-serve] the serving path launched kernels: {counts}")
+    ring = eng.slab[0][0]  # the pattern's first position: a windowed layer
+    if ring["k"].shape[2] != cfg.layers[0].window or int(ring["pos"].max()) <= ring["k"].shape[2]:
+        raise AssertionError(f"[gemma3-serve] the local layers' slab is not a wrapped ring: "
+                             f"{tuple(ring['k'].shape)}, pos {ring['pos'].max().item()}")
+    log(f"[gemma3-serve] gemma3-27b at full width, {cfg.n_layers} layers: {n_params} params; "
+        f"coded tier R={coded.plan.r} s={coded.plan.s}; {len(reqs)} requests x "
+        f"{g['prompt_len']}-token prompts, {n_tokens} tokens in {wall:.3f} s over "
+        f"{len(eng.step_latencies)} decode steps: {n_tokens / wall:.1f} tok/s; every request "
+        f"{g['max_new']} tokens; step latencies == the tier's stream; gc_* launches {counts}; "
+        f"local rings of {ring['k'].shape[2]} wrapped (pos up to {int(ring['pos'].max())}); "
+        f"max_memory_allocated {peak} bytes")
+    del eng
+    errs = _gemma_teacher_forcing("gemma3-serve", cfg, model, [r.output for r in reqs[:3]],
+                                  g["prompt_len"])
+    del model
+    _free_card()
+    return {"tokens_per_s": n_tokens / wall, "seconds": wall, **errs}
+
+
+def _gemma_teacher_forcing(tag, cfg, model, outputs, s: int) -> dict:
+    """Teacher-forced decode logits against prefill logits of the same
+    tokens: rows 0-1 with the config's bf16 activations on a bf16 slab,
+    row 2 with fp32 activations on an fp32 slab, at ``[serve]``'s bounds."""
+    import numpy as np
+    import torch
+
+    toks = torch.from_numpy(np.stack(outputs).astype(np.int64)).cuda()
+    t0 = time.perf_counter()
+    got, want = teacher_forced_tokens(cfg, model, toks[:2], s, torch.bfloat16, "cuda")
+    bf16 = _rel_err(got, want)
+    del got, want
+    got, want = teacher_forced_tokens(cfg.replace(dtype="float32"), model, toks[2:3], s,
+                                      torch.float32, "cuda")
+    fp32 = _rel_err(got, want)
+    del got, want
+    torch.cuda.synchronize()
+    if not bf16 <= SERVE_BF16_REL or not fp32 <= SERVE_FP32_REL:
+        raise AssertionError(f"[{tag}] teacher-forced logits: bf16 {bf16:.3e} (bound "
+                             f"{SERVE_BF16_REL}), fp32 {fp32:.3e} (bound {SERVE_FP32_REL})")
+    log(f"[{tag}] teacher forcing over {toks.shape[1] - s - 1} decode steps: bf16 activations, "
+        f"bf16 slab (2 rows) {bf16:.3e} of the largest logit (bound {SERVE_BF16_REL}); fp32 "
+        f"activations, fp32 slab (1 row) {fp32:.3e} (bound {SERVE_FP32_REL}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"bf16_rel": bf16, "fp32_rel": fp32}
+
+
+def phase_gemma2():
+    """Full-width gemma2-27b cut to 4 layers (a local/global pattern over 2
+    repeats; attention softcap 50, final softcap 30): a 4,352-token prompt,
+    past the 4,096 window, so prefill rolls the local layers' rings; then
+    16 teacher-forced decode steps against the prefill logits."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.model import prefill
+    from repro_torch.models.params import GCLM, count_params
+
+    _free_card()
+    g = GEMMA2
+    cfg = _cut("gemma2-27b", g["n_layers"])
+    model = GCLM(cfg, device="cuda", seed=0)
+    s, n = g["prompt_len"], g["decode_steps"] + 1
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, size=(3, s + n))
+    tok0 = torch.from_numpy(toks[:1, :s]).cuda()
+    prefill(cfg, model, tok0, target_len=s + n)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = prefill(cfg, model, tok0, target_len=s + n)
+    torch.cuda.synchronize()
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    local, glob = caches[0]
+    if local["k"].shape[2] != cfg.layers[0].window or glob["k"].shape[2] != s + n \
+            or int(local["pos"][0]) != s:
+        raise AssertionError(f"[gemma2] caches {tuple(local['k'].shape)} / "
+                             f"{tuple(glob['k'].shape)}, pos {local['pos'].tolist()}")
+    if not float(logits.float().abs().max()) <= cfg.final_softcap:
+        raise AssertionError("[gemma2] logits past the final softcap")
+    del logits, caches
+    log(f"[gemma2] gemma2-27b at full width, {cfg.n_layers} layers: {count_params(model)} "
+        f"params; prefill of {s} tokens (B=1, bf16 activations) {pre_ms:.1f} ms, host clock; "
+        f"local rings of {cfg.layers[0].window} rolled at prefill, global caches of {s + n}")
+    errs = _gemma_teacher_forcing("gemma2", cfg, model, list(toks), s)
+    del model
+    _free_card()
+    return dict(errs, prefill_ms=pre_ms)
+
+
 def main() -> int:
     try:
         import torch
@@ -1963,6 +2314,9 @@ def main() -> int:
     trip_launches, dec_err, dec_times = timed("decode", phase_decode)
     timed("serve", phase_serve)
     timed("reference", phase_reference)
+    gemma = timed("gemma-train", phase_gemma_train)
+    timed("gemma3-serve", phase_gemma3_serve)
+    timed("gemma2", phase_gemma2)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s; seconds by "
         f"phase {spent}")
 
@@ -1977,15 +2331,18 @@ def main() -> int:
     # the tuned trainer, spmd (every rank's launches)
     fused_launches = {"train": launches["gc_fused"], "adapt": adapt_launches["gc_fused"],
                       "wave": wave_launches["gc_fused"], "tune": tune_launches["gc_fused"],
-                      "spmd": spmd_launches}
+                      "spmd": spmd_launches, "gemma": gemma["launches"]}
     print(json.dumps({"kernels": [
         row("gc_fused", "src/repro/kernels/gc_fused.py:57", sum(fused_launches.values()),
-            max_err, kernel_times, launches_by_path=fused_launches,
+            max(max_err, gemma["max_abs_err"]), kernel_times, launches_by_path=fused_launches,
             per_level_device_ms=level_times["levels_device_ms"],
             grouped_device_ms=level_times["grouped_device_ms"],
             tree_combine_device_ms=tree_times["tree_device_ms"],
             spmd_device_ms=spmd_times["device_ms"], spmd_bound_ms=spmd_times["bound_ms"],
-            spmd_library_ms=spmd_times["library_device_ms"]),
+            spmd_library_ms=spmd_times["library_device_ms"],
+            gemma_device_ms=gemma["device_ms"], gemma_ms=gemma["ms"],
+            gemma_plain_ms=gemma["plain_ms"], gemma_library_ms=gemma["library_ms"],
+            gemma_bound_ms=gemma["bound_ms"]),
         row("gc_encode", "src/repro/kernels/gc_encode.py:56", ckpt_launches["gc_encode"],
             enc_err, enc_times),
         row("gc_decode", "src/repro/kernels/gc_decode.py:51", trip_launches["gc_decode"],

@@ -2,10 +2,11 @@
 registry.
 
 Copied from ``repro/configs/base.py`` and trimmed to what the dense
-attention path of the port runs: a layer is an attention mixer plus a
-dense FFN.  The fields that select features of other families (MoE, MLA,
-SSM/xLSTM mixers, encoders, vision, MTP, softcaps, QK-norm, biases,
-sliding windows) are kept with their reference defaults so a config
+attention path of the port runs: a layer is an attention mixer (global,
+or a sliding window) plus a dense FFN, with the Gemma family's softcaps,
+QK-norm, sandwich norms, embedding scale and GeGLU.  The fields that
+select features of other families (MoE, QKV biases, untied embeddings,
+MTP, layer norm) are kept with their reference defaults so a config
 says what it needs, and the model raises ``NotImplementedError`` naming
 the ROADMAP item when one is set.  ``reduced()`` gives the reference's
 smoke-test shapes for the dense family.
@@ -57,7 +58,8 @@ class ModelConfig:
     mtp_depth: int = 0
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
-    remat: str = "none"
+    remat: str = "none"  # 'none' | 'dots' | 'full'
+    fsdp: bool = False  # the reference's param sharding over 'data'; no effect on one device
     attn_chunk: int = 1024
     max_seq: int = 131_072
 
@@ -103,6 +105,7 @@ class ModelConfig:
             max_seq=seq_cap * 2,
             attn_chunk=128,
             remat="none",
+            fsdp=False,
             dtype="float32",
             mtp_depth=min(self.mtp_depth, 1),
         )
@@ -124,7 +127,8 @@ def get_config(arch_id: str) -> ModelConfig:
 
     if arch_id not in _REGISTRY:
         raise KeyError(f"unknown arch '{arch_id}'; the port has: "
-                       f"{sorted(_REGISTRY)} (others: ROADMAP 1.9)")
+                       f"{sorted(_REGISTRY)} (Qwen, MoE, SSM, xLSTM, vision and audio "
+                       "families: ROADMAP 1.9)")
     return _REGISTRY[arch_id]()
 
 

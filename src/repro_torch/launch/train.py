@@ -3,6 +3,8 @@
     python -m repro_torch.launch.train --arch gc-lm-110m --steps 300 \
         --workers 4 --scheme xf --seq 256 --global-batch 8
 
+``--arch`` takes gc-lm-110m and the Gemma family (gemma-2b, gemma2-27b,
+gemma3-27b); ``--reduced`` cuts the config to 2 layers of width 128.
 Runs ``Trainer.run`` (barrier loop, sim mode, the fused ``gc_fused``
 combine on CUDA) and prints the loss and the simulated-runtime ledger
 (tau_coded vs the wait-for-slowest tau_uncoded).  ``--device`` defaults

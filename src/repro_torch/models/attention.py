@@ -1,22 +1,33 @@
-"""Causal global self-attention of the dense path, after
-``repro/models/attention.py``: training, prefill and decode.
+"""Causal self-attention of the dense path, after
+``repro/models/attention.py``: global and sliding-window layers, in
+training, prefill and decode.
 
-The reference's ``chunked_attention`` is an online softmax over KV
-chunks in jnp — plain math, not a Pallas kernel — so the port computes
-the same function in plain PyTorch: fp32 scores masked with -1e30 past
-the causal edge, an fp32 softmax, and the weighted sum of values.  GQA
-groups query heads over the KV heads exactly as the reference does.
+The reference's ``chunked_attention`` (an online softmax over KV
+chunks) and ``local_attention`` (query chunks against a KV span of the
+window) are plain jnp — not Pallas kernels — so the port computes the
+same functions in plain PyTorch.  Global layers: fp32 scores masked with
+-1e30 past the causal edge, an fp32 softmax, and the weighted sum of
+values.  Windowed layers with ``window < S``: ``local_attention``, the
+reference's schedule — query chunks of ``attn_chunk``, each against a
+KV span of the window's history plus the chunk, masked per position —
+so memory is O(S·window), not O(S²).  GQA groups query heads over the
+KV heads exactly as the reference does.  Gemma's extras sit at the
+reference's places: QK-norm (``_rms_head``) before RoPE, the score
+softcap in the scores' dtype before the fp32 cast, and
+``rope_base_local`` on windowed layers.
 
 Decode: one query token against a KV cache ``{"k", "v", "pos"}`` of
-capacity ``cap`` (``(B, cap, K, Dh)`` leaves).  ``pos`` is a scalar (the
-whole batch in lockstep) or a ``(B,)`` row vector (the serving slab,
-where every slot decodes at its own depth: RoPE positions, write slots
-and validity masks are per row).  The step writes its K/V into the cache
-**in place** at ``pos % cap`` and advances ``pos`` in place; the
-reference's functional ``.at[].set`` returns a new cache instead.  K/V
+capacity ``cap`` (``(B, cap, K, Dh)`` leaves): the whole sequence for a
+global layer, a ring of ``min(window, S)`` for a windowed one.  ``pos``
+is a scalar (the whole batch in lockstep) or a ``(B,)`` row vector (the
+serving slab, where every slot decodes at its own depth: RoPE positions,
+write slots and validity masks are per row).  The step writes its K/V
+into the cache **in place** at ``pos % cap`` and advances ``pos`` in
+place; the reference's functional ``.at[].set`` returns a new cache
+instead.  RoPE is applied before caching, so a ring that has wrapped
+(``pos >= cap``) holds exactly the window and every slot is valid.  K/V
 are computed in the activations' dtype, cast to the cache's dtype when
-written and cast back when read, at the reference's places.  Windowed
-layers (a ring of ``min(window, S)``) are ROADMAP 1.9.
+written and cast back when read, at the reference's places.
 """
 from __future__ import annotations
 
@@ -24,33 +35,45 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .layers import rope
+from .layers import rope, softcap
 
-__all__ = ["project_qkv", "causal_attention", "attn_forward", "init_attn_cache",
-           "prefill_cache"]
+__all__ = ["project_qkv", "causal_attention", "local_attention", "attn_forward",
+           "init_attn_cache", "prefill_cache"]
 
 NEG_INF = -1e30
 
 
+def _rms_head(x, scale, eps: float = 1e-6):
+    """QK-norm: rms norm over the head dimension with an fp32 ``(1 + scale)``."""
+    xf = x.float()
+    var = xf.square().mean(-1, keepdim=True)
+    return ((xf * torch.rsqrt(var + eps)) * (1.0 + scale)).to(x.dtype)
+
+
 def project_qkv(cfg, p, x, positions, rope_base):
-    """x: (B,S,d) -> q:(B,S,H,Dh), k,v:(B,S,K,Dh) with RoPE on q and k."""
+    """x: (B,S,d) -> q:(B,S,H,Dh), k,v:(B,S,K,Dh), with QK-norm (when the
+    layer has ``q_norm``/``k_norm``) and then RoPE on q and k."""
     dt = x.dtype
     q = torch.einsum("bsd,dhx->bshx", x, p["wq"].to(dt))
     k = torch.einsum("bsd,dkx->bskx", x, p["wk"].to(dt))
     v = torch.einsum("bsd,dkx->bskx", x, p["wv"].to(dt))
+    if "q_norm" in p:
+        q = _rms_head(q, p["q_norm"].float())
+        k = _rms_head(k, p["k_norm"].float())
     if rope_base:
         q = rope(q, positions, rope_base)
         k = rope(k, positions, rope_base)
     return q, k, v
 
 
-def causal_attention(cfg, q, k, v):
-    """q: (B,S,H,Dh); k,v: (B,S,K,Dh) -> (B,S,H,Dh)."""
+def causal_attention(cfg, q, k, v, cap: float = 0.0):
+    """q: (B,S,H,Dh); k,v: (B,S,K,Dh) -> (B,S,H,Dh); scores softcapped at
+    ``cap`` (0: off)."""
     b, sq, h, dh = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     qg = q.reshape(b, sq, kvh, h // kvh, dh)
     scale = 1.0 / np.sqrt(cfg.head_dim)
-    s = torch.einsum("bqkgd,bckd->bkgqc", qg, k) * scale
+    s = softcap(torch.einsum("bqkgd,bckd->bkgqc", qg, k) * scale, cap)
     q_pos = torch.arange(sq, device=q.device)
     kv_pos = torch.arange(skv, device=q.device)
     bias = torch.where(kv_pos[None, :] <= q_pos[:, None], 0.0, NEG_INF)
@@ -59,22 +82,70 @@ def causal_attention(cfg, q, k, v):
     return out.reshape(b, sq, h, dh)
 
 
+def local_attention(cfg, q, k, v, *, window: int, cap: float = 0.0):
+    """Causal sliding-window attention, O(S·window): query chunks of
+    ``cq = min(attn_chunk, S)``, each against the KV span
+    ``[chunk start - w_pad, chunk end)`` (``w_pad`` the window rounded up
+    to whole chunks) of K/V padded with zeros, masked to the positions
+    ``q - window < kv <= q`` inside the sequence.
+    q: (B,S,H,Dh); k,v: (B,S,K,Dh) -> (B,S,H,Dh)."""
+    b, sq, h, dh = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    cq = min(cfg.attn_chunk, sq)
+    n_chunks = -(-sq // cq)
+    pad_q = n_chunks * cq - sq
+    w_pad = -(-window // cq) * cq  # history length, whole chunks
+    span = w_pad + cq
+    q = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+    k_p = F.pad(k, (0, 0, 0, 0, w_pad, pad_q))
+    v_p = F.pad(v, (0, 0, 0, 0, w_pad, pad_q))
+    qg = q.reshape(b, n_chunks, cq, kvh, g, dh)
+    scale = 1.0 / np.sqrt(cfg.head_dim)
+    offs_q = torch.arange(cq, device=q.device)
+    offs_kv = torch.arange(span, device=q.device) - w_pad
+    outs = []
+    for i in range(n_chunks):
+        k_i = k_p[:, i * cq:i * cq + span]
+        v_i = v_p[:, i * cq:i * cq + span]
+        q_pos = i * cq + offs_q
+        kv_pos = i * cq + offs_kv
+        valid = ((kv_pos[None, :] <= q_pos[:, None])
+                 & (kv_pos[None, :] > q_pos[:, None] - window)
+                 & (kv_pos[None, :] >= 0) & (kv_pos[None, :] < sq))
+        s = softcap(torch.einsum("bqkgd,bckd->bkgqc", qg[:, i], k_i) * scale, cap)
+        w = torch.softmax(s.float() + torch.where(valid, 0.0, NEG_INF), dim=-1)
+        outs.append(torch.einsum("bkgqc,bckd->bqkgd", w.to(q.dtype), v_i))
+    return torch.cat(outs, dim=1).reshape(b, n_chunks * cq, h, dh)[:, :sq]
+
+
+def _rope_base(cfg, spec) -> float:
+    """``rope_base_local`` on a windowed layer when the config sets one."""
+    if spec.window is not None and cfg.rope_base_local:
+        return cfg.rope_base_local
+    return cfg.rope_base
+
+
 def attn_forward(cfg, p, x, spec, *, mode="train", cache=None, target_len: int = 0):
     """Self-attention sublayer.  Returns (out, cache): ``None`` in training,
     the prefill's new cache, or the decode cache updated in place."""
+    rope_base = _rope_base(cfg, spec)
     if mode in ("train", "prefill"):
         s = x.shape[1]
         positions = torch.arange(s, device=x.device)[None, :]
-        q, k, v = project_qkv(cfg, p, x, positions, cfg.rope_base)
-        out = causal_attention(cfg, q, k, v)
+        q, k, v = project_qkv(cfg, p, x, positions, rope_base)
+        if spec.window is not None and spec.window < s:
+            out = local_attention(cfg, q, k, v, window=spec.window, cap=cfg.attn_softcap)
+        else:
+            out = causal_attention(cfg, q, k, v, cap=cfg.attn_softcap)
         new_cache = prefill_cache(cfg, spec, k, v, s, target_len) if mode == "prefill" else None
         return torch.einsum("bshx,hxd->bsd", out, p["wo"].to(x.dtype)), new_cache
     if mode != "decode":
         raise ValueError(f"unknown mode {mode!r}")
-    return _decode(cfg, p, x, cache), cache
+    return _decode(cfg, p, x, cache, rope_base), cache
 
 
-def _decode(cfg, p, x, cache):
+def _decode(cfg, p, x, cache, rope_base):
     """x: (B, 1, d) against ``cache``; writes this token's K/V at
     ``pos % cap`` and advances ``pos``, both in place."""
     b = x.shape[0]
@@ -82,7 +153,7 @@ def _decode(cfg, p, x, cache):
     k_cache, v_cache = cache["k"], cache["v"]
     cap = k_cache.shape[1]
     pos_b = (pos.expand(b) if pos.ndim == 0 else pos).long()  # one position per row
-    q, k, v = project_qkv(cfg, p, x, pos_b[:, None], cfg.rope_base)
+    q, k, v = project_qkv(cfg, p, x, pos_b[:, None], rope_base)
     rows = torch.arange(b, device=x.device)
     slot = torch.remainder(pos_b, cap)
     k_cache.index_put_((rows, slot), k[:, 0].to(k_cache.dtype))
@@ -93,6 +164,7 @@ def _decode(cfg, p, x, cache):
     kvh, dh = k.shape[2], k.shape[3]
     qg = q.reshape(b, 1, kvh, cfg.n_heads // kvh, dh)
     s_att = torch.einsum("bqkgd,bckd->bkgqc", qg, k_cache.to(q.dtype)) / np.sqrt(cfg.head_dim)
+    s_att = softcap(s_att, cfg.attn_softcap)
     w_att = torch.softmax(s_att.float() + bias, dim=-1).to(q.dtype)
     out = torch.einsum("bkgqc,bckd->bqkgd", w_att, v_cache.to(q.dtype))
     out = out.reshape(b, 1, cfg.n_heads, dh)

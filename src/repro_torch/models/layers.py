@@ -1,6 +1,8 @@
 """Shared layer primitives of the dense path, after ``repro/models/layers.py``:
-rms norm with ``(1 + scale)``, the half-split RoPE, the gated-silu MLP,
-and the tied embedding / unembedding."""
+rms norm with ``(1 + scale)``, the softcap, the half-split RoPE, the
+gated MLP (SwiGLU or GeGLU), and the tied embedding (scaled by
+sqrt(d_model) for the Gemma family) and unembedding (with the final
+softcap)."""
 from __future__ import annotations
 
 import functools
@@ -9,7 +11,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["rms_norm", "rope", "apply_mlp", "embed_tokens", "unembed"]
+__all__ = ["rms_norm", "softcap", "rope", "apply_mlp", "embed_tokens", "unembed"]
 
 
 def rms_norm(x, scale, eps: float = 1e-6):
@@ -17,6 +19,13 @@ def rms_norm(x, scale, eps: float = 1e-6):
     var = xf.square().mean(-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * (1.0 + scale.float())).to(x.dtype)
+
+
+def softcap(x, cap: float):
+    """``tanh(x / cap) * cap`` in x's dtype; the identity when ``cap`` is 0."""
+    if not cap:
+        return x
+    return torch.tanh(x / cap) * cap
 
 
 @functools.lru_cache(maxsize=16)
@@ -42,10 +51,19 @@ def rope(x, positions, base: float = 10_000.0):
     return out.to(x.dtype)
 
 
+def _act(cfg, x):
+    """silu, or the tanh form of gelu (``jax.nn.gelu(approximate=True)``;
+    torch's default gelu is the erf form)."""
+    if cfg.activation == "silu":
+        return F.silu(x)
+    return F.gelu(x, approximate="tanh")
+
+
 def apply_mlp(cfg, p, x):
-    """Gated-silu MLP: (silu(x @ wg) * (x @ wi)) @ wo."""
+    """Gated MLP: (act(x @ wg) * (x @ wi)) @ wo, act silu (SwiGLU) or gelu
+    (GeGLU)."""
     h = torch.einsum("bsd,df->bsf", x, p["wi"].to(x.dtype))
-    h = F.silu(torch.einsum("bsd,df->bsf", x, p["wg"].to(x.dtype))) * h
+    h = _act(cfg, torch.einsum("bsd,df->bsf", x, p["wg"].to(x.dtype))) * h
     return torch.einsum("bsf,fd->bsd", h, p["wo"].to(x.dtype))
 
 
@@ -58,9 +76,20 @@ def embed_tokens(cfg, tok, tokens):
     gradient in a fixed order on the CPU and on CUDA; the backward of
     ``tok[tokens]`` (an accumulating ``index_put_``) does not, and then
     two runs of the same step differ in their last bits."""
-    return F.embedding(tokens, tok).to(_dtype(cfg))
+    x = F.embedding(tokens, tok).to(_dtype(cfg))
+    if cfg.scale_embed:
+        x = x * _embed_scale(cfg.d_model, x.dtype)
+    return x
+
+
+@functools.lru_cache(maxsize=16)
+def _embed_scale(d_model: int, dtype: torch.dtype) -> float:
+    """sqrt(d_model) rounded to the activations' dtype, as the reference
+    rounds it (bf16: 45.25 for 2048, 73.5 for 5376), as a Python number:
+    no device copy, so a decode step stays capturable in a CUDA graph."""
+    return float(torch.tensor(np.sqrt(d_model), dtype=dtype))
 
 
 def unembed(cfg, tok, x):
-    """Tied head: logits = x @ tok.T."""
-    return torch.einsum("bsd,vd->bsv", x, tok.to(x.dtype))
+    """Tied head: logits = softcap(x @ tok.T, final_softcap)."""
+    return softcap(torch.einsum("bsd,vd->bsv", x, tok.to(x.dtype)), cfg.final_softcap)

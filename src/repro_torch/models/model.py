@@ -1,7 +1,9 @@
 """The decoder LM, after ``repro/models/model.py``: ``forward`` in
 training, prefill or decode mode, ``train_loss``, and the serving entry
 points ``prefill``, ``decode_step`` and ``init_decode_caches`` — the
-dense path only; MTP, encoders and vision are ROADMAP 1.9."""
+dense path (gc-lm-110m and the Gemma family: the embedding scale and
+the final softcap live in ``layers.py``); MTP, encoders and vision are
+ROADMAP 1.9."""
 from __future__ import annotations
 
 from typing import Optional
@@ -87,13 +89,14 @@ def init_decode_caches(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
     """Decode caches of capacity ``seq_len`` marked as holding ``filled``
     tokens (default ``seq_len - 1``: a full-but-one cache).  ``row_pos``
     makes every ``pos`` leaf one entry per batch row — ``(B,)`` for a
-    single layer, ``(L, B)`` for a run — the serving slab's layout, where
-    each slot decodes at its own depth."""
+    single layer, ``(L, B)`` for a run or a pattern's position — the
+    serving slab's layout, where each slot decodes at its own depth."""
     dev = resolve_device(device)
     caches = init_stack_caches(cfg, batch, seq_len, dtype, dev)
     fill = seq_len - 1 if filled is None else int(filled)
-    for tree in caches:
-        pos = tree["pos"]
-        shape = tuple(pos.shape) + ((batch,) if row_pos else ())
-        tree["pos"] = torch.full(shape, fill, dtype=pos.dtype, device=dev)
+    for seg in caches:
+        for tree in (seg if isinstance(seg, list) else [seg]):  # a pattern: p trees
+            pos = tree["pos"]
+            shape = tuple(pos.shape) + ((batch,) if row_pos else ())
+            tree["pos"] = torch.full(shape, fill, dtype=pos.dtype, device=dev)
     return caches

@@ -1,10 +1,12 @@
 """The parameter tree of the dense LM as an ``nn.Module``.
 
 Parameter names are the reference's key paths (``embed.tok``,
-``stack.0.mixer.wq``, ...), and a run of identical layers holds its
-leaves stacked along a leading ``(count, ...)`` axis, as
-``repro/models/stack.py::init_stack`` stacks them.  So one ``Plan`` and
-one ``FlatLayout`` bind to both packages.
+``stack.0.mixer.wq``, ...): a run of identical layers holds its leaves
+stacked along a leading ``(count, ...)`` axis, and a ``Pattern`` segment
+is an ``nn.ModuleList`` of p layer nodes, each stacked over the repeats
+(``stack.0.3.mixer.q_norm``), as ``repro/models/stack.py::init_stack``
+builds them.  So one ``Plan`` and one ``FlatLayout`` bind to both
+packages.
 
 ``GCLM.leaves()`` returns the parameters in ``jax.tree.leaves`` order —
 dict keys sorted at every level, list entries in index order — which is
@@ -26,7 +28,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from .stack import plan_segments
+from .stack import Run, plan_segments
 
 __all__ = ["ParamNode", "GCLM", "params_from_numpy", "params_to_numpy",
            "count_params"]
@@ -49,12 +51,12 @@ def _zeros(shape, device):
 
 def _layer_node(cfg, spec, count: int, device) -> ParamNode:
     """One layer's parameters; leaves carry a leading (count,) axis when
-    the run stacks more than one layer."""
-    if spec.mixer != "attn" or spec.window is not None or spec.moe is not None \
-            or spec.cross_source or not spec.use_ffn:
+    the segment stacks more than one layer."""
+    if spec.mixer != "attn" or spec.moe is not None or spec.cross_source \
+            or not spec.use_ffn:
         raise NotImplementedError(
-            f"layer {spec} is not ported yet: the port runs global attention "
-            "+ dense FFN layers only (other mixers, windows, MoE: ROADMAP 1.9)")
+            f"layer {spec} is not ported yet: the port runs attention + dense FFN "
+            "layers (other mixers, MoE, cross-attention: ROADMAP 1.9)")
     lead = (count,) if count > 1 else ()
     d, h, kv, dh, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
                         cfg.d_ff)
@@ -62,35 +64,53 @@ def _layer_node(cfg, spec, count: int, device) -> ParamNode:
     def z(*shape):
         return _zeros(lead + shape, device)
 
-    return ParamNode(children={
+    mixer = {"wq": z(d, h, dh), "wk": z(d, kv, dh), "wv": z(d, kv, dh), "wo": z(h, dh, d)}
+    if cfg.qk_norm:
+        mixer.update(q_norm=z(dh), k_norm=z(dh))
+    children = {
         "norm_mix": ParamNode({"scale": z(d)}),
-        "mixer": ParamNode({"wq": z(d, h, dh), "wk": z(d, kv, dh),
-                            "wv": z(d, kv, dh), "wo": z(h, dh, d)}),
+        "mixer": ParamNode(mixer),
         "norm_ffn": ParamNode({"scale": z(d)}),
         "ffn": ParamNode({"wi": z(d, ff), "wo": z(ff, d), "wg": z(d, ff)}),
-    })
+    }
+    if cfg.post_norm:
+        children.update(norm_mix_post=ParamNode({"scale": z(d)}),
+                        norm_ffn_post=ParamNode({"scale": z(d)}))
+    return ParamNode(children=children)
+
+
+def _segment_node(cfg, seg, device) -> nn.Module:
+    """A run's layer node, or a pattern's ``ModuleList`` of p layer nodes
+    stacked over the repeats."""
+    if isinstance(seg, Run):
+        return _layer_node(cfg, seg.spec, seg.count, device)
+    return nn.ModuleList(_layer_node(cfg, spec, seg.repeats, device) for spec in seg.specs)
+
+
+#: leaves the reference initializes to zero: rms-norm scales (which store
+#: scale - 1) and the QK-norm scales
+ZERO_INIT = ("scale", "q_norm", "k_norm")
 
 
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for features outside the dense
-    attention path the port runs."""
+    attention path the port runs (the Gemma family's included)."""
     unsupported = {
-        "qkv_bias": cfg.qkv_bias, "attn_softcap": cfg.attn_softcap,
-        "final_softcap": cfg.final_softcap, "qk_norm": cfg.qk_norm,
-        "post_norm": cfg.post_norm, "scale_embed": cfg.scale_embed,
-        "mtp_depth": cfg.mtp_depth, "untied embeddings": not cfg.tie_embeddings,
-        "layer norm": cfg.norm != "rms", "non-silu activation": cfg.activation != "silu",
-        "remat": cfg.remat != "none", "dtype other than float32": cfg.dtype != "float32",
+        "qkv_bias": cfg.qkv_bias, "untied embeddings": not cfg.tie_embeddings,
+        "mtp_depth": cfg.mtp_depth, "layer norm": cfg.norm != "rms",
+        "ungated MLP": cfg.activation not in ("silu", "gelu"),
     }
     on = [k for k, v in unsupported.items() if v]
     if on:
         raise NotImplementedError(
-            f"{cfg.name}: {on} not ported yet (other model families: ROADMAP 1.9)")
+            f"{cfg.name}: {on} not ported yet (Qwen's biases and untied head, MTP, "
+            "layer norm, ungated MLPs: ROADMAP 1.9)")
 
 
 class GCLM(nn.Module):
-    """Decoder LM parameters: ``embed``, ``stack`` (one node per run of
-    identical layers) and ``final_norm``, initialized from ``seed``."""
+    """Decoder LM parameters: ``embed``, ``stack`` (one node per segment:
+    a run of identical layers, or a pattern's list of p layer nodes) and
+    ``final_norm``, initialized from ``seed``."""
 
     def __init__(self, cfg, *, device="cuda", seed: int = 0):
         super().__init__()
@@ -98,9 +118,8 @@ class GCLM(nn.Module):
         dev = resolve_device(device)
         self.cfg = cfg
         self.embed = ParamNode({"tok": _zeros((cfg.vocab, cfg.d_model), dev)})
-        self.stack = nn.ModuleList(
-            _layer_node(cfg, seg.spec, seg.count, dev)
-            for seg in plan_segments(cfg.layers))
+        self.stack = nn.ModuleList(_segment_node(cfg, seg, dev)
+                                   for seg in plan_segments(cfg.layers))
         self.final_norm = ParamNode({"scale": _zeros((cfg.d_model,), dev)})
         if dev.type != "meta":  # a meta model carries shapes only
             self.reset_parameters(seed)
@@ -121,7 +140,8 @@ class GCLM(nn.Module):
         holding ``leaves`` (leaf order; default: the parameters) by
         reference, not copied."""
         leaves = self.leaves() if leaves is None else list(leaves)
-        out = {"stack": [{} for _ in self.stack]}
+        out = {"stack": [[{} for _ in node] if isinstance(node, nn.ModuleList) else {}
+                         for node in self.stack]}
         for (path, _), leaf in zip(self.leaf_items(), leaves, strict=True):
             node = out
             for key in path[:-1]:
@@ -132,13 +152,13 @@ class GCLM(nn.Module):
     # ----------------------------------------------------------------- init
     @torch.no_grad()
     def reset_parameters(self, seed: int = 0) -> None:
-        """``dense_init`` law for matrices, zeros for rms-norm scales
-        (which store scale - 1)."""
+        """``dense_init`` law for matrices, zeros for the leaves the
+        reference zero-inits (``ZERO_INIT``)."""
         gen = torch.Generator(device=self.embed.tok.device).manual_seed(int(seed))
         stacked = {seg_i for seg_i, seg in enumerate(plan_segments(self.cfg.layers))
-                   if seg.count > 1}
+                   if not isinstance(seg, Run) or seg.count > 1}
         for path, t in self.leaf_items():
-            if path[-1] == "scale":
+            if path[-1] in ZERO_INIT:
                 t.zero_()
                 continue
             per_layer = tuple(t.shape[1:]) if (

@@ -1,32 +1,60 @@
-"""Layer stack: runs of identical layers over stacked leaves.
+"""Layer stack: runs of identical layers and periodic patterns, over
+stacked leaves, after ``repro/models/stack.py``.
 
-The reference (``repro/models/stack.py``) scans each ``Run`` of identical
-``LayerSpec``s over its stacked parameters; the port loops over the run
-in Python.  Each stacked leaf is ``unbind``-ed once per forward, so the
-backward assembles its gradient with one ``stack`` rather than one
-full-size scatter per layer.  The reference's ``Pattern`` segments
-(periodic interleaves of different layer kinds) are ROADMAP 1.9.
+The reference scans each segment over its stacked parameters; the port
+loops over it in Python, with the reference's segmenting:
 
-Decode caches keep the reference's layout: one tree per segment, a plain
-``{"k", "v", "pos"}`` dict for a single layer and, for a run, leaves
-stacked over the run — ``(L, B, cap, K, Dh)`` K/V and a ``(L,)`` or
-``(L, B)`` ``pos``.  A decode step hands each layer views of its slice,
-so every write lands in the stacked tensors in place.
+* ``Run`` — a maximal run of identical ``LayerSpec``s, its leaves
+  stacked along a leading ``(count,)`` axis (a single layer unstacked);
+* ``Pattern`` — when the layer list is (almost) periodic with period p
+  (gemma2's local/global p = 2, gemma3's 5:1 p = 6), ``repeats`` copies
+  of a p-layer body: a list of p trees, each stacked over the repeats;
+  a non-periodic tail falls back to runs (gemma3's 62 = 6·10 + 2).
+
+Each stacked leaf is ``unbind``-ed once per forward, so the backward
+assembles its gradient with one ``stack`` rather than one full-size
+scatter per layer.
+
+Remat (``cfg.remat``) wraps what the reference wraps — a single layer,
+one layer of a run, one p-layer body of a pattern — in
+``torch.utils.checkpoint`` (non-reentrant), in training only: ``"full"``
+recomputes the whole forward in the backward; ``"dots"`` keeps the
+matmul outputs (``mm``/``bmm``/``addmm``: einsum's products) through a
+selective-checkpoint policy, as ``checkpoint_dots`` does, and recomputes
+the elementwise rest.  The recomputation runs the same ops on the same
+inputs, so the gradients are bit-equal to ``remat="none"``.
+
+Decode caches keep the reference's layout: one entry per segment — a
+plain ``{"k", "v", "pos"}`` dict for a single layer; for a run, leaves
+stacked over the run (``(L, B, cap, K, Dh)`` K/V and a ``(L,)`` or
+``(L, B)`` ``pos``); for a pattern, a list of p such trees stacked over
+the repeats.  A decode step hands each layer views of its slice, so
+every write lands in the stacked tensors in place.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .blocks import apply_layer, init_layer_cache
 
-__all__ = ["Run", "group_runs", "plan_segments", "apply_stack", "init_stack_caches"]
+__all__ = ["Run", "Pattern", "group_runs", "plan_segments", "apply_stack",
+           "init_stack_caches"]
 
 
 class Run(NamedTuple):
     spec: object  # LayerSpec
     count: int
+    start: int
+
+
+class Pattern(NamedTuple):
+    specs: tuple  # p LayerSpecs
+    repeats: int
     start: int
 
 
@@ -54,22 +82,22 @@ def _find_pattern(layers) -> Optional[tuple]:
 
 
 def plan_segments(layers) -> list:
-    """The reference's segmenting; raises where it would pick a Pattern."""
+    """The reference's segmenting: a ``Pattern`` (plus a tail of runs)
+    when that makes fewer segments than runs alone, else runs."""
     runs = group_runs(layers)
     pat = _find_pattern(layers)
-    if pat is not None:
-        p, k = pat
-        tail = group_runs(layers[p * k:], start=p * k)
-        if 1 + len(tail) < len(runs):
-            raise NotImplementedError(
-                "periodic layer interleaves (Pattern segments) are not ported "
-                "yet (ROADMAP 1.9)")
+    if pat is None:
+        return runs
+    p, k = pat
+    tail = group_runs(layers[p * k:], start=p * k)
+    if 1 + len(tail) < len(runs):
+        return [Pattern(tuple(layers[:p]), k, 0), *tail]
     return runs
 
 
 def _tree(node, index=None):
     """Nested dict of a parameter node's tensors; ``index`` selects one
-    layer of a stacked run from pre-unbound leaves."""
+    layer of a stacked segment from pre-unbound leaves."""
     out = {}
     for name, t in node._parameters.items():
         out[name] = t if index is None else index[id(t)]
@@ -78,41 +106,101 @@ def _tree(node, index=None):
     return out
 
 
+#: einsum's products as the dispatcher sees them
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg, mode, fn, *args):
+    """``fn(*args)``, under the config's remat policy in training."""
+    if cfg.remat == "none" or mode != "train" or not torch.is_grad_enabled():
+        return fn(*args)
+    if cfg.remat == "dots":
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy))
+    if cfg.remat == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    raise ValueError(f"unknown remat {cfg.remat!r}; expected 'none', 'dots' or 'full'")
+
+
+def _slice(cache, i):
+    """Layer i's views of a stacked cache tree (``None`` passes)."""
+    return None if cache is None else {k: v[i] for k, v in cache.items()}
+
+
+def _stack(trees):
+    return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
+
+
 def apply_stack(cfg, stack, x, *, mode="train", caches=None, target_len: int = 0):
     """x: (B, S, d) through every layer of ``stack`` (the model's
-    ``nn.ModuleList`` of run nodes).  Returns (x, caches): ``None`` in
+    ``nn.ModuleList`` of segment nodes).  Returns (x, caches): ``None`` in
     training, the prefill's new per-segment caches, or ``caches`` updated
     in place by a decode step."""
     new_caches = [] if mode == "prefill" else None
+
+    def layer(spec, params, cache):
+        return lambda x_: apply_layer(cfg, params, x_, spec, mode=mode, cache=cache,
+                                      target_len=target_len)
+
     for i, (seg, node) in enumerate(zip(plan_segments(cfg.layers), stack)):
         cache = caches[i] if caches is not None else None
-        if seg.count == 1:
-            x, c_new = apply_layer(cfg, _tree(node), x, seg.spec, mode=mode, cache=cache,
-                                   target_len=target_len)
+        if isinstance(seg, Run) and seg.count == 1:
+            x, c_new = _remat(cfg, mode, layer(seg.spec, _tree(node), cache), x)
             if mode == "prefill":
                 new_caches.append(c_new)
             continue
+        if isinstance(seg, Run):
+            unbound = {id(t): t.unbind(0) for t in node.parameters()}
+            per_layer = []
+            for j in range(seg.count):
+                params = _tree(node, {k: v[j] for k, v in unbound.items()})
+                x, c_new = _remat(cfg, mode, layer(seg.spec, params, _slice(cache, j)), x)
+                per_layer.append(c_new)
+            if mode == "prefill":
+                new_caches.append(_stack(per_layer))
+            continue
+        # Pattern: ``repeats`` bodies of p layers; node[j] holds position j
         unbound = {id(t): t.unbind(0) for t in node.parameters()}
-        per_layer = []
-        for j in range(seg.count):
-            layer = {k: v[j] for k, v in unbound.items()}
-            c_j = None if cache is None else {k: v[j] for k, v in cache.items()}
-            x, c_new = apply_layer(cfg, _tree(node, layer), x, seg.spec, mode=mode,
-                                   cache=c_j, target_len=target_len)
-            per_layer.append(c_new)
+        per_rep = []
+        for r in range(seg.repeats):
+            index = {k: v[r] for k, v in unbound.items()}
+            fns = [layer(spec, _tree(node[j], index),
+                         None if cache is None else _slice(cache[j], r))
+                   for j, spec in enumerate(seg.specs)]
+
+            def body(x_, fns=fns):
+                c_out = []
+                for fn in fns:
+                    x_, c_new = fn(x_)
+                    c_out.append(c_new)
+                return x_, c_out
+
+            x, c_out = _remat(cfg, mode, body, x)
+            per_rep.append(c_out)
         if mode == "prefill":
-            new_caches.append({k: torch.stack([c[k] for c in per_layer])
-                               for k in per_layer[0]})
+            new_caches.append([_stack([c[j] for c in per_rep])
+                               for j in range(len(seg.specs))])
     return x, (caches if mode == "decode" else new_caches)
 
 
 def init_stack_caches(cfg, batch: int, seq_len: int, dtype=torch.bfloat16, device="cuda"):
-    """Empty per-segment caches of capacity ``seq_len`` (leaves stacked
-    along axis 0 for a run)."""
+    """Empty per-segment caches of capacity ``seq_len`` (``min(window,
+    seq_len)`` for a windowed layer), leaves stacked along axis 0 for a
+    run and for each position of a pattern."""
+    def one(spec):
+        return init_layer_cache(cfg, spec, batch, seq_len, dtype, device)
+
     out = []
     for seg in plan_segments(cfg.layers):
-        per_layer = [init_layer_cache(cfg, seg.spec, batch, seq_len, dtype, device)
-                     for _ in range(seg.count)]
-        out.append(per_layer[0] if seg.count == 1 else
-                   {k: torch.stack([c[k] for c in per_layer]) for k in per_layer[0]})
+        if isinstance(seg, Run):
+            out.append(one(seg.spec) if seg.count == 1 else
+                       _stack([one(seg.spec) for _ in range(seg.count)]))
+        else:
+            out.append([_stack([one(spec) for _ in range(seg.repeats)])
+                        for spec in seg.specs])
     return out

@@ -10,14 +10,16 @@ slot, in place; eviction is purely logical (the scheduler frees the
 slot; the stale row is overwritten by the next insertion, and it never
 leaks, because attention masks each row on the slot's own ``pos``).
 
-Leaf layout (``models/stack.py``): a list of per-segment dicts, leaves
-stacked over a leading layer axis for a run.  The batch axis is axis 0
-for a single layer and axis 1 for a run; ``pos`` carries one fewer axis
-on the prefill side (one scalar per layer) than on the slab side (one
-entry per slot), which is how ``insert_request`` tells them apart.
+Leaf layout (``models/stack.py``): a list of per-segment entries — a
+dict for a single layer, a dict of leaves stacked over a leading layer
+axis for a run, a list of p such stacked dicts for a pattern.  The batch
+axis is axis 0 for a single layer and axis 1 for a stacked tree; ``pos``
+carries one fewer axis on the prefill side (one scalar per layer) than
+on the slab side (one entry per slot), which is how ``insert_request``
+tells them apart.
 
 ``caches_from_numpy`` / ``caches_to_numpy`` carry the reference's cache
-trees (the same list of per-segment dicts of arrays) across.
+trees (the same list of per-segment entries of arrays) across.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ import torch
 
 from ..device import resolve_device
 from ..models.model import init_decode_caches
-from ..models.stack import plan_segments
+from ..models.stack import Run, plan_segments
 
 __all__ = ["make_slab", "insert_request", "caches_from_numpy", "caches_to_numpy"]
 
@@ -42,16 +44,23 @@ def make_slab(cfg, n_slots: int, max_len: int, dtype=torch.bfloat16, device="cud
 def insert_request(cfg, slab, pref_caches, slot: int):
     """Write a batch-1 prefill's cache rows into slab row ``slot``, in
     place (K/V cast to the slab's dtype); returns ``slab``."""
-    for seg, s_tree, p_tree in zip(plan_segments(cfg.layers), slab, pref_caches):
-        stacked = seg.count > 1
-        for name, s_leaf in s_tree.items():
-            p_leaf = p_tree[name]
-            if p_leaf.ndim == s_leaf.ndim:  # k, v: take the prefill's row 0
-                p_leaf = p_leaf[:, 0] if stacked else p_leaf[0]
-            # else pos: prefill scalar / (L,) vs slab (B,) / (L, B)
-            target = s_leaf[:, slot] if stacked else s_leaf[slot]
-            target.copy_(p_leaf)
+    for seg, s_seg, p_seg in zip(plan_segments(cfg.layers), slab, pref_caches):
+        if isinstance(seg, Run):
+            _insert_tree(s_seg, p_seg, slot, stacked=seg.count > 1)
+        else:  # a pattern: p stacked trees
+            for s_tree, p_tree in zip(s_seg, p_seg):
+                _insert_tree(s_tree, p_tree, slot, stacked=True)
     return slab
+
+
+def _insert_tree(s_tree, p_tree, slot: int, stacked: bool) -> None:
+    for name, s_leaf in s_tree.items():
+        p_leaf = p_tree[name]
+        if p_leaf.ndim == s_leaf.ndim:  # k, v: take the prefill's row 0
+            p_leaf = p_leaf[:, 0] if stacked else p_leaf[0]
+        # else pos: prefill scalar / (L,) vs slab (B,) / (L, B)
+        target = s_leaf[:, slot] if stacked else s_leaf[slot]
+        target.copy_(p_leaf)
 
 
 def _leaf_to_torch(a, device) -> torch.Tensor:
@@ -66,21 +75,28 @@ def _leaf_to_torch(a, device) -> torch.Tensor:
 
 
 def caches_from_numpy(cfg, tree, device="cuda"):
-    """The reference's cache tree (a list of per-segment dicts of arrays:
+    """The reference's cache tree (a list of per-segment entries of arrays:
     prefill caches, ``init_decode_caches`` or a slab) in the port's layout,
     dtypes kept."""
     dev = resolve_device(device)
     segs = plan_segments(cfg.layers)
     if len(tree) != len(segs):
-        raise ValueError(f"{len(tree)} cache segments for {len(segs)} layer runs")
-    return [{k: _leaf_to_torch(v, dev) for k, v in seg_tree.items()} for seg_tree in tree]
+        raise ValueError(f"{len(tree)} cache segments for {len(segs)} layer segments")
+    return _map_trees(tree, lambda v: _leaf_to_torch(v, dev))
 
 
 def caches_to_numpy(caches):
     """The port's caches as the reference's tree of numpy arrays; bf16
     leaves come back widened to fp32 (exact), ``pos`` as int32."""
-    out = []
-    for seg_tree in caches:
-        out.append({k: (v.float() if v.dtype == torch.bfloat16 else v).cpu().numpy()
-                    for k, v in seg_tree.items()})
-    return out
+    return _map_trees(caches, lambda v: (v.float() if v.dtype == torch.bfloat16 else v)
+                      .cpu().numpy())
+
+
+def _map_trees(caches, fn):
+    """``fn`` on every leaf of a per-segment cache list (dicts, or a
+    pattern's list of dicts)."""
+    def one(tree):
+        return {k: fn(v) for k, v in tree.items()}
+
+    return [[one(t) for t in seg] if isinstance(seg, (list, tuple)) else one(seg)
+            for seg in caches]

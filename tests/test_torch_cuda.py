@@ -461,3 +461,65 @@ def test_autotune_report_on_cuda_matches_cpu(cuda):
         for ca, cb in zip(a, b):
             assert ca.mem.to_dict() == cb.mem.to_dict()
             np.testing.assert_allclose(ca.time, cb.time, rtol=1e-6)
+
+
+def _gemma3_reduced():
+    """gemma3-27b at 14 layers (a Pattern of 6 over 2 repeats and a tail
+    run of 2), d_model 128, windows of 32."""
+    return get_config("gemma3-27b").reduced(n_layers=14, d_model=128, seq_cap=64)
+
+
+def test_gemma3_forward_prefill_and_ring_decode_on_cuda_match_cpu(cuda):
+    """Reduced gemma3 (QK-norm, sandwich norms, local RoPE base, windows
+    of 32) on the card against the CPU's plain path from the same
+    weights, fp32: training logits, a 48-token prefill (past the window:
+    ``local_attention`` and rolled rings) and 8 decode steps (the rings
+    wrap), within 1e-4 of the largest logit — fp32 sums in another order
+    on each device, as ``test_serve_engine_on_cuda_matches_cpu`` bounds
+    them."""
+    from repro_torch.models.model import forward
+
+    cfg = _gemma3_reduced()
+    cpu_model = GCLM(cfg, device="cpu", seed=0)
+    gpu_model = params_from_numpy(GCLM(cfg, device="cuda"), params_to_numpy(cpu_model))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, size=(2, 56)))
+
+    def close(got, want, what):
+        got, want = got.float().cpu(), want.float()
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()), what
+
+    with torch.no_grad():
+        close(forward(cfg, gpu_model, toks[:, :48].cuda())[0],
+              forward(cfg, cpu_model, toks[:, :48])[0], "forward")
+    got, c_gpu = prefill(cfg, gpu_model, toks[:, :48].cuda(), target_len=56)
+    want, c_cpu = prefill(cfg, cpu_model, toks[:, :48], target_len=56)
+    close(got, want, "prefill")
+    assert c_gpu[0][0]["k"].shape[2] == 32  # a ring of the window
+    for t in range(48, 56):
+        got, _ = decode_step(cfg, gpu_model, c_gpu, toks[:, t:t + 1].cuda())
+        want, _ = decode_step(cfg, cpu_model, c_cpu, toks[:, t:t + 1])
+        close(got, want, f"decode at {t}")
+    assert c_gpu[0][0]["pos"].tolist() == [56, 56]
+
+
+def test_gc_fused_groups_gemma3_leaves_into_three_launches(cuda):
+    """One grouped ``ops.encode_decode_leaves`` over reduced gemma3's 93
+    leaves (more than one launch holds) makes ceil(93 / 32) = 3 launches
+    and equals the plain version."""
+    cfg = _gemma3_reduced()
+    model = GCLM(cfg, device="meta")
+    widths = [t.numel() for t in model.leaves()]
+    assert len(widths) == 93
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    k, n_w = 16, 3
+    a = torch.full((1,), 0.25, device=cuda)
+    tab = torch.randn(n_w, 1, k, generator=gen).to(cuda)
+    which = [j % n_w for j in range(len(widths))]
+    gs = [torch.randn(k, d, generator=gen).to(cuda) for d in widths]
+    before = gc_fused.launches
+    ys = ops.encode_decode_leaves(a, tab, which, gs)
+    torch.cuda.synchronize()
+    assert gc_fused.launches - before == 3
+    for y, want in zip(ys, ref.encode_decode_leaves_ref(a, tab, which, gs), strict=True):
+        np.testing.assert_allclose(y.cpu().numpy(), want.cpu().numpy(),
+                                   **TOL[torch.float32])
