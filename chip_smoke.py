@@ -158,6 +158,38 @@ port's sources beside it.  Phases; any failure raises:
    pattern of 2 over 2 repeats): a 4,352-token prefill past the 4,096
    window (the rings rolled at prefill), then 16 teacher-forced decode
    steps at 12's bounds.
+14. qwen-serve: full-width qwen1.5-32b (d_model 5120, 40 heads, head_dim
+   128, d_ff 27,392, vocab 152,064, QKV biases, an untied head, bf16
+   activations) cut to 16 of 64 layers, its biases — and only they — set
+   to seeded normal values (std 0.02; the reference initializes them to
+   zero), in a ``ServeEngine`` (8 slots, bf16 slab, the launcher's coded
+   tier): 16 requests of 512-token prompts, 64 new tokens each, greedy,
+   counts set to 0 just before: every request completes, the clock is the
+   tier's stream, no ``gc_*`` launch.  Prefill (B = 1) and one
+   ``decode_step`` (B = 8) host-inclusive and device-only beside their
+   bounds (bf16 tensor-core peak), tokens/s, peak bytes.  Teacher forcing
+   as 9a checks it: fp32 activations on a bf16 slab (the slab's rounding)
+   within 2e-2, fp32 on fp32 within 1e-4; the config's bf16 activations
+   on a bf16 slab measured and printed (at 16 layers their own rounding
+   reaches 2e-2: ROADMAP 3.17).
+15. mixtral-serve: full-width mixtral-8x22b (d_model 6144, 48 heads over 8
+   KV, 8 experts top-2 of d_ff 16,384, windows of 4,096, vocab 32,768, an
+   untied head) cut to 4 of 56 layers at the published capacity factor
+   1.25: 16 requests of 4,352-token prompts (the rings wrap), 32 new
+   tokens, with 14's gates and times.  A census of dropped assignments
+   (``DropCensus``: the port's ``moe.route`` on each MoE layer's input):
+   each prompt's prefill (may drop) and one 8-slot decode step (capacity
+   8: must not).  Teacher forcing one row per call: at capacity 1.25 the
+   bound applies to the rows whose prefills dropped nothing (counted); at
+   capacity factor 4 (experts / top-k: nothing can drop) to every row.
+16. moe-train: coded training of ``mixtral-8x22b.reduced()`` (the
+   reference's smoke shapes; a full-width layer's 16 fp32 rows would be
+   186 GB) in sim mode with 2's plan settings: coded == uncoded at step 0
+   with 0 and s_max stragglers at capacity 8 and at 1.25 (drops counted,
+   some required); 3 steps with the counts set to 0 just before (one
+   ``gc_fused`` launch per step, finite losses with the aux term); on the
+   card, ``remat="full"`` bit-equal to ``"none"`` and two runs of one
+   forward+backward at capacity 1.25 byte-equal.
 
 The line before the last is the card's name and power limit; before it
 a JSON line lists every kernel with its launches, error and times; the
@@ -243,6 +275,19 @@ GEMMA3_SERVE = dict(n_layers=14, n_slots=8, n_requests=16, prompt_len=1536, max_
 #: [gemma2]: gemma2-27b at 4 layers (a pattern of 2 over 2 repeats), a
 #: 4,352-token prompt past the 4,096 window
 GEMMA2 = dict(n_layers=4, prompt_len=4352, decode_steps=16)
+#: Qwen 1.5 and Mixtral at their published widths, cut in depth only.
+#: [qwen-serve]: qwen1.5-32b at 16 of 64 layers (one run): 9,967,129,600
+#: parameters, 39.87 GB fp32
+QWEN_SERVE = dict(n_layers=16, n_slots=8, n_requests=16, prompt_len=512, max_new=64,
+                  rate=2e-3, workers=8)
+#: [mixtral-serve]: mixtral-8x22b at 4 of 56 layers: 10,418,903,040
+#: parameters, 41.68 GB fp32, at the published capacity factor 1.25;
+#: 4,352-token prompts past the 4,096 window
+MIXTRAL_SERVE = dict(n_layers=4, n_slots=8, n_requests=16, prompt_len=4352, max_new=32,
+                     rate=2e-3, workers=8)
+#: bf16 dense peak of the card's tensor cores (the data sheet, 700 W): the
+#: operations bound of the bf16 serving phases
+BF16_FLOPS = 989e12
 
 
 def log(*args):
@@ -2132,40 +2177,32 @@ def phase_gemma_train():
     return dict(times, launches=launches["gc_fused"], max_abs_err=max_err, peak=peak)
 
 
-def phase_gemma3_serve():
-    """Full-width gemma3-27b cut to 14 layers (a pattern of 6 over 2
-    repeats and a tail run of 2) in a ``ServeEngine`` (8 slots, bf16 slab,
-    the launcher's default coded tier): 16 requests of 1,536-token prompts
-    (past the 1,024 window: local layers take ``local_attention`` in
-    prefill and their ring caches wrap in decode) and 64 new tokens each,
-    greedy, with the counts set to 0 just before: every request
-    completes, the engine's clock is the tier's stream, no ``gc_*``
-    launch.  Teacher forcing against prefill logits: fp32 activations on
-    an fp32 slab, the config's bf16 on a bf16 slab."""
+def _serve_run(tag, cfg, model, g) -> dict:
+    """``g["n_requests"]`` prompts of ``g["prompt_len"]`` random tokens
+    (numpy, seed 0) and Poisson arrivals (seed 0) through a ``ServeEngine``
+    of ``g["n_slots"]`` slots (bf16 slab) behind the launcher's default
+    coded tier, greedy, ``g["max_new"]`` tokens each, with every count set
+    to 0 just before: every request completes, the engine's clock is the
+    tier's stream, no ``gc_*`` kernel launches."""
     import numpy as np
     import torch
 
     from repro_torch.core import Env, ShiftedExponential
-    from repro_torch.models.params import GCLM, count_params
     from repro_torch.serve import CodedDecode, ServeConfig, ServeEngine
     from repro_torch.sim.arrivals import poisson_arrivals
 
-    _free_card()
-    g = GEMMA3_SERVE
-    cfg = _cut("gemma3-27b", g["n_layers"])
-    model = GCLM(cfg, device="cuda", seed=0)
-    n_params = count_params(model)
     env = Env.iid(ShiftedExponential(mu=1e-3, t0=50.0), g["workers"])
     coded = CodedDecode.solve(env, objective="p99", seed=0)
-    max_len = g["prompt_len"] + g["max_new"]
     prompts = np.random.default_rng(0).integers(0, cfg.vocab,
                                                 size=(g["n_requests"], g["prompt_len"]))
     arrivals = poisson_arrivals(g["n_requests"], g["rate"], seed=0)
-    eng = ServeEngine(cfg, model, ServeConfig(n_slots=g["n_slots"], max_len=max_len),
+    eng = ServeEngine(cfg, model, ServeConfig(n_slots=g["n_slots"],
+                                              max_len=g["prompt_len"] + g["max_new"]),
                       coded=coded, device="cuda")
     reqs = [eng.submit(p, max_new=g["max_new"], arrival=float(t))
             for p, t in zip(prompts, arrivals)]
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
     done = eng.run()
@@ -2175,41 +2212,64 @@ def phase_gemma3_serve():
     peak = torch.cuda.max_memory_allocated()
     n_tokens = sum(len(r.tokens) for r in reqs)
     if len(done) != len(reqs) or not all(r.done and len(r.tokens) == g["max_new"] for r in reqs):
-        raise AssertionError(f"[gemma3-serve] unfinished: {[r.summary() for r in reqs if not r.done]}")
+        raise AssertionError(f"[{tag}] unfinished: {[r.summary() for r in reqs if not r.done]}")
     replay = CodedDecode(env, coded.plan, seed=0).step_latencies(len(eng.step_latencies), seed=0)
     if not np.array_equal(np.asarray(eng.step_latencies), replay):
-        raise AssertionError("[gemma3-serve] the engine's clock is not the coded tier's stream")
+        raise AssertionError(f"[{tag}] the engine's clock is not the coded tier's stream")
     if any(counts.values()):
-        raise AssertionError(f"[gemma3-serve] the serving path launched kernels: {counts}")
-    ring = eng.slab[0][0]  # the pattern's first position: a windowed layer
+        raise AssertionError(f"[{tag}] the serving path launched kernels: {counts}")
+    log(f"[{tag}] {cfg.name} at full width, {cfg.n_layers} layers: "
+        f"{sum(t.numel() for t in model.leaves())} params; coded tier R={coded.plan.r} "
+        f"s={coded.plan.s}; {len(reqs)} requests x {g['prompt_len']}-token prompts, {n_tokens} "
+        f"tokens in {wall:.3f} s over {len(eng.step_latencies)} decode steps: "
+        f"{n_tokens / wall:.1f} tok/s; every request {g['max_new']} tokens; step latencies == "
+        f"the tier's stream; gc_* launches {counts}; max_memory_allocated {peak} bytes")
+    return {"eng": eng, "reqs": reqs, "prompts": prompts, "wall": wall, "peak": peak,
+            "tokens_per_s": n_tokens / wall}
+
+
+def phase_gemma3_serve():
+    """Full-width gemma3-27b cut to 14 layers (a pattern of 6 over 2
+    repeats and a tail run of 2) through ``_serve_run``: 16 requests of
+    1,536-token prompts (past the 1,024 window: local layers take
+    ``local_attention`` in prefill and their ring caches wrap in decode)
+    and 64 new tokens each.  Teacher forcing against prefill logits: fp32
+    activations on an fp32 slab, the config's bf16 on a bf16 slab."""
+    from repro_torch.models.params import GCLM
+
+    _free_card()
+    g = GEMMA3_SERVE
+    cfg = _cut("gemma3-27b", g["n_layers"])
+    model = GCLM(cfg, device="cuda", seed=0)
+    run = _serve_run("gemma3-serve", cfg, model, g)
+    ring = run["eng"].slab[0][0]  # the pattern's first position: a windowed layer
     if ring["k"].shape[2] != cfg.layers[0].window or int(ring["pos"].max()) <= ring["k"].shape[2]:
         raise AssertionError(f"[gemma3-serve] the local layers' slab is not a wrapped ring: "
                              f"{tuple(ring['k'].shape)}, pos {ring['pos'].max().item()}")
-    log(f"[gemma3-serve] gemma3-27b at full width, {cfg.n_layers} layers: {n_params} params; "
-        f"coded tier R={coded.plan.r} s={coded.plan.s}; {len(reqs)} requests x "
-        f"{g['prompt_len']}-token prompts, {n_tokens} tokens in {wall:.3f} s over "
-        f"{len(eng.step_latencies)} decode steps: {n_tokens / wall:.1f} tok/s; every request "
-        f"{g['max_new']} tokens; step latencies == the tier's stream; gc_* launches {counts}; "
-        f"local rings of {ring['k'].shape[2]} wrapped (pos up to {int(ring['pos'].max())}); "
-        f"max_memory_allocated {peak} bytes")
-    del eng
-    errs = _gemma_teacher_forcing("gemma3-serve", cfg, model, [r.output for r in reqs[:3]],
-                                  g["prompt_len"])
+    log(f"[gemma3-serve] local rings of {ring['k'].shape[2]} wrapped (pos up to "
+        f"{int(ring['pos'].max())})")
+    out = {"tokens_per_s": run["tokens_per_s"], "seconds": run["wall"]}
+    outputs = [r.output for r in run["reqs"][:3]]
+    del run
+    out.update(_teacher_forcing("gemma3-serve", cfg, model, outputs, g["prompt_len"]))
     del model
     _free_card()
-    return {"tokens_per_s": n_tokens / wall, "seconds": wall, **errs}
+    return out
 
 
-def _gemma_teacher_forcing(tag, cfg, model, outputs, s: int) -> dict:
+def _teacher_forcing(tag, cfg, model, outputs, s: int, bf16_activations: bool = True) -> dict:
     """Teacher-forced decode logits against prefill logits of the same
-    tokens: rows 0-1 with the config's bf16 activations on a bf16 slab,
-    row 2 with fp32 activations on an fp32 slab, at ``[serve]``'s bounds."""
+    tokens: rows 0-1 on a bf16 slab, with the config's bf16 activations
+    (or, when ``bf16_activations`` is False, fp32 activations: the slab's
+    rounding alone, as ``[serve]`` checks it), row 2 with fp32 activations
+    on an fp32 slab, at ``[serve]``'s bounds."""
     import numpy as np
     import torch
 
     toks = torch.from_numpy(np.stack(outputs).astype(np.int64)).cuda()
     t0 = time.perf_counter()
-    got, want = teacher_forced_tokens(cfg, model, toks[:2], s, torch.bfloat16, "cuda")
+    act = cfg if bf16_activations else cfg.replace(dtype="float32")
+    got, want = teacher_forced_tokens(act, model, toks[:2], s, torch.bfloat16, "cuda")
     bf16 = _rel_err(got, want)
     del got, want
     got, want = teacher_forced_tokens(cfg.replace(dtype="float32"), model, toks[2:3], s,
@@ -2218,12 +2278,12 @@ def _gemma_teacher_forcing(tag, cfg, model, outputs, s: int) -> dict:
     del got, want
     torch.cuda.synchronize()
     if not bf16 <= SERVE_BF16_REL or not fp32 <= SERVE_FP32_REL:
-        raise AssertionError(f"[{tag}] teacher-forced logits: bf16 {bf16:.3e} (bound "
+        raise AssertionError(f"[{tag}] teacher-forced logits: bf16 slab {bf16:.3e} (bound "
                              f"{SERVE_BF16_REL}), fp32 {fp32:.3e} (bound {SERVE_FP32_REL})")
-    log(f"[{tag}] teacher forcing over {toks.shape[1] - s - 1} decode steps: bf16 activations, "
-        f"bf16 slab (2 rows) {bf16:.3e} of the largest logit (bound {SERVE_BF16_REL}); fp32 "
-        f"activations, fp32 slab (1 row) {fp32:.3e} (bound {SERVE_FP32_REL}); "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"[{tag}] teacher forcing over {toks.shape[1] - s - 1} decode steps: "
+        f"{act.dtype} activations, bf16 slab (2 rows) {bf16:.3e} of the largest logit (bound "
+        f"{SERVE_BF16_REL}); fp32 activations, fp32 slab (1 row) {fp32:.3e} (bound "
+        f"{SERVE_FP32_REL}); {time.perf_counter() - t0:.1f} s")
     return {"bf16_rel": bf16, "fp32_rel": fp32}
 
 
@@ -2262,10 +2322,338 @@ def phase_gemma2():
     log(f"[gemma2] gemma2-27b at full width, {cfg.n_layers} layers: {count_params(model)} "
         f"params; prefill of {s} tokens (B=1, bf16 activations) {pre_ms:.1f} ms, host clock; "
         f"local rings of {cfg.layers[0].window} rolled at prefill, global caches of {s + n}")
-    errs = _gemma_teacher_forcing("gemma2", cfg, model, list(toks), s)
+    errs = _teacher_forcing("gemma2", cfg, model, list(toks), s)
     del model
     _free_card()
     return dict(errs, prefill_ms=pre_ms)
+
+
+# ------------------------------------------------------ Qwen 1.5 and Mixtral
+class DropCensus:
+    """Counts the MoE assignments each call drops: while active, the name
+    ``repro_torch.models.blocks.apply_moe`` also calls the port's routing
+    function (``moe.route``) on the layer's input and keeps, per MoE layer
+    call, (tokens, capacity, dropped assignments) — the last a device
+    tensor, read only by ``dropped``."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import blocks, moe
+
+        self.calls, self._blocks, self._orig = [], blocks, blocks.apply_moe
+
+        def counting(cfg, p, x, spec):
+            with torch.no_grad():
+                r = moe.route(p, x.reshape(-1, x.shape[-1]), spec.moe)
+                self.calls.append((x.shape[0] * x.shape[1], r.cap, (r.keep == 0).sum()))
+            return self._orig(cfg, p, x, spec)
+
+        blocks.apply_moe = counting
+        return self
+
+    def __exit__(self, *exc):
+        self._blocks.apply_moe = self._orig
+
+    def dropped(self) -> int:
+        return int(sum(int(d) for _, _, d in self.calls))
+
+
+def _with_capacity(cfg, capacity_factor: float):
+    """``cfg`` with every MoE layer at ``capacity_factor``."""
+    import dataclasses
+
+    return cfg.replace(layers=tuple(dataclasses.replace(l, moe=dataclasses.replace(
+        l.moe, capacity_factor=capacity_factor)) for l in cfg.layers))
+
+
+def _serve_times(tag, cfg, model, slab, prompt, expert_tokens=(0, 0)) -> dict:
+    """Prefill of ``prompt`` (B = 1) and one ``decode_step`` of the whole
+    ``slab`` (one run of layers; every row at its last position),
+    host-inclusive and device-only, beside their bounds: the bytes (the
+    fp32 weights read once — of the embedding table only the rows looked
+    up — the K/V written or read, the logits written) over the memory
+    rate, and the operations of the matmuls and of the attention pairs
+    the causal window needs over the bf16 tensor-core peak.  A MoE layer
+    multiplies every token by its router and each kept assignment by one
+    expert: ``expert_tokens`` (prefill, decode) counts those."""
+    import torch
+
+    from repro_torch.models.model import decode_step, prefill
+
+    n_params = sum(t.numel() for t in model.leaves())
+    d, L, vocab, spec = cfg.d_model, cfg.n_layers, cfg.vocab, cfg.layers[0]
+    s = prompt.shape[1]
+    b, cap = slab[0]["k"].shape[1], slab[0]["k"].shape[2]
+    kv_row = L * 2 * cfg.n_kv_heads * cfg.head_dim  # K/V entries per position
+    hd = cfg.n_heads * cfg.head_dim
+    attn = 2 * d * hd + 2 * d * cfg.n_kv_heads * cfg.head_dim
+    if spec.moe is None:
+        ffn, expert = 3 * d * cfg.d_ff, 0
+    else:
+        ffn, expert = d * spec.moe.num_experts, 3 * d * spec.moe.d_ff
+    per_token = L * (attn + ffn) + d * vocab  # weights every token multiplies
+    window = spec.window or s
+    pairs = sum(min(q + 1, window) for q in range(s))  # causal, windowed
+    tok = torch.from_numpy(prompt).cuda()
+    tokens = torch.arange(1, b + 1, device="cuda")[:, None]
+    work = [{k: v.clone() for k, v in seg.items()} for seg in slab]
+    for seg in work:
+        seg["pos"].fill_(cap - 1)
+    weights = 4 * (n_params - vocab * d)  # the embedding table: its rows only
+    cases = {
+        "prefill": (lambda: prefill(cfg, model, tok, target_len=cap),
+                    weights + 4 * s * d + 2 * kv_row * s + 4 * s * vocab,
+                    2 * per_token * s + 2 * expert * expert_tokens[0] + 4 * L * hd * pairs,
+                    f"S={s} B=1"),
+        "decode_step": (lambda: decode_step(cfg, model, work, tokens),
+                        weights + 4 * b * d + 2 * kv_row * b * cap + 4 * b * vocab,
+                        2 * per_token * b + 2 * expert * expert_tokens[1] + 4 * L * hd * b * cap,
+                        f"B={b} cap={cap}")}
+    out = {}
+    for name, (fn, n_bytes, n_ops, shape) in cases.items():
+        times = {"ms": time_ms(fn, 5), "device_ms": device_ms(fn, 3)}
+        bytes_ms, ops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / BF16_FLOPS * 1e3
+        times.update(bound_ms=max(bytes_ms, ops_ms),
+                     bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        out[name] = times
+        log(f"[{tag}] {name} {shape}, bf16 activations: incl {times['ms']:.4f} ms, device-only "
+            f"{times['device_ms']:.4f} ms, bound {times['bound_ms']:.4f} ms ({times['bound_by']}; "
+            f"bytes {bytes_ms:.4f}, operations {ops_ms:.4f}); share of bound (device-only) "
+            f"{times['bound_ms'] / times['device_ms']:.3f}")
+    del work
+    return out
+
+
+def phase_qwen_serve():
+    """Full-width qwen1.5-32b (QKV biases, an untied head, bf16
+    activations) cut to 16 of 64 layers, its biases set to seeded normal
+    values (std 0.02; the reference initializes them to zero), in a
+    ``ServeEngine``: 16 requests of 512-token prompts, 64 new tokens each
+    (``_serve_run``'s gates); prefill and ``decode_step`` times; teacher
+    forcing at ``[serve]``'s bounds as ``[serve]`` checks them (fp32
+    activations on a bf16 slab, and fp32 on fp32), the config's bf16
+    activations on a bf16 slab measured beside them."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.params import GCLM
+
+    _free_card()
+    g = QWEN_SERVE
+    cfg = _cut("qwen1.5-32b", g["n_layers"])
+    model = GCLM(cfg, device="cuda", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        for path, t in model.leaf_items():
+            if path[-1] in ("bq", "bk", "bv"):
+                t.normal_(0.0, 0.02, generator=gen)
+    run = _serve_run("qwen-serve", cfg, model, g)
+    times = _serve_times("qwen-serve", cfg, model, run["eng"].slab, run["prompts"][:1])
+    outputs = [r.output for r in run["reqs"][:3]]
+    errs = _teacher_forcing("qwen-serve", cfg, model, outputs, g["prompt_len"],
+                            bf16_activations=False)
+    toks = torch.from_numpy(np.stack(outputs[:2]).astype(np.int64)).cuda()
+    got, want = teacher_forced_tokens(cfg, model, toks, g["prompt_len"], torch.bfloat16, "cuda")
+    errs["bf16_activations_rel"] = _rel_err(got, want)
+    del got, want
+    log(f"[qwen-serve] bf16 activations on a bf16 slab (2 rows, the engine's numerics): "
+        f"{errs['bf16_activations_rel']:.3e} of the largest logit, measured, not gated: at 16 "
+        "layers the rounding of bf16 activations alone reaches the 2e-2 bound (ROADMAP 3.17)")
+    out = dict(errs, tokens_per_s=run["tokens_per_s"], **times)
+    del run, model
+    _free_card()
+    return out
+
+
+def _moe_teacher_forcing(tag, cfg, model, outputs, s: int) -> dict:
+    """Teacher forcing of a MoE model, one row per call (a batch of rows
+    would change the capacity of the full-sequence prefill): the decode
+    logits of a row against the prefill logits of its tokens agree only
+    when neither the prompt's prefill nor the full one dropped an
+    assignment, so the bound applies to the rows whose calls dropped
+    nothing (counted by ``DropCensus``).  Rows 0-1 run the config's bf16
+    on a bf16 slab, row 2 fp32 on an fp32 slab."""
+    import numpy as np
+    import torch
+
+    toks = torch.from_numpy(np.stack(outputs).astype(np.int64)).cuda()
+    rows, gated = [], {}
+    for i in range(toks.shape[0]):
+        c, dt = (cfg, torch.bfloat16) if i < 2 else (cfg.replace(dtype="float32"), torch.float32)
+        with DropCensus() as census:
+            got, want = teacher_forced_tokens(c, model, toks[i:i + 1], s, dt, "cuda")
+        err, dropped = _rel_err(got, want), census.dropped()
+        decode_drops = sum(int(dd) for t, _, dd in census.calls if t == 1)
+        if decode_drops:
+            raise AssertionError(f"[{tag}] a batch-1 decode step dropped {decode_drops}")
+        bound = SERVE_BF16_REL if dt == torch.bfloat16 else SERVE_FP32_REL
+        rows.append((i, str(dt).split(".")[-1], dropped, err))
+        if dropped == 0:
+            gated[i] = err
+            if not err <= bound:
+                raise AssertionError(f"[{tag}] teacher-forced logits of row {i} ({dt}): "
+                                     f"{err:.3e} (bound {bound})")
+        del got, want
+    log(f"[{tag}] teacher forcing over {toks.shape[1] - s - 1} decode steps, one row per call "
+        f"(request, dtype, assignments dropped by its two prefills, error of the largest "
+        f"logit): {rows}; the bound held on the {len(gated)} rows that dropped nothing")
+    return {"rows": rows, "gated": gated}
+
+
+def phase_mixtral_serve():
+    """Full-width mixtral-8x22b (8 experts top-2, windows of 4,096, an
+    untied head, bf16 activations) cut to 4 of 56 layers, at the published
+    capacity factor 1.25, in a ``ServeEngine``: 16 requests of 4,352-token
+    prompts (past the window: the rings wrap), 32 new tokens each
+    (``_serve_run``'s gates).  The census of dropped assignments: each
+    request's prefill (may drop) and one decode step of the full slab
+    (t = 8 tokens, capacity 8: cannot).  Teacher forcing at the published
+    capacity on the rows that dropped nothing, and at capacity factor 4
+    (= experts / top-k: no expert can overflow) on every row."""
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.models.model import decode_step, prefill
+    from repro_torch.models.params import GCLM
+
+    _free_card()
+    g = MIXTRAL_SERVE
+    cfg = _cut("mixtral-8x22b", g["n_layers"])
+    spec = cfg.layers[0].moe
+    model = GCLM(cfg, device="cuda", seed=0)
+    run = _serve_run("mixtral-serve", cfg, model, g)
+    eng, reqs = run["eng"], run["reqs"]
+    ring = eng.slab[0]
+    if ring["k"].shape[2] != cfg.layers[0].window or int(ring["pos"].max()) <= ring["k"].shape[2]:
+        raise AssertionError(f"[mixtral-serve] the slab is not a wrapped ring: "
+                             f"{tuple(ring['k'].shape)}, pos {ring['pos'].max().item()}")
+
+    # the census: every prompt's prefill, then one decode step of the slab
+    per_request = []
+    with torch.no_grad():
+        for r in reqs:
+            with DropCensus() as census:
+                prefill(cfg, model, torch.from_numpy(r.prompt[None].astype("int64")).cuda())
+            per_request.append(census.dropped())
+        slab = [{k: v.clone() for k, v in seg.items()} for seg in eng.slab]
+        with DropCensus() as census:
+            decode_step(cfg, model, slab, torch.arange(1, g["n_slots"] + 1, device="cuda")[:, None])
+        del slab
+    if moe.capacity(g["n_slots"], spec) != g["n_slots"] or census.dropped():
+        raise AssertionError(f"[mixtral-serve] a decode step over {g['n_slots']} slots dropped "
+                             f"{census.dropped()} (capacity {moe.capacity(g['n_slots'], spec)})")
+    caps = sorted({c for _, c, _ in census.calls})
+    log(f"[mixtral-serve] census at capacity factor {spec.capacity_factor}: prefill of "
+        f"{g['prompt_len']} tokens, capacity {moe.capacity(g['prompt_len'], spec)} per expert: "
+        f"{sum(1 for d in per_request if d)} of {len(reqs)} prefills dropped assignments "
+        f"({sum(per_request)} of {len(reqs) * cfg.n_layers * g['prompt_len'] * spec.top_k}; by "
+        f"request {per_request}); a decode step of the {g['n_slots']}-slot slab (capacity "
+        f"{caps}) dropped 0")
+
+    kept = cfg.n_layers * g["prompt_len"] * spec.top_k - per_request[0]
+    times = _serve_times("mixtral-serve", cfg, model, eng.slab, run["prompts"][:1],
+                         expert_tokens=(kept, cfg.n_layers * g["n_slots"] * spec.top_k))
+    tokens_per_s = run["tokens_per_s"]
+    del run, eng
+    outputs = [r.output for r in reqs[:3]]
+    published = _moe_teacher_forcing("mixtral-serve", cfg, model, outputs, g["prompt_len"])
+    roomy = _with_capacity(cfg, spec.num_experts / spec.top_k)
+    full = _moe_teacher_forcing("mixtral-serve", roomy, model, outputs, g["prompt_len"])
+    if len(full["gated"]) != 3:
+        raise AssertionError(f"[mixtral-serve] capacity factor {spec.num_experts / spec.top_k} "
+                             f"dropped assignments: {full['rows']}")
+    del model
+    _free_card()
+    return {"tokens_per_s": tokens_per_s, "dropped": per_request,
+            "gated_published": len(published["gated"]), **times}
+
+
+def phase_moe_train():
+    """Coded training of ``mixtral-8x22b.reduced()`` (the reference's smoke
+    shapes: 2 layers, d_model 256, 4 experts top-2; full width does not
+    fit, see PERF.md) in sim mode with the gc-lm-110m plan settings (N =
+    4, ``xf``, s_max = 3, seq 256, global batch 8).  At step 0 the coded
+    gradient equals the uncoded one (``EXACT_RTOL`` per leaf) with 0 and
+    s_max stragglers, at the reduced capacity factor 8 (no drop) and at
+    the published 1.25 (drops, counted).  ``Trainer.run`` for 3 steps with
+    the counts set to 0 just before: one ``gc_fused`` launch per step,
+    finite losses with the aux term in them.  On the card: ``remat="full"``
+    bit-equal to ``"none"``, and two runs of the same forward+backward at
+    capacity 1.25 byte-equal."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import ShiftedExponential
+    from repro_torch.data.pipeline import coded_worker_batches
+    from repro_torch.models.model import train_loss
+    from repro_torch.train.coded import combine_rows, per_shard_grad_rows, uncoded_grad_fn
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    _free_card()
+    base = get_config("mixtral-8x22b").reduced()
+    trainer = Trainer(base, TrainConfig(lr=3e-4, warmup=10, total_steps=300),
+                      ShiftedExponential(mu=1e-3, t0=50.0), n_workers=4, scheme="xf",
+                      global_batch=8, seed=0, device="cuda", seq_len=256)
+    plan, model, n = trainer.plan, trainer.state.params, trainer.n_workers
+    paths = model.leaf_paths()
+    wb = coded_worker_batches(trainer.data, 0, n, plan.s_max)
+    shards = np.stack([trainer.data.shard(0, i, n) for i in range(n)])
+    gaps, dropped = {}, {}
+    for cf in (base.layers[0].moe.capacity_factor, 1.25):
+        cfg = _with_capacity(base, cf)
+        with DropCensus() as census:
+            rows = per_shard_grad_rows(cfg, model, wb)
+        dropped[cf] = census.dropped()
+        coded = {u: combine_rows(plan, rows, _straggler_dec_w(plan, u)) for u in (0, plan.s_max)}
+        g_ref = uncoded_grad_fn(cfg, n)(model, shards)
+        for u, got in coded.items():
+            gaps[cf, u] = _worst_rel(got, g_ref, paths, EXACT_RTOL,
+                                     f"[moe-train] capacity {cf}: coded != uncoded, {u} stragglers")
+        del rows, coded, g_ref
+    if dropped[8.0] or not dropped[1.25]:
+        raise AssertionError(f"[moe-train] dropped assignments by capacity factor: {dropped}")
+    log(f"[moe-train] mixtral-8x22b reduced ({base.n_layers} layers, d_model {base.d_model}, "
+        f"{base.layers[0].moe.num_experts} experts top-{base.layers[0].moe.top_k}, d_ff "
+        f"{base.layers[0].moe.d_ff}): {sum(t.numel() for t in model.leaves())} params in "
+        f"{len(paths)} leaves, N*K={n * plan.k_shards}; step 0, coded == uncoded, worst leaf "
+        "relative max error at 0 / s_max stragglers: "
+        + "; ".join(f"capacity {cf} ({dropped[cf]} of the {n * plan.k_shards} passes' "
+                    f"assignments dropped) {gaps[cf, 0]:.3e} / {gaps[cf, plan.s_max]:.3e}"
+                    for cf in dropped) + f" (bound {EXACT_RTOL})")
+
+    reset_counts()
+    trainer.run(STEPS, log_every=1, log_fn=lambda m: log(f"[moe-train] {m}"))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    hist = trainer.history
+    if launches != {"gc_fused": STEPS, "gc_encode": 0, "gc_decode": 0}:
+        raise AssertionError(f"[moe-train] launches {launches} in {STEPS} steps, expected one "
+                             "gc_fused launch per step")
+    if not all(math.isfinite(h["loss"]) and h["aux"] > 0
+               and abs(h["loss"] - h["xent"] - h["aux"]) <= 1e-5 * h["loss"] for h in hist):
+        raise AssertionError(f"[moe-train] losses {[(h['loss'], h['xent'], h['aux']) for h in hist]}")
+
+    tokens = torch.as_tensor(wb[0, 0], device="cuda")
+
+    def grads(cfg):
+        loss, _ = train_loss(cfg, model, {"tokens": tokens})
+        return [loss, *torch.autograd.grad(loss, model.leaves())]
+
+    for a, b in zip(grads(base), grads(base.replace(remat="full")), strict=True):
+        if not torch.equal(a, b):
+            raise AssertionError("[moe-train] remat='full' is not bit-equal to 'none'")
+    drop = _with_capacity(base, 1.25)
+    for a, b in zip(grads(drop), grads(drop), strict=True):
+        if not torch.equal(a, b):
+            raise AssertionError("[moe-train] two runs of one forward+backward differ")
+    log(f"[moe-train] {STEPS} steps, losses {[h['loss'] for h in hist]} (aux "
+        f"{[h['aux'] for h in hist]}), launches {launches}; remat 'full' bit-equal to 'none'; "
+        "two forward+backward runs at capacity 1.25 byte-equal")
+    del trainer, model
+    _free_card()
+    return {"launches": launches["gc_fused"], "gaps": gaps, "dropped": dropped}
 
 
 def main() -> int:
@@ -2317,6 +2705,9 @@ def main() -> int:
     gemma = timed("gemma-train", phase_gemma_train)
     timed("gemma3-serve", phase_gemma3_serve)
     timed("gemma2", phase_gemma2)
+    timed("qwen-serve", phase_qwen_serve)
+    timed("mixtral-serve", phase_mixtral_serve)
+    moe_train = timed("moe-train", phase_moe_train)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s; seconds by "
         f"phase {spent}")
 
@@ -2331,7 +2722,8 @@ def main() -> int:
     # the tuned trainer, spmd (every rank's launches)
     fused_launches = {"train": launches["gc_fused"], "adapt": adapt_launches["gc_fused"],
                       "wave": wave_launches["gc_fused"], "tune": tune_launches["gc_fused"],
-                      "spmd": spmd_launches, "gemma": gemma["launches"]}
+                      "spmd": spmd_launches, "gemma": gemma["launches"],
+                      "moe": moe_train["launches"]}
     print(json.dumps({"kernels": [
         row("gc_fused", "src/repro/kernels/gc_fused.py:57", sum(fused_launches.values()),
             max(max_err, gemma["max_abs_err"]), kernel_times, launches_by_path=fused_launches,

@@ -1,15 +1,15 @@
 """Model configs: per-layer specs, ``ModelConfig``, ``reduced()`` and the
 registry.
 
-Copied from ``repro/configs/base.py`` and trimmed to what the dense
-attention path of the port runs: a layer is an attention mixer (global,
-or a sliding window) plus a dense FFN, with the Gemma family's softcaps,
-QK-norm, sandwich norms, embedding scale and GeGLU.  The fields that
-select features of other families (MoE, QKV biases, untied embeddings,
-MTP, layer norm) are kept with their reference defaults so a config
-says what it needs, and the model raises ``NotImplementedError`` naming
-the ROADMAP item when one is set.  ``reduced()`` gives the reference's
-smoke-test shapes for the dense family.
+Copied from ``repro/configs/base.py`` and trimmed to what the port
+runs: a layer is an attention mixer (global, or a sliding window) plus a
+dense or mixture-of-experts FFN (``MoESpec``), with the Gemma family's
+softcaps, QK-norm, sandwich norms, embedding scale and GeGLU, and Qwen's
+QKV biases and untied head.  The fields that select features of other
+families (MTP, layer norm, ungated MLPs) are kept with their reference
+defaults so a config says what it needs, and the model raises
+``NotImplementedError`` naming the ROADMAP item when one is set.
+``reduced()`` gives the reference's smoke-test shapes.
 """
 from __future__ import annotations
 
@@ -17,16 +17,28 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Optional
 
-__all__ = ["LayerSpec", "ModelConfig", "register", "get_config", "list_archs"]
+__all__ = ["MoESpec", "LayerSpec", "ModelConfig", "register", "get_config", "list_archs"]
+
+
+@dataclass(frozen=True)
+class MoESpec:
+    num_experts: int
+    top_k: int
+    d_ff: int  # per-expert hidden size
+    num_shared: int = 0  # always-on shared experts (deepseek)
+    capacity_factor: float = 1.25
+    router: str = "softmax"  # 'softmax' | 'sigmoid' (deepseek-v3)
+    aux_loss_coef: float = 0.01
 
 
 @dataclass(frozen=True)
 class LayerSpec:
-    """One decoder layer = mixer + FFN (``moe`` must stay None in the port)."""
+    """One decoder layer = mixer + FFN; ``moe`` None is a dense FFN (d_ff
+    from ``ModelConfig``), else an ``MoESpec``."""
 
     mixer: str = "attn"
     window: Optional[int] = None
-    moe: Optional[object] = None
+    moe: Optional[MoESpec] = None
     use_ffn: bool = True
     cross_source: bool = False
 
@@ -60,6 +72,11 @@ class ModelConfig:
     param_dtype: str = "float32"
     remat: str = "none"  # 'none' | 'dots' | 'full'
     fsdp: bool = False  # the reference's param sharding over 'data'; no effect on one device
+    # the reference's expert sharding over 'model' and its shard_map dispatch
+    # (``_apply_moe_manual``, which falls back to ``_moe_core`` without a
+    # mesh): kept, no effect on one device
+    shard_experts: bool = True
+    moe_impl: str = "gspmd"  # 'gspmd' | 'manual'
     attn_chunk: int = 1024
     max_seq: int = 131_072
 
@@ -78,7 +95,7 @@ class ModelConfig:
 
     def reduced(self, n_layers: int = 2, d_model: int = 256, seq_cap: int = 512) -> "ModelConfig":
         """Smoke-test variant: same family, tiny dims (the reference's
-        ``reduced`` for the dense family)."""
+        ``reduced``)."""
         scale = d_model / self.d_model
         n_heads = max(2, min(4, self.n_heads))
         n_kv = 1 if self.n_kv_heads == 1 else max(1, min(2, self.n_kv_heads))
@@ -87,10 +104,18 @@ class ModelConfig:
         head_dim = max(16, d_model // n_heads)
 
         def shrink_layer(l: LayerSpec) -> LayerSpec:
+            moe = None
             if l.moe is not None:
-                raise NotImplementedError("MoE layers are not ported yet (ROADMAP 1.9)")
+                moe = dataclasses.replace(
+                    l.moe,
+                    num_experts=min(4, l.moe.num_experts),
+                    top_k=min(2, l.moe.top_k),
+                    num_shared=min(1, l.moe.num_shared),
+                    d_ff=max(32, int(l.moe.d_ff * scale)),
+                    capacity_factor=8.0,  # no token drops -> exact decode checks
+                )
             window = None if l.window is None else min(l.window, seq_cap // 2)
-            return dataclasses.replace(l, window=window)
+            return dataclasses.replace(l, moe=moe, window=window)
 
         layers = tuple(shrink_layer(l) for l in self.layers[:n_layers])
         return self.replace(
@@ -127,7 +152,7 @@ def get_config(arch_id: str) -> ModelConfig:
 
     if arch_id not in _REGISTRY:
         raise KeyError(f"unknown arch '{arch_id}'; the port has: "
-                       f"{sorted(_REGISTRY)} (Qwen, MoE, SSM, xLSTM, vision and audio "
+                       f"{sorted(_REGISTRY)} (DeepSeek, Jamba, xLSTM, vision and audio "
                        "families: ROADMAP 1.9)")
     return _REGISTRY[arch_id]()
 

@@ -11,10 +11,11 @@ values.  Windowed layers with ``window < S``: ``local_attention``, the
 reference's schedule — query chunks of ``attn_chunk``, each against a
 KV span of the window's history plus the chunk, masked per position —
 so memory is O(S·window), not O(S²).  GQA groups query heads over the
-KV heads exactly as the reference does.  Gemma's extras sit at the
-reference's places: QK-norm (``_rms_head``) before RoPE, the score
-softcap in the scores' dtype before the fp32 cast, and
-``rope_base_local`` on windowed layers.
+KV heads exactly as the reference does.  Qwen's QKV biases are added
+after the projections, in the activations' dtype, before QK-norm and
+RoPE.  Gemma's extras sit at the reference's places: QK-norm
+(``_rms_head``) before RoPE, the score softcap in the scores' dtype
+before the fp32 cast, and ``rope_base_local`` on windowed layers.
 
 Decode: one query token against a KV cache ``{"k", "v", "pos"}`` of
 capacity ``cap`` (``(B, cap, K, Dh)`` leaves): the whole sequence for a
@@ -51,12 +52,17 @@ def _rms_head(x, scale, eps: float = 1e-6):
 
 
 def project_qkv(cfg, p, x, positions, rope_base):
-    """x: (B,S,d) -> q:(B,S,H,Dh), k,v:(B,S,K,Dh), with QK-norm (when the
-    layer has ``q_norm``/``k_norm``) and then RoPE on q and k."""
+    """x: (B,S,d) -> q:(B,S,H,Dh), k,v:(B,S,K,Dh), with the biases (when
+    the layer has ``bq``/``bk``/``bv``), QK-norm (when it has
+    ``q_norm``/``k_norm``) and then RoPE on q and k."""
     dt = x.dtype
     q = torch.einsum("bsd,dhx->bshx", x, p["wq"].to(dt))
     k = torch.einsum("bsd,dkx->bskx", x, p["wk"].to(dt))
     v = torch.einsum("bsd,dkx->bskx", x, p["wv"].to(dt))
+    if "bq" in p:
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
     if "q_norm" in p:
         q = _rms_head(q, p["q_norm"].float())
         k = _rms_head(k, p["k_norm"].float())

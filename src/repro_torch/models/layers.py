@@ -1,8 +1,8 @@
 """Shared layer primitives of the dense path, after ``repro/models/layers.py``:
 rms norm with ``(1 + scale)``, the softcap, the half-split RoPE, the
-gated MLP (SwiGLU or GeGLU), and the tied embedding (scaled by
-sqrt(d_model) for the Gemma family) and unembedding (with the final
-softcap)."""
+gated MLP (SwiGLU or GeGLU), and the embedding (scaled by sqrt(d_model)
+for the Gemma family) and unembedding (tied, or Qwen's and Mixtral's
+untied ``embed.unembed``; with the final softcap)."""
 from __future__ import annotations
 
 import functools
@@ -90,6 +90,11 @@ def _embed_scale(d_model: int, dtype: torch.dtype) -> float:
     return float(torch.tensor(np.sqrt(d_model), dtype=dtype))
 
 
-def unembed(cfg, tok, x):
-    """Tied head: logits = softcap(x @ tok.T, final_softcap)."""
-    return softcap(torch.einsum("bsd,vd->bsv", x, tok.to(x.dtype)), cfg.final_softcap)
+def unembed(cfg, embed, x):
+    """logits = softcap(x @ W, final_softcap): W is ``embed["unembed"]``
+    (d, vocab) for an untied head, else ``embed["tok"].T``."""
+    if "unembed" in embed:
+        logits = torch.einsum("bsd,dv->bsv", x, embed["unembed"].to(x.dtype))
+    else:
+        logits = torch.einsum("bsd,vd->bsv", x, embed["tok"].to(x.dtype))
+    return softcap(logits, cfg.final_softcap)

@@ -1,9 +1,10 @@
 """The decoder LM, after ``repro/models/model.py``: ``forward`` in
-training, prefill or decode mode, ``train_loss``, and the serving entry
-points ``prefill``, ``decode_step`` and ``init_decode_caches`` — the
-dense path (gc-lm-110m and the Gemma family: the embedding scale and
-the final softcap live in ``layers.py``); MTP, encoders and vision are
-ROADMAP 1.9."""
+training, prefill or decode mode, ``train_loss`` (cross-entropy plus the
+MoE load-balance loss), and the serving entry points ``prefill``,
+``decode_step`` and ``init_decode_caches`` — gc-lm-110m, the Gemma
+family, Qwen 1.5 and Mixtral (the embedding scale, the untied head and
+the final softcap live in ``layers.py``, the MoE FFN in ``moe.py``);
+MTP, encoders and vision are ROADMAP 1.9."""
 from __future__ import annotations
 
 from typing import Optional
@@ -21,14 +22,17 @@ __all__ = ["forward", "train_loss", "prefill", "decode_step", "init_decode_cache
 def forward(cfg, model, tokens, *, mode="train", caches=None, target_len: int = 0):
     """tokens: (B, S) integer.  Returns (logits, new_caches, aux, hidden);
     ``new_caches`` is None in training, and in decode mode it is
-    ``caches``, updated in place."""
+    ``caches``, updated in place; ``aux`` is the fp32 sum of the MoE
+    layers' load-balance losses (zero without MoE layers)."""
     tokens = _as_tokens(tokens, model.embed.tok.device)
     x = embed_tokens(cfg, model.embed.tok, tokens)
-    x, new_caches = apply_stack(cfg, model.stack, x, mode=mode, caches=caches,
-                                target_len=target_len)
+    x, new_caches, aux = apply_stack(cfg, model.stack, x, mode=mode, caches=caches,
+                                     target_len=target_len)
+    if aux is None:  # no MoE layer
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     hidden = rms_norm(x, model.final_norm.scale)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return unembed(cfg, model.embed.tok, hidden), new_caches, aux, hidden
+    embed = dict(model.embed.named_parameters())
+    return unembed(cfg, embed, hidden), new_caches, aux, hidden
 
 
 def _xent(logits, labels, mask=None):

@@ -1,4 +1,4 @@
-"""The parameter tree of the dense LM as an ``nn.Module``.
+"""The parameter tree of the decoder LM as an ``nn.Module``.
 
 Parameter names are the reference's key paths (``embed.tok``,
 ``stack.0.mixer.wq``, ...): a run of identical layers holds its leaves
@@ -10,16 +10,21 @@ packages.
 
 ``GCLM.leaves()`` returns the parameters in ``jax.tree.leaves`` order —
 dict keys sorted at every level, list entries in index order — which is
-NOT ``nn.Module`` registration order (ROADMAP 3.4).  For gc-lm-110m that
-is the 11 leaves ``embed.tok``, ``final_norm.scale``,
-``stack.0.ffn.{wg,wi,wo}``, ``stack.0.mixer.{wk,wo,wq,wv}``,
-``stack.0.norm_ffn.scale``, ``stack.0.norm_mix.scale``.
+NOT ``nn.Module`` registration order (ROADMAP 3.4): ``embed.tok`` before
+``embed.unembed`` (an untied head), a mixture-of-experts FFN's
+``ffn.router`` before ``ffn.shared.*`` before ``ffn.wg``, ``ffn.wi``,
+``ffn.wo``, and the QKV biases ``mixer.bk``/``bq``/``bv`` before the
+projections.  For gc-lm-110m that is the 11 leaves ``embed.tok``,
+``final_norm.scale``, ``stack.0.ffn.{wg,wi,wo}``,
+``stack.0.mixer.{wk,wo,wq,wv}``, ``stack.0.norm_ffn.scale``,
+``stack.0.norm_mix.scale``.
 
 Weights are drawn from a ``torch.Generator`` with the law of the
 reference's ``dense_init`` (truncated normal on [-2, 2], std 1/sqrt(fan_in)
-of the per-layer shape); ``torch`` cannot reproduce ``jax.random``, so
-parity tests carry the reference's arrays across with
-``params_from_numpy``.
+of the per-layer shape: E·d for an expert's ``wi``/``wg`` of shape
+(E, d, f), E·f for its ``wo``); ``torch`` cannot reproduce
+``jax.random``, so parity tests carry the reference's arrays across
+with ``params_from_numpy``.
 """
 from __future__ import annotations
 
@@ -52,31 +57,48 @@ def _zeros(shape, device):
 def _layer_node(cfg, spec, count: int, device) -> ParamNode:
     """One layer's parameters; leaves carry a leading (count,) axis when
     the segment stacks more than one layer."""
-    if spec.mixer != "attn" or spec.moe is not None or spec.cross_source \
-            or not spec.use_ffn:
+    if spec.mixer != "attn" or spec.cross_source or not spec.use_ffn:
         raise NotImplementedError(
-            f"layer {spec} is not ported yet: the port runs attention + dense FFN "
-            "layers (other mixers, MoE, cross-attention: ROADMAP 1.9)")
+            f"layer {spec} is not ported yet: the port runs attention + dense or MoE "
+            "FFN layers (other mixers, cross-attention: ROADMAP 1.9)")
     lead = (count,) if count > 1 else ()
-    d, h, kv, dh, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-                        cfg.d_ff)
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
     def z(*shape):
         return _zeros(lead + shape, device)
 
     mixer = {"wq": z(d, h, dh), "wk": z(d, kv, dh), "wv": z(d, kv, dh), "wo": z(h, dh, d)}
+    if cfg.qkv_bias:
+        mixer.update(bq=z(h, dh), bk=z(kv, dh), bv=z(kv, dh))
     if cfg.qk_norm:
         mixer.update(q_norm=z(dh), k_norm=z(dh))
     children = {
         "norm_mix": ParamNode({"scale": z(d)}),
         "mixer": ParamNode(mixer),
         "norm_ffn": ParamNode({"scale": z(d)}),
-        "ffn": ParamNode({"wi": z(d, ff), "wo": z(ff, d), "wg": z(d, ff)}),
+        "ffn": _ffn_node(cfg, spec, z),
     }
     if cfg.post_norm:
         children.update(norm_mix_post=ParamNode({"scale": z(d)}),
                         norm_ffn_post=ParamNode({"scale": z(d)}))
     return ParamNode(children=children)
+
+
+def _ffn_node(cfg, spec, z) -> ParamNode:
+    """A dense gated MLP, or ``repro/models/moe.py::init_moe``'s tree:
+    ``router`` (d, E), experts ``wi``/``wg`` (E, d, f) and ``wo`` (E, f, d),
+    and ``shared.{wi, wg, wo}`` of width f·num_shared when there are
+    shared experts."""
+    d = cfg.d_model
+    if spec.moe is None:
+        return ParamNode({"wi": z(d, cfg.d_ff), "wo": z(cfg.d_ff, d), "wg": z(d, cfg.d_ff)})
+    e, f = spec.moe.num_experts, spec.moe.d_ff
+    children = {}
+    if spec.moe.num_shared:
+        fs = f * spec.moe.num_shared
+        children["shared"] = ParamNode({"wi": z(d, fs), "wg": z(d, fs), "wo": z(fs, d)})
+    return ParamNode({"router": z(d, e), "wi": z(e, d, f), "wg": z(e, d, f),
+                      "wo": z(e, f, d)}, children)
 
 
 def _segment_node(cfg, seg, device) -> nn.Module:
@@ -88,27 +110,27 @@ def _segment_node(cfg, seg, device) -> nn.Module:
 
 
 #: leaves the reference initializes to zero: rms-norm scales (which store
-#: scale - 1) and the QK-norm scales
-ZERO_INIT = ("scale", "q_norm", "k_norm")
+#: scale - 1), the QK-norm scales and the QKV biases
+ZERO_INIT = ("scale", "q_norm", "k_norm", "bq", "bk", "bv")
 
 
 def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for features outside the dense
-    attention path the port runs (the Gemma family's included)."""
+    """Raise ``NotImplementedError`` for features outside what the port
+    runs (the dense, Gemma, Qwen and MoE paths)."""
     unsupported = {
-        "qkv_bias": cfg.qkv_bias, "untied embeddings": not cfg.tie_embeddings,
         "mtp_depth": cfg.mtp_depth, "layer norm": cfg.norm != "rms",
         "ungated MLP": cfg.activation not in ("silu", "gelu"),
     }
     on = [k for k, v in unsupported.items() if v]
     if on:
         raise NotImplementedError(
-            f"{cfg.name}: {on} not ported yet (Qwen's biases and untied head, MTP, "
-            "layer norm, ungated MLPs: ROADMAP 1.9)")
+            f"{cfg.name}: {on} not ported yet (MTP, layer norm, ungated MLPs: "
+            "ROADMAP 1.9)")
 
 
 class GCLM(nn.Module):
-    """Decoder LM parameters: ``embed``, ``stack`` (one node per segment:
+    """Decoder LM parameters: ``embed`` (``tok``, and ``unembed`` for an
+    untied head), ``stack`` (one node per segment:
     a run of identical layers, or a pattern's list of p layer nodes) and
     ``final_norm``, initialized from ``seed``."""
 
@@ -117,7 +139,10 @@ class GCLM(nn.Module):
         check_supported(cfg)
         dev = resolve_device(device)
         self.cfg = cfg
-        self.embed = ParamNode({"tok": _zeros((cfg.vocab, cfg.d_model), dev)})
+        embed = {"tok": _zeros((cfg.vocab, cfg.d_model), dev)}
+        if not cfg.tie_embeddings:
+            embed["unembed"] = _zeros((cfg.d_model, cfg.vocab), dev)
+        self.embed = ParamNode(embed)
         self.stack = nn.ModuleList(_segment_node(cfg, seg, dev)
                                    for seg in plan_segments(cfg.layers))
         self.final_norm = ParamNode({"scale": _zeros((cfg.d_model,), dev)})

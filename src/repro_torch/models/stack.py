@@ -24,6 +24,9 @@ selective-checkpoint policy, as ``checkpoint_dots`` does, and recomputes
 the elementwise rest.  The recomputation runs the same ops on the same
 inputs, so the gradients are bit-equal to ``remat="none"``.
 
+The MoE load-balance loss of every layer is summed in fp32 in layer
+order, as the reference's scan carries it.
+
 Decode caches keep the reference's layout: one entry per segment — a
 plain ``{"k", "v", "pos"}`` dict for a single layer; for a run, leaves
 stacked over the run (``(L, B, cap, K, Dh)`` K/V and a ``(L,)`` or
@@ -136,12 +139,21 @@ def _stack(trees):
     return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
 
 
+def _add(total, aux):
+    """The running fp32 aux sum (None: nothing added yet)."""
+    if aux is None:
+        return total
+    return aux if total is None else total + aux
+
+
 def apply_stack(cfg, stack, x, *, mode="train", caches=None, target_len: int = 0):
     """x: (B, S, d) through every layer of ``stack`` (the model's
-    ``nn.ModuleList`` of segment nodes).  Returns (x, caches): ``None`` in
-    training, the prefill's new per-segment caches, or ``caches`` updated
-    in place by a decode step."""
+    ``nn.ModuleList`` of segment nodes).  Returns (x, caches, aux):
+    caches ``None`` in training, the prefill's new per-segment caches, or
+    ``caches`` updated in place by a decode step; aux the summed MoE
+    load-balance loss, or None when no layer is MoE."""
     new_caches = [] if mode == "prefill" else None
+    aux = None
 
     def layer(spec, params, cache):
         return lambda x_: apply_layer(cfg, params, x_, spec, mode=mode, cache=cache,
@@ -150,7 +162,8 @@ def apply_stack(cfg, stack, x, *, mode="train", caches=None, target_len: int = 0
     for i, (seg, node) in enumerate(zip(plan_segments(cfg.layers), stack)):
         cache = caches[i] if caches is not None else None
         if isinstance(seg, Run) and seg.count == 1:
-            x, c_new = _remat(cfg, mode, layer(seg.spec, _tree(node), cache), x)
+            x, c_new, a = _remat(cfg, mode, layer(seg.spec, _tree(node), cache), x)
+            aux = _add(aux, a)
             if mode == "prefill":
                 new_caches.append(c_new)
             continue
@@ -159,7 +172,8 @@ def apply_stack(cfg, stack, x, *, mode="train", caches=None, target_len: int = 0
             per_layer = []
             for j in range(seg.count):
                 params = _tree(node, {k: v[j] for k, v in unbound.items()})
-                x, c_new = _remat(cfg, mode, layer(seg.spec, params, _slice(cache, j)), x)
+                x, c_new, a = _remat(cfg, mode, layer(seg.spec, params, _slice(cache, j)), x)
+                aux = _add(aux, a)
                 per_layer.append(c_new)
             if mode == "prefill":
                 new_caches.append(_stack(per_layer))
@@ -174,18 +188,21 @@ def apply_stack(cfg, stack, x, *, mode="train", caches=None, target_len: int = 0
                    for j, spec in enumerate(seg.specs)]
 
             def body(x_, fns=fns):
-                c_out = []
+                c_out, a_out = [], []
                 for fn in fns:
-                    x_, c_new = fn(x_)
+                    x_, c_new, a = fn(x_)
                     c_out.append(c_new)
-                return x_, c_out
+                    a_out.append(a)
+                return x_, c_out, a_out
 
-            x, c_out = _remat(cfg, mode, body, x)
+            x, c_out, a_out = _remat(cfg, mode, body, x)
+            for a in a_out:
+                aux = _add(aux, a)
             per_rep.append(c_out)
         if mode == "prefill":
             new_caches.append([_stack([c[j] for c in per_rep])
                                for j in range(len(seg.specs))])
-    return x, (caches if mode == "decode" else new_caches)
+    return x, (caches if mode == "decode" else new_caches), aux
 
 
 def init_stack_caches(cfg, batch: int, seq_len: int, dtype=torch.bfloat16, device="cuda"):

@@ -523,3 +523,106 @@ def test_gc_fused_groups_gemma3_leaves_into_three_launches(cuda):
     for y, want in zip(ys, ref.encode_decode_leaves_ref(a, tab, which, gs), strict=True):
         np.testing.assert_allclose(y.cpu().numpy(), want.cpu().numpy(),
                                    **TOL[torch.float32])
+
+
+def _close_to_cpu(got, want, what, rel=1e-4):
+    got, want = got.detach().float().cpu(), want.detach().float()
+    assert float((got - want).abs().max()) <= rel * float(want.abs().max()), what
+
+
+def _moe_layer_inputs(device, capacity_factor=1.25, t=96, d=64, seed=0):
+    """A Mixtral-style layer (8 experts, top-2) and tokens with a positive
+    mean against a router biased toward expert 0: capacity 1.25 drops."""
+    import dataclasses
+
+    from repro_torch.configs import MoESpec
+
+    spec = dataclasses.replace(get_config("mixtral-8x22b").layers[0],
+                               moe=MoESpec(8, 2, 48, capacity_factor=capacity_factor))
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    p = {"router": torch.randn(d, 8, generator=gen) / d ** 0.5,
+         "wi": torch.randn(8, d, 48, generator=gen) / d ** 0.5,
+         "wg": torch.randn(8, d, 48, generator=gen) / d ** 0.5,
+         "wo": torch.randn(8, 48, d, generator=gen) / 48 ** 0.5}
+    p["router"][:, 0] += 0.5
+    x = torch.randn(2, t // 2, d, generator=gen) + 0.3
+    return spec, {k: v.to(device).requires_grad_() for k, v in p.items()}, \
+        x.to(device).requires_grad_()
+
+
+def test_moe_layer_on_cuda_matches_cpu(cuda):
+    """The MoE layer with drops (capacity 1.25) in fp32: the same expert
+    indices and keep mask on the card as on the CPU, output, aux and
+    every gradient within 1e-4 of the largest entry."""
+    from repro_torch.models import moe
+
+    cfg = get_config("mixtral-8x22b")
+    out = {}
+    for dev in ("cpu", cuda):
+        spec, p, x = _moe_layer_inputs(dev)
+        r = moe.route(p, x.detach().reshape(-1, x.shape[-1]), spec.moe)
+        y, aux = moe.apply_moe(cfg, p, x, spec)
+        grads = torch.autograd.grad(y.square().sum() + aux, [x, *p.values()])
+        out[str(dev)] = (r, y, aux, grads)
+    (r_c, y_c, a_c, g_c), (r_g, y_g, a_g, g_g) = out["cpu"], out[str(cuda)]
+    assert torch.equal(r_g.idx.cpu(), r_c.idx) and torch.equal(r_g.keep.cpu(), r_c.keep)
+    assert not bool(r_c.keep.all())  # assignments were dropped
+    _close_to_cpu(y_g, y_c, "out")
+    _close_to_cpu(a_g, a_c, "aux")
+    for i, (a, b) in enumerate(zip(g_g, g_c)):
+        _close_to_cpu(a, b, f"grad {i}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_forward_backward_on_cuda_is_byte_equal(cuda, dtype):
+    """Two runs of reduced Mixtral's loss and gradients on the card, at
+    capacity 1.25 (drops), give the same bytes: the dispatch's
+    ``index_add_`` only adds zeros onto an occupied slot, and the combine
+    sums each token's k rows in order."""
+    import dataclasses
+
+    from repro_torch.models.model import train_loss
+
+    cfg = get_config("mixtral-8x22b").reduced(n_layers=2, d_model=128)
+    cfg = cfg.replace(dtype=dtype, layers=tuple(dataclasses.replace(
+        l, moe=dataclasses.replace(l.moe, capacity_factor=1.25)) for l in cfg.layers))
+    model = GCLM(cfg, device="cuda", seed=0)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, size=(4, 129)))
+
+    def run():
+        loss, metrics = train_loss(cfg, model, {"tokens": toks.cuda()})
+        return [loss, metrics["aux"], *torch.autograd.grad(loss, model.leaves())]
+
+    first, second = run(), run()
+    assert first[1].item() > 0
+    for a, b in zip(first, second, strict=True):
+        assert torch.equal(a, b)
+
+
+def test_qwen_bias_path_on_cuda_matches_cpu(cuda):
+    """Reduced Qwen with nonzero QKV biases and its untied head on the card
+    against the CPU from the same weights, fp32: training logits, a
+    48-token prefill and 8 decode steps within 1e-4 of the largest logit."""
+    from repro_torch.models.model import forward
+
+    cfg = get_config("qwen1.5-32b").reduced(n_layers=2, d_model=128, seq_cap=64)
+    cpu_model = GCLM(cfg, device="cpu", seed=0)
+    tree = params_to_numpy(cpu_model)
+    rng = np.random.default_rng(3)
+    for name in ("bq", "bk", "bv"):
+        leaf = tree["stack"][0]["mixer"][name]
+        tree["stack"][0]["mixer"][name] = (0.02 * rng.standard_normal(leaf.shape)).astype(
+            np.float32)
+    params_from_numpy(cpu_model, tree)
+    gpu_model = params_from_numpy(GCLM(cfg, device="cuda"), tree)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 56)))
+    with torch.no_grad():
+        _close_to_cpu(forward(cfg, gpu_model, toks[:, :48].cuda())[0],
+                      forward(cfg, cpu_model, toks[:, :48])[0], "forward")
+    got, c_gpu = prefill(cfg, gpu_model, toks[:, :48].cuda(), target_len=56)
+    want, c_cpu = prefill(cfg, cpu_model, toks[:, :48], target_len=56)
+    _close_to_cpu(got, want, "prefill")
+    for t in range(48, 56):
+        got, _ = decode_step(cfg, gpu_model, c_gpu, toks[:, t:t + 1].cuda())
+        want, _ = decode_step(cfg, cpu_model, c_cpu, toks[:, t:t + 1])
+        _close_to_cpu(got, want, f"decode at {t}")

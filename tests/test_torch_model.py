@@ -176,12 +176,13 @@ def test_init_law_matches_dense_init():
 
 
 def test_unsupported_features_raise():
-    """Features of the families still to port (Qwen's QKV bias and untied
-    head, MoE FFNs, other mixers) raise; the Gemma family's are ported
-    (tests/test_torch_gemma.py)."""
+    """Features of the families still to port (DeepSeek's MTP and MLA
+    mixer, Jamba's Mamba mixer, layer norm, ungated MLPs) raise; the
+    Gemma family's, Qwen's QKV bias and untied head and MoE FFNs are
+    ported (tests/test_torch_{gemma,qwen,moe}.py)."""
     cfg = get_config("gc-lm-110m").reduced(**KW)
-    for change in (dict(qkv_bias=True), dict(tie_embeddings=False),
-                   dict(layers=(dataclasses.replace(cfg.layers[0], moe="top-2 of 8"),) * 2),
-                   dict(layers=(dataclasses.replace(cfg.layers[0], mixer="mla"),) * 2)):
+    for change in (dict(mtp_depth=1), dict(norm="layer"), dict(activation="gelu_mlp"),
+                   dict(layers=(dataclasses.replace(cfg.layers[0], mixer="mla"),) * 2),
+                   dict(layers=(dataclasses.replace(cfg.layers[0], mixer="mamba"),) * 2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             GCLM(cfg.replace(**change), device="meta")
