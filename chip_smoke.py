@@ -190,6 +190,29 @@ port's sources beside it.  Phases; any failure raises:
    ``gc_fused`` launch per step, finite losses with the aux term); on the
    card, ``remat="full"`` bit-equal to ``"none"`` and two runs of one
    forward+backward at capacity 1.25 byte-equal.
+17. deepseek-serve: full-width deepseek-v3-671b (multi-head latent
+   attention: q_lora 1536, kv_lora 512, nope 128, rope 64, v 128 over 128
+   heads; sigmoid top-8 of 256 experts of d_ff 2,048 plus one shared;
+   vocab 129,280, an untied head, bf16 activations) cut to its first 4 of
+   61 layers (3 dense, d_ff 18,432, and 1 MoE at capacity factor 1.25; no
+   MTP module, which serving does not run), 15,111,101,440 parameters:
+   16 requests of 512-token prompts, 32 new tokens, with 14's gates and
+   times; the slab's bytes per token (the latent c_kv and k_r, 4,608)
+   beside plain attention's K/V (262,144); the census of 15; teacher
+   forcing one row per call with fp32 activations on a bf16 slab (2e-2)
+   and fp32 on fp32 (1e-4), at capacity 1.25 on the drop-free rows and
+   at capacity factor 32 on every row; the config's bf16 activations on
+   a bf16 slab measured, not gated (the absorbed decode rounds at other
+   points than the expanded prefill).
+18. deepseek-train: coded training of ``deepseek-v3-671b.reduced(n_layers
+   =4)`` (3 dense MLA layers, 1 MoE layer, MTP depth 1; one full-width
+   MoE layer's 16 fp32 rows would be 736 GB) with 2's plan settings:
+   coded == uncoded at step 0 with 0 and s_max stragglers, the MTP
+   leaves included; 3 steps with the counts set to 0 just before (one
+   grouped ``gc_fused`` call per step: 52 leaves, 2 launches of at most
+   32; finite loss, xent, aux and mtp); on the
+   card ``remat="full"`` bit-equal to ``"none"`` and two runs of one
+   forward+backward byte-equal.
 
 The line before the last is the card's name and power limit; before it
 a JSON line lists every kernel with its launches, error and times; the
@@ -285,6 +308,17 @@ QWEN_SERVE = dict(n_layers=16, n_slots=8, n_requests=16, prompt_len=512, max_new
 #: 4,352-token prompts past the 4,096 window
 MIXTRAL_SERVE = dict(n_layers=4, n_slots=8, n_requests=16, prompt_len=4352, max_new=32,
                      rate=2e-3, workers=8)
+#: DeepSeek-V3 at its published widths, cut in depth only.
+#: [deepseek-serve]: deepseek-v3-671b at its first 4 of 61 layers (the 3
+#: dense ones and the first MoE layer) without the MTP module, which
+#: serving does not run: 15,111,101,440 parameters, 60.44 GB fp32, plus
+#: the per-call bf16 cast of one (256, 7168, 2048) expert matrix, 7.52 GB
+DEEPSEEK_SERVE = dict(n_layers=4, n_slots=8, n_requests=16, prompt_len=512, max_new=32,
+                      rate=2e-3, workers=8)
+#: [deepseek-train]: the reference's smoke shapes with one MoE layer
+#: (``reduced()`` keeps the first n layers, and DeepSeek's first 3 are
+#: dense); a full-width MoE layer's 16 fp32 rows would be 736 GB
+DEEPSEEK_TRAIN_LAYERS = 4
 #: bf16 dense peak of the card's tensor cores (the data sheet, 700 W): the
 #: operations bound of the bf16 serving phases
 BF16_FLOPS = 989e12
@@ -2360,56 +2394,88 @@ class DropCensus:
 
 
 def _with_capacity(cfg, capacity_factor: float):
-    """``cfg`` with every MoE layer at ``capacity_factor``."""
+    """``cfg`` with every MoE layer at ``capacity_factor`` (dense layers
+    kept)."""
     import dataclasses
 
-    return cfg.replace(layers=tuple(dataclasses.replace(l, moe=dataclasses.replace(
-        l.moe, capacity_factor=capacity_factor)) for l in cfg.layers))
+    return cfg.replace(layers=tuple(l if l.moe is None else dataclasses.replace(
+        l, moe=dataclasses.replace(l.moe, capacity_factor=capacity_factor))
+        for l in cfg.layers))
+
+
+def _layer_work(cfg, spec) -> tuple:
+    """One layer's (weights every token multiplies, cache values per
+    position, prefill operations per attention pair, decode operations per
+    cached slot, weights of one expert).  Attention: the Q/K/V/O
+    projections, K/V rows, QK and PV products over the heads.  MLA: every
+    projection of the mixer (the absorbed decode multiplies ``wk_b`` and
+    ``wv_b`` once per token as the expansion does), the latent ``c_kv``
+    plus ``k_r`` rows, the expanded products (nope + rope scores, v) in
+    prefill and the latent ones (latent + rope scores, latent PV) in
+    decode.  A MoE FFN: the router and the shared experts for every
+    token, one expert per kept assignment."""
+    d, h = cfg.d_model, cfg.n_heads
+    if spec.mixer == "mla":
+        m = cfg.mla
+        attn = (d * m.q_lora_rank + m.q_lora_rank * h * (m.qk_nope_head_dim + m.qk_rope_head_dim)
+                + d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                + m.kv_lora_rank * h * (m.qk_nope_head_dim + m.v_head_dim) + h * m.v_head_dim * d)
+        row = m.kv_lora_rank + m.qk_rope_head_dim
+        pair_prefill = 2 * h * (m.qk_nope_head_dim + m.qk_rope_head_dim + m.v_head_dim)
+        pair_decode = 2 * h * (2 * m.kv_lora_rank + m.qk_rope_head_dim)
+    else:
+        hd = h * cfg.head_dim
+        attn = 2 * d * hd + 2 * d * cfg.n_kv_heads * cfg.head_dim
+        row = 2 * cfg.n_kv_heads * cfg.head_dim
+        pair_prefill = pair_decode = 4 * hd
+    if spec.moe is None:
+        ffn, expert = 3 * d * cfg.d_ff, 0
+    else:
+        ffn = d * spec.moe.num_experts + 3 * d * spec.moe.d_ff * spec.moe.num_shared
+        expert = 3 * d * spec.moe.d_ff
+    return attn + ffn, row, pair_prefill, pair_decode, expert
 
 
 def _serve_times(tag, cfg, model, slab, prompt, expert_tokens=(0, 0)) -> dict:
     """Prefill of ``prompt`` (B = 1) and one ``decode_step`` of the whole
-    ``slab`` (one run of layers; every row at its last position),
-    host-inclusive and device-only, beside their bounds: the bytes (the
-    fp32 weights read once — of the embedding table only the rows looked
-    up — the K/V written or read, the logits written) over the memory
-    rate, and the operations of the matmuls and of the attention pairs
-    the causal window needs over the bf16 tensor-core peak.  A MoE layer
-    multiplies every token by its router and each kept assignment by one
-    expert: ``expert_tokens`` (prefill, decode) counts those."""
+    ``slab`` (every row at its last position), host-inclusive and
+    device-only, beside their bounds: the bytes (the fp32 weights read
+    once — of the embedding table only the rows looked up — the cache
+    rows written or read, the logits written) over the memory rate, and
+    the operations of the matmuls and of the attention pairs the causal
+    window needs (``_layer_work``) over the bf16 tensor-core peak.  A MoE
+    layer multiplies each kept assignment by one expert:
+    ``expert_tokens`` (prefill, decode) counts those."""
     import torch
 
     from repro_torch.models.model import decode_step, prefill
 
     n_params = sum(t.numel() for t in model.leaves())
-    d, L, vocab, spec = cfg.d_model, cfg.n_layers, cfg.vocab, cfg.layers[0]
+    d, vocab, spec = cfg.d_model, cfg.vocab, cfg.layers[0]
     s = prompt.shape[1]
-    b, cap = slab[0]["k"].shape[1], slab[0]["k"].shape[2]
-    kv_row = L * 2 * cfg.n_kv_heads * cfg.head_dim  # K/V entries per position
-    hd = cfg.n_heads * cfg.head_dim
-    attn = 2 * d * hd + 2 * d * cfg.n_kv_heads * cfg.head_dim
-    if spec.moe is None:
-        ffn, expert = 3 * d * cfg.d_ff, 0
-    else:
-        ffn, expert = d * spec.moe.num_experts, 3 * d * spec.moe.d_ff
-    per_token = L * (attn + ffn) + d * vocab  # weights every token multiplies
+    b = slab[0]["pos"].shape[-1]
+    cap = slab[0]["c_kv"].shape[-2] if "c_kv" in slab[0] else slab[0]["k"].shape[-3]
+    work = [_layer_work(cfg, l) for l in cfg.layers]
+    kv_row = sum(w[1] for w in work)  # cache entries per position
+    per_token = sum(w[0] for w in work) + d * vocab  # weights every token multiplies
+    expert = max(w[4] for w in work)
     window = spec.window or s
     pairs = sum(min(q + 1, window) for q in range(s))  # causal, windowed
     tok = torch.from_numpy(prompt).cuda()
     tokens = torch.arange(1, b + 1, device="cuda")[:, None]
-    work = [{k: v.clone() for k, v in seg.items()} for seg in slab]
-    for seg in work:
+    caches = [{k: v.clone() for k, v in seg.items()} for seg in slab]
+    for seg in caches:
         seg["pos"].fill_(cap - 1)
     weights = 4 * (n_params - vocab * d)  # the embedding table: its rows only
     cases = {
         "prefill": (lambda: prefill(cfg, model, tok, target_len=cap),
                     weights + 4 * s * d + 2 * kv_row * s + 4 * s * vocab,
-                    2 * per_token * s + 2 * expert * expert_tokens[0] + 4 * L * hd * pairs,
-                    f"S={s} B=1"),
-        "decode_step": (lambda: decode_step(cfg, model, work, tokens),
+                    2 * per_token * s + 2 * expert * expert_tokens[0]
+                    + sum(w[2] for w in work) * pairs, f"S={s} B=1"),
+        "decode_step": (lambda: decode_step(cfg, model, caches, tokens),
                         weights + 4 * b * d + 2 * kv_row * b * cap + 4 * b * vocab,
-                        2 * per_token * b + 2 * expert * expert_tokens[1] + 4 * L * hd * b * cap,
-                        f"B={b} cap={cap}")}
+                        2 * per_token * b + 2 * expert * expert_tokens[1]
+                        + sum(w[3] for w in work) * b * cap, f"B={b} cap={cap}")}
     out = {}
     for name, (fn, n_bytes, n_ops, shape) in cases.items():
         times = {"ms": time_ms(fn, 5), "device_ms": device_ms(fn, 3)}
@@ -2421,7 +2487,7 @@ def _serve_times(tag, cfg, model, slab, prompt, expert_tokens=(0, 0)) -> dict:
             f"{times['device_ms']:.4f} ms, bound {times['bound_ms']:.4f} ms ({times['bound_by']}; "
             f"bytes {bytes_ms:.4f}, operations {ops_ms:.4f}); share of bound (device-only) "
             f"{times['bound_ms'] / times['device_ms']:.3f}")
-    del work
+    del caches
     return out
 
 
@@ -2466,21 +2532,26 @@ def phase_qwen_serve():
     return out
 
 
-def _moe_teacher_forcing(tag, cfg, model, outputs, s: int) -> dict:
+def _moe_teacher_forcing(tag, cfg, model, outputs, s: int, bf16_activations: bool = True,
+                         gate: bool = True) -> dict:
     """Teacher forcing of a MoE model, one row per call (a batch of rows
     would change the capacity of the full-sequence prefill): the decode
     logits of a row against the prefill logits of its tokens agree only
     when neither the prompt's prefill nor the full one dropped an
     assignment, so the bound applies to the rows whose calls dropped
-    nothing (counted by ``DropCensus``).  Rows 0-1 run the config's bf16
-    on a bf16 slab, row 2 fp32 on an fp32 slab."""
+    nothing (counted by ``DropCensus``).  Rows 0-1 run on a bf16 slab with
+    the config's bf16 activations (or fp32 ones when ``bf16_activations``
+    is False: the slab's rounding alone), row 2 fp32 on an fp32 slab;
+    with ``gate`` False the errors are measured and not held to a
+    bound."""
     import numpy as np
     import torch
 
     toks = torch.from_numpy(np.stack(outputs).astype(np.int64)).cuda()
+    act = cfg if bf16_activations else cfg.replace(dtype="float32")
     rows, gated = [], {}
     for i in range(toks.shape[0]):
-        c, dt = (cfg, torch.bfloat16) if i < 2 else (cfg.replace(dtype="float32"), torch.float32)
+        c, dt = (act, torch.bfloat16) if i < 2 else (cfg.replace(dtype="float32"), torch.float32)
         with DropCensus() as census:
             got, want = teacher_forced_tokens(c, model, toks[i:i + 1], s, dt, "cuda")
         err, dropped = _rel_err(got, want), census.dropped()
@@ -2488,16 +2559,17 @@ def _moe_teacher_forcing(tag, cfg, model, outputs, s: int) -> dict:
         if decode_drops:
             raise AssertionError(f"[{tag}] a batch-1 decode step dropped {decode_drops}")
         bound = SERVE_BF16_REL if dt == torch.bfloat16 else SERVE_FP32_REL
-        rows.append((i, str(dt).split(".")[-1], dropped, err))
-        if dropped == 0:
+        rows.append((i, f"{c.dtype} on a {str(dt).split('.')[-1]} slab", dropped, err))
+        if dropped == 0 and gate:
             gated[i] = err
             if not err <= bound:
                 raise AssertionError(f"[{tag}] teacher-forced logits of row {i} ({dt}): "
                                      f"{err:.3e} (bound {bound})")
         del got, want
     log(f"[{tag}] teacher forcing over {toks.shape[1] - s - 1} decode steps, one row per call "
-        f"(request, dtype, assignments dropped by its two prefills, error of the largest "
-        f"logit): {rows}; the bound held on the {len(gated)} rows that dropped nothing")
+        f"(request, activations and slab, assignments dropped by its two prefills, error of "
+        f"the largest logit): {rows}; " + (f"the bound held on the {len(gated)} rows that "
+                                          "dropped nothing" if gate else "measured, not gated"))
     return {"rows": rows, "gated": gated}
 
 
@@ -2656,6 +2728,186 @@ def phase_moe_train():
     return {"launches": launches["gc_fused"], "gaps": gaps, "dropped": dropped}
 
 
+# ------------------------------------------------------------------ DeepSeek-V3
+def phase_deepseek_serve():
+    """Full-width deepseek-v3-671b (MLA with ranks 1536/512, nope 128,
+    rope 64, v 128 over 128 heads; sigmoid top-8 of 256 experts plus one
+    shared; vocab 129,280, an untied head, bf16 activations) cut to its
+    first 4 of 61 layers (3 dense, 1 MoE at the published capacity factor
+    1.25), in a ``ServeEngine``: 16 requests of 512-token prompts, 32 new
+    tokens each (``_serve_run``'s gates).  The slab holds the latent
+    ``c_kv``/``k_r`` rows only: its bytes per token beside the K/V of
+    plain attention over the same heads.  The census of dropped
+    assignments (each prompt's prefill may drop; one 8-slot decode step,
+    capacity 8, cannot), prefill and ``decode_step`` times against their
+    bounds, and teacher forcing one row per call: fp32 activations on a
+    bf16 slab (2e-2) and fp32 on fp32 (1e-4), on the drop-free rows at
+    capacity 1.25 and on every row at capacity factor 32 (experts / top-k:
+    nothing can drop); the config's bf16 activations measured beside
+    them, not gated (the absorbed decode rounds at other points than the
+    expanded prefill)."""
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.models.model import decode_step, prefill
+    from repro_torch.models.params import GCLM
+
+    _free_card()
+    g = DEEPSEEK_SERVE
+    cfg = _cut("deepseek-v3-671b", g["n_layers"], mtp_depth=0)
+    spec = cfg.layers[-1].moe
+    model = GCLM(cfg, device="cuda", seed=0)
+    run = _serve_run("deepseek-serve", cfg, model, g)
+    eng, reqs = run["eng"], run["reqs"]
+    slab_bytes = sum(v.element_size() * v.shape[-1] * (v.shape[0] if v.ndim == 4 else 1)
+                     for seg in eng.slab for k, v in seg.items() if k != "pos")
+    item = eng.slab[0]["c_kv"].element_size()
+    mha_bytes = cfg.n_layers * 2 * cfg.n_heads * cfg.head_dim * item
+    latent_bytes = cfg.n_layers * (cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim) * item
+    if sorted(eng.slab[0]) != ["c_kv", "k_r", "pos"] or slab_bytes != latent_bytes:
+        raise AssertionError(f"[deepseek-serve] the slab is not the latent cache: "
+                             f"{[{k: tuple(v.shape) for k, v in seg.items()} for seg in eng.slab]}")
+    log(f"[deepseek-serve] slab {slab_bytes} bytes per token ({cfg.n_layers} layers x "
+        f"(c_kv {cfg.mla.kv_lora_rank} + k_r {cfg.mla.qk_rope_head_dim}) bf16) against "
+        f"{mha_bytes} for plain attention's K/V over the same {cfg.n_heads} heads "
+        f"({mha_bytes / slab_bytes:.1f}x)")
+
+    per_request = []
+    with torch.no_grad():
+        for r in reqs:
+            with DropCensus() as census:
+                prefill(cfg, model, torch.from_numpy(r.prompt[None].astype("int64")).cuda())
+            per_request.append(census.dropped())
+        slab = [{k: v.clone() for k, v in seg.items()} for seg in eng.slab]
+        with DropCensus() as census:
+            decode_step(cfg, model, slab, torch.arange(1, g["n_slots"] + 1, device="cuda")[:, None])
+        del slab
+    if moe.capacity(g["n_slots"], spec) != g["n_slots"] or census.dropped():
+        raise AssertionError(f"[deepseek-serve] a decode step over {g['n_slots']} slots dropped "
+                             f"{census.dropped()} (capacity {moe.capacity(g['n_slots'], spec)})")
+    n_moe = sum(1 for l in cfg.layers if l.moe is not None)
+    log(f"[deepseek-serve] census at capacity factor {spec.capacity_factor}: prefill of "
+        f"{g['prompt_len']} tokens, capacity {moe.capacity(g['prompt_len'], spec)} per expert: "
+        f"{sum(1 for d in per_request if d)} of {len(reqs)} prefills dropped assignments "
+        f"({sum(per_request)} of {len(reqs) * n_moe * g['prompt_len'] * spec.top_k}; by "
+        f"request {per_request}); a decode step of the {g['n_slots']}-slot slab (capacity "
+        f"{moe.capacity(g['n_slots'], spec)}) dropped 0")
+
+    kept = n_moe * g["prompt_len"] * spec.top_k - per_request[0]
+    times = _serve_times("deepseek-serve", cfg, model, eng.slab, run["prompts"][:1],
+                         expert_tokens=(kept, n_moe * g["n_slots"] * spec.top_k))
+    tokens_per_s, peak = run["tokens_per_s"], run["peak"]
+    del run, eng
+    outputs = [r.output for r in reqs[:3]]
+    published = _moe_teacher_forcing("deepseek-serve", cfg, model, outputs, g["prompt_len"],
+                                     bf16_activations=False)
+    roomy = _with_capacity(cfg, spec.num_experts / spec.top_k)
+    full = _moe_teacher_forcing("deepseek-serve", roomy, model, outputs, g["prompt_len"],
+                                bf16_activations=False)
+    if len(full["gated"]) != 3:
+        raise AssertionError(f"[deepseek-serve] capacity factor "
+                             f"{spec.num_experts / spec.top_k} dropped assignments: {full['rows']}")
+    bf16 = _moe_teacher_forcing("deepseek-serve", roomy, model, outputs[:2], g["prompt_len"],
+                                gate=False)
+    log(f"[deepseek-serve] max_memory_allocated during the engine run {peak} bytes "
+        f"({peak / 1e9:.2f} GB; the weights 60.44 GB fp32 plus one 7.52 GB expert cast)")
+    del model
+    _free_card()
+    return {"tokens_per_s": tokens_per_s, "dropped": per_request, "peak": peak,
+            "slab_bytes_per_token": slab_bytes,
+            "gated_published": len(published["gated"]),
+            "bf16_activations": [row[-1] for row in bf16["rows"]], **times}
+
+
+def phase_deepseek_train():
+    """Coded training of ``deepseek-v3-671b.reduced(n_layers=4)`` (d_model
+    256: 3 dense MLA layers and 1 MoE layer, sigmoid top-2 of 4 with one
+    shared expert, MTP depth 1; full width does not fit: PERF.md) in sim
+    mode with the gc-lm-110m plan settings (N = 4, ``xf``, s_max = 3, seq
+    256, global batch 8).  At step 0 the coded gradient equals the uncoded
+    one (``EXACT_RTOL`` per leaf, the MTP module's leaves included) with 0
+    and s_max stragglers.  ``Trainer.run`` for 3 steps with the counts set
+    to 0 just before: one grouped ``gc_fused`` call per step (its 52
+    leaves in launches of at most 32: 2 launches), finite ``loss``,
+    ``xent``, ``aux`` and ``mtp`` with loss = xent + 0.3 · mtp + aux.  On
+    the card: ``remat="full"`` bit-equal to ``"none"``, and two runs of one
+    forward+backward byte-equal."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import ShiftedExponential
+    from repro_torch.data.pipeline import coded_worker_batches
+    from repro_torch.kernels import _pipe
+    from repro_torch.models.model import train_loss
+    from repro_torch.train.coded import combine_rows, per_shard_grad_rows, uncoded_grad_fn
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    _free_card()
+    cfg = get_config("deepseek-v3-671b").reduced(n_layers=DEEPSEEK_TRAIN_LAYERS)
+    trainer = Trainer(cfg, TrainConfig(lr=3e-4, warmup=10, total_steps=300),
+                      ShiftedExponential(mu=1e-3, t0=50.0), n_workers=4, scheme="xf",
+                      global_batch=8, seed=0, device="cuda", seq_len=256)
+    plan, model, n = trainer.plan, trainer.state.params, trainer.n_workers
+    paths = model.leaf_paths()
+    mtp = [p for p in paths if p.startswith("mtp.")]
+    if not mtp or [l.moe is None for l in cfg.layers] != [True, True, True, False]:
+        raise AssertionError(f"[deepseek-train] expected 3 dense + 1 MoE layer and MTP leaves: "
+                             f"{[l.moe is None for l in cfg.layers]}, {mtp}")
+    wb = coded_worker_batches(trainer.data, 0, n, plan.s_max)
+    shards = np.stack([trainer.data.shard(0, i, n) for i in range(n)])
+    rows = per_shard_grad_rows(cfg, model, wb)
+    g_ref = uncoded_grad_fn(cfg, n)(model, shards)
+    gaps = {u: _worst_rel(combine_rows(plan, rows, _straggler_dec_w(plan, u)), g_ref, paths,
+                          EXACT_RTOL, f"[deepseek-train] coded != uncoded, {u} stragglers")
+            for u in (0, plan.s_max)}
+    del rows, g_ref
+    log(f"[deepseek-train] deepseek-v3-671b reduced ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, MLA {cfg.mla.q_lora_rank}/{cfg.mla.kv_lora_rank}, "
+        f"{cfg.layers[-1].moe.num_experts} experts top-{cfg.layers[-1].moe.top_k}, MTP depth "
+        f"{cfg.mtp_depth}): {sum(t.numel() for t in model.leaves())} params in {len(paths)} "
+        f"leaves ({len(mtp)} of MTP), N*K={n * plan.k_shards}; step 0, coded == uncoded, worst "
+        f"leaf relative max error at 0 / s_max stragglers: {gaps[0]:.3e} / "
+        f"{gaps[plan.s_max]:.3e} (bound {EXACT_RTOL})")
+
+    # one grouped combine per step; a launch holds at most MAX_LEAVES leaves
+    per_step = -(-len(paths) // _pipe.MAX_LEAVES)
+    reset_counts()
+    trainer.run(STEPS, log_every=1, log_fn=lambda m: log(f"[deepseek-train] {m}"))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    hist = trainer.history
+    if launches != {"gc_fused": STEPS * per_step, "gc_encode": 0, "gc_decode": 0}:
+        raise AssertionError(f"[deepseek-train] launches {launches} in {STEPS} steps, expected "
+                             f"one grouped gc_fused call per step: {per_step} launches of at "
+                             f"most {_pipe.MAX_LEAVES} of the {len(paths)} leaves")
+    keys = ("loss", "xent", "aux", "mtp")
+    if not all(all(math.isfinite(h[k]) for k in keys) and h["aux"] > 0 and h["mtp"] > 0
+               and abs(h["loss"] - h["xent"] - 0.3 * h["mtp"] - h["aux"]) <= 1e-5 * h["loss"]
+               for h in hist):
+        raise AssertionError(f"[deepseek-train] metrics {[[h.get(k) for k in keys] for h in hist]}")
+
+    tokens = torch.as_tensor(wb[0, 0], device="cuda")
+
+    def grads(c):
+        loss, _ = train_loss(c, model, {"tokens": tokens})
+        return [loss, *torch.autograd.grad(loss, model.leaves())]
+
+    for a, b in zip(grads(cfg), grads(cfg.replace(remat="full")), strict=True):
+        if not torch.equal(a, b):
+            raise AssertionError("[deepseek-train] remat='full' is not bit-equal to 'none'")
+    for a, b in zip(grads(cfg), grads(cfg), strict=True):
+        if not torch.equal(a, b):
+            raise AssertionError("[deepseek-train] two runs of one forward+backward differ")
+    log(f"[deepseek-train] {STEPS} steps, (loss, xent, aux, mtp) "
+        f"{[tuple(h[k] for k in keys) for h in hist]}, launches {launches} ({per_step} per "
+        f"step: {len(paths)} leaves in launches of at most {_pipe.MAX_LEAVES}); remat 'full' "
+        "bit-equal to 'none'; two forward+backward runs byte-equal")
+    del trainer, model
+    _free_card()
+    return {"launches": launches["gc_fused"], "gaps": gaps}
+
+
 def main() -> int:
     try:
         import torch
@@ -2708,6 +2960,8 @@ def main() -> int:
     timed("qwen-serve", phase_qwen_serve)
     timed("mixtral-serve", phase_mixtral_serve)
     moe_train = timed("moe-train", phase_moe_train)
+    timed("deepseek-serve", phase_deepseek_serve)
+    deepseek = timed("deepseek-train", phase_deepseek_train)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s; seconds by "
         f"phase {spent}")
 
@@ -2723,7 +2977,7 @@ def main() -> int:
     fused_launches = {"train": launches["gc_fused"], "adapt": adapt_launches["gc_fused"],
                       "wave": wave_launches["gc_fused"], "tune": tune_launches["gc_fused"],
                       "spmd": spmd_launches, "gemma": gemma["launches"],
-                      "moe": moe_train["launches"]}
+                      "moe": moe_train["launches"], "deepseek": deepseek["launches"]}
     print(json.dumps({"kernels": [
         row("gc_fused", "src/repro/kernels/gc_fused.py:57", sum(fused_launches.values()),
             max(max_err, gemma["max_abs_err"]), kernel_times, launches_by_path=fused_launches,

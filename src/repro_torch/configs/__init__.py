@@ -1,8 +1,9 @@
 """Model configs of the port (the registry holds ``gc-lm-110m``, the
-Gemma family — ``gemma-2b``, ``gemma2-27b``, ``gemma3-27b`` — and
-``qwen1.5-32b`` and ``mixtral-8x22b``)."""
-from . import (gc_lm_110m, gemma2_27b, gemma3_27b, gemma_2b,  # noqa: F401  (registers)
-               mixtral_8x22b, qwen15_32b)
-from .base import LayerSpec, ModelConfig, MoESpec, get_config, list_archs, register
+Gemma family — ``gemma-2b``, ``gemma2-27b``, ``gemma3-27b`` —
+``qwen1.5-32b``, ``mixtral-8x22b`` and ``deepseek-v3-671b``)."""
+from . import (deepseek_v3_671b, gc_lm_110m, gemma2_27b,  # noqa: F401  (registers)
+               gemma3_27b, gemma_2b, mixtral_8x22b, qwen15_32b)
+from .base import (LayerSpec, MLASpec, ModelConfig, MoESpec, get_config, list_archs,
+                   register)
 
-__all__ = ["LayerSpec", "ModelConfig", "MoESpec", "get_config", "list_archs", "register"]
+__all__ = ["LayerSpec", "MLASpec", "ModelConfig", "MoESpec", "get_config", "list_archs", "register"]

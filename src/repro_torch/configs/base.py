@@ -2,13 +2,15 @@
 registry.
 
 Copied from ``repro/configs/base.py`` and trimmed to what the port
-runs: a layer is an attention mixer (global, or a sliding window) plus a
-dense or mixture-of-experts FFN (``MoESpec``), with the Gemma family's
-softcaps, QK-norm, sandwich norms, embedding scale and GeGLU, and Qwen's
-QKV biases and untied head.  The fields that select features of other
-families (MTP, layer norm, ungated MLPs) are kept with their reference
-defaults so a config says what it needs, and the model raises
-``NotImplementedError`` naming the ROADMAP item when one is set.
+runs: a layer is an attention mixer (global, or a sliding window) or
+DeepSeek's multi-head latent attention (``MLASpec``) plus a dense or
+mixture-of-experts FFN (``MoESpec``), with the Gemma family's softcaps,
+QK-norm, sandwich norms, embedding scale and GeGLU, Qwen's QKV biases
+and untied head, and DeepSeek-V3's multi-token prediction
+(``mtp_depth``).  The fields that select features of other families
+(layer norm, ungated MLPs) are kept with their reference defaults so a
+config says what it needs, and the model raises ``NotImplementedError``
+naming the ROADMAP item when one is set.
 ``reduced()`` gives the reference's smoke-test shapes.
 """
 from __future__ import annotations
@@ -17,7 +19,7 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Optional
 
-__all__ = ["MoESpec", "LayerSpec", "ModelConfig", "register", "get_config", "list_archs"]
+__all__ = ["MoESpec", "MLASpec", "LayerSpec", "ModelConfig", "register", "get_config", "list_archs"]
 
 
 @dataclass(frozen=True)
@@ -29,6 +31,17 @@ class MoESpec:
     capacity_factor: float = 1.25
     router: str = "softmax"  # 'softmax' | 'sigmoid' (deepseek-v3)
     aux_loss_coef: float = 0.01
+
+
+@dataclass(frozen=True)
+class MLASpec:
+    """DeepSeek multi-head latent attention."""
+
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
 
 
 @dataclass(frozen=True)
@@ -67,6 +80,7 @@ class ModelConfig:
     post_norm: bool = False
     tie_embeddings: bool = True
     scale_embed: bool = False
+    mla: Optional[MLASpec] = None
     mtp_depth: int = 0
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
@@ -118,7 +132,7 @@ class ModelConfig:
             return dataclasses.replace(l, moe=moe, window=window)
 
         layers = tuple(shrink_layer(l) for l in self.layers[:n_layers])
-        return self.replace(
+        kw = dict(
             n_layers=n_layers,
             d_model=d_model,
             n_heads=n_heads,
@@ -134,6 +148,12 @@ class ModelConfig:
             dtype="float32",
             mtp_depth=min(self.mtp_depth, 1),
         )
+        if self.mla is not None:
+            kw["mla"] = MLASpec(
+                q_lora_rank=64, kv_lora_rank=32, qk_nope_head_dim=head_dim,
+                qk_rope_head_dim=16, v_head_dim=head_dim,
+            )
+        return self.replace(**kw)
 
 
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
@@ -152,7 +172,7 @@ def get_config(arch_id: str) -> ModelConfig:
 
     if arch_id not in _REGISTRY:
         raise KeyError(f"unknown arch '{arch_id}'; the port has: "
-                       f"{sorted(_REGISTRY)} (DeepSeek, Jamba, xLSTM, vision and audio "
+                       f"{sorted(_REGISTRY)} (Jamba, xLSTM, vision and audio "
                        "families: ROADMAP 1.9)")
     return _REGISTRY[arch_id]()
 

@@ -1,20 +1,23 @@
 """The decoder LM, after ``repro/models/model.py``: ``forward`` in
-training, prefill or decode mode, ``train_loss`` (cross-entropy plus the
-MoE load-balance loss), and the serving entry points ``prefill``,
-``decode_step`` and ``init_decode_caches`` — gc-lm-110m, the Gemma
-family, Qwen 1.5 and Mixtral (the embedding scale, the untied head and
-the final softcap live in ``layers.py``, the MoE FFN in ``moe.py``);
-MTP, encoders and vision are ROADMAP 1.9."""
+training, prefill or decode mode, ``train_loss`` (cross-entropy, the
+MoE load-balance loss and DeepSeek-V3's multi-token prediction loss),
+and the serving entry points ``prefill``, ``decode_step`` and
+``init_decode_caches`` — gc-lm-110m, the Gemma family, Qwen 1.5,
+Mixtral and DeepSeek-V3 (the embedding scale, the untied head and the
+final softcap live in ``layers.py``, the MoE FFN in ``moe.py``, MLA in
+``mla.py``); encoders and vision are ROADMAP 1.9."""
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from .blocks import apply_layer
 from .layers import embed_tokens, rms_norm, unembed
-from .stack import apply_stack, init_stack_caches
+from .stack import _tree, apply_stack, init_stack_caches
 
 __all__ = ["forward", "train_loss", "prefill", "decode_step", "init_decode_caches"]
 
@@ -53,18 +56,45 @@ def _as_tokens(tokens, device):
 
 def train_loss(cfg, model, batch):
     """batch: {"tokens": (B, S+1)} (+ optional "mask").  Returns
-    (loss, metrics) with the reference's metric names."""
+    (loss, metrics) with the reference's metric names: ``xent``, ``aux``,
+    ``mtp`` when the model predicts more tokens (``cfg.mtp_depth`` and
+    more than 2 tokens per row), and ``loss`` = xent + 0.3 · mtp / depth
+    + aux."""
     tokens = _as_tokens(batch["tokens"], model.embed.tok.device)
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
-    logits, _, aux, _ = forward(cfg, model, inputs)
+    logits, _, aux, hidden = forward(cfg, model, inputs)
     mask = batch.get("mask")
     if mask is not None:
         mask = torch.as_tensor(mask, device=logits.device)[:, 1:].float()
     loss = _xent(logits, labels, mask)
     metrics = {"xent": loss, "aux": aux}
+    if cfg.mtp_depth and tokens.shape[1] > 2:
+        metrics["mtp"] = _mtp_loss(cfg, model, tokens, hidden)
+        loss = loss + 0.3 * metrics["mtp"] / cfg.mtp_depth
     loss = loss + aux
     metrics["loss"] = loss
     return loss, metrics
+
+
+def _mtp_loss(cfg, model, tokens, hidden):
+    """DeepSeek-V3 multi-token prediction: depth k predicts token t+1+k
+    from ``[norm_h(h_t) ; norm_e(emb(t+k))]`` through ``proj``, one extra
+    layer (the last layer's spec with a dense FFN; outside the stack, no
+    remat) and the shared final norm and head; sequential over depth, the
+    cross-entropies summed in fp32."""
+    spec = dataclasses.replace(cfg.layers[-1], moe=None)
+    embed = dict(model.embed.named_parameters())
+    h, total = hidden, torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for k, node in enumerate(model.mtp, start=1):
+        mp = _tree(node)
+        emb_next = embed_tokens(cfg, model.embed.tok, tokens[:, k:-1])
+        merged = torch.cat([rms_norm(h[:, :emb_next.shape[1]], mp["norm_h"]["scale"]),
+                            rms_norm(emb_next, mp["norm_e"]["scale"])], dim=-1)
+        h = torch.einsum("bsd,de->bse", merged, mp["proj"].to(merged.dtype))
+        h, _, _ = apply_layer(cfg, mp["layer"], h, spec)
+        logits = unembed(cfg, embed, rms_norm(h, model.final_norm.scale))
+        total = total + _xent(logits, tokens[:, 1 + k:])
+    return total
 
 
 # ---------------------------------------------------------------- serving

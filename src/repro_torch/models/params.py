@@ -1,7 +1,7 @@
 """The parameter tree of the decoder LM as an ``nn.Module``.
 
 Parameter names are the reference's key paths (``embed.tok``,
-``stack.0.mixer.wq``, ...): a run of identical layers holds its leaves
+``stack.0.mixer.wq``, ``mtp.0.proj``, ...): a run of identical layers holds its leaves
 stacked along a leading ``(count, ...)`` axis, and a ``Pattern`` segment
 is an ``nn.ModuleList`` of p layer nodes, each stacked over the repeats
 (``stack.0.3.mixer.q_norm``), as ``repro/models/stack.py::init_stack``
@@ -17,7 +17,11 @@ NOT ``nn.Module`` registration order (ROADMAP 3.4): ``embed.tok`` before
 projections.  For gc-lm-110m that is the 11 leaves ``embed.tok``,
 ``final_norm.scale``, ``stack.0.ffn.{wg,wi,wo}``,
 ``stack.0.mixer.{wk,wo,wq,wv}``, ``stack.0.norm_ffn.scale``,
-``stack.0.norm_mix.scale``.
+``stack.0.norm_mix.scale``.  DeepSeek-V3's multi-token prediction
+modules (``mtp``, a list of ``{layer, norm_e, norm_h, proj}``) sort
+between ``final_norm`` and ``stack``; an MLA mixer's nine leaves sort as
+``kv_a_norm``, ``q_a_norm``, ``wk_b``, ``wk_rope``, ``wkv_a``, ``wo``,
+``wq_a``, ``wq_b``, ``wv_b``.
 
 Weights are drawn from a ``torch.Generator`` with the law of the
 reference's ``dense_init`` (truncated normal on [-2, 2], std 1/sqrt(fan_in)
@@ -27,6 +31,8 @@ of the per-layer shape: E·d for an expert's ``wi``/``wg`` of shape
 with ``params_from_numpy``.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -57,21 +63,17 @@ def _zeros(shape, device):
 def _layer_node(cfg, spec, count: int, device) -> ParamNode:
     """One layer's parameters; leaves carry a leading (count,) axis when
     the segment stacks more than one layer."""
-    if spec.mixer != "attn" or spec.cross_source or not spec.use_ffn:
+    if spec.mixer not in ("attn", "mla") or spec.cross_source or not spec.use_ffn:
         raise NotImplementedError(
-            f"layer {spec} is not ported yet: the port runs attention + dense or MoE "
-            "FFN layers (other mixers, cross-attention: ROADMAP 1.9)")
+            f"layer {spec} is not ported yet: the port runs attention or MLA + dense or "
+            "MoE FFN layers (other mixers, cross-attention: ROADMAP 1.9)")
     lead = (count,) if count > 1 else ()
-    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    d = cfg.d_model
 
     def z(*shape):
         return _zeros(lead + shape, device)
 
-    mixer = {"wq": z(d, h, dh), "wk": z(d, kv, dh), "wv": z(d, kv, dh), "wo": z(h, dh, d)}
-    if cfg.qkv_bias:
-        mixer.update(bq=z(h, dh), bk=z(kv, dh), bv=z(kv, dh))
-    if cfg.qk_norm:
-        mixer.update(q_norm=z(dh), k_norm=z(dh))
+    mixer = _mla_leaves(cfg, z) if spec.mixer == "mla" else _attn_leaves(cfg, z)
     children = {
         "norm_mix": ParamNode({"scale": z(d)}),
         "mixer": ParamNode(mixer),
@@ -82,6 +84,39 @@ def _layer_node(cfg, spec, count: int, device) -> ParamNode:
         children.update(norm_mix_post=ParamNode({"scale": z(d)}),
                         norm_ffn_post=ParamNode({"scale": z(d)}))
     return ParamNode(children=children)
+
+
+def _attn_leaves(cfg, z) -> dict:
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    mixer = {"wq": z(d, h, dh), "wk": z(d, kv, dh), "wv": z(d, kv, dh), "wo": z(h, dh, d)}
+    if cfg.qkv_bias:
+        mixer.update(bq=z(h, dh), bk=z(kv, dh), bv=z(kv, dh))
+    if cfg.qk_norm:
+        mixer.update(q_norm=z(dh), k_norm=z(dh))
+    return mixer
+
+
+def _mla_leaves(cfg, z) -> dict:
+    """``repro/models/mla.py::init_mla``'s nine leaves."""
+    m, d, h = cfg.mla, cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {"wq_a": z(d, m.q_lora_rank), "q_a_norm": z(m.q_lora_rank),
+            "wq_b": z(m.q_lora_rank, h, qk), "wkv_a": z(d, m.kv_lora_rank),
+            "kv_a_norm": z(m.kv_lora_rank), "wk_rope": z(d, m.qk_rope_head_dim),
+            "wk_b": z(m.kv_lora_rank, h, m.qk_nope_head_dim),
+            "wv_b": z(m.kv_lora_rank, h, m.v_head_dim), "wo": z(h, m.v_head_dim, d)}
+
+
+def _mtp_node(cfg, device) -> ParamNode:
+    """One multi-token prediction module (``repro/models/model.py``):
+    ``proj`` (2d, d), ``norm_h``, ``norm_e`` and one layer — the last
+    layer's spec with a dense FFN."""
+    d = cfg.d_model
+    spec = dataclasses.replace(cfg.layers[-1], moe=None)
+    return ParamNode({"proj": _zeros((2 * d, d), device)},
+                     {"layer": _layer_node(cfg, spec, 1, device),
+                      "norm_h": ParamNode({"scale": _zeros((d,), device)}),
+                      "norm_e": ParamNode({"scale": _zeros((d,), device)})})
 
 
 def _ffn_node(cfg, spec, z) -> ParamNode:
@@ -110,29 +145,29 @@ def _segment_node(cfg, seg, device) -> nn.Module:
 
 
 #: leaves the reference initializes to zero: rms-norm scales (which store
-#: scale - 1), the QK-norm scales and the QKV biases
-ZERO_INIT = ("scale", "q_norm", "k_norm", "bq", "bk", "bv")
+#: scale - 1), the QK-norm and MLA-norm scales and the QKV biases
+ZERO_INIT = ("scale", "q_norm", "k_norm", "q_a_norm", "kv_a_norm", "bq", "bk", "bv")
 
 
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for features outside what the port
-    runs (the dense, Gemma, Qwen and MoE paths)."""
+    runs (the dense, Gemma, Qwen, MoE and DeepSeek paths)."""
     unsupported = {
-        "mtp_depth": cfg.mtp_depth, "layer norm": cfg.norm != "rms",
+        "layer norm": cfg.norm != "rms",
         "ungated MLP": cfg.activation not in ("silu", "gelu"),
     }
     on = [k for k, v in unsupported.items() if v]
     if on:
         raise NotImplementedError(
-            f"{cfg.name}: {on} not ported yet (MTP, layer norm, ungated MLPs: "
-            "ROADMAP 1.9)")
+            f"{cfg.name}: {on} not ported yet (layer norm, ungated MLPs: ROADMAP 1.9)")
 
 
 class GCLM(nn.Module):
     """Decoder LM parameters: ``embed`` (``tok``, and ``unembed`` for an
     untied head), ``stack`` (one node per segment:
-    a run of identical layers, or a pattern's list of p layer nodes) and
-    ``final_norm``, initialized from ``seed``."""
+    a run of identical layers, or a pattern's list of p layer nodes),
+    ``final_norm`` and, when ``cfg.mtp_depth``, ``mtp`` (a list of
+    multi-token prediction modules), initialized from ``seed``."""
 
     def __init__(self, cfg, *, device="cuda", seed: int = 0):
         super().__init__()
@@ -146,6 +181,8 @@ class GCLM(nn.Module):
         self.stack = nn.ModuleList(_segment_node(cfg, seg, dev)
                                    for seg in plan_segments(cfg.layers))
         self.final_norm = ParamNode({"scale": _zeros((cfg.d_model,), dev)})
+        if cfg.mtp_depth:
+            self.mtp = nn.ModuleList(_mtp_node(cfg, dev) for _ in range(cfg.mtp_depth))
         if dev.type != "meta":  # a meta model carries shapes only
             self.reset_parameters(seed)
 
@@ -167,6 +204,8 @@ class GCLM(nn.Module):
         leaves = self.leaves() if leaves is None else list(leaves)
         out = {"stack": [[{} for _ in node] if isinstance(node, nn.ModuleList) else {}
                          for node in self.stack]}
+        if self.cfg.mtp_depth:
+            out["mtp"] = [{} for _ in self.mtp]
         for (path, _), leaf in zip(self.leaf_items(), leaves, strict=True):
             node = out
             for key in path[:-1]:

@@ -626,3 +626,61 @@ def test_qwen_bias_path_on_cuda_matches_cpu(cuda):
         got, _ = decode_step(cfg, gpu_model, c_gpu, toks[:, t:t + 1].cuda())
         want, _ = decode_step(cfg, cpu_model, c_cpu, toks[:, t:t + 1])
         _close_to_cpu(got, want, f"decode at {t}")
+
+
+def test_mla_layer_and_absorbed_decode_on_cuda_match_cpu(cuda):
+    """One MLA mixer of reduced DeepSeek-V3 on the card against the CPU from
+    the same weights, fp32: the layer's training output and gradients, a
+    48-token prefill (latent caches) and 8 absorbed decode steps at
+    per-row positions (the slab's layout), within 1e-4 of the largest."""
+    from repro_torch.models import mla
+
+    cfg = get_config("deepseek-v3-671b").reduced(n_layers=4, d_model=128, seq_cap=64)
+    spec = cfg.layers[0]
+    tree = params_to_numpy(GCLM(cfg, device="cpu", seed=0))
+    rng = np.random.default_rng(5)
+    p_np = {k: v[0] for k, v in tree["stack"][0]["mixer"].items()}
+    for name in ("q_a_norm", "kv_a_norm"):
+        p_np[name] = (0.1 * rng.standard_normal(p_np[name].shape)).astype(np.float32)
+    x_np = rng.standard_normal((2, 48, cfg.d_model)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", cuda):
+        p = {k: torch.tensor(v, device=dev, requires_grad=True) for k, v in p_np.items()}
+        x = torch.tensor(x_np, device=dev, requires_grad=True)
+        y, _ = mla.mla_forward(cfg, p, x, spec)
+        grads = torch.autograd.grad(y.square().sum(), [x, *p.values()])
+        with torch.no_grad():
+            _, cache = mla.mla_forward(cfg, p, x[:, :40], spec, mode="prefill", target_len=48)
+            cache["pos"] = torch.tensor([40, 33], dtype=torch.int32, device=dev)
+            steps = [mla.mla_forward(cfg, p, x[:, t:t + 1], spec, mode="decode",
+                                     cache=cache)[0] for t in range(40, 48)]
+        out[str(dev)] = (y, grads, steps, cache)
+    (y_c, g_c, s_c, c_c), (y_g, g_g, s_g, c_g) = out["cpu"], out[str(cuda)]
+    _close_to_cpu(y_g, y_c, "train out")
+    for i, (a, b) in enumerate(zip(g_g, g_c, strict=True)):
+        _close_to_cpu(a, b, f"grad {i}")
+    for t, (a, b) in enumerate(zip(s_g, s_c, strict=True)):
+        _close_to_cpu(a, b, f"decode step {t}")
+    for name in ("c_kv", "k_r"):
+        _close_to_cpu(c_g[name], c_c[name], name)
+    assert c_g["pos"].tolist() == [48, 41]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_deepseek_forward_backward_on_cuda_is_byte_equal(cuda, dtype):
+    """Two runs of reduced DeepSeek-V3's loss (cross-entropy, aux and MTP)
+    and every gradient on the card give the same bytes."""
+    from repro_torch.models.model import train_loss
+
+    cfg = get_config("deepseek-v3-671b").reduced(n_layers=4, d_model=128).replace(dtype=dtype)
+    model = GCLM(cfg, device="cuda", seed=0)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, size=(4, 129)))
+
+    def run():
+        loss, metrics = train_loss(cfg, model, {"tokens": toks.cuda()})
+        return [loss, metrics["aux"], metrics["mtp"], *torch.autograd.grad(loss, model.leaves())]
+
+    first, second = run(), run()
+    assert first[1].item() > 0 and first[2].item() > 0
+    for a, b in zip(first, second, strict=True):
+        assert torch.equal(a, b)

@@ -336,17 +336,19 @@ def test_reset_parameters_zero_inits_what_the_reference_does(arch):
 
 
 def test_unported_gemma_neighbours_raise():
-    """What the families still to port need raises: MTP, layer norm, the
-    ungated MLP, the MLA and Mamba mixers, and the DeepSeek and Jamba
-    configs.  Qwen's QKV bias and untied head and MoE FFNs are ported
-    (tests/test_torch_qwen.py, tests/test_torch_moe.py)."""
+    """What the families still to port need raises: layer norm, the
+    ungated MLP, the mLSTM, sLSTM and Mamba mixers, and the Jamba and
+    xLSTM configs.  Qwen's QKV bias and untied head, MoE FFNs and
+    DeepSeek's MLA and MTP are ported (tests/test_torch_qwen.py,
+    tests/test_torch_moe.py, tests/test_torch_deepseek.py)."""
     cfg = get_config("gemma-2b").reduced(**_kw("gemma-2b"))
-    for change in (dict(mtp_depth=1), dict(norm="layer"), dict(activation="gelu_mlp"),
-                   dict(layers=(dataclasses.replace(cfg.layers[0], mixer="mla"),) * 2),
+    for change in (dict(layers=(dataclasses.replace(cfg.layers[0], mixer="slstm"),) * 2),
+                   dict(norm="layer"), dict(activation="gelu_mlp"),
+                   dict(layers=(dataclasses.replace(cfg.layers[0], mixer="mlstm"),) * 2),
                    dict(layers=(dataclasses.replace(cfg.layers[0], mixer="mamba"),) * 2)):
         with pytest.raises(NotImplementedError, match="ROADMAP 1.9"):
             GCLM(cfg.replace(**change), device="meta")
-    for arch in ("deepseek-v3-671b", "jamba-v0.1-52b"):
+    for arch in ("xlstm-1.3b", "jamba-v0.1-52b"):
         with pytest.raises(KeyError, match="ROADMAP 1.9"):
             get_config(arch)
     GCLM(cfg.replace(qkv_bias=True, tie_embeddings=False), device="meta")

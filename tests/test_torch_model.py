@@ -176,13 +176,15 @@ def test_init_law_matches_dense_init():
 
 
 def test_unsupported_features_raise():
-    """Features of the families still to port (DeepSeek's MTP and MLA
-    mixer, Jamba's Mamba mixer, layer norm, ungated MLPs) raise; the
-    Gemma family's, Qwen's QKV bias and untied head and MoE FFNs are
-    ported (tests/test_torch_{gemma,qwen,moe}.py)."""
+    """Features of the families still to port (xLSTM's sLSTM and mLSTM
+    mixers, Jamba's Mamba mixer, layer norm, ungated MLPs) raise; the
+    Gemma family's, Qwen's QKV bias and untied head, MoE FFNs and
+    DeepSeek's MLA and MTP are ported
+    (tests/test_torch_{gemma,qwen,moe,deepseek}.py)."""
     cfg = get_config("gc-lm-110m").reduced(**KW)
-    for change in (dict(mtp_depth=1), dict(norm="layer"), dict(activation="gelu_mlp"),
-                   dict(layers=(dataclasses.replace(cfg.layers[0], mixer="mla"),) * 2),
+    for change in (dict(layers=(dataclasses.replace(cfg.layers[0], mixer="slstm"),) * 2),
+                   dict(norm="layer"), dict(activation="gelu_mlp"),
+                   dict(layers=(dataclasses.replace(cfg.layers[0], mixer="mlstm"),) * 2),
                    dict(layers=(dataclasses.replace(cfg.layers[0], mixer="mamba"),) * 2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             GCLM(cfg.replace(**change), device="meta")
