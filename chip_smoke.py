@@ -213,6 +213,28 @@ port's sources beside it.  Phases; any failure raises:
    32; finite loss, xent, aux and mtp); on the
    card ``remat="full"`` bit-equal to ``"none"`` and two runs of one
    forward+backward byte-equal.
+19. jamba-serve: full-width jamba-v0.1-52b (Mamba mixers of d_inner
+   8,192, d_state 16, dt_rank 256; global attention of 32 heads over 8
+   KV heads; 16 experts top-2 of d_ff 14,336 on the odd layers; vocab
+   65,536, an untied head, bf16 activations) cut to its first 8 of 32
+   layers (one period: 7 Mamba, attention at offset 4, 4 MoE at capacity
+   factor 1.25), 13,295,235,072 parameters: 16 requests of 2,048-token
+   prompts (two chunks of the online softmax, 8 scan chunks), 32 new
+   tokens, with 14's gates and times and a peak under 80 GB; the slab's
+   K/V bytes per token and its fixed Mamba state per slot (``h`` fp32 in
+   the bf16 slab); the census of 15; teacher forcing one row per call
+   with fp32 activations on a bf16 slab (2e-2) and fp32 on fp32 (1e-4) at
+   capacity factor 8 on every row, the rows drop-free at 1.25 printed;
+   the config's bf16 activations measured, not gated.
+20. jamba-train: coded training of ``jamba-v0.1-52b.reduced(n_layers=8)``
+   (7 Mamba layers and attention, 4 MoE layers, 114 leaves; one
+   full-width MoE layer's 16 fp32 rows would be 180 GB) with 2's plan
+   settings at seq 256 (4 scan chunks of 64): coded == uncoded at step 0
+   with 0 and s_max stragglers; 3 steps with the counts set to 0 just
+   before (one grouped ``gc_fused`` call per step: 4 launches of at most
+   32; finite loss, xent and aux); on the card ``remat="full"``
+   bit-equal to ``"none"`` and two runs of one forward+backward
+   byte-equal.
 
 The line before the last is the card's name and power limit; before it
 a JSON line lists every kernel with its launches, error and times; the
@@ -319,6 +341,19 @@ DEEPSEEK_SERVE = dict(n_layers=4, n_slots=8, n_requests=16, prompt_len=512, max_
 #: (``reduced()`` keeps the first n layers, and DeepSeek's first 3 are
 #: dense); a full-width MoE layer's 16 fp32 rows would be 736 GB
 DEEPSEEK_TRAIN_LAYERS = 4
+#: Jamba at its published widths, cut in depth only.
+#: [jamba-serve]: jamba-v0.1-52b at its first 8 of 32 layers (one period:
+#: seven Mamba layers, global attention at offset 4, MoE on the odd
+#: layers): 13,295,235,072 parameters, 53.18 GB fp32, plus the per-call
+#: bf16 cast of one (16, 4096, 14336) expert matrix, 1.88 GB, freed before
+#: the next; 2,048-token prompts, past the 1,024 ``attn_chunk`` and 8 scan
+#: chunks of 256
+JAMBA_SERVE = dict(n_layers=8, n_slots=8, n_requests=16, prompt_len=2048, max_new=32,
+                   rate=2e-3, workers=8)
+#: [jamba-train]: the reference's smoke shapes at 8 layers (one period, 114
+#: leaves: 4 launches of at most 32 per grouped combine); a full-width MoE
+#: layer's 16 fp32 rows would be 180 GB
+JAMBA_TRAIN_LAYERS = 8
 #: bf16 dense peak of the card's tensor cores (the data sheet, 700 W): the
 #: operations bound of the bf16 serving phases
 BF16_FLOPS = 989e12
@@ -1170,6 +1205,7 @@ def phase_tune():
     check_coded_equals_uncoded(trainer, "tune")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     reset_counts()
     t0 = time.perf_counter()
     trainer.run(STEPS, log_every=0)
@@ -1184,8 +1220,9 @@ def phase_tune():
         raise AssertionError(f"[tune] non-finite loss {losses}")
     peak, est = torch.cuda.max_memory_allocated(), best.mem.total
     log(f"[tune] {STEPS} steps in {wall:.2f} s, losses {losses}, launches {launches}; "
-        f"max_memory_allocated {peak} bytes against the tuner's per-worker estimate "
-        f"{est:.0f} bytes (ratio {peak / est:.4f}; sim mode holds all N·K rows on one card)")
+        f"max_memory_allocated {peak} bytes ({held} allocated when the steps began) against "
+        f"the tuner's per-worker estimate {est:.0f} bytes (ratio {peak / est:.4f}; sim mode "
+        "holds all N·K rows on one card)")
     del trainer
     torch.cuda.empty_cache()
     return launches
@@ -1873,6 +1910,7 @@ def phase_serve():
             for p, t in zip(prompts, arrivals)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     reset_counts()
     served_by = {}
     n_steps, prof, step_wall, walls = 0, None, None, []
@@ -1956,7 +1994,7 @@ def phase_serve():
         f"request {SERVE['max_new']} tokens, slots served "
         f"{sorted(len(v) for v in served_by.values())} "
         f"requests each; step latencies == the tier's stream; gc_* launches {counts}; "
-        f"max_memory_allocated {peak} bytes")
+        f"max_memory_allocated {peak} bytes ({held} allocated when the run began)")
     log(f"[serve] engine step wall, host clock (ms): first {walls[0]:.3f}, median "
         f"{statistics.median(walls):.3f}, mean {statistics.mean(walls):.3f}, max "
         f"{max(walls):.3f} over {len(walls)} unprofiled steps")
@@ -2412,10 +2450,17 @@ def _layer_work(cfg, spec) -> tuple:
     ``wv_b`` once per token as the expansion does), the latent ``c_kv``
     plus ``k_r`` rows, the expanded products (nope + rope scores, v) in
     prefill and the latent ones (latent + rope scores, latent PV) in
-    decode.  A MoE FFN: the router and the shared experts for every
-    token, one expert per kept assignment."""
+    decode.  Mamba: ``in_proj``, ``x_proj``, ``dt_proj`` and
+    ``out_proj``, no cache row.  A MoE FFN: the router and the shared
+    experts for every token, one expert per kept assignment."""
     d, h = cfg.d_model, cfg.n_heads
-    if spec.mixer == "mla":
+    if spec.mixer == "mamba":  # no cache row: a fixed state (``_mamba_state``)
+        from repro_torch.models.ssm import mamba_dims
+
+        m, di, r = mamba_dims(cfg)
+        attn = d * 2 * di + di * (r + 2 * m.d_state) + r * di + di * d
+        row = pair_prefill = pair_decode = 0
+    elif spec.mixer == "mla":
         m = cfg.mla
         attn = (d * m.q_lora_rank + m.q_lora_rank * h * (m.qk_nope_head_dim + m.qk_rope_head_dim)
                 + d * (m.kv_lora_rank + m.qk_rope_head_dim)
@@ -2436,6 +2481,23 @@ def _layer_work(cfg, spec) -> tuple:
     return attn + ffn, row, pair_prefill, pair_decode, expert
 
 
+def _mamba_state(cfg, slab) -> tuple:
+    """(bytes of one slot's state over the Mamba layers — ``conv`` at the
+    slab's width, ``h`` in fp32 — and the elementwise operations per token
+    of those layers: ~7 per state element for the scan — decay, input,
+    recurrence, readout — and 2 per tap and channel for the conv); (0, 0)
+    without Mamba layers."""
+    from repro_torch.models.ssm import mamba_dims
+
+    n = sum(1 for l in cfg.layers if l.mixer == "mamba")
+    if not n:
+        return 0, 0
+    m, di, _ = mamba_dims(cfg)
+    item = next(seg["conv"] for seg in slab if "conv" in seg).element_size()
+    return (n * ((m.d_conv - 1) * di * item + di * m.d_state * 4),
+            n * (7 * di * m.d_state + 2 * m.d_conv * di))
+
+
 def _serve_times(tag, cfg, model, slab, prompt, expert_tokens=(0, 0)) -> dict:
     """Prefill of ``prompt`` (B = 1) and one ``decode_step`` of the whole
     ``slab`` (every row at its last position), host-inclusive and
@@ -2445,7 +2507,10 @@ def _serve_times(tag, cfg, model, slab, prompt, expert_tokens=(0, 0)) -> dict:
     the operations of the matmuls and of the attention pairs the causal
     window needs (``_layer_work``) over the bf16 tensor-core peak.  A MoE
     layer multiplies each kept assignment by one expert:
-    ``expert_tokens`` (prefill, decode) counts those."""
+    ``expert_tokens`` (prefill, decode) counts those.  Mamba layers
+    (``_mamba_state``) add their state — written by the prefill, read and
+    written by a decode step — and their elementwise work at the fp32
+    rate."""
     import torch
 
     from repro_torch.models.model import decode_step, prefill
@@ -2454,7 +2519,9 @@ def _serve_times(tag, cfg, model, slab, prompt, expert_tokens=(0, 0)) -> dict:
     d, vocab, spec = cfg.d_model, cfg.vocab, cfg.layers[0]
     s = prompt.shape[1]
     b = slab[0]["pos"].shape[-1]
-    cap = slab[0]["c_kv"].shape[-2] if "c_kv" in slab[0] else slab[0]["k"].shape[-3]
+    kv = next(seg for seg in slab if "c_kv" in seg or "k" in seg)
+    cap = kv["c_kv"].shape[-2] if "c_kv" in kv else kv["k"].shape[-3]
+    state, scan_ops = _mamba_state(cfg, slab)
     work = [_layer_work(cfg, l) for l in cfg.layers]
     kv_row = sum(w[1] for w in work)  # cache entries per position
     per_token = sum(w[0] for w in work) + d * vocab  # weights every token multiplies
@@ -2469,17 +2536,19 @@ def _serve_times(tag, cfg, model, slab, prompt, expert_tokens=(0, 0)) -> dict:
     weights = 4 * (n_params - vocab * d)  # the embedding table: its rows only
     cases = {
         "prefill": (lambda: prefill(cfg, model, tok, target_len=cap),
-                    weights + 4 * s * d + 2 * kv_row * s + 4 * s * vocab,
+                    weights + 4 * s * d + 2 * kv_row * s + 4 * s * vocab + state,
                     2 * per_token * s + 2 * expert * expert_tokens[0]
-                    + sum(w[2] for w in work) * pairs, f"S={s} B=1"),
+                    + sum(w[2] for w in work) * pairs, scan_ops * s, f"S={s} B=1"),
         "decode_step": (lambda: decode_step(cfg, model, caches, tokens),
-                        weights + 4 * b * d + 2 * kv_row * b * cap + 4 * b * vocab,
+                        weights + 4 * b * d + 2 * kv_row * b * cap + 4 * b * vocab
+                        + 2 * state * b,
                         2 * per_token * b + 2 * expert * expert_tokens[1]
-                        + sum(w[3] for w in work) * b * cap, f"B={b} cap={cap}")}
+                        + sum(w[3] for w in work) * b * cap, scan_ops * b, f"B={b} cap={cap}")}
     out = {}
-    for name, (fn, n_bytes, n_ops, shape) in cases.items():
+    for name, (fn, n_bytes, n_ops, n_fp32, shape) in cases.items():
         times = {"ms": time_ms(fn, 5), "device_ms": device_ms(fn, 3)}
-        bytes_ms, ops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / BF16_FLOPS * 1e3
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = n_ops / BF16_FLOPS * 1e3 + n_fp32 / FP32_FLOPS * 1e3
         times.update(bound_ms=max(bytes_ms, ops_ms),
                      bound_by="bytes" if bytes_ms >= ops_ms else "operations")
         out[name] = times
@@ -2908,6 +2977,245 @@ def phase_deepseek_train():
     return {"launches": launches["gc_fused"], "gaps": gaps}
 
 
+def phase_jamba_serve():
+    """Full-width jamba-v0.1-52b (d_model 4096; Mamba mixers of d_inner
+    8,192, d_state 16, dt_rank 256; global attention of 32 heads over 8 KV
+    heads; 16 experts top-2 of d_ff 14,336 on the odd layers; vocab 65,536,
+    an untied head, bf16 activations) cut to its first 8 of 32 layers (one
+    period: seven Mamba layers and attention at offset 4),
+    13,295,235,072 parameters, in a ``ServeEngine``: 16 requests of
+    2,048-token prompts — past ``attn_chunk`` (1,024: two chunks of the
+    online softmax) and 8 scan chunks of 256 — and 32 new tokens each
+    (``_serve_run``'s gates).  The slab holds K/V for the attention layer
+    and a fixed state per slot (``conv`` bf16, ``h`` fp32) for each Mamba
+    layer.  The census of dropped assignments (prefills at capacity 1.25
+    may drop; an 8-slot decode step cannot), prefill and ``decode_step``
+    times against their bounds, and teacher forcing one row per call with
+    fp32 activations on a bf16 slab (2e-2) and fp32 on fp32 (1e-4) at
+    capacity factor 8 (experts / top-k: nothing can drop) on every row,
+    the rows that are drop-free at 1.25 counted; the config's bf16
+    activations measured, not gated."""
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.models.model import decode_step, prefill
+    from repro_torch.models.params import GCLM
+
+    _free_card()
+    g = JAMBA_SERVE
+    cfg = _cut("jamba-v0.1-52b", g["n_layers"])
+    spec = next(l.moe for l in cfg.layers if l.moe is not None)
+    mixers = [l.mixer for l in cfg.layers]
+    if mixers != ["mamba"] * 4 + ["attn"] + ["mamba"] * 3:
+        raise AssertionError(f"[jamba-serve] not one period of the published layout: {mixers}")
+    model = GCLM(cfg, device="cuda", seed=0)
+    n_params = sum(t.numel() for t in model.leaves())
+    if n_params != 13_295_235_072:
+        raise AssertionError(f"[jamba-serve] {n_params} parameters, expected 13,295,235,072")
+    run = _serve_run("jamba-serve", cfg, model, g)
+    eng, reqs = run["eng"], run["reqs"]
+    kv_bytes = sum(v.element_size() * v[0, 0].numel() for seg in eng.slab
+                   for k, v in seg.items() if k in ("k", "v"))
+    state_bytes = sum(v.element_size() * v[0].numel() for seg in eng.slab
+                      for k, v in seg.items() if k in ("conv", "h"))
+    mamba = [seg for seg in eng.slab if "h" in seg]
+    if (len(mamba) != 7 or any(seg["h"].dtype != torch.float32 or seg["conv"].dtype
+                               != torch.bfloat16 for seg in mamba)):
+        raise AssertionError(f"[jamba-serve] the slab's Mamba state: "
+                             f"{[{k: (tuple(v.shape), v.dtype) for k, v in seg.items()} for seg in mamba]}")
+    log(f"[jamba-serve] slab: attention K/V {kv_bytes} bytes per token and slot (1 layer x "
+        f"2 x {cfg.n_kv_heads} heads x {cfg.head_dim} bf16); Mamba state {state_bytes} bytes "
+        f"per slot, whatever the length (7 layers x (conv {cfg.mamba.d_conv - 1} x "
+        f"{cfg.mamba.expand * cfg.d_model} bf16 + h {cfg.mamba.expand * cfg.d_model} x "
+        f"{cfg.mamba.d_state} fp32)); at {g['prompt_len'] + g['max_new']} tokens a slot holds "
+        f"{kv_bytes * (g['prompt_len'] + g['max_new']) + state_bytes} bytes")
+
+    per_request = []
+    with torch.no_grad():
+        for r in reqs:
+            with DropCensus() as census:
+                prefill(cfg, model, torch.from_numpy(r.prompt[None].astype("int64")).cuda())
+            per_request.append(census.dropped())
+        slab = [{k: v.clone() for k, v in seg.items()} for seg in eng.slab]
+        with DropCensus() as census:
+            decode_step(cfg, model, slab, torch.arange(1, g["n_slots"] + 1, device="cuda")[:, None])
+        del slab
+    if moe.capacity(g["n_slots"], spec) != g["n_slots"] or census.dropped():
+        raise AssertionError(f"[jamba-serve] a decode step over {g['n_slots']} slots dropped "
+                             f"{census.dropped()} (capacity {moe.capacity(g['n_slots'], spec)})")
+    n_moe = sum(1 for l in cfg.layers if l.moe is not None)
+    log(f"[jamba-serve] census at capacity factor {spec.capacity_factor}: prefill of "
+        f"{g['prompt_len']} tokens, capacity {moe.capacity(g['prompt_len'], spec)} per expert: "
+        f"{sum(1 for d in per_request if d)} of {len(reqs)} prefills dropped assignments "
+        f"({sum(per_request)} of {len(reqs) * n_moe * g['prompt_len'] * spec.top_k}; by "
+        f"request {per_request}); a decode step of the {g['n_slots']}-slot slab (capacity "
+        f"{moe.capacity(g['n_slots'], spec)}) dropped 0")
+
+    kept = n_moe * g["prompt_len"] * spec.top_k - per_request[0]
+    times = _serve_times("jamba-serve", cfg, model, eng.slab, run["prompts"][:1],
+                         expert_tokens=(kept, n_moe * g["n_slots"] * spec.top_k))
+    pieces = _jamba_pieces(cfg, model, g["prompt_len"], times["prefill"]["device_ms"])
+    tokens_per_s, peak = run["tokens_per_s"], run["peak"]
+    del run, eng
+    outputs = [r.output for r in reqs[:3]]
+    published = _moe_teacher_forcing("jamba-serve", cfg, model, outputs, g["prompt_len"],
+                                     bf16_activations=False, gate=False)
+    roomy = _with_capacity(cfg, spec.num_experts / spec.top_k)
+    full = _moe_teacher_forcing("jamba-serve", roomy, model, outputs, g["prompt_len"],
+                                bf16_activations=False)
+    if len(full["gated"]) != 3:
+        raise AssertionError(f"[jamba-serve] capacity factor "
+                             f"{spec.num_experts / spec.top_k} dropped assignments: {full['rows']}")
+    bf16 = _moe_teacher_forcing("jamba-serve", roomy, model, outputs[:2], g["prompt_len"],
+                                gate=False)
+    drop_free = [row[0] for row in published["rows"] if row[2] == 0]
+    log(f"[jamba-serve] rows whose two prefills dropped nothing at capacity factor "
+        f"{spec.capacity_factor}: {drop_free}; max_memory_allocated during the engine run "
+        f"{peak} bytes ({peak / 1e9:.2f} GB; the weights 53.18 GB fp32 plus one 1.88 GB "
+        "expert-matrix cast and the prefill's activations)")
+    if not peak < 80e9:
+        raise AssertionError(f"[jamba-serve] peak {peak} bytes")
+    del model
+    _free_card()
+    return {"tokens_per_s": tokens_per_s, "dropped": per_request, "peak": peak,
+            "kv_bytes_per_token": kv_bytes, "state_bytes_per_slot": state_bytes,
+            "drop_free_published": drop_free, "gated": full["gated"],
+            "bf16_activations": [row[-1] for row in bf16["rows"]], "pieces": pieces, **times}
+
+
+def _jamba_pieces(cfg, model, s: int, prefill_ms: float) -> dict:
+    """Where a Jamba prefill's device time goes: device-only ms (a replayed
+    CUDA graph) of its pieces at ``s`` tokens, B = 1, bf16 activations on
+    seeded normal layer inputs — one Mamba mixer (layer 0), its chunked
+    scan alone, the attention mixer (layer 4), one MoE FFN (layer 1) and
+    one dense FFN (layer 0) — and their sum weighted by the layers that
+    run each, beside the whole prefill's device-only time."""
+    import torch
+
+    from repro_torch.models import attention, ssm
+    from repro_torch.models.layers import apply_mlp
+    from repro_torch.models.moe import apply_moe
+    from repro_torch.models.stack import _tree
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((1, s, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+    mamba, moe_layer, attn = (_tree(model.stack[i]) for i in (0, 1, 4))
+    specs = cfg.layers
+    with torch.no_grad():
+        x_in = torch.einsum("bsd,di->bsi", x, mamba["mixer"]["in_proj"].to(x.dtype))
+        xc = torch.nn.functional.silu(ssm._causal_conv(
+            x_in[..., :x_in.shape[-1] // 2], mamba["mixer"]["conv_w"], mamba["mixer"]["conv_b"])[0])
+        delta, a, b_t, c_t = ssm._ssm_params(cfg, mamba["mixer"], xc)
+        h0 = torch.zeros((1, xc.shape[-1], cfg.mamba.d_state), device="cuda")
+        fns = {
+            "mamba_mixer": lambda: ssm.mamba_forward(cfg, mamba["mixer"], x, specs[0],
+                                                     mode="prefill"),
+            "mamba_scan": lambda: ssm._scan_chunked(cfg, delta, a, b_t, c_t, xc, h0),
+            "attention_mixer": lambda: attention.attn_forward(cfg, attn["mixer"], x, specs[4],
+                                                              mode="prefill", target_len=s + 1),
+            "moe_ffn": lambda: apply_moe(cfg, moe_layer["ffn"], x, specs[1]),
+            "dense_ffn": lambda: apply_mlp(cfg, mamba["ffn"], x)}
+        out = {name: device_ms(fn, 3) for name, fn in fns.items()}
+    counts = {"mamba_mixer": sum(l.mixer == "mamba" for l in specs),
+              "attention_mixer": sum(l.mixer == "attn" for l in specs),
+              "moe_ffn": sum(l.moe is not None for l in specs),
+              "dense_ffn": sum(l.moe is None for l in specs)}
+    layers_ms = sum(out[k] * n for k, n in counts.items())
+    log(f"[jamba-serve] prefill pieces, S={s} B=1, device-only ms: "
+        + ", ".join(f"{k} {v:.4f}" + (f" (x{counts[k]})" if k in counts else "")
+                    for k, v in out.items())
+        + f"; layers in all {layers_ms:.4f} of the prefill's {prefill_ms:.4f} "
+        f"({layers_ms / prefill_ms:.3f}); the Mamba mixers "
+        f"{out['mamba_mixer'] * counts['mamba_mixer'] / prefill_ms:.3f} of it, the scan "
+        f"{out['mamba_scan'] / out['mamba_mixer']:.3f} of a Mamba mixer")
+    return out
+
+
+def phase_jamba_train():
+    """Coded training of ``jamba-v0.1-52b.reduced(n_layers=8)`` (d_model
+    256: seven Mamba layers of d_inner 512, d_state 8, and global attention
+    at offset 4; 4 experts top-2 on the odd layers; 114 leaves; full width
+    does not fit: PERF.md) in sim mode with the gc-lm-110m plan settings
+    (N = 4, ``xf``, s_max = 3, seq 256: 4 scan chunks of 64, 2 attention
+    chunks of 128, global batch 8).  At step 0 the coded gradient equals
+    the uncoded one (``EXACT_RTOL`` per leaf) with 0 and s_max stragglers.
+    ``Trainer.run`` for 3 steps with the counts set to 0 just before: one
+    grouped ``gc_fused`` call per step (114 leaves in launches of at most
+    32: 4 launches), finite ``loss``, ``xent`` and ``aux``.  On the card:
+    ``remat="full"`` bit-equal to ``"none"``, and two runs of one
+    forward+backward byte-equal."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import ShiftedExponential
+    from repro_torch.data.pipeline import coded_worker_batches
+    from repro_torch.kernels import _pipe
+    from repro_torch.models.model import train_loss
+    from repro_torch.train.coded import combine_rows, per_shard_grad_rows, uncoded_grad_fn
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    _free_card()
+    cfg = get_config("jamba-v0.1-52b").reduced(n_layers=JAMBA_TRAIN_LAYERS)
+    trainer = Trainer(cfg, TrainConfig(lr=3e-4, warmup=10, total_steps=300),
+                      ShiftedExponential(mu=1e-3, t0=50.0), n_workers=4, scheme="xf",
+                      global_batch=8, seed=0, device="cuda", seq_len=256)
+    plan, model, n = trainer.plan, trainer.state.params, trainer.n_workers
+    paths = model.leaf_paths()
+    if len(paths) != 114 or [l.mixer for l in cfg.layers].count("mamba") != 7:
+        raise AssertionError(f"[jamba-train] {len(paths)} leaves, layers "
+                             f"{[l.mixer for l in cfg.layers]}")
+    wb = coded_worker_batches(trainer.data, 0, n, plan.s_max)
+    shards = np.stack([trainer.data.shard(0, i, n) for i in range(n)])
+    rows = per_shard_grad_rows(cfg, model, wb)
+    g_ref = uncoded_grad_fn(cfg, n)(model, shards)
+    gaps = {u: _worst_rel(combine_rows(plan, rows, _straggler_dec_w(plan, u)), g_ref, paths,
+                          EXACT_RTOL, f"[jamba-train] coded != uncoded, {u} stragglers")
+            for u in (0, plan.s_max)}
+    del rows, g_ref
+    log(f"[jamba-train] jamba-v0.1-52b reduced ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"Mamba d_inner {cfg.mamba.expand * cfg.d_model} d_state {cfg.mamba.d_state}, scan "
+        f"chunks of {cfg.scan_chunk}, {cfg.layers[1].moe.num_experts} experts "
+        f"top-{cfg.layers[1].moe.top_k}): {sum(t.numel() for t in model.leaves())} params in "
+        f"{len(paths)} leaves, N*K={n * plan.k_shards}; step 0, coded == uncoded, worst leaf "
+        f"relative max error at 0 / s_max stragglers: {gaps[0]:.3e} / {gaps[plan.s_max]:.3e} "
+        f"(bound {EXACT_RTOL})")
+
+    per_step = -(-len(paths) // _pipe.MAX_LEAVES)
+    reset_counts()
+    trainer.run(STEPS, log_every=1, log_fn=lambda m: log(f"[jamba-train] {m}"))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    hist = trainer.history
+    if launches != {"gc_fused": STEPS * per_step, "gc_encode": 0, "gc_decode": 0}:
+        raise AssertionError(f"[jamba-train] launches {launches} in {STEPS} steps, expected "
+                             f"one grouped gc_fused call per step: {per_step} launches of at "
+                             f"most {_pipe.MAX_LEAVES} of the {len(paths)} leaves")
+    keys = ("loss", "xent", "aux")
+    if not all(all(math.isfinite(h[k]) for k in keys) and h["aux"] > 0 for h in hist):
+        raise AssertionError(f"[jamba-train] metrics {[[h.get(k) for k in keys] for h in hist]}")
+
+    tokens = torch.as_tensor(wb[0, 0], device="cuda")
+
+    def grads(c):
+        loss, _ = train_loss(c, model, {"tokens": tokens})
+        return [loss, *torch.autograd.grad(loss, model.leaves())]
+
+    for a, b in zip(grads(cfg), grads(cfg.replace(remat="full")), strict=True):
+        if not torch.equal(a, b):
+            raise AssertionError("[jamba-train] remat='full' is not bit-equal to 'none'")
+    for a, b in zip(grads(cfg), grads(cfg), strict=True):
+        if not torch.equal(a, b):
+            raise AssertionError("[jamba-train] two runs of one forward+backward differ")
+    log(f"[jamba-train] {STEPS} steps, (loss, xent, aux) "
+        f"{[tuple(h[k] for k in keys) for h in hist]}, launches {launches} ({per_step} per "
+        f"step: {len(paths)} leaves in launches of at most {_pipe.MAX_LEAVES}); remat 'full' "
+        "bit-equal to 'none'; two forward+backward runs byte-equal")
+    del trainer, model
+    _free_card()
+    return {"launches": launches["gc_fused"], "gaps": gaps}
+
+
 def main() -> int:
     try:
         import torch
@@ -2962,6 +3270,8 @@ def main() -> int:
     moe_train = timed("moe-train", phase_moe_train)
     timed("deepseek-serve", phase_deepseek_serve)
     deepseek = timed("deepseek-train", phase_deepseek_train)
+    timed("jamba-serve", phase_jamba_serve)
+    jamba = timed("jamba-train", phase_jamba_train)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s; seconds by "
         f"phase {spent}")
 
@@ -2977,7 +3287,8 @@ def main() -> int:
     fused_launches = {"train": launches["gc_fused"], "adapt": adapt_launches["gc_fused"],
                       "wave": wave_launches["gc_fused"], "tune": tune_launches["gc_fused"],
                       "spmd": spmd_launches, "gemma": gemma["launches"],
-                      "moe": moe_train["launches"], "deepseek": deepseek["launches"]}
+                      "moe": moe_train["launches"], "deepseek": deepseek["launches"],
+                      "jamba": jamba["launches"]}
     print(json.dumps({"kernels": [
         row("gc_fused", "src/repro/kernels/gc_fused.py:57", sum(fused_launches.values()),
             max(max_err, gemma["max_abs_err"]), kernel_times, launches_by_path=fused_launches,

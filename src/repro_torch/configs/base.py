@@ -2,8 +2,9 @@
 registry.
 
 Copied from ``repro/configs/base.py`` and trimmed to what the port
-runs: a layer is an attention mixer (global, or a sliding window) or
-DeepSeek's multi-head latent attention (``MLASpec``) plus a dense or
+runs: a layer is an attention mixer (global, or a sliding window),
+DeepSeek's multi-head latent attention (``MLASpec``) or Jamba's Mamba
+mixer (``MambaSpec``) plus a dense or
 mixture-of-experts FFN (``MoESpec``), with the Gemma family's softcaps,
 QK-norm, sandwich norms, embedding scale and GeGLU, Qwen's QKV biases
 and untied head, and DeepSeek-V3's multi-token prediction
@@ -19,7 +20,8 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Optional
 
-__all__ = ["MoESpec", "MLASpec", "LayerSpec", "ModelConfig", "register", "get_config", "list_archs"]
+__all__ = ["MoESpec", "MLASpec", "MambaSpec", "LayerSpec", "ModelConfig", "register",
+           "get_config", "list_archs"]
 
 
 @dataclass(frozen=True)
@@ -42,6 +44,16 @@ class MLASpec:
     qk_nope_head_dim: int = 128
     qk_rope_head_dim: int = 64
     v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
+class MambaSpec:
+    """Jamba's Mamba mixer."""
+
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0  # 0 -> ceil(d_model / 16)
 
 
 @dataclass(frozen=True)
@@ -81,6 +93,7 @@ class ModelConfig:
     tie_embeddings: bool = True
     scale_embed: bool = False
     mla: Optional[MLASpec] = None
+    mamba: Optional[MambaSpec] = None
     mtp_depth: int = 0
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
@@ -91,7 +104,10 @@ class ModelConfig:
     # mesh): kept, no effect on one device
     shard_experts: bool = True
     moe_impl: str = "gspmd"  # 'gspmd' | 'manual'
-    attn_chunk: int = 1024
+    attn_chunk: int = 1024  # KV chunk of the online-softmax attention
+    attn_chunk_remat: bool = False  # recompute each chunk's scores in the backward
+    attn_probs_bf16: bool = False  # round each chunk's probabilities to bf16
+    scan_chunk: int = 256  # time chunk of the Mamba scan
     max_seq: int = 131_072
 
     def __post_init__(self):
@@ -143,6 +159,7 @@ class ModelConfig:
             layers=layers,
             max_seq=seq_cap * 2,
             attn_chunk=128,
+            scan_chunk=64,
             remat="none",
             fsdp=False,
             dtype="float32",
@@ -153,6 +170,8 @@ class ModelConfig:
                 q_lora_rank=64, kv_lora_rank=32, qk_nope_head_dim=head_dim,
                 qk_rope_head_dim=16, v_head_dim=head_dim,
             )
+        if self.mamba is not None:
+            kw["mamba"] = dataclasses.replace(self.mamba, d_state=8)
         return self.replace(**kw)
 
 
@@ -172,7 +191,7 @@ def get_config(arch_id: str) -> ModelConfig:
 
     if arch_id not in _REGISTRY:
         raise KeyError(f"unknown arch '{arch_id}'; the port has: "
-                       f"{sorted(_REGISTRY)} (Jamba, xLSTM, vision and audio "
+                       f"{sorted(_REGISTRY)} (xLSTM, vision and audio "
                        "families: ROADMAP 1.9)")
     return _REGISTRY[arch_id]()
 

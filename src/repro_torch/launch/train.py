@@ -6,12 +6,13 @@
 ``--arch`` takes gc-lm-110m, the Gemma family (gemma-2b, gemma2-27b,
 gemma3-27b), qwen1.5-32b (QKV biases, an untied head), mixtral-8x22b
 (mixture-of-experts FFNs, whose load-balance loss joins the training
-loss) and deepseek-v3-671b (MLA, whose multi-token prediction loss joins
-it too); ``--reduced`` cuts the config to 2 layers of width 128.  Sim
-mode holds N·K fp32 rows of every parameter, so Qwen, Mixtral and
-DeepSeek train on one card only reduced: one full-width layer of Qwen or
-Mixtral, with its embedding and head, is 2.1-2.9 B parameters, one
-DeepSeek MoE layer 11.5 B (ROADMAP 3.14).  Runs ``Trainer.run`` (barrier loop, sim mode, the fused ``gc_fused``
+loss), deepseek-v3-671b (MLA, whose multi-token prediction loss joins
+it too) and jamba-v0.1-52b (Mamba mixers); ``--reduced`` cuts the config
+to 2 layers of width 128.  Sim mode holds N·K fp32 rows of every
+parameter, so Qwen, Mixtral, DeepSeek and Jamba train on one card only
+reduced: one full-width layer of Qwen or Mixtral, with its embedding and
+head, is 2.1-2.9 B parameters, one DeepSeek MoE layer 11.5 B, one Jamba
+MoE layer 2.82 B (ROADMAP 3.14).  Runs ``Trainer.run`` (barrier loop, sim mode, the fused ``gc_fused``
 combine on CUDA) and prints the loss and the simulated-runtime ledger
 (tau_coded vs the wait-for-slowest tau_uncoded).  ``--device`` defaults
 to ``cuda`` and fails without CUDA; pass ``--device cpu`` to run the

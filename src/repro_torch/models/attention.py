@@ -5,17 +5,25 @@ training, prefill and decode.
 The reference's ``chunked_attention`` (an online softmax over KV
 chunks) and ``local_attention`` (query chunks against a KV span of the
 window) are plain jnp — not Pallas kernels — so the port computes the
-same functions in plain PyTorch.  Global layers: fp32 scores masked with
--1e30 past the causal edge, an fp32 softmax, and the weighted sum of
-values.  Windowed layers with ``window < S``: ``local_attention``, the
+same functions in plain PyTorch.  Global layers: ``chunked_attention``,
+a Python loop over KV chunks of ``attn_chunk`` carrying the fp32 running
+max, row sum and accumulator, with the reference's rounding points and
+its two knobs (``attn_probs_bf16``: each chunk's probabilities rounded
+to bf16; ``attn_chunk_remat``: each chunk recomputed in the backward),
+so live memory is O(S·chunk), not O(S²); ``mla.py`` runs the same loop.
+Windowed layers with ``window < S``: ``local_attention``, the
 reference's schedule — query chunks of ``attn_chunk``, each against a
 KV span of the window's history plus the chunk, masked per position —
 so memory is O(S·window), not O(S²).  GQA groups query heads over the
 KV heads exactly as the reference does.  Qwen's QKV biases are added
 after the projections, in the activations' dtype, before QK-norm and
 RoPE.  Gemma's extras sit at the reference's places: QK-norm
-(``_rms_head``) before RoPE, the score softcap in the scores' dtype
-before the fp32 cast, and ``rope_base_local`` on windowed layers.
+(``_rms_head``) before RoPE, the score softcap before the masks, and
+``rope_base_local`` on windowed layers.  ``chunked_attention`` scales
+the scores into fp32 as the reference does (a bf16 array times a numpy
+float); ``local_attention`` and the decode step scale and softcap them in
+the activations' dtype, where the reference's product is fp32
+(ROADMAP 3.19).
 
 Decode: one query token against a KV cache ``{"k", "v", "pos"}`` of
 capacity ``cap`` (``(B, cap, K, Dh)`` leaves): the whole sequence for a
@@ -35,10 +43,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .layers import rope, softcap
 
-__all__ = ["project_qkv", "causal_attention", "local_attention", "attn_forward",
+__all__ = ["project_qkv", "chunked_attention", "local_attention", "attn_forward",
            "init_attn_cache", "prefill_cache"]
 
 NEG_INF = -1e30
@@ -72,20 +81,91 @@ def project_qkv(cfg, p, x, positions, rope_base):
     return q, k, v
 
 
-def causal_attention(cfg, q, k, v, cap: float = 0.0):
-    """q: (B,S,H,Dh); k,v: (B,S,K,Dh) -> (B,S,H,Dh); scores softcapped at
-    ``cap`` (0: off)."""
+def kv_chunks(cfg, skv: int) -> tuple:
+    """(chunk, n_chunks, pad) of the online softmax over ``skv`` keys:
+    chunks of ``min(attn_chunk, skv)``, the tail padded."""
+    chunk = min(cfg.attn_chunk, skv)
+    n_chunks = -(-skv // chunk)
+    return chunk, n_chunks, n_chunks * chunk - skv
+
+
+def softmax_update(carry, s, v_i, pv: str, dtype, probs_bf16: bool = False):
+    """One chunk of the online softmax: fp32 scores ``s`` (masked with
+    -1e30) fold into ``carry``, the running max ``m``, row sum ``l`` and
+    accumulator ``acc`` (all fp32); the probabilities are rounded to bf16
+    when ``probs_bf16``, cast to ``dtype`` for the product ``pv`` with the
+    chunk's values, and that product is raised back to fp32.  ``carry`` is
+    None at the first chunk: the reference starts from m = -1e30 and
+    l = acc = 0, so its rescaling there (by ``exp(-1e30 - m) = 0``) adds
+    exact zeros — every row sees key 0 in the first chunk — and is
+    skipped."""
+    m_i = s.detach().amax(-1)  # a shift the result does not depend on: no gradient
+    if carry is not None:
+        m_i = torch.maximum(carry[0], m_i)
+    p = torch.exp(s - m_i[..., None])
+    if probs_bf16:
+        p = p.to(torch.bfloat16)
+    l_i = p.sum(-1, dtype=torch.float32)
+    acc_i = torch.einsum(pv, p.to(dtype), v_i).float()
+    if carry is not None:
+        m, l, acc = carry
+        alpha = torch.exp(m - m_i)
+        l_i = l * alpha + l_i
+        acc_i = acc * alpha[..., None] + acc_i
+    return m_i, l_i, acc_i
+
+
+def online_softmax(cfg, n_chunks: int, step):
+    """``carry = step(i, *carry)`` over the KV chunks (no carry at the
+    first), each under ``torch.utils.checkpoint`` (non-reentrant) when
+    ``cfg.attn_chunk_remat`` and autograd records — the backward
+    recomputes a chunk's scores and probabilities instead of keeping them,
+    with the same ops on the same inputs, so the gradients are bit-equal.
+    Returns ``acc / max(l, 1e-30)`` in fp32."""
+    remat = cfg.attn_chunk_remat and torch.is_grad_enabled()
+    carry = ()
+    for i in range(n_chunks):
+        carry = (checkpoint(step, i, *carry, use_reentrant=False) if remat
+                 else step(i, *carry))
+    _, l, acc = carry
+    return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
+def chunked_attention(cfg, q, k, v, *, causal=True, cap: float = 0.0, q_offset: int = 0):
+    """The reference's online softmax over KV chunks, O(S·chunk) live
+    memory.  Each chunk's scores are taken in the activations' dtype,
+    raised to fp32 by the scale (JAX promotes the product of a bf16 array
+    and a numpy float to fp32), softcapped at ``cap`` (0: off) and masked
+    with -1e30 past the causal edge (queries at ``q_offset + i``) and in
+    the padded tail (a chunk with nothing to mask adds nothing, as adding
+    the reference's zero bias changes no value); then ``softmax_update``.
+    q: (B,S,H,Dh); k,v: (B,Skv,K,Dh) -> (B,S,H,Dh) in q's dtype."""
     b, sq, h, dh = q.shape
     skv, kvh = k.shape[1], k.shape[2]
+    chunk, n_chunks, pad = kv_chunks(cfg, skv)
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
     qg = q.reshape(b, sq, kvh, h // kvh, dh)
     scale = 1.0 / np.sqrt(cfg.head_dim)
-    s = softcap(torch.einsum("bqkgd,bckd->bkgqc", qg, k) * scale, cap)
-    q_pos = torch.arange(sq, device=q.device)
-    kv_pos = torch.arange(skv, device=q.device)
-    bias = torch.where(kv_pos[None, :] <= q_pos[:, None], 0.0, NEG_INF)
-    w = torch.softmax(s.float() + bias, dim=-1)
-    out = torch.einsum("bkgqc,bckd->bqkgd", w.to(q.dtype), v)
-    return out.reshape(b, sq, h, dh)
+    q_pos = torch.arange(q_offset, q_offset + sq, device=q.device)
+
+    def step(i, *carry):
+        cut = slice(i * chunk, (i + 1) * chunk)
+        s = torch.einsum("bqkgd,bckd->bkgqc", qg, k[:, cut])
+        s = softcap(s.float() * scale, cap)
+        kv_pos = torch.arange(i * chunk, (i + 1) * chunk, device=q.device)
+        valid = kv_pos[None, :] <= q_pos[:, None] if causal else None
+        if (i + 1) * chunk > skv:  # the padded tail
+            tail = kv_pos[None, :] < skv
+            valid = tail if valid is None else valid & tail
+        if valid is not None:
+            s = s + torch.where(valid, 0.0, NEG_INF)
+        return softmax_update(carry or None, s, v[:, cut], "bkgqc,bckd->bkgqd", q.dtype,
+                              cfg.attn_probs_bf16)
+
+    out = online_softmax(cfg, n_chunks, step)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh).to(q.dtype)
 
 
 def local_attention(cfg, q, k, v, *, window: int, cap: float = 0.0):
@@ -143,7 +223,7 @@ def attn_forward(cfg, p, x, spec, *, mode="train", cache=None, target_len: int =
         if spec.window is not None and spec.window < s:
             out = local_attention(cfg, q, k, v, window=spec.window, cap=cfg.attn_softcap)
         else:
-            out = causal_attention(cfg, q, k, v, cap=cfg.attn_softcap)
+            out = chunked_attention(cfg, q, k, v, causal=True, cap=cfg.attn_softcap)
         new_cache = prefill_cache(cfg, spec, k, v, s, target_len) if mode == "prefill" else None
         return torch.einsum("bshx,hxd->bsd", out, p["wo"].to(x.dtype)), new_cache
     if mode != "decode":

@@ -1,10 +1,11 @@
 """Decoder layer, after ``repro/models/blocks.py``: pre-norm mixer —
-attention (global or a sliding window, ``attention.py``) or multi-head
-latent attention (``spec.mixer == "mla"``, ``mla.py``) — the optional
-post-norm of the sandwich (``post_norm``: Gemma 2 and 3), residual,
-pre-norm FFN — dense, or a mixture of experts (``spec.moe``, ``moe.py``)
-— its optional post-norm, residual — in training, prefill or decode
-mode.  Other mixers (Mamba, xLSTM, cross-attention) are ROADMAP 1.9."""
+attention (global or a sliding window, ``attention.py``), multi-head
+latent attention (``spec.mixer == "mla"``, ``mla.py``) or Jamba's Mamba
+mixer (``"mamba"``, ``ssm.py``) — the optional post-norm of the sandwich
+(``post_norm``: Gemma 2 and 3), residual, pre-norm FFN — dense, or a
+mixture of experts (``spec.moe``, ``moe.py``) — its optional post-norm,
+residual — in training, prefill or decode mode.  The xLSTM mixers and
+cross-attention are ROADMAP 1.9."""
 from __future__ import annotations
 
 import torch
@@ -13,18 +14,20 @@ from .attention import attn_forward, init_attn_cache
 from .layers import apply_mlp, rms_norm
 from .mla import init_mla_cache, mla_forward
 from .moe import apply_moe
+from .ssm import init_mamba_cache, mamba_forward
 
 __all__ = ["apply_layer", "init_layer_cache"]
 
 #: the mixers the port runs: (forward, empty decode cache)
-_MIXERS = {"attn": (attn_forward, init_attn_cache), "mla": (mla_forward, init_mla_cache)}
+_MIXERS = {"attn": (attn_forward, init_attn_cache), "mla": (mla_forward, init_mla_cache),
+           "mamba": (mamba_forward, init_mamba_cache)}
 
 
 def _mixer(spec):
     if spec.mixer not in _MIXERS or spec.cross_source:
         raise NotImplementedError(f"layer {spec} is not ported yet: the port runs "
-                                  "attention or MLA + dense or MoE FFN layers (other "
-                                  "mixers and cross-attention: ROADMAP 1.9)")
+                                  "attention, MLA or Mamba + dense or MoE FFN layers "
+                                  "(the xLSTM mixers and cross-attention: ROADMAP 1.9)")
     return _MIXERS[spec.mixer]
 
 
@@ -53,6 +56,6 @@ def apply_layer(cfg, p, x, spec, *, mode="train", cache=None, target_len: int = 
 def init_layer_cache(cfg, spec, batch: int, seq_len: int, dtype=torch.bfloat16,
                      device="cuda"):
     """An empty decode cache of one layer: K/V for ``attn``, the latent
-    ``c_kv``/``k_r`` for ``mla``."""
+    ``c_kv``/``k_r`` for ``mla``, the ``conv``/``h`` state for ``mamba``."""
     _, init_cache = _mixer(spec)
     return init_cache(cfg, spec, batch, seq_len, dtype, device)

@@ -10,16 +10,18 @@ for V3, against 2·128·128 for the same heads as plain multi-head
 attention.
 
 Training and prefill use the naive expansion: per-head keys and values
-``c_kv @ wk_b`` and ``c_kv @ wv_b``, the nope and rope scores summed in
-the activations' dtype, raised to fp32 and scaled (JAX promotes the
-product of a bf16 array and a numpy float to fp32), masked with -1e30
-past the causal edge, then the reference's online-softmax step over the
-whole sequence as one chunk: the unnormalized ``exp(s - max)`` cast to
-the activations' dtype for the product with V, that product raised to
-fp32 and divided by the fp32 row sum.  The reference scans chunks of
-``attn_chunk``; for ``S <= attn_chunk`` that is this one step, and
-beyond it the chunks' rescaling rounds otherwise (fp32: the same
-function, summed in another order).
+``c_kv @ wk_b`` and ``c_kv @ wv_b``, then the reference's online softmax
+over KV chunks of ``attn_chunk`` (``attention.online_softmax``, the tail
+padded): per chunk the nope and rope scores summed in the activations'
+dtype, raised to fp32 and scaled (JAX promotes the product of a bf16
+array and a numpy float to fp32), masked with -1e30 past the causal
+edge and in the tail, then ``attention.softmax_update`` — the
+unnormalized ``exp(s - max)`` cast to the activations' dtype for the
+product with V, that product raised to fp32 — and at the end the fp32
+accumulator over the fp32 row sum.  Like the reference's MLA scan, it
+never rounds the probabilities to bf16 (``attn_probs_bf16`` is the
+global attention's); ``attn_chunk_remat`` recomputes each chunk in the
+backward, which changes no value.
 
 Decode uses the **absorbed** form: ``W_uk`` folded into the query
 (``q_eff = q_nope · W_uk``), scores taken against the latent cache plus
@@ -36,6 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .attention import kv_chunks, online_softmax, softmax_update
 from .layers import rms_norm, rope
 
 __all__ = ["mla_forward", "init_mla_cache"]
@@ -81,14 +84,24 @@ def mla_forward(cfg, p, x, spec, *, mode="train", cache=None, target_len: int = 
     c_kv, k_r = _latents(cfg, p, x, positions)
     k_nope = torch.einsum("bsr,rhx->bshx", c_kv, p["wk_b"].to(dt))
     v = torch.einsum("bsr,rhx->bshx", c_kv, p["wv_b"].to(dt))
-    sc = torch.einsum("bqhd,bchd->bhqc", q_nope, k_nope)
-    sc = sc + torch.einsum("bqhd,bcd->bhqc", q_rope, k_r)
-    sc = sc.float() * _scale(cfg)
-    pos = torch.arange(s, device=x.device)
-    sc = sc + torch.where(pos[None, :] <= pos[:, None], 0.0, NEG_INF)
-    pw = torch.exp(sc - sc.amax(-1, keepdim=True))
-    acc = torch.einsum("bhqc,bchd->bhqd", pw.to(dt), v).float()
-    out = (acc / torch.clamp(pw.sum(-1), min=1e-30)[..., None]).transpose(1, 2).to(dt)
+    chunk, n_chunks, pad = kv_chunks(cfg, s)
+    k_r_p = k_r
+    if pad:
+        k_nope, v = F.pad(k_nope, (0, 0, 0, 0, 0, pad)), F.pad(v, (0, 0, 0, 0, 0, pad))
+        k_r_p = F.pad(k_r, (0, 0, 0, pad))
+    q_pos = torch.arange(s, device=x.device)
+
+    def step(i, *carry):
+        cut = slice(i * chunk, (i + 1) * chunk)
+        kv_pos = torch.arange(i * chunk, (i + 1) * chunk, device=x.device)
+        sc = torch.einsum("bqhd,bchd->bhqc", q_nope, k_nope[:, cut])
+        sc = sc + torch.einsum("bqhd,bcd->bhqc", q_rope, k_r_p[:, cut])
+        sc = sc.float() * _scale(cfg)
+        valid = (kv_pos[None, :] <= q_pos[:, None]) & (kv_pos[None, :] < s)
+        sc = sc + torch.where(valid, 0.0, NEG_INF)
+        return softmax_update(carry or None, sc, v[:, cut], "bhqc,bchd->bhqd", dt)
+
+    out = online_softmax(cfg, n_chunks, step).transpose(1, 2).to(dt)
     y = torch.einsum("bshx,hxd->bsd", out, p["wo"].to(dt))
     new_cache = None
     if mode == "prefill":

@@ -21,7 +21,9 @@ projections.  For gc-lm-110m that is the 11 leaves ``embed.tok``,
 modules (``mtp``, a list of ``{layer, norm_e, norm_h, proj}``) sort
 between ``final_norm`` and ``stack``; an MLA mixer's nine leaves sort as
 ``kv_a_norm``, ``q_a_norm``, ``wk_b``, ``wk_rope``, ``wkv_a``, ``wo``,
-``wq_a``, ``wq_b``, ``wv_b``.
+``wq_a``, ``wq_b``, ``wv_b``; a Mamba mixer's nine as ``a_log``,
+``conv_b``, ``conv_w``, ``d_skip``, ``dt_bias``, ``dt_proj``,
+``in_proj``, ``out_proj``, ``x_proj``.
 
 Weights are drawn from a ``torch.Generator`` with the law of the
 reference's ``dense_init`` (truncated normal on [-2, 2], std 1/sqrt(fan_in)
@@ -39,6 +41,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from .ssm import a_log_init, dt_bias_init, mamba_dims
 from .stack import Run, plan_segments
 
 __all__ = ["ParamNode", "GCLM", "params_from_numpy", "params_to_numpy",
@@ -63,17 +66,17 @@ def _zeros(shape, device):
 def _layer_node(cfg, spec, count: int, device) -> ParamNode:
     """One layer's parameters; leaves carry a leading (count,) axis when
     the segment stacks more than one layer."""
-    if spec.mixer not in ("attn", "mla") or spec.cross_source or not spec.use_ffn:
+    if spec.mixer not in _MIXER_LEAVES or spec.cross_source or not spec.use_ffn:
         raise NotImplementedError(
-            f"layer {spec} is not ported yet: the port runs attention or MLA + dense or "
-            "MoE FFN layers (other mixers, cross-attention: ROADMAP 1.9)")
+            f"layer {spec} is not ported yet: the port runs attention, MLA or Mamba + dense "
+            "or MoE FFN layers (the xLSTM mixers, cross-attention: ROADMAP 1.9)")
     lead = (count,) if count > 1 else ()
     d = cfg.d_model
 
     def z(*shape):
         return _zeros(lead + shape, device)
 
-    mixer = _mla_leaves(cfg, z) if spec.mixer == "mla" else _attn_leaves(cfg, z)
+    mixer = _MIXER_LEAVES[spec.mixer](cfg, z)
     children = {
         "norm_mix": ParamNode({"scale": z(d)}),
         "mixer": ParamNode(mixer),
@@ -105,6 +108,19 @@ def _mla_leaves(cfg, z) -> dict:
             "kv_a_norm": z(m.kv_lora_rank), "wk_rope": z(d, m.qk_rope_head_dim),
             "wk_b": z(m.kv_lora_rank, h, m.qk_nope_head_dim),
             "wv_b": z(m.kv_lora_rank, h, m.v_head_dim), "wo": z(h, m.v_head_dim, d)}
+
+
+def _mamba_leaves(cfg, z) -> dict:
+    """``repro/models/ssm.py::init_mamba``'s nine leaves."""
+    m, d_inner, dt_rank = mamba_dims(cfg)
+    d = cfg.d_model
+    return {"in_proj": z(d, 2 * d_inner), "conv_w": z(m.d_conv, d_inner), "conv_b": z(d_inner),
+            "x_proj": z(d_inner, dt_rank + 2 * m.d_state), "dt_proj": z(dt_rank, d_inner),
+            "dt_bias": z(d_inner), "a_log": z(d_inner, m.d_state), "d_skip": z(d_inner),
+            "out_proj": z(d_inner, d)}
+
+
+_MIXER_LEAVES = {"attn": _attn_leaves, "mla": _mla_leaves, "mamba": _mamba_leaves}
 
 
 def _mtp_node(cfg, device) -> ParamNode:
@@ -145,13 +161,20 @@ def _segment_node(cfg, seg, device) -> nn.Module:
 
 
 #: leaves the reference initializes to zero: rms-norm scales (which store
-#: scale - 1), the QK-norm and MLA-norm scales and the QKV biases
-ZERO_INIT = ("scale", "q_norm", "k_norm", "q_a_norm", "kv_a_norm", "bq", "bk", "bv")
+#: scale - 1), the QK-norm and MLA-norm scales, the QKV biases and the
+#: Mamba conv's bias
+ZERO_INIT = ("scale", "q_norm", "k_norm", "q_a_norm", "kv_a_norm", "bq", "bk", "bv", "conv_b")
+
+#: Mamba leaves with fixed values, the reference's bit for bit (every
+#: layer alike): the skip weight one, ``a_log`` and ``dt_bias``
+#: (``ssm.py``)
+FIXED_INIT = {"d_skip": lambda cfg: np.ones(mamba_dims(cfg)[1], np.float32),
+              "a_log": a_log_init, "dt_bias": dt_bias_init}
 
 
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for features outside what the port
-    runs (the dense, Gemma, Qwen, MoE and DeepSeek paths)."""
+    runs (the dense, Gemma, Qwen, MoE, DeepSeek and Jamba paths)."""
     unsupported = {
         "layer norm": cfg.norm != "rms",
         "ungated MLP": cfg.activation not in ("silu", "gelu"),
@@ -217,13 +240,17 @@ class GCLM(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, seed: int = 0) -> None:
         """``dense_init`` law for matrices, zeros for the leaves the
-        reference zero-inits (``ZERO_INIT``)."""
+        reference zero-inits (``ZERO_INIT``), the reference's fixed values
+        for Mamba's ``d_skip``, ``a_log`` and ``dt_bias`` (``FIXED_INIT``)."""
         gen = torch.Generator(device=self.embed.tok.device).manual_seed(int(seed))
         stacked = {seg_i for seg_i, seg in enumerate(plan_segments(self.cfg.layers))
                    if not isinstance(seg, Run) or seg.count > 1}
         for path, t in self.leaf_items():
             if path[-1] in ZERO_INIT:
                 t.zero_()
+                continue
+            if path[-1] in FIXED_INIT:
+                t.copy_(torch.from_numpy(FIXED_INIT[path[-1]](self.cfg)).expand_as(t))
                 continue
             per_layer = tuple(t.shape[1:]) if (
                 path[0] == "stack" and int(path[1]) in stacked) else tuple(t.shape)

@@ -28,11 +28,15 @@ The MoE load-balance loss of every layer is summed in fp32 in layer
 order, as the reference's scan carries it.
 
 Decode caches keep the reference's layout: one entry per segment — a
-plain ``{"k", "v", "pos"}`` dict for a single layer; for a run, leaves
-stacked over the run (``(L, B, cap, K, Dh)`` K/V and a ``(L,)`` or
-``(L, B)`` ``pos``); for a pattern, a list of p such trees stacked over
-the repeats.  A decode step hands each layer views of its slice, so
-every write lands in the stacked tensors in place.
+plain dict for a single layer (``{"k", "v", "pos"}`` for attention,
+``{"c_kv", "k_r", "pos"}`` for MLA, ``{"conv", "h", "pos"}`` for Mamba,
+whose state has no sequence axis); for a run, leaves stacked over the
+run (``(L, B, cap, K, Dh)`` K/V, ``(L, B, d_conv-1, d_inner)`` conv and
+a ``(L,)`` or ``(L, B)`` ``pos``); for a pattern, a list of p such
+trees stacked over the repeats, each position its own mixer's (Jamba's
+32 layers: one pattern of 8 — seven Mamba trees and one attention tree
+— over 4 repeats).  A decode step hands each layer views of its slice,
+so every write lands in the stacked tensors in place.
 """
 from __future__ import annotations
 
@@ -207,8 +211,9 @@ def apply_stack(cfg, stack, x, *, mode="train", caches=None, target_len: int = 0
 
 def init_stack_caches(cfg, batch: int, seq_len: int, dtype=torch.bfloat16, device="cuda"):
     """Empty per-segment caches of capacity ``seq_len`` (``min(window,
-    seq_len)`` for a windowed layer), leaves stacked along axis 0 for a
-    run and for each position of a pattern."""
+    seq_len)`` for a windowed layer; a Mamba layer's fixed-size state),
+    leaves stacked along axis 0 for a run and for each position of a
+    pattern."""
     def one(spec):
         return init_layer_cache(cfg, spec, batch, seq_len, dtype, device)
 

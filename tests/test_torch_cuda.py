@@ -684,3 +684,105 @@ def test_deepseek_forward_backward_on_cuda_is_byte_equal(cuda, dtype):
     assert first[1].item() > 0 and first[2].item() > 0
     for a, b in zip(first, second, strict=True):
         assert torch.equal(a, b)
+
+
+def test_mamba_mixer_on_cuda_matches_cpu(cuda):
+    """One Mamba mixer of reduced Jamba on the card against the CPU from the
+    same weights, fp32, at 100 tokens (two scan chunks of 64, the tail
+    padded): the training output and gradients, the prefill state
+    ``{conv, h}`` and 4 decode steps from it with per-row positions,
+    within 1e-4 of the largest."""
+    from repro_torch.models import ssm
+
+    cfg = get_config("jamba-v0.1-52b").reduced(n_layers=8, d_model=128, seq_cap=64)
+    spec = cfg.layers[0]
+    tree = params_to_numpy(GCLM(cfg, device="cpu", seed=0))
+    rng = np.random.default_rng(5)
+    p_np = dict(tree["stack"][0]["mixer"])
+    for name in ("conv_b", "d_skip"):
+        p_np[name] = (p_np[name] + 0.1 * rng.standard_normal(p_np[name].shape)).astype(np.float32)
+    x_np = rng.standard_normal((2, 104, cfg.d_model)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", cuda):
+        p = {k: torch.tensor(v, device=dev, requires_grad=True) for k, v in p_np.items()}
+        x = torch.tensor(x_np, device=dev, requires_grad=True)
+        y, _ = ssm.mamba_forward(cfg, p, x[:, :100], spec)
+        grads = torch.autograd.grad(y.square().sum(), [x, *p.values()])
+        with torch.no_grad():
+            _, cache = ssm.mamba_forward(cfg, p, x[:, :100], spec, mode="prefill")
+            state = {k: cache[k].clone() for k in ("conv", "h")}
+            cache["pos"] = torch.tensor([100, 93], dtype=torch.int32, device=dev)
+            steps = [ssm.mamba_forward(cfg, p, x[:, t:t + 1], spec, mode="decode",
+                                       cache=cache)[0] for t in range(100, 104)]
+        out[str(dev)] = (y, grads, state, steps, cache)
+    (y_c, g_c, st_c, s_c, c_c), (y_g, g_g, st_g, s_g, c_g) = out["cpu"], out[str(cuda)]
+    _close_to_cpu(y_g, y_c, "train out")
+    for i, (a, b) in enumerate(zip(g_g, g_c, strict=True)):
+        _close_to_cpu(a, b, f"grad {i}")
+    for name in ("conv", "h"):
+        _close_to_cpu(st_g[name], st_c[name], f"prefill {name}")
+        _close_to_cpu(c_g[name], c_c[name], f"decoded {name}")
+    for t, (a, b) in enumerate(zip(s_g, s_c, strict=True)):
+        _close_to_cpu(a, b, f"decode step {t}")
+    assert c_g["h"].dtype == torch.float32 and c_g["pos"].tolist() == [104, 97]
+
+
+def test_chunked_attention_with_chunk_remat_on_cuda_matches_cpu(cuda):
+    """The online softmax over two KV chunks of 128 (160 tokens, GQA 4
+    over 2) with ``attn_chunk_remat`` on the card against the CPU, fp32:
+    output and the gradients of q, k and v within 1e-4 of the largest;
+    on the card the remat gradients are bit-equal to no remat."""
+    from repro_torch.models import attention
+
+    cfg = get_config("gc-lm-110m").reduced(n_layers=2, d_model=128)
+    assert cfg.attn_chunk == 128 and cfg.head_dim == 32
+    rng = np.random.default_rng(4)
+    qkv = [3 * rng.standard_normal((2, 160, h, 32)).astype(np.float32) for h in (4, 2, 2)]
+    out = {}
+    for dev, remat in (("cpu", True), (cuda, True), (cuda, False)):
+        ts = [torch.tensor(a, device=dev, requires_grad=True) for a in qkv]
+        y = attention.chunked_attention(cfg.replace(attn_chunk_remat=remat), *ts, cap=50.0)
+        out[(str(dev), remat)] = [y, *torch.autograd.grad(y.square().sum(), ts)]
+    for a, b in zip(out[(str(cuda), True)], out[("cpu", True)], strict=True):
+        _close_to_cpu(a, b, "chunked attention")
+    for a, b in zip(out[(str(cuda), True)], out[(str(cuda), False)], strict=True):
+        assert torch.equal(a, b)
+
+
+def test_jamba_decode_step_replays_in_a_cuda_graph(cuda):
+    """A decode step of reduced Jamba over a 4-slot fp32 slab, captured in a
+    CUDA graph and replayed 3 times: each replay writes every Mamba
+    layer's ``conv`` and ``h`` and the attention layer's K/V in place (the
+    slab's storage unchanged) and advances ``pos``, as 3 eager steps do on
+    a copy, within 1e-5 of the largest entry."""
+    cfg = get_config("jamba-v0.1-52b").reduced(n_layers=8, d_model=128, seq_cap=64)
+    model = GCLM(cfg, device="cuda", seed=0)
+    slab = make_slab(cfg, 4, 32, dtype=torch.float32)
+    _, pref = prefill(cfg, model, torch.arange(1, 9, device="cuda")[None], target_len=32)
+    insert_request(cfg, slab, pref, 2)
+    eager = [{k: v.clone() for k, v in seg.items()} for seg in slab]
+    ptrs = [{k: v.data_ptr() for k, v in seg.items()} for seg in slab]
+    tok = torch.full((4, 1), 7, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up on a copy
+        decode_step(cfg, model, [{k: v.clone() for k, v in seg.items()} for seg in slab], tok)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        logits, _ = decode_step(cfg, model, slab, tok)
+    h_before = slab[0]["h"][2].clone()
+    for _ in range(3):
+        graph.replay()
+        want, _ = decode_step(cfg, model, eager, tok)
+        torch.cuda.synchronize()
+        _close_to_cpu(logits, want.cpu(), "replayed logits", rel=1e-5)
+    assert ptrs == [{k: v.data_ptr() for k, v in seg.items()} for seg in slab]
+    assert not torch.equal(slab[0]["h"][2], h_before)
+    for seg, ref_seg in zip(slab, eager, strict=True):
+        for name in seg:
+            if name == "pos":
+                assert torch.equal(seg[name], ref_seg[name])
+            else:
+                _close_to_cpu(seg[name], ref_seg[name].cpu(), name, rel=1e-5)
+    assert slab[0]["pos"][2].item() == 8 + 3 and slab[4]["pos"][2].item() == 8 + 3

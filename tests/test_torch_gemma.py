@@ -230,8 +230,8 @@ def test_local_attention_matches_reference_over_several_chunks(cap):
     got = attention.local_attention(cfg_t, *(torch.from_numpy(a) for a in (q, k, v)),
                                     window=20, cap=cap)
     _close(got, want, what="local attention")
-    glob = attention.causal_attention(cfg_t, *(torch.from_numpy(a) for a in (q, k, v)),
-                                      cap=cap)
+    glob = attention.chunked_attention(cfg_t, *(torch.from_numpy(a) for a in (q, k, v)),
+                                       cap=cap)
     _close(glob, jattn.chunked_attention(cfg_j, *(jnp.asarray(a) for a in (q, k, v)),
                                          cap=cap), what="global attention")
     # the first 20 positions see their whole history: local == global there
@@ -337,18 +337,18 @@ def test_reset_parameters_zero_inits_what_the_reference_does(arch):
 
 def test_unported_gemma_neighbours_raise():
     """What the families still to port need raises: layer norm, the
-    ungated MLP, the mLSTM, sLSTM and Mamba mixers, and the Jamba and
-    xLSTM configs.  Qwen's QKV bias and untied head, MoE FFNs and
-    DeepSeek's MLA and MTP are ported (tests/test_torch_qwen.py,
-    tests/test_torch_moe.py, tests/test_torch_deepseek.py)."""
+    ungated MLP, the mLSTM and sLSTM mixers, cross-attention, and the
+    xLSTM and Whisper configs.  Qwen's QKV bias and untied head, MoE
+    FFNs, DeepSeek's MLA and MTP and Jamba's Mamba mixer are ported
+    (tests/test_torch_{qwen,moe,deepseek,jamba}.py)."""
     cfg = get_config("gemma-2b").reduced(**_kw("gemma-2b"))
     for change in (dict(layers=(dataclasses.replace(cfg.layers[0], mixer="slstm"),) * 2),
                    dict(norm="layer"), dict(activation="gelu_mlp"),
                    dict(layers=(dataclasses.replace(cfg.layers[0], mixer="mlstm"),) * 2),
-                   dict(layers=(dataclasses.replace(cfg.layers[0], mixer="mamba"),) * 2)):
+                   dict(layers=(dataclasses.replace(cfg.layers[0], cross_source=True),) * 2)):
         with pytest.raises(NotImplementedError, match="ROADMAP 1.9"):
             GCLM(cfg.replace(**change), device="meta")
-    for arch in ("xlstm-1.3b", "jamba-v0.1-52b"):
+    for arch in ("xlstm-1.3b", "whisper-base"):
         with pytest.raises(KeyError, match="ROADMAP 1.9"):
             get_config(arch)
     GCLM(cfg.replace(qkv_bias=True, tie_embeddings=False), device="meta")

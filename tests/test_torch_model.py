@@ -121,8 +121,9 @@ def test_forward_loss_and_every_leaf_gradient_match_jax(carried):
 
 
 def test_attention_matches_chunked_online_softmax():
-    """Several KV chunks and GQA (4 query heads over 2 KV heads): the
-    reference's online softmax equals one fp32 softmax."""
+    """Several KV chunks (40 keys in chunks of 16, the last ragged) and GQA
+    (4 query heads over 2 KV heads): the port's online softmax equals the
+    reference's."""
     cfg_t = get_config("gc-lm-110m").reduced(**KW).replace(attn_chunk=16)
     cfg_j = jax_get_config("gc-lm-110m").reduced(**KW).replace(attn_chunk=16)
     rng = np.random.default_rng(4)
@@ -130,7 +131,7 @@ def test_attention_matches_chunked_online_softmax():
     k = rng.standard_normal((2, 40, 2, 32)).astype(np.float32)
     v = rng.standard_normal((2, 40, 2, 32)).astype(np.float32)
     want = jattn.chunked_attention(cfg_j, *(jnp.asarray(x) for x in (q, k, v)))
-    got = attention.causal_attention(cfg_t, *(torch.from_numpy(x) for x in (q, k, v)))
+    got = attention.chunked_attention(cfg_t, *(torch.from_numpy(x) for x in (q, k, v)))
     _close(got, want, what="attention")
 
 
@@ -177,14 +178,14 @@ def test_init_law_matches_dense_init():
 
 def test_unsupported_features_raise():
     """Features of the families still to port (xLSTM's sLSTM and mLSTM
-    mixers, Jamba's Mamba mixer, layer norm, ungated MLPs) raise; the
-    Gemma family's, Qwen's QKV bias and untied head, MoE FFNs and
-    DeepSeek's MLA and MTP are ported
-    (tests/test_torch_{gemma,qwen,moe,deepseek}.py)."""
+    mixers, cross-attention, layer norm, ungated MLPs) raise; the Gemma
+    family's, Qwen's QKV bias and untied head, MoE FFNs, DeepSeek's MLA
+    and MTP and Jamba's Mamba mixer are ported
+    (tests/test_torch_{gemma,qwen,moe,deepseek,jamba}.py)."""
     cfg = get_config("gc-lm-110m").reduced(**KW)
     for change in (dict(layers=(dataclasses.replace(cfg.layers[0], mixer="slstm"),) * 2),
                    dict(norm="layer"), dict(activation="gelu_mlp"),
                    dict(layers=(dataclasses.replace(cfg.layers[0], mixer="mlstm"),) * 2),
-                   dict(layers=(dataclasses.replace(cfg.layers[0], mixer="mamba"),) * 2)):
+                   dict(layers=(dataclasses.replace(cfg.layers[0], cross_source=True),) * 2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             GCLM(cfg.replace(**change), device="meta")
