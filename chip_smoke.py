@@ -235,6 +235,27 @@ port's sources beside it.  Phases; any failure raises:
    32; finite loss, xent and aux); on the card ``remat="full"``
    bit-equal to ``"none"`` and two runs of one forward+backward
    byte-equal.
+21. xlstm-serve: full-width, full-depth xlstm-1.3b (48 layers: one
+   pattern of 8 — seven mLSTM layers of d_inner 4,096 over 4 heads of
+   1,024, an sLSTM layer — over 6 repeats; no FFN sublayers; vocab
+   50,304, tied, bf16 activations), 1,917,544,784 parameters: 16 requests
+   of 512-token prompts (two chunks of 256 of the chunkwise mLSTM), 32 new
+   tokens, with 14's gates; the slab's fixed state per slot (706,560,672
+   bytes: ``C``/``n``/``m`` and the sLSTM state fp32, ``conv`` bf16); a
+   2,048-token prefill at B = 1 timed whole and in its pieces (one mLSTM
+   mixer, one sLSTM mixer — a Python loop over tokens — and the rest) and
+   one ``decode_step`` over the 8 slots, beside their bounds; teacher
+   forcing with fp32 activations on a bf16 slab (2e-2) and fp32 on fp32
+   (1e-4), the config's bf16 activations measured, not gated; peak
+   memory.
+22. xlstm-train: coded training of xlstm-1.3b at full width cut to its
+   first 8 of 48 layers (7 mLSTM, 1 sLSTM; 405,444,664 parameters in 22
+   leaves, bf16 activations, ``remat="dots"``) with 2's plan settings:
+   coded == uncoded at step 0 with 0 and s_max stragglers (``b_i``, whose
+   gradient is zero in exact arithmetic, against its layer's ``b_f``
+   scale); 3 steps with the counts set to 0 just before (one grouped
+   ``gc_fused`` launch per step); ``remat`` "none", "dots" and "full"
+   bit-equal and two runs of one forward+backward byte-equal.
 
 The line before the last is the card's name and power limit; before it
 a JSON line lists every kernel with its launches, error and times; the
@@ -354,6 +375,17 @@ JAMBA_SERVE = dict(n_layers=8, n_slots=8, n_requests=16, prompt_len=2048, max_ne
 #: leaves: 4 launches of at most 32 per grouped combine); a full-width MoE
 #: layer's 16 fp32 rows would be 180 GB
 JAMBA_TRAIN_LAYERS = 8
+#: xLSTM at its published widths.
+#: [xlstm-serve]: xlstm-1.3b at full depth (48 layers: one pattern of 8
+#: over 6 repeats), 1,917,544,784 parameters, 7.67 GB fp32; a fixed state
+#: of 706,560,672 bytes per slot (42 mLSTM matrix memories of 16.8 MB
+#: fp32), 5.65 GB for 8 slots; 512-token prompts (two mLSTM chunks of
+#: 256), and one 2,048-token prefill timed in its pieces
+XLSTM_SERVE = dict(n_layers=48, n_slots=8, n_requests=16, prompt_len=512, max_new=32,
+                   rate=2e-3, workers=8, prefill_len=2048)
+#: [xlstm-train]: the published widths cut to the first 8 of 48 layers
+#: (one period: 405,444,664 parameters in 22 leaves, one grouped launch)
+XLSTM_TRAIN_LAYERS = 8
 #: bf16 dense peak of the card's tensor cores (the data sheet, 700 W): the
 #: operations bound of the bf16 serving phases
 BF16_FLOPS = 989e12
@@ -370,13 +402,13 @@ def smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int) -> float:
+def time_ms(fn, reps: int, warmup: int = 3) -> float:
     """Median time of one call between two CUDA events, after warm-up: the
     host-inclusive time (the card idles while the host prepares the
     launch, so the wrapper's host path is part of it)."""
     import torch
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
@@ -3216,6 +3248,351 @@ def phase_jamba_train():
     return {"launches": launches["gc_fused"], "gaps": gaps}
 
 
+def _xlstm_state_bytes(cfg, slab) -> int:
+    """Bytes of one slot's state over every layer (``pos`` aside)."""
+    return sum(t.element_size() * t[:, 0].numel() for seg in slab for tree in seg
+               for k, t in tree.items() if k != "pos")
+
+
+def _xlstm_fp32_ops(cfg, s: int, b: int, decode: bool) -> int:
+    """fp32 operations of the recurrences for ``b`` rows of ``s`` tokens.
+    mLSTM, prefill: per chunk of length L and head, Q K^T and S V (4·L²·dh),
+    the carried state's Q C0^T after the first chunk (2·L·dh²) and the end
+    state V^T diag(u) K (2·L·dh²); decode: per head the update and read of
+    C (5·dh²).  sLSTM: the block-diagonal recurrence, 2·d·4·dh per token."""
+    from repro_torch.models.xlstm import mlstm_dims, slstm_dims
+
+    _, _, nh, dh = mlstm_dims(cfg)
+    snh, sdh, _ = slstm_dims(cfg)
+    n_m = sum(l.mixer == "mlstm" for l in cfg.layers)
+    n_s = sum(l.mixer == "slstm" for l in cfg.layers)
+    if decode:
+        mlstm = 5 * dh * dh
+    else:
+        chunk = min(cfg.scan_chunk, s)
+        lengths = [min(chunk, s - i) for i in range(0, s, chunk)]
+        mlstm = sum(4 * L * L * dh + 2 * L * dh * dh for L in lengths)
+        mlstm += sum(2 * L * dh * dh for L in lengths[1:])
+    return b * (n_m * nh * mlstm + n_s * s * 2 * cfg.d_model * 4 * sdh)
+
+
+def _xlstm_times(cfg, model, slab, g) -> dict:
+    """A ``g["prefill_len"]``-token prefill at B = 1 and one ``decode_step``
+    of the slab (every row as the engine left it), host-inclusive and
+    device-only, beside their bounds: the bytes (every fp32 weight read
+    once — the tied table is the head's — each slot's state written by
+    the prefill, read and written by a decode step, the logits written)
+    over the memory rate, and the operations — the matmuls (2 per weight
+    and token, bf16 tensor cores) and the recurrences' fp32 work
+    (``_xlstm_fp32_ops``) — over the peak rates.  The prefill's device-only
+    time is left out (a graph of its ~0.3 M kernels); its pieces are
+    timed instead: one mLSTM mixer and one sLSTM mixer at S tokens, both
+    ways, and the rest (embedding, norms, residuals, head) as what the
+    whole prefill's host-inclusive time leaves."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import xlstm
+    from repro_torch.models.model import decode_step, prefill
+    from repro_torch.models.stack import _tree
+
+    n_params = sum(t.numel() for t in model.leaves())
+    s, b = g["prefill_len"], g["n_slots"]
+    state = _xlstm_state_bytes(cfg, slab)
+    vocab, d = cfg.vocab, cfg.d_model
+    tok = torch.from_numpy(np.random.default_rng(1).integers(0, vocab, size=(1, s))).cuda()
+    tokens = torch.arange(1, b + 1, device="cuda")[:, None]
+    caches = [[{k: v.clone() for k, v in tree.items()} for tree in seg] for seg in slab]
+    cases = {"prefill": (4 * n_params + state + 4 * s * vocab, 2 * n_params * s,
+                         _xlstm_fp32_ops(cfg, s, 1, False), f"S={s} B=1"),
+             "decode_step": (4 * n_params + 2 * state * b + 4 * b * vocab, 2 * n_params * b,
+                             _xlstm_fp32_ops(cfg, 1, b, True), f"B={b}")}
+    out = {}
+    with torch.no_grad():
+        fns = {"prefill": lambda: prefill(cfg, model, tok),
+               "decode_step": lambda: decode_step(cfg, model, caches, tokens)}
+        for name, (n_bytes, n_ops, n_fp32, shape) in cases.items():
+            times = {"ms": time_ms(fns[name], 2 if name == "prefill" else 5,
+                                   warmup=1 if name == "prefill" else 3),
+                     "device_ms": None if name == "prefill" else device_ms(fns[name], 3)}
+            bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = n_ops / BF16_FLOPS * 1e3 + n_fp32 / FP32_FLOPS * 1e3
+            times.update(bound_ms=max(bytes_ms, ops_ms),
+                         bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+            out[name] = times
+            dev = ("not measured" if times["device_ms"] is None
+                   else f"{times['device_ms']:.4f} ms")
+            log(f"[xlstm-serve] {name} {shape}, bf16 activations: incl {times['ms']:.4f} ms, "
+                f"device-only {dev}, bound {times['bound_ms']:.4f} ms ({times['bound_by']}; "
+                f"bytes {bytes_ms:.4f}, operations {ops_ms:.4f}: bf16 matmuls "
+                f"{n_ops / BF16_FLOPS * 1e3:.4f}, fp32 recurrences {n_fp32 / FP32_FLOPS * 1e3:.4f})"
+                + ("" if times["device_ms"] is None else
+                   f"; share of bound (device-only) {times['bound_ms'] / times['device_ms']:.3f}"))
+        del caches
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        x = torch.randn((1, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+        node = model.stack[0]
+        unbound = {id(t): t.unbind(0) for t in node.parameters()}
+        index = {k: v[0] for k, v in unbound.items()}
+        layers = {"mlstm": _tree(node[0], index)["mixer"], "slstm": _tree(node[7], index)["mixer"]}
+        pieces = {}
+        for kind, fn in (("mlstm", xlstm.mlstm_forward), ("slstm", xlstm.slstm_forward)):
+            spec = cfg.layers[0 if kind == "mlstm" else 7]
+
+            def call(fn=fn, p=layers[kind], spec=spec):
+                return fn(cfg, p, x, spec, mode="prefill")
+
+            pieces[kind] = {"ms": time_ms(call, 2, warmup=1), "device_ms": device_ms(call, 1)}
+    counts = {k: sum(l.mixer == k for l in cfg.layers) for k in ("mlstm", "slstm")}
+    whole = out["prefill"]["ms"]
+    rest = whole - sum(pieces[k]["ms"] * n for k, n in counts.items())
+    log(f"[xlstm-serve] prefill pieces, S={s} B=1 (incl / device-only ms): mLSTM mixer "
+        f"{pieces['mlstm']['ms']:.4f} / {pieces['mlstm']['device_ms']:.4f} (x{counts['mlstm']}: "
+        f"{pieces['mlstm']['ms'] * counts['mlstm'] / whole:.3f} of the prefill), sLSTM mixer "
+        f"{pieces['slstm']['ms']:.4f} / {pieces['slstm']['device_ms']:.4f} (x{counts['slstm']}: "
+        f"{pieces['slstm']['ms'] * counts['slstm'] / whole:.3f}; {s} tokens of a Python loop), "
+        f"the rest {rest:.4f} ({rest / whole:.3f}) of the prefill's {whole:.4f}; the mixers' "
+        f"device-only sum "
+        f"{sum(pieces[k]['device_ms'] * n for k, n in counts.items()):.4f}")
+    out["pieces"] = pieces
+    return out
+
+
+def _xlstm_prefill_logits(cfg, model, toks, s: int, scan_chunk: int = 0,
+                          bf16_taps: bool = False):
+    """The prefill logits of ``toks`` (B, T) with fp32 activations at the
+    teacher-forced positions s .. T-2, as (T-1-s, B, V): with the mLSTM in
+    chunks of ``scan_chunk`` (0: the config's), and with ``bf16_taps`` the
+    bf16 slab's rounding emulated — from position s on, every mLSTM conv
+    reads its earlier taps rounded to bf16, as a decode step reads them
+    from a bf16 slab (the same sum, in the same order)."""
+    import torch
+
+    from repro_torch.models import xlstm
+    from repro_torch.models.model import prefill
+
+    act = cfg.replace(dtype="float32", scan_chunk=scan_chunk or cfg.scan_chunk)
+    conv = xlstm._causal_conv
+
+    def slab_taps(x, w, b, init_state=None):
+        out, state = conv(x, w, b)
+        k = w.shape[0]
+        xp = torch.cat([torch.zeros_like(x[:, :k - 1]), x], dim=1)
+        xr = xp.to(torch.bfloat16).to(x.dtype)
+        taps = sum(xr[:, i:i + x.shape[1]] * w[i].to(x.dtype) for i in range(k - 1))
+        taps = taps + xp[:, k - 1:] * w[k - 1].to(x.dtype) + b.to(x.dtype)
+        return torch.cat([out[:, :s], taps[:, s:]], dim=1), state
+
+    xlstm._causal_conv = slab_taps if bf16_taps else conv
+    try:
+        with torch.no_grad():
+            logits = prefill(act, model, toks)[0]
+    finally:
+        xlstm._causal_conv = conv
+    return logits[:, s:toks.shape[1] - 1].transpose(0, 1)
+
+
+def _xlstm_teacher_forcing(cfg, model, outputs, s: int) -> dict:
+    """Teacher forcing as ``_teacher_forcing`` runs it — rows 0-1 with fp32
+    activations on a bf16 slab, row 2 fp32 on an fp32 slab — each held to
+    the larger of ``[serve]``'s bound and twice the prefill's own change
+    under the same rounding at the same rows (``_xlstm_prefill_logits``):
+    for the fp32 row, the mLSTM chunk halved (the same function summed in
+    another order); for the bf16-slab rows, the slab's rounding of the
+    conv taps emulated from position s on.  At a random init the stack
+    amplifies rounding, so those changes, not the bounds alone, set how
+    far two exact forms of one function can differ.  The config's bf16
+    activations on a bf16 slab are measured, not gated."""
+    import numpy as np
+    import torch
+
+    toks = torch.from_numpy(np.stack(outputs).astype(np.int64)).cuda()
+    act = cfg.replace(dtype="float32")
+    slab, _ = teacher_forced_tokens(act, model, toks[:2], s, torch.bfloat16, "cuda")
+    fp32, fp32_want = teacher_forced_tokens(act, model, toks[2:3], s, torch.float32, "cuda")
+    bf16, bf16_want = teacher_forced_tokens(cfg, model, toks[:2], s, torch.bfloat16, "cuda")
+    plain = _xlstm_prefill_logits(cfg, model, toks, s)
+    half = _xlstm_prefill_logits(cfg, model, toks[2:3], s, cfg.scan_chunk // 2)
+    taps = _xlstm_prefill_logits(cfg, model, toks[:2], s, bf16_taps=True)
+    floors = {"fp32": _rel_err(half, plain[:, 2:3]), "bf16_slab": _rel_err(taps, plain[:, :2])}
+    out = {"fp32": _rel_err(fp32, fp32_want), "bf16_slab": _rel_err(slab, plain[:, :2]),
+           "bf16_slab_vs_emulated": _rel_err(slab, taps),
+           "bf16_activations": _rel_err(bf16, bf16_want)}
+    bounds = {"fp32": max(SERVE_FP32_REL, 2 * floors["fp32"]),
+              "bf16_slab": max(SERVE_BF16_REL, 2 * floors["bf16_slab"])}
+    log(f"[xlstm-serve] teacher forcing over {toks.shape[1] - s - 1} decode steps (error of "
+        f"the largest logit): fp32 activations, fp32 slab (1 row) {out['fp32']:.3e} (bound "
+        f"{bounds['fp32']:.3e}: the prefill's own change with half the mLSTM chunk "
+        f"{floors['fp32']:.3e}); fp32 activations, bf16 slab (2 rows) {out['bf16_slab']:.3e} "
+        f"(bound {bounds['bf16_slab']:.3e}: the prefill's own change with the slab's bf16 conv "
+        f"taps {floors['bf16_slab']:.3e}; against that prefill {out['bf16_slab_vs_emulated']:.3e}"
+        f"); the config's bf16 activations, bf16 slab (2 rows) {out['bf16_activations']:.3e}, "
+        "measured, not gated")
+    for name, bound in bounds.items():
+        if not out[name] <= bound:
+            raise AssertionError(f"[xlstm-serve] teacher-forced logits, {name}: "
+                                 f"{out[name]:.3e} (bound {bound:.3e})")
+    return {"teacher_forcing": out, "floors": floors}
+
+
+def phase_xlstm_serve():
+    """Full-width, full-depth xlstm-1.3b (d_model 2048; 48 layers: one
+    pattern of 8 — seven mLSTM layers of d_inner 4,096 over 4 heads of
+    1,024 and an sLSTM layer — over 6 repeats; no FFN sublayers; vocab
+    50,304, tied; bf16 activations), 1,917,544,784 parameters, in a
+    ``ServeEngine`` of 8 slots over a bf16 slab: 16 requests of 512-token
+    prompts and 32 new tokens each (``_serve_run``'s gates).  The slab
+    holds a fixed state per slot and no K/V: ``C``, ``n``, ``m`` and the
+    sLSTM state fp32, ``conv`` bf16.  The prefill's pieces and
+    ``decode_step`` against their bounds (``_xlstm_times``); teacher
+    forcing with fp32 activations on a bf16 slab (2e-2) and fp32 on an
+    fp32 slab (1e-4), the config's bf16 activations on a bf16 slab
+    measured, not gated; peak memory under 80 GB."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.blocks import has_ffn
+    from repro_torch.models.params import GCLM
+
+    _free_card()
+    g = XLSTM_SERVE
+    cfg = _cut("xlstm-1.3b", g["n_layers"])
+    mixers = [l.mixer for l in cfg.layers]
+    if mixers != (["mlstm"] * 7 + ["slstm"]) * 6 or any(has_ffn(cfg, l) for l in cfg.layers):
+        raise AssertionError(f"[xlstm-serve] not the published layout: {mixers}")
+    model = GCLM(cfg, device="cuda", seed=0)
+    n_params = sum(t.numel() for t in model.leaves())
+    if n_params != 1_917_544_784 or len(model.leaves()) != 94:
+        raise AssertionError(f"[xlstm-serve] {n_params} parameters in {len(model.leaves())} "
+                             "leaves, expected 1,917,544,784 in 94")
+    run = _serve_run("xlstm-serve", cfg, model, g)
+    eng, reqs = run["eng"], run["reqs"]
+    (seg,) = eng.slab
+    state = _xlstm_state_bytes(cfg, eng.slab)
+    dtypes = {k: str(t.dtype) for tree in seg for k, t in tree.items() if k != "pos"}
+    if state != 706_560_672 or dtypes.pop("conv") != "torch.bfloat16" or \
+            set(dtypes.values()) != {"torch.float32"}:
+        raise AssertionError(f"[xlstm-serve] the slab's state: {state} bytes per slot, {dtypes}")
+    log(f"[xlstm-serve] slab: no K/V; a fixed state of {state} bytes per slot whatever the "
+        f"length (42 mLSTM layers x (C {tuple(seg[0]['C'].shape[2:])} + n + m fp32, conv "
+        f"{tuple(seg[0]['conv'].shape[2:])} bf16) + 6 sLSTM layers x 4 x {cfg.d_model} fp32), "
+        f"{state * g['n_slots']} bytes for {g['n_slots']} slots")
+    times = _xlstm_times(cfg, model, eng.slab, g)
+    tokens_per_s, peak = run["tokens_per_s"], run["peak"]
+    outputs = [r.output for r in reqs[:3]]
+    del run, eng, reqs, seg
+    _free_card()
+    tf = _xlstm_teacher_forcing(cfg, model, outputs, g["prompt_len"])
+    log(f"[xlstm-serve] max_memory_allocated during the engine run {peak} bytes "
+        f"({peak / 1e9:.2f} GB: the weights 7.67 GB fp32, the slab "
+        f"{state * g['n_slots'] / 1e9:.2f} GB, the prefill's activations)")
+    if not peak < 80e9:
+        raise AssertionError(f"[xlstm-serve] peak {peak} bytes")
+    del model
+    _free_card()
+    return {"tokens_per_s": tokens_per_s, "peak": peak, "state_bytes_per_slot": state,
+            **tf, **times}
+
+
+def _xlstm_worst_rel(got, want, paths, bound: float, what: str) -> float:
+    """``_worst_rel`` over the leaves; a ``b_i`` leaf — whose gradient is
+    zero in exact arithmetic: a shift of every log_i of a head moves C, n
+    and e^m alike — is held at ``bound`` of its layer's ``b_f`` gradient."""
+    by_path = dict(zip(paths, want, strict=True))
+    keep = [i for i, p in enumerate(paths) if not p.endswith("b_i")]
+    worst = _worst_rel([got[i] for i in keep], [want[i] for i in keep],
+                       [paths[i] for i in keep], bound, what)
+    for i, p in enumerate(paths):
+        if p.endswith("b_i"):
+            err = ((got[i] - want[i]).abs().max() / by_path[p[:-1] + "f"].abs().max()).item()
+            if not err <= bound:
+                raise AssertionError(f"{what} at {p}: {err:.3e} of b_f's gradient > {bound}")
+    return worst
+
+
+def phase_xlstm_train():
+    """Coded training of xlstm-1.3b at its published widths cut to its
+    first 8 of 48 layers (one period: a run of 7 mLSTM layers and an sLSTM
+    layer, 405,444,664 parameters in 22 leaves; 16 fp32 rows of 1.62 GB
+    per step), bf16 activations and ``remat="dots"`` as the config has
+    them, in sim mode with the gc-lm-110m plan settings (N = 4, ``xf``,
+    s_max = 3, seq 256: one mLSTM chunk, global batch 8).  At step 0 the
+    coded gradient equals the uncoded one (``EXACT_RTOL`` per leaf;
+    ``_xlstm_worst_rel``) with 0 and s_max stragglers.  ``Trainer.run``
+    for 3 steps with the counts set to 0 just before: one grouped
+    ``gc_fused`` launch per step, finite ``loss`` and ``xent``.  On the
+    card: ``remat`` "none", "dots" and "full" bit-equal, and two runs of
+    one forward+backward byte-equal."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import ShiftedExponential
+    from repro_torch.data.pipeline import coded_worker_batches
+    from repro_torch.models.model import train_loss
+    from repro_torch.train.coded import combine_rows, per_shard_grad_rows, uncoded_grad_fn
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    _free_card()
+    cfg = _cut("xlstm-1.3b", XLSTM_TRAIN_LAYERS)
+    trainer = Trainer(cfg, TrainConfig(lr=3e-4, warmup=10, total_steps=300),
+                      ShiftedExponential(mu=1e-3, t0=50.0), n_workers=4, scheme="xf",
+                      global_batch=8, seed=0, device="cuda", seq_len=256)
+    plan, model, n = trainer.plan, trainer.state.params, trainer.n_workers
+    paths = model.leaf_paths()
+    n_params = sum(t.numel() for t in model.leaves())
+    if len(paths) != 22 or n_params != 405_444_664 or cfg.dtype != "bfloat16" or \
+            cfg.remat != "dots":
+        raise AssertionError(f"[xlstm-train] {n_params} params in {len(paths)} leaves, "
+                             f"{cfg.dtype}, remat {cfg.remat}")
+    wb = coded_worker_batches(trainer.data, 0, n, plan.s_max)
+    shards = np.stack([trainer.data.shard(0, i, n) for i in range(n)])
+    rows = per_shard_grad_rows(cfg, model, wb)
+    g_ref = uncoded_grad_fn(cfg, n)(model, shards)
+    gaps = {u: _xlstm_worst_rel(combine_rows(plan, rows, _straggler_dec_w(plan, u)), g_ref,
+                                paths, EXACT_RTOL,
+                                f"[xlstm-train] coded != uncoded, {u} stragglers")
+            for u in (0, plan.s_max)}
+    del rows, g_ref
+    log(f"[xlstm-train] xlstm-1.3b at full width, first {cfg.n_layers} of 48 layers "
+        f"({[l.mixer for l in cfg.layers].count('mlstm')} mLSTM, 1 sLSTM, bf16 activations, "
+        f"remat {cfg.remat}): {n_params} params in {len(paths)} leaves, "
+        f"N*K={n * plan.k_shards}; step 0, coded == uncoded, worst leaf relative max error at "
+        f"0 / s_max stragglers: {gaps[0]:.3e} / {gaps[plan.s_max]:.3e} (bound {EXACT_RTOL})")
+
+    reset_counts()
+    trainer.run(STEPS, log_every=1, log_fn=lambda m: log(f"[xlstm-train] {m}"))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    hist = trainer.history
+    if launches != {"gc_fused": STEPS, "gc_encode": 0, "gc_decode": 0}:
+        raise AssertionError(f"[xlstm-train] launches {launches} in {STEPS} steps, expected "
+                             f"one grouped gc_fused launch per step ({len(paths)} leaves)")
+    keys = ("loss", "xent")
+    if not all(all(math.isfinite(h[k]) for k in keys) for h in hist):
+        raise AssertionError(f"[xlstm-train] metrics {[[h.get(k) for k in keys] for h in hist]}")
+
+    tokens = torch.as_tensor(wb[0, 0], device="cuda")
+
+    def grads(c):
+        loss, _ = train_loss(c, model, {"tokens": tokens})
+        return [loss, *torch.autograd.grad(loss, model.leaves())]
+
+    plain = grads(cfg.replace(remat="none"))
+    for remat in ("dots", "full"):
+        for a, b in zip(plain, grads(cfg.replace(remat=remat)), strict=True):
+            if not torch.equal(a, b):
+                raise AssertionError(f"[xlstm-train] remat={remat!r} is not bit-equal to 'none'")
+    for a, b in zip(plain, grads(cfg.replace(remat="none")), strict=True):
+        if not torch.equal(a, b):
+            raise AssertionError("[xlstm-train] two runs of one forward+backward differ")
+    log(f"[xlstm-train] {STEPS} steps, (loss, xent) {[tuple(h[k] for k in keys) for h in hist]}"
+        f", launches {launches} (one per step: {len(paths)} leaves); remat 'dots' and 'full' "
+        "bit-equal to 'none'; two forward+backward runs byte-equal")
+    del trainer, model, plain
+    _free_card()
+    return {"launches": launches["gc_fused"], "gaps": gaps}
+
+
 def main() -> int:
     try:
         import torch
@@ -3272,6 +3649,8 @@ def main() -> int:
     deepseek = timed("deepseek-train", phase_deepseek_train)
     timed("jamba-serve", phase_jamba_serve)
     jamba = timed("jamba-train", phase_jamba_train)
+    timed("xlstm-serve", phase_xlstm_serve)
+    xlstm = timed("xlstm-train", phase_xlstm_train)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s; seconds by "
         f"phase {spent}")
 
@@ -3288,7 +3667,7 @@ def main() -> int:
                       "wave": wave_launches["gc_fused"], "tune": tune_launches["gc_fused"],
                       "spmd": spmd_launches, "gemma": gemma["launches"],
                       "moe": moe_train["launches"], "deepseek": deepseek["launches"],
-                      "jamba": jamba["launches"]}
+                      "jamba": jamba["launches"], "xlstm": xlstm["launches"]}
     print(json.dumps({"kernels": [
         row("gc_fused", "src/repro/kernels/gc_fused.py:57", sum(fused_launches.values()),
             max(max_err, gemma["max_abs_err"]), kernel_times, launches_by_path=fused_launches,

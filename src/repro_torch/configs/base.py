@@ -3,8 +3,9 @@ registry.
 
 Copied from ``repro/configs/base.py`` and trimmed to what the port
 runs: a layer is an attention mixer (global, or a sliding window),
-DeepSeek's multi-head latent attention (``MLASpec``) or Jamba's Mamba
-mixer (``MambaSpec``) plus a dense or
+DeepSeek's multi-head latent attention (``MLASpec``), Jamba's Mamba
+mixer (``MambaSpec``) or xLSTM's mLSTM and sLSTM mixers (``XLSTMSpec``,
+layers without an FFN sublayer) plus a dense or
 mixture-of-experts FFN (``MoESpec``), with the Gemma family's softcaps,
 QK-norm, sandwich norms, embedding scale and GeGLU, Qwen's QKV biases
 and untied head, and DeepSeek-V3's multi-token prediction
@@ -20,8 +21,8 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Optional
 
-__all__ = ["MoESpec", "MLASpec", "MambaSpec", "LayerSpec", "ModelConfig", "register",
-           "get_config", "list_archs"]
+__all__ = ["MoESpec", "MLASpec", "MambaSpec", "XLSTMSpec", "LayerSpec", "ModelConfig",
+           "register", "get_config", "list_archs"]
 
 
 @dataclass(frozen=True)
@@ -57,9 +58,20 @@ class MambaSpec:
 
 
 @dataclass(frozen=True)
+class XLSTMSpec:
+    """xLSTM's mixers: ``kind`` 'mlstm' | 'slstm'."""
+
+    kind: str = "mlstm"
+    proj_factor: float = 2.0  # mLSTM up-projection
+    conv_kernel: int = 4
+
+
+@dataclass(frozen=True)
 class LayerSpec:
     """One decoder layer = mixer + FFN; ``moe`` None is a dense FFN (d_ff
-    from ``ModelConfig``), else an ``MoESpec``."""
+    from ``ModelConfig``), else an ``MoESpec``; no FFN sublayer without
+    ``use_ffn`` or with ``d_ff`` 0 and no ``moe`` (xLSTM: the mixer holds
+    the projections)."""
 
     mixer: str = "attn"
     window: Optional[int] = None
@@ -94,6 +106,7 @@ class ModelConfig:
     scale_embed: bool = False
     mla: Optional[MLASpec] = None
     mamba: Optional[MambaSpec] = None
+    xlstm_blocks: tuple = ()  # XLSTMSpec per mixer kind (xLSTM)
     mtp_depth: int = 0
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
@@ -107,7 +120,7 @@ class ModelConfig:
     attn_chunk: int = 1024  # KV chunk of the online-softmax attention
     attn_chunk_remat: bool = False  # recompute each chunk's scores in the backward
     attn_probs_bf16: bool = False  # round each chunk's probabilities to bf16
-    scan_chunk: int = 256  # time chunk of the Mamba scan
+    scan_chunk: int = 256  # time chunk of the Mamba scan and the chunkwise mLSTM
     max_seq: int = 131_072
 
     def __post_init__(self):
@@ -172,6 +185,8 @@ class ModelConfig:
             )
         if self.mamba is not None:
             kw["mamba"] = dataclasses.replace(self.mamba, d_state=8)
+        if self.xlstm_blocks:
+            kw["xlstm_blocks"] = self.xlstm_blocks[:n_layers]
         return self.replace(**kw)
 
 
@@ -191,8 +206,8 @@ def get_config(arch_id: str) -> ModelConfig:
 
     if arch_id not in _REGISTRY:
         raise KeyError(f"unknown arch '{arch_id}'; the port has: "
-                       f"{sorted(_REGISTRY)} (xLSTM, vision and audio "
-                       "families: ROADMAP 1.9)")
+                       f"{sorted(_REGISTRY)} (vision and audio families: "
+                       "ROADMAP 1.9)")
     return _REGISTRY[arch_id]()
 
 

@@ -25,8 +25,9 @@ decode against ring caches), qwen1.5-32b, mixtral-8x22b,
 deepseek-v3-671b (whose MoE capacity counts the tokens of each call: a
 prompt's prefill may drop assignments, a decode step over at most 8
 slots cannot; DeepSeek's MLA layers decode against a latent cache) and
-jamba-v0.1-52b (whose Mamba layers decode from a fixed-size state);
-the xLSTM, Whisper and vision archs are ROADMAP 1.9.  A full-width gemma3-27b (27.0 B parameters, 108 GB in
+jamba-v0.1-52b (whose Mamba layers decode from a fixed-size state) and
+xlstm-1.3b (mLSTM and sLSTM layers, a fixed-size state too); the Whisper
+and vision archs are ROADMAP 1.9.  A full-width gemma3-27b (27.0 B parameters, 108 GB in
 fp32) does not fit one 80 GB card, so the default stays gc-lm-110m where
 the reference's is gemma3-27b.  The port serves on one device: ``--data-par`` and
 ``--model-par`` (the reference's mesh) must stay 1.
@@ -35,6 +36,7 @@ the reference's is gemma3-27b.  The port serves on one device: ``--data-par`` an
     python -m repro_torch.launch.serve --arch mixtral-8x22b --reduced --device cpu
     python -m repro_torch.launch.serve --arch deepseek-v3-671b --reduced --device cpu
     python -m repro_torch.launch.serve --arch jamba-v0.1-52b --reduced --device cpu
+    python -m repro_torch.launch.serve --arch xlstm-1.3b --reduced --device cpu
 """
 from __future__ import annotations
 

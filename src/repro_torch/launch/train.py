@@ -7,12 +7,14 @@
 gemma3-27b), qwen1.5-32b (QKV biases, an untied head), mixtral-8x22b
 (mixture-of-experts FFNs, whose load-balance loss joins the training
 loss), deepseek-v3-671b (MLA, whose multi-token prediction loss joins
-it too) and jamba-v0.1-52b (Mamba mixers); ``--reduced`` cuts the config
+it too), jamba-v0.1-52b (Mamba mixers) and xlstm-1.3b (mLSTM and sLSTM
+mixers, no FFN sublayers); ``--reduced`` cuts the config
 to 2 layers of width 128.  Sim mode holds N·K fp32 rows of every
-parameter, so Qwen, Mixtral, DeepSeek and Jamba train on one card only
+parameter, so Qwen, Mixtral, DeepSeek, Jamba and xLSTM train on one card only
 reduced: one full-width layer of Qwen or Mixtral, with its embedding and
 head, is 2.1-2.9 B parameters, one DeepSeek MoE layer 11.5 B, one Jamba
-MoE layer 2.82 B (ROADMAP 3.14).  Runs ``Trainer.run`` (barrier loop, sim mode, the fused ``gc_fused``
+MoE layer 2.82 B, and xLSTM's 48 layers take 16 rows of 7.67 GB
+(ROADMAP 3.14).  Runs ``Trainer.run`` (barrier loop, sim mode, the fused ``gc_fused``
 combine on CUDA) and prints the loss and the simulated-runtime ledger
 (tau_coded vs the wait-for-slowest tau_uncoded).  ``--device`` defaults
 to ``cuda`` and fails without CUDA; pass ``--device cpu`` to run the

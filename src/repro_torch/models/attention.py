@@ -19,11 +19,10 @@ KV heads exactly as the reference does.  Qwen's QKV biases are added
 after the projections, in the activations' dtype, before QK-norm and
 RoPE.  Gemma's extras sit at the reference's places: QK-norm
 (``_rms_head``) before RoPE, the score softcap before the masks, and
-``rope_base_local`` on windowed layers.  ``chunked_attention`` scales
-the scores into fp32 as the reference does (a bf16 array times a numpy
-float); ``local_attention`` and the decode step scale and softcap them in
-the activations' dtype, where the reference's product is fp32
-(ROADMAP 3.19).
+``rope_base_local`` on windowed layers.  ``chunked_attention``,
+``local_attention`` and the decode step scale the scores into fp32 as
+the reference does (a bf16 array times a numpy float is an fp32 product
+in JAX), then softcap and mask them in fp32.
 
 Decode: one query token against a KV cache ``{"k", "v", "pos"}`` of
 capacity ``cap`` (``(B, cap, K, Dh)`` leaves): the whole sequence for a
@@ -199,8 +198,8 @@ def local_attention(cfg, q, k, v, *, window: int, cap: float = 0.0):
         valid = ((kv_pos[None, :] <= q_pos[:, None])
                  & (kv_pos[None, :] > q_pos[:, None] - window)
                  & (kv_pos[None, :] >= 0) & (kv_pos[None, :] < sq))
-        s = softcap(torch.einsum("bqkgd,bckd->bkgqc", qg[:, i], k_i) * scale, cap)
-        w = torch.softmax(s.float() + torch.where(valid, 0.0, NEG_INF), dim=-1)
+        s = softcap(torch.einsum("bqkgd,bckd->bkgqc", qg[:, i], k_i).float() * scale, cap)
+        w = torch.softmax(s + torch.where(valid, 0.0, NEG_INF), dim=-1)
         outs.append(torch.einsum("bkgqc,bckd->bqkgd", w.to(q.dtype), v_i))
     return torch.cat(outs, dim=1).reshape(b, n_chunks * cq, h, dh)[:, :sq]
 
@@ -249,9 +248,9 @@ def _decode(cfg, p, x, cache, rope_base):
     bias = torch.where(valid, 0.0, NEG_INF)[:, None, None, None, :]
     kvh, dh = k.shape[2], k.shape[3]
     qg = q.reshape(b, 1, kvh, cfg.n_heads // kvh, dh)
-    s_att = torch.einsum("bqkgd,bckd->bkgqc", qg, k_cache.to(q.dtype)) / np.sqrt(cfg.head_dim)
-    s_att = softcap(s_att, cfg.attn_softcap)
-    w_att = torch.softmax(s_att.float() + bias, dim=-1).to(q.dtype)
+    s_att = torch.einsum("bqkgd,bckd->bkgqc", qg, k_cache.to(q.dtype)).float()
+    s_att = softcap(s_att / np.sqrt(cfg.head_dim), cfg.attn_softcap)
+    w_att = torch.softmax(s_att + bias, dim=-1).to(q.dtype)
     out = torch.einsum("bkgqc,bckd->bqkgd", w_att, v_cache.to(q.dtype))
     out = out.reshape(b, 1, cfg.n_heads, dh)
     pos.add_(1)

@@ -3,10 +3,11 @@ training, prefill or decode mode, ``train_loss`` (cross-entropy, the
 MoE load-balance loss and DeepSeek-V3's multi-token prediction loss),
 and the serving entry points ``prefill``, ``decode_step`` and
 ``init_decode_caches`` — gc-lm-110m, the Gemma family, Qwen 1.5,
-Mixtral, DeepSeek-V3 and Jamba (the embedding scale, the untied head and
-the final softcap live in ``layers.py``, the MoE FFN in ``moe.py``, MLA
-in ``mla.py``, the Mamba mixer in ``ssm.py``); encoders and vision are
-ROADMAP 1.9."""
+Mixtral, DeepSeek-V3, Jamba and xLSTM (the embedding scale, the untied
+head and the final softcap live in ``layers.py``, the MoE FFN in
+``moe.py``, MLA in ``mla.py``, the Mamba mixer in ``ssm.py``, the mLSTM
+and sLSTM mixers in ``xlstm.py``); encoders and vision are ROADMAP
+1.9."""
 from __future__ import annotations
 
 import dataclasses
@@ -113,8 +114,8 @@ def prefill(cfg, model, tokens, target_len: int = 0):
 def decode_step(cfg, model, caches, token):
     """token: (B, 1).  Returns (logits, caches): ``caches`` (from
     ``prefill`` or ``init_decode_caches``) is updated in place — this
-    token's K/V written at ``pos % cap`` (a Mamba layer's ``conv`` and
-    ``h`` overwritten), ``pos`` advanced by one."""
+    token's K/V written at ``pos % cap`` (a Mamba or xLSTM layer's state
+    overwritten), ``pos`` advanced by one."""
     logits, caches, _, _ = forward(cfg, model, token, mode="decode", caches=caches)
     return logits, caches
 
@@ -126,7 +127,7 @@ def init_decode_caches(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
     tokens (default ``seq_len - 1``: a full-but-one cache).  ``row_pos``
     makes every ``pos`` leaf one entry per batch row — ``(B,)`` for a
     single layer, ``(L, B)`` for a run or a pattern's position, Mamba's
-    as attention's — the serving slab's layout, where each slot decodes
+    and xLSTM's as attention's — the serving slab's layout, where each slot decodes
     at its own depth."""
     dev = resolve_device(device)
     caches = init_stack_caches(cfg, batch, seq_len, dtype, dev)

@@ -23,7 +23,12 @@ between ``final_norm`` and ``stack``; an MLA mixer's nine leaves sort as
 ``kv_a_norm``, ``q_a_norm``, ``wk_b``, ``wk_rope``, ``wkv_a``, ``wo``,
 ``wq_a``, ``wq_b``, ``wv_b``; a Mamba mixer's nine as ``a_log``,
 ``conv_b``, ``conv_w``, ``d_skip``, ``dt_bias``, ``dt_proj``,
-``in_proj``, ``out_proj``, ``x_proj``.
+``in_proj``, ``out_proj``, ``x_proj``; an mLSTM mixer's eleven as
+``b_f``, ``b_i``, ``conv_b``, ``conv_w``, ``down``, ``gn_scale``, ``up``,
+``w_if``, ``wk``, ``wq``, ``wv``, an sLSTM mixer's seven as ``b_gates``,
+``down``, ``gn_scale``, ``r_gates``, ``up1``, ``up2``, ``w_gates``; a
+layer without an FFN sublayer (xLSTM) has neither ``norm_ffn`` nor
+``ffn``.
 
 Weights are drawn from a ``torch.Generator`` with the law of the
 reference's ``dense_init`` (truncated normal on [-2, 2], std 1/sqrt(fan_in)
@@ -41,8 +46,10 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from .blocks import has_ffn
 from .ssm import a_log_init, dt_bias_init, mamba_dims
 from .stack import Run, plan_segments
+from .xlstm import mlstm_dims, slstm_dims
 
 __all__ = ["ParamNode", "GCLM", "params_from_numpy", "params_to_numpy",
            "count_params"]
@@ -66,10 +73,10 @@ def _zeros(shape, device):
 def _layer_node(cfg, spec, count: int, device) -> ParamNode:
     """One layer's parameters; leaves carry a leading (count,) axis when
     the segment stacks more than one layer."""
-    if spec.mixer not in _MIXER_LEAVES or spec.cross_source or not spec.use_ffn:
+    if spec.mixer not in _MIXER_LEAVES or spec.cross_source:
         raise NotImplementedError(
-            f"layer {spec} is not ported yet: the port runs attention, MLA or Mamba + dense "
-            "or MoE FFN layers (the xLSTM mixers, cross-attention: ROADMAP 1.9)")
+            f"layer {spec} is not ported yet: the port runs attention, MLA, Mamba, mLSTM or "
+            "sLSTM mixers + dense or MoE FFN layers (cross-attention: ROADMAP 1.9)")
     lead = (count,) if count > 1 else ()
     d = cfg.d_model
 
@@ -77,15 +84,13 @@ def _layer_node(cfg, spec, count: int, device) -> ParamNode:
         return _zeros(lead + shape, device)
 
     mixer = _MIXER_LEAVES[spec.mixer](cfg, z)
-    children = {
-        "norm_mix": ParamNode({"scale": z(d)}),
-        "mixer": ParamNode(mixer),
-        "norm_ffn": ParamNode({"scale": z(d)}),
-        "ffn": _ffn_node(cfg, spec, z),
-    }
+    children = {"norm_mix": ParamNode({"scale": z(d)}), "mixer": ParamNode(mixer)}
     if cfg.post_norm:
-        children.update(norm_mix_post=ParamNode({"scale": z(d)}),
-                        norm_ffn_post=ParamNode({"scale": z(d)}))
+        children["norm_mix_post"] = ParamNode({"scale": z(d)})
+    if has_ffn(cfg, spec):
+        children.update(norm_ffn=ParamNode({"scale": z(d)}), ffn=_ffn_node(cfg, spec, z))
+        if cfg.post_norm:
+            children["norm_ffn_post"] = ParamNode({"scale": z(d)})
     return ParamNode(children=children)
 
 
@@ -120,7 +125,29 @@ def _mamba_leaves(cfg, z) -> dict:
             "out_proj": z(d_inner, d)}
 
 
-_MIXER_LEAVES = {"attn": _attn_leaves, "mla": _mla_leaves, "mamba": _mamba_leaves}
+def _mlstm_leaves(cfg, z) -> dict:
+    """``repro/models/xlstm.py::init_mlstm``'s eleven leaves: headwise
+    (block-diagonal) ``wq``/``wk``/``wv`` (nh, dh, dh)."""
+    spec, d_inner, nh, dh = mlstm_dims(cfg)
+    d = cfg.d_model
+    return {"up": z(d, 2 * d_inner), "conv_w": z(spec.conv_kernel, d_inner), "conv_b": z(d_inner),
+            "wq": z(nh, dh, dh), "wk": z(nh, dh, dh), "wv": z(nh, dh, dh),
+            "w_if": z(d_inner, 2 * nh), "b_i": z(nh), "b_f": z(nh), "gn_scale": z(d_inner),
+            "down": z(d_inner, d)}
+
+
+def _slstm_leaves(cfg, z) -> dict:
+    """``repro/models/xlstm.py::init_slstm``'s seven leaves: the
+    block-diagonal recurrence ``r_gates`` (nh, dh, 4·dh), the post-up
+    GeGLU of width round(4/3·d)."""
+    nh, dh, d_up = slstm_dims(cfg)
+    d = cfg.d_model
+    return {"w_gates": z(d, 4 * d), "r_gates": z(nh, dh, 4 * dh), "b_gates": z(4 * d),
+            "gn_scale": z(d), "up1": z(d, d_up), "up2": z(d, d_up), "down": z(d_up, d)}
+
+
+_MIXER_LEAVES = {"attn": _attn_leaves, "mla": _mla_leaves, "mamba": _mamba_leaves,
+                 "mlstm": _mlstm_leaves, "slstm": _slstm_leaves}
 
 
 def _mtp_node(cfg, device) -> ParamNode:
@@ -161,20 +188,31 @@ def _segment_node(cfg, seg, device) -> nn.Module:
 
 
 #: leaves the reference initializes to zero: rms-norm scales (which store
-#: scale - 1), the QK-norm and MLA-norm scales, the QKV biases and the
-#: Mamba conv's bias
-ZERO_INIT = ("scale", "q_norm", "k_norm", "q_a_norm", "kv_a_norm", "bq", "bk", "bv", "conv_b")
+#: scale - 1), the QK-norm and MLA-norm scales, the QKV biases, the
+#: Mamba and mLSTM convs' bias and the mLSTM input gate's bias
+ZERO_INIT = ("scale", "q_norm", "k_norm", "q_a_norm", "kv_a_norm", "bq", "bk", "bv", "conv_b",
+             "b_i")
 
-#: Mamba leaves with fixed values, the reference's bit for bit (every
-#: layer alike): the skip weight one, ``a_log`` and ``dt_bias``
-#: (``ssm.py``)
+
+def _slstm_b_gates(cfg) -> np.ndarray:
+    """The sLSTM gate biases: 0 (i), 3 (f: forget-open), 0 (z), 0 (o)."""
+    d = cfg.d_model
+    return np.concatenate([np.zeros(d), np.full(d, 3.0), np.zeros(2 * d)]).astype(np.float32)
+
+
+#: leaves with fixed values, the reference's bit for bit (every layer
+#: alike), broadcast over a stacked leaf: Mamba's skip weight one,
+#: ``a_log`` and ``dt_bias`` (``ssm.py``); the xLSTM group norms' scale
+#: one, the mLSTM forget bias 3 and the sLSTM gate biases
 FIXED_INIT = {"d_skip": lambda cfg: np.ones(mamba_dims(cfg)[1], np.float32),
-              "a_log": a_log_init, "dt_bias": dt_bias_init}
+              "a_log": a_log_init, "dt_bias": dt_bias_init,
+              "gn_scale": lambda cfg: np.ones(1, np.float32),
+              "b_f": lambda cfg: np.full(1, 3.0, np.float32), "b_gates": _slstm_b_gates}
 
 
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for features outside what the port
-    runs (the dense, Gemma, Qwen, MoE, DeepSeek and Jamba paths)."""
+    runs (the dense, Gemma, Qwen, MoE, DeepSeek, Jamba and xLSTM paths)."""
     unsupported = {
         "layer norm": cfg.norm != "rms",
         "ungated MLP": cfg.activation not in ("silu", "gelu"),
@@ -241,7 +279,8 @@ class GCLM(nn.Module):
     def reset_parameters(self, seed: int = 0) -> None:
         """``dense_init`` law for matrices, zeros for the leaves the
         reference zero-inits (``ZERO_INIT``), the reference's fixed values
-        for Mamba's ``d_skip``, ``a_log`` and ``dt_bias`` (``FIXED_INIT``)."""
+        for Mamba's ``d_skip``, ``a_log`` and ``dt_bias`` and xLSTM's
+        ``gn_scale``, ``b_f`` and ``b_gates`` (``FIXED_INIT``)."""
         gen = torch.Generator(device=self.embed.tok.device).manual_seed(int(seed))
         stacked = {seg_i for seg_i, seg in enumerate(plan_segments(self.cfg.layers))
                    if not isinstance(seg, Run) or seg.count > 1}

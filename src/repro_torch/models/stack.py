@@ -30,12 +30,15 @@ order, as the reference's scan carries it.
 Decode caches keep the reference's layout: one entry per segment — a
 plain dict for a single layer (``{"k", "v", "pos"}`` for attention,
 ``{"c_kv", "k_r", "pos"}`` for MLA, ``{"conv", "h", "pos"}`` for Mamba,
-whose state has no sequence axis); for a run, leaves stacked over the
-run (``(L, B, cap, K, Dh)`` K/V, ``(L, B, d_conv-1, d_inner)`` conv and
-a ``(L,)`` or ``(L, B)`` ``pos``); for a pattern, a list of p such
-trees stacked over the repeats, each position its own mixer's (Jamba's
-32 layers: one pattern of 8 — seven Mamba trees and one attention tree
-— over 4 repeats).  A decode step hands each layer views of its slice,
+``{"C", "n", "m", "conv", "pos"}`` for an mLSTM and ``{"h", "c", "n",
+"m", "pos"}`` for an sLSTM, whose states have no sequence axis); for a
+run, leaves stacked over the run (``(L, B, cap, K, Dh)`` K/V,
+``(L, B, d_conv-1, d_inner)`` conv, ``(L, B, nh, dh, dh)`` C and a
+``(L,)`` or ``(L, B)`` ``pos``); for a pattern, a list of p such trees
+stacked over the repeats, each position its own mixer's (Jamba's 32
+layers: one pattern of 8 — seven Mamba trees and one attention tree —
+over 4 repeats; xLSTM's 48: seven mLSTM trees and one sLSTM tree over
+6).  A decode step hands each layer views of its slice,
 so every write lands in the stacked tensors in place.
 """
 from __future__ import annotations
@@ -211,7 +214,8 @@ def apply_stack(cfg, stack, x, *, mode="train", caches=None, target_len: int = 0
 
 def init_stack_caches(cfg, batch: int, seq_len: int, dtype=torch.bfloat16, device="cuda"):
     """Empty per-segment caches of capacity ``seq_len`` (``min(window,
-    seq_len)`` for a windowed layer; a Mamba layer's fixed-size state),
+    seq_len)`` for a windowed layer; a Mamba or xLSTM layer's fixed-size
+    state),
     leaves stacked along axis 0 for a run and for each position of a
     pattern."""
     def one(spec):

@@ -1,0 +1,301 @@
+"""xLSTM's mixers (arXiv:2405.04517), after ``repro/models/xlstm.py``:
+the mLSTM (a matrix memory) and the sLSTM (a scalar memory with a
+block-diagonal recurrence), with exponential gates and the log-space
+stabilizer m.  The mixers own their projections (the mLSTM's pre-up of
+``proj_factor``, the sLSTM's post-up GeGLU of 4/3), so an xLSTM layer has
+no FFN sublayer.
+
+The reference's mixers are plain jnp — no Pallas kernel — so the port
+computes the same functions in plain PyTorch.
+
+**mLSTM.** ``up`` splits into x_m and a gate z; a depthwise causal conv
+of x_m (``conv_kernel`` taps, ``ssm._causal_conv``), SiLU; headwise
+(block-diagonal) q and k from the conv output and v from x_m, k divided
+by sqrt(dh) in fp32 (the reference's bf16 product with a numpy float);
+the gates in fp32, ``log_i = g_i + b_i`` and ``log_f = logsigmoid(g_f +
+b_f)``; q, k, v raised to fp32.  The reference scans the recurrence
+token by token::
+
+    m_t = max(log_f_t + m_{t-1}, log_i_t)
+    C_t = e^{log_f_t + m_{t-1} - m_t} C_{t-1} + e^{log_i_t - m_t} v_t k_t^T
+    n_t = e^{log_f_t + m_{t-1} - m_t} n_{t-1} + e^{log_i_t - m_t} k_t
+    h_t = C_t q_t / max(|n_t . q_t|, 1)
+
+from (0, 0, -1e30).  Training and prefill run its chunkwise-parallel
+form, the same function: chunks of ``min(scan_chunk, S)`` (the field the
+reference's config carries for its scans; the last chunk keeps its true
+length, so no padded token enters the state), and within a chunk, from
+the carried (C0, n0, m0), with ``F_t`` the cumulative sum of log_f::
+
+    m_t  = F_t + max(m0, max_{s<=t}(log_i_s - F_s))    (the running max, unrolled)
+    D_ts = exp(F_t - F_s + log_i_s - m_t), s <= t      (0 above the diagonal)
+    w_t  = exp(F_t + m0 - m_t)
+    S    = (Q K^T) * D
+    h    = (S V + w (Q C0^T)) / max(|rowsum(S) + w (Q n0)|, 1)
+
+and the chunk's end state ``C = w_L C0 + V^T diag(D_L) K``, ``n = w_L n0 +
+K^T D_L``, ``m = m_L``.  Every exponent is <= 0; the mask is applied
+before the ``exp``.  m is **not** detached: where the clamp holds at 1,
+h depends on exp(-m).  The first chunk's carry is the zero state, whose
+terms add exact zeros, and is skipped.  h is cast to the activations'
+dtype, group-normed per head (fp32, population variance, eps 1e-5, times
+``gn_scale``), gated by ``silu(z)`` and projected by ``down``.
+
+**sLSTM.** ``wx = x @ w_gates`` in fp32; per token the block-diagonal
+``r_gates`` applied to h_{t-1} (fp32; the reference's gate order), plus
+``b_gates``; the stabilized i/f gates, ``c``, ``n`` and ``h =
+sigmoid(o) c / max(n, 1e-6)``.  The recurrence is sequential, so it is a
+Python loop over tokens, as the reference's ``lax.scan`` is a loop.
+Then the group norm and the GeGLU ``gelu_tanh(h @ up1) * (h @ up2)``,
+``down``.
+
+**Decode** is one step of the reference's recurrence on a fixed-size
+state: ``{"C", "n", "m", "conv", "pos"}`` for the mLSTM (``C`` (B, nh,
+dh, dh), ``n``, ``m`` always fp32, ``m`` starting at -1e30; ``conv`` in
+the cache's dtype), ``{"h", "c", "n", "m", "pos"}`` for the sLSTM (all
+fp32).  The step writes every leaf and advances ``pos`` **in place**,
+into the views ``stack.py`` hands each layer, as ``ssm.py`` does.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import XLSTMSpec
+from .ssm import _causal_conv
+
+__all__ = ["xlstm_spec", "mlstm_dims", "slstm_dims", "mlstm_forward", "slstm_forward",
+           "init_mlstm_cache", "init_slstm_cache"]
+
+EPS = 1e-6
+NEG = -1e30
+
+
+def xlstm_spec(cfg, kind: str) -> XLSTMSpec:
+    """The config's ``XLSTMSpec`` of this mixer kind (every block of a
+    kind shares it), or the default."""
+    for spec in cfg.xlstm_blocks:
+        if spec.kind == kind:
+            return spec
+    return XLSTMSpec(kind=kind)
+
+
+def mlstm_dims(cfg):
+    """(``XLSTMSpec``, d_inner = proj_factor·d_model, heads, head width)."""
+    spec = xlstm_spec(cfg, "mlstm")
+    d_inner = int(spec.proj_factor * cfg.d_model)
+    if d_inner % cfg.n_heads:
+        raise ValueError(f"d_inner {d_inner} is not a multiple of {cfg.n_heads} heads")
+    return spec, d_inner, cfg.n_heads, d_inner // cfg.n_heads
+
+
+def slstm_dims(cfg):
+    """(heads, head width, the post-up width round(4/3·d_model))."""
+    return cfg.n_heads, cfg.d_model // cfg.n_heads, int(round(4.0 / 3.0 * cfg.d_model))
+
+
+def _group_norm(x, scale, nh: int):
+    """Per-head group norm of (B, S, D) in fp32, cast back to x's dtype."""
+    b, s, d = x.shape
+    xh = x.reshape(b, s, nh, d // nh).float()
+    mu = xh.mean(-1, keepdim=True)
+    var = (xh - mu).square().mean(-1, keepdim=True)
+    out = (xh - mu) * torch.rsqrt(var + 1e-5)
+    return (out.reshape(b, s, d) * scale).to(x.dtype)
+
+
+# ================================================================ mLSTM
+def _mlstm_inputs(p, xc, x_raw, nh: int, dh: int):
+    """q, k, v (B,S,nh,dh) and log_i, log_f (B,S,nh), all fp32."""
+    dt = xc.dtype
+    b, s = xc.shape[:2]
+    xc_h, xr_h = xc.reshape(b, s, nh, dh), x_raw.reshape(b, s, nh, dh)
+    q = torch.einsum("bshi,hij->bshj", xc_h, p["wq"].to(dt))
+    k = torch.einsum("bshi,hij->bshj", xc_h, p["wk"].to(dt)).float() / np.sqrt(dh)
+    v = torch.einsum("bshi,hij->bshj", xr_h, p["wv"].to(dt))
+    gates = torch.einsum("bsi,ih->bsh", xc, p["w_if"].to(dt)).float()
+    log_i = gates[..., :nh] + p["b_i"]
+    log_f = F.logsigmoid(gates[..., nh:] + p["b_f"])
+    return q.float(), k, v.float(), log_i, log_f
+
+
+def _mlstm_chunk(q, k, v, log_i, log_f, carry, need_state: bool):
+    """One chunk of the chunkwise form.  q, k, v: (B,nh,L,dh); log_i,
+    log_f: (B,nh,L); carry: the (C, n, m) before the chunk, or None for
+    the zero state.  Returns (h (B,nh,L,dh), the state after the chunk or
+    None)."""
+    length = q.shape[2]
+    f_cum = torch.cumsum(log_f, -1)
+    a = log_i - f_cum
+    causal = torch.ones((length, length), dtype=torch.bool, device=q.device).tril()
+    # the running max as a masked max: its backward is elementwise (cummax's
+    # scatters, which CUDA accumulates in no fixed order)
+    run = torch.where(causal, a[..., None, :], -torch.inf).amax(-1)
+    if carry is not None:
+        run = torch.maximum(carry[2][..., None], run)
+    m = f_cum + run
+    log_d = f_cum[..., :, None] + a[..., None, :] - m[..., :, None]
+    d_mat = torch.exp(torch.where(causal, log_d, -torch.inf))
+    s_mat = (q @ k.transpose(-1, -2)) * d_mat
+    num = s_mat @ v
+    den = s_mat.sum(-1)
+    if carry is not None:
+        c0, n0, m0 = carry
+        w = torch.exp(f_cum + m0[..., None] - m)
+        num = num + w[..., None] * torch.einsum("bhtj,bhij->bhti", q, c0)
+        den = den + w * torch.einsum("bhtj,bhj->bht", q, n0)
+    h = num / torch.clamp(den.abs(), min=1.0)[..., None]
+    if not need_state:
+        return h, None
+    u = d_mat[..., -1, :]  # exp(F_L - F_s + log_i_s - m_L)
+    c_new = (v * u[..., None]).transpose(-1, -2) @ k
+    n_new = torch.einsum("bhs,bhsj->bhj", u, k)
+    if carry is not None:
+        w_l = w[..., -1]
+        c_new = w_l[..., None, None] * c0 + c_new
+        n_new = w_l[..., None] * n0 + n_new
+    return h, (c_new, n_new, m[..., -1])
+
+
+def _mlstm_chunked(cfg, q, k, v, log_i, log_f, need_state: bool):
+    """The recurrence over (B,S,nh,·) inputs in chunks of
+    ``min(scan_chunk, S)``.  Returns (h (B,S,nh,dh) fp32, the end state
+    (C, n, m) or None)."""
+    s = q.shape[1]
+    chunk = min(cfg.scan_chunk, s)
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    log_i, log_f = log_i.transpose(1, 2), log_f.transpose(1, 2)
+    carry, hs = None, []
+    for start in range(0, s, chunk):
+        cut = slice(start, start + chunk)
+        h, carry = _mlstm_chunk(q[:, :, cut], k[:, :, cut], v[:, :, cut], log_i[..., cut],
+                                log_f[..., cut], carry, need_state or start + chunk < s)
+        hs.append(h)
+    return torch.cat(hs, dim=2).transpose(1, 2), carry
+
+
+def _mlstm_step(cache, q, k, v, log_i, log_f):
+    """One token of the reference's recurrence, writing ``C``, ``n`` and
+    ``m`` in place.  q, k, v: (B,nh,dh); log_i, log_f: (B,nh).  Returns h
+    (B,nh,dh)."""
+    c_mat, n_vec, m_run = cache["C"], cache["n"], cache["m"]
+    m_new = torch.maximum(log_f + m_run, log_i)
+    i_p = torch.exp(log_i - m_new)[..., None]
+    f_p = torch.exp(log_f + m_run - m_new)[..., None]
+    c_mat.mul_(f_p[..., None]).add_(i_p[..., None] * (v[..., :, None] * k[..., None, :]))
+    n_vec.mul_(f_p).add_(i_p * k)
+    m_run.copy_(m_new)
+    num = torch.einsum("bhij,bhj->bhi", c_mat, q)
+    den = torch.clamp(torch.einsum("bhj,bhj->bh", n_vec, q).abs(), min=1.0)[..., None]
+    return num / den
+
+
+def mlstm_forward(cfg, p, x, spec, *, mode="train", cache=None, target_len: int = 0):
+    """The mLSTM sublayer.  Returns (out, cache): ``None`` in training, the
+    prefill's new ``{"C", "n", "m", "conv", "pos"}`` (``target_len``
+    unused: the state has no sequence axis), or the decode cache updated
+    in place."""
+    _, d_inner, nh, dh = mlstm_dims(cfg)
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
+    b, s, _ = x.shape
+    dt = x.dtype
+    x_m, z = torch.einsum("bsd,di->bsi", x, p["up"].to(dt)).split(d_inner, dim=-1)
+    decode = mode == "decode"
+    xc, conv_state = _causal_conv(x_m, p["conv_w"], p["conv_b"],
+                                  init_state=cache["conv"] if decode else None)
+    q, k, v, log_i, log_f = _mlstm_inputs(p, F.silu(xc), x_m, nh, dh)
+    if decode:
+        h = _mlstm_step(cache, q[:, 0], k[:, 0], v[:, 0], log_i[:, 0], log_f[:, 0])[:, None]
+        cache["conv"].copy_(conv_state)
+        cache["pos"].add_(1)
+        new_cache = cache
+    else:
+        h, state = _mlstm_chunked(cfg, q, k, v, log_i, log_f, need_state=mode == "prefill")
+        new_cache = None
+        if mode == "prefill":
+            new_cache = {"C": state[0], "n": state[1], "m": state[2], "conv": conv_state.to(dt),
+                         "pos": torch.full((), s, dtype=torch.int32, device=x.device)}
+    h = _group_norm(h.reshape(b, -1, d_inner).to(dt), p["gn_scale"], nh)
+    return torch.einsum("bsi,id->bsd", h * F.silu(z), p["down"].to(dt)), new_cache
+
+
+def init_mlstm_cache(cfg, spec, batch: int, seq_len: int, dtype=torch.bfloat16,
+                     device="cuda"):
+    """An empty state: ``C``, ``n`` zero and ``m`` -1e30 in fp32, ``conv``
+    in ``dtype`` (``seq_len`` unused)."""
+    xspec, d_inner, nh, dh = mlstm_dims(cfg)
+    f32 = dict(dtype=torch.float32, device=device)
+    return {"C": torch.zeros((batch, nh, dh, dh), **f32),
+            "n": torch.zeros((batch, nh, dh), **f32),
+            "m": torch.full((batch, nh), NEG, **f32),
+            "conv": torch.zeros((batch, xspec.conv_kernel - 1, d_inner), dtype=dtype,
+                                device=device),
+            "pos": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+# ================================================================ sLSTM
+def _slstm_cell(h, c, n, m, wx_t, r, b_gates, nh: int, dh: int):
+    """One token: (h, c, n, m) (B, d) fp32 and the token's fp32 ``wx``
+    (B, 4d) -> the next (h, c, n, m)."""
+    b = h.shape[0]
+    rec = torch.einsum("bhi,hij->bhj", h.reshape(b, nh, dh), r)
+    rec = rec.reshape(b, nh, 4, dh).transpose(1, 2).reshape(b, 4, nh * dh)
+    pre = wx_t.reshape(b, 4, nh * dh) + rec + b_gates.reshape(4, nh * dh)
+    i_raw, f_raw, z_raw, o_raw = pre.unbind(1)
+    log_f = F.logsigmoid(f_raw)
+    m_new = torch.maximum(log_f + m, i_raw)
+    i_p = torch.exp(i_raw - m_new)
+    f_p = torch.exp(log_f + m - m_new)
+    c_new = f_p * c + i_p * torch.tanh(z_raw)
+    n_new = f_p * n + i_p
+    h_new = torch.sigmoid(o_raw) * c_new / torch.clamp(n_new, min=EPS)
+    return h_new, c_new, n_new, m_new
+
+
+def slstm_forward(cfg, p, x, spec, *, mode="train", cache=None, target_len: int = 0):
+    """The sLSTM sublayer.  Returns (out, cache): ``None`` in training, the
+    prefill's new ``{"h", "c", "n", "m", "pos"}``, or the decode cache
+    updated in place."""
+    nh, dh, _ = slstm_dims(cfg)
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
+    b, s, d = x.shape
+    dt = x.dtype
+    wx = torch.einsum("bsd,dj->bsj", x, p["w_gates"].to(dt)).float()
+    r = p["r_gates"].float()
+    if mode == "decode":
+        state = _slstm_cell(cache["h"], cache["c"], cache["n"], cache["m"], wx[:, 0], r,
+                            p["b_gates"], nh, dh)
+        for name, t in zip(("h", "c", "n", "m"), state):
+            cache[name].copy_(t)
+        cache["pos"].add_(1)
+        h_seq, new_cache = state[0][:, None], cache
+    else:
+        zeros = torch.zeros((b, d), dtype=torch.float32, device=x.device)
+        state = (zeros, zeros, zeros, torch.full((b, d), NEG, dtype=torch.float32,
+                                                 device=x.device))
+        hs = []
+        for t in range(s):
+            state = _slstm_cell(*state, wx[:, t], r, p["b_gates"], nh, dh)
+            hs.append(state[0])
+        h_seq, new_cache = torch.stack(hs, dim=1), None
+        if mode == "prefill":
+            new_cache = dict(zip(("h", "c", "n", "m"), state),
+                             pos=torch.full((), s, dtype=torch.int32, device=x.device))
+    h_seq = _group_norm(h_seq.to(dt), p["gn_scale"], nh)
+    u = F.gelu(torch.einsum("bsd,df->bsf", h_seq, p["up1"].to(dt)), approximate="tanh")
+    g = torch.einsum("bsd,df->bsf", h_seq, p["up2"].to(dt))
+    return torch.einsum("bsf,fd->bsd", u * g, p["down"].to(dt)), new_cache
+
+
+def init_slstm_cache(cfg, spec, batch: int, seq_len: int, dtype=torch.bfloat16,
+                     device="cuda"):
+    """An empty state, all fp32: ``h``, ``c``, ``n`` zero, ``m`` -1e30
+    (``dtype`` and ``seq_len`` unused)."""
+    d = cfg.d_model
+    f32 = dict(dtype=torch.float32, device=device)
+    return {"h": torch.zeros((batch, d), **f32), "c": torch.zeros((batch, d), **f32),
+            "n": torch.zeros((batch, d), **f32), "m": torch.full((batch, d), NEG, **f32),
+            "pos": torch.zeros((), dtype=torch.int32, device=device)}

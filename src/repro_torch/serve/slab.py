@@ -17,11 +17,14 @@ axis is axis 0 for a single layer and axis 1 for a stacked tree; ``pos``
 carries one fewer axis on the prefill side (one scalar per layer) than
 on the slab side (one entry per slot), which is how ``insert_request``
 tells them apart, by ndim only, as the reference does.  A Mamba layer's
-state (``conv``, ``h``) has no sequence axis: its prefill row lands in
-the slot like a K/V row, cast to the slab leaf's dtype — ``h`` stays
-fp32 in a bf16 slab.  A finished slot's state goes on being advanced by
-the batched decode step until the next admission overwrites all three
-leaves; attention masks a stale K/V row on the slot's own ``pos``.
+state (``conv``, ``h``) and an xLSTM layer's (the mLSTM's ``C``, ``n``,
+``m``, ``conv``; the sLSTM's ``h``, ``c``, ``n``, ``m``) have no sequence
+axis: a prefill row lands in the slot like a K/V row — ``C`` is 4-D like
+K/V, with its batch axis where K/V's is — cast to the slab leaf's dtype,
+so every state but ``conv`` stays fp32 in a bf16 slab.  A finished
+slot's state goes on being advanced by the batched decode step until the
+next admission overwrites every leaf; attention masks a stale K/V row on
+the slot's own ``pos``.
 
 ``caches_from_numpy`` / ``caches_to_numpy`` carry the reference's cache
 trees (the same list of per-segment entries of arrays) across.
@@ -48,8 +51,8 @@ def make_slab(cfg, n_slots: int, max_len: int, dtype=torch.bfloat16, device="cud
 @torch.no_grad()
 def insert_request(cfg, slab, pref_caches, slot: int):
     """Write a batch-1 prefill's cache rows into slab row ``slot``, in
-    place (K/V and the Mamba ``conv`` cast to the slab's dtype, ``h``
-    kept fp32); returns ``slab``."""
+    place (K/V and ``conv`` cast to the slab's dtype, the Mamba and
+    xLSTM states kept fp32); returns ``slab``."""
     for seg, s_seg, p_seg in zip(plan_segments(cfg.layers), slab, pref_caches):
         if isinstance(seg, Run):
             _insert_tree(s_seg, p_seg, slot, stacked=seg.count > 1)

@@ -786,3 +786,81 @@ def test_jamba_decode_step_replays_in_a_cuda_graph(cuda):
             else:
                 _close_to_cpu(seg[name], ref_seg[name].cpu(), name, rel=1e-5)
     assert slab[0]["pos"][2].item() == 8 + 3 and slab[4]["pos"][2].item() == 8 + 3
+
+
+def test_mlstm_chunked_prefill_on_cuda_matches_cpu(cuda):
+    """One mLSTM mixer of reduced xLSTM on the card against the CPU from the
+    same weights, fp32, at 160 tokens (chunks of 64, 64 and a 32-token
+    tail): the training output, the gradients (``b_i``'s aside: zero in
+    exact arithmetic, rounding noise on both devices) and the prefill
+    state ``{C, n, m, conv}``, within 1e-4 of the largest."""
+    from repro_torch.models import xlstm
+
+    cfg = get_config("xlstm-1.3b").reduced(n_layers=8, d_model=128, seq_cap=64)
+    spec = cfg.layers[0]
+    assert cfg.scan_chunk == 64 and spec.mixer == "mlstm"
+    tree = params_to_numpy(GCLM(cfg, device="cpu", seed=0))
+    rng = np.random.default_rng(5)
+    p_np = {k: v[0] for k, v in tree["stack"][0]["mixer"].items()}
+    for name in ("b_i", "conv_b", "gn_scale"):
+        p_np[name] = (p_np[name] + 0.1 * rng.standard_normal(p_np[name].shape)).astype(np.float32)
+    x_np = rng.standard_normal((2, 160, cfg.d_model)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", cuda):
+        p = {k: torch.tensor(v, device=dev, requires_grad=True) for k, v in p_np.items()}
+        x = torch.tensor(x_np, device=dev, requires_grad=True)
+        y, _ = xlstm.mlstm_forward(cfg, p, x, spec)
+        grads = torch.autograd.grad(y.square().sum(), [x, *(v for k, v in p.items()
+                                                          if k != "b_i")])
+        with torch.no_grad():
+            _, cache = xlstm.mlstm_forward(cfg, p, x, spec, mode="prefill")
+        out[str(dev)] = (y, grads, cache)
+    (y_c, g_c, c_c), (y_g, g_g, c_g) = out["cpu"], out[str(cuda)]
+    _close_to_cpu(y_g, y_c, "train out")
+    for i, (a, b) in enumerate(zip(g_g, g_c, strict=True)):
+        _close_to_cpu(a, b, f"grad {i}")
+    for name in ("C", "n", "m", "conv"):
+        assert c_g[name].dtype == torch.float32
+        _close_to_cpu(c_g[name], c_c[name], f"prefill {name}")
+    assert int(c_g["pos"]) == 160
+
+
+def test_xlstm_decode_step_replays_in_a_cuda_graph(cuda):
+    """A decode step of reduced xLSTM (a run of 7 mLSTM layers and an
+    sLSTM layer) over a 4-slot fp32 slab, captured in a CUDA graph and
+    replayed 3 times: each replay writes every mLSTM layer's ``C``,
+    ``n``, ``m`` and ``conv`` and the sLSTM layer's ``h``, ``c``, ``n``,
+    ``m`` in place (the slab's storage unchanged) and advances ``pos``, as
+    3 eager steps do on a copy, within 1e-5 of the largest entry."""
+    cfg = get_config("xlstm-1.3b").reduced(n_layers=8, d_model=128, seq_cap=64)
+    model = GCLM(cfg, device="cuda", seed=0)
+    slab = make_slab(cfg, 4, 32, dtype=torch.float32)
+    _, pref = prefill(cfg, model, torch.arange(1, 9, device="cuda")[None], target_len=32)
+    insert_request(cfg, slab, pref, 2)
+    eager = [{k: v.clone() for k, v in seg.items()} for seg in slab]
+    ptrs = [{k: v.data_ptr() for k, v in seg.items()} for seg in slab]
+    tok = torch.full((4, 1), 7, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up on a copy
+        decode_step(cfg, model, [{k: v.clone() for k, v in seg.items()} for seg in slab], tok)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        logits, _ = decode_step(cfg, model, slab, tok)
+    c_before, h_before = slab[0]["C"][:, 2].clone(), slab[1]["h"][2].clone()
+    for _ in range(3):
+        graph.replay()
+        want, _ = decode_step(cfg, model, eager, tok)
+        torch.cuda.synchronize()
+        _close_to_cpu(logits, want.cpu(), "replayed logits", rel=1e-5)
+    assert ptrs == [{k: v.data_ptr() for k, v in seg.items()} for seg in slab]
+    assert not torch.equal(slab[0]["C"][:, 2], c_before)
+    assert not torch.equal(slab[1]["h"][2], h_before)
+    for seg, ref_seg in zip(slab, eager, strict=True):
+        for name in seg:
+            if name == "pos":
+                assert torch.equal(seg[name], ref_seg[name])
+            else:
+                _close_to_cpu(seg[name], ref_seg[name].cpu(), name, rel=1e-5)
+    assert slab[0]["pos"][:, 2].tolist() == [8 + 3] * 7 and slab[1]["pos"][2].item() == 8 + 3

@@ -177,15 +177,19 @@ def test_init_law_matches_dense_init():
 
 
 def test_unsupported_features_raise():
-    """Features of the families still to port (xLSTM's sLSTM and mLSTM
-    mixers, cross-attention, layer norm, ungated MLPs) raise; the Gemma
+    """Features of the families still to port (the ``cross_attn`` mixer,
+    cross-attention sublayers, layer norm, ungated MLPs) raise; the Gemma
     family's, Qwen's QKV bias and untied head, MoE FFNs, DeepSeek's MLA
-    and MTP and Jamba's Mamba mixer are ported
-    (tests/test_torch_{gemma,qwen,moe,deepseek,jamba}.py)."""
+    and MTP, Jamba's Mamba mixer and xLSTM's mLSTM and sLSTM mixers are
+    ported (tests/test_torch_{gemma,qwen,moe,deepseek,jamba,xlstm}.py)."""
     cfg = get_config("gc-lm-110m").reduced(**KW)
-    for change in (dict(layers=(dataclasses.replace(cfg.layers[0], mixer="slstm"),) * 2),
+    for change in (dict(layers=(dataclasses.replace(cfg.layers[0], mixer="cross_attn"),) * 2),
                    dict(norm="layer"), dict(activation="gelu_mlp"),
-                   dict(layers=(dataclasses.replace(cfg.layers[0], mixer="mlstm"),) * 2),
+                   dict(layers=(dataclasses.replace(cfg.layers[0], mixer="cross_attn",
+                                                    cross_source=True),) * 2),
                    dict(layers=(dataclasses.replace(cfg.layers[0], cross_source=True),) * 2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             GCLM(cfg.replace(**change), device="meta")
+    for mixer in ("mlstm", "slstm"):
+        GCLM(cfg.replace(layers=(dataclasses.replace(cfg.layers[0], mixer=mixer),) * 2),
+             device="meta")

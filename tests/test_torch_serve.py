@@ -554,6 +554,6 @@ def test_launcher_runs_on_the_cpu(mode, capsys):
     else:
         assert lines[-1].startswith("gc-lm-110m: (2, 12) in ")
     with pytest.raises(KeyError, match="ROADMAP 1.9"):
-        launch_serve.main(["--device", "cpu", "--arch", "xlstm-1.3b"])
+        launch_serve.main(["--device", "cpu", "--arch", "whisper-base"])
     with pytest.raises(NotImplementedError, match="one device"):
         launch_serve.main(["--device", "cpu", "--model-par", "2"])
