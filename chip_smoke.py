@@ -256,6 +256,43 @@ port's sources beside it.  Phases; any failure raises:
    scale); 3 steps with the counts set to 0 just before (one grouped
    ``gc_fused`` launch per step); ``remat`` "none", "dots" and "full"
    bit-equal and two runs of one forward+backward byte-equal.
+23. whisper-train: coded training of whisper-base at full width and depth
+   (6 encoder layers over 1,500 stubbed frames of width 512 with QKV biases,
+   no RoPE and layer norms; 6 decoder layers with RoPE, a gated
+   cross-attention sublayer over the encoder's output and an ungated GELU
+   MLP; vocab 51,865, tied; bf16 activations; 70,646,278 parameters in 103
+   leaves) with 2's plan settings at seq 224, every cross ``gate`` drawn
+   from U(0.3, 0.9) (zero, the init, closes the cross sublayers and leaves
+   the encoder without gradient), ``worker_aux`` (4, 4, 2, 1500, 512) drawn
+   per shard with numpy and allocated by ``coded_worker_batches``' cyclic
+   map: coded == uncoded at step 0 with 0 and s_max stragglers (the
+   encoder's ``bk``, whose gradient is zero in exact arithmetic, against its
+   layer's ``bq``); 3 steps of ``make_coded_train_step`` with the counts
+   set to 0 just before (one grouped ``gc_fused`` call per step: 4
+   launches of at most 32; finite losses); two runs of one
+   forward+backward byte-equal; the encoder's share of one pass.
+24. whisper-serve: full-width whisper-base (gates open) through
+   ``generate(aux_inputs=)`` — one prefill, then a ``decode_step`` per
+   token, each re-running the encoder over the rows' frames — 4 prompts of
+   128 tokens + 64 new, counts set to 0 just before: no ``gc_*`` launch,
+   tokens/s; prefill (B = 1) and ``decode_step`` (B = 4) host-inclusive
+   and device-only beside their bounds, the encoder's share of a decode
+   step; teacher forcing with fp32 activations on a bf16 slab (2e-2) and
+   on an fp32 slab (1e-4), the config's bf16 activations measured, not
+   gated.
+25. vision-serve: full-width, full-depth llama-3.2-vision-11b (40 layers:
+   one pattern of 5 over 8 repeats, gated cross-attention image layers at
+   3, 8, ..., 38 over 1,601 stubbed patches of width 7,680 projected by
+   ``vision_proj``; 32 heads over 8 KV heads, d_ff 14,336, vocab 128,256,
+   an untied head, bf16 activations; 9,806,614,536 parameters, 39.23 GB
+   fp32; gates open) through 24's steps: 4 prompts of 512 tokens + 32 new,
+   ~334 GFLOP per row and decode step (the projector and 8 layers' cross
+   K/V recomputed), peak memory under 80 GB.
+26. vision-train: coded training of ``llama-3.2-vision-11b.reduced(n_layers
+   =10)`` (two periods: the cross layer stacked in a pattern; 50 leaves;
+   full width needs 16 rows of 39 GB) with 16-patch aux rows, as 23 checks
+   it: coded == uncoded, 3 steps with 2 ``gc_fused`` launches each, two
+   forward+backward runs byte-equal.
 
 The line before the last is the card's name and power limit; before it
 a JSON line lists every kernel with its launches, error and times; the
@@ -386,6 +423,25 @@ XLSTM_SERVE = dict(n_layers=48, n_slots=8, n_requests=16, prompt_len=512, max_ne
 #: [xlstm-train]: the published widths cut to the first 8 of 48 layers
 #: (one period: 405,444,664 parameters in 22 leaves, one grouped launch)
 XLSTM_TRAIN_LAYERS = 8
+#: Whisper and Llama-3.2-vision at their published widths; the cross gates
+#: (zero at init: tanh closes every cross sublayer) drawn from U(0.3, 0.9).
+#: [whisper-train]: whisper-base at full width and depth (6 encoder and 6
+#: decoder layers, 70,646,278 parameters in 103 leaves: 4 launches of at
+#: most 32 per grouped combine), 1,500 frames per row, bf16 activations;
+#: 16 fp32 rows of 282.6 MB per step
+WHISPER_TRAIN = dict(seq_len=224, global_batch=8)
+#: [whisper-serve]: 4 prompts of 128 tokens + 64 new through
+#: ``generate(aux_inputs=)``, each decode step re-running the encoder
+WHISPER_SERVE = dict(batch=4, prompt_len=128, max_new=64)
+#: [vision-serve]: llama-3.2-vision-11b at full depth (40 layers: a pattern of
+#: 5 over 8 repeats, cross layers 3, 8, ..., 38), 9,806,614,536 parameters,
+#: 39.23 GB fp32; 4 prompts of 512 tokens + 32 new
+VISION_SERVE = dict(n_layers=40, batch=4, prompt_len=512, max_new=32)
+#: [vision-train]: ``reduced(n_layers=10)``, two periods: the cross layer
+#: stacked in a pattern, 50 leaves (2 launches); full width needs 16 rows
+#: of 39 GB (ROADMAP 3.14)
+VISION_TRAIN_LAYERS = 10
+GATE_RANGE = (0.3, 0.9)
 #: bf16 dense peak of the card's tensor cores (the data sheet, 700 W): the
 #: operations bound of the bf16 serving phases
 BF16_FLOPS = 989e12
@@ -1884,10 +1940,12 @@ def teacher_forced(cfg, model, reqs, dtype, device):
     return teacher_forced_tokens(cfg, model, outputs, len(reqs[0].prompt), dtype, device)
 
 
-def teacher_forced_tokens(cfg, model, outputs, s: int, dtype, device):
+def teacher_forced_tokens(cfg, model, outputs, s: int, dtype, device, aux=None):
     """``teacher_forced`` of token rows ``outputs`` (B, S + T) whose first
     ``s`` are the prompt: each row prefilled at batch 1 into a slab of
-    capacity S + T, then T - 1 decode steps fed the next tokens."""
+    capacity S + T, then T - 1 decode steps fed the next tokens.  ``aux``
+    (B, ...): the rows' modality embeddings, for a model with a
+    cross-attention source (every call recomputes the source from them)."""
     import torch
 
     from repro_torch.models.model import decode_step, prefill
@@ -1897,15 +1955,17 @@ def teacher_forced_tokens(cfg, model, outputs, s: int, dtype, device):
     n = max_len - s
     slab = make_slab(cfg, outputs.shape[0], max_len, dtype=dtype, device=device)
     for slot in range(outputs.shape[0]):
-        _, pref = prefill(cfg, model, outputs[slot:slot + 1, :s], target_len=max_len)
+        _, pref = prefill(cfg, model, outputs[slot:slot + 1, :s],
+                          aux_inputs=None if aux is None else aux[slot:slot + 1],
+                          target_len=max_len)
         insert_request(cfg, slab, pref, slot)
         del pref
     steps = []
     for t in range(n - 1):
-        logits, _ = decode_step(cfg, model, slab, outputs[:, s + t, None])
+        logits, _ = decode_step(cfg, model, slab, outputs[:, s + t, None], aux_inputs=aux)
         steps.append(logits[:, -1])
     del slab
-    full, _ = prefill(cfg, model, outputs)
+    full, _ = prefill(cfg, model, outputs, aux_inputs=aux)
     return torch.stack(steps), full[:, s:s + n - 1].transpose(0, 1)
 
 
@@ -2361,23 +2421,26 @@ def phase_gemma3_serve():
     return out
 
 
-def _teacher_forcing(tag, cfg, model, outputs, s: int, bf16_activations: bool = True) -> dict:
+def _teacher_forcing(tag, cfg, model, outputs, s: int, bf16_activations: bool = True,
+                     aux=None) -> dict:
     """Teacher-forced decode logits against prefill logits of the same
     tokens: rows 0-1 on a bf16 slab, with the config's bf16 activations
     (or, when ``bf16_activations`` is False, fp32 activations: the slab's
     rounding alone, as ``[serve]`` checks it), row 2 with fp32 activations
-    on an fp32 slab, at ``[serve]``'s bounds."""
+    on an fp32 slab, at ``[serve]``'s bounds; ``aux`` the rows' modality
+    embeddings of a model with a cross-attention source."""
     import numpy as np
     import torch
 
     toks = torch.from_numpy(np.stack(outputs).astype(np.int64)).cuda()
     t0 = time.perf_counter()
     act = cfg if bf16_activations else cfg.replace(dtype="float32")
-    got, want = teacher_forced_tokens(act, model, toks[:2], s, torch.bfloat16, "cuda")
+    got, want = teacher_forced_tokens(act, model, toks[:2], s, torch.bfloat16, "cuda",
+                                      None if aux is None else aux[:2])
     bf16 = _rel_err(got, want)
     del got, want
     got, want = teacher_forced_tokens(cfg.replace(dtype="float32"), model, toks[2:3], s,
-                                      torch.float32, "cuda")
+                                      torch.float32, "cuda", None if aux is None else aux[2:3])
     fp32 = _rel_err(got, want)
     del got, want
     torch.cuda.synchronize()
@@ -3494,20 +3557,29 @@ def phase_xlstm_serve():
             **tf, **times}
 
 
-def _xlstm_worst_rel(got, want, paths, bound: float, what: str) -> float:
-    """``_worst_rel`` over the leaves; a ``b_i`` leaf — whose gradient is
-    zero in exact arithmetic: a shift of every log_i of a head moves C, n
-    and e^m alike — is held at ``bound`` of its layer's ``b_f`` gradient."""
+def _worst_rel_held(got, want, paths, bound: float, what: str, partner) -> float:
+    """``_worst_rel`` over the leaves; a leaf whose gradient is zero in exact
+    arithmetic — ``partner(path)`` names another leaf of its layer, else
+    None — is held at ``bound`` of that leaf's gradient instead."""
     by_path = dict(zip(paths, want, strict=True))
-    keep = [i for i, p in enumerate(paths) if not p.endswith("b_i")]
+    keep = [i for i, p in enumerate(paths) if partner(p) is None]
     worst = _worst_rel([got[i] for i in keep], [want[i] for i in keep],
                        [paths[i] for i in keep], bound, what)
     for i, p in enumerate(paths):
-        if p.endswith("b_i"):
-            err = ((got[i] - want[i]).abs().max() / by_path[p[:-1] + "f"].abs().max()).item()
+        if partner(p) is not None:
+            err = ((got[i] - want[i]).abs().max() / by_path[partner(p)].abs().max()).item()
             if not err <= bound:
-                raise AssertionError(f"{what} at {p}: {err:.3e} of b_f's gradient > {bound}")
+                raise AssertionError(f"{what} at {p}: {err:.3e} of {partner(p)}'s gradient "
+                                     f"> {bound}")
     return worst
+
+
+def _xlstm_worst_rel(got, want, paths, bound: float, what: str) -> float:
+    """``_worst_rel_held`` with a ``b_i`` leaf — whose gradient is zero in
+    exact arithmetic: a shift of every log_i of a head moves C, n and e^m
+    alike — held at ``bound`` of its layer's ``b_f`` gradient."""
+    return _worst_rel_held(got, want, paths, bound, what,
+                           lambda p: p[:-1] + "f" if p.endswith("b_i") else None)
 
 
 def phase_xlstm_train():
@@ -3593,6 +3665,390 @@ def phase_xlstm_train():
     return {"launches": launches["gc_fused"], "gaps": gaps}
 
 
+def _open_gates(model, seed: int) -> None:
+    """Every cross-attention ``gate`` leaf drawn from U(``GATE_RANGE``)
+    (numpy, ``seed``): at the init (0) tanh closes every cross sublayer, the
+    source adds nothing, and the encoder, ``vision_proj`` and the cross
+    projections get zero gradient."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for path, t in model.leaf_items():
+            if path[-1] == "gate":
+                t.copy_(torch.from_numpy(rng.uniform(*GATE_RANGE, tuple(t.shape))
+                                         .astype(np.float32)))
+
+
+def _aux_rows(cfg, n: int, seed):
+    """``n`` rows of stubbed modality embeddings, standard normal fp32 drawn
+    with numpy from ``seed`` and put on the card: frames (n, n_frames,
+    d_model) for Whisper, patches (n, n_patches, d_vision) for vision."""
+    import numpy as np
+    import torch
+
+    shape = ((cfg.encoder.n_frames, cfg.d_model) if cfg.encoder is not None
+             else (cfg.vision.n_patches, cfg.vision.d_vision))
+    rows = np.random.default_rng(seed).standard_normal((n, *shape), dtype=np.float32)
+    return torch.from_numpy(rows).cuda()
+
+
+def _worker_aux(cfg, step: int, n_workers: int, s_max: int, rows: int):
+    """The step's (N, rows, ...) shard embeddings (seed (0, step, shard))
+    and ``worker_aux`` (N, K, rows, ...) by the cyclic map of
+    ``coded_worker_batches``: worker n, slot k holds shard (n + k) mod N."""
+    import torch
+
+    shards = torch.stack([_aux_rows(cfg, rows, (0, step, i)) for i in range(n_workers)])
+    return shards, torch.stack([torch.stack([shards[(n + k) % n_workers]
+                                             for k in range(s_max + 1)])
+                                for n in range(n_workers)])
+
+
+def _cross_train(tag, cfg, partner=lambda p: None, seq_len: int = 256) -> dict:
+    """Coded training of a model with a cross-attention source in sim mode
+    with the gc-lm-110m plan settings (N = 4, ``xf``, s_max = 3, global
+    batch 8), the gates open, ``worker_aux`` per step from the seed.  At
+    step 0 the coded gradient equals the uncoded one (``EXACT_RTOL`` per
+    leaf; ``partner`` names the leaf against whose gradient a leaf that is
+    zero in exact arithmetic is held) with 0 and s_max stragglers; then
+    ``make_coded_train_step``'s step with ``worker_aux`` for 3 steps with
+    the counts set to 0 just before: ceil(leaves / 32) ``gc_fused``
+    launches per step, finite losses; two runs of one forward+backward
+    byte-equal."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import ShiftedExponential
+    from repro_torch.data.pipeline import coded_worker_batches
+    from repro_torch.kernels import _pipe
+    from repro_torch.models.model import train_loss
+    from repro_torch.train.coded import combine_rows, per_shard_grad_rows, uncoded_grad_fn
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    trainer = Trainer(cfg, TrainConfig(lr=3e-4, warmup=10, total_steps=300),
+                      ShiftedExponential(mu=1e-3, t0=50.0), n_workers=4, scheme="xf",
+                      global_batch=8, seed=0, device="cuda", seq_len=seq_len)
+    plan, model, n = trainer.plan, trainer.state.params, trainer.n_workers
+    _open_gates(model, 0)
+    paths = model.leaf_paths()
+    n_params = sum(t.numel() for t in model.leaves())
+    rows_per_shard = trainer.data.cfg.global_batch // n
+    per_step = -(-len(paths) // _pipe.MAX_LEAVES)
+    wb = coded_worker_batches(trainer.data, 0, n, plan.s_max)
+    shards = np.stack([trainer.data.shard(0, i, n) for i in range(n)])
+    shard_aux, wa = _worker_aux(cfg, 0, n, plan.s_max, rows_per_shard)
+    rows = per_shard_grad_rows(cfg, model, wb, wa)
+    g_ref = uncoded_grad_fn(cfg, n)(model, shards, shard_aux)
+    gaps = {u: _worst_rel_held(combine_rows(plan, rows, _straggler_dec_w(plan, u)), g_ref,
+                               paths, EXACT_RTOL, f"[{tag}] coded != uncoded, {u} stragglers",
+                               partner)
+            for u in (0, plan.s_max)}
+    del rows, g_ref
+    log(f"[{tag}] {cfg.name}: {n_params} params in {len(paths)} leaves, {cfg.n_layers} "
+        f"layers, {cfg.dtype} activations, remat {cfg.remat}, aux {tuple(wa.shape)} fp32, "
+        f"N*K={n * plan.k_shards}; step 0, coded == uncoded, worst leaf relative max error at "
+        f"0 / s_max stragglers: {gaps[0]:.3e} / {gaps[plan.s_max]:.3e} (bound {EXACT_RTOL})")
+
+    inputs = []
+    for i in range(STEPS):
+        wb_i = coded_worker_batches(trainer.data, i, n, plan.s_max)
+        inputs.append((wb_i, _worker_aux(cfg, i, n, plan.s_max, rows_per_shard)[1]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    walls, losses = [], []
+    for wb_i, wa_i in inputs:
+        dec_w, _ = trainer.sim.step()
+        t0 = time.perf_counter()
+        trainer.state, metrics = trainer.step_fn(trainer.state, wb_i, dec_w, wa_i)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if launches != {"gc_fused": per_step * STEPS, "gc_encode": 0, "gc_decode": 0}:
+        raise AssertionError(f"[{tag}] launches {launches} in {STEPS} steps, expected "
+                             f"{per_step} gc_fused launches per step ({len(paths)} leaves)")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"[{tag}] losses {losses}")
+
+    tokens = torch.as_tensor(wb[0, 0], device="cuda")
+    batch = {"tokens": tokens, "aux_inputs": wa[0, 0]}
+
+    def grads():
+        loss, _ = train_loss(cfg, model, batch)
+        return [loss, *torch.autograd.grad(loss, model.leaves())]
+
+    first = grads()
+    if not all(torch.equal(a, b) for a, b in zip(first, grads(), strict=True)):
+        raise AssertionError(f"[{tag}] two runs of one forward+backward differ")
+    log(f"[{tag}] {STEPS} steps of make_coded_train_step with worker_aux: losses {losses}, "
+        f"step wall_s {[round(w, 4) for w in walls]}, launches {launches} ({per_step} per step: "
+        f"{len(paths)} leaves); max_memory_allocated {peak} bytes ({peak / 1e9:.2f} GB); two "
+        "forward+backward runs byte-equal")
+    out = {"launches": launches["gc_fused"], "gaps": gaps, "step_s": walls, "peak": peak,
+           "model": model, "batch": batch, "trainer": trainer}
+    return out
+
+
+def phase_whisper_train():
+    """Coded training of whisper-base at full width and depth (6 encoder
+    and 6 decoder layers, d_model 512, 1,500 frames, bf16 activations;
+    70,646,278 parameters in 103 leaves), seq 224 (``_cross_train``):
+    coded == uncoded at step 0 — the encoder's ``bk``, whose gradient is
+    zero in exact arithmetic (no RoPE: a key bias shifts a query row's
+    scores alike), against its layer's ``bq`` — 3 steps with 4 ``gc_fused``
+    launches each; the encoder's share of one pass (host-inclusive
+    forward+backward of one shard, 2 rows, against the encoder's alone)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import run_encoder, train_loss
+
+    _free_card()
+    cfg = get_config("whisper-base")
+    run = _cross_train("whisper-train", cfg, seq_len=WHISPER_TRAIN["seq_len"],
+                       partner=lambda p: p[:-1] + "q" if p.startswith("encoder.")
+                       and p.endswith(".bk") else None)
+    model, batch = run["model"], run["batch"]
+    n_params = sum(t.numel() for t in model.leaves())
+    if len(model.leaves()) != 103 or n_params != 70_646_278 or cfg.dtype != "bfloat16" or \
+            cfg.encoder.n_frames != 1500 or cfg.encoder.n_layers != 6:
+        raise AssertionError(f"[whisper-train] {n_params} params in {len(model.leaves())} "
+                             f"leaves, {cfg.dtype}, {cfg.encoder}")
+    leaves = model.leaves()
+    enc = [t for p, t in model.leaf_items() if p[0] == "encoder"]
+
+    def one_pass():
+        loss, _ = train_loss(cfg, model, batch)
+        torch.autograd.grad(loss, leaves)
+
+    def encoder_pass():
+        out = run_encoder(cfg, model, batch["aux_inputs"])
+        torch.autograd.grad(out.float().square().mean(), enc)
+
+    pass_ms, enc_ms = time_ms(one_pass, 3, warmup=1), time_ms(encoder_pass, 3, warmup=1)
+    log(f"[whisper-train] one shard's forward+backward ({batch['tokens'].shape[0]} rows x "
+        f"{batch['tokens'].shape[1]} tokens over {cfg.encoder.n_frames} frames): "
+        f"{pass_ms:.4f} ms host-inclusive; the encoder's alone "
+        f"{enc_ms:.4f} ms ({enc_ms / pass_ms:.3f} of the pass)")
+    out = {k: run[k] for k in ("launches", "gaps", "step_s", "peak")}
+    del run, model, batch, leaves, enc
+    _free_card()
+    return {**out, "pass_ms": pass_ms, "encoder_ms": enc_ms}
+
+
+def phase_vision_train():
+    """Coded training of ``llama-3.2-vision-11b.reduced(n_layers=10)`` (two
+    periods: the cross layer stacked in a pattern; 50 leaves) with 16-patch
+    aux rows (``_cross_train``): coded == uncoded at step 0, 3 steps with 2
+    ``gc_fused`` launches each, two forward+backward runs byte-equal."""
+    from repro_torch.configs import get_config
+
+    _free_card()
+    cfg = get_config("llama-3.2-vision-11b").reduced(n_layers=VISION_TRAIN_LAYERS)
+    run = _cross_train("vision-train", cfg)
+    if len(run["model"].leaves()) != 50:
+        raise AssertionError(f"[vision-train] {len(run['model'].leaves())} leaves, expected 50")
+    out = {k: run[k] for k in ("launches", "gaps", "step_s", "peak")}
+    del run
+    _free_card()
+    return out
+
+
+def _cross_bounds(cfg, model, b: int, s: int, cap: int, decode: bool) -> tuple:
+    """(bytes, bf16 operations) of a prefill of ``s`` tokens (B = ``b``) or
+    of one decode step over caches of capacity ``cap``.  Bytes: every fp32
+    weight read once (of an untied model's embedding table only the rows
+    looked up), the aux inputs read, the self-attention K/V written by a
+    prefill or read by a decode step (the activations' dtype), the logits
+    written.  Operations, 2 per weight and row: the decoder's weights per
+    token (the head included); a cross layer's K/V projections per source
+    row; the source itself — Llama-3.2-vision's projector per patch,
+    Whisper's encoder per frame with its non-causal attention (4·H·Dh per
+    frame pair); 4·H·Dh per attention pair, causal for self-attention,
+    every source row for cross-attention."""
+    d, hd = cfg.d_model, cfg.n_heads * cfg.head_dim
+    kvd = cfg.n_kv_heads * cfg.head_dim
+    item = 2 if cfg.dtype == "bfloat16" else 4
+    ffn = (3 if cfg.activation in ("silu", "gelu") else 2) * d * cfg.d_ff
+    n_self = sum(l.mixer == "attn" for l in cfg.layers)
+    n_cross = sum(l.mixer == "cross_attn" or l.cross_source for l in cfg.layers)
+    per_token = (n_self * (2 * d * hd + 2 * d * kvd) + n_cross * 2 * d * hd
+                 + cfg.n_layers * ffn + d * cfg.vocab)
+    if cfg.encoder is not None:
+        n_src, d_src = cfg.encoder.n_frames, d
+        enc_layer = 2 * d * hd + 2 * d * kvd + ffn
+        source = cfg.encoder.n_layers * b * (2 * enc_layer * n_src + 4 * hd * n_src * n_src)
+    else:
+        n_src, d_src = cfg.vision.n_patches, cfg.vision.d_vision
+        source = 2 * d_src * d * n_src * b
+    tokens = b if decode else b * s
+    pairs = b * cap if decode else b * s * (s + 1) // 2
+    n_params = sum(t.numel() for t in model.leaves())
+    table = 0 if cfg.tie_embeddings else cfg.vocab * d - tokens * d
+    n_bytes = (4 * (n_params - table) + 4 * b * n_src * d_src
+               + item * 2 * kvd * n_self * (b * cap if decode else tokens)
+               + item * tokens * cfg.vocab)
+    n_ops = (2 * per_token * tokens + n_cross * 2 * 2 * d * kvd * n_src * b + source
+             + 4 * hd * (n_self * pairs + n_cross * tokens * n_src))
+    return n_bytes, n_ops
+
+
+def _clone_caches(caches):
+    return [[None if t is None else {k: v.clone() for k, v in t.items()} for t in seg]
+            if isinstance(seg, list) else {k: v.clone() for k, v in seg.items()}
+            for seg in caches]
+
+
+def _cross_times(tag, cfg, model, prompts, aux, max_new: int) -> dict:
+    """Prefill (B = 1, the prompt length, one aux row) and one
+    ``decode_step`` of every row at the last position of caches of
+    capacity S + max_new, host-inclusive and device-only, beside their
+    bounds (``_cross_bounds``); and the source's own device-only time —
+    ``source_embeds``: Whisper's encoder, the vision projector — as a share
+    of the decode step, which recomputes it every step."""
+    import torch
+
+    from repro_torch.models.model import decode_step, prefill, source_embeds
+
+    b, s = prompts.shape
+    cap = s + max_new
+    tok = prompts.cuda()
+    with torch.no_grad():
+        _, caches = prefill(cfg, model, tok, aux_inputs=aux, target_len=cap)
+    for seg in caches:
+        for tree in (seg if isinstance(seg, list) else [seg]):
+            if tree is not None:
+                tree["pos"].fill_(cap - 1)
+    tokens = torch.arange(1, b + 1, device="cuda")[:, None]
+    cases = {"prefill": (lambda: prefill(cfg, model, tok[:1], aux_inputs=aux[:1],
+                                         target_len=cap), 1, f"S={s} B=1"),
+             "decode_step": (lambda: decode_step(cfg, model, caches, tokens, aux_inputs=aux),
+                             b, f"B={b} cap={cap}")}
+    out = {}
+    with torch.no_grad():
+        for name, (fn, rows, shape) in cases.items():
+            n_bytes, n_ops = _cross_bounds(cfg, model, rows, s, cap, name == "decode_step")
+            times = {"ms": time_ms(fn, 3), "device_ms": device_ms(fn, 3)}
+            bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = n_ops / BF16_FLOPS * 1e3
+            times.update(bound_ms=max(bytes_ms, ops_ms), n_ops=n_ops,
+                         bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+            out[name] = times
+            log(f"[{tag}] {name} {shape}, {cfg.dtype} activations: incl {times['ms']:.4f} ms, "
+                f"device-only {times['device_ms']:.4f} ms, bound {times['bound_ms']:.4f} ms "
+                f"({times['bound_by']}; bytes {bytes_ms:.4f}, operations {ops_ms:.4f}: "
+                f"{n_ops / rows / 1e9:.1f} GFLOP per row); share of bound (device-only) "
+                f"{times['bound_ms'] / times['device_ms']:.3f}")
+        src_ms = device_ms(lambda: source_embeds(cfg, model, aux), 3)
+    share = src_ms / out["decode_step"]["device_ms"]
+    log(f"[{tag}] the source alone (source_embeds, B={b}): device-only {src_ms:.4f} ms, "
+        f"{share:.3f} of a decode step")
+    del caches
+    return {**out, "source_ms": src_ms, "source_share": share}
+
+
+def _cross_serve(tag, cfg, model, g, seed: int) -> dict:
+    """``generate(aux_inputs=)`` — the direct loop: one prefill, then a
+    ``decode_step`` per token, each recomputing the source — of
+    ``g["batch"]`` random prompts of ``g["prompt_len"]`` tokens (numpy,
+    ``seed``) with their aux rows, ``g["max_new"]`` tokens, greedy, with
+    every count set to 0 just before: the tokens' shape and range, no
+    ``gc_*`` launch, tokens/s by the wall clock and the peak memory; the
+    times (``_cross_times``); teacher forcing one row per call with fp32
+    activations on a bf16 slab (2 rows, ``SERVE_BF16_REL``) and on an fp32
+    slab (1 row, ``SERVE_FP32_REL``), the config's bf16 activations on a
+    bf16 slab measured, not gated."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import generate
+
+    b, s, new = g["batch"], g["prompt_len"], g["max_new"]
+    prompts = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab, size=(b, s)))
+    aux = _aux_rows(cfg, b, (seed, 1))
+    generate(cfg, model, prompts[:, :8], 2, aux_inputs=aux)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = generate(cfg, model, prompts, new, aux_inputs=aux)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, peak = read_counts(), torch.cuda.max_memory_allocated()
+    if tuple(out.shape) != (b, s + new) or not torch.equal(out[:, :s], prompts.int()) or \
+            int(out.min()) < 0 or int(out.max()) >= cfg.vocab:
+        raise AssertionError(f"[{tag}] generate gave {tuple(out.shape)}, tokens in "
+                             f"[{int(out.min())}, {int(out.max())}]")
+    if any(counts.values()):
+        raise AssertionError(f"[{tag}] the serving path launched kernels: {counts}")
+    log(f"[{tag}] generate(aux_inputs=) of {b} prompts x {s} tokens + {new}: {b * new} tokens "
+        f"in {wall:.3f} s ({b * new / wall:.1f} tok/s); gc_* launches {counts}; "
+        f"max_memory_allocated {peak} bytes ({peak / 1e9:.2f} GB)")
+    times = _cross_times(tag, cfg, model, prompts[:, :s], aux, new)
+    outputs = list(out.numpy()[:3])
+    tf = _teacher_forcing(tag, cfg, model, outputs, s, bf16_activations=False, aux=aux[:3])
+    toks = torch.from_numpy(np.stack(outputs[:2]).astype(np.int64)).cuda()
+    got, want = teacher_forced_tokens(cfg, model, toks, s, torch.bfloat16, "cuda", aux[:2])
+    tf["bf16_activations_rel"] = _rel_err(got, want)
+    log(f"[{tag}] teacher forcing, the config's {cfg.dtype} activations on a bf16 slab (2 rows): "
+        f"{tf['bf16_activations_rel']:.3e} of the largest logit, measured, not gated")
+    return {"tokens_per_s": b * new / wall, "peak": peak, **tf, **times}
+
+
+def phase_whisper_serve():
+    """Full-width whisper-base (random weights, seed 0; the gates open)
+    through ``_cross_serve``: 4 prompts of 128 tokens + 64 new over 1,500
+    frames per row, bf16 activations."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import GCLM
+
+    _free_card()
+    cfg = get_config("whisper-base")
+    model = GCLM(cfg, device="cuda", seed=0)
+    _open_gates(model, 1)
+    out = _cross_serve("whisper-serve", cfg, model, WHISPER_SERVE, seed=0)
+    del model
+    _free_card()
+    return out
+
+
+def phase_vision_serve():
+    """Full-width, full-depth llama-3.2-vision-11b (40 layers: a pattern of 5
+    over 8 repeats, cross layers 3, 8, ..., 38; d_model 4096, 32 heads over
+    8 KV heads, d_ff 14,336, vocab 128,256, an untied head, bf16
+    activations; 9,806,614,536 parameters, 39.23 GB fp32; random weights,
+    seed 0, the gates open) through ``_cross_serve``: 4 prompts of 512
+    tokens + 32 new, each row with 1,601 patches of width 7,680; peak
+    memory under 80 GB."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import GCLM
+    from repro_torch.models.stack import Pattern, plan_segments
+
+    _free_card()
+    g = VISION_SERVE
+    cfg = _cut("llama-3.2-vision-11b", g["n_layers"])
+    segs = plan_segments(cfg.layers)
+    if len(segs) != 1 or not isinstance(segs[0], Pattern) or segs[0].repeats != 8 or \
+            [l.mixer for l in segs[0].specs] != ["attn"] * 3 + ["cross_attn", "attn"]:
+        raise AssertionError(f"[vision-serve] not the published layout: {segs}")
+    model = GCLM(cfg, device="cuda", seed=0)
+    n_params = sum(t.numel() for t in model.leaves())
+    if n_params != 9_806_614_536 or len(model.leaves()) != 50:
+        raise AssertionError(f"[vision-serve] {n_params} parameters in {len(model.leaves())} "
+                             "leaves, expected 9,806,614,536 in 50")
+    _open_gates(model, 2)
+    out = _cross_serve("vision-serve", cfg, model, g, seed=0)
+    if not out["peak"] < 80e9:
+        raise AssertionError(f"[vision-serve] peak {out['peak']} bytes")
+    del model
+    _free_card()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3651,6 +4107,10 @@ def main() -> int:
     jamba = timed("jamba-train", phase_jamba_train)
     timed("xlstm-serve", phase_xlstm_serve)
     xlstm = timed("xlstm-train", phase_xlstm_train)
+    whisper = timed("whisper-train", phase_whisper_train)
+    timed("whisper-serve", phase_whisper_serve)
+    timed("vision-serve", phase_vision_serve)
+    vision = timed("vision-train", phase_vision_train)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s; seconds by "
         f"phase {spent}")
 
@@ -3667,7 +4127,8 @@ def main() -> int:
                       "wave": wave_launches["gc_fused"], "tune": tune_launches["gc_fused"],
                       "spmd": spmd_launches, "gemma": gemma["launches"],
                       "moe": moe_train["launches"], "deepseek": deepseek["launches"],
-                      "jamba": jamba["launches"], "xlstm": xlstm["launches"]}
+                      "jamba": jamba["launches"], "xlstm": xlstm["launches"],
+                      "whisper": whisper["launches"], "vision": vision["launches"]}
     print(json.dumps({"kernels": [
         row("gc_fused", "src/repro/kernels/gc_fused.py:57", sum(fused_launches.values()),
             max(max_err, gemma["max_abs_err"]), kernel_times, launches_by_path=fused_launches,

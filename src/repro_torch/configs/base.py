@@ -4,15 +4,17 @@ registry.
 Copied from ``repro/configs/base.py`` and trimmed to what the port
 runs: a layer is an attention mixer (global, or a sliding window),
 DeepSeek's multi-head latent attention (``MLASpec``), Jamba's Mamba
-mixer (``MambaSpec``) or xLSTM's mLSTM and sLSTM mixers (``XLSTMSpec``,
-layers without an FFN sublayer) plus a dense or
+mixer (``MambaSpec``), xLSTM's mLSTM and sLSTM mixers (``XLSTMSpec``,
+layers without an FFN sublayer) or Llama-3.2-vision's gated
+cross-attention over a source (``mixer="cross_attn"``) plus a dense or
 mixture-of-experts FFN (``MoESpec``), with the Gemma family's softcaps,
 QK-norm, sandwich norms, embedding scale and GeGLU, Qwen's QKV biases
-and untied head, and DeepSeek-V3's multi-token prediction
-(``mtp_depth``).  The fields that select features of other families
-(layer norm, ungated MLPs) are kept with their reference defaults so a
-config says what it needs, and the model raises ``NotImplementedError``
-naming the ROADMAP item when one is set.
+and untied head, DeepSeek-V3's multi-token prediction (``mtp_depth``),
+and Whisper's layer norm, ungated GELU MLP, audio encoder
+(``EncoderSpec``) and cross-attention sublayer (``cross_source``).  The
+cross-attention source comes from stubbed modality embeddings: frame
+embeddings through the encoder, or patch embeddings through the
+projector (``VisionSpec``).
 ``reduced()`` gives the reference's smoke-test shapes.
 """
 from __future__ import annotations
@@ -21,8 +23,8 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Optional
 
-__all__ = ["MoESpec", "MLASpec", "MambaSpec", "XLSTMSpec", "LayerSpec", "ModelConfig",
-           "register", "get_config", "list_archs"]
+__all__ = ["MoESpec", "MLASpec", "MambaSpec", "XLSTMSpec", "LayerSpec", "EncoderSpec",
+           "VisionSpec", "ModelConfig", "register", "get_config", "list_archs"]
 
 
 @dataclass(frozen=True)
@@ -71,13 +73,30 @@ class LayerSpec:
     """One decoder layer = mixer + FFN; ``moe`` None is a dense FFN (d_ff
     from ``ModelConfig``), else an ``MoESpec``; no FFN sublayer without
     ``use_ffn`` or with ``d_ff`` 0 and no ``moe`` (xLSTM: the mixer holds
-    the projections)."""
+    the projections); ``cross_source`` adds a cross-attention sublayer
+    after the mixer (Whisper's decoder)."""
 
     mixer: str = "attn"
     window: Optional[int] = None
     moe: Optional[MoESpec] = None
     use_ffn: bool = True
     cross_source: bool = False
+
+
+@dataclass(frozen=True)
+class EncoderSpec:
+    """Whisper's encoder over stubbed frame embeddings."""
+
+    n_layers: int = 6
+    n_frames: int = 1500  # post-conv frames (30 s audio)
+
+
+@dataclass(frozen=True)
+class VisionSpec:
+    """The vision source: stubbed patch embeddings, projected to d_model."""
+
+    n_patches: int = 1601  # 1 tile x (224/14)^2 + cls
+    d_vision: int = 7680  # pre-projector width
 
 
 @dataclass(frozen=True)
@@ -107,6 +126,8 @@ class ModelConfig:
     mla: Optional[MLASpec] = None
     mamba: Optional[MambaSpec] = None
     xlstm_blocks: tuple = ()  # XLSTMSpec per mixer kind (xLSTM)
+    encoder: Optional[EncoderSpec] = None
+    vision: Optional[VisionSpec] = None
     mtp_depth: int = 0
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
@@ -187,6 +208,10 @@ class ModelConfig:
             kw["mamba"] = dataclasses.replace(self.mamba, d_state=8)
         if self.xlstm_blocks:
             kw["xlstm_blocks"] = self.xlstm_blocks[:n_layers]
+        if self.encoder is not None:
+            kw["encoder"] = EncoderSpec(n_layers=2, n_frames=64)
+        if self.vision is not None:
+            kw["vision"] = VisionSpec(n_patches=16, d_vision=64)
         return self.replace(**kw)
 
 
@@ -205,9 +230,7 @@ def get_config(arch_id: str) -> ModelConfig:
     import repro_torch.configs  # noqa: F401  (populates the registry)
 
     if arch_id not in _REGISTRY:
-        raise KeyError(f"unknown arch '{arch_id}'; the port has: "
-                       f"{sorted(_REGISTRY)} (vision and audio families: "
-                       "ROADMAP 1.9)")
+        raise KeyError(f"unknown arch '{arch_id}'; known: {sorted(_REGISTRY)}")
     return _REGISTRY[arch_id]()
 
 

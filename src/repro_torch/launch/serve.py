@@ -25,11 +25,16 @@ decode against ring caches), qwen1.5-32b, mixtral-8x22b,
 deepseek-v3-671b (whose MoE capacity counts the tokens of each call: a
 prompt's prefill may drop assignments, a decode step over at most 8
 slots cannot; DeepSeek's MLA layers decode against a latent cache) and
-jamba-v0.1-52b (whose Mamba layers decode from a fixed-size state) and
-xlstm-1.3b (mLSTM and sLSTM layers, a fixed-size state too); the Whisper
-and vision archs are ROADMAP 1.9.  A full-width gemma3-27b (27.0 B parameters, 108 GB in
-fp32) does not fit one 80 GB card, so the default stays gc-lm-110m where
-the reference's is gemma3-27b.  The port serves on one device: ``--data-par`` and
+jamba-v0.1-52b (whose Mamba layers decode from a fixed-size state),
+xlstm-1.3b (mLSTM and sLSTM layers, a fixed-size state too),
+whisper-base and llama-3.2-vision-11b.  The last two cross-attend to
+stubbed modality embeddings — frames (B, 1500, 512) through Whisper's
+encoder, patches (B, 1601, 7680) through the vision projector — which
+batch mode draws with numpy from ``--seed`` and ``generate`` feeds to
+every step; ``--stream`` refuses them, as the reference's launcher does
+(the engine takes no aux inputs).  A full-width gemma3-27b (27.0 B
+parameters, 108 GB in fp32) does not fit one 80 GB card, so the default
+stays gc-lm-110m where the reference's is gemma3-27b.  The port serves on one device: ``--data-par`` and
 ``--model-par`` (the reference's mesh) must stay 1.
 
     python -m repro_torch.launch.serve --arch gemma3-27b --reduced --device cpu
@@ -37,6 +42,8 @@ the reference's is gemma3-27b.  The port serves on one device: ``--data-par`` an
     python -m repro_torch.launch.serve --arch deepseek-v3-671b --reduced --device cpu
     python -m repro_torch.launch.serve --arch jamba-v0.1-52b --reduced --device cpu
     python -m repro_torch.launch.serve --arch xlstm-1.3b --reduced --device cpu
+    python -m repro_torch.launch.serve --arch whisper-base --reduced --device cpu
+    python -m repro_torch.launch.serve --arch llama-3.2-vision-11b --reduced --device cpu
 """
 from __future__ import annotations
 
@@ -158,16 +165,26 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.stream > 0 and (cfg.vision is not None or cfg.encoder is not None):
+        raise SystemExit("--stream serves text-only configs (the engine does not take "
+                         "aux_inputs)")
     params = GCLM(cfg, device=args.device, seed=0)
     if args.stream > 0:
         _serve_stream(cfg, params, args)
         return
     prompt = np.random.default_rng((args.seed, 1)).integers(
         0, cfg.vocab, size=(args.batch, args.prompt_len))
+    aux = None
+    if cfg.vision is not None:
+        aux = np.random.default_rng((args.seed, 2)).standard_normal(
+            (args.batch, cfg.vision.n_patches, cfg.vision.d_vision), dtype=np.float32)
+    if cfg.encoder is not None:
+        aux = np.random.default_rng((args.seed, 3)).standard_normal(
+            (args.batch, cfg.encoder.n_frames, cfg.d_model), dtype=np.float32)
     _sync(params.embed.tok.device)
     t0 = time.time()
-    out = generate(cfg, params, prompt, max_new=args.new,
-                   temperature=args.temperature, seed=args.seed, device=args.device)
+    out = generate(cfg, params, prompt, max_new=args.new, temperature=args.temperature,
+                   seed=args.seed, aux_inputs=aux, device=args.device)
     dt = time.time() - t0
     print(f"{cfg.name}: {tuple(out.shape)} in {dt:.1f}s "
           f"({args.batch * args.new / dt:.1f} tok/s)")

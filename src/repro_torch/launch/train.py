@@ -8,7 +8,10 @@ gemma3-27b), qwen1.5-32b (QKV biases, an untied head), mixtral-8x22b
 (mixture-of-experts FFNs, whose load-balance loss joins the training
 loss), deepseek-v3-671b (MLA, whose multi-token prediction loss joins
 it too), jamba-v0.1-52b (Mamba mixers) and xlstm-1.3b (mLSTM and sLSTM
-mixers, no FFN sublayers); ``--reduced`` cuts the config
+mixers, no FFN sublayers); whisper-base and llama-3.2-vision-11b, whose
+layers cross-attend to modality embeddings the loop does not feed,
+are refused (``make_coded_train_step`` takes their ``worker_aux``);
+``--reduced`` cuts the config
 to 2 layers of width 128.  Sim mode holds N·K fp32 rows of every
 parameter, so Qwen, Mixtral, DeepSeek, Jamba and xLSTM train on one card only
 reduced: one full-width layer of Qwen or Mixtral, with its embedding and
@@ -67,6 +70,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import Env, ShiftedExponential, available_schemes, get_scheme
 from repro_torch.data.pipeline import DataConfig, SyntheticTokens
 from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.models.model import has_source
 from repro_torch.models.params import count_params
 from repro_torch.train.state import init_train_state
 from repro_torch.train.trainer import TrainConfig, Trainer, make_train_step
@@ -132,6 +136,10 @@ def main(argv=None):
     else:
         args.scheme = get_scheme(args.scheme).name
     cfg = get_config(args.arch)
+    if has_source(cfg):
+        raise SystemExit(f"{cfg.name} cross-attends to a source, and the launcher's "
+                         "Trainer.run feeds tokens only (as the reference's does): drive "
+                         "make_coded_train_step with worker_aux instead")
     if args.reduced:
         cfg = cfg.reduced(n_layers=2, d_model=128)
     cfg = cfg.replace(max_seq=args.seq * 2)

@@ -1,6 +1,8 @@
-"""Causal self-attention of the dense path, after
-``repro/models/attention.py``: global and sliding-window layers, in
-training, prefill and decode.
+"""Attention of the dense path, after ``repro/models/attention.py``:
+causal self-attention — global and sliding-window layers, in training,
+prefill and decode — and the gated cross-attention over a source
+(``cross_attention``: Whisper's decoder over the encoder's output,
+Llama-3.2-vision's image layers over the projected patches).
 
 The reference's ``chunked_attention`` (an online softmax over KV
 chunks) and ``local_attention`` (query chunks against a KV span of the
@@ -22,7 +24,8 @@ RoPE.  Gemma's extras sit at the reference's places: QK-norm
 ``rope_base_local`` on windowed layers.  ``chunked_attention``,
 ``local_attention`` and the decode step scale the scores into fp32 as
 the reference does (a bf16 array times a numpy float is an fp32 product
-in JAX), then softcap and mask them in fp32.
+in JAX), then softcap and mask them in fp32; so does
+``cross_attention``, whose scores the reference scales in ``_sdpa``.
 
 Decode: one query token against a KV cache ``{"k", "v", "pos"}`` of
 capacity ``cap`` (``(B, cap, K, Dh)`` leaves): the whole sequence for a
@@ -46,8 +49,8 @@ from torch.utils.checkpoint import checkpoint
 
 from .layers import rope, softcap
 
-__all__ = ["project_qkv", "chunked_attention", "local_attention", "attn_forward",
-           "init_attn_cache", "prefill_cache"]
+__all__ = ["project_qkv", "chunked_attention", "local_attention", "cross_attention",
+           "attn_forward", "init_attn_cache", "prefill_cache"]
 
 NEG_INF = -1e30
 
@@ -202,6 +205,30 @@ def local_attention(cfg, q, k, v, *, window: int, cap: float = 0.0):
         w = torch.softmax(s + torch.where(valid, 0.0, NEG_INF), dim=-1)
         outs.append(torch.einsum("bkgqc,bckd->bqkgd", w.to(q.dtype), v_i))
     return torch.cat(outs, dim=1).reshape(b, n_chunks * cq, h, dh)[:, :sq]
+
+
+def cross_attention(cfg, p, x, source):
+    """Bidirectional attention of x (B, S, d) over a ``source`` (B, Ssrc,
+    d_src), gated: ``tanh(gate)`` — in fp32, cast to the activations'
+    dtype — times the output projection.  ``p`` holds ``wq``, ``wk``,
+    ``wv``, ``wo`` and the scalar ``gate`` (zero at init: the gate starts
+    closed).  No mask, no RoPE, no biases; the scores are taken in the
+    activations' dtype, then scaled in fp32 and put through an fp32
+    softmax whose probabilities are cast back, as the reference's
+    ``_sdpa`` rounds them."""
+    dt = x.dtype
+    src = source.to(dt)
+    q = torch.einsum("bsd,dhx->bshx", x, p["wq"].to(dt))
+    k = torch.einsum("bcd,dkx->bckx", src, p["wk"].to(dt))
+    v = torch.einsum("bcd,dkx->bckx", src, p["wv"].to(dt))
+    b, sq, h, dh = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, sq, kvh, h // kvh, dh)
+    s = torch.einsum("bqkgd,bckd->bkgqc", qg, k).float() * (1.0 / np.sqrt(cfg.head_dim))
+    w = torch.softmax(s, dim=-1).to(dt)
+    out = torch.einsum("bkgqc,bckd->bqkgd", w, v).reshape(b, sq, h, dh)
+    y = torch.einsum("bshx,hxd->bsd", out, p["wo"].to(dt))
+    return torch.tanh(p["gate"].float()).to(dt) * y
 
 
 def _rope_base(cfg, spec) -> float:

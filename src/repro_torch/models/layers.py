@@ -1,8 +1,11 @@
 """Shared layer primitives of the dense path, after ``repro/models/layers.py``:
-rms norm with ``(1 + scale)``, the softcap, the half-split RoPE, the
-gated MLP (SwiGLU or GeGLU), and the embedding (scaled by sqrt(d_model)
-for the Gemma family) and unembedding (tied, or Qwen's and Mixtral's
-untied ``embed.unembed``; with the final softcap)."""
+rms norm with ``(1 + scale)`` and Whisper's layer norm (``apply_norm``
+picks layer norm when the norm node has a ``bias``, as the reference
+does), the softcap, the half-split RoPE, the MLP — gated (SwiGLU or
+GeGLU) when it has ``wg``, else Whisper's ungated GELU MLP — and the
+embedding (scaled by sqrt(d_model) for the Gemma family) and
+unembedding (tied, or Qwen's and Mixtral's untied ``embed.unembed``;
+with the final softcap)."""
 from __future__ import annotations
 
 import functools
@@ -11,7 +14,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["rms_norm", "softcap", "rope", "apply_mlp", "embed_tokens", "unembed"]
+__all__ = ["rms_norm", "layer_norm", "apply_norm", "softcap", "rope", "apply_mlp",
+           "embed_tokens", "unembed"]
 
 
 def rms_norm(x, scale, eps: float = 1e-6):
@@ -19,6 +23,23 @@ def rms_norm(x, scale, eps: float = 1e-6):
     var = xf.square().mean(-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * (1.0 + scale.float())).to(x.dtype)
+
+
+def layer_norm(x, scale, bias, eps: float = 1e-5):
+    """Layer norm in fp32 (mean, biased variance, ``rsqrt(var + eps)``,
+    then ``* scale + bias``), cast back to x's dtype."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(x.dtype)
+
+
+def apply_norm(p, x):
+    """Layer norm when the norm node ``p`` has a ``bias``, else rms norm."""
+    if "bias" in p:
+        return layer_norm(x, p["scale"], p["bias"])
+    return rms_norm(x, p["scale"])
 
 
 def softcap(x, cap: float):
@@ -60,10 +81,14 @@ def _act(cfg, x):
 
 
 def apply_mlp(cfg, p, x):
-    """Gated MLP: (act(x @ wg) * (x @ wi)) @ wo, act silu (SwiGLU) or gelu
-    (GeGLU)."""
+    """The MLP: gated, (act(x @ wg) * (x @ wi)) @ wo with act silu
+    (SwiGLU) or gelu (GeGLU), when ``p`` has ``wg``; else ungated,
+    act(x @ wi) @ wo (``activation="gelu_mlp"``: tanh gelu)."""
     h = torch.einsum("bsd,df->bsf", x, p["wi"].to(x.dtype))
-    h = _act(cfg, torch.einsum("bsd,df->bsf", x, p["wg"].to(x.dtype))) * h
+    if "wg" in p:
+        h = _act(cfg, torch.einsum("bsd,df->bsf", x, p["wg"].to(x.dtype))) * h
+    else:
+        h = _act(cfg, h)
     return torch.einsum("bsf,fd->bsd", h, p["wo"].to(x.dtype))
 
 

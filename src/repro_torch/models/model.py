@@ -3,39 +3,110 @@ training, prefill or decode mode, ``train_loss`` (cross-entropy, the
 MoE load-balance loss and DeepSeek-V3's multi-token prediction loss),
 and the serving entry points ``prefill``, ``decode_step`` and
 ``init_decode_caches`` — gc-lm-110m, the Gemma family, Qwen 1.5,
-Mixtral, DeepSeek-V3, Jamba and xLSTM (the embedding scale, the untied
-head and the final softcap live in ``layers.py``, the MoE FFN in
-``moe.py``, MLA in ``mla.py``, the Mamba mixer in ``ssm.py``, the mLSTM
-and sLSTM mixers in ``xlstm.py``); encoders and vision are ROADMAP
-1.9."""
+Mixtral, DeepSeek-V3, Jamba, xLSTM, Whisper and Llama-3.2-vision (the
+embedding scale, the untied head and the final softcap live in
+``layers.py``, the MoE FFN in ``moe.py``, MLA in ``mla.py``, the Mamba
+mixer in ``ssm.py``, the mLSTM and sLSTM mixers in ``xlstm.py``).
+
+A model with a cross-attention source takes ``aux_inputs``: Whisper's
+stubbed frame embeddings (B, n_frames, d_model), which ``run_encoder``
+turns into the source (sinusoid positions, non-causal attention layers
+with QKV biases, no RoPE, layer norms), or Llama-3.2-vision's stubbed
+patch embeddings (B, n_patches, d_vision), which ``vision_proj``
+projects to d_model.  As in the reference, a decode step recomputes the
+source from ``aux_inputs`` — the whole encoder, or the projector — and
+each cross-attention layer its K/V; nothing of the source is cached."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from .attention import chunked_attention, project_qkv
 from .blocks import apply_layer
-from .layers import embed_tokens, rms_norm, unembed
+from .layers import apply_mlp, apply_norm, embed_tokens, rms_norm, unembed
+from .params import encoder_cfg
 from .stack import _tree, apply_stack, init_stack_caches
 
-__all__ = ["forward", "train_loss", "prefill", "decode_step", "init_decode_caches"]
+__all__ = ["forward", "train_loss", "prefill", "decode_step", "init_decode_caches",
+           "run_encoder", "source_embeds", "has_source"]
 
 
-def forward(cfg, model, tokens, *, mode="train", caches=None, target_len: int = 0):
-    """tokens: (B, S) integer.  Returns (logits, new_caches, aux, hidden);
-    ``new_caches`` is None in training, and in decode mode it is
-    ``caches``, updated in place; ``aux`` is the fp32 sum of the MoE
-    layers' load-balance losses (zero without MoE layers)."""
+def has_source(cfg) -> bool:
+    """Whether a layer of ``cfg`` cross-attends to a source (a
+    ``cross_attn`` mixer or a ``cross_source`` sublayer)."""
+    return any(l.mixer == "cross_attn" or l.cross_source for l in cfg.layers)
+
+
+@functools.lru_cache(maxsize=8)
+def _sinusoid(n_pos: int, d: int, device: torch.device):
+    """The encoder's (n_pos, d) positions — sin of pos / 10000^(2i/d) in
+    the first half, cos in the second — in float64 numpy, as the
+    reference computes them, then fp32, copied to ``device`` once."""
+    pos = np.arange(n_pos)[:, None]
+    dim = np.arange(d // 2)[None, :]
+    ang = pos / np.power(10_000.0, 2 * dim / d)
+    table = np.concatenate([np.sin(ang), np.cos(ang)], axis=1).astype(np.float32)
+    return torch.from_numpy(table).to(device)
+
+
+def run_encoder(cfg, model, frames):
+    """Whisper's encoder over ``frames`` (B, n_frames, d_model), the stubbed
+    conv front end's output: the sinusoid positions added in the
+    activations' dtype, then per layer a layer norm, non-causal attention
+    with QKV biases and no RoPE (``chunked_attention``: chunks of
+    ``attn_chunk``, the tail padded and masked), residual, a layer norm,
+    the MLP, residual; the final layer norm.  Outside the stack: no
+    remat, as in the reference."""
+    ecfg = encoder_cfg(cfg)
+    dt = getattr(torch, cfg.dtype)
+    x = frames.to(dt) + _sinusoid(frames.shape[1], cfg.d_model, frames.device).to(dt)
+    for node in model.encoder.layers:
+        lp = _tree(node)
+        h = apply_norm(lp["norm_mix"], x)
+        q, k, v = project_qkv(ecfg, lp["mixer"], h, None, 0.0)  # RoPE base 0: no positions
+        out = chunked_attention(ecfg, q, k, v, causal=False)
+        x = x + torch.einsum("bshx,hxd->bsd", out, lp["mixer"]["wo"].to(dt))
+        x = x + apply_mlp(ecfg, lp["ffn"], apply_norm(lp["norm_ffn"], x))
+    return apply_norm(_tree(model.encoder.final_norm), x)
+
+
+def source_embeds(cfg, model, aux_inputs):
+    """The cross-attention source from the stubbed modality embeddings:
+    the projected patches (``aux_inputs @ vision_proj`` in the activations'
+    dtype) for a vision config, the encoder's output for Whisper, else
+    None (also when ``aux_inputs`` is None)."""
+    if aux_inputs is None:
+        return None
+    aux = torch.as_tensor(aux_inputs, device=model.embed.tok.device)
+    if cfg.vision is not None:
+        dt = getattr(torch, cfg.dtype)
+        return torch.einsum("bpd,de->bpe", aux.to(dt), model.vision_proj.to(dt))
+    if cfg.encoder is not None:
+        return run_encoder(cfg, model, aux)
+    return None
+
+
+def forward(cfg, model, tokens, *, mode="train", caches=None, aux_inputs=None,
+            target_len: int = 0):
+    """tokens: (B, S) integer; ``aux_inputs`` the stubbed modality
+    embeddings of a model with a cross-attention source.  Returns
+    (logits, new_caches, aux, hidden); ``new_caches`` is None in
+    training, and in decode mode it is ``caches``, updated in place;
+    ``aux`` is the fp32 sum of the MoE layers' load-balance losses (zero
+    without MoE layers)."""
     tokens = _as_tokens(tokens, model.embed.tok.device)
     x = embed_tokens(cfg, model.embed.tok, tokens)
+    source = source_embeds(cfg, model, aux_inputs)
     x, new_caches, aux = apply_stack(cfg, model.stack, x, mode=mode, caches=caches,
-                                     target_len=target_len)
+                                     source=source, target_len=target_len)
     if aux is None:  # no MoE layer
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    hidden = rms_norm(x, model.final_norm.scale)
+    hidden = apply_norm(_tree(model.final_norm), x)
     embed = dict(model.embed.named_parameters())
     return unembed(cfg, embed, hidden), new_caches, aux, hidden
 
@@ -57,14 +128,15 @@ def _as_tokens(tokens, device):
 
 
 def train_loss(cfg, model, batch):
-    """batch: {"tokens": (B, S+1)} (+ optional "mask").  Returns
+    """batch: {"tokens": (B, S+1)} (+ optional "mask", and "aux_inputs"
+    for a model with a cross-attention source).  Returns
     (loss, metrics) with the reference's metric names: ``xent``, ``aux``,
     ``mtp`` when the model predicts more tokens (``cfg.mtp_depth`` and
     more than 2 tokens per row), and ``loss`` = xent + 0.3 · mtp / depth
     + aux."""
     tokens = _as_tokens(batch["tokens"], model.embed.tok.device)
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
-    logits, _, aux, hidden = forward(cfg, model, inputs)
+    logits, _, aux, hidden = forward(cfg, model, inputs, aux_inputs=batch.get("aux_inputs"))
     mask = batch.get("mask")
     if mask is not None:
         mask = torch.as_tensor(mask, device=logits.device)[:, 1:].float()
@@ -101,22 +173,25 @@ def _mtp_loss(cfg, model, tokens, hidden):
 
 # ---------------------------------------------------------------- serving
 @torch.no_grad()
-def prefill(cfg, model, tokens, target_len: int = 0):
+def prefill(cfg, model, tokens, aux_inputs=None, target_len: int = 0):
     """tokens: (B, S).  Returns (logits, caches): every position's logits,
     and per-segment caches of capacity ``max(target_len, S + 1)`` holding
-    the prompt's K/V uncast (the activations' dtype) with ``pos`` = S."""
+    the prompt's K/V uncast (the activations' dtype) with ``pos`` = S
+    (None for a cross-attention mixer)."""
     logits, caches, _, _ = forward(cfg, model, tokens, mode="prefill",
-                                   target_len=target_len)
+                                   aux_inputs=aux_inputs, target_len=target_len)
     return logits, caches
 
 
 @torch.no_grad()
-def decode_step(cfg, model, caches, token):
+def decode_step(cfg, model, caches, token, aux_inputs=None):
     """token: (B, 1).  Returns (logits, caches): ``caches`` (from
     ``prefill`` or ``init_decode_caches``) is updated in place — this
     token's K/V written at ``pos % cap`` (a Mamba or xLSTM layer's state
-    overwritten), ``pos`` advanced by one."""
-    logits, caches, _, _ = forward(cfg, model, token, mode="decode", caches=caches)
+    overwritten), ``pos`` advanced by one.  A model with a
+    cross-attention source recomputes it from ``aux_inputs``."""
+    logits, caches, _, _ = forward(cfg, model, token, mode="decode", caches=caches,
+                                   aux_inputs=aux_inputs)
     return logits, caches
 
 
@@ -128,12 +203,14 @@ def init_decode_caches(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
     makes every ``pos`` leaf one entry per batch row — ``(B,)`` for a
     single layer, ``(L, B)`` for a run or a pattern's position, Mamba's
     and xLSTM's as attention's — the serving slab's layout, where each slot decodes
-    at its own depth."""
+    at its own depth.  A cross-attention mixer's entry is None."""
     dev = resolve_device(device)
     caches = init_stack_caches(cfg, batch, seq_len, dtype, dev)
     fill = seq_len - 1 if filled is None else int(filled)
     for seg in caches:
         for tree in (seg if isinstance(seg, list) else [seg]):  # a pattern: p trees
+            if tree is None:  # a cross-attention mixer: no cache
+                continue
             pos = tree["pos"]
             shape = tuple(pos.shape) + ((batch,) if row_pos else ())
             tree["pos"] = torch.full(shape, fill, dtype=pos.dtype, device=dev)

@@ -28,12 +28,22 @@ between ``final_norm`` and ``stack``; an MLA mixer's nine leaves sort as
 ``w_if``, ``wk``, ``wq``, ``wv``, an sLSTM mixer's seven as ``b_gates``,
 ``down``, ``gn_scale``, ``r_gates``, ``up1``, ``up2``, ``w_gates``; a
 layer without an FFN sublayer (xLSTM) has neither ``norm_ffn`` nor
-``ffn``.
+``ffn``.  A cross-attention mixer or sublayer (``cross``, with
+``norm_cross`` before it) holds ``gate`` (a scalar per layer),
+``wk``, ``wo``, ``wq``, ``wv``; under ``norm="layer"`` (Whisper) every
+norm node holds ``bias`` and ``scale``, and Whisper's ungated MLP has no
+``wg``.  Whisper's ``encoder`` (``final_norm``, then ``layers``: a list
+of unstacked layer nodes with QKV biases and layer norms) sorts between
+``embed`` and ``final_norm``; Llama-3.2-vision's projector
+``vision_proj`` (d_vision, d) sorts last.  whisper-base has 103 leaves,
+llama-3.2-vision-11b 50.
 
 Weights are drawn from a ``torch.Generator`` with the law of the
 reference's ``dense_init`` (truncated normal on [-2, 2], std 1/sqrt(fan_in)
 of the per-layer shape: E·d for an expert's ``wi``/``wg`` of shape
-(E, d, f), E·f for its ``wo``); ``torch`` cannot reproduce
+(E, d, f), E·f for its ``wo``); a layer norm's ``scale`` starts at one
+and its ``bias`` and the cross-attention ``gate`` at zero, as the
+reference's; ``torch`` cannot reproduce
 ``jax.random``, so parity tests carry the reference's arrays across
 with ``params_from_numpy``.
 """
@@ -45,13 +55,14 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..configs.base import LayerSpec
 from ..device import resolve_device
 from .blocks import has_ffn
 from .ssm import a_log_init, dt_bias_init, mamba_dims
 from .stack import Run, plan_segments
 from .xlstm import mlstm_dims, slstm_dims
 
-__all__ = ["ParamNode", "GCLM", "params_from_numpy", "params_to_numpy",
+__all__ = ["ParamNode", "GCLM", "encoder_cfg", "params_from_numpy", "params_to_numpy",
            "count_params"]
 
 
@@ -73,25 +84,34 @@ def _zeros(shape, device):
 def _layer_node(cfg, spec, count: int, device) -> ParamNode:
     """One layer's parameters; leaves carry a leading (count,) axis when
     the segment stacks more than one layer."""
-    if spec.mixer not in _MIXER_LEAVES or spec.cross_source:
-        raise NotImplementedError(
-            f"layer {spec} is not ported yet: the port runs attention, MLA, Mamba, mLSTM or "
-            "sLSTM mixers + dense or MoE FFN layers (cross-attention: ROADMAP 1.9)")
+    if spec.mixer not in _MIXER_LEAVES:
+        raise ValueError(f"unknown mixer {spec.mixer!r}")
     lead = (count,) if count > 1 else ()
-    d = cfg.d_model
 
     def z(*shape):
         return _zeros(lead + shape, device)
 
-    mixer = _MIXER_LEAVES[spec.mixer](cfg, z)
-    children = {"norm_mix": ParamNode({"scale": z(d)}), "mixer": ParamNode(mixer)}
+    def norm():
+        return _norm_node(cfg, z)
+
+    children = {"norm_mix": norm(), "mixer": ParamNode(_MIXER_LEAVES[spec.mixer](cfg, z))}
+    if spec.cross_source:
+        children.update(cross=ParamNode(_cross_leaves(cfg, z)), norm_cross=norm())
     if cfg.post_norm:
-        children["norm_mix_post"] = ParamNode({"scale": z(d)})
+        children["norm_mix_post"] = norm()
     if has_ffn(cfg, spec):
-        children.update(norm_ffn=ParamNode({"scale": z(d)}), ffn=_ffn_node(cfg, spec, z))
+        children.update(norm_ffn=norm(), ffn=_ffn_node(cfg, spec, z))
         if cfg.post_norm:
-            children["norm_ffn_post"] = ParamNode({"scale": z(d)})
+            children["norm_ffn_post"] = norm()
     return ParamNode(children=children)
+
+
+def _norm_node(cfg, z) -> ParamNode:
+    """``scale`` (rms norm: scale - 1), and ``bias`` under layer norm."""
+    d = cfg.d_model
+    if cfg.norm == "layer":
+        return ParamNode({"scale": z(d), "bias": z(d)})
+    return ParamNode({"scale": z(d)})
 
 
 def _attn_leaves(cfg, z) -> dict:
@@ -102,6 +122,15 @@ def _attn_leaves(cfg, z) -> dict:
     if cfg.qk_norm:
         mixer.update(q_norm=z(dh), k_norm=z(dh))
     return mixer
+
+
+def _cross_leaves(cfg, z) -> dict:
+    """``repro/models/attention.py::init_cross_attention``'s leaves, the
+    source of width d_model (the projector's output, or the encoder's):
+    no biases, and the scalar tanh ``gate``."""
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {"wq": z(d, h, dh), "wk": z(d, kv, dh), "wv": z(d, kv, dh), "wo": z(h, dh, d),
+            "gate": z()}
 
 
 def _mla_leaves(cfg, z) -> dict:
@@ -146,8 +175,25 @@ def _slstm_leaves(cfg, z) -> dict:
             "gn_scale": z(d), "up1": z(d, d_up), "up2": z(d, d_up), "down": z(d_up, d)}
 
 
-_MIXER_LEAVES = {"attn": _attn_leaves, "mla": _mla_leaves, "mamba": _mamba_leaves,
-                 "mlstm": _mlstm_leaves, "slstm": _slstm_leaves}
+_MIXER_LEAVES = {"attn": _attn_leaves, "cross_attn": _cross_leaves, "mla": _mla_leaves,
+                 "mamba": _mamba_leaves, "mlstm": _mlstm_leaves, "slstm": _slstm_leaves}
+
+
+def encoder_cfg(cfg):
+    """The config of Whisper's encoder layers: QKV biases and layer norms."""
+    return cfg.replace(qkv_bias=True, norm="layer")
+
+
+def _encoder_node(cfg, device) -> ParamNode:
+    """Whisper's encoder: ``layers`` (a list of unstacked layer nodes, global
+    attention with QKV biases, layer norms, the config's MLP) and
+    ``final_norm`` (a layer norm)."""
+    ecfg = encoder_cfg(cfg)
+    spec = LayerSpec(mixer="attn")
+    return ParamNode({}, {
+        "layers": nn.ModuleList(_layer_node(ecfg, spec, 1, device)
+                                for _ in range(cfg.encoder.n_layers)),
+        "final_norm": _norm_node(ecfg, lambda *shape: _zeros(shape, device))})
 
 
 def _mtp_node(cfg, device) -> ParamNode:
@@ -163,13 +209,17 @@ def _mtp_node(cfg, device) -> ParamNode:
 
 
 def _ffn_node(cfg, spec, z) -> ParamNode:
-    """A dense gated MLP, or ``repro/models/moe.py::init_moe``'s tree:
+    """A dense MLP (gated: ``wg`` beside ``wi``, ``wo``; or ungated), or
+    ``repro/models/moe.py::init_moe``'s tree:
     ``router`` (d, E), experts ``wi``/``wg`` (E, d, f) and ``wo`` (E, f, d),
     and ``shared.{wi, wg, wo}`` of width f·num_shared when there are
     shared experts."""
     d = cfg.d_model
     if spec.moe is None:
-        return ParamNode({"wi": z(d, cfg.d_ff), "wo": z(cfg.d_ff, d), "wg": z(d, cfg.d_ff)})
+        mlp = {"wi": z(d, cfg.d_ff), "wo": z(cfg.d_ff, d)}
+        if cfg.activation in ("silu", "gelu"):  # gated; Whisper's "gelu_mlp" is not
+            mlp["wg"] = z(d, cfg.d_ff)
+        return ParamNode(mlp)
     e, f = spec.moe.num_experts, spec.moe.d_ff
     children = {}
     if spec.moe.num_shared:
@@ -189,9 +239,11 @@ def _segment_node(cfg, seg, device) -> nn.Module:
 
 #: leaves the reference initializes to zero: rms-norm scales (which store
 #: scale - 1), the QK-norm and MLA-norm scales, the QKV biases, the
-#: Mamba and mLSTM convs' bias and the mLSTM input gate's bias
+#: Mamba and mLSTM convs' bias, the mLSTM input gate's bias, the layer
+#: norms' bias and the cross-attention gate (a layer norm's ``scale``,
+#: beside a ``bias``, starts at one instead)
 ZERO_INIT = ("scale", "q_norm", "k_norm", "q_a_norm", "kv_a_norm", "bq", "bk", "bv", "conv_b",
-             "b_i")
+             "b_i", "bias", "gate")
 
 
 def _slstm_b_gates(cfg) -> np.ndarray:
@@ -210,29 +262,16 @@ FIXED_INIT = {"d_skip": lambda cfg: np.ones(mamba_dims(cfg)[1], np.float32),
               "b_f": lambda cfg: np.full(1, 3.0, np.float32), "b_gates": _slstm_b_gates}
 
 
-def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for features outside what the port
-    runs (the dense, Gemma, Qwen, MoE, DeepSeek, Jamba and xLSTM paths)."""
-    unsupported = {
-        "layer norm": cfg.norm != "rms",
-        "ungated MLP": cfg.activation not in ("silu", "gelu"),
-    }
-    on = [k for k, v in unsupported.items() if v]
-    if on:
-        raise NotImplementedError(
-            f"{cfg.name}: {on} not ported yet (layer norm, ungated MLPs: ROADMAP 1.9)")
-
-
 class GCLM(nn.Module):
     """Decoder LM parameters: ``embed`` (``tok``, and ``unembed`` for an
     untied head), ``stack`` (one node per segment:
     a run of identical layers, or a pattern's list of p layer nodes),
     ``final_norm`` and, when ``cfg.mtp_depth``, ``mtp`` (a list of
-    multi-token prediction modules), initialized from ``seed``."""
+    multi-token prediction modules), when ``cfg.encoder``, ``encoder``,
+    and when ``cfg.vision``, ``vision_proj``, initialized from ``seed``."""
 
     def __init__(self, cfg, *, device="cuda", seed: int = 0):
         super().__init__()
-        check_supported(cfg)
         dev = resolve_device(device)
         self.cfg = cfg
         embed = {"tok": _zeros((cfg.vocab, cfg.d_model), dev)}
@@ -241,7 +280,11 @@ class GCLM(nn.Module):
         self.embed = ParamNode(embed)
         self.stack = nn.ModuleList(_segment_node(cfg, seg, dev)
                                    for seg in plan_segments(cfg.layers))
-        self.final_norm = ParamNode({"scale": _zeros((cfg.d_model,), dev)})
+        self.final_norm = _norm_node(cfg, lambda *shape: _zeros(shape, dev))
+        if cfg.encoder is not None:
+            self.encoder = _encoder_node(cfg, dev)
+        if cfg.vision is not None:
+            self.vision_proj = nn.Parameter(_zeros((cfg.vision.d_vision, cfg.d_model), dev))
         if cfg.mtp_depth:
             self.mtp = nn.ModuleList(_mtp_node(cfg, dev) for _ in range(cfg.mtp_depth))
         if dev.type != "meta":  # a meta model carries shapes only
@@ -259,14 +302,16 @@ class GCLM(nn.Module):
         return [t for _, t in self.leaf_items()]
 
     def tree(self, leaves=None) -> dict:
-        """The reference's parameter tree — nested dicts, ``stack`` a list —
-        holding ``leaves`` (leaf order; default: the parameters) by
-        reference, not copied."""
+        """The reference's parameter tree — nested dicts; ``stack``,
+        ``mtp`` and ``encoder.layers`` lists — holding ``leaves`` (leaf
+        order; default: the parameters) by reference, not copied."""
         leaves = self.leaves() if leaves is None else list(leaves)
         out = {"stack": [[{} for _ in node] if isinstance(node, nn.ModuleList) else {}
                          for node in self.stack]}
         if self.cfg.mtp_depth:
             out["mtp"] = [{} for _ in self.mtp]
+        if self.cfg.encoder is not None:
+            out["encoder"] = {"layers": [{} for _ in self.encoder.layers]}
         for (path, _), leaf in zip(self.leaf_items(), leaves, strict=True):
             node = out
             for key in path[:-1]:
@@ -278,13 +323,19 @@ class GCLM(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, seed: int = 0) -> None:
         """``dense_init`` law for matrices, zeros for the leaves the
-        reference zero-inits (``ZERO_INIT``), the reference's fixed values
-        for Mamba's ``d_skip``, ``a_log`` and ``dt_bias`` and xLSTM's
-        ``gn_scale``, ``b_f`` and ``b_gates`` (``FIXED_INIT``)."""
+        reference zero-inits (``ZERO_INIT``), one for a layer norm's
+        ``scale``, the reference's fixed values for Mamba's ``d_skip``,
+        ``a_log`` and ``dt_bias`` and xLSTM's ``gn_scale``, ``b_f`` and
+        ``b_gates`` (``FIXED_INIT``)."""
         gen = torch.Generator(device=self.embed.tok.device).manual_seed(int(seed))
         stacked = {seg_i for seg_i, seg in enumerate(plan_segments(self.cfg.layers))
                    if not isinstance(seg, Run) or seg.count > 1}
-        for path, t in self.leaf_items():
+        items = self.leaf_items()
+        paths = {path for path, _ in items}
+        for path, t in items:
+            if path[-1] == "scale" and path[:-1] + ("bias",) in paths:  # a layer norm
+                t.fill_(1.0)
+                continue
             if path[-1] in ZERO_INIT:
                 t.zero_()
                 continue

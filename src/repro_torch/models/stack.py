@@ -38,8 +38,14 @@ run, leaves stacked over the run (``(L, B, cap, K, Dh)`` K/V,
 stacked over the repeats, each position its own mixer's (Jamba's 32
 layers: one pattern of 8 — seven Mamba trees and one attention tree —
 over 4 repeats; xLSTM's 48: seven mLSTM trees and one sLSTM tree over
-6).  A decode step hands each layer views of its slice,
-so every write lands in the stacked tensors in place.
+6).  A cross-attention mixer keeps no cache: its entry is None, also
+as a position of a pattern (Llama-3.2-vision's 40 layers: one pattern
+of 5 — four attention trees and None — over 8 repeats).  A decode step
+hands each layer views of its slice, so every write lands in the
+stacked tensors in place.
+
+The cross-attention ``source`` (the encoder's output, or the projected
+patches) reaches every layer, inside remat too.
 """
 from __future__ import annotations
 
@@ -143,6 +149,10 @@ def _slice(cache, i):
 
 
 def _stack(trees):
+    """Cache trees stacked along a new axis 0 (None for a mixer without a
+    cache)."""
+    if trees[0] is None:
+        return None
     return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
 
 
@@ -153,9 +163,11 @@ def _add(total, aux):
     return aux if total is None else total + aux
 
 
-def apply_stack(cfg, stack, x, *, mode="train", caches=None, target_len: int = 0):
+def apply_stack(cfg, stack, x, *, mode="train", caches=None, source=None,
+                target_len: int = 0):
     """x: (B, S, d) through every layer of ``stack`` (the model's
-    ``nn.ModuleList`` of segment nodes).  Returns (x, caches, aux):
+    ``nn.ModuleList`` of segment nodes), ``source`` (B, Ssrc, d) the
+    cross-attention source or None.  Returns (x, caches, aux):
     caches ``None`` in training, the prefill's new per-segment caches, or
     ``caches`` updated in place by a decode step; aux the summed MoE
     load-balance loss, or None when no layer is MoE."""
@@ -163,13 +175,13 @@ def apply_stack(cfg, stack, x, *, mode="train", caches=None, target_len: int = 0
     aux = None
 
     def layer(spec, params, cache):
-        return lambda x_: apply_layer(cfg, params, x_, spec, mode=mode, cache=cache,
-                                      target_len=target_len)
+        return lambda x_, src: apply_layer(cfg, params, x_, spec, mode=mode, cache=cache,
+                                           source=src, target_len=target_len)
 
     for i, (seg, node) in enumerate(zip(plan_segments(cfg.layers), stack)):
         cache = caches[i] if caches is not None else None
         if isinstance(seg, Run) and seg.count == 1:
-            x, c_new, a = _remat(cfg, mode, layer(seg.spec, _tree(node), cache), x)
+            x, c_new, a = _remat(cfg, mode, layer(seg.spec, _tree(node), cache), x, source)
             aux = _add(aux, a)
             if mode == "prefill":
                 new_caches.append(c_new)
@@ -179,7 +191,8 @@ def apply_stack(cfg, stack, x, *, mode="train", caches=None, target_len: int = 0
             per_layer = []
             for j in range(seg.count):
                 params = _tree(node, {k: v[j] for k, v in unbound.items()})
-                x, c_new, a = _remat(cfg, mode, layer(seg.spec, params, _slice(cache, j)), x)
+                x, c_new, a = _remat(cfg, mode, layer(seg.spec, params, _slice(cache, j)), x,
+                                     source)
                 aux = _add(aux, a)
                 per_layer.append(c_new)
             if mode == "prefill":
@@ -194,15 +207,15 @@ def apply_stack(cfg, stack, x, *, mode="train", caches=None, target_len: int = 0
                          None if cache is None else _slice(cache[j], r))
                    for j, spec in enumerate(seg.specs)]
 
-            def body(x_, fns=fns):
+            def body(x_, src, fns=fns):
                 c_out, a_out = [], []
                 for fn in fns:
-                    x_, c_new, a = fn(x_)
+                    x_, c_new, a = fn(x_, src)
                     c_out.append(c_new)
                     a_out.append(a)
                 return x_, c_out, a_out
 
-            x, c_out, a_out = _remat(cfg, mode, body, x)
+            x, c_out, a_out = _remat(cfg, mode, body, x, source)
             for a in a_out:
                 aux = _add(aux, a)
             per_rep.append(c_out)
@@ -215,9 +228,8 @@ def apply_stack(cfg, stack, x, *, mode="train", caches=None, target_len: int = 0
 def init_stack_caches(cfg, batch: int, seq_len: int, dtype=torch.bfloat16, device="cuda"):
     """Empty per-segment caches of capacity ``seq_len`` (``min(window,
     seq_len)`` for a windowed layer; a Mamba or xLSTM layer's fixed-size
-    state),
-    leaves stacked along axis 0 for a run and for each position of a
-    pattern."""
+    state; None for a cross-attention mixer), leaves stacked along axis 0
+    for a run and for each position of a pattern."""
     def one(spec):
         return init_layer_cache(cfg, spec, batch, seq_len, dtype, device)
 

@@ -29,6 +29,11 @@ token j adds Gumbel noise of shape (V,) from a generator seeded by
 
 ``restore_plan`` reads the coding ``Plan`` a trainer stored in a port
 checkpoint's metadata.
+
+A model with a cross-attention source (Whisper, Llama-3.2-vision) is
+served by ``generate(aux_inputs=)``'s direct loop — one prefill, then a
+``decode_step`` per token, each recomputing the source — not by the
+engine, which takes no aux inputs (nor does the reference's).
 """
 from __future__ import annotations
 
@@ -39,7 +44,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.model import decode_step, prefill
+from ..models.model import decode_step, has_source, prefill
 from .coded import CodedDecode
 from .request import DONE, RUNNING, Request
 from .scheduler import Scheduler
@@ -61,14 +66,11 @@ def restore_plan(ckpt_dir: str, step: Optional[int] = None):
 
 
 def make_serve_step(cfg):
-    """(params, caches, token) -> (next_token_logits, caches): one decode
-    step, caches updated in place."""
+    """(params, caches, token, aux_inputs=None) -> (next_token_logits,
+    caches): one decode step, caches updated in place."""
 
     def serve_step(params, caches, token, aux_inputs=None):
-        if aux_inputs is not None:
-            raise NotImplementedError("aux_inputs (vision/encoder configs) are not "
-                                      "ported yet (ROADMAP 1.9)")
-        logits, caches = decode_step(cfg, params, caches, token)
+        logits, caches = decode_step(cfg, params, caches, token, aux_inputs=aux_inputs)
         return logits[:, -1], caches
 
     return serve_step
@@ -135,11 +137,16 @@ class ServeEngine:
     not charged, so ``step_latencies`` is exactly the coded tier's stream.
 
     ``params`` is a ``GCLM``; the engine runs on its device, which must
-    be of the kind ``device`` names (default the card).
+    be of the kind ``device`` names (default the card).  A model with a
+    cross-attention source raises: the engine takes no aux inputs
+    (``generate(aux_inputs=)`` serves it).
     """
 
     def __init__(self, cfg, params, serve: Optional[ServeConfig] = None, *,
                  coded: Optional[CodedDecode] = None, device="cuda"):
+        if has_source(cfg):
+            raise ValueError(f"{cfg.name} cross-attends to a source and the engine takes no "
+                             "aux inputs: serve it with generate(aux_inputs=...)")
         dev = resolve_device(device)
         self.device = params.embed.tok.device
         if self.device.type != dev.type:
@@ -262,15 +269,18 @@ def generate(cfg, params, prompt_tokens, max_new: int = 32, *,
     """prompt_tokens: (B, S) -> (B, S + max_new) int32 tokens (a CPU
     tensor), through ``ServeEngine``: each prompt row is one request with
     its own seed (row 0 keeps ``seed``; row r > 0 uses
-    ``fold_seed(seed, 2**30 + r)``)."""
+    ``fold_seed(seed, 2**30 + r)``).  With ``aux_inputs`` (B, ...) —
+    the modality embeddings of a model with a cross-attention source —
+    the reference's direct loop instead (``_generate_direct``), with the
+    same row seeds."""
     if max_new <= 0:
         return prompt_tokens
-    if aux_inputs is not None:
-        raise NotImplementedError("aux_inputs (vision/encoder configs) are not "
-                                  "ported yet (ROADMAP 1.9)")
     if isinstance(prompt_tokens, torch.Tensor):
         prompt_tokens = prompt_tokens.cpu().numpy()
     prompts = np.asarray(prompt_tokens)
+    if aux_inputs is not None:
+        return _generate_direct(cfg, params, prompts, max_new, temperature, seed,
+                                aux_inputs, device)
     b, s = prompts.shape
     eng = ServeEngine(cfg, params, ServeConfig(n_slots=b, max_len=s + max_new),
                       device=device)
@@ -278,3 +288,30 @@ def generate(cfg, params, prompt_tokens, max_new: int = 32, *,
                        seed=_row_seed(seed, r)) for r in range(b)]
     eng.run()
     return torch.from_numpy(np.stack([r.output for r in reqs]))
+
+
+def _generate_direct(cfg, params, prompts, max_new: int, temperature: float, seed: int,
+                     aux_inputs, device):
+    """The reference's direct decode loop (kept for ``aux_inputs``): one
+    prefill of the whole batch into caches of capacity S + max_new, then
+    one ``decode_step`` per token over every row, each recomputing the
+    source from ``aux_inputs``; token j of row r drawn as the engine draws
+    it (``_sample_row`` with the row's seed)."""
+    dev = resolve_device(device)
+    if params.embed.tok.device.type != dev.type:
+        raise ValueError(f"params are on {params.embed.tok.device}, device is {dev}")
+    b, s = prompts.shape
+    seeds = [_row_seed(seed, r) for r in range(b)]
+    aux = torch.as_tensor(aux_inputs, device=params.embed.tok.device)
+    tokens = torch.from_numpy(prompts.astype(np.int64)).to(params.embed.tok.device)
+    logits, caches = prefill(cfg, params, tokens, aux_inputs=aux, target_len=s + max_new)
+
+    def sample(last, j):
+        return torch.stack([_sample_row(last[r], seeds[r], j, temperature) for r in range(b)])
+
+    out = [sample(logits[:, -1], 0)]
+    for j in range(1, max_new):
+        logits, caches = decode_step(cfg, params, caches, out[-1][:, None], aux_inputs=aux)
+        out.append(sample(logits[:, -1], j))
+    new = torch.stack(out, dim=1).cpu().numpy()
+    return torch.from_numpy(np.concatenate([prompts, new], axis=1).astype(np.int32))

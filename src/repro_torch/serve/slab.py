@@ -24,7 +24,8 @@ K/V, with its batch axis where K/V's is — cast to the slab leaf's dtype,
 so every state but ``conv`` stays fp32 in a bf16 slab.  A finished
 slot's state goes on being advanced by the batched decode step until the
 next admission overwrites every leaf; attention masks a stale K/V row on
-the slot's own ``pos``.
+the slot's own ``pos``.  A cross-attention mixer has no cache: its entry
+is None on both sides and is skipped.
 
 ``caches_from_numpy`` / ``caches_to_numpy`` carry the reference's cache
 trees (the same list of per-segment entries of arrays) across.
@@ -63,6 +64,8 @@ def insert_request(cfg, slab, pref_caches, slot: int):
 
 
 def _insert_tree(s_tree, p_tree, slot: int, stacked: bool) -> None:
+    if s_tree is None:  # a cross-attention mixer: no cache
+        return
     for name, s_leaf in s_tree.items():
         p_leaf = p_tree[name]
         if p_leaf.ndim == s_leaf.ndim:  # k, v: take the prefill's row 0
@@ -103,9 +106,9 @@ def caches_to_numpy(caches):
 
 def _map_trees(caches, fn):
     """``fn`` on every leaf of a per-segment cache list (dicts, or a
-    pattern's list of dicts)."""
+    pattern's list of dicts; None passes)."""
     def one(tree):
-        return {k: fn(v) for k, v in tree.items()}
+        return None if tree is None else {k: fn(v) for k, v in tree.items()}
 
     return [[one(t) for t in seg] if isinstance(seg, (list, tuple)) else one(seg)
             for seg in caches]

@@ -47,6 +47,14 @@ stay replicated.
 
 For every straggler realization the result equals the plain
 data-parallel mean gradient over the same global batch (tested).
+
+A model with a cross-attention source (Whisper, Llama-3.2-vision) takes
+``worker_aux`` (N, K, rows, ...) beside the (N, K, rows, S+1) tokens:
+the stubbed modality embeddings of each worker's shards, in the same
+layout (the caller allocates them with the tokens' cyclic map; an spmd
+rank slices its part as it slices its tokens).  Each per-shard pass then
+trains on ``{"tokens", "aux_inputs"}``.  Without ``worker_aux`` such a
+model raises.
 """
 from __future__ import annotations
 
@@ -58,7 +66,7 @@ import torch
 from ..core import Plan
 from ..dist.collectives import all_gather, psum, psum_scatter
 from ..kernels import ops
-from ..models.model import train_loss
+from ..models.model import has_source, train_loss
 
 __all__ = ["make_coded_grad_fn", "uncoded_grad_fn", "per_shard_grad_rows",
            "level_weights", "combine_rows", "combine_level", "combine_grads",
@@ -88,18 +96,32 @@ def _resolve_pipeline(pipeline: str, plan: Plan) -> str:
                      "expected 'auto', 'flat', or 'tree'")
 
 
-def per_shard_grad_rows(cfg, model, worker_batches) -> list:
+def _check_aux(cfg, aux) -> None:
+    if aux is None and has_source(cfg):
+        raise ValueError(f"{cfg.name} cross-attends to a source: pass worker_aux "
+                         "(N, K, rows, ...), the stubbed modality embeddings of every "
+                         "shard, beside the tokens")
+
+
+def _batch(tokens, aux):
+    return {"tokens": tokens} if aux is None else {"tokens": tokens, "aux_inputs": aux}
+
+
+def per_shard_grad_rows(cfg, model, worker_batches, worker_aux=None) -> list:
     """Run the N·K per-shard backward passes; returns one ``(N·K, size)``
-    tensor per leaf (row n·K + k: worker n's k-th shard)."""
+    tensor per leaf (row n·K + k: worker n's k-th shard).  ``worker_aux``
+    (N, K, rows, ...) gives each pass its ``aux_inputs``."""
+    _check_aux(cfg, worker_aux)
     leaves = model.leaves()
     dev = leaves[0].device
     wb = torch.as_tensor(worker_batches, device=dev)  # (N, K, rows, S+1)
+    wa = None if worker_aux is None else torch.as_tensor(worker_aux, device=dev)
     n, k = wb.shape[0], wb.shape[1]
     rows = [torch.empty((n * k, t.numel()), dtype=t.dtype, device=dev)
             for t in leaves]
     for w in range(n):
         for s in range(k):
-            loss, _ = train_loss(cfg, model, {"tokens": wb[w, s]})
+            loss, _ = train_loss(cfg, model, _batch(wb[w, s], None if wa is None else wa[w, s]))
             for buf, g in zip(rows, torch.autograd.grad(loss, leaves)):
                 buf[w * k + s].copy_(g.reshape(-1))
     return rows
@@ -214,9 +236,9 @@ def scatter_dims(leaf_shapes, n_workers: int) -> list:
 
 class CodedGrads:
     """A coded gradient function in its two stages:
-    ``grad_fn(model, worker_batches, dec_w)`` is
-    ``combine(rows(model, worker_batches), dec_w)`` with the leaves in
-    the model's shapes.  ``rows`` runs the per-shard backward passes
+    ``grad_fn(model, worker_batches, dec_w, worker_aux=None)`` is
+    ``combine(rows(model, worker_batches, worker_aux), dec_w)`` with the
+    leaves in the model's shapes.  ``rows`` runs the per-shard backward passes
     (all N·K in sim mode, this rank's K in spmd), ``combine`` the coded
     combine and, in spmd, the collectives.  The wave loop calls the two
     at a round's dispatch and at its update."""
@@ -224,21 +246,23 @@ class CodedGrads:
     def __init__(self, rows: Callable, combine: Callable):
         self.rows, self.combine = rows, combine
 
-    def __call__(self, model, worker_batches, dec_w) -> list:
-        ys = self.combine(self.rows(model, worker_batches), dec_w)
+    def __call__(self, model, worker_batches, dec_w, worker_aux=None) -> list:
+        ys = self.combine(self.rows(model, worker_batches, worker_aux), dec_w)
         return [y.reshape(t.shape) for y, t in zip(ys, model.leaves())]
 
 
 def make_coded_grad_fn(cfg, plan: Plan, *, mode: str = "sim", mesh=None,
                        reduce_mode: str = "psum", grad_dtype=None,
                        pipeline: str = "auto") -> CodedGrads:
-    """grad_fn(model, worker_batches, dec_w) -> decoded mean gradient,
-    a list of tensors in leaf order.
+    """grad_fn(model, worker_batches, dec_w, worker_aux=None) -> decoded
+    mean gradient, a list of tensors in leaf order.
 
     worker_batches: the global (N, K, rows, S+1) tokens from
     ``data.pipeline.coded_worker_batches`` (in spmd every rank takes the
     same array and slices its part: its data index on axis 0, its pod's
-    rows on axis 2); dec_w: (n_used, N) decode weights of this step's
+    rows on axis 2), and ``worker_aux`` the (N, K, rows, ...) modality
+    embeddings of a model with a cross-attention source, sliced alike;
+    dec_w: (n_used, N) decode weights of this step's
     straggler realization.  pipeline: 'flat' (the fused combine), 'tree'
     (the per-leaf baseline) or 'auto' (flat when the plan carries a
     ``FlatLayout``).  ``grad_dtype`` (e.g. ``torch.bfloat16``) casts the
@@ -261,7 +285,7 @@ def make_coded_grad_fn(cfg, plan: Plan, *, mode: str = "sim", mesh=None,
     pipeline = _resolve_pipeline(pipeline, plan)
     if mode == "sim":
         return CodedGrads(
-            lambda model, wb: per_shard_grad_rows(cfg, model, wb),
+            lambda model, wb, aux=None: per_shard_grad_rows(cfg, model, wb, aux),
             lambda rows, dec_w: combine_grads(plan, rows, dec_w, pipeline=pipeline,
                                               grad_dtype=grad_dtype))
     if mode != "spmd":
@@ -273,12 +297,14 @@ def make_coded_grad_fn(cfg, plan: Plan, *, mode: str = "sim", mesh=None,
                          f"{mesh.data} data ranks")
     d, p = mesh.data_index, mesh.pod_index
 
-    def rows(model, worker_batches):
+    def rows(model, worker_batches, worker_aux=None):
         n_rows = worker_batches.shape[2]
         if n_rows % mesh.pod:
             raise ValueError(f"{n_rows} rows per shard do not split over {mesh.pod} pods")
         h = n_rows // mesh.pod
-        return per_shard_grad_rows(cfg, model, worker_batches[d:d + 1, :, p * h:(p + 1) * h])
+        mine = (slice(d, d + 1), slice(None), slice(p * h, (p + 1) * h))
+        return per_shard_grad_rows(cfg, model, worker_batches[mine],
+                                   None if worker_aux is None else worker_aux[mine])
 
     make = _flat_spmd_combine if pipeline == "flat" else _tree_spmd_combine
     return CodedGrads(rows, make(plan, mesh, reduce_mode, grad_dtype))
@@ -360,14 +386,18 @@ def _tree_spmd_combine(plan: Plan, mesh, reduce_mode: str, grad_dtype) -> Callab
 
 def uncoded_grad_fn(cfg, n_workers: int) -> Callable:
     """Plain data-parallel mean gradient over the same global batch
-    (shards stacked (N, rows, S+1)); the reference for exactness tests."""
+    (shards stacked (N, rows, S+1), and for a model with a cross-attention
+    source their modality embeddings ``aux`` (N, rows, ...)); the
+    reference for exactness tests."""
 
-    def grad_fn(model, shards):
+    def grad_fn(model, shards, aux=None):
+        _check_aux(cfg, aux)
         leaves = model.leaves()
         shards = torch.as_tensor(shards, device=leaves[0].device)
+        aux = None if aux is None else torch.as_tensor(aux, device=leaves[0].device)
         total = None
         for i in range(shards.shape[0]):
-            loss, _ = train_loss(cfg, model, {"tokens": shards[i]})
+            loss, _ = train_loss(cfg, model, _batch(shards[i], None if aux is None else aux[i]))
             grads = torch.autograd.grad(loss, leaves)
             total = list(grads) if total is None else [a + g for a, g in zip(total, grads)]
         return [t / n_workers for t in total]

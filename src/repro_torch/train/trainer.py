@@ -34,7 +34,7 @@ from ..checkpoint.manager import CheckpointManager
 from ..core import Env, Plan
 from ..data.pipeline import DataConfig, SyntheticTokens, coded_worker_batches
 from ..dist.collectives import check_replicated, psum
-from ..models.model import train_loss
+from ..models.model import has_source, train_loss
 from ..optim.optim import adamw_update, clip_by_global_norm, cosine_schedule
 from .coded import make_coded_grad_fn
 from .state import TrainState, init_train_state
@@ -94,27 +94,34 @@ def make_train_step(cfg, cfg_t: TrainConfig, *, mesh=None) -> Callable:
 def make_coded_train_step(cfg, cfg_t: TrainConfig, plan: Plan, *,
                           mode: str = "sim", mesh=None, reduce_mode: str = "psum",
                           grad_dtype=None, pipeline: str = "auto") -> Callable:
-    """step(state, worker_batches, dec_w) -> (state, metrics); the
-    parameters and optimizer moments are updated in place.  The keywords
-    go to ``make_coded_grad_fn``, whose ``CodedGrads`` the step keeps as
+    """step(state, worker_batches, dec_w, worker_aux=None) -> (state,
+    metrics); the parameters and optimizer moments are updated in place.
+    ``worker_aux`` (N, K, rows, ...) carries the modality embeddings of a
+    model with a cross-attention source.  The keywords go to
+    ``make_coded_grad_fn``, whose ``CodedGrads`` the step keeps as
     ``step.grad_fn``."""
     grad_fn = make_coded_grad_fn(cfg, plan, mode=mode, mesh=mesh, reduce_mode=reduce_mode,
                                  grad_dtype=grad_dtype, pipeline=pipeline)
 
-    def step(state: TrainState, worker_batches, dec_w):
-        grads = grad_fn(state.params, worker_batches, dec_w)
-        return coded_update(cfg, cfg_t, state, grads, worker_batches)
+    def step(state: TrainState, worker_batches, dec_w, worker_aux=None):
+        grads = grad_fn(state.params, worker_batches, dec_w, worker_aux)
+        return coded_update(cfg, cfg_t, state, grads, worker_batches, worker_aux)
 
     step.grad_fn = grad_fn
     return step
 
 
-def coded_update(cfg, cfg_t: TrainConfig, state: TrainState, grads, worker_batches):
+def coded_update(cfg, cfg_t: TrainConfig, state: TrainState, grads, worker_batches,
+                 worker_aux=None):
     """The coded step after its gradients: the monitoring loss on shard 0
-    with the pre-update parameters, then clip, AdamW and the cosine LR
-    (in place).  Returns (state, metrics)."""
+    (with ``worker_aux[0, 0]`` as its ``aux_inputs`` when given) with the
+    pre-update parameters, then clip, AdamW and the cosine LR (in place).
+    Returns (state, metrics)."""
+    mon = {"tokens": worker_batches[0, 0]}
+    if worker_aux is not None:
+        mon["aux_inputs"] = worker_aux[0, 0]
     with torch.no_grad():
-        _, metrics = train_loss(cfg, state.params, {"tokens": worker_batches[0, 0]})
+        _, metrics = train_loss(cfg, state.params, mon)
     return _apply_update(cfg_t, state, grads, metrics)
 
 
@@ -340,7 +347,14 @@ class Trainer:
 
     def run(self, n_steps: int, log_every: int = 10, log_fn=print):
         """Run ``n_steps`` steps (barrier, or the wave schedule when the
-        trainer has one); returns (state, ledger summary)."""
+        trainer has one); returns (state, ledger summary).  Like the
+        reference's, the loop feeds tokens only, so a model with a
+        cross-attention source raises: drive ``make_coded_train_step``
+        with ``worker_aux`` instead."""
+        if has_source(self.cfg):
+            raise ValueError(f"{self.cfg.name} cross-attends to a source, and Trainer.run "
+                             "feeds tokens only: call make_coded_train_step's step with "
+                             "worker_aux")
         if self.wave is not None:
             return self.wave.run(n_steps, log_every, log_fn)
         for i in range(n_steps):

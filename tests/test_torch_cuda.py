@@ -18,14 +18,15 @@ from repro_torch.dist.spawn import spawn
 from repro_torch.kernels import _launch, _pipe, gc_decode, gc_encode, gc_fused, ops, ref
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch.mesh import make_local_mesh
-from repro_torch.models.model import decode_step, prefill
+from repro_torch.models.model import decode_step, forward, prefill
 from repro_torch.models.params import GCLM, params_from_numpy, params_to_numpy
 from repro_torch.serve import (CodedDecode, ServeConfig, ServeEngine, generate,
                                insert_request, make_slab)
 from repro_torch.sim.arrivals import poisson_arrivals
 from repro_torch.train.coded import (combine_grads, combine_level, combine_rows,
                                      make_coded_grad_fn, uncoded_grad_fn)
-from repro_torch.train.trainer import TrainConfig, Trainer
+from repro_torch.train.state import init_train_state
+from repro_torch.train.trainer import TrainConfig, Trainer, make_coded_train_step
 
 pytestmark = pytest.mark.cuda
 
@@ -864,3 +865,77 @@ def test_xlstm_decode_step_replays_in_a_cuda_graph(cuda):
             else:
                 _close_to_cpu(seg[name], ref_seg[name].cpu(), name, rel=1e-5)
     assert slab[0]["pos"][:, 2].tolist() == [8 + 3] * 7 and slab[1]["pos"][2].item() == 8 + 3
+
+
+def _cross_model(arch, n_layers, device):
+    """Reduced ``arch`` at d_model 128 with every cross ``gate`` set to 0.5
+    (a closed gate, the init, hides the source), its numpy tree, and the
+    modality embeddings of 4 shards of 2 rows (seed 0)."""
+    cfg = get_config(arch).reduced(n_layers=n_layers, d_model=128, seq_cap=64)
+    tree = params_to_numpy(GCLM(cfg, device="cpu", seed=0))
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: (np.full_like(v, 0.5) if k == "gate" else walk(v))
+                    for k, v in node.items()}
+        return [walk(v) for v in node] if isinstance(node, list) else node
+
+    tree = walk(tree)
+    shape = ((cfg.encoder.n_frames, cfg.d_model) if cfg.encoder is not None
+             else (cfg.vision.n_patches, cfg.vision.d_vision))
+    aux = np.random.default_rng(0).standard_normal((4, 2) + shape, dtype=np.float32)
+    return cfg, tree, params_from_numpy(GCLM(cfg, device=device), tree), aux
+
+
+@pytest.mark.parametrize("arch,n_layers", [("whisper-base", 2), ("llama-3.2-vision-11b", 10)])
+def test_cross_source_forward_and_coded_step_on_cuda_match_cpu(cuda, arch, n_layers):
+    """Reduced Whisper (2 + 2 layers, 51 leaves) and reduced vision (10
+    layers: the cross layer inside a pattern, 50 leaves), gates open: the
+    forward with aux inputs on the card within 1e-4 of the CPU's; the coded
+    gradient with ``worker_aux`` equal to the uncoded one (1e-4) for 0 and
+    s_max stragglers, in ceil(leaves / 32) = 2 ``gc_fused`` launches; a
+    ``make_coded_train_step`` step's loss as the CPU's."""
+    cfg, tree, model, aux = _cross_model(arch, n_layers, cuda)
+    cpu_model = params_from_numpy(GCLM(cfg, device="cpu"), tree)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, size=(2, 24))
+    with torch.no_grad():
+        got = forward(cfg, model, toks, aux_inputs=aux[0])[0]
+        want = forward(cfg, cpu_model, toks, aux_inputs=aux[0])[0]
+    _close_to_cpu(got, want, "logits")
+    plan = Plan.build(model, ShiftedExponential(), 4)
+    data = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=8))
+    wb = coded_worker_batches(data, 0, 4, plan.s_max)
+    wa = np.stack([np.stack([aux[(n + k) % 4] for k in range(plan.s_max + 1)])
+                   for n in range(4)])
+    shards = np.stack([data.shard(0, i, 4) for i in range(4)])
+    g_ref = uncoded_grad_fn(cfg, 4)(model, shards, aux)
+    coded = make_coded_grad_fn(cfg, plan)
+    n_leaves = len(model.leaves())
+    for u in (0, plan.s_max):
+        times = np.ones(4)
+        times[:u] = 1e6
+        dec_w = plan.decode_weights(times).astype(np.float32)
+        before = gc_fused.launches
+        g = coded(model, wb, dec_w, wa)
+        torch.cuda.synchronize()
+        assert gc_fused.launches == before + -(-n_leaves // _pipe.MAX_LEAVES) == before + 2
+        for gc, gu in zip(g, g_ref):
+            assert float((gc - gu).abs().max()) <= 1e-4 * float(gu.abs().max())
+    losses = []
+    for m in (model, cpu_model):
+        state = init_train_state(cfg, device=m.embed.tok.device, params=tree)
+        step = make_coded_train_step(cfg, TrainConfig(), Plan.build(m, ShiftedExponential(), 4))
+        _, metrics = step(state, wb, dec_w, wa)
+        losses.append(float(metrics["loss"]))
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-4)
+
+
+def test_generate_with_aux_inputs_on_cuda_matches_cpu(cuda):
+    """``generate(aux_inputs=)`` (the direct loop) of reduced vision at 10
+    layers, fp32, greedy: the card's tokens are the CPU's."""
+    cfg, tree, model, aux = _cross_model("llama-3.2-vision-11b", 10, cuda)
+    cpu_model = params_from_numpy(GCLM(cfg, device="cpu"), tree)
+    prompts = np.random.default_rng(2).integers(0, cfg.vocab, size=(2, 12))
+    got = generate(cfg, model, prompts, 8, aux_inputs=aux[0])
+    want = generate(cfg, cpu_model, prompts, 8, aux_inputs=aux[0], device="cpu")
+    np.testing.assert_array_equal(got.numpy(), want.numpy())

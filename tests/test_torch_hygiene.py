@@ -7,6 +7,7 @@ rather than fall back to the CPU.
 """
 import ast
 import importlib
+import re
 import inspect
 import json
 import os
@@ -18,7 +19,7 @@ import pytest
 import torch
 
 from repro_torch.checkpoint import load_coded_checkpoint
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, list_archs
 from repro_torch.core import ShiftedExponential
 from repro_torch.device import resolve_device
 from repro_torch.models.params import GCLM
@@ -121,3 +122,13 @@ def test_chip_smoke_refuses_without_cuda():
                          capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_the_port_registers_every_config_the_reference_registers():
+    """The reference's registry, read from its config sources (this file
+    imports nothing of the reference), equals the port's: eleven configs."""
+    found = set()
+    for path in (ROOT / "src" / "repro" / "configs").glob("*.py"):
+        found |= set(re.findall(r'@register\("([^"]+)"\)', path.read_text()))
+    assert len(found) == 11
+    assert set(list_archs()) == found

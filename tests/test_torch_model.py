@@ -177,19 +177,23 @@ def test_init_law_matches_dense_init():
 
 
 def test_unsupported_features_raise():
-    """Features of the families still to port (the ``cross_attn`` mixer,
-    cross-attention sublayers, layer norm, ungated MLPs) raise; the Gemma
-    family's, Qwen's QKV bias and untied head, MoE FFNs, DeepSeek's MLA
-    and MTP, Jamba's Mamba mixer and xLSTM's mLSTM and sLSTM mixers are
-    ported (tests/test_torch_{gemma,qwen,moe,deepseek,jamba,xlstm}.py)."""
+    """Every family's features build on the dense layer — the ``cross_attn``
+    mixer, cross-attention sublayers, layer norm and ungated MLPs
+    (tests/test_torch_{whisper,vision}.py), the Gemma family's, Qwen's QKV
+    bias and untied head, MoE FFNs, DeepSeek's MLA and MTP, Jamba's Mamba
+    mixer and xLSTM's mLSTM and sLSTM mixers
+    (tests/test_torch_{gemma,qwen,moe,deepseek,jamba,xlstm}.py); an unknown
+    mixer raises."""
     cfg = get_config("gc-lm-110m").reduced(**KW)
     for change in (dict(layers=(dataclasses.replace(cfg.layers[0], mixer="cross_attn"),) * 2),
                    dict(norm="layer"), dict(activation="gelu_mlp"),
                    dict(layers=(dataclasses.replace(cfg.layers[0], mixer="cross_attn",
                                                     cross_source=True),) * 2),
                    dict(layers=(dataclasses.replace(cfg.layers[0], cross_source=True),) * 2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            GCLM(cfg.replace(**change), device="meta")
+        GCLM(cfg.replace(**change), device="meta")
+    with pytest.raises(ValueError, match="unknown mixer"):
+        GCLM(cfg.replace(layers=(dataclasses.replace(cfg.layers[0], mixer="rwkv"),) * 2),
+             device="meta")
     for mixer in ("mlstm", "slstm"):
         GCLM(cfg.replace(layers=(dataclasses.replace(cfg.layers[0], mixer=mixer),) * 2),
              device="meta")
