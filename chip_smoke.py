@@ -87,6 +87,22 @@ port's sources beside it.  Phases; any failure raises:
    per-rank combine (one launch into the level buffers, bit-equal to
    the allocating call) device-only against its bound and
    ``torch.matmul`` in turns.  A rank's failure fails the script.
+6g. dryrun: (a) the dry run (``repro_torch.launch.dryrun``) on meta of
+   every arch at full width at every input shape on the single mesh
+   (data 16), and the spmd coded step of gc-lm-110m and gemma-2b, in
+   worker processes beside the card's work: no case fails, and the skips
+   are the reference's (``long_500k`` without a sub-quadratic layer); a
+   line per case with its FLOPs, bytes, collective bytes, argument
+   bytes, roofline terms and trace seconds.  (b) the main path's coded
+   step (phase 2's setup, one step of a fresh state) under the op
+   counter (``launch/op_analysis.py``) on the card, with the counts set
+   to 0 just before, and on meta: FLOPs, transcendentals, bytes and
+   collectives equal, op for op, and one counted combine per
+   ``gc_fused`` launch.  (c) ``tune.memory.analyze_memory`` of that step
+   on the card: argument bytes equal to the meta figure, the peak at
+   least the arguments, printed beside ``estimate_memory`` and beside
+   argument plus output bytes.  (d) the coded gradients' device time
+   under the profiler (from 6) beside the dry run's roofline time.
 7. ckpt: a fresh full-width trainer (as in 2) with erasure-coded
    checkpoints, ``CodedSpec(n_shards=4, parity=1)`` every 2 steps, and
    worker 1 (which owns data stripe 1) 1000x slower from round 0, so the
@@ -341,6 +357,15 @@ WAVE_ROUNDS = 6
 TUNE_HBM_GB = 3.0
 TUNE_SIM_STEPS = 20_000
 MC_EQ2_RTOL = 1e-4
+#: the [dryrun] phase: the sweep's worker processes, the coded cases, and
+#: the reference's skips (``shape_supported``: ``long_500k`` needs a
+#: recurrent or windowed layer; tests/test_torch_specs.py holds the port's
+#: skips to the reference's)
+DRYRUN_WORKERS = 6
+DRYRUN_CODED = ("gc-lm-110m", "gemma-2b")
+DRYRUN_SKIPS = {(a, "long_500k") for a in ("deepseek-v3-671b", "gc-lm-110m", "gemma-2b",
+                                           "llama-3.2-vision-11b", "qwen1.5-32b",
+                                           "whisper-base")}
 #: the [spmd] phase: ranks on one card over gloo (NCCL takes one card per
 #: rank) and the job's time limit, seconds
 SPMD_RANKS = 4
@@ -954,6 +979,7 @@ def phase_breakdown(trainer):
     for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:10]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.2f} ms  x{e.count:<5d} "
             f"{e.key[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "parts_ms": parts}
 
 
 def phase_levels(trainer):
@@ -1063,6 +1089,159 @@ def phase_tree(trainer, rows):
         f"{_mean(dev['flat']):.4f}, tree {_mean(dev['tree']):.4f}")
     torch.cuda.synchronize()
     return {"flat_device_ms": _mean(dev["flat"]), "tree_device_ms": _mean(dev["tree"])}
+
+
+def _dryrun_init(src: str) -> None:
+    """A sweep worker: the port's sources, one torch thread."""
+    sys.path.insert(0, src)
+    import torch
+
+    torch.set_num_threads(1)
+
+
+def _dryrun_case(arch: str, shape: str, coded: bool, out_dir: str) -> dict:
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    rec = dryrun.run_case(arch, shape, "single", coded=coded, out_dir=out_dir,
+                          skip_existing=False)
+    rec["wall_s"] = time.perf_counter() - t0
+    return rec
+
+
+def _dryrun_sweep_line(rec: dict) -> str:
+    head = f"[dryrun] {rec['arch']:22s} {rec['shape']:12s} {rec['step']:11s} {rec['status']:4s}"
+    if rec["status"] != "ok":
+        return f"{head} {rec.get('reason') or rec.get('error', '')}"
+    return (f"{head} flops {rec['per_device_flops']:.6e} bytes {rec['per_device_bytes']:.6e} "
+            f"collective_bytes {rec['collective_bytes']:.6e} argument_bytes "
+            f"{rec['memory']['argument_bytes']} compute_s {rec['compute_s']:.6e} memory_s "
+            f"{rec['memory_s']:.6e} collective_s {rec['collective_s']:.6e} trace_s "
+            f"{rec['trace_s']} (wall {rec['wall_s']:.1f} s)")
+
+
+def _same_costs(cuda, meta) -> list:
+    """The op counts of two ``OpCost``s that differ, by op."""
+    keys = sorted(set(cuda.by_op) | set(meta.by_op))
+    return [(k, cuda.by_op.get(k), meta.by_op.get(k)) for k in keys
+            if cuda.by_op.get(k) != meta.by_op.get(k)]
+
+
+def phase_dryrun(trainer, profile: dict) -> dict:
+    """(a) the meta sweep in worker processes; (b) the main path's coded
+    step counted on the card and on meta; (c) its memory on the card;
+    (d) its device time beside the roofline time."""
+    import concurrent.futures
+    import multiprocessing
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import INPUT_SHAPES, list_archs
+    from repro_torch.data.pipeline import coded_worker_batches
+    from repro_torch.launch.dryrun import roofline
+    from repro_torch.launch.op_analysis import analyze_ops
+    from repro_torch.train.coded import make_coded_grad_fn
+    from repro_torch.train.state import abstract_train_state, init_train_state
+    from repro_torch.train.trainer import TrainConfig, make_coded_train_step
+    from repro_torch.tune import analyze_memory, estimate_memory
+    from repro_torch.tune.memory import tree_bytes
+
+    t0 = time.perf_counter()
+    out_dir = os.path.join(ROOT, "artifacts", "dryrun_torch")
+    cases = [(a, s, False) for a in list_archs() for s in INPUT_SHAPES]
+    cases += [(a, "train_4k", True) for a in DRYRUN_CODED]
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=min(DRYRUN_WORKERS, os.cpu_count() or 1),
+        mp_context=multiprocessing.get_context("spawn"), initializer=_dryrun_init,
+        initargs=(SRC,))
+    futures = [pool.submit(_dryrun_case, a, s, c, out_dir) for a, s, c in cases]
+
+    # (b) the main path's coded step, counted on the card and on meta
+    cfg, plan = trainer.cfg, trainer.plan
+    n = trainer.n_workers
+    wb_np = coded_worker_batches(trainer.data, 0, n, plan.s_max)
+    dec_w = plan.decode_weights(np.arange(n, dtype=np.float64)).astype(np.float32)
+    step = make_coded_train_step(cfg, TrainConfig(lr=3e-4, warmup=10, total_steps=300), plan)
+    state = init_train_state(cfg, device="cuda", seed=0)
+    wb = torch.as_tensor(wb_np, device="cuda")
+    torch.cuda.synchronize()
+    reset_counts()
+    t1 = time.perf_counter()
+    cuda = analyze_ops(step, state, wb, dec_w)
+    torch.cuda.synchronize()
+    cuda_s = time.perf_counter() - t1
+    launches = read_counts()
+    meta_args = (abstract_train_state(cfg), torch.empty(wb.shape, dtype=wb.dtype,
+                                                        device="meta"), dec_w)
+    t1 = time.perf_counter()
+    meta = analyze_ops(step, *meta_args)
+    meta_s = time.perf_counter() - t1
+    diff = _same_costs(cuda, meta)
+    log(f"[dryrun] main path's coded step (N={n}, K={plan.k_shards}, seq 256, batch 8): cuda "
+        f"flops {cuda.flops:.6e} bytes {cuda.bytes:.6e} transcendentals "
+        f"{cuda.transcendentals:.6e} collectives {cuda.collective_counts} kernel calls "
+        f"{cuda.kernel_calls} ({cuda_s:.2f} s); meta flops {meta.flops:.6e} bytes "
+        f"{meta.bytes:.6e} transcendentals {meta.transcendentals:.6e} kernel calls "
+        f"{meta.kernel_calls} loop trips {meta.loop_trips} ({meta_s:.2f} s); "
+        f"launches {launches}; ops that differ {diff}")
+    if (cuda.flops, cuda.transcendentals, cuda.collective_bytes, cuda.collective_counts) != \
+            (meta.flops, meta.transcendentals, meta.collective_bytes, meta.collective_counts):
+        raise AssertionError(f"the card's counts differ from meta's: {diff}")
+    if cuda.bytes != meta.bytes or diff:
+        raise AssertionError(f"the card's bytes differ from meta's by "
+                             f"{cuda.bytes - meta.bytes}: {diff}")
+    if not (launches["gc_fused"] == cuda.kernel_calls.get("gc_fused") ==
+            meta.kernel_calls.get("gc_fused") == 1):
+        raise AssertionError(f"gc_fused launched {launches['gc_fused']} times, counted "
+                             f"{cuda.kernel_calls} on the card and {meta.kernel_calls} on "
+                             "meta: want one counted combine per launch, one per step")
+
+    # (c) memory of that step on the card
+    mem = analyze_memory(step, state, wb, dec_w, device="cuda")
+    meta_arg, meta_out = tree_bytes(meta_args), tree_bytes(meta.output)
+    est = estimate_memory(plan, cfg=cfg, global_batch=8, seq_len=256).total
+    log(f"[dryrun] memory of the step on the card: argument bytes {mem['argument_bytes']} "
+        f"(meta {meta_arg}), output bytes {mem['output_bytes']} (meta {meta_out}), peak "
+        f"{mem['peak_bytes']} (temp {mem['temp_bytes']}); peak / estimate_memory "
+        f"{mem['peak_bytes'] / est:.3f} (estimate {est:.0f}), peak / (argument + output) "
+        f"{mem['peak_bytes'] / (meta_arg + meta_out):.3f}")
+    if mem["argument_bytes"] != meta_arg:
+        raise AssertionError(f"argument bytes {mem['argument_bytes']} on the card, {meta_arg} "
+                             "on meta")
+    if mem["peak_bytes"] < mem["argument_bytes"]:
+        raise AssertionError(f"peak {mem['peak_bytes']} below the arguments' "
+                             f"{mem['argument_bytes']} bytes")
+
+    # (d) the coded gradients' device time beside their roofline time
+    grads = analyze_ops(make_coded_grad_fn(cfg, plan), meta_args[0].params, meta_args[1],
+                        dec_w)
+    terms, step_terms = roofline(grads), roofline(meta)
+    bound_ms = max(terms["compute_s"], terms["memory_s"]) * 1e3
+    log(f"[dryrun] coded gradients: device busy {profile['busy_ms']:.1f} ms of wall "
+        f"{profile['wall_ms']:.1f} ms under the profiler (phase 6) beside the dry run's "
+        f"max(compute_s, memory_s) {bound_ms:.2f} ms (compute {terms['compute_s'] * 1e3:.2f}"
+        f" ms, memory {terms['memory_s'] * 1e3:.2f} ms; busy / roofline "
+        f"{profile['busy_ms'] / bound_ms:.2f}); the whole step's max(compute_s, memory_s) "
+        f"{max(step_terms['compute_s'], step_terms['memory_s']) * 1e3:.2f} ms")
+    del state, wb, cuda, mem
+    torch.cuda.empty_cache()
+
+    # (a) the sweep's records
+    recs = [f.result() for f in futures]
+    pool.shutdown()
+    for rec in recs:
+        log(_dryrun_sweep_line(rec))
+    fails = [(r["arch"], r["shape"], r["step"]) for r in recs if r["status"] == "fail"]
+    skips = {(r["arch"], r["shape"]) for r in recs if r["status"] == "skip"}
+    if fails:
+        raise AssertionError(f"dry-run cases failed: {fails}")
+    if skips != DRYRUN_SKIPS:
+        raise AssertionError(f"skips {sorted(skips)}, the reference's {sorted(DRYRUN_SKIPS)}")
+    log(f"[dryrun] {len(recs)} cases: {len(recs) - len(skips)} ok, {len(skips)} skipped as "
+        f"the reference skips them; slowest {max(r['wall_s'] for r in recs):.1f} s; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"launches": launches["gc_fused"]}
 
 
 def phase_adapt():
@@ -4081,10 +4260,12 @@ def main() -> int:
     timed("exactness", phase_exactness, trainer)
     launches = timed("train", phase_train, trainer)
     train_losses = [h["loss"] for h in trainer.history]
-    timed("breakdown", phase_breakdown, trainer)
+    profile = timed("breakdown", phase_breakdown, trainer)
     rows, level_times = timed("levels", phase_levels, trainer)
     tree_times = timed("tree", phase_tree, trainer, rows)
-    del trainer, rows
+    del rows
+    dryrun = timed("dryrun", phase_dryrun, trainer, profile)
+    del trainer
     torch.cuda.empty_cache()
     adapt_launches = timed("adapt", phase_adapt)
     wave_launches = timed("wave", phase_wave)
@@ -4128,7 +4309,8 @@ def main() -> int:
                       "spmd": spmd_launches, "gemma": gemma["launches"],
                       "moe": moe_train["launches"], "deepseek": deepseek["launches"],
                       "jamba": jamba["launches"], "xlstm": xlstm["launches"],
-                      "whisper": whisper["launches"], "vision": vision["launches"]}
+                      "whisper": whisper["launches"], "vision": vision["launches"],
+                      "dryrun": dryrun["launches"]}
     print(json.dumps({"kernels": [
         row("gc_fused", "src/repro/kernels/gc_fused.py:57", sum(fused_launches.values()),
             max(max_err, gemma["max_abs_err"]), kernel_times, launches_by_path=fused_launches,

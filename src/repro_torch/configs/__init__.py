@@ -6,8 +6,10 @@ reference registers — ``gc-lm-110m``, the Gemma family (``gemma-2b``,
 from . import (deepseek_v3_671b, gc_lm_110m, gemma2_27b,  # noqa: F401  (registers)
                gemma3_27b, gemma_2b, jamba_v01_52b, llama32_vision_11b, mixtral_8x22b,
                qwen15_32b, whisper_base, xlstm_1p3b)
-from .base import (EncoderSpec, LayerSpec, MambaSpec, MLASpec, ModelConfig, MoESpec,
-                   VisionSpec, XLSTMSpec, get_config, list_archs, register)
+from .base import (INPUT_SHAPES, EncoderSpec, InputShape, LayerSpec, MambaSpec, MLASpec,
+                   ModelConfig, MoESpec, VisionSpec, XLSTMSpec, get_config, list_archs,
+                   register, shape_supported)
 
-__all__ = ["EncoderSpec", "LayerSpec", "MambaSpec", "MLASpec", "ModelConfig", "MoESpec",
-           "VisionSpec", "XLSTMSpec", "get_config", "list_archs", "register"]
+__all__ = ["INPUT_SHAPES", "EncoderSpec", "InputShape", "LayerSpec", "MambaSpec", "MLASpec",
+           "ModelConfig", "MoESpec", "VisionSpec", "XLSTMSpec", "get_config", "list_archs",
+           "register", "shape_supported"]

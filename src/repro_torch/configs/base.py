@@ -15,7 +15,9 @@ and Whisper's layer norm, ungated GELU MLP, audio encoder
 cross-attention source comes from stubbed modality embeddings: frame
 embeddings through the encoder, or patch embeddings through the
 projector (``VisionSpec``).
-``reduced()`` gives the reference's smoke-test shapes.
+``reduced()`` gives the reference's smoke-test shapes; ``InputShape``,
+``INPUT_SHAPES`` and ``shape_supported`` are the dry run's shapes and
+skips, the reference's.
 """
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ from dataclasses import dataclass
 from typing import Callable, Optional
 
 __all__ = ["MoESpec", "MLASpec", "MambaSpec", "XLSTMSpec", "LayerSpec", "EncoderSpec",
-           "VisionSpec", "ModelConfig", "register", "get_config", "list_archs"]
+           "VisionSpec", "ModelConfig", "InputShape", "INPUT_SHAPES", "register",
+           "get_config", "list_archs", "shape_supported"]
 
 
 @dataclass(frozen=True)
@@ -157,6 +160,15 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    def sub_quadratic(self) -> bool:
+        """True if a layer is recurrent or windowed: the dry run's
+        ``long_500k`` eligibility (the reference's ``sub_quadratic``)."""
+        kinds = {l.mixer for l in self.layers}
+        if kinds & {"mamba", "mlstm", "slstm"}:
+            return True
+        windows = [l.window for l in self.layers if l.mixer in ("attn", "mla")]
+        return any(w is not None for w in windows)
+
     def reduced(self, n_layers: int = 2, d_model: int = 256, seq_cap: int = 512) -> "ModelConfig":
         """Smoke-test variant: same family, tiny dims (the reference's
         ``reduced``)."""
@@ -215,6 +227,23 @@ class ModelConfig:
         return self.replace(**kw)
 
 
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+
+#: the dry run's input shapes, the reference's
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
 
 
@@ -238,3 +267,10 @@ def list_archs() -> list[str]:
     import repro_torch.configs  # noqa: F401
 
     return sorted(_REGISTRY)
+
+
+def shape_supported(cfg: ModelConfig, shape: InputShape) -> tuple[bool, str]:
+    """Dry-run eligibility of (arch, shape) with the reference's skips."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic():
+        return False, "long_500k needs sub-quadratic attention (skip, see DESIGN.md)"
+    return True, ""

@@ -15,10 +15,10 @@ from .distributions import (BernoulliStraggler, EmpiricalStraggler, LogNormalStr
                             dist_from_dict, dist_to_dict, register_distribution)
 from .env import DegradedWorker, Env, WorkerDeath
 from .flat import FlatLayout
-from .plan import Plan, PlanSimulator, UNIT_RESOLUTION
+from .plan import Plan, PlanSimulator, UNIT_RESOLUTION, leaf_costs_of
 from .runtime import (CostModel, DEFAULT_COST, completion_trace, expected_tau_hat,
                       tau_hat_batch)
-from .schemes import (available_schemes, get_scheme, register_scheme,
+from .schemes import (Scheme, available_schemes, get_scheme, register_scheme,
                       scheme_accepts_warm_start, scheme_bank, solve_scheme)
 from .solvers import brute_force_int, project_block_simplex, solve_xf, solve_xt, spsg
 

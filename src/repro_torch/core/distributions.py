@@ -165,8 +165,16 @@ class ShiftedExponential(StragglerDistribution):
         n = np.arange(1, n_workers + 1)
         return (h_n - harm[n_workers - n]) / self.mu + self.t0
 
-    # ---- paper Lemma 2, by the reference's quadrature form
-    def inv_expected_inv_order_stats(self, n_workers: int, rng=None) -> np.ndarray:
+    # ---- paper Lemma 2 (eq. 8) and its quadrature twin, the reference's
+    def inv_expected_inv_order_stats(self, n_workers: int, rng=None,
+                                     method: str = "quad") -> np.ndarray:
+        """1/E[1/T_(n)]: ``method`` "quad" (default) integrates, "eq8" is
+        the paper's closed form (``_tprime_eq8``)."""
+        if method == "eq8":
+            return self._tprime_eq8(n_workers)
+        return self._tprime_quad(n_workers)
+
+    def _tprime_quad(self, n_workers: int) -> np.ndarray:
         """1/E[1/T_(n)] via the Beta-reparameterized integral.
 
         With u = F(t) = 1 - exp(-mu (t - t0)),  t(u) = t0 - log(1-u)/mu,
@@ -191,6 +199,28 @@ class ShiftedExponential(StragglerDistribution):
 
             val, _ = integrate.quad(integrand, 0.0, 1.0, limit=200)
             out[n - 1] = 1.0 / val
+        return out
+
+    def _tprime_eq8(self, n_workers: int) -> np.ndarray:
+        """Paper eq. (8) verbatim (exponential integrals).
+
+        Only numerically trustworthy for small N (alternating binomial sum);
+        kept as a cross-validation oracle for the quadrature version.
+        Requires t0 > 0 (the paper's footnote 5: Ei(0) does not exist).
+        """
+        if self.t0 <= 0:
+            raise ValueError("eq. (8) requires t0 > 0 (paper footnote 5)")
+        big_n = n_workers
+        mu, t0 = self.mu, self.t0
+        out = np.empty(big_n)
+        for n in range(1, big_n + 1):
+            acc = 0.0
+            for i in range(n):
+                z = mu * t0 * (big_n - n + i + 1)
+                term = math.comb(n - 1, i) * math.exp(z) * special.expi(-z)
+                acc += term if i % 2 == 0 else -term
+            denom = mu * (big_n + 1 - n) * math.comb(big_n, n - 1) * acc
+            out[n - 1] = -1.0 / denom
         return out
 
 

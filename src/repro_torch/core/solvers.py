@@ -13,7 +13,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from .runtime import CostModel, DEFAULT_COST, subgradient_tau_hat, tau_hat_batch
+from .runtime import (CostModel, DEFAULT_COST, subgradient_tau_hat,
+                      subgradient_tau_hat_realized, tau_hat_batch, tau_hat_realized_batch)
 
 __all__ = ["solve_xt", "solve_xf", "closed_form_x", "closed_form_x_capped",
            "project_block_simplex", "spsg", "SPSGResult", "brute_force_int"]
@@ -123,16 +124,22 @@ def spsg(
     cost: CostModel = DEFAULT_COST,
     eval_every: int = 0,
     eval_samples: int = 20_000,
+    model: str = "paper",
     warm_start: np.ndarray | None = None,
 ) -> SPSGResult:
     """Stochastic projected subgradient method on Problem 3 (eq. (5)).
 
     Diminishing steps a_k = step0 / sqrt(k+1), mini-batched noisy
     subgradients, Polyak averaging of the tail half.  step0 defaults to
-    a scale-aware value.  ``warm_start`` seeds the iteration from a
-    previous solution (the adaptive re-planning path), projected onto
-    {x >= 0, sum = total} first; it takes precedence over ``x0``.
+    a scale-aware value.  ``model="realized"`` swaps in the realized cost
+    of a neural network (``runtime.tau_hat_realized_batch`` and its
+    subgradient), as the reference's does.  ``warm_start`` seeds the
+    iteration from a previous solution (the adaptive re-planning path),
+    projected onto {x >= 0, sum = total} first; it takes precedence over
+    ``x0``.
     """
+    subgrad = subgradient_tau_hat if model == "paper" else subgradient_tau_hat_realized
+    evalfn = tau_hat_batch if model == "paper" else tau_hat_realized_batch
     rng_np = np.random.default_rng(rng)
     if warm_start is not None:
         x0 = warm_start
@@ -142,7 +149,7 @@ def spsg(
         else project_block_simplex(np.asarray(x0, dtype=np.float64), total)
     )
     if step0 is None:
-        g0 = subgradient_tau_hat(x, dist.sample(rng_np, (batch, n_workers)), cost)
+        g0 = subgrad(x, dist.sample(rng_np, (batch, n_workers)), cost)
         step0 = 0.5 * total / (np.linalg.norm(g0) + 1e-12)
 
     avg = np.zeros_like(x)
@@ -155,14 +162,14 @@ def spsg(
     )
     for k in range(n_iters):
         draws = dist.sample(rng_np, (batch, n_workers))
-        g = subgradient_tau_hat(x, draws, cost)
+        g = subgrad(x, draws, cost)
         x = project_block_simplex(x - step0 / np.sqrt(k + 1.0) * g, total)
         if k >= n_iters // 2:
             avg += x
             n_avg += 1
         if eval_every and (k + 1) % eval_every == 0:
             point = avg / max(n_avg, 1) if n_avg else x
-            history.append((k + 1, float(tau_hat_batch(point, eval_draws, cost).mean())))
+            history.append((k + 1, float(evalfn(point, eval_draws, cost).mean())))
     x_avg = avg / max(n_avg, 1) if n_avg else x
     return SPSGResult(x=x_avg, x_last=x, history=history)
 

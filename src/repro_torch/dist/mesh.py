@@ -10,6 +10,11 @@ worker's shards and are summed first.  Every rank creates every
 subgroup, in the same order (``torch.distributed.new_group`` is
 collective).
 
+``meta_mesh`` is the same mesh with no process group, for the dry run
+(``repro_torch.launch.dryrun``): one rank's view, on the meta device,
+whose groups are ``MetaGroup``s; the collectives make no
+``torch.distributed`` call on it (``dist/collectives.py``).
+
 The reference's GSPMD sharding rules (``repro/dist/sharding.py``) and
 its jax shims have no counterpart: the port's ranks hold replicated
 parameters, as the reference's fully manual coded region replicates the
@@ -23,7 +28,8 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 
-__all__ = ["Mesh", "build_mesh", "default_backend", "check_backend"]
+__all__ = ["Mesh", "MetaGroup", "build_mesh", "meta_mesh", "default_backend",
+           "check_backend"]
 
 BACKENDS = ("nccl", "gloo")
 
@@ -53,6 +59,23 @@ class Mesh:
     @property
     def pod_index(self) -> int:
         return self.rank // self.data
+
+
+@dataclass(frozen=True)
+class MetaGroup:
+    """A group of ``size`` ranks with no process group behind it."""
+
+    size: int
+
+
+def meta_mesh(data: int, pod: int = 1, rank: int = 0) -> Mesh:
+    """Rank ``rank``'s view of a ``(pod, data)`` mesh on the meta device:
+    the shapes of spmd steps, no process group and no storage."""
+    if data < 1 or pod < 1 or not 0 <= rank < data * pod:
+        raise ValueError(f"a (pod={pod}, data={data}) mesh has no rank {rank}")
+    return Mesh(data=data, pod=pod, rank=rank, device=torch.device("meta"),
+                world_group=MetaGroup(data * pod), data_group=MetaGroup(data),
+                pod_group=MetaGroup(pod) if pod > 1 else None)
 
 
 def default_backend(device: torch.device) -> str:

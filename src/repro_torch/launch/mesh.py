@@ -11,7 +11,8 @@ is never switched after a failure; ``backend="gloo"`` with CUDA tensors
 rehearses several ranks on one card, which NCCL refuses.
 
 ``HW`` holds the card's constants the autotuner's roofline overhead term
-reads (``repro_torch.tune.tune._overhead_units``), under the reference's
+reads (``repro_torch.tune.tune._overhead_units``) and the dry run's
+roofline terms (``repro_torch.launch.dryrun``), under the reference's
 names.
 """
 from __future__ import annotations
@@ -29,13 +30,17 @@ __all__ = ["make_local_mesh", "HW"]
 
 
 class HW:
-    """NVIDIA H100 SXM5 80GB (700 W) constants for the autotuner's
-    roofline, per card, under the names of the reference's TPU v5e
-    ``HW``.  They are the data sheet's figures, not measurements: no
-    collective on the card has been timed over NVLink yet."""
+    """NVIDIA H100 SXM5 80GB (700 W) constants for the autotuner's and the
+    dry run's rooflines, per card, under the names of the reference's
+    TPU v5e ``HW``.  They are the data sheet's figures, not measurements:
+    no collective on the card has been timed over NVLink yet.  The fp32
+    peak is the CUDA cores' (no tensor cores: the port turns TF32 off)."""
 
+    PEAK_FLOPS_BF16 = 989.4e12  # FLOP/s, dense bf16 on the tensor cores
+    PEAK_FLOPS_FP32 = 66.9e12   # FLOP/s, fp32 without tensor cores
     HBM_BW = 3.35e12   # B/s, HBM3
     ICI_BW = 450e9     # B/s per direction, NVLink 4 (the interconnect)
+    HBM_BYTES = 80 * 10**9
 
 
 def make_local_mesh(data: int = 1, model: int = 1, pod: int = 1, *, device="cuda",

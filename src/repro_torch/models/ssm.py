@@ -12,7 +12,8 @@ h_{t-1} + delta_t x_t B_t``, ``y_t = h_t C_t`` with the fp32 state h
 ``out_proj``.
 
 The scan is the reference's ``_scan_chunked``: a Python loop over time
-chunks of ``min(scan_chunk, S)`` (the tail padded with zeros) carries h,
+chunks of ``min(scan_chunk, S)`` (the tail padded with zeros;
+``op_analysis.scan``) carries h,
 and inside a chunk an associative scan of the pairs (decay, input) under
 ``combine(u, v) = (u0·v0, v0·u1 + v1)`` — the reference's own odd/even
 recursion (``lax.associative_scan``): log2(chunk) levels of tensor ops,
@@ -37,6 +38,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..launch import op_analysis
 
 __all__ = ["mamba_forward", "init_mamba_cache", "mamba_dims", "a_log_init", "dt_bias_init"]
 
@@ -131,16 +134,17 @@ def _scan_chunked(cfg, delta, a, b_t, c_t, x_in, h0):
     pad = n_chunks * chunk - s
     if pad:
         delta, b_t, c_t, x_in = (F.pad(t, (0, 0, 0, pad)) for t in (delta, b_t, c_t, x_in))
-    h, ys = h0, []
-    for i in range(n_chunks):
+
+    def step(i, carry, delta, a, b_t, c_t, x_in):
         cut = slice(i * chunk, (i + 1) * chunk)
         d_i = delta[:, cut]
         da = torch.exp(d_i[..., None] * a)  # (B, chunk, Di, Ns) decay
         dbx = (d_i * x_in[:, cut].float())[..., None] * b_t[:, cut, None, :]  # input
         dec, acc = _assoc_scan((da, dbx))
-        h_t = dec * h[:, None] + acc
-        ys.append(torch.einsum("bcin,bcn->bci", h_t, c_t[:, cut]))
-        h = h_t[:, -1]
+        h_t = dec * carry[0][:, None] + acc
+        return (h_t[:, -1],), torch.einsum("bcin,bcn->bci", h_t, c_t[:, cut])
+
+    (h,), ys = op_analysis.scan(step, n_chunks, (h0,), (delta, a, b_t, c_t, x_in))
     return torch.cat(ys, dim=1)[:, :s], h
 
 

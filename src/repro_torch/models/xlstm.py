@@ -45,8 +45,8 @@ dtype, group-normed per head (fp32, population variance, eps 1e-5, times
 ``r_gates`` applied to h_{t-1} (fp32; the reference's gate order), plus
 ``b_gates``; the stabilized i/f gates, ``c``, ``n`` and ``h =
 sigmoid(o) c / max(n, 1e-6)``.  The recurrence is sequential, so it is a
-Python loop over tokens, as the reference's ``lax.scan`` is a loop.
-Then the group norm and the GeGLU ``gelu_tanh(h @ up1) * (h @ up2)``,
+Python loop over tokens (``op_analysis.scan``), as the reference's
+``lax.scan`` is a loop.  Then the group norm and the GeGLU ``gelu_tanh(h @ up1) * (h @ up2)``,
 ``down``.
 
 **Decode** is one step of the reference's recurrence on a fixed-size
@@ -63,6 +63,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import XLSTMSpec
+from ..launch import op_analysis
 from .ssm import _causal_conv
 
 __all__ = ["xlstm_spec", "mlstm_dims", "slstm_dims", "mlstm_forward", "slstm_forward",
@@ -166,12 +167,15 @@ def _mlstm_chunked(cfg, q, k, v, log_i, log_f, need_state: bool):
     chunk = min(cfg.scan_chunk, s)
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))
     log_i, log_f = log_i.transpose(1, 2), log_f.transpose(1, 2)
-    carry, hs = None, []
-    for start in range(0, s, chunk):
-        cut = slice(start, start + chunk)
+
+    def step(i, carry, q, k, v, log_i, log_f):
+        cut = slice(i * chunk, (i + 1) * chunk)
         h, carry = _mlstm_chunk(q[:, :, cut], k[:, :, cut], v[:, :, cut], log_i[..., cut],
-                                log_f[..., cut], carry, need_state or start + chunk < s)
-        hs.append(h)
+                                log_f[..., cut], carry or None,
+                                need_state or (i + 1) * chunk < s)
+        return carry, h
+
+    carry, hs = op_analysis.scan(step, -(-s // chunk), (), (q, k, v, log_i, log_f))
     return torch.cat(hs, dim=2).transpose(1, 2), carry
 
 
@@ -276,10 +280,12 @@ def slstm_forward(cfg, p, x, spec, *, mode="train", cache=None, target_len: int 
         zeros = torch.zeros((b, d), dtype=torch.float32, device=x.device)
         state = (zeros, zeros, zeros, torch.full((b, d), NEG, dtype=torch.float32,
                                                  device=x.device))
-        hs = []
-        for t in range(s):
-            state = _slstm_cell(*state, wx[:, t], r, p["b_gates"], nh, dh)
-            hs.append(state[0])
+
+        def step(t, state, wx, r, b_gates):
+            state = _slstm_cell(*state, wx[:, t], r, b_gates, nh, dh)
+            return state, state[0]
+
+        state, hs = op_analysis.scan(step, s, state, (wx, r, p["b_gates"]))
         h_seq, new_cache = torch.stack(hs, dim=1), None
         if mode == "prefill":
             new_cache = dict(zip(("h", "c", "n", "m"), state),

@@ -183,6 +183,8 @@ class ClusterConfig:
     broadcast_latency: float = 0.0
     #: worker -> master delivery latency added to every completion.
     comm_delay: float = 0.0
+    #: keep the full event log on the result (debugging / timelines).
+    record_events: bool = False
 
 
 class _Worker:
@@ -308,6 +310,7 @@ class ClusterResult:
     undecoded: list            # [(round, block_index), ...] when stalled
     worker_busy: np.ndarray    # (N,) per-worker total compute time
     config: ClusterConfig
+    events: Optional[list] = field(default=None, repr=False)
     #: (R,) first compute-start instant of each round (the dispatch time:
     #: the master's round-r parameter snapshot is frozen here).
     round_start: Optional[np.ndarray] = field(default=None, repr=False)
@@ -458,6 +461,7 @@ class ClusterSim:
         round_start = np.full(rounds, np.inf)
         deliver_sets = [[[] for _ in range(n_blocks)] for _ in range(rounds)]
         waiters: dict = {}        # dep key -> [worker, ...]
+        events = [] if cfg.record_events else None
 
         def push(t, kind, *payload):
             nonlocal seq
@@ -510,11 +514,17 @@ class ClusterSim:
                 if finish >= w.dead_at:
                     w.stopped = True        # dies mid-compute: no delivery
                     w.busy += max(w.dead_at - start, 0.0)
+                    if events is not None:
+                        events.append((w.dead_at, "death", w.idx, r, pos))
                     return
                 w.free_at = finish
                 w.running = True
                 w.cur_start = start
                 round_start[r] = min(round_start[r], start)
+                if events is not None:  # appended at schedule time, so the
+                    # raw log is causal-order, not time-order (starts may
+                    # carry future timestamps); wave_trace() re-sorts.
+                    events.append((start, "start", w.idx, r, pos))
                 push(finish, "finish", w.idx, r, pos, w.epoch)
                 return
 
@@ -558,6 +568,8 @@ class ClusterSim:
                 w = workers[widx]
                 if epoch != w.epoch:        # preempted by a round flush
                     continue
+                if events is not None:
+                    events.append((t, "finish", widx, r, pos))
                 w.running = False
                 w.busy += t - w.cur_start
                 push(t + cfg.comm_delay, "deliver", widx, r, pos)
@@ -567,12 +579,16 @@ class ClusterSim:
                 widx, r, pos = payload
                 if t >= workers[widx].dead_at:
                     continue    # in-flight message dies with its sender
+                if events is not None:
+                    events.append((t, "deliver", widx, r, pos))
                 delivered[r, pos] += 1
                 need = n - self.schedule[pos].level
                 if delivered[r, pos] <= need:
                     deliver_sets[r][pos].append(widx)
                 if delivered[r, pos] == need:
                     decoded_at[r, pos] = t
+                    if events is not None:
+                        events.append((t, "decode", -1, r, pos))
                     blocks_left[r] -= 1
                     wake(("blk", r, pos))
                     if blocks_left[r] == 0:
@@ -589,7 +605,7 @@ class ClusterSim:
             round_done=round_done, makespan=makespan,
             stalled=bool(undecoded), undecoded=undecoded,
             worker_busy=np.asarray([w.busy for w in workers]),
-            config=cfg,
+            config=cfg, events=events,
             round_start=round_start, deliver_sets=deliver_sets,
         )
 

@@ -66,6 +66,7 @@ import torch
 from ..core import Plan
 from ..dist.collectives import all_gather, psum, psum_scatter
 from ..kernels import ops
+from ..launch import op_analysis
 from ..models.model import has_source, train_loss
 
 __all__ = ["make_coded_grad_fn", "uncoded_grad_fn", "per_shard_grad_rows",
@@ -110,7 +111,8 @@ def _batch(tokens, aux):
 def per_shard_grad_rows(cfg, model, worker_batches, worker_aux=None) -> list:
     """Run the N·K per-shard backward passes; returns one ``(N·K, size)``
     tensor per leaf (row n·K + k: worker n's k-th shard).  ``worker_aux``
-    (N, K, rows, ...) gives each pass its ``aux_inputs``."""
+    (N, K, rows, ...) gives each pass its ``aux_inputs``.  On meta under
+    an op counter one pass runs, counted N·K times (``op_analysis.trips``)."""
     _check_aux(cfg, worker_aux)
     leaves = model.leaves()
     dev = leaves[0].device
@@ -119,8 +121,9 @@ def per_shard_grad_rows(cfg, model, worker_batches, worker_aux=None) -> list:
     n, k = wb.shape[0], wb.shape[1]
     rows = [torch.empty((n * k, t.numel()), dtype=t.dtype, device=dev)
             for t in leaves]
-    for w in range(n):
-        for s in range(k):
+    passes = [(w, s) for w in range(n) for s in range(k)]
+    with op_analysis.trips(len(passes), wb) as run:
+        for w, s in passes[:run]:
             loss, _ = train_loss(cfg, model, _batch(wb[w, s], None if wa is None else wa[w, s]))
             for buf, g in zip(rows, torch.autograd.grad(loss, leaves)):
                 buf[w * k + s].copy_(g.reshape(-1))

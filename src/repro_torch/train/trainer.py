@@ -64,19 +64,22 @@ def _apply_update(cfg_t: TrainConfig, state: TrainState, grads, metrics):
 
 def make_train_step(cfg, cfg_t: TrainConfig, *, mesh=None) -> Callable:
     """The uncoded step: step(state, batch) -> (state, metrics) on the
-    plain mean gradient of ``batch["tokens"]`` (B, S+1).  With a ``mesh``
-    each rank takes its B / ranks rows (rank-th block) and one
-    ``all_reduce`` over all ranks sums the gradients and the metrics
-    before the mean: the plain data-parallel step."""
+    plain mean gradient of ``batch["tokens"]`` (B, S+1), with the
+    modality embeddings ``batch["aux_inputs"]`` (B, ...) of a model with
+    a cross-attention source.  With a ``mesh`` each rank takes its
+    B / ranks rows (rank-th block) and one ``all_reduce`` over all ranks
+    sums the gradients and the metrics before the mean: the plain
+    data-parallel step."""
     def step(state: TrainState, batch):
         leaves = state.params.leaves()
-        tokens = batch["tokens"]
+        part = {k: batch[k] for k in ("tokens", "aux_inputs") if k in batch}
         if mesh is not None:
-            if tokens.shape[0] % mesh.size:
-                raise ValueError(f"{tokens.shape[0]} rows do not split over {mesh.size} ranks")
-            h = tokens.shape[0] // mesh.size
-            tokens = tokens[mesh.rank * h:(mesh.rank + 1) * h]
-        loss, metrics = train_loss(cfg, state.params, {"tokens": tokens})
+            n_rows = part["tokens"].shape[0]
+            if n_rows % mesh.size:
+                raise ValueError(f"{n_rows} rows do not split over {mesh.size} ranks")
+            h = n_rows // mesh.size
+            part = {k: v[mesh.rank * h:(mesh.rank + 1) * h] for k, v in part.items()}
+        loss, metrics = train_loss(cfg, state.params, part)
         grads = list(torch.autograd.grad(loss, leaves))
         keys = sorted(metrics)
         values = torch.stack([metrics[k].detach().float() for k in keys])

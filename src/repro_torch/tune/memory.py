@@ -16,16 +16,21 @@ plan's ``FlatLayout`` and the model config:
     the compute dtype, with a remat discount and the fp32 logits
     buffer), one shard at a time.
 
-The estimate is per worker, as the reference's is.  The reference's
-``analyze_memory_from_hlo`` reads XLA HLO and has no counterpart here.
+The estimate is per worker, as the reference's is.
+
+``analyze_memory`` is the counterpart of the reference's
+``analyze_memory_from_hlo``: the bytes of a step's arguments and
+outputs, from the call itself rather than from HLO, and on CUDA the
+allocator's peak over the call.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
-__all__ = ["MemBudget", "MemEstimate", "estimate_memory"]
+__all__ = ["MemBudget", "MemEstimate", "estimate_memory", "analyze_memory", "tree_bytes"]
 
 #: bytes/element of the two supported coded-gradient dtypes
 GRAD_DTYPE_BYTES = {"fp32": 4, "bf16": 2}
@@ -142,3 +147,68 @@ def estimate_memory(plan, *, cfg=None, global_batch: int = 32,
     else:
         est.detail = {"k_shards": k}
     return est
+
+
+def tree_bytes(obj) -> int:
+    """Bytes of every array in ``obj``: tensors (numel × itemsize, so a
+    view counts its own elements) and numpy arrays, through lists,
+    tuples, dicts and dataclasses; a module's parameters and buffers; a
+    train state as its checkpoint tree (``count`` and ``step`` as int32,
+    the reference's ``TrainState``).  Each object counts once; Python
+    scalars count nothing (the reference's are compile-time constants)."""
+    seen: set = set()
+
+    def walk(o) -> int:
+        if id(o) in seen:
+            return 0
+        seen.add(id(o))
+        if isinstance(o, torch.Tensor):
+            return o.numel() * o.element_size()
+        if isinstance(o, (np.ndarray, np.generic)):
+            return int(o.nbytes)
+        if hasattr(o, "checkpoint_tree"):
+            return walk(o.checkpoint_tree())
+        if isinstance(o, torch.nn.Module):
+            return sum(walk(t) for t in (*o.parameters(), *o.buffers()))
+        if isinstance(o, dict):
+            return sum(walk(v) for v in o.values())
+        if isinstance(o, (list, tuple)):
+            return sum(walk(v) for v in o)
+        if hasattr(o, "__dataclass_fields__"):
+            return sum(walk(getattr(o, k)) for k in o.__dataclass_fields__)
+        return 0
+
+    return walk(obj)
+
+
+def analyze_memory(fn, *args, device="cuda", **kwargs) -> dict:
+    """Run ``fn(*args, **kwargs)`` once on ``device`` and return its
+    footprint: ``argument_bytes`` (the arguments, the state a step keeps
+    live), ``output_bytes`` (what it returns; a state updated in place
+    counts again, as the reference's output state does) and
+    ``total_bytes``, the reference's three figures.  On CUDA also
+    ``peak_bytes``, ``torch.cuda.max_memory_allocated`` over the call
+    after a reset, and ``temp_bytes``, the peak less what was allocated
+    before the call.  On meta (shapes only; its loops take the op
+    counter's shortcut) and the CPU the first three only."""
+    from ..device import resolve_device
+    from ..launch import op_analysis
+
+    dev = resolve_device(device)
+    arg_b = tree_bytes((args, kwargs))
+    rec = {}
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev)
+        rec = {"peak_bytes": int(peak), "temp_bytes": int(peak - before)}
+    elif dev.type == "meta":
+        out = op_analysis.analyze_ops(fn, *args, device=dev, **kwargs).output
+    else:
+        out = fn(*args, **kwargs)
+    out_b = tree_bytes(out)
+    return {"argument_bytes": int(arg_b), "output_bytes": int(out_b),
+            "total_bytes": int(arg_b + out_b), **rec}

@@ -939,3 +939,59 @@ def test_generate_with_aux_inputs_on_cuda_matches_cpu(cuda):
     got = generate(cfg, model, prompts, 8, aux_inputs=aux[0])
     want = generate(cfg, cpu_model, prompts, 8, aux_inputs=aux[0], device="cpu")
     np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+def _counted_step(device):
+    """One coded step of reduced gc-lm-110m (N = 4, xf) on ``device``
+    under the op counter, and the launches it made."""
+    from repro_torch.launch.op_analysis import analyze_ops
+    from repro_torch.train.state import abstract_train_state
+
+    cfg = get_config("gc-lm-110m").reduced(n_layers=2, d_model=128)
+    data = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=8, seed=0))
+    state = abstract_train_state(cfg) if device == "meta" else \
+        init_train_state(cfg, device=device, seed=0)
+    plan = Plan.build(state.params, ShiftedExponential(mu=1e-3, t0=50.0), 4, scheme="xf")
+    wb = torch.as_tensor(coded_worker_batches(data, 0, 4, plan.s_max), device=device)
+    dec_w = plan.decode_weights(np.arange(4, dtype=np.float64)).astype(np.float32)
+    before = gc_fused.launches
+    cost = analyze_ops(make_coded_train_step(cfg, TrainConfig(), plan), state, wb, dec_w)
+    return cost, gc_fused.launches - before
+
+
+def test_op_counts_of_a_coded_step_equal_on_cuda_and_meta(cuda):
+    """The card runs all N·K passes and launches ``gc_fused``; meta runs
+    one pass counted N·K times and the plain combine: the same counts, op
+    for op, and one counted combine per launch."""
+    got, launches = _counted_step("cuda")
+    want, _ = _counted_step("meta")
+    assert got.by_op == want.by_op
+    assert (got.flops, got.bytes, got.transcendentals) == \
+        (want.flops, want.bytes, want.transcendentals)
+    assert launches == got.kernel_calls["gc_fused"] == want.kernel_calls["gc_fused"] == 1
+
+
+def test_analyze_memory_on_cuda_peaks_above_the_arguments(cuda):
+    from repro_torch.tune import analyze_memory
+
+    cfg = get_config("gc-lm-110m").reduced(n_layers=2, d_model=128)
+    state = init_train_state(cfg, device="cuda", seed=0)
+    tokens = torch.zeros((4, 33), dtype=torch.int64, device="cuda")
+    from repro_torch.train.trainer import make_train_step
+
+    mem = analyze_memory(make_train_step(cfg, TrainConfig()), state, {"tokens": tokens},
+                         device="cuda")
+    assert mem["peak_bytes"] >= mem["argument_bytes"] > 0
+    assert 0 <= mem["temp_bytes"] <= mem["peak_bytes"]
+
+
+def test_dryrun_measure_records_the_peak(cuda, tmp_path):
+    from repro_torch.launch import dryrun
+
+    cfg = get_config("gc-lm-110m").reduced()
+    rec = dryrun.run_case("gc-lm-110m", "train_4k", "single", coded=False,
+                          out_dir=str(tmp_path), cfg=cfg, measure=True)
+    assert rec["status"] == "ok", rec.get("error")
+    mem = rec["memory"]
+    assert mem["measured"] == "ok"
+    assert mem["peak_bytes"] >= mem["argument_bytes"] == mem["measured_argument_bytes"]

@@ -347,9 +347,17 @@ def test_ops_takes_the_plain_version_on_cpu_without_launching():
     assert ops.encode_decode_leaves(a, b[None], [], []) == []
     assert torch.equal(ops.encode(b, g), ref.encode_ref(b, g))
     assert torch.equal(ops.decode(b[0], g), ref.decode_ref(b[0], g))
+    # meta (the dry run) takes the plain version too: shapes only, no launch
+    y = ops.encode(b.to("meta"), g.to("meta"))
+    assert y.device.type == "meta" and tuple(y.shape) == tuple(ops.encode(b, g).shape)
     assert (gc_fused.launches, gc_encode.launches, gc_decode.launches) == before
+
+    class Elsewhere:  # a tensor on a device with neither route
+        is_cuda = False
+        device = torch.device("xpu")
+
     with pytest.raises(ValueError, match="unsupported device"):
-        ops.encode(b.to("meta"), g.to("meta"))
+        ops._route(Elsewhere(), gc_encode.encode, ref.encode_ref)
 
 
 def test_kernel_wrapper_refuses_non_cuda_tensors():
