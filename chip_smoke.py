@@ -87,6 +87,22 @@ port's sources beside it.  Phases; any failure raises:
    per-rank combine (one launch into the level buffers, bit-equal to
    the allocating call) device-only against its bound and
    ``torch.matmul`` in turns.  A rank's failure fails the script.
+6f'. tp: eight ranks on card 0 over gloo, a (data 4, model 2) mesh: each
+   a full-width ``Trainer(mode="spmd")`` that binds the plan to the full
+   tree and keeps its tensor-parallel shards (heads, MLP width and
+   vocabulary split over the model axis; ``dist/sharding.py``).  At step
+   0, with 0, 1 and s_max stragglers, the coded gradients all-gathered
+   over each model group equal rank 0's sim-mode gradient of the full
+   weights (1e-5 of each leaf's scale).  Three steps with the counts set
+   to 0 just before: one ``gc_fused`` launch per rank per step over its
+   11 local leaves (24 in all), one ``psum`` per level per step over the
+   data group, every leaf byte-equal across the four data ranks of a
+   model index and the three replicated norm leaves across all eight
+   after every step, losses within 1e-5 of ``[train]``'s.  The step wall
+   time, the data-group level bytes and the model-group bytes per rank
+   per step (counted by ``dist/collectives.py``), and rank 0's combine
+   over its local rows against its plain version, its bound and
+   ``torch.matmul``.
 6g. dryrun: (a) the dry run (``repro_torch.launch.dryrun``) on meta of
    every arch at full width at every input shape on the single mesh
    (data 16), and the spmd coded step of gc-lm-110m and gemma-2b, in
@@ -370,6 +386,8 @@ DRYRUN_SKIPS = {(a, "long_500k") for a in ("deepseek-v3-671b", "gc-lm-110m", "ge
 #: rank) and the job's time limit, seconds
 SPMD_RANKS = 4
 SPMD_LIMIT_S = 600.0
+#: the [tp] phase: a (data, model) mesh of ranks on one card over gloo
+TP_DATA, TP_MODEL = 4, 2
 #: worker 1 dies (1000x slower from round 0): with seed 0 the DeathWatch
 #: (factor 20, 4 rounds) trips after the 4th step (found on the CPU with
 #: the port's PlanSimulator and DeathWatch alone)
@@ -1499,13 +1517,11 @@ def _spmd_rank(rank, world, train_losses):
     """One rank of the [spmd] phase (``dist.spawn``: every rank on card 0
     over gloo).  Rank 0 logs; every check raises, and a rank's failure
     fails the whole job.  Returns this rank's counts and times."""
-    import numpy as np
     import torch
     import torch.distributed as dist
 
     from repro_torch.data.pipeline import coded_worker_batches
     from repro_torch.dist import collectives
-    from repro_torch.kernels import gc_fused, ref
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.train.coded import make_coded_grad_fn
 
@@ -1634,59 +1650,70 @@ def _spmd_rank(rank, world, train_losses):
     times = {}
     dist.barrier()
     if rank == 0:
-        k = plan.k_shards
-        rows = trainer.step_fn.grad_fn.rows(model, wb)
-        dec_w = _straggler_dec_w(plan, plan.s_max)
-        w = torch.as_tensor(dec_w[:, mesh.data_index], device=dev) / plan.n_workers
-        b = torch.as_tensor(plan.b_rows[mesh.data_index], dtype=torch.float32, device=dev)
-        table = (w[:, None] * b)[:, None, :].contiguous()
-        one = torch.ones((1,), device=dev)
-        which = list(layout.leaf_level)
-        buf = [torch.zeros(n, device=dev) for n in layout.level_sizes]
-        views = [None] * layout.n_leaves
-        for j, li, off, size in layout.leaf_slices():
-            views[j] = buf[li][off:off + size].view(1, size)
-        before = gc_fused.launches
-        gc_fused.encode_decode_leaves(one, table, which, rows, out=views)
-        if gc_fused.launches - before != 1:
-            raise AssertionError(f"the per-rank combine took {gc_fused.launches - before} "
-                                 "launches, expected 1")
-        err = 0.0
-        alloc = gc_fused.encode_decode_leaves(one, table, which, rows)
-        for j, (v, y, want) in enumerate(zip(views, alloc, ref.encode_decode_leaves_ref(
-                one, table, which, rows))):
-            if not torch.equal(v, y):
-                raise AssertionError(f"out= leaf {j}: not bit-equal to the allocating call")
-            err = max(err, check_close("gc_fused", v, want, "float32",
-                                       f"spmd leaf {j} NB=1 K={k} D={v.shape[1]}"))
-        del alloc
-        ws = [table[i] for i in which]
-        fns = {"kernel": lambda: gc_fused.encode_decode_leaves(one, table, which, rows,
-                                                               out=views),
-               "library": lambda: [torch.matmul(wt, g) for wt, g in zip(ws, rows)]}
-        dev_ms = device_in_turns(fns, 10)
-        n_cols = sum(layout.leaf_size(j) for j in range(layout.n_leaves))
-        bytes_ms, ops_ms = bounds_ms((1 + k) * n_cols * 4 + layout.n_levels * k * 4,
-                                     2.0 * k * n_cols)
-        times = {"device_ms": _mean(dev_ms["kernel"]),
-                 "library_device_ms": _mean(dev_ms["library"]),
-                 "bound_ms": max(bytes_ms, ops_ms),
-                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                 "ms": time_ms(fns["kernel"], 10), "library_ms": time_ms(fns["library"], 10),
-                 "plain_ms": time_ms(lambda: ref.encode_decode_leaves_ref(one, table, which,
-                                                                          rows), 10),
-                 "max_abs_err": err}
-        say(f"[spmd] per-rank combine (NB=1, K={k}, {layout.n_leaves} leaves in one launch "
-            f"into the level buffers, out= bit-equal to the allocating call, max abs err "
-            f"{err:.3e} vs the plain version): device-only ms in turns kernel/library/"
-            f"library/kernel {dev_ms}; means kernel {times['device_ms']:.4f} library "
-            f"{times['library_device_ms']:.4f}; bound_ms {times['bound_ms']:.4f} (share "
-            f"{times['bound_ms'] / times['device_ms']:.3f}); host-inclusive ms kernel "
-            f"{times['ms']:.4f} library {times['library_ms']:.4f} plain {times['plain_ms']:.4f}")
-        del rows, buf, views
+        times = _rank_combine_times("spmd", trainer.step_fn.grad_fn.rows(model, wb), plan,
+                                    layout, mesh)
     dist.barrier()
     return {"launches": launches["gc_fused"], "counts": counts, "walls": walls, "mem": mem,
             "coll_ms": coll_ms, "times": times, "scatter": scatter is None}
+
+
+def _rank_combine_times(tag, rows, plan, layout, mesh) -> dict:
+    """One rank's grouped combine of its per-shard ``rows`` into level
+    buffers of ``layout`` (one launch, ``out=`` bit-equal to the
+    allocating call and close to the plain version), timed device-only
+    against ``torch.matmul`` in turns, host-inclusive, and against its
+    bytes bound.  Logs one line under ``tag``; returns the times."""
+    import torch
+
+    from repro_torch.kernels import gc_fused, ref
+
+    dev, k = rows[0].device, plan.k_shards
+    dec_w = _straggler_dec_w(plan, plan.s_max)
+    w = torch.as_tensor(dec_w[:, mesh.data_index], device=dev) / plan.n_workers
+    b = torch.as_tensor(plan.b_rows[mesh.data_index], dtype=torch.float32, device=dev)
+    table = (w[:, None] * b)[:, None, :].contiguous()
+    one = torch.ones((1,), device=dev)
+    which = list(layout.leaf_level)
+    buf = [torch.zeros(n, device=dev) for n in layout.level_sizes]
+    views = [None] * layout.n_leaves
+    for j, li, off, size in layout.leaf_slices():
+        views[j] = buf[li][off:off + size].view(1, size)
+    before = gc_fused.launches
+    gc_fused.encode_decode_leaves(one, table, which, rows, out=views)
+    if gc_fused.launches - before != 1:
+        raise AssertionError(f"[{tag}] the per-rank combine took "
+                             f"{gc_fused.launches - before} launches, expected 1")
+    err = 0.0
+    alloc = gc_fused.encode_decode_leaves(one, table, which, rows)
+    for j, (v, y, want) in enumerate(zip(views, alloc, ref.encode_decode_leaves_ref(
+            one, table, which, rows))):
+        if not torch.equal(v, y):
+            raise AssertionError(f"[{tag}] out= leaf {j}: not bit-equal to the allocating call")
+        err = max(err, check_close("gc_fused", v, want, "float32",
+                                   f"{tag} leaf {j} NB=1 K={k} D={v.shape[1]}"))
+    del alloc
+    ws = [table[i] for i in which]
+    fns = {"kernel": lambda: gc_fused.encode_decode_leaves(one, table, which, rows, out=views),
+           "library": lambda: [torch.matmul(wt, g) for wt, g in zip(ws, rows)]}
+    dev_ms = device_in_turns(fns, 10)
+    n_cols = sum(layout.leaf_size(j) for j in range(layout.n_leaves))
+    bytes_ms, ops_ms = bounds_ms((1 + k) * n_cols * 4 + layout.n_levels * k * 4, 2.0 * k * n_cols)
+    times = {"device_ms": _mean(dev_ms["kernel"]),
+             "library_device_ms": _mean(dev_ms["library"]),
+             "bound_ms": max(bytes_ms, ops_ms),
+             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+             "ms": time_ms(fns["kernel"], 10), "library_ms": time_ms(fns["library"], 10),
+             "plain_ms": time_ms(lambda: ref.encode_decode_leaves_ref(one, table, which, rows),
+                                 10),
+             "max_abs_err": err}
+    log(f"[{tag}] per-rank combine (NB=1, K={k}, {layout.n_leaves} leaves of {n_cols} "
+        f"columns in one launch into the level buffers, out= bit-equal to the allocating "
+        f"call, max abs err {err:.3e} vs the plain version): device-only ms in turns "
+        f"kernel/library/library/kernel {dev_ms}; means kernel {times['device_ms']:.4f} "
+        f"library {times['library_device_ms']:.4f}; bound_ms {times['bound_ms']:.4f} (share "
+        f"{times['bound_ms'] / times['device_ms']:.3f}); host-inclusive ms kernel "
+        f"{times['ms']:.4f} library {times['library_ms']:.4f} plain {times['plain_ms']:.4f}")
+    return times
 
 
 def _contribution_scales(plan, rows, dec_w) -> list:
@@ -1752,6 +1779,171 @@ def phase_spmd(train_losses):
         f"{[[round(w, 3) for w in r['walls']] for r in ranks]}, max_memory_allocated "
         f"{[r['mem'] for r in ranks]} bytes, psum ms per step {[r['coll_ms'] for r in ranks]}")
     return sum(r["launches"] for r in ranks), ranks[0]["times"]
+
+
+def _digest(tensors) -> str:
+    """sha256 over the bytes of ``tensors``, in order."""
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _tp_rank(rank, world, train_losses):
+    """One rank of the [tp] phase (``dist.spawn``: every rank on card 0
+    over gloo), a (data 4, model 2) mesh.  Rank 0 logs; every check
+    raises, and a rank's failure fails the whole job.  Returns this rank's
+    launches, counts, bytes and times."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import coded_worker_batches
+    from repro_torch.dist import collectives
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.params import gather_model
+    from repro_torch.train.coded import local_layout, make_coded_grad_fn
+
+    say = log if rank == 0 else (lambda *args: None)
+    mesh = make_local_mesh(TP_DATA, model=TP_MODEL, device="cuda:0", backend="gloo")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    trainer = make_trainer(mesh=mesh, mode="spmd")
+    init_peak = torch.cuda.max_memory_allocated(mesh.device)
+    cfg, plan, local = trainer.cfg, trainer.plan, trainer.state.params
+    layout, paths = local_layout(cfg, plan, mesh), local.leaf_paths()
+    replicated = [p for p, d in zip(paths, local.shard_dims) if d is None]
+    if len(replicated) != 3 or layout.n_leaves != 11:
+        raise AssertionError(f"rank {rank}: replicated leaves {replicated} of "
+                             f"{layout.n_leaves}, expected the 3 norm scales of 11")
+    wb = coded_worker_batches(trainer.data, 0, TP_DATA, plan.s_max)
+    say(f"[tp] {world} ranks on {torch.cuda.get_device_name(mesh.device)} over gloo, a "
+        f"(data {TP_DATA}, model {TP_MODEL}) mesh, each a full-width trainer (mode='spmd', "
+        f"K = {plan.k_shards} shards per rank) holding {layout.total_elems:,} of "
+        f"{plan.flat_layout.total_elems:,} parameters (replicated: {replicated}; level "
+        f"buffers {list(layout.level_sizes)} of {list(plan.flat_layout.level_sizes)}); "
+        f"{time.perf_counter() - t0:.2f} s; the trainer's peak allocation on the card "
+        f"{init_peak:,} bytes (init_shards: shards, moments and one full leaf at a time; "
+        f"the full fp32 tree alone is {4 * plan.flat_layout.total_elems:,} bytes)")
+
+    # step 0: the model group's gathered gradients == rank 0's sim mode on
+    # the full weights (the other ranks wait at the barrier)
+    stragglers = sorted({0, 1, plan.s_max})
+    full, sim = gather_model(local), {}
+    if rank == 0:
+        coded = make_coded_grad_fn(cfg, plan)
+        rows = coded.rows(full, wb)
+        for u in stragglers:
+            sim[u] = coded.combine(rows, _straggler_dec_w(plan, u))
+        del coded, rows
+        torch.cuda.synchronize()
+    del full
+    dist.barrier()
+    worst = {}
+    for u in stragglers:
+        got = gather_model(local, trainer.step_fn.grad_fn(local, wb, _straggler_dec_w(plan, u)))
+        if rank == 0:
+            worst[u] = _worst_rel(got.leaves(), sim[u], paths, 1e-5,
+                                  f"[tp] gathered spmd vs sim mode, {u} stragglers")
+        del got
+    del sim
+    torch.cuda.empty_cache()
+    say(f"[tp] step 0, the model groups' gathered coded gradients vs rank 0's sim mode "
+        f"(worst leaf relative max error, bound 1e-5): "
+        + ", ".join(f"{u} stragglers {w:.3e}" for u, w in worst.items()))
+
+    # the main path: Trainer(mode="spmd") on the shards, counts set to 0 just before
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    reset_counts()
+    collectives.reset_counts()
+    for i in range(STEPS):
+        trainer.run(1, log_every=0)
+        torch.cuda.synchronize()
+        leaves = trainer.state.params.leaves()
+        mine = (_digest(leaves),
+                _digest([t for t, d in zip(leaves, local.shard_dims) if d is None]))
+        every = [None] * world
+        dist.all_gather_object(every, mine)
+        for r, (d_all, d_rep) in enumerate(every):
+            if r % TP_MODEL == mesh.model_index and d_all != mine[0]:
+                raise AssertionError(f"rank {rank}: parameters differ from rank {r}'s (the "
+                                     f"same model index) after step {i + 1}")
+            if d_rep != mine[1]:
+                raise AssertionError(f"rank {rank}: replicated leaves differ from rank {r}'s "
+                                     f"after step {i + 1}")
+    counts, model_counts = dict(collectives.counts), dict(collectives.model_counts)
+    nbytes = dict(collectives.nbytes)
+    launches = read_counts()
+    mem = torch.cuda.max_memory_allocated(mesh.device)
+    if launches["gc_fused"] != STEPS:
+        raise AssertionError(f"rank {rank}: gc_fused launched {launches['gc_fused']} times "
+                             f"in {STEPS} steps, expected one per step")
+    if counts != dict(psum=STEPS * layout.n_levels, psum_scatter=0, all_gather=0,
+                      broadcast=STEPS):
+        raise AssertionError(f"rank {rank}: collectives {counts} in {STEPS} steps, expected "
+                             "one psum per level over the data group and one draw check "
+                             "per step")
+    losses = [h["loss"] for h in trainer.history]
+    for a, b in zip(losses, train_losses, strict=True):
+        if not abs(a - b) <= 1e-5 * abs(b):
+            raise AssertionError(f"[tp] losses {losses} vs [train]'s {train_losses}")
+    walls = [h["wall_s"] for h in trainer.history]
+    data_bytes = nbytes["psum"] / STEPS
+    model_bytes = sum(nbytes[k] for k in model_counts) / STEPS
+    say(f"[tp] {STEPS} steps of Trainer(mode='spmd'): losses {losses} (== [train]'s within "
+        f"1e-5), every leaf byte-equal across the {TP_DATA} data ranks of a model index and "
+        f"the replicated leaves across all {world} after every step; rank 0 launches "
+        f"{launches}, data-group collectives {counts}, model-group all-reduces "
+        f"{model_counts}; step wall_s {[round(w, 3) for w in walls]}; bytes per rank per "
+        f"step: data group (the level buffers) {data_bytes:,.0f}, model group "
+        f"{model_bytes:,.0f} ({ {k: nbytes[k] // STEPS for k in model_counts} }); "
+        f"max_memory_allocated {mem} bytes")
+
+    # rank 0's combine over its local rows while the others wait (every
+    # rank runs the passes: the model group's collectives take both)
+    times = {}
+    rows = trainer.step_fn.grad_fn.rows(local, wb)
+    torch.cuda.synchronize()
+    dist.barrier()
+    if rank == 0:
+        times = _rank_combine_times("tp", rows, plan, layout, mesh)
+    del rows
+    dist.barrier()
+    return {"launches": launches["gc_fused"], "counts": counts, "model_counts": model_counts,
+            "walls": walls, "mem": mem, "data_bytes": data_bytes, "model_bytes": model_bytes,
+            "times": times}
+
+
+def phase_tp(train_losses):
+    """spmd coded training on a model axis on one card: a (data 4, model
+    2) mesh of eight ranks on card 0 over gloo, each a full-width
+    ``Trainer(mode="spmd")`` over its shards.  Returns the ranks'
+    gc_fused launches on the main path, summed, and rank 0's combine
+    times."""
+    from repro_torch.dist.spawn import spawn
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    store = tempfile.mkdtemp(prefix="chip_smoke_tp_", dir=os.path.join(ROOT, "build"))
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn(_tp_rank, TP_DATA * TP_MODEL, train_losses, store_dir=store,
+                      backend="gloo", timeout=SPMD_LIMIT_S)
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    launches = sum(r["launches"] for r in ranks)
+    if launches != STEPS * TP_DATA * TP_MODEL:
+        raise AssertionError(f"[tp] {launches} gc_fused launches, expected "
+                             f"{STEPS * TP_DATA * TP_MODEL}")
+    log(f"[tp] {len(ranks)} ranks done in {time.perf_counter() - t0:.1f} s; per rank "
+        f"gc_fused launches {[r['launches'] for r in ranks]} ({launches} in all), step "
+        f"wall_s {[[round(w, 3) for w in r['walls']] for r in ranks]}, max_memory_allocated "
+        f"{[r['mem'] for r in ranks]} bytes, data-group bytes per rank per step "
+        f"{sorted({r['data_bytes'] for r in ranks})}, model-group "
+        f"{sorted({r['model_bytes'] for r in ranks})}")
+    return launches, ranks[0]["times"]
 
 
 def _snapshot(tree) -> dict:
@@ -4271,6 +4463,7 @@ def main() -> int:
     wave_launches = timed("wave", phase_wave)
     tune_launches = timed("tune", phase_tune)
     spmd_launches, spmd_times = timed("spmd", phase_spmd, train_losses)
+    tp_launches, tp_times = timed("tp", phase_tp, train_losses)
     ckpt_launches, n_digits = timed("ckpt", phase_ckpt)
     enc_err, enc_times = timed("encode", phase_encode, n_digits)
     trip_launches, dec_err, dec_times = timed("decode", phase_decode)
@@ -4306,7 +4499,7 @@ def main() -> int:
     # the tuned trainer, spmd (every rank's launches)
     fused_launches = {"train": launches["gc_fused"], "adapt": adapt_launches["gc_fused"],
                       "wave": wave_launches["gc_fused"], "tune": tune_launches["gc_fused"],
-                      "spmd": spmd_launches, "gemma": gemma["launches"],
+                      "spmd": spmd_launches, "tp": tp_launches, "gemma": gemma["launches"],
                       "moe": moe_train["launches"], "deepseek": deepseek["launches"],
                       "jamba": jamba["launches"], "xlstm": xlstm["launches"],
                       "whisper": whisper["launches"], "vision": vision["launches"],
@@ -4319,6 +4512,8 @@ def main() -> int:
             tree_combine_device_ms=tree_times["tree_device_ms"],
             spmd_device_ms=spmd_times["device_ms"], spmd_bound_ms=spmd_times["bound_ms"],
             spmd_library_ms=spmd_times["library_device_ms"],
+            tp_device_ms=tp_times["device_ms"], tp_bound_ms=tp_times["bound_ms"],
+            tp_library_ms=tp_times["library_device_ms"],
             gemma_device_ms=gemma["device_ms"], gemma_ms=gemma["ms"],
             gemma_plain_ms=gemma["plain_ms"], gemma_library_ms=gemma["library_ms"],
             gemma_bound_ms=gemma["bound_ms"]),

@@ -4,8 +4,20 @@
 optimizer (GSPMD inserts the same gather for the replicated update that
 follows ``psum_scatter`` in the reference) and a replication check.
 
-``counts`` counts the calls by collective, as the kernel wrappers count
-launches: a run resets them to show how many collectives its path made.
+The model group's collectives are autograd functions, Megatron's *f*
+and *g* — what GSPMD inserts around the reference's ``model``-sharded
+einsums: ``copy_to_model`` (the identity forward, the gradient
+all-reduced over the model ranks backward: a replicated input, or a
+replicated leaf, entering a sharded region) and ``reduce_from_model``
+(an all-reduce forward, the identity backward: the partial sums of a
+row-sharded product leaving it); and ``max_over_model``, the max
+all-reduce of the vocab-parallel softmax (no gradient).
+
+``counts`` counts the data-side calls by collective and
+``model_counts`` the model group's (``copy`` counts the backward
+all-reduces of *f*), as the kernel wrappers count launches: a run
+resets them to show how many collectives its path made; ``nbytes``
+adds up each kind's payload, one rank's buffer per call.
 No call copies a tensor to another device: a backend that refuses a
 tensor (gloo's reduce-scatter of CUDA tensors on some torch versions)
 raises.
@@ -26,16 +38,22 @@ import torch.distributed as dist
 from ..launch import op_analysis
 from .mesh import MetaGroup
 
-__all__ = ["counts", "reset_counts", "psum", "psum_scatter", "all_gather",
-           "check_replicated"]
+__all__ = ["counts", "model_counts", "nbytes", "reset_counts", "psum", "psum_scatter",
+           "all_gather", "check_replicated", "copy_to_model", "reduce_from_model",
+           "max_over_model"]
 
 #: collectives made by this module in this process, by kind
 counts = {"psum": 0, "psum_scatter": 0, "all_gather": 0, "broadcast": 0}
+#: the model group's all-reduces: f's backward, g's forward, the softmax max
+model_counts = {"copy": 0, "reduce": 0, "max": 0}
+#: payload bytes of every kind above (one rank's buffer per call)
+nbytes = dict.fromkeys([*counts, *model_counts], 0)
 
 
 def reset_counts() -> None:
-    for k in counts:
-        counts[k] = 0
+    for d in (counts, model_counts, nbytes):
+        for k in d:
+            d[k] = 0
 
 
 def _on_meta(group, *tensors) -> bool:
@@ -67,6 +85,7 @@ def psum(bufs: list, group) -> list:
             if not meta:
                 dist.all_reduce(b, group=group)
         counts["psum"] += 1
+        nbytes["psum"] += _nbytes(b)
     return bufs
 
 
@@ -98,6 +117,7 @@ def psum_scatter(buf: torch.Tensor, group, dim: int = 0,
                               or dist.reduce_scatter_tensor)
             reduce_scatter(out, src, group=group)
     counts["psum_scatter"] += 1
+    nbytes["psum_scatter"] += _nbytes(src)
     return out if dim == 0 else out.movedim(0, dim)
 
 
@@ -120,6 +140,7 @@ def all_gather(tile: torch.Tensor, group, dim: int = 0,
             gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
             gather(out, src, group=group)
     counts["all_gather"] += 1
+    nbytes["all_gather"] += _nbytes(out)
     return out if dim == 0 else out.movedim(0, dim)
 
 
@@ -131,5 +152,61 @@ def check_replicated(digest: bytes, device: torch.device, what: str) -> None:
     theirs = mine.clone()
     dist.broadcast(theirs, src=0)
     counts["broadcast"] += 1
+    nbytes["broadcast"] += _nbytes(theirs)
     if not torch.equal(mine, theirs):
         raise RuntimeError(f"rank {dist.get_rank()}: {what} differs from rank 0's")
+
+
+def _model_all_reduce(x: torch.Tensor, group, kind: str, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """One all-reduce of a fresh contiguous copy of ``x`` over the model
+    group, counted as ``kind``."""
+    out = x.clone(memory_format=torch.contiguous_format)
+    meta = _on_meta(group, out)
+    with op_analysis.collective("all-reduce", _nbytes(out), _nbytes(out)):
+        if not meta:
+            dist.all_reduce(out, op=op, group=group)
+    model_counts[kind] += 1
+    nbytes[kind] += _nbytes(out)
+    return out
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _model_all_reduce(grad, ctx.group, "copy"), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _model_all_reduce(x, group, "reduce")
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's *f*: ``x`` forward; backward, its gradient summed over
+    the model group ``group`` — for a replicated tensor whose every model
+    rank feeds only its own shards (each rank's gradient is a partial
+    sum)."""
+    return _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's *g*: ``x`` summed over the model group ``group``
+    forward (a new tensor, byte-equal on every model rank); backward, the
+    gradient as it comes — for the partial sums of a product over
+    sharded heads, widths or vocabulary rows."""
+    return _ReduceFromModel.apply(x, group)
+
+
+def max_over_model(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of ``x`` over the model group, detached."""
+    return _model_all_reduce(x.detach(), group, "max", dist.ReduceOp.MAX)

@@ -1,25 +1,28 @@
-"""The mesh of spmd training: N·P data-parallel ranks over
-``torch.distributed``, after the ``(pod, data)`` meshes of
+"""The mesh of spmd training: ``pod · data · model`` ranks over
+``torch.distributed``, after the ``(pod, data, model)`` meshes of
 ``repro/launch/mesh.py`` and ``repro/train/coded.py``'s spmd mode.
 
-Ranks are laid out pod-major, as ``jax.make_mesh((pod, data),
-("pod", "data"))`` lays out devices: rank = pod_index · data +
-data_index.  Coding runs across the ``data`` ranks (one worker each);
-the ``pod`` ranks of one data index hold row halves of the same
-worker's shards and are summed first.  Every rank creates every
-subgroup, in the same order (``torch.distributed.new_group`` is
-collective).
+Ranks are laid out as ``jax.make_mesh((pod, data, model), ("pod",
+"data", "model"))`` lays out devices: rank = (pod_index · data +
+data_index) · model + model_index.  Coding runs across the ``data``
+ranks (one worker each); the ``pod`` ranks of one data index hold row
+halves of the same worker's shards and are summed first; the ``model``
+ranks of one (pod, data) index hold the tensor-parallel shards of one
+replica (``models.params.shard_model``) and read the same batches.  A
+rank's data group is the ranks with its pod and model index, its pod
+group those with its data and model index, its model group those with
+its pod and data index.  Every rank creates every subgroup, in the same
+order (``torch.distributed.new_group`` is collective).
 
 ``meta_mesh`` is the same mesh with no process group, for the dry run
 (``repro_torch.launch.dryrun``): one rank's view, on the meta device,
 whose groups are ``MetaGroup``s; the collectives make no
 ``torch.distributed`` call on it (``dist/collectives.py``).
 
-The reference's GSPMD sharding rules (``repro/dist/sharding.py``) and
-its jax shims have no counterpart: the port's ranks hold replicated
-parameters, as the reference's fully manual coded region replicates the
-model axis.  Every spmd entry point takes its ``Mesh`` as an argument,
-so there is no ambient mesh context either.
+The reference's coded region keeps ``model`` an auto axis that GSPMD
+splits by its sharding rules; the port splits it explicitly by the same
+rules (``dist/sharding.py``).  Every spmd entry point takes its ``Mesh``
+as an argument, so there is no ambient mesh context.
 """
 from __future__ import annotations
 
@@ -37,8 +40,9 @@ BACKENDS = ("nccl", "gloo")
 @dataclass(frozen=True)
 class Mesh:
     """This rank's view of the mesh: its coordinates, its device and its
-    groups — the world, its pod's ``data`` ranks and its data index's
-    ``pod`` ranks (``None`` when ``pod`` is 1)."""
+    groups — the world, its ``data`` ranks, its ``pod`` ranks (``None``
+    when ``pod`` is 1) and its ``model`` ranks (``None`` when ``model``
+    is 1)."""
 
     data: int
     pod: int
@@ -47,18 +51,31 @@ class Mesh:
     world_group: object
     data_group: object
     pod_group: object
+    model: int = 1
+    model_group: object = None
 
     @property
     def size(self) -> int:
-        return self.data * self.pod
+        return self.data * self.pod * self.model
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.model
 
     @property
     def data_index(self) -> int:
-        return self.rank % self.data
+        return self.rank // self.model % self.data
 
     @property
     def pod_index(self) -> int:
-        return self.rank // self.data
+        return self.rank // (self.model * self.data)
+
+    @property
+    def shape(self) -> dict:
+        """Mesh axis -> size, as the reference's production meshes name
+        them: ``pod`` when there are pods, then ``data`` and ``model``."""
+        axes = {"pod": self.pod} if self.pod > 1 else {}
+        return {**axes, "data": self.data, "model": self.model}
 
 
 @dataclass(frozen=True)
@@ -68,14 +85,15 @@ class MetaGroup:
     size: int
 
 
-def meta_mesh(data: int, pod: int = 1, rank: int = 0) -> Mesh:
-    """Rank ``rank``'s view of a ``(pod, data)`` mesh on the meta device:
-    the shapes of spmd steps, no process group and no storage."""
-    if data < 1 or pod < 1 or not 0 <= rank < data * pod:
-        raise ValueError(f"a (pod={pod}, data={data}) mesh has no rank {rank}")
+def meta_mesh(data: int, pod: int = 1, rank: int = 0, model: int = 1) -> Mesh:
+    """Rank ``rank``'s view of a ``(pod, data, model)`` mesh on the meta
+    device: the shapes of spmd steps, no process group and no storage."""
+    if data < 1 or pod < 1 or model < 1 or not 0 <= rank < data * pod * model:
+        raise ValueError(f"a (pod={pod}, data={data}, model={model}) mesh has no rank {rank}")
     return Mesh(data=data, pod=pod, rank=rank, device=torch.device("meta"),
-                world_group=MetaGroup(data * pod), data_group=MetaGroup(data),
-                pod_group=MetaGroup(pod) if pod > 1 else None)
+                world_group=MetaGroup(data * pod * model), data_group=MetaGroup(data),
+                pod_group=MetaGroup(pod) if pod > 1 else None, model=model,
+                model_group=MetaGroup(model) if model > 1 else None)
 
 
 def default_backend(device: torch.device) -> str:
@@ -101,30 +119,43 @@ def check_backend(backend: str, n_local_ranks: int, device: torch.device = None)
                          "rehearse several ranks on one card")
 
 
-def build_mesh(data: int, pod: int, device: torch.device) -> Mesh:
+def build_mesh(data: int, pod: int, device: torch.device, model: int = 1) -> Mesh:
     """The mesh over the initialized default process group, which must
-    hold ``data · pod`` ranks; creates the subgroups (collective: every
-    rank calls this in the same order)."""
+    hold ``pod · data · model`` ranks; creates the subgroups (collective:
+    every rank calls this in the same order)."""
     if not dist.is_initialized():
         raise RuntimeError("build_mesh needs an initialized default process group "
                            "(repro_torch.launch.mesh.make_local_mesh or dist.spawn)")
-    if data < 1 or pod < 1:
-        raise ValueError(f"mesh axes must be >= 1, got data={data} pod={pod}")
+    if data < 1 or pod < 1 or model < 1:
+        raise ValueError(f"mesh axes must be >= 1, got data={data} pod={pod} model={model}")
     world = dist.get_world_size()
-    if world != data * pod:
-        raise ValueError(f"a (pod={pod}, data={data}) mesh needs {data * pod} ranks, the "
-                         f"process group has {world}")
+    if world != data * pod * model:
+        raise ValueError(f"a (pod={pod}, data={data}, model={model}) mesh needs "
+                         f"{data * pod * model} ranks, the process group has {world}")
     rank = dist.get_rank()
+
+    def group(members):
+        """One group per entry of ``members`` (lists of (p, d, m)
+        coordinates); returns this rank's."""
+        found = None
+        for coords in members:
+            ranks = [(p * data + d) * model + m for p, d, m in coords]
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                found = g
+        return found
+
     world_group = dist.group.WORLD
-    data_group, pod_group = world_group, None
+    data_group, pod_group, model_group = world_group, None, None
+    if pod > 1 or model > 1:
+        data_group = group([[(p, d, m) for d in range(data)]
+                            for p in range(pod) for m in range(model)])
     if pod > 1:
-        for p in range(pod):
-            g = dist.new_group([p * data + d for d in range(data)])
-            if p == rank // data:
-                data_group = g
-        for d in range(data):
-            g = dist.new_group([p * data + d for p in range(pod)])
-            if d == rank % data:
-                pod_group = g
+        pod_group = group([[(p, d, m) for p in range(pod)]
+                           for d in range(data) for m in range(model)])
+    if model > 1:
+        model_group = group([[(p, d, m) for m in range(model)]
+                             for p in range(pod) for d in range(data)])
     return Mesh(data=data, pod=pod, rank=rank, device=device, world_group=world_group,
-                data_group=data_group, pod_group=pod_group)
+                data_group=data_group, pod_group=pod_group, model=model,
+                model_group=model_group)

@@ -1,0 +1,111 @@
+"""Logical-axis sharding rules, after ``repro/dist/sharding.py``.
+
+Model leaves name *logical* axes ("embed", "heads", "vocab", ...); the
+mapping onto *mesh* axes ("pod", "data", "model") lives in one rules
+dict, ``make_rules(cfg)``.  ``pspec_for_axes`` consumes the rules
+greedily per dimension, skipping a mesh axis that is absent from the
+mesh, already used by an earlier dimension, or that does not divide the
+dimension — the reference's rule, so a leaf is split exactly where the
+reference's GSPMD splits it.
+
+The reference installs its (mesh, rules) pair as ambient state
+(``use_mesh``) and emits sharding constraints from inside the layers;
+the port shards explicitly, Megatron-style: ``models.params.shard_model``
+slices each leaf on its ``model_dim`` and records the split as a
+``ModelSplit``, which is what the layers, the optimizer and the coded
+step read; the layers call the model group's collectives
+(``dist/collectives.py``).  Every function here
+takes its mesh as an argument — anything with a ``shape`` mapping of
+mesh axis to size, the port's ``dist.mesh.Mesh`` or a
+``jax.sharding.Mesh`` alike.  A spec is a tuple with one entry per
+dimension: ``None``, a mesh axis, or a tuple of mesh axes.
+
+The ``fsdp`` rule (``embed`` over ``data``) is kept with the rest and
+acted on nowhere: the port's ranks hold every leaf whole along ``data``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+__all__ = ["make_rules", "pspec_for_axes", "model_dim", "ModelSplit"]
+
+
+def make_rules(cfg=None) -> dict:
+    """Logical axis -> mesh axes, in order of preference: activations
+    batch over ("pod", "data"); heads, kv heads, MLP widths, Mamba's inner
+    width, experts and the vocabulary over "model"; ``embed`` replicated
+    unless ``cfg.fsdp`` (then over "data"); ``vocab`` and ``experts``
+    replicated when the config opts out (``shard_vocab``,
+    ``shard_experts``)."""
+    rules = {
+        "batch": ("pod", "data"),
+        "heads": ("model",),
+        "kv_heads": ("model",),
+        "mlp": ("model",),
+        "expert_mlp": ("model",),
+        "d_inner": ("model",),
+        "experts": ("model",),
+        "vocab": ("model",),
+        "embed": (),
+    }
+    if cfg is not None:
+        if getattr(cfg, "fsdp", False):
+            rules["embed"] = ("data",)
+        if not getattr(cfg, "shard_vocab", True):
+            rules["vocab"] = ()
+        if not getattr(cfg, "shard_experts", True):
+            rules["experts"] = ()
+    return rules
+
+
+def pspec_for_axes(axes, shape, mesh, rules: dict) -> tuple:
+    """The spec of a leaf with logical ``axes`` and ``shape`` on ``mesh``:
+    per dimension, the rule's mesh axes in order, each taken while it is
+    in the mesh, unused by an earlier dimension and dividing the
+    dimension together with those taken before it."""
+    sizes = dict(mesh.shape)
+    used: set = set()
+    entries = []
+    for name, dim in zip(tuple(axes), tuple(shape)):
+        picked, size = [], 1
+        for mesh_axis in rules.get(name, ()):
+            if mesh_axis not in sizes or mesh_axis in used:
+                continue
+            nxt = size * sizes[mesh_axis]
+            if int(dim) % nxt:
+                continue
+            picked.append(mesh_axis)
+            size = nxt
+        used.update(picked)
+        entries.append(None if not picked else picked[0] if len(picked) == 1
+                       else tuple(picked))
+    return tuple(entries)
+
+
+def model_dim(axes, shape, mesh, rules: dict):
+    """The one dimension of a leaf that ``mesh``'s ``model`` axis splits,
+    or ``None`` (replicated over ``model``, also when the axis has size 1)."""
+    if mesh.shape.get("model", 1) == 1:
+        return None
+    spec = pspec_for_axes(axes, shape, mesh, rules)
+    return spec.index("model") if "model" in spec else None
+
+
+@dataclass(frozen=True)
+class ModelSplit:
+    """Where a module lies on a mesh's ``model`` axis, as
+    ``models.params.shard_model`` cut it: the mesh and the logical axes
+    its leaves are split on (``"heads"``, ``"kv_heads"``, ``"mlp"``,
+    ``"vocab"``).  The layers ask ``name in split.axes`` which of their
+    products to reduce over the model group."""
+
+    mesh: object
+    axes: frozenset
+
+    @property
+    def model_group(self):
+        return self.mesh.model_group
+
+    @property
+    def model_index(self) -> int:
+        return self.mesh.model_index

@@ -11,7 +11,7 @@ Each case runs the port's step once, at full width, on meta tensors
 (``launch/specs.py``) under the op counter (``launch/op_analysis.py``):
 nothing is allocated and nothing is computed, so it needs no card, as
 the reference lowers on placeholder devices.  The mesh is the
-reference's data axes without ``model`` (not ported, ROADMAP 1.6):
+reference's data axes without ``model`` (not priced yet, ROADMAP 6e):
 ``single`` is (data 16), ``multi`` (pod 2, data 16), one rank's view
 (``dist.mesh.meta_mesh``), and the figures are per device:
 

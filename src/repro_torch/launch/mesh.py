@@ -1,11 +1,14 @@
 """Meshes of local ranks, after ``repro/launch/mesh.py::make_local_mesh``.
 
     torchrun --nproc-per-node 4 -m repro_torch.launch.train --data-par 4
+    torchrun --nproc-per-node 8 -m repro_torch.launch.train --data-par 4 \
+        --model-par 2 --backend gloo
 
 ``make_local_mesh`` joins the default process group — from
 ``torchrun``'s environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
 ``MASTER_PORT``, ``LOCAL_RANK``) unless ``dist.spawn`` already did — and
-builds the ``(pod, data)`` mesh over it.  The backend is explicit: it
+builds the ``(pod, data, model)`` mesh over it; a world of another size
+than ``pod · data · model`` raises.  The backend is explicit: it
 defaults from the device (``nccl`` for CUDA, ``gloo`` for the CPU) and
 is never switched after a failure; ``backend="gloo"`` with CUDA tensors
 rehearses several ranks on one card, which NCCL refuses.
@@ -45,13 +48,10 @@ class HW:
 
 def make_local_mesh(data: int = 1, model: int = 1, pod: int = 1, *, device="cuda",
                     backend: str = None, timeout: float = 1800.0) -> Mesh:
-    """This rank's mesh of ``pod · data`` data-parallel ranks.  ``device``
-    ``"cuda"`` takes card ``LOCAL_RANK`` modulo the cards of the host;
-    ``timeout`` (seconds) bounds every collective.  A tensor-parallel
-    ``model`` axis is not ported: ``model > 1`` raises."""
-    if model != 1:
-        raise NotImplementedError(f"model={model}: a tensor-parallel model axis is not "
-                                  "ported (ROADMAP 1.6); the spmd ranks are data-parallel")
+    """This rank's mesh of ``pod · data`` data-parallel replicas of
+    ``model`` tensor-parallel ranks each.  ``device`` ``"cuda"`` takes
+    card ``LOCAL_RANK`` modulo the cards of the host; ``timeout``
+    (seconds) bounds every collective."""
     dev = resolve_device(device)
     backend = backend or default_backend(dev)
     local_rank = int(os.environ.get("LOCAL_RANK", dist.get_rank() if dist.is_initialized()
@@ -66,7 +66,11 @@ def make_local_mesh(data: int = 1, model: int = 1, pod: int = 1, *, device="cuda
     else:
         n_local = int(os.environ.get("LOCAL_WORLD_SIZE", os.environ.get("WORLD_SIZE", "1")))
         check_backend(backend, n_local, dev)
+        world = int(os.environ.get("WORLD_SIZE", "1"))
+        if world != data * pod * model:
+            raise ValueError(f"a (pod={pod}, data={data}, model={model}) mesh needs "
+                             f"{data * pod * model} ranks, the world has {world}")
         dist.init_process_group(backend, timeout=datetime.timedelta(seconds=timeout))
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    return build_mesh(data, pod, dev)
+    return build_mesh(data, pod, dev, model)

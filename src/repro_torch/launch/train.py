@@ -52,9 +52,18 @@ the rank and world from ``torchrun``'s environment:
 
 ``--backend`` defaults from the device (``nccl`` on CUDA, one card per
 rank; ``gloo`` on the CPU; ``--backend gloo`` rehearses several ranks on
-one card).  Only rank 0 prints.  ``--model-par`` above 1 (a
-tensor-parallel axis) is not ported and raises.  ``--uncoded`` trains
-the plain data-parallel step instead of the coded one.
+one card).  Only rank 0 prints.  ``--model-par M`` splits each worker
+over M tensor-parallel ranks (the ``model`` axis: attention heads, MLP
+widths and the vocabulary, ``repro_torch.dist.sharding``), so the job
+runs ``--data-par · M`` ranks:
+
+    torchrun --nproc-per-node 8 -m repro_torch.launch.train --data-par 4 \
+        --model-par 2 --backend gloo
+
+The model axis takes the dense families (gc-lm-110m, Gemma, Qwen 1.5);
+``--ckpt``, ``--adapt`` and ``--autotune`` raise on it (ROADMAP 6d), as
+do the other families (6b, 6c).  ``--uncoded`` trains the plain
+data-parallel step instead of the coded one.
 """
 from __future__ import annotations
 
@@ -71,7 +80,7 @@ from repro_torch.core import Env, ShiftedExponential, available_schemes, get_sch
 from repro_torch.data.pipeline import DataConfig, SyntheticTokens
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models.model import has_source
-from repro_torch.models.params import count_params
+from repro_torch.models.params import GCLM, count_params
 from repro_torch.train.state import init_train_state
 from repro_torch.train.trainer import TrainConfig, Trainer, make_train_step
 from repro_torch.tune import MemBudget
@@ -120,7 +129,7 @@ def parse_args(argv=None):
                     help="data-parallel ranks: 1 (sim mode, one process) or --workers "
                          "(spmd, one rank per worker, under torchrun)")
     ap.add_argument("--model-par", type=int, default=1,
-                    help="tensor-parallel ranks (not ported: only 1)")
+                    help="tensor-parallel ranks per worker (the model axis; spmd only)")
     ap.add_argument("--backend", default=None,
                     help="torch.distributed backend of spmd: nccl or gloo (default: "
                          "nccl on CUDA, gloo on the CPU)")
@@ -152,6 +161,9 @@ def main(argv=None):
     if args.data_par not in (1, args.workers):
         raise ValueError(f"--data-par {args.data_par}: 1 (sim mode) or --workers "
                          f"{args.workers} (spmd, one rank per worker)")
+    if args.model_par > 1 and args.data_par == 1 and not args.uncoded:
+        raise ValueError(f"--model-par {args.model_par} splits spmd workers: pass "
+                         f"--data-par {args.workers}")
     mesh = None
     if args.data_par > 1 or args.model_par > 1:
         mesh = make_local_mesh(args.data_par, args.model_par, device=args.device,
@@ -188,10 +200,10 @@ def _train(args, cfg, env, mesh):
         log(f"selected {report.best.label()}")
     if trainer.manager is not None and trainer.manager.latest() is not None:
         log(f"resumed from checkpoint step {trainer.state.step} under {args.ckpt}")
-    log(f"arch={cfg.name} params={count_params(trainer.state.params) / 1e6:.1f}M "
+    log(f"arch={cfg.name} params={count_params(GCLM(cfg, device='meta')) / 1e6:.1f}M "
         f"workers={args.workers} scheme={trainer.plan.scheme} s_max={trainer.plan.s_max} "
         f"x={trainer.plan.x.tolist()} device={args.device} adapt={args.adapt} "
-        f"mode={trainer.mode}")
+        f"mode={trainer.mode} model_par={args.model_par}")
     t0 = time.time()
     _, summary = trainer.run(max(args.steps - trainer.state.step, 0),
                              log_every=args.log_every, log_fn=log)
@@ -213,11 +225,12 @@ def _train_uncoded(args, cfg, cfg_t, mesh, log):
     step's global batch (in spmd each rank takes its rows)."""
     if args.ckpt or args.adapt:
         raise ValueError("--uncoded trains without --ckpt and --adapt")
-    state = init_train_state(cfg, device=args.device if mesh is None else mesh.device, seed=0)
+    state = init_train_state(cfg, device=args.device if mesh is None else mesh.device, seed=0,
+                             mesh=mesh)
     data = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                                       global_batch=args.global_batch, seed=0))
     step = make_train_step(cfg, cfg_t, mesh=mesh)
-    log(f"arch={cfg.name} params={count_params(state.params) / 1e6:.1f}M uncoded "
+    log(f"arch={cfg.name} params={count_params(GCLM(cfg, device='meta')) / 1e6:.1f}M uncoded "
         f"ranks={1 if mesh is None else mesh.size} device={args.device}")
     t0, losses = time.time(), []
     while (i := int(state.step)) < args.steps:

@@ -47,6 +47,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..dist.collectives import copy_to_model, reduce_from_model
 from .layers import rope, softcap
 
 __all__ = ["project_qkv", "chunked_attention", "local_attention", "cross_attention",
@@ -62,10 +63,41 @@ def _rms_head(x, scale, eps: float = 1e-6):
     return ((xf * torch.rsqrt(var + eps)) * (1.0 + scale)).to(x.dtype)
 
 
-def project_qkv(cfg, p, x, positions, rope_base):
+def _model_group(tp):
+    """The model group when ``tp`` splits the heads, else None."""
+    return tp.model_group if tp is not None and "heads" in tp.axes else None
+
+
+def _shard_leaves(cfg, p, tp) -> dict:
+    """The layer's leaves as this rank uses them: replicated KV leaves
+    gathered per query head of this rank (the KV head each maps to);
+    every replicated leaf behind ``copy_to_model``."""
+    group = tp.model_group
+    p = dict(p)
+    for name in ("q_norm", "k_norm"):
+        if name in p:
+            p[name] = copy_to_model(p[name], group)
+    if "kv_heads" in tp.axes:  # split with the query heads
+        return p
+    hl = p["wq"].shape[-2]
+    per_kv = cfg.n_heads // cfg.n_kv_heads
+    first = tp.model_index * hl
+    index = torch.arange(first, first + hl, device=p["wk"].device) // per_kv
+    for name in ("wk", "wv", "bk", "bv"):
+        if name in p:
+            t = copy_to_model(p[name], group)
+            p[name] = t.index_select(t.ndim - 2, index)
+    return p
+
+
+def project_qkv(cfg, p, x, positions, rope_base, tp=None):
     """x: (B,S,d) -> q:(B,S,H,Dh), k,v:(B,S,K,Dh), with the biases (when
     the layer has ``bq``/``bk``/``bv``), QK-norm (when it has
-    ``q_norm``/``k_norm``) and then RoPE on q and k."""
+    ``q_norm``/``k_norm``) and then RoPE on q and k.  With ``tp`` and
+    split heads, this rank's query heads and the KV heads they use."""
+    if _model_group(tp) is not None:
+        p = _shard_leaves(cfg, p, tp)
+        x = copy_to_model(x, tp.model_group)
     dt = x.dtype
     q = torch.einsum("bsd,dhx->bshx", x, p["wq"].to(dt))
     k = torch.einsum("bsd,dkx->bskx", x, p["wk"].to(dt))
@@ -238,20 +270,24 @@ def _rope_base(cfg, spec) -> float:
     return cfg.rope_base
 
 
-def attn_forward(cfg, p, x, spec, *, mode="train", cache=None, target_len: int = 0):
+def attn_forward(cfg, p, x, spec, *, mode="train", cache=None, target_len: int = 0,
+                 tp=None):
     """Self-attention sublayer.  Returns (out, cache): ``None`` in training,
-    the prefill's new cache, or the decode cache updated in place."""
+    the prefill's new cache, or the decode cache updated in place.  With
+    ``tp`` (training), this rank's heads, then the all-reduce."""
     rope_base = _rope_base(cfg, spec)
+    group = _model_group(tp)
     if mode in ("train", "prefill"):
         s = x.shape[1]
         positions = torch.arange(s, device=x.device)[None, :]
-        q, k, v = project_qkv(cfg, p, x, positions, rope_base)
+        q, k, v = project_qkv(cfg, p, x, positions, rope_base, tp)
         if spec.window is not None and spec.window < s:
             out = local_attention(cfg, q, k, v, window=spec.window, cap=cfg.attn_softcap)
         else:
             out = chunked_attention(cfg, q, k, v, causal=True, cap=cfg.attn_softcap)
         new_cache = prefill_cache(cfg, spec, k, v, s, target_len) if mode == "prefill" else None
-        return torch.einsum("bshx,hxd->bsd", out, p["wo"].to(x.dtype)), new_cache
+        y = torch.einsum("bshx,hxd->bsd", out, p["wo"].to(x.dtype))
+        return (y if group is None else reduce_from_model(y, group)), new_cache
     if mode != "decode":
         raise ValueError(f"unknown mode {mode!r}")
     return _decode(cfg, p, x, cache, rope_base), cache

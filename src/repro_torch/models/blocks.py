@@ -53,20 +53,24 @@ def has_ffn(cfg, spec) -> bool:
 
 
 def apply_layer(cfg, p, x, spec, *, mode="train", cache=None, source=None,
-                target_len: int = 0):
+                target_len: int = 0, tp=None):
     """One layer: p is the layer's parameter dict (mixer, ffn, norms);
     ``source`` (B, Ssrc, d) is what cross-attention attends to (None for
     a layer without it).  Returns (x, cache, aux): the cache as the
     mixer's forward gives it (None for a ``cross_attn`` mixer), aux the
     MoE load-balance loss (fp32), or None for a dense FFN or none (the
-    reference's zero, which adds nothing to the sum)."""
+    reference's zero, which adds nothing to the sum).  ``tp`` is the
+    ``dist.sharding.ModelSplit`` of a module on the ``model`` axis
+    (``params.shard_model``): attention and the dense MLP then run on
+    this rank's shards."""
     h = apply_norm(p["norm_mix"], x)
     if spec.mixer == "cross_attn":
         h, new_cache = _cross(cfg, p["mixer"], h, source), cache
     else:
         forward, _ = _mixer(spec)
+        kw = {} if tp is None else {"tp": tp}  # shard_model lets only attention through
         h, new_cache = forward(cfg, p["mixer"], h, spec, mode=mode, cache=cache,
-                               target_len=target_len)
+                               target_len=target_len, **kw)
     if cfg.post_norm:
         h = apply_norm(p["norm_mix_post"], h)
     x = x + h
@@ -78,7 +82,7 @@ def apply_layer(cfg, p, x, spec, *, mode="train", cache=None, source=None,
     if spec.moe is not None:
         h, aux = apply_moe(cfg, p["ffn"], h, spec)
     else:
-        h, aux = apply_mlp(cfg, p["ffn"], h), None
+        h, aux = apply_mlp(cfg, p["ffn"], h, tp), None
     if cfg.post_norm:
         h = apply_norm(p["norm_ffn_post"], h)
     return x + h, new_cache, aux

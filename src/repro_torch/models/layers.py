@@ -5,7 +5,19 @@ does), the softcap, the half-split RoPE, the MLP — gated (SwiGLU or
 GeGLU) when it has ``wg``, else Whisper's ungated GELU MLP — and the
 embedding (scaled by sqrt(d_model) for the Gemma family) and
 unembedding (tied, or Qwen's and Mixtral's untied ``embed.unembed``;
-with the final softcap)."""
+with the final softcap).
+
+On the ``model`` axis (``tp``: the ``dist.sharding.ModelSplit`` of a
+module from ``params.shard_model``) the MLP is Megatron's: ``wi`` and ``wg`` are
+column shards and ``wo`` a row shard, so the rank's output is a partial
+sum, all-reduced over the model group (``reduce_from_model``) while the
+input's gradient is all-reduced backward (``copy_to_model``); an MLP
+whose width the axis does not divide stays replicated and needs no
+collective.  The embedding is vocab-parallel — ids outside the rank's
+rows looked up as row 0 and zeroed, then all-reduced — and the head
+gives the rank's slice of the logits (``model._xent`` reduces them).
+``tp.axes`` says which of the logical axes ``mlp`` and ``vocab`` are
+split."""
 from __future__ import annotations
 
 import functools
@@ -14,8 +26,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..dist.collectives import copy_to_model, reduce_from_model
+
 __all__ = ["rms_norm", "layer_norm", "apply_norm", "softcap", "rope", "apply_mlp",
-           "embed_tokens", "unembed"]
+           "embed_tokens", "unembed", "vocab_start"]
 
 
 def rms_norm(x, scale, eps: float = 1e-6):
@@ -80,28 +94,51 @@ def _act(cfg, x):
     return F.gelu(x, approximate="tanh")
 
 
-def apply_mlp(cfg, p, x):
+def apply_mlp(cfg, p, x, tp=None):
     """The MLP: gated, (act(x @ wg) * (x @ wi)) @ wo with act silu
     (SwiGLU) or gelu (GeGLU), when ``p`` has ``wg``; else ungated,
-    act(x @ wi) @ wo (``activation="gelu_mlp"``: tanh gelu)."""
+    act(x @ wi) @ wo (``activation="gelu_mlp"``: tanh gelu).  With
+    ``tp`` and split widths, this rank's columns, then the all-reduce."""
+    group = tp.model_group if tp is not None and "mlp" in tp.axes else None
+    if group is not None:
+        x = copy_to_model(x, group)
     h = torch.einsum("bsd,df->bsf", x, p["wi"].to(x.dtype))
     if "wg" in p:
         h = _act(cfg, torch.einsum("bsd,df->bsf", x, p["wg"].to(x.dtype))) * h
     else:
         h = _act(cfg, h)
-    return torch.einsum("bsf,fd->bsd", h, p["wo"].to(x.dtype))
+    out = torch.einsum("bsf,fd->bsd", h, p["wo"].to(x.dtype))
+    return out if group is None else reduce_from_model(out, group)
 
 
 def _dtype(cfg):
     return getattr(torch, cfg.dtype)
 
 
-def embed_tokens(cfg, tok, tokens):
+def vocab_start(n_local: int, tp) -> int:
+    """The first vocabulary row of this rank's ``n_local`` rows, or None
+    when the rows are the whole vocabulary (no ``tp``, or not split)."""
+    if tp is None or "vocab" not in tp.axes:
+        return None
+    return tp.model_index * n_local
+
+
+def embed_tokens(cfg, tok, tokens, tp=None):
     """Row lookup.  ``F.embedding``'s backward sums each vocabulary row's
     gradient in a fixed order on the CPU and on CUDA; the backward of
     ``tok[tokens]`` (an accumulating ``index_put_``) does not, and then
-    two runs of the same step differ in their last bits."""
-    x = F.embedding(tokens, tok).to(_dtype(cfg))
+    two runs of the same step differ in their last bits.  With ``tp`` and
+    split rows, the rank's rows only, summed over the model group (one
+    rank holds each id: the sum is exact)."""
+    start = vocab_start(tok.shape[0], tp)
+    if start is None:
+        x = F.embedding(tokens, tok)
+    else:
+        local = tokens - start
+        inside = (local >= 0) & (local < tok.shape[0])
+        x = F.embedding(torch.where(inside, local, 0), tok)
+        x = reduce_from_model(torch.where(inside[..., None], x, 0.0), tp.model_group)
+    x = x.to(_dtype(cfg))
     if cfg.scale_embed:
         x = x * _embed_scale(cfg.d_model, x.dtype)
     return x
@@ -115,9 +152,13 @@ def _embed_scale(d_model: int, dtype: torch.dtype) -> float:
     return float(torch.tensor(np.sqrt(d_model), dtype=dtype))
 
 
-def unembed(cfg, embed, x):
+def unembed(cfg, embed, x, tp=None):
     """logits = softcap(x @ W, final_softcap): W is ``embed["unembed"]``
-    (d, vocab) for an untied head, else ``embed["tok"].T``."""
+    (d, vocab) for an untied head, else ``embed["tok"].T``.  With ``tp``
+    and split rows, this rank's slice of the vocabulary."""
+    rows = embed["unembed"].shape[1] if "unembed" in embed else embed["tok"].shape[0]
+    if vocab_start(rows, tp) is not None:
+        x = copy_to_model(x, tp.model_group)
     if "unembed" in embed:
         logits = torch.einsum("bsd,dv->bsv", x, embed["unembed"].to(x.dtype))
     else:

@@ -15,7 +15,12 @@ with QKV biases, no RoPE, layer norms), or Llama-3.2-vision's stubbed
 patch embeddings (B, n_patches, d_vision), which ``vision_proj``
 projects to d_model.  As in the reference, a decode step recomputes the
 source from ``aux_inputs`` — the whole encoder, or the projector — and
-each cross-attention layer its K/V; nothing of the source is cached."""
+each cross-attention layer its K/V; nothing of the source is cached.
+
+A module on the ``model`` axis (``params.shard_model``: ``model.tp``)
+trains on its shards: the layers reduce over the model group, and
+``train_loss`` takes the vocab-parallel cross-entropy of its slice of
+the logits (``_xent``).  Its serving raises (ROADMAP 6a)."""
 from __future__ import annotations
 
 import dataclasses
@@ -28,7 +33,8 @@ import torch
 from ..device import resolve_device
 from .attention import chunked_attention, project_qkv
 from .blocks import apply_layer
-from .layers import apply_mlp, apply_norm, embed_tokens, rms_norm, unembed
+from ..dist.collectives import max_over_model, reduce_from_model
+from .layers import apply_mlp, apply_norm, embed_tokens, rms_norm, unembed, vocab_start
 from .params import encoder_cfg
 from .stack import _tree, apply_stack, init_stack_caches
 
@@ -99,22 +105,46 @@ def forward(cfg, model, tokens, *, mode="train", caches=None, aux_inputs=None,
     training, and in decode mode it is ``caches``, updated in place;
     ``aux`` is the fp32 sum of the MoE layers' load-balance losses (zero
     without MoE layers)."""
+    tp = model_axis(model)
+    if tp is not None and mode != "train":
+        raise NotImplementedError("serving on the model axis is not ported (ROADMAP 6a)")
     tokens = _as_tokens(tokens, model.embed.tok.device)
-    x = embed_tokens(cfg, model.embed.tok, tokens)
+    x = embed_tokens(cfg, model.embed.tok, tokens, tp)
     source = source_embeds(cfg, model, aux_inputs)
     x, new_caches, aux = apply_stack(cfg, model.stack, x, mode=mode, caches=caches,
-                                     source=source, target_len=target_len)
+                                     source=source, target_len=target_len, tp=tp)
     if aux is None:  # no MoE layer
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     hidden = apply_norm(_tree(model.final_norm), x)
     embed = dict(model.embed.named_parameters())
-    return unembed(cfg, embed, hidden), new_caches, aux, hidden
+    return unembed(cfg, embed, hidden, tp), new_caches, aux, hidden
 
 
-def _xent(logits, labels, mask=None):
+def model_axis(model):
+    """Where ``shard_model`` cut ``model`` on a ``model`` axis (a
+    ``dist.sharding.ModelSplit``), or None."""
+    return model.tp
+
+
+def _xent(logits, labels, mask=None, start=None, tp=None):
+    """The mean (or ``mask``-weighted) cross-entropy in fp32.  ``start``
+    and ``tp``: ``logits`` are the vocabulary rows ``start ...`` of a
+    model rank, and the loss is vocab-parallel — a detached max
+    all-reduced over the model group, an all-reduced sum of
+    exponentials, an all-reduced target logit (held by one rank) — equal
+    to the full logits' on every rank."""
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels[..., None])[..., 0]
+    if start is None:
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, labels[..., None])[..., 0]
+    else:
+        group, n = tp.model_group, lf.shape[-1]
+        top = max_over_model(lf.detach().amax(-1), group)
+        lse = torch.log(reduce_from_model(torch.exp(lf - top[..., None]).sum(-1), group)) + top
+        local = labels - start
+        inside = (local >= 0) & (local < n)
+        gold = torch.gather(lf, -1, torch.where(inside, local, 0)[..., None])[..., 0]
+        gold = reduce_from_model(torch.where(inside, gold, 0.0), group)
     nll = lse - gold
     if mask is not None:
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
@@ -140,7 +170,8 @@ def train_loss(cfg, model, batch):
     mask = batch.get("mask")
     if mask is not None:
         mask = torch.as_tensor(mask, device=logits.device)[:, 1:].float()
-    loss = _xent(logits, labels, mask)
+    tp = model_axis(model)
+    loss = _xent(logits, labels, mask, vocab_start(logits.shape[-1], tp), tp)
     metrics = {"xent": loss, "aux": aux}
     if cfg.mtp_depth and tokens.shape[1] > 2:
         metrics["mtp"] = _mtp_loss(cfg, model, tokens, hidden)

@@ -46,6 +46,14 @@ and its ``bias`` and the cross-attention ``gate`` at zero, as the
 reference's; ``torch`` cannot reproduce
 ``jax.random``, so parity tests carry the reference's arrays across
 with ``params_from_numpy``.
+
+Every leaf carries its logical axes as the reference's ``Param.axes``
+names them (``GCLM.leaf_axes``; a stacked leaf's first is ``layers``),
+which ``dist/sharding.py``'s rules map onto a mesh (``shard_dims``).
+``shard_model`` gives a rank of a ``model`` axis its shards (its heads,
+MLP columns or rows, vocabulary rows), ``init_shards`` draws them
+without the full tree on the device, and ``gather_model`` all-gathers
+them back.
 """
 from __future__ import annotations
 
@@ -57,22 +65,29 @@ from torch import nn
 
 from ..configs.base import LayerSpec
 from ..device import resolve_device
+from ..dist.collectives import all_gather
+from ..dist.sharding import ModelSplit, make_rules, model_dim
 from .blocks import has_ffn
 from .ssm import a_log_init, dt_bias_init, mamba_dims
 from .stack import Run, plan_segments
 from .xlstm import mlstm_dims, slstm_dims
 
 __all__ = ["ParamNode", "GCLM", "encoder_cfg", "params_from_numpy", "params_to_numpy",
-           "count_params"]
+           "count_params", "shard_dims", "local_shapes", "shard_model", "init_shards",
+           "gather_model"]
 
 
 class ParamNode(nn.Module):
-    """A dict node of the parameter tree: named parameters and children."""
+    """A dict node of the parameter tree: named parameters, given as
+    ``(tensor, logical axes)`` pairs, and children.  ``axes[name]`` is the
+    parameter's logical axes, the reference's ``Param.axes``."""
 
     def __init__(self, params: dict = None, children: dict = None):
         super().__init__()
-        for name, value in (params or {}).items():
+        self.axes = {}
+        for name, (value, axes) in (params or {}).items():
             self.register_parameter(name, nn.Parameter(value))
+            self.axes[name] = tuple(axes)
         for name, child in (children or {}).items():
             self.add_module(name, child)
 
@@ -81,15 +96,26 @@ def _zeros(shape, device):
     return torch.zeros(shape, dtype=torch.float32, device=device)
 
 
+def _leaf_maker(device, count: int = 1):
+    """``z(axes, *shape)`` -> a zero leaf and its logical axes, with a
+    leading ``(count,)`` axis named ``layers`` when a segment stacks more
+    than one layer (the reference's ``stack_params``)."""
+    lead, lead_axes = ((count,), ("layers",)) if count > 1 else ((), ())
+
+    def z(axes, *shape):
+        if len(axes) != len(shape):
+            raise ValueError(f"axes {axes} for shape {shape}")
+        return _zeros(lead + shape, device), lead_axes + tuple(axes)
+
+    return z
+
+
 def _layer_node(cfg, spec, count: int, device) -> ParamNode:
     """One layer's parameters; leaves carry a leading (count,) axis when
     the segment stacks more than one layer."""
     if spec.mixer not in _MIXER_LEAVES:
         raise ValueError(f"unknown mixer {spec.mixer!r}")
-    lead = (count,) if count > 1 else ()
-
-    def z(*shape):
-        return _zeros(lead + shape, device)
+    z = _leaf_maker(device, count)
 
     def norm():
         return _norm_node(cfg, z)
@@ -106,21 +132,26 @@ def _layer_node(cfg, spec, count: int, device) -> ParamNode:
     return ParamNode(children=children)
 
 
+_E, _H, _KV, _DH = "embed", "heads", "kv_heads", "head_dim"
+
+
 def _norm_node(cfg, z) -> ParamNode:
     """``scale`` (rms norm: scale - 1), and ``bias`` under layer norm."""
     d = cfg.d_model
     if cfg.norm == "layer":
-        return ParamNode({"scale": z(d), "bias": z(d)})
-    return ParamNode({"scale": z(d)})
+        return ParamNode({"scale": z((_E,), d), "bias": z((_E,), d)})
+    return ParamNode({"scale": z((_E,), d)})
 
 
 def _attn_leaves(cfg, z) -> dict:
     d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    mixer = {"wq": z(d, h, dh), "wk": z(d, kv, dh), "wv": z(d, kv, dh), "wo": z(h, dh, d)}
+    mixer = {"wq": z((_E, _H, _DH), d, h, dh), "wk": z((_E, _KV, _DH), d, kv, dh),
+             "wv": z((_E, _KV, _DH), d, kv, dh), "wo": z((_H, _DH, _E), h, dh, d)}
     if cfg.qkv_bias:
-        mixer.update(bq=z(h, dh), bk=z(kv, dh), bv=z(kv, dh))
+        mixer.update(bq=z((_H, _DH), h, dh), bk=z((_KV, _DH), kv, dh),
+                     bv=z((_KV, _DH), kv, dh))
     if cfg.qk_norm:
-        mixer.update(q_norm=z(dh), k_norm=z(dh))
+        mixer.update(q_norm=z((_DH,), dh), k_norm=z((_DH,), dh))
     return mixer
 
 
@@ -129,40 +160,47 @@ def _cross_leaves(cfg, z) -> dict:
     source of width d_model (the projector's output, or the encoder's):
     no biases, and the scalar tanh ``gate``."""
     d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    return {"wq": z(d, h, dh), "wk": z(d, kv, dh), "wv": z(d, kv, dh), "wo": z(h, dh, d),
-            "gate": z()}
+    return {"wq": z((_E, _H, _DH), d, h, dh), "wk": z((_E, _KV, _DH), d, kv, dh),
+            "wv": z((_E, _KV, _DH), d, kv, dh), "wo": z((_H, _DH, _E), h, dh, d),
+            "gate": z(())}
 
 
 def _mla_leaves(cfg, z) -> dict:
     """``repro/models/mla.py::init_mla``'s nine leaves."""
     m, d, h = cfg.mla, cfg.d_model, cfg.n_heads
     qk = m.qk_nope_head_dim + m.qk_rope_head_dim
-    return {"wq_a": z(d, m.q_lora_rank), "q_a_norm": z(m.q_lora_rank),
-            "wq_b": z(m.q_lora_rank, h, qk), "wkv_a": z(d, m.kv_lora_rank),
-            "kv_a_norm": z(m.kv_lora_rank), "wk_rope": z(d, m.qk_rope_head_dim),
-            "wk_b": z(m.kv_lora_rank, h, m.qk_nope_head_dim),
-            "wv_b": z(m.kv_lora_rank, h, m.v_head_dim), "wo": z(h, m.v_head_dim, d)}
+    return {"wq_a": z((_E, "lora"), d, m.q_lora_rank), "q_a_norm": z(("lora",), m.q_lora_rank),
+            "wq_b": z(("lora", _H, _DH), m.q_lora_rank, h, qk),
+            "wkv_a": z((_E, "lora"), d, m.kv_lora_rank),
+            "kv_a_norm": z(("lora",), m.kv_lora_rank),
+            "wk_rope": z((_E, _DH), d, m.qk_rope_head_dim),
+            "wk_b": z(("lora", _H, _DH), m.kv_lora_rank, h, m.qk_nope_head_dim),
+            "wv_b": z(("lora", _H, _DH), m.kv_lora_rank, h, m.v_head_dim),
+            "wo": z((_H, _DH, _E), h, m.v_head_dim, d)}
 
 
 def _mamba_leaves(cfg, z) -> dict:
     """``repro/models/ssm.py::init_mamba``'s nine leaves."""
     m, d_inner, dt_rank = mamba_dims(cfg)
-    d = cfg.d_model
-    return {"in_proj": z(d, 2 * d_inner), "conv_w": z(m.d_conv, d_inner), "conv_b": z(d_inner),
-            "x_proj": z(d_inner, dt_rank + 2 * m.d_state), "dt_proj": z(dt_rank, d_inner),
-            "dt_bias": z(d_inner), "a_log": z(d_inner, m.d_state), "d_skip": z(d_inner),
-            "out_proj": z(d_inner, d)}
+    d, di = cfg.d_model, "d_inner"
+    return {"in_proj": z((_E, di), d, 2 * d_inner), "conv_w": z(("conv", di), m.d_conv, d_inner),
+            "conv_b": z((di,), d_inner),
+            "x_proj": z((di, "state"), d_inner, dt_rank + 2 * m.d_state),
+            "dt_proj": z(("lora", di), dt_rank, d_inner), "dt_bias": z((di,), d_inner),
+            "a_log": z((di, "state"), d_inner, m.d_state), "d_skip": z((di,), d_inner),
+            "out_proj": z((di, _E), d_inner, d)}
 
 
 def _mlstm_leaves(cfg, z) -> dict:
     """``repro/models/xlstm.py::init_mlstm``'s eleven leaves: headwise
     (block-diagonal) ``wq``/``wk``/``wv`` (nh, dh, dh)."""
     spec, d_inner, nh, dh = mlstm_dims(cfg)
-    d = cfg.d_model
-    return {"up": z(d, 2 * d_inner), "conv_w": z(spec.conv_kernel, d_inner), "conv_b": z(d_inner),
-            "wq": z(nh, dh, dh), "wk": z(nh, dh, dh), "wv": z(nh, dh, dh),
-            "w_if": z(d_inner, 2 * nh), "b_i": z(nh), "b_f": z(nh), "gn_scale": z(d_inner),
-            "down": z(d_inner, d)}
+    d, di = cfg.d_model, "d_inner"
+    return {"up": z((_E, di), d, 2 * d_inner), "conv_w": z(("conv", di), spec.conv_kernel, d_inner),
+            "conv_b": z((di,), d_inner), "wq": z((_H, None, _DH), nh, dh, dh),
+            "wk": z((_H, None, _DH), nh, dh, dh), "wv": z((_H, None, _DH), nh, dh, dh),
+            "w_if": z((di, _H), d_inner, 2 * nh), "b_i": z((_H,), nh), "b_f": z((_H,), nh),
+            "gn_scale": z((di,), d_inner), "down": z((di, _E), d_inner, d)}
 
 
 def _slstm_leaves(cfg, z) -> dict:
@@ -171,8 +209,11 @@ def _slstm_leaves(cfg, z) -> dict:
     GeGLU of width round(4/3·d)."""
     nh, dh, d_up = slstm_dims(cfg)
     d = cfg.d_model
-    return {"w_gates": z(d, 4 * d), "r_gates": z(nh, dh, 4 * dh), "b_gates": z(4 * d),
-            "gn_scale": z(d), "up1": z(d, d_up), "up2": z(d, d_up), "down": z(d_up, d)}
+    return {"w_gates": z((_E, "d_inner"), d, 4 * d),
+            "r_gates": z((_H, None, "d_inner"), nh, dh, 4 * dh),
+            "b_gates": z(("d_inner",), 4 * d), "gn_scale": z((_E,), d),
+            "up1": z((_E, "mlp"), d, d_up), "up2": z((_E, "mlp"), d, d_up),
+            "down": z(("mlp", _E), d_up, d)}
 
 
 _MIXER_LEAVES = {"attn": _attn_leaves, "cross_attn": _cross_leaves, "mla": _mla_leaves,
@@ -193,19 +234,18 @@ def _encoder_node(cfg, device) -> ParamNode:
     return ParamNode({}, {
         "layers": nn.ModuleList(_layer_node(ecfg, spec, 1, device)
                                 for _ in range(cfg.encoder.n_layers)),
-        "final_norm": _norm_node(ecfg, lambda *shape: _zeros(shape, device))})
+        "final_norm": _norm_node(ecfg, _leaf_maker(device))})
 
 
 def _mtp_node(cfg, device) -> ParamNode:
     """One multi-token prediction module (``repro/models/model.py``):
     ``proj`` (2d, d), ``norm_h``, ``norm_e`` and one layer — the last
     layer's spec with a dense FFN."""
-    d = cfg.d_model
+    d, z = cfg.d_model, _leaf_maker(device)
     spec = dataclasses.replace(cfg.layers[-1], moe=None)
-    return ParamNode({"proj": _zeros((2 * d, d), device)},
+    return ParamNode({"proj": z((_E, _E), 2 * d, d)},
                      {"layer": _layer_node(cfg, spec, 1, device),
-                      "norm_h": ParamNode({"scale": _zeros((d,), device)}),
-                      "norm_e": ParamNode({"scale": _zeros((d,), device)})})
+                      "norm_h": _norm_node(cfg, z), "norm_e": _norm_node(cfg, z)})
 
 
 def _ffn_node(cfg, spec, z) -> ParamNode:
@@ -216,17 +256,21 @@ def _ffn_node(cfg, spec, z) -> ParamNode:
     shared experts."""
     d = cfg.d_model
     if spec.moe is None:
-        mlp = {"wi": z(d, cfg.d_ff), "wo": z(cfg.d_ff, d)}
+        mlp = {"wi": z((_E, "mlp"), d, cfg.d_ff), "wo": z(("mlp", _E), cfg.d_ff, d)}
         if cfg.activation in ("silu", "gelu"):  # gated; Whisper's "gelu_mlp" is not
-            mlp["wg"] = z(d, cfg.d_ff)
+            mlp["wg"] = z((_E, "mlp"), d, cfg.d_ff)
         return ParamNode(mlp)
     e, f = spec.moe.num_experts, spec.moe.d_ff
     children = {}
     if spec.moe.num_shared:
         fs = f * spec.moe.num_shared
-        children["shared"] = ParamNode({"wi": z(d, fs), "wg": z(d, fs), "wo": z(fs, d)})
-    return ParamNode({"router": z(d, e), "wi": z(e, d, f), "wg": z(e, d, f),
-                      "wo": z(e, f, d)}, children)
+        children["shared"] = ParamNode({"wi": z((_E, "mlp"), d, fs),
+                                        "wg": z((_E, "mlp"), d, fs),
+                                        "wo": z(("mlp", _E), fs, d)})
+    ex = ("experts", _E, "expert_mlp")
+    return ParamNode({"router": z((_E, "experts"), d, e), "wi": z(ex, e, d, f),
+                      "wg": z(ex, e, d, f), "wo": z(("experts", "expert_mlp", _E), e, f, d)},
+                     children)
 
 
 def _segment_node(cfg, seg, device) -> nn.Module:
@@ -274,17 +318,24 @@ class GCLM(nn.Module):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
-        embed = {"tok": _zeros((cfg.vocab, cfg.d_model), dev)}
+        self.axes = {}
+        #: where ``shard_model`` cut this module on a ``model`` axis (a
+        #: ``dist.sharding.ModelSplit``) and each leaf's split dimension,
+        #: or None and no splits
+        self.tp, self.shard_dims = None, None
+        z = _leaf_maker(dev)
+        embed = {"tok": z(("vocab", _E), cfg.vocab, cfg.d_model)}
         if not cfg.tie_embeddings:
-            embed["unembed"] = _zeros((cfg.d_model, cfg.vocab), dev)
+            embed["unembed"] = z((_E, "vocab"), cfg.d_model, cfg.vocab)
         self.embed = ParamNode(embed)
         self.stack = nn.ModuleList(_segment_node(cfg, seg, dev)
                                    for seg in plan_segments(cfg.layers))
-        self.final_norm = _norm_node(cfg, lambda *shape: _zeros(shape, dev))
+        self.final_norm = _norm_node(cfg, z)
         if cfg.encoder is not None:
             self.encoder = _encoder_node(cfg, dev)
         if cfg.vision is not None:
             self.vision_proj = nn.Parameter(_zeros((cfg.vision.d_vision, cfg.d_model), dev))
+            self.axes = {"vision_proj": (_E, _E)}
         if cfg.mtp_depth:
             self.mtp = nn.ModuleList(_mtp_node(cfg, dev) for _ in range(cfg.mtp_depth))
         if dev.type != "meta":  # a meta model carries shapes only
@@ -293,7 +344,13 @@ class GCLM(nn.Module):
     # ----------------------------------------------------------- leaf order
     def leaf_items(self) -> list:
         """[(path, parameter)] in ``jax.tree.leaves`` order."""
-        return list(_walk(self, ()))
+        return [(path, t) for path, t, _ in _walk(self, ())]
+
+    def leaf_axes(self) -> list:
+        """Every leaf's logical axes in leaf order, as the reference's
+        ``Param.axes`` names them (``("layers", "embed", "heads",
+        "head_dim")`` for a stacked ``wq``)."""
+        return [node.axes[path[-1]] for path, _, node in _walk(self, ())]
 
     def leaf_paths(self) -> list:
         return [".".join(p) for p, _ in self.leaf_items()]
@@ -328,29 +385,13 @@ class GCLM(nn.Module):
         ``a_log`` and ``dt_bias`` and xLSTM's ``gn_scale``, ``b_f`` and
         ``b_gates`` (``FIXED_INIT``)."""
         gen = torch.Generator(device=self.embed.tok.device).manual_seed(int(seed))
-        stacked = {seg_i for seg_i, seg in enumerate(plan_segments(self.cfg.layers))
-                   if not isinstance(seg, Run) or seg.count > 1}
         items = self.leaf_items()
-        paths = {path for path, _ in items}
-        for path, t in items:
-            if path[-1] == "scale" and path[:-1] + ("bias",) in paths:  # a layer norm
-                t.fill_(1.0)
-                continue
-            if path[-1] in ZERO_INIT:
-                t.zero_()
-                continue
-            if path[-1] in FIXED_INIT:
-                t.copy_(torch.from_numpy(FIXED_INIT[path[-1]](self.cfg)).expand_as(t))
-                continue
-            per_layer = tuple(t.shape[1:]) if (
-                path[0] == "stack" and int(path[1]) in stacked) else tuple(t.shape)
-            fan_in = per_layer[0] if len(per_layer) == 1 else int(np.prod(per_layer[:-1]))
-            std = 1.0 / np.sqrt(max(fan_in, 1))
-            nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-            t.mul_(std)
+        for _ in _drawn(self.cfg, [p for p, _ in items], items, gen):
+            pass
 
 
 def _walk(node, prefix):
+    """(path, parameter, the node holding it) in leaf order."""
     if isinstance(node, nn.ModuleList):
         for i, child in enumerate(node):
             yield from _walk(child, prefix + (str(i),))
@@ -359,9 +400,157 @@ def _walk(node, prefix):
     for name in sorted(items):
         value = items[name]
         if isinstance(value, nn.Parameter):
-            yield prefix + (name,), value
+            yield prefix + (name,), value, node
         elif value is not None:
             yield from _walk(value, prefix + (name,))
+
+
+@torch.no_grad()
+def _drawn(cfg, paths, items, gen):
+    """Fill each ``(path, tensor)`` of ``items`` (every leaf, in leaf
+    order; ``paths`` all their paths) by ``reset_parameters``' law from
+    ``gen``, yielding each once it is filled."""
+    stacked = {seg_i for seg_i, seg in enumerate(plan_segments(cfg.layers))
+               if not isinstance(seg, Run) or seg.count > 1}
+    paths = set(paths)
+    for path, t in items:
+        if path[-1] == "scale" and path[:-1] + ("bias",) in paths:  # a layer norm
+            t.fill_(1.0)
+        elif path[-1] in ZERO_INIT:
+            t.zero_()
+        elif path[-1] in FIXED_INIT:
+            t.copy_(torch.from_numpy(FIXED_INIT[path[-1]](cfg)).expand_as(t))
+        else:
+            per_layer = tuple(t.shape[1:]) if (
+                path[0] == "stack" and int(path[1]) in stacked) else tuple(t.shape)
+            fan_in = per_layer[0] if len(per_layer) == 1 else int(np.prod(per_layer[:-1]))
+            std = 1.0 / np.sqrt(max(fan_in, 1))
+            nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+            t.mul_(std)
+        yield path, t
+        del t  # the caller lets the full leaf go before the next is made
+
+
+def _set_leaf(model, path, value) -> None:
+    node = model
+    for key in path[:-1]:
+        node = node[int(key)] if isinstance(node, nn.ModuleList) else getattr(node, key)
+    setattr(node, path[-1], nn.Parameter(value))
+
+
+def _unported_on_model_axis(cfg):
+    """What of ``cfg`` the port's ``model`` axis does not split yet, with
+    its ROADMAP item, or None: the dense families (per-head attention,
+    the MLP, the embedding and head) are ported."""
+    if any(spec.moe is not None for spec in cfg.layers):
+        return "expert parallelism of a mixture-of-experts FFN (ROADMAP 6b)"
+    for spec in cfg.layers:
+        if spec.mixer != "attn" or spec.cross_source:
+            return f"the {spec.mixer!r} mixer or cross-attention (ROADMAP 6c)"
+    if cfg.encoder is not None or cfg.vision is not None or cfg.mtp_depth:
+        return "an encoder, a vision projector or multi-token prediction (ROADMAP 6c)"
+    return None
+
+
+def shard_dims(cfg, mesh) -> tuple:
+    """Each leaf's dimension that ``mesh``'s ``model`` axis splits, or
+    None, in leaf order: ``dist.sharding.model_dim`` under
+    ``make_rules(cfg)`` — the one place the port decides a split.  Raises
+    ``NotImplementedError`` for what the axis does not split yet."""
+    why = _unported_on_model_axis(cfg)
+    if why is not None:
+        raise NotImplementedError(f"{cfg.name} on a model axis of {mesh.model}: {why} is "
+                                  "not ported")
+    meta, rules = GCLM(cfg, device="meta"), make_rules(cfg)
+    return tuple(model_dim(axes, t.shape, mesh, rules)
+                 for t, axes in zip(meta.leaves(), meta.leaf_axes(), strict=True))
+
+
+def local_shapes(cfg, mesh) -> list:
+    """One model rank's leaf shapes (``shard_dims``' splits)."""
+    out = []
+    for t, dim in zip(GCLM(cfg, device="meta").leaves(), shard_dims(cfg, mesh)):
+        shape = tuple(t.shape)
+        if dim is not None:
+            shape = shape[:dim] + (shape[dim] // mesh.model,) + shape[dim + 1:]
+        out.append(shape)
+    return out
+
+
+@torch.no_grad()
+def _cut(cfg, mesh, items) -> GCLM:
+    """The rank's module from ``items`` — ``(path, full leaf)`` in leaf
+    order, consumed one at a time: each leaf's shard (or the whole leaf)
+    is copied and the full leaf let go."""
+    dims = shard_dims(cfg, mesh)
+    local, split = GCLM(cfg, device="meta"), set()
+    for (path, t), axes, dim in zip(items, local.leaf_axes(), dims, strict=True):
+        piece = t.detach()
+        if dim is not None:
+            n = t.shape[dim] // mesh.model
+            piece = piece.narrow(dim, mesh.model_index * n, n)
+            split.add(axes[dim])
+        _set_leaf(local, path, piece.clone(memory_format=torch.contiguous_format))
+        del t, piece
+    for axes, dim in zip(local.leaf_axes(), dims):  # a logical axis is split everywhere
+        if any((a in split) != (d == dim) for d, a in enumerate(axes)):
+            raise ValueError(f"{cfg.name}: the model axis splits {sorted(split)} in some "
+                             f"leaves but not in one of axes {axes}")
+    local.tp, local.shard_dims = ModelSplit(mesh, frozenset(split)), dims
+    return local
+
+
+def shard_model(model: GCLM, mesh) -> GCLM:
+    """This rank's module on ``mesh``'s ``model`` axis: every leaf sliced
+    on its ``shard_dims`` dimension at the rank's ``model_index``,
+    copied; replicated leaves copied whole.  The result's ``tp`` (a
+    ``dist.sharding.ModelSplit``) and ``shard_dims`` tell the layers which
+    of their products to reduce over the model group.  ``mesh.model`` 1
+    returns ``model`` itself.  Raises ``NotImplementedError`` for what
+    the axis does not split yet."""
+    if mesh.model == 1:
+        return model
+    return _cut(model.cfg, mesh, model.leaf_items())
+
+
+@torch.no_grad()
+def init_shards(cfg, mesh, *, device="cuda", seed: int = 0, params=None) -> GCLM:
+    """``shard_model(GCLM(cfg, device=device, seed=seed), mesh)`` (or of
+    the reference tree ``params``, numpy arrays, when given) without the
+    full tree on ``device``: the leaves are drawn in order from the same
+    generator, each cut to the rank's shard before the next, so at most
+    one full leaf lies there besides the shards."""
+    if mesh.model == 1:
+        model = GCLM(cfg, device=device, seed=seed)
+        return model if params is None else params_from_numpy(model, params)
+    dev = resolve_device(device)
+    meta = GCLM(cfg, device="meta")
+    paths = [path for path, _ in meta.leaf_items()]
+    if params is not None:
+        items = ((path, torch.from_numpy(np.array(_lookup(params, path), np.float32)).to(dev))
+                 for path in paths)
+    else:
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        items = _drawn(cfg, paths, ((path, torch.empty(t.shape, device=dev))
+                                    for path, t in meta.leaf_items()), gen)
+    return _cut(cfg, mesh, items)
+
+
+@torch.no_grad()
+def gather_model(local: GCLM, tensors=None) -> GCLM:
+    """The inverse of ``shard_model``: a full module whose leaves are the
+    model group's shards all-gathered (one all-gather per split leaf).
+    ``tensors`` (leaf order, local shapes: gradients, moments) gathers
+    those in place of the parameters."""
+    tensors = local.leaves() if tensors is None else list(tensors)
+    dims = local.shard_dims or (None,) * len(tensors)
+    full = GCLM(local.cfg, device="meta")
+    for (path, _), t, dim in zip(local.leaf_items(), tensors, dims, strict=True):
+        t = t.detach()
+        if dim is not None:
+            t = all_gather(t.contiguous(), local.tp.model_group, dim=dim)
+        _set_leaf(full, path, t.clone(memory_format=torch.contiguous_format))
+    return full
 
 
 def _lookup(tree, path):

@@ -6,12 +6,17 @@ inside the lr scaling.
 States are lists in leaf order.  ``adamw_update`` updates the moments
 and the parameters in place (it saves a full copy of the model and its
 two moments per step); the arithmetic is the reference's, op for op.
+On the ``model`` axis the clip's norm adds up the split leaves' squares
+over the model group and counts each replicated leaf once, so every
+rank clips by the same scale.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from ..dist.collectives import reduce_from_model
 
 __all__ = ["adamw_init", "adamw_update", "clip_by_global_norm", "global_norm",
            "cosine_schedule"]
@@ -44,13 +49,24 @@ def adamw_update(grads, opt_state, params, lr, *, b1=0.9, b2=0.95, eps=1e-8,
     return {"m": opt_state["m"], "v": opt_state["v"], "count": count}
 
 
-def global_norm(tensors) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tensors))
+def global_norm(tensors, group=None, split=None) -> torch.Tensor:
+    """The l2 norm of all ``tensors``.  With a model ``group``,
+    ``split[j]`` says whether tensor j is this rank's shard of a split
+    leaf: those squares are summed over the group (one all-reduce), the
+    replicated ones added once."""
+    squares = [torch.sum(torch.square(t.float())) for t in tensors]
+    if group is None:
+        return torch.sqrt(sum(squares))
+    zero = torch.zeros((), dtype=torch.float32, device=squares[0].device)
+    shards = sum((q for q, s in zip(squares, split, strict=True) if s), zero)
+    whole = sum((q for q, s in zip(squares, split) if not s), zero)
+    return torch.sqrt(reduce_from_model(shards, group) + whole)
 
 
-def clip_by_global_norm(grads, max_norm):
-    """(grads * min(1, max_norm / norm), norm)."""
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm, group=None, split=None):
+    """(grads * min(1, max_norm / norm), norm); ``group`` and ``split`` as
+    ``global_norm``'s."""
+    norm = global_norm(grads, group, split)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return [g * scale.to(g.dtype) for g in grads], norm
 

@@ -45,6 +45,17 @@ runs only its own K per-shard passes, and
 Every rank returns bit-identical gradients, so replicated optimizers
 stay replicated.
 
+On a mesh with a ``model`` axis each rank holds its shards
+(``models.params.shard_model``), and every model rank of a data index
+reads that worker's batches.  The plan is the full tree's, the same on
+every rank; the rank's layout (``local_layout``) keeps the plan's leaf
+levels over the local shapes, so the grouped launch writes the local
+rows into local level buffers, the collectives run per level over the
+data group, and the unpack gives the local leaves.  A plan built from
+the shards' shapes would put leaves on other levels.  Every rank of a
+model index returns the same bytes, and a replicated leaf's gradient is
+byte-equal across the model ranks.
+
 For every straggler realization the result equals the plain
 data-parallel mean gradient over the same global batch (tested).
 
@@ -64,14 +75,16 @@ import numpy as np
 import torch
 
 from ..core import Plan
+from ..core.flat import FlatLayout
 from ..dist.collectives import all_gather, psum, psum_scatter
 from ..kernels import ops
 from ..launch import op_analysis
 from ..models.model import has_source, train_loss
+from ..models.params import GCLM, local_shapes
 
 __all__ = ["make_coded_grad_fn", "uncoded_grad_fn", "per_shard_grad_rows",
            "level_weights", "combine_rows", "combine_level", "combine_grads",
-           "tree_combine", "scatter_dims", "CodedGrads"]
+           "tree_combine", "scatter_dims", "local_layout", "CodedGrads"]
 
 REDUCE_MODES = ("psum", "psum_scatter")
 
@@ -237,6 +250,23 @@ def scatter_dims(leaf_shapes, n_workers: int) -> list:
     return out
 
 
+def local_layout(cfg, plan: Plan, mesh) -> FlatLayout:
+    """The plan's ``FlatLayout`` over one model rank's shards: the full
+    tree's leaf levels (the plan's), the rank's shapes
+    (``models.params.local_shapes``, which ``shard_model`` cuts by),
+    every level padded as the plan pads it.  ``mesh.model`` 1 gives the
+    plan's layout."""
+    full = _require_layout(plan)
+    if mesh.model == 1:
+        return full
+    shapes = [tuple(t.shape) for t in GCLM(cfg, device="meta").leaves()]
+    if shapes != [tuple(s) for s in full.leaf_shapes]:
+        raise ValueError(f"the plan's leaf shapes are not {cfg.name}'s full tree: build "
+                         "the plan from the full model, not from a rank's shards")
+    return FlatLayout.build(local_shapes(cfg, mesh), full.leaf_level, plan.n_workers,
+                            lane=full.lane)
+
+
 class CodedGrads:
     """A coded gradient function in its two stages:
     ``grad_fn(model, worker_batches, dec_w, worker_aux=None)`` is
@@ -277,7 +307,9 @@ def make_coded_grad_fn(cfg, plan: Plan, *, mode: str = "sim", mesh=None,
     'psum_scatter' reduce-scatters each level buffer (or leaf) over the
     data ranks and all-gathers it back for the replicated optimizer.
     The flat spmd gradients are views of level buffers that the next
-    call overwrites.
+    call overwrites.  On a mesh with a ``model`` axis, ``grad_fn`` takes
+    the rank's module (``shard_model``) and returns its shards'
+    gradients; ``plan`` is still the full tree's.
     """
     if reduce_mode not in REDUCE_MODES:
         raise ValueError(f"unknown reduce_mode {reduce_mode!r}; expected one of {REDUCE_MODES}")
@@ -309,15 +341,21 @@ def make_coded_grad_fn(cfg, plan: Plan, *, mode: str = "sim", mesh=None,
         return per_shard_grad_rows(cfg, model, worker_batches[mine],
                                    None if worker_aux is None else worker_aux[mine])
 
+    layout = plan.flat_layout
+    if mesh.model > 1:
+        if layout is None:
+            raise ValueError("a model axis needs the plan's leaf shapes (Plan.build(model, "
+                             "...) on the full tree)")
+        layout = local_layout(cfg, plan, mesh)
     make = _flat_spmd_combine if pipeline == "flat" else _tree_spmd_combine
-    return CodedGrads(rows, make(plan, mesh, reduce_mode, grad_dtype))
+    return CodedGrads(rows, make(plan, layout, mesh, reduce_mode, grad_dtype))
 
 
-def _flat_spmd_combine(plan: Plan, mesh, reduce_mode: str, grad_dtype) -> Callable:
-    """The flat spmd combine over level buffers allocated here, once: the
+def _flat_spmd_combine(plan: Plan, layout, mesh, reduce_mode: str, grad_dtype) -> Callable:
+    """The flat spmd combine over ``layout``'s level buffers (the plan's,
+    or a model rank's ``local_layout``), allocated here, once: the
     grouped launch writes each leaf into its slice, so the launch's
     pointers stay put from step to step (the launch cache hits)."""
-    layout = plan.flat_layout
     dev, n = mesh.device, plan.n_workers
     bufs = [torch.zeros(size, dtype=torch.float32, device=dev) for size in layout.level_sizes]
     views = [None] * layout.n_leaves
@@ -351,18 +389,19 @@ def _flat_spmd_combine(plan: Plan, mesh, reduce_mode: str, grad_dtype) -> Callab
     return combine
 
 
-def _tree_spmd_combine(plan: Plan, mesh, reduce_mode: str, grad_dtype) -> Callable:
+def _tree_spmd_combine(plan: Plan, layout, mesh, reduce_mode: str, grad_dtype) -> Callable:
     """The tree spmd combine: per leaf, this rank's encode and decode
     weight in plain torch, the cast, then one collective per leaf
-    (over the pod ranks first when there are any)."""
+    (over the pod ranks first when there are any).  ``layout`` (the
+    plan's, or a model rank's ``local_layout``) gives the leaves' shapes."""
     dev, n = mesh.device, plan.n_workers
     level_idx = plan.level_index().tolist()
     dims = [None] * len(level_idx)
     if reduce_mode == "psum_scatter":
-        if plan.flat_layout is None:
+        if layout is None:
             raise ValueError("pipeline='tree' with reduce_mode='psum_scatter' needs the "
                              "plan's leaf shapes (Plan.build(model, ...))")
-        dims = scatter_dims(plan.flat_layout.leaf_shapes, n)
+        dims = scatter_dims(layout.leaf_shapes, n)
     b_rows = torch.as_tensor(plan.b_rows[mesh.data_index], dtype=torch.float32, device=dev)
     denom = n * mesh.pod
 
@@ -378,7 +417,7 @@ def _tree_spmd_combine(plan: Plan, mesh, reduce_mode: str, grad_dtype) -> Callab
             if dims[j] is None:
                 psum([c], mesh.data_group)
             else:
-                c = c.reshape(plan.flat_layout.leaf_shapes[j])
+                c = c.reshape(layout.leaf_shapes[j])
                 c = all_gather(psum_scatter(c, mesh.data_group, dim=dims[j]),
                                mesh.data_group, dim=dims[j])
             out.append(c / denom)
@@ -391,7 +430,9 @@ def uncoded_grad_fn(cfg, n_workers: int) -> Callable:
     """Plain data-parallel mean gradient over the same global batch
     (shards stacked (N, rows, S+1), and for a model with a cross-attention
     source their modality embeddings ``aux`` (N, rows, ...)); the
-    reference for exactness tests."""
+    reference for exactness tests.  Given a model rank's module
+    (``shard_model``), its shards' gradients (the model group runs it
+    together)."""
 
     def grad_fn(model, shards, aux=None):
         _check_aux(cfg, aux)

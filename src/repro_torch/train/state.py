@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..checkpoint.ckpt import tree_items
-from ..models.params import GCLM, _lookup, params_from_numpy
+from ..models.params import GCLM, _lookup, init_shards, params_from_numpy
 from ..optim.optim import adamw_init
 
 __all__ = ["TrainState", "StateTree", "init_train_state", "abstract_train_state",
@@ -68,13 +68,19 @@ class TrainState:
                           step=int(tree.step))
 
 
-def init_train_state(cfg, *, device="cuda", seed: int = 0,
-                     params=None) -> TrainState:
+def init_train_state(cfg, *, device="cuda", seed: int = 0, params=None,
+                     mesh=None) -> TrainState:
     """Fresh state: parameters from ``seed`` on ``device``, or copied from
-    ``params`` (a reference parameter tree of numpy arrays) when given."""
-    model = GCLM(cfg, device=device, seed=seed)
-    if params is not None:
-        params_from_numpy(model, params)
+    ``params`` (a reference parameter tree of numpy arrays) when given.
+    On a ``mesh`` with a ``model`` axis, this rank's shards of those
+    parameters (``init_shards``: the full tree never lies on ``device``)
+    and moments of the shards' shapes."""
+    if mesh is not None:
+        model = init_shards(cfg, mesh, device=device, seed=seed, params=params)
+    else:
+        model = GCLM(cfg, device=device, seed=seed)
+        if params is not None:
+            params_from_numpy(model, params)
     return TrainState(params=model, opt=adamw_init(model.leaves()), step=0)
 
 

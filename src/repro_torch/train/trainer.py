@@ -12,10 +12,12 @@ ledger is the reference's, draw for draw.
 adaptive re-planning with plan hot-swaps, the wave-pipelined schedule
 (``train/wave.py``), checkpoints (plain or erasure-coded) and
 worker-death recovery, in sim mode on one device or in spmd mode on N
-data-parallel ranks.  In spmd every rank builds the same plan and
-simulator from the same seed, so every rank draws the same decode
-weights and takes the same decisions (swaps, deaths, restores); a
-broadcast from rank 0 checks each draw.  ``scheme="auto"`` searches the
+data-parallel ranks — each, on a mesh with a ``model`` axis, a group of
+tensor-parallel ranks holding its shards of the parameters and the
+optimizer moments (``models.params.shard_model``).  In spmd every rank
+builds the same plan and simulator from the same seed, so every rank
+draws the same decode weights and takes the same decisions (swaps,
+deaths, restores); a broadcast from rank 0 checks each draw.  ``scheme="auto"`` searches the
 launch space with the autotuner (``repro_torch.tune``).
 """
 from __future__ import annotations
@@ -35,6 +37,7 @@ from ..core import Env, Plan
 from ..data.pipeline import DataConfig, SyntheticTokens, coded_worker_batches
 from ..dist.collectives import check_replicated, psum
 from ..models.model import has_source, train_loss
+from ..models.params import GCLM
 from ..optim.optim import adamw_update, clip_by_global_norm, cosine_schedule
 from .coded import make_coded_grad_fn
 from .state import TrainState, init_train_state
@@ -55,7 +58,12 @@ class TrainConfig:
 
 def _apply_update(cfg_t: TrainConfig, state: TrainState, grads, metrics):
     lr = cosine_schedule(state.step, cfg_t.lr, cfg_t.warmup, cfg_t.total_steps)
-    grads, gnorm = clip_by_global_norm(grads, cfg_t.clip_norm)
+    tp, dims = state.params.tp, state.params.shard_dims
+    if tp is None:
+        grads, gnorm = clip_by_global_norm(grads, cfg_t.clip_norm)
+    else:
+        grads, gnorm = clip_by_global_norm(grads, cfg_t.clip_norm, tp.model_group,
+                                           [d is not None for d in dims])
     opt = adamw_update(grads, state.opt, state.params.leaves(), lr,
                        b1=cfg_t.b1, b2=cfg_t.b2, weight_decay=cfg_t.weight_decay)
     metrics = dict(metrics, grad_norm=gnorm, lr=lr)
@@ -66,26 +74,31 @@ def make_train_step(cfg, cfg_t: TrainConfig, *, mesh=None) -> Callable:
     """The uncoded step: step(state, batch) -> (state, metrics) on the
     plain mean gradient of ``batch["tokens"]`` (B, S+1), with the
     modality embeddings ``batch["aux_inputs"]`` (B, ...) of a model with
-    a cross-attention source.  With a ``mesh`` each rank takes its
-    B / ranks rows (rank-th block) and one ``all_reduce`` over all ranks
+    a cross-attention source.  With a ``mesh`` each data-parallel replica
+    (a (pod, data) index) takes its block of the rows, and an
+    ``all_reduce`` over the data ranks, then one over the pod ranks,
     sums the gradients and the metrics before the mean: the plain
-    data-parallel step."""
+    data-parallel step.  On a ``model`` axis the state holds the rank's
+    shards."""
     def step(state: TrainState, batch):
         leaves = state.params.leaves()
         part = {k: batch[k] for k in ("tokens", "aux_inputs") if k in batch}
         if mesh is not None:
-            n_rows = part["tokens"].shape[0]
-            if n_rows % mesh.size:
-                raise ValueError(f"{n_rows} rows do not split over {mesh.size} ranks")
-            h = n_rows // mesh.size
-            part = {k: v[mesh.rank * h:(mesh.rank + 1) * h] for k, v in part.items()}
+            n_rows, replicas = part["tokens"].shape[0], mesh.data * mesh.pod
+            if n_rows % replicas:
+                raise ValueError(f"{n_rows} rows do not split over {replicas} ranks")
+            h, i = n_rows // replicas, mesh.pod_index * mesh.data + mesh.data_index
+            part = {k: v[i * h:(i + 1) * h] for k, v in part.items()}
         loss, metrics = train_loss(cfg, state.params, part)
         grads = list(torch.autograd.grad(loss, leaves))
         keys = sorted(metrics)
         values = torch.stack([metrics[k].detach().float() for k in keys])
         if mesh is not None:
             flat = torch.cat([g.reshape(-1) for g in grads] + [values])
-            flat = psum([flat], mesh.world_group)[0] / mesh.size
+            psum([flat], mesh.data_group)
+            if mesh.pod > 1:
+                psum([flat], mesh.pod_group)
+            flat = flat / (mesh.data * mesh.pod)
             parts = torch.split(flat, [g.numel() for g in grads] + [len(keys)])
             grads = [part.view_as(g) for part, g in zip(parts, grads)]
             values = parts[-1]
@@ -167,6 +180,13 @@ class Trainer:
     then executes rounds on the wave-pipelined schedule of the event
     simulator (staleness 0 bit-identical to the barrier loop).
 
+    On a mesh with a ``model`` axis the trainer holds this rank's shards
+    of the initial parameters and their moments (``init_shards``: the
+    full tree never lies on the device) and binds the plan to the full
+    tree's shapes (a meta model); every model rank of a data index takes
+    that worker's batches.  ``scheme="auto"``, ``adapt``, ``wave``
+    and ``ckpt`` raise there (ROADMAP 6d).
+
     ``scheme="auto"`` searches the joint launch space with
     ``repro_torch.tune.autotune`` (optionally under a ``budget=MemBudget``;
     the ``mc`` backend of a non-i.i.d. env runs on ``device``): the
@@ -202,6 +222,15 @@ class Trainer:
             else:
                 n_workers = 8  # bare distribution: the reference's default
         env = Env.coerce(env, n_workers)
+        sharded = mesh is not None and mesh.model > 1
+        if sharded:
+            used = [name for name, on in (("scheme='auto'", scheme == "auto"),
+                                          ("adapt", adapt is not None),
+                                          ("wave", wave is not None), ("ckpt", ckpt is not None))
+                    if on]
+            if used:
+                raise NotImplementedError(f"{', '.join(used)} on a model axis of {mesh.model} "
+                                          "is not ported (ROADMAP 6d)")
         self.cfg, self.cfg_t = cfg, cfg_t
         self.env = env
         self.n_workers = n_workers
@@ -209,7 +238,8 @@ class Trainer:
         self.reduce_mode, self.grad_dtype = reduce_mode, grad_dtype
         self.tune_report = None
         seq_len = min(cfg.max_seq, 512) if seq_len is None else seq_len
-        self.state = init_train_state(cfg, device=device, seed=seed, params=params)
+        self.state = init_train_state(cfg, device=device, seed=seed, params=params,
+                                      mesh=mesh if sharded else None)
         if scheme == "auto":
             # model-aware search: the winner sets the plan AND the step
             # knobs (pipeline/reduce_mode/grad_dtype) the user left open
@@ -229,7 +259,9 @@ class Trainer:
         elif budget is not None:
             raise ValueError("budget= requires scheme='auto'")
         else:
-            self.plan = Plan.build(self.state.params, env, scheme=scheme, rng=seed)
+            # the plan binds the full tree's leaves; a rank holds its shards
+            tree = GCLM(cfg, device="meta") if sharded else self.state.params
+            self.plan = Plan.build(tree, env, scheme=scheme, rng=seed)
         self.sim = self.plan.simulator(env, seed=seed)
         self.data = SyntheticTokens(DataConfig(
             vocab=cfg.vocab, seq_len=seq_len, global_batch=global_batch, seed=seed,

@@ -347,6 +347,59 @@ def test_spmd_ranks_share_one_card_over_gloo(cuda, tmp_path):
     assert len(set(digests)) == 1
 
 
+def _tp_rank(rank, world):
+    """A rank of a (data 2, model 2) mesh on card 0 over gloo: this rank's
+    shards (``init_shards`` draws them byte-equal to ``shard_model``'s
+    cut) take one grouped launch per coded gradient, and the model
+    group's gathered gradient equals sim mode's on the full model.
+    Returns (this rank's digest, its replicated leaves' digest)."""
+    import hashlib
+
+    from repro_torch.dist import collectives
+    from repro_torch.models.params import gather_model, init_shards, shard_model
+
+    mesh = make_local_mesh(2, model=2, device="cuda:0", backend="gloo")
+    cfg = get_config("gc-lm-110m").reduced(n_layers=2, d_model=128)
+    full = GCLM(cfg, device="cuda", seed=0)
+    plan = Plan.build(full, ShiftedExponential(mu=1e-3, t0=50.0), 2)
+    local = shard_model(full, mesh)
+    drawn = init_shards(cfg, mesh, device="cuda", seed=0)  # never the full tree
+    assert all(torch.equal(a, b) for a, b in zip(drawn.leaves(), local.leaves(), strict=True))
+    data = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=8))
+    wb = coded_worker_batches(data, 0, 2, plan.s_max)
+    spmd = make_coded_grad_fn(cfg, plan, mode="spmd", mesh=mesh)
+    sim = make_coded_grad_fn(cfg, plan)
+    h, rep = hashlib.sha256(), hashlib.sha256()
+    for u in (0, plan.s_max):
+        times = np.ones(2)
+        times[:u] = 1e6
+        dec_w = plan.decode_weights(times).astype(np.float32)
+        before = gc_fused.launches
+        collectives.reset_counts()
+        g = spmd(local, wb, dec_w)
+        torch.cuda.synchronize()
+        assert gc_fused.launches == before + 1
+        assert collectives.counts["psum"] == plan.flat_layout.n_levels
+        assert collectives.model_counts["reduce"] > 0 and collectives.model_counts["copy"] > 0
+        for t, d in zip(g, local.shard_dims):
+            (h if d is not None else rep).update(t.reshape(-1).view(torch.uint8).cpu().numpy()
+                                                 .tobytes())
+        for a, b in zip(gather_model(local, g).leaves(), sim(full, wb, dec_w), strict=True):
+            assert a.is_cuda and float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    return mesh.model_index, h.hexdigest(), rep.hexdigest()
+
+
+def test_model_mesh_ranks_share_one_card_over_gloo(cuda, tmp_path):
+    """Four ranks of a (data 2, model 2) mesh on card 0 over gloo: one
+    grouped launch per rank and coded gradient over its shards, the
+    gathered gradient equal to sim mode's, the same bytes on the data
+    ranks of a model index and replicated leaves equal on all four."""
+    out = spawn(_tp_rank, 4, store_dir=str(tmp_path), backend="gloo", timeout=600.0)
+    assert [o[0] for o in out] == [0, 1, 0, 1]
+    assert out[0][1] == out[2][1] and out[1][1] == out[3][1] and out[0][1] != out[1][1]
+    assert len({o[2] for o in out}) == 1
+
+
 def _serve_run(cfg, model, device, dtype=torch.float32):
     """Six greedy requests over three slots, Poisson arrivals, the coded
     tier of an 8-worker env; returns (engine, requests)."""

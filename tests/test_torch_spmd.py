@@ -25,8 +25,10 @@ the JAX reference's spmd mode, on the CPU.
   state for every two lost shards; the wave loop's staleness 0 byte-equal
   to the spmd barrier loop and staleness 1 executing the simulator's
   trace, in step with sim mode.
-* Errors: a model axis, two NCCL ranks on one card and a rank's
-  exception raise; a hung job is killed at its time limit.
+* Errors: a model axis that does not divide the world, what the model
+  axis does not split yet (MoE, checkpoints, adapt, the wave loop,
+  serving, ``--model-par`` without spmd), two NCCL ranks on one card
+  and a rank's exception raise; a hung job is killed at its time limit.
 """
 import hashlib
 import itertools
@@ -51,7 +53,9 @@ from repro_torch.dist import collectives, spawn as dist_spawn
 from repro_torch.kernels import _pipe, ops
 from repro_torch.launch import train as launch_train
 from repro_torch.launch.mesh import make_local_mesh
-from repro_torch.models.params import GCLM, params_from_numpy
+from repro_torch.dist.mesh import meta_mesh
+from repro_torch.models.model import prefill
+from repro_torch.models.params import GCLM, params_from_numpy, shard_model
 from repro_torch.train.coded import (make_coded_grad_fn, per_shard_grad_rows, scatter_dims,
                                      uncoded_grad_fn)
 from repro_torch.train.state import init_train_state
@@ -561,8 +565,23 @@ def test_full_width_level_slices_stay_on_the_tma_path():
 
 # ----------------------------------------------------------------- errors
 def test_unported_and_impossible_meshes_raise(monkeypatch, tmp_path):
-    with pytest.raises(NotImplementedError, match="model axis"):
+    with pytest.raises(ValueError, match="needs 8 ranks, the world has 1"):
         make_local_mesh(4, model=2, device="cpu")
+    monkeypatch.setenv("WORLD_SIZE", "8")
+    with pytest.raises(ValueError, match="needs 12 ranks, the world has 8"):
+        make_local_mesh(4, model=3, device="cpu")
+    monkeypatch.delenv("WORLD_SIZE")
+    tp = meta_mesh(data=N, model=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP 6b"):
+        shard_model(GCLM(get_config("mixtral-8x22b").reduced(**KW), device="meta"), tp)
+    for kw in (dict(ckpt=CkptConfig(dir=str(tmp_path))), dict(adapt=AdaptConfig()),
+               dict(wave=WaveConfig()), dict(scheme="auto")):
+        with pytest.raises(NotImplementedError, match="ROADMAP 6d"):
+            Trainer(_cfg(), TrainConfig(), SE, n_workers=N, device="meta", mode="spmd",
+                    mesh=tp, **kw)
+    local = shard_model(GCLM(_cfg(), device="meta"), tp)
+    with pytest.raises(NotImplementedError, match="ROADMAP 6a"):
+        prefill(_cfg(), local, torch.zeros((1, 4), dtype=torch.long, device="meta"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(ValueError, match="one rank per card"):
@@ -625,7 +644,11 @@ def test_launcher_uncoded_trains_the_plain_step(capsys):
 
 
 def test_launcher_model_par_raises():
-    with pytest.raises(NotImplementedError, match="model axis"):
+    """``--model-par`` splits spmd workers: without ``--data-par`` it
+    raises, and in one process its world is too small."""
+    with pytest.raises(ValueError, match="splits spmd workers"):
+        launch_train.main(["--reduced", "--steps", "1", "--device", "cpu", "--model-par", "2"])
+    with pytest.raises(ValueError, match="needs 8 ranks, the world has 1"):
         launch_train.main(["--reduced", "--steps", "1", "--device", "cpu",
                            "--data-par", "4", "--model-par", "2"])
     with pytest.raises(ValueError, match="data-par"):
