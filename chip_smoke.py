@@ -160,6 +160,24 @@ port's sources beside it.  Phases; any failure raises:
    ``torch.profiler`` (device-busy share, host syncs); peak device
    memory; the simulated step-latency p50 and p99 beside the tier's
    closed-form p99.
+9b. tp-serve: serving on the model axis.  Full-width gc-lm-110m (seed 0)
+   served on one rank, then by four ranks on card 0 over gloo, a (data 2,
+   model 2) mesh: each draws its shards (``init_shards``: 68,930,304
+   parameters) and holds 4 of the 8 slots and 6 of the 12 KV heads.
+   9a's requests, arrivals and tier on an fp32 slab with fp32
+   activations, every count set to 0 just before: every rank's tokens,
+   slots, timestamps and step latencies equal the one-rank engine's; the
+   collectives of every engine step on every rank equal the formula
+   (per decode step 25 all-reduces of (4, 1, 768), one all-gather of the
+   logits, one gather of the step's tokens over the data ranks; per
+   prefill 25 all-reduces of (1, 256, 768) and one of the last position's
+   logits); no ``gc_*`` launch.  Teacher forcing on a rank's bf16 slab
+   (23,592,960 bytes) within ``SERVE_BF16_REL``; bf16 activations on a
+   bf16 slab, the first 8 requests served on one rank and on the mesh:
+   the tokens that differ are counted, not gated.  Prints tokens/s by
+   the wall clock, the decode step's median by the host clock (gloo
+   stages every collective through the host: not a collective figure)
+   and each rank's peak memory.
 10. reference: three training steps at a reduced size on the CPU (the
    plain versions) and on the card, from the same weights, agree; the
    same weights and prompts through ``ServeEngine`` (fp32 slab, greedy)
@@ -186,6 +204,13 @@ port's sources beside it.  Phases; any failure raises:
    local layers' rings wrap, no ``gc_*`` launch; seconds and tokens/s.
    Teacher forcing: fp32 activations on an fp32 slab within 1e-4 of the
    largest logit, the config's bf16 on a bf16 slab within 2e-2.
+12a. gemma3-tp-serve: gemma3-27b at full width cut to one 5:1 period (6
+   layers: 5 windowed at 1,024, 1 global; 3,886,682,880 parameters), fp32
+   activations on an fp32 slab: 4 requests of 1,536-token prompts (the
+   rings wrap) and 32 new tokens served on one rank, the model freed,
+   then on 2 ranks at model 2 (8 of the 16 KV heads each): equal tokens,
+   slots, timestamps and step latencies, the collectives of every step at
+   the formula, no ``gc_*`` launch.
 13. gemma2: full-width gemma2-27b (softcaps 50 and 30) cut to 4 layers (a
    pattern of 2 over 2 repeats): a 4,352-token prefill past the 4,096
    window (the rings rolled at prefill), then 16 teacher-forced decode
@@ -403,6 +428,19 @@ SERVE = dict(n_slots=8, max_len=320, n_requests=32, prompt_len=256, max_new=64,
 #: slab sums the same fp32 terms in another order (the same card: 3.825e-6)
 SERVE_BF16_REL = 2e-2
 SERVE_FP32_REL = 1e-4
+#: [tp-serve]: full-width gc-lm-110m on a (data 2, model 2) mesh of four
+#: ranks on card 0 over gloo, [serve]'s slots, prompts, arrivals and tier
+#: on an fp32 slab (a rank: 4 of the 8 slots, 6 of the 12 KV heads)
+TP_SERVE = dict(data=2, model=2, n_slots=8, max_len=320, n_requests=32, prompt_len=256,
+                max_new=64, rate=2e-3, workers=8)
+#: [tp-serve]'s bf16-activation comparison (printed, not gated) serves the
+#: first 8 requests only: at ~40 tokens/s over gloo all 32 took ~55 s
+TP_SERVE_BF16 = dict(TP_SERVE, n_requests=8)
+#: [gemma3-tp-serve]: gemma3-27b at full width cut to one 5:1 period (6
+#: layers), fp32 activations on an fp32 slab, 2 ranks at model 2 (8 of the
+#: 16 KV heads each), 1,536-token prompts past the 1,024 window
+GEMMA3_TP_SERVE = dict(n_layers=6, data=1, model=2, n_slots=4, max_len=1568, n_requests=4,
+                       prompt_len=1536, max_new=32, rate=2e-3, workers=8)
 #: the Gemma phases, at the configs' published widths, cut in depth only.
 #: [gemma-train]: gemma-2b at 2 layers (one run, 11 leaves): sim mode holds
 #: N·K = 16 fp32 rows of every parameter, 47.65 GB at P = 744,499,200;
@@ -2314,7 +2352,8 @@ def teacher_forced(cfg, model, reqs, dtype, device):
 def teacher_forced_tokens(cfg, model, outputs, s: int, dtype, device, aux=None):
     """``teacher_forced`` of token rows ``outputs`` (B, S + T) whose first
     ``s`` are the prompt: each row prefilled at batch 1 into a slab of
-    capacity S + T, then T - 1 decode steps fed the next tokens.  ``aux``
+    capacity S + T, then T - 1 decode steps fed the next tokens (a sharded
+    ``model``: on its heads, the logits gathered).  ``aux``
     (B, ...): the rows' modality embeddings, for a model with a
     cross-attention source (every call recomputes the source from them)."""
     import torch
@@ -2324,11 +2363,11 @@ def teacher_forced_tokens(cfg, model, outputs, s: int, dtype, device, aux=None):
 
     max_len = outputs.shape[1]
     n = max_len - s
-    slab = make_slab(cfg, outputs.shape[0], max_len, dtype=dtype, device=device)
+    slab = make_slab(cfg, outputs.shape[0], max_len, dtype=dtype, device=device, tp=model.tp)
     for slot in range(outputs.shape[0]):
         _, pref = prefill(cfg, model, outputs[slot:slot + 1, :s],
                           aux_inputs=None if aux is None else aux[slot:slot + 1],
-                          target_len=max_len)
+                          target_len=max_len, last_only=True)
         insert_request(cfg, slab, pref, slot)
         del pref
     steps = []
@@ -2478,6 +2517,304 @@ def phase_serve():
     log(f"[serve] simulated step latency p50 {np.quantile(steps, 0.5):.3f} p99 "
         f"{np.quantile(steps, 0.99):.3f} over {steps.size} steps; tier closed form p99 "
         f"{coded.predicted_quantile(0.99):.3f}, mean {coded.predicted_mean():.3f}")
+
+
+# ------------------------------------------------ serving on the model axis
+def _tp_engine(cfg, model, g, slab_dtype, mesh=None) -> dict:
+    """``g``'s requests — prompts (numpy, seed 0) and Poisson arrivals
+    (seed 0) — through a ``ServeEngine`` of ``g``'s slots on a slab of
+    ``slab_dtype`` behind the launcher's default coded tier, greedy, on
+    ``mesh`` when given, one step at a time with the ``gc_*`` counts set
+    to 0 just before the run and the collectives before each step: per
+    step its host wall, the slots it admitted into, whether it decoded and
+    its collectives with their bytes.  Every request completes and the
+    clock is the tier's stream."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import Env, ShiftedExponential
+    from repro_torch.dist import collectives
+    from repro_torch.serve import CodedDecode, ServeConfig, ServeEngine
+    from repro_torch.sim.arrivals import poisson_arrivals
+
+    env = Env.iid(ShiftedExponential(mu=1e-3, t0=50.0), g["workers"])
+    coded = CodedDecode.solve(env, objective="p99", seed=0)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab,
+                                                size=(g["n_requests"], g["prompt_len"]))
+    arrivals = poisson_arrivals(g["n_requests"], g["rate"], seed=0)
+    eng = ServeEngine(cfg, model, ServeConfig(g["n_slots"], g["max_len"], slab_dtype),
+                      coded=coded, device="cuda", mesh=mesh)
+    reqs = [eng.submit(p, max_new=g["max_new"], arrival=float(t))
+            for p, t in zip(prompts, arrivals)]
+    torch.cuda.synchronize()
+    reset_counts()
+    steps, slots = [], []
+    t0 = time.perf_counter()
+    while True:
+        waiting = [r for r in reqs if r.t_admit is None]
+        n_lat = len(eng.step_latencies)
+        collectives.reset_counts()
+        t1 = time.perf_counter()
+        more = eng.step()  # ends in the host's read of the step's tokens
+        ms = (time.perf_counter() - t1) * 1e3
+        steps.append(dict(ms=ms, admitted=[r.slot for r in waiting if r.t_admit is not None],
+                          decoded=len(eng.step_latencies) - n_lat,
+                          counts={**collectives.counts, **collectives.model_counts},
+                          nbytes=dict(collectives.nbytes)))
+        if not more:
+            break
+        slots.append([r.slot for r in reqs])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    if not all(r.done and len(r.tokens) == g["max_new"] for r in reqs):
+        raise AssertionError(f"unfinished: {[r.summary() for r in reqs if not r.done]}")
+    replay = CodedDecode(env, coded.plan, seed=0).step_latencies(len(eng.step_latencies), seed=0)
+    if not np.array_equal(np.asarray(eng.step_latencies), replay):
+        raise AssertionError("the engine's clock is not the coded tier's stream")
+    n_tokens = sum(len(r.tokens) for r in reqs)
+    return dict(eng=eng, slots=slots, steps=steps, latencies=list(eng.step_latencies),
+                reqs=[(list(r.tokens), r.t_admit, r.t_first, r.t_done, r.n_steps) for r in reqs],
+                outputs=[r.output for r in reqs], wall=wall, tokens_per_s=n_tokens / wall,
+                launches=launches, rows=eng.rows.rows)
+
+
+def _serve_collectives(cfg, g, local_split, step) -> dict:
+    """The collectives one engine step must make on a rank, with their
+    bytes (fp32 activations): per decode of the rank's B rows one
+    all-reduce of (B, 1, d) per layer for attention, one per layer for the
+    MLP, one for the vocab-parallel embedding, one all-gather of the
+    logits (B, 1, V) out; per prefill on the rank (an admission into its
+    rows) the same all-reduces of (1, S, d) and one all-gather of the last
+    position's logits (1, 1, V); and, where the slots split over the data
+    ranks, one gather of the step's int64 tokens (n_slots per column: the
+    decode's, and the admissions' first)."""
+    b, rows = len(local_split), local_split
+    mine = len([slot for slot in step["admitted"] if slot in rows])
+    dec = step["decoded"]
+    cols = bool(step["admitted"]) + dec
+    n_red = 2 * cfg.n_layers + 1
+    token_gather = int(g["data"] > 1 and cols > 0)
+    counts = dict(psum=0, psum_scatter=0, broadcast=0, copy=0, max=0,
+                  all_gather=dec + mine + token_gather, reduce=n_red * (dec + mine))
+    nbytes = dict(psum=0, psum_scatter=0, broadcast=0, copy=0, max=0,
+                  all_gather=4 * cfg.vocab * (dec * b + mine) + 8 * g["n_slots"] * cols
+                  * token_gather,
+                  reduce=4 * cfg.d_model * n_red * (dec * b + mine * g["prompt_len"]))
+    return dict(counts=counts, nbytes=nbytes)
+
+
+def _tp_serve_cfg(arch: str):
+    from repro_torch.configs import get_config
+
+    if arch == "gc-lm-110m":
+        return get_config(arch)
+    return _cut(arch, GEMMA3_TP_SERVE["n_layers"]).replace(dtype="float32")
+
+
+def _tp_serve_rank(rank, world, arch):
+    """One rank of [tp-serve] (gc-lm-110m) or [gemma3-tp-serve] (gemma3-27b)
+    (``dist.spawn``: every rank on card 0 over gloo): its shards drawn by
+    ``init_shards`` (seed 0), the engine on an fp32 slab with every count
+    set to 0 just before; for gc-lm-110m also teacher forcing on a bf16
+    slab and the engine with bf16 activations on a bf16 slab.  Returns what
+    the rank saw; the parent holds it to the one-rank engine."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.params import count_params, init_shards
+
+    g = TP_SERVE if arch == "gc-lm-110m" else GEMMA3_TP_SERVE
+    mesh = make_local_mesh(g["data"], model=g["model"], device="cuda:0", backend="gloo")
+    cfg = _tp_serve_cfg(arch)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    local = init_shards(cfg, mesh, device=mesh.device, seed=0)
+    out = dict(coords=(mesh.pod_index, mesh.data_index, mesh.model_index),
+               params=count_params(local), init_s=time.perf_counter() - t0,
+               init_peak=torch.cuda.max_memory_allocated(mesh.device))
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    run = _tp_engine(cfg, local, g, torch.float32, mesh=mesh)
+    eng = run.pop("eng")
+    trees = [t for seg in eng.slab for t in (seg if isinstance(seg, list) else [seg])]
+    out["kv_heads"] = sorted({t["k"].shape[-2] for t in trees})
+    out["ring"] = [(t["k"].shape[-3], int(t["pos"].max())) for t in trees]
+    del eng, trees
+    out["fp32"] = run
+    out["peak"] = torch.cuda.max_memory_allocated(mesh.device)
+    if arch == "gc-lm-110m":
+        toks = torch.from_numpy(np.stack(run["outputs"][:2]).astype(np.int64)).to(mesh.device)
+        got, want = teacher_forced_tokens(cfg, local, toks, g["prompt_len"], torch.bfloat16,
+                                          mesh.device)
+        out["teacher_bf16"] = _rel_err(got, want)
+        del got, want
+        run16 = _tp_engine(cfg.replace(dtype="bfloat16"), local, TP_SERVE_BF16, torch.bfloat16,
+                           mesh=mesh)
+        eng16 = run16.pop("eng")
+        out["slab_bf16_bytes"] = sum(v.numel() * v.element_size() for seg in eng16.slab
+                                     for k, v in seg.items() if k != "pos")
+        del eng16
+        out["bf16"] = dict(reqs=run16["reqs"], tokens_per_s=run16["tokens_per_s"])
+        out["peak"] = max(out["peak"], torch.cuda.max_memory_allocated(mesh.device))
+    torch.cuda.synchronize()
+    return out
+
+
+def _spawn_tp_serve(arch: str, g: dict) -> list:
+    from repro_torch.dist.spawn import spawn
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    store = tempfile.mkdtemp(prefix="chip_smoke_tp_serve_", dir=os.path.join(ROOT, "build"))
+    try:
+        return spawn(_tp_serve_rank, g["data"] * g["model"], arch, store_dir=store,
+                     backend="gloo", timeout=SPMD_LIMIT_S)
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def _check_tp_serve(tag, cfg, g, one, ranks) -> dict:
+    """Every rank's engine against the one-rank engine on the same weights:
+    tokens, timestamps, slots and step latencies equal; no ``gc_*``
+    launch; each step's collectives equal ``_serve_collectives``.  Returns
+    rank 0's decode-only step walls (host clock, ms) and its per-step
+    collectives of the first decode-only step."""
+    import numpy as np
+
+    for r, rank in enumerate(ranks):
+        run = rank["fp32"]
+        for key in ("reqs", "slots", "latencies"):
+            if run[key] != one[key]:
+                diff = sum(a != b for a, b in zip(run[key], one[key]))
+                raise AssertionError(f"[{tag}] rank {r}: {key} differ from the one-rank "
+                                     f"engine's ({diff} of {len(one[key])})")
+        if any(run["launches"].values()):
+            raise AssertionError(f"[{tag}] rank {r}: the serving path launched {run['launches']}")
+        for i, step in enumerate(run["steps"]):
+            want = _serve_collectives(cfg, g, run["rows"], step)
+            got = dict(counts={k: step["counts"][k] for k in want["counts"]},
+                       nbytes={k: step["nbytes"][k] for k in want["nbytes"]})
+            if got != want or sum(step["counts"].values()) != sum(want["counts"].values()):
+                raise AssertionError(f"[{tag}] rank {r} step {i}: collectives {step} vs the "
+                                     f"formula {want}")
+    steady = [s for s in ranks[0]["fp32"]["steps"] if s["decoded"] and not s["admitted"]]
+    return dict(walls=[s["ms"] for s in steady], per_step=steady[0],
+                one_walls=[s["ms"] for s in one["steps"] if s["decoded"] and not s["admitted"]],
+                median=float(np.median([s["ms"] for s in steady])))
+
+
+def phase_tp_serve():
+    """Serving on the model axis: full-width gc-lm-110m on a (data 2,
+    model 2) mesh of four ranks on card 0 over gloo, each holding its
+    shards (``init_shards``), 4 of the 8 slots and 6 of the 12 KV heads,
+    against the one-rank engine on the same weights (fp32 activations,
+    fp32 slab)."""
+    import torch
+
+    from repro_torch.models.params import GCLM
+
+    g = TP_SERVE
+    cfg = _tp_serve_cfg("gc-lm-110m")
+    model = GCLM(cfg, device="cuda", seed=0)
+    one = _tp_engine(cfg, model, g, torch.float32)
+    one.pop("eng")
+    one16 = _tp_engine(cfg.replace(dtype="bfloat16"), model, TP_SERVE_BF16, torch.bfloat16)
+    one16.pop("eng")
+    del model
+    _free_card()
+    t0 = time.perf_counter()
+    ranks = _spawn_tp_serve("gc-lm-110m", g)
+    job_s = time.perf_counter() - t0
+    if [r["coords"] for r in ranks] != [(0, d, m) for d in range(2) for m in range(2)]:
+        raise AssertionError(f"[tp-serve] ranks {[r['coords'] for r in ranks]}")
+    if {r["params"] for r in ranks} != {68_930_304} or {tuple(r["kv_heads"]) for r in ranks} \
+            != {(6,)}:
+        raise AssertionError(f"[tp-serve] a rank holds {[r['params'] for r in ranks]} params, "
+                             f"KV heads {[r['kv_heads'] for r in ranks]}; expected 68,930,304 "
+                             "and 6")
+    if {r["slab_bf16_bytes"] for r in ranks} != {23_592_960}:
+        raise AssertionError(f"[tp-serve] bf16 slab bytes {[r['slab_bf16_bytes'] for r in ranks]}"
+                             ", expected 23,592,960 (a quarter of 94,371,840)")
+    worst = max(r["teacher_bf16"] for r in ranks)
+    if not worst <= SERVE_BF16_REL:
+        raise AssertionError(f"[tp-serve] teacher forcing on the bf16 slab {worst:.3e} > "
+                             f"{SERVE_BF16_REL}")
+    seen = _check_tp_serve("tp-serve", cfg, g, one, ranks)
+    differ = sum(a != b for x, y in zip(ranks[0]["bf16"]["reqs"], one16["reqs"], strict=True)
+                 for a, b in zip(x[0], y[0], strict=True))
+    n_tok16 = sum(len(x[0]) for x in one16["reqs"])
+    run = ranks[0]["fp32"]
+    n_tok = sum(len(x[0]) for x in run["reqs"])
+    per = seen["per_step"]
+    log(f"[tp-serve] {len(ranks)} ranks on {torch.cuda.get_device_name(0)} over gloo, (data "
+        f"{g['data']}, model {g['model']}): each {ranks[0]['params']:,} params (init_shards, "
+        f"{ranks[0]['init_s']:.2f} s, peak {ranks[0]['init_peak']:,} bytes), slots "
+        f"{[list(r['fp32']['rows']) for r in ranks]}, KV heads {ranks[0]['kv_heads']}; the "
+        f"job {job_s:.1f} s")
+    log(f"[tp-serve] fp32 activations, fp32 slab: tokens, slots, timestamps and step "
+        f"latencies == the one-rank engine's on every rank ({len(run['reqs'])} requests, "
+        f"{n_tok} tokens, {len(run['latencies'])} decode steps); gc_* launches "
+        f"{[r['fp32']['launches'] for r in ranks]}; {n_tok / run['wall']:.1f} tok/s by the "
+        f"wall clock ({run['wall']:.3f} s; one rank {one['tokens_per_s']:.1f} tok/s); a decode "
+        f"step (no admission) median {seen['median']:.3f} ms by the host clock (one rank "
+        f"{statistics.median(seen['one_walls']):.3f} ms), max {max(seen['walls']):.3f}")
+    log(f"[tp-serve] collectives per rank per decode step (== the formula on every step of "
+        f"every rank): {per['counts']}, bytes {per['nbytes']}")
+    log(f"[tp-serve] bf16 slab: {ranks[0]['slab_bf16_bytes']:,} bytes a rank; teacher "
+        f"forcing {[round(r['teacher_bf16'], 9) for r in ranks]} of the largest logit (bound "
+        f"{SERVE_BF16_REL}); bf16 activations on a bf16 slab, the first "
+        f"{TP_SERVE_BF16['n_requests']} requests: {differ} of {n_tok16} tokens differ from the "
+        f"one-rank bf16 engine's (not gated), {ranks[0]['bf16']['tokens_per_s']:.1f} tok/s; "
+        f"max_memory_allocated per rank {[r['peak'] for r in ranks]} bytes")
+    return {"launches": sum(sum(r["fp32"]["launches"].values()) for r in ranks)}
+
+
+def phase_gemma3_tp_serve():
+    """gemma3-27b at full width cut to one 5:1 period (6 layers), fp32
+    activations on an fp32 slab, served on one rank and then on 2 ranks at
+    model 2 (8 of the 16 KV heads each): equal tokens, slots, timestamps
+    and step latencies; the windowed layers' rings wrap."""
+    import torch
+
+    from repro_torch.models.params import GCLM
+
+    _free_card()
+    g = GEMMA3_TP_SERVE
+    cfg = _tp_serve_cfg("gemma3-27b")
+    model = GCLM(cfg, device="cuda", seed=0)
+    n_params = sum(t.numel() for t in model.leaves())
+    one = _tp_engine(cfg, model, g, torch.float32)
+    one.pop("eng")
+    one_peak = torch.cuda.max_memory_allocated()
+    del model
+    _free_card()
+    t0 = time.perf_counter()
+    ranks = _spawn_tp_serve("gemma3-27b", g)
+    job_s = time.perf_counter() - t0
+    if {tuple(r["kv_heads"]) for r in ranks} != {(cfg.n_kv_heads // 2,)}:
+        raise AssertionError(f"[gemma3-tp-serve] KV heads {[r['kv_heads'] for r in ranks]}")
+    window = cfg.layers[0].window
+    rings = [(cap, pos) for cap, pos in ranks[0]["ring"] if cap == window]
+    if not rings or not all(pos > cap for cap, pos in rings):
+        raise AssertionError(f"[gemma3-tp-serve] the windowed layers' rings did not wrap: "
+                             f"{ranks[0]['ring']}")
+    seen = _check_tp_serve("gemma3-tp-serve", cfg, g, one, ranks)
+    run = ranks[0]["fp32"]
+    n_tok = sum(len(x[0]) for x in run["reqs"])
+    log(f"[gemma3-tp-serve] {cfg.name} at full width, {cfg.n_layers} layers (windows "
+        f"{[s.window for s in cfg.layers]}), fp32: {n_params:,} params, one rank peak "
+        f"{one_peak:,} bytes, {one['tokens_per_s']:.1f} tok/s; 2 ranks at model 2: "
+        f"{[r['params'] for r in ranks]} params, KV heads {ranks[0]['kv_heads']}, init "
+        f"{ranks[0]['init_s']:.2f} s (peak {ranks[0]['init_peak']:,}), serving peak "
+        f"{[r['peak'] for r in ranks]} bytes; the job {job_s:.1f} s")
+    log(f"[gemma3-tp-serve] {len(run['reqs'])} requests x {g['prompt_len']}-token prompts: "
+        f"tokens, slots, timestamps and step latencies == one rank's on both ranks ({n_tok} "
+        f"tokens); rings {sorted(set(rings))} wrapped; gc_* launches "
+        f"{[r['fp32']['launches'] for r in ranks]}; {n_tok / run['wall']:.1f} tok/s, a decode "
+        f"step median {seen['median']:.3f} ms by the host clock (one rank "
+        f"{statistics.median(seen['one_walls']):.3f}); collectives per decode step "
+        f"{seen['per_step']['counts']}, bytes {seen['per_step']['nbytes']}")
+    return {"launches": sum(sum(r["fp32"]["launches"].values()) for r in ranks)}
 
 
 def _reference_serve(cfg, init):
@@ -4468,9 +4805,11 @@ def main() -> int:
     enc_err, enc_times = timed("encode", phase_encode, n_digits)
     trip_launches, dec_err, dec_times = timed("decode", phase_decode)
     timed("serve", phase_serve)
+    tp_serve = timed("tp-serve", phase_tp_serve)
     timed("reference", phase_reference)
     gemma = timed("gemma-train", phase_gemma_train)
     timed("gemma3-serve", phase_gemma3_serve)
+    gemma3_tp_serve = timed("gemma3-tp-serve", phase_gemma3_tp_serve)
     timed("gemma2", phase_gemma2)
     timed("qwen-serve", phase_qwen_serve)
     timed("mixtral-serve", phase_mixtral_serve)
@@ -4503,7 +4842,8 @@ def main() -> int:
                       "moe": moe_train["launches"], "deepseek": deepseek["launches"],
                       "jamba": jamba["launches"], "xlstm": xlstm["launches"],
                       "whisper": whisper["launches"], "vision": vision["launches"],
-                      "dryrun": dryrun["launches"]}
+                      "dryrun": dryrun["launches"], "tp-serve": tp_serve["launches"],
+                      "gemma3-tp-serve": gemma3_tp_serve["launches"]}
     print(json.dumps({"kernels": [
         row("gc_fused", "src/repro/kernels/gc_fused.py:57", sum(fused_launches.values()),
             max(max_err, gemma["max_abs_err"]), kernel_times, launches_by_path=fused_launches,

@@ -14,8 +14,10 @@ row-sharded product leaving it); and ``max_over_model``, the max
 all-reduce of the vocab-parallel softmax (no gradient).
 
 ``counts`` counts the data-side calls by collective and
-``model_counts`` the model group's (``copy`` counts the backward
-all-reduces of *f*), as the kernel wrappers count launches: a run
+``model_counts`` the model group's all-reduces (``copy`` counts the
+backward all-reduces of *f*), as the kernel wrappers count launches
+(serving's gathers — a vocab-parallel head's logits over the model
+group, a step's tokens over the data group — count as ``all_gather``): a run
 resets them to show how many collectives its path made; ``nbytes``
 adds up each kind's payload, one rank's buffer per call.
 No call copies a tensor to another device: a backend that refuses a
@@ -39,8 +41,8 @@ from ..launch import op_analysis
 from .mesh import MetaGroup
 
 __all__ = ["counts", "model_counts", "nbytes", "reset_counts", "psum", "psum_scatter",
-           "all_gather", "check_replicated", "copy_to_model", "reduce_from_model",
-           "max_over_model"]
+           "all_gather", "gather_rows", "check_replicated", "copy_to_model",
+           "reduce_from_model", "max_over_model"]
 
 #: collectives made by this module in this process, by kind
 counts = {"psum": 0, "psum_scatter": 0, "all_gather": 0, "broadcast": 0}
@@ -142,6 +144,16 @@ def all_gather(tile: torch.Tensor, group, dim: int = 0,
     counts["all_gather"] += 1
     nbytes["all_gather"] += _nbytes(out)
     return out if dim == 0 else out.movedim(0, dim)
+
+
+def gather_rows(x: torch.Tensor, mesh, split) -> torch.Tensor:
+    """Every rank's block of batch rows, in row order: ``x`` (this rank's
+    rows of ``split``, a ``dist.sharding.RowSplit``) all-gathered over
+    each mesh axis that splits them, the minor axis first; ``x`` itself
+    when no axis splits them."""
+    for axis in reversed(split.axes):
+        x = all_gather(x, getattr(mesh, f"{axis}_group"))
+    return x
 
 
 def check_replicated(digest: bytes, device: torch.device, what: str) -> None:

@@ -22,12 +22,17 @@ dimension: ``None``, a mesh axis, or a tuple of mesh axes.
 
 The ``fsdp`` rule (``embed`` over ``data``) is kept with the rest and
 acted on nowhere: the port's ranks hold every leaf whole along ``data``.
+
+Serving splits its slab's rows by the ``batch`` rule (``batch_rows``):
+a row count the ``("pod", "data")`` ranks divide is cut into equal
+contiguous blocks, pod-major; one they do not divide stays whole on
+every rank, as the reference's GSPMD leaves it replicated.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-__all__ = ["make_rules", "pspec_for_axes", "model_dim", "ModelSplit"]
+__all__ = ["make_rules", "pspec_for_axes", "model_dim", "ModelSplit", "RowSplit", "batch_rows"]
 
 
 def make_rules(cfg=None) -> dict:
@@ -109,3 +114,35 @@ class ModelSplit:
     @property
     def model_index(self) -> int:
         return self.mesh.model_index
+
+    def local(self, axis: str, n: int) -> int:
+        """This rank's share of ``n`` along a logical ``axis``: ``n /
+        model`` where the module is split on it, else ``n``."""
+        return n // self.mesh.model if axis in self.axes else n
+
+
+@dataclass(frozen=True)
+class RowSplit:
+    """A rank's block of batch rows: the mesh axes that split them (major
+    first, each of more than one rank; empty when every rank holds every
+    row) and the global rows ``rows`` this rank holds."""
+
+    axes: tuple
+    rows: range
+
+
+def batch_rows(n: int, mesh=None) -> RowSplit:
+    """This rank's rows of a batch of ``n`` on ``mesh`` by ``make_rules``'
+    ``batch`` rule through ``pspec_for_axes``: over ``("pod", "data")``
+    where they divide ``n``, else over what divides it, else none."""
+    if mesh is None:
+        return RowSplit((), range(n))
+    entry = pspec_for_axes(("batch",), (n,), mesh, make_rules())[0]
+    axes = () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+    axes = tuple(a for a in axes if mesh.shape[a] > 1)
+    index, size = 0, 1
+    for axis in axes:
+        index = index * mesh.shape[axis] + getattr(mesh, f"{axis}_index")
+        size *= mesh.shape[axis]
+    block = n // size
+    return RowSplit(axes, range(index * block, (index + 1) * block))

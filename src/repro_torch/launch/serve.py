@@ -34,8 +34,21 @@ batch mode draws with numpy from ``--seed`` and ``generate`` feeds to
 every step; ``--stream`` refuses them, as the reference's launcher does
 (the engine takes no aux inputs).  A full-width gemma3-27b (27.0 B
 parameters, 108 GB in fp32) does not fit one 80 GB card, so the default
-stays gc-lm-110m where the reference's is gemma3-27b.  The port serves on one device: ``--data-par`` and
-``--model-par`` (the reference's mesh) must stay 1.
+stays gc-lm-110m where the reference's is gemma3-27b.
+
+``--data-par D --model-par M`` serve on the reference's ``(data, model)``
+mesh, one process per rank under ``torchrun`` (D · M ranks): the engine's
+slots split over the D data ranks, each replica's heads, MLP widths and
+vocabulary over its M model ranks; each rank draws only its shards
+(``params.init_shards``, the one-rank launcher's weights cut), and rank
+0 alone prints.  ``--backend`` defaults from the device (``nccl``, one
+card per rank; ``gloo`` on the CPU, or to rehearse several ranks on one
+card).  The model axis takes the dense families (gc-lm-110m, Gemma,
+Qwen 1.5); the others raise before any process group exists (ROADMAP 6b:
+MoE; 6c: MLA, Mamba, xLSTM, cross-attention):
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve --reduced \
+        --device cpu --data-par 2 --model-par 2 --stream 8
 
     python -m repro_torch.launch.serve --arch gemma3-27b --reduced --device cpu
     python -m repro_torch.launch.serve --arch mixtral-8x22b --reduced --device cpu
@@ -53,10 +66,13 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.core import Env, ShiftedExponential
-from repro_torch.models.params import GCLM
+from repro_torch.dist.mesh import meta_mesh
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.models.params import GCLM, init_shards, shard_dims
 from repro_torch.serve import CodedDecode, ServeConfig, ServeEngine, fold_seed, generate
 from repro_torch.sim.arrivals import poisson_arrivals
 
@@ -68,7 +84,7 @@ def _build_env(args) -> Env:
     return Env.iid(ShiftedExponential(mu=args.mu, t0=50.0), args.workers)
 
 
-def _serve_stream(cfg, params, args) -> None:
+def _serve_stream(cfg, params, args, mesh, log) -> None:
     env = _build_env(args)
     if args.uncoded:
         coded = CodedDecode.uncoded(env, seed=args.seed)
@@ -76,14 +92,14 @@ def _serve_stream(cfg, params, args) -> None:
         coded = CodedDecode.solve(env, budget=args.budget,
                                   objective=args.objective, seed=args.seed)
     plan = coded.plan
-    print(f"coded decode tier: R={plan.r} s={plan.s} (complete at "
+    log(f"coded decode tier: R={plan.r} s={plan.s} (complete at "
           f"{plan.need}-th delivery, per-replica work {plan.work_factor:.2f}) "
           f"objective={plan.objective}")
 
     eng = ServeEngine(cfg, params,
                       ServeConfig(n_slots=args.slots,
                                   max_len=args.prompt_len + args.new),
-                      coded=coded, device=args.device)
+                      coded=coded, device=args.device, mesh=mesh)
     arrivals = poisson_arrivals(args.stream, args.rate, seed=args.seed)
     prompts = np.random.default_rng((args.seed, 1)).integers(
         0, cfg.vocab, size=(args.stream, args.prompt_len))
@@ -100,13 +116,13 @@ def _serve_stream(cfg, params, args) -> None:
     lats = np.asarray([r.latency for r in done])
     delays = np.asarray([r.queue_delay for r in done])
     toks = sum(len(r.tokens) for r in done)
-    print(f"served {len(done)} requests / {toks} tokens in {wall:.1f}s wall "
+    log(f"served {len(done)} requests / {toks} tokens in {wall:.1f}s wall "
           f"({toks / max(wall, 1e-9):.1f} tok/s), "
           f"{eng.now:.0f} simulated time units over {steps.size} decode steps")
-    print(f"step latency   p50={np.quantile(steps, 0.5):.1f} "
+    log(f"step latency   p50={np.quantile(steps, 0.5):.1f} "
           f"p99={np.quantile(steps, 0.99):.1f} "
           f"(env closed form p99={coded.predicted_quantile(0.99):.1f})")
-    print(f"request latency p50={np.quantile(lats, 0.5):.1f} "
+    log(f"request latency p50={np.quantile(lats, 0.5):.1f} "
           f"p99={np.quantile(lats, 0.99):.1f}; "
           f"mean queue delay {delays.mean():.1f}")
 
@@ -126,9 +142,14 @@ def parse_args(argv=None):
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--new", type=int, default=16)
     ap.add_argument("--data-par", type=int, default=1,
-                    help="data-parallel serving ranks (not ported: only 1)")
+                    help="data-parallel serving ranks: the slots split over them "
+                         "(under torchrun)")
     ap.add_argument("--model-par", type=int, default=1,
-                    help="tensor-parallel serving ranks (not ported: only 1)")
+                    help="tensor-parallel ranks per replica: heads, MLP widths and "
+                         "vocabulary split over them (under torchrun)")
+    ap.add_argument("--backend", default=None,
+                    help="torch.distributed backend: nccl or gloo (default: nccl on "
+                         "CUDA, gloo on the CPU)")
     ap.add_argument("--temperature", type=float, default=0.0)
     # ---- request-stream mode
     ap.add_argument("--stream", type=int, default=0,
@@ -159,18 +180,31 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.data_par != 1 or args.model_par != 1:
-        raise NotImplementedError("sharded serving (--data-par/--model-par above 1) is "
-                                  "not ported: the port serves on one device")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     if args.stream > 0 and (cfg.vision is not None or cfg.encoder is not None):
         raise SystemExit("--stream serves text-only configs (the engine does not take "
                          "aux_inputs)")
-    params = GCLM(cfg, device=args.device, seed=0)
+    if args.model_par > 1:  # the families off the axis raise here (ROADMAP 6b, 6c)
+        shard_dims(cfg, meta_mesh(args.data_par, model=args.model_par))
+    mesh = None
+    if args.data_par > 1 or args.model_par > 1:
+        mesh = make_local_mesh(args.data_par, args.model_par, device=args.device,
+                               backend=args.backend)
+    try:
+        _serve(cfg, args, mesh)
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
+
+
+def _serve(cfg, args, mesh) -> None:
+    log = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
+    params = (GCLM(cfg, device=args.device, seed=0) if mesh is None
+              else init_shards(cfg, mesh, device=mesh.device, seed=0))
     if args.stream > 0:
-        _serve_stream(cfg, params, args)
+        _serve_stream(cfg, params, args, mesh, log)
         return
     prompt = np.random.default_rng((args.seed, 1)).integers(
         0, cfg.vocab, size=(args.batch, args.prompt_len))
@@ -184,10 +218,10 @@ def main(argv=None):
     _sync(params.embed.tok.device)
     t0 = time.time()
     out = generate(cfg, params, prompt, max_new=args.new, temperature=args.temperature,
-                   seed=args.seed, aux_inputs=aux, device=args.device)
+                   seed=args.seed, aux_inputs=aux, device=args.device, mesh=mesh)
     dt = time.time() - t0
-    print(f"{cfg.name}: {tuple(out.shape)} in {dt:.1f}s "
-          f"({args.batch * args.new / dt:.1f} tok/s)")
+    log(f"{cfg.name}: {tuple(out.shape)} in {dt:.1f}s "
+        f"({args.batch * args.new / dt:.1f} tok/s)")
 
 
 if __name__ == "__main__":

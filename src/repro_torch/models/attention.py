@@ -39,6 +39,14 @@ instead.  RoPE is applied before caching, so a ring that has wrapped
 (``pos >= cap``) holds exactly the window and every slot is valid.  K/V
 are computed in the activations' dtype, cast to the cache's dtype when
 written and cast back when read, at the reference's places.
+
+On the ``model`` axis (``tp``, a ``dist.sharding.ModelSplit``) a rank
+runs its query heads in every mode, and the output projection's partial
+sums are all-reduced once (``reduce_from_model``).  Its KV heads are its
+share where the axis splits them; where it leaves them whole (gemma-2b's
+one KV head) the rank computes and caches all of them and its query heads
+read the ones they map to.  So a rank's cache holds ``tp.local(
+"kv_heads", n_kv_heads)`` heads.
 """
 from __future__ import annotations
 
@@ -69,32 +77,49 @@ def _model_group(tp):
 
 
 def _shard_leaves(cfg, p, tp) -> dict:
-    """The layer's leaves as this rank uses them: replicated KV leaves
-    gathered per query head of this rank (the KV head each maps to);
-    every replicated leaf behind ``copy_to_model``."""
-    group = tp.model_group
+    """The layer's leaves as this rank uses them: every replicated leaf —
+    the QK-norm scales, and the KV leaves where the axis leaves the KV
+    heads whole — behind ``copy_to_model``."""
+    whole = ("q_norm", "k_norm") if "kv_heads" in tp.axes else (
+        "q_norm", "k_norm", "wk", "wv", "bk", "bv")
     p = dict(p)
-    for name in ("q_norm", "k_norm"):
+    for name in whole:
         if name in p:
-            p[name] = copy_to_model(p[name], group)
-    if "kv_heads" in tp.axes:  # split with the query heads
-        return p
-    hl = p["wq"].shape[-2]
-    per_kv = cfg.n_heads // cfg.n_kv_heads
-    first = tp.model_index * hl
-    index = torch.arange(first, first + hl, device=p["wk"].device) // per_kv
-    for name in ("wk", "wv", "bk", "bv"):
-        if name in p:
-            t = copy_to_model(p[name], group)
-            p[name] = t.index_select(t.ndim - 2, index)
+            p[name] = copy_to_model(p[name], tp.model_group)
     return p
+
+
+def _kv_select(cfg, tp, n_q: int):
+    """Which K/V heads this rank's ``n_q`` query heads read where the
+    ``model`` axis splits the query heads and leaves the KV heads whole:
+    the one KV head they share, as a slice (gemma-2b's MQA), else the KV
+    head of each query head; None where the K/V heads at hand line up
+    with the query heads (no split, or both split)."""
+    if _model_group(tp) is None or "kv_heads" in tp.axes:
+        return None
+    per_kv = cfg.n_heads // cfg.n_kv_heads
+    first = tp.model_index * n_q
+    lo, hi = first // per_kv, (first + n_q - 1) // per_kv
+    if lo == hi:
+        return slice(lo, lo + 1)
+    return [(first + i) // per_kv for i in range(n_q)]
+
+
+def _kv_heads(t, sel):
+    """K/V ``t`` (B, S, K, Dh) at the heads ``sel`` (``_kv_select``)."""
+    if sel is None:
+        return t
+    if isinstance(sel, slice):
+        return t[:, :, sel]
+    return t.index_select(2, torch.tensor(sel, device=t.device))
 
 
 def project_qkv(cfg, p, x, positions, rope_base, tp=None):
     """x: (B,S,d) -> q:(B,S,H,Dh), k,v:(B,S,K,Dh), with the biases (when
     the layer has ``bq``/``bk``/``bv``), QK-norm (when it has
     ``q_norm``/``k_norm``) and then RoPE on q and k.  With ``tp`` and
-    split heads, this rank's query heads and the KV heads they use."""
+    split heads, this rank's query heads and its KV heads: its share of
+    them, or all of them where the axis leaves them whole."""
     if _model_group(tp) is not None:
         p = _shard_leaves(cfg, p, tp)
         x = copy_to_model(x, tp.model_group)
@@ -274,58 +299,69 @@ def attn_forward(cfg, p, x, spec, *, mode="train", cache=None, target_len: int =
                  tp=None):
     """Self-attention sublayer.  Returns (out, cache): ``None`` in training,
     the prefill's new cache, or the decode cache updated in place.  With
-    ``tp`` (training), this rank's heads, then the all-reduce."""
+    ``tp``, this rank's heads, then the all-reduce; the caches hold this
+    rank's KV heads."""
     rope_base = _rope_base(cfg, spec)
     group = _model_group(tp)
     if mode in ("train", "prefill"):
         s = x.shape[1]
         positions = torch.arange(s, device=x.device)[None, :]
         q, k, v = project_qkv(cfg, p, x, positions, rope_base, tp)
+        sel = _kv_select(cfg, tp, q.shape[2])
+        ka, va = _kv_heads(k, sel), _kv_heads(v, sel)
         if spec.window is not None and spec.window < s:
-            out = local_attention(cfg, q, k, v, window=spec.window, cap=cfg.attn_softcap)
+            out = local_attention(cfg, q, ka, va, window=spec.window, cap=cfg.attn_softcap)
         else:
-            out = chunked_attention(cfg, q, k, v, causal=True, cap=cfg.attn_softcap)
+            out = chunked_attention(cfg, q, ka, va, causal=True, cap=cfg.attn_softcap)
         new_cache = prefill_cache(cfg, spec, k, v, s, target_len) if mode == "prefill" else None
         y = torch.einsum("bshx,hxd->bsd", out, p["wo"].to(x.dtype))
         return (y if group is None else reduce_from_model(y, group)), new_cache
     if mode != "decode":
         raise ValueError(f"unknown mode {mode!r}")
-    return _decode(cfg, p, x, cache, rope_base), cache
+    return _decode(cfg, p, x, cache, rope_base, tp), cache
 
 
-def _decode(cfg, p, x, cache, rope_base):
+def _decode(cfg, p, x, cache, rope_base, tp=None):
     """x: (B, 1, d) against ``cache``; writes this token's K/V at
-    ``pos % cap`` and advances ``pos``, both in place."""
+    ``pos % cap`` and advances ``pos``, both in place.  With ``tp``, this
+    rank's query heads against the KV heads they read, then the output
+    projection's all-reduce."""
     b = x.shape[0]
     pos = cache["pos"]
     k_cache, v_cache = cache["k"], cache["v"]
     cap = k_cache.shape[1]
     pos_b = (pos.expand(b) if pos.ndim == 0 else pos).long()  # one position per row
-    q, k, v = project_qkv(cfg, p, x, pos_b[:, None], rope_base)
+    q, k, v = project_qkv(cfg, p, x, pos_b[:, None], rope_base, tp)
     rows = torch.arange(b, device=x.device)
     slot = torch.remainder(pos_b, cap)
     k_cache.index_put_((rows, slot), k[:, 0].to(k_cache.dtype))
     v_cache.index_put_((rows, slot), v[:, 0].to(v_cache.dtype))
+    sel = _kv_select(cfg, tp, q.shape[2])
+    k_read, v_read = _kv_heads(k_cache, sel), _kv_heads(v_cache, sel)
     j = torch.arange(cap, device=x.device)
     valid = (j[None, :] <= pos_b[:, None]) | (pos_b[:, None] >= cap)  # (B, cap)
     bias = torch.where(valid, 0.0, NEG_INF)[:, None, None, None, :]
-    kvh, dh = k.shape[2], k.shape[3]
-    qg = q.reshape(b, 1, kvh, cfg.n_heads // kvh, dh)
-    s_att = torch.einsum("bqkgd,bckd->bkgqc", qg, k_cache.to(q.dtype)).float()
+    h, kvh, dh = q.shape[2], k_read.shape[2], q.shape[3]
+    qg = q.reshape(b, 1, kvh, h // kvh, dh)
+    s_att = torch.einsum("bqkgd,bckd->bkgqc", qg, k_read.to(q.dtype)).float()
     s_att = softcap(s_att / np.sqrt(cfg.head_dim), cfg.attn_softcap)
     w_att = torch.softmax(s_att + bias, dim=-1).to(q.dtype)
-    out = torch.einsum("bkgqc,bckd->bqkgd", w_att, v_cache.to(q.dtype))
-    out = out.reshape(b, 1, cfg.n_heads, dh)
+    out = torch.einsum("bkgqc,bckd->bqkgd", w_att, v_read.to(q.dtype))
+    out = out.reshape(b, 1, h, dh)
     pos.add_(1)
-    return torch.einsum("bshx,hxd->bsd", out, p["wo"].to(x.dtype))
+    y = torch.einsum("bshx,hxd->bsd", out, p["wo"].to(x.dtype))
+    group = _model_group(tp)
+    return y if group is None else reduce_from_model(y, group)
 
 
 def init_attn_cache(cfg, spec, batch: int, seq_len: int, dtype=torch.bfloat16,
-                    device="cuda"):
+                    device="cuda", tp=None):
     """An empty cache: capacity ``seq_len``, or ``min(window, seq_len)``
-    for a windowed layer."""
+    for a windowed layer; with ``tp``, this rank's KV heads (``ModelSplit.
+    local``: a share where the axis splits them, else all)."""
     cap = seq_len if spec.window is None else min(spec.window, seq_len)
-    kv, dh = cfg.n_kv_heads, cfg.head_dim
+    kv = cfg.n_kv_heads if tp is None else tp.local("kv_heads", cfg.n_kv_heads)
+    dh = cfg.head_dim
     return {
         "k": torch.zeros((batch, cap, kv, dh), dtype=dtype, device=device),
         "v": torch.zeros((batch, cap, kv, dh), dtype=dtype, device=device),

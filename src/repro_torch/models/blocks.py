@@ -89,13 +89,15 @@ def apply_layer(cfg, p, x, spec, *, mode="train", cache=None, source=None,
 
 
 def init_layer_cache(cfg, spec, batch: int, seq_len: int, dtype=torch.bfloat16,
-                     device="cuda"):
+                     device="cuda", tp=None):
     """An empty decode cache of one layer: K/V for ``attn``, the latent
     ``c_kv``/``k_r`` for ``mla``, the ``conv``/``h`` state for ``mamba``,
     ``C``/``n``/``m``/``conv`` for ``mlstm``, ``h``/``c``/``n``/``m`` for
     ``slstm``; None for ``cross_attn`` (its K/V come from the source,
-    recomputed each step)."""
+    recomputed each step).  ``tp``: a sharded module's ``ModelSplit``
+    (attention then holds this rank's KV heads)."""
     if spec.mixer == "cross_attn":
         return None
     _, init_cache = _mixer(spec)
-    return init_cache(cfg, spec, batch, seq_len, dtype, device)
+    kw = {} if tp is None else {"tp": tp}  # shard_model lets only attention through
+    return init_cache(cfg, spec, batch, seq_len, dtype, device, **kw)

@@ -15,7 +15,8 @@ input's gradient is all-reduced backward (``copy_to_model``); an MLP
 whose width the axis does not divide stays replicated and needs no
 collective.  The embedding is vocab-parallel — ids outside the rank's
 rows looked up as row 0 and zeroed, then all-reduced — and the head
-gives the rank's slice of the logits (``model._xent`` reduces them).
+gives the rank's slice of the logits (``model._xent`` reduces them in
+training; serving all-gathers the rows it samples, ``gather_vocab``).
 ``tp.axes`` says which of the logical axes ``mlp`` and ``vocab`` are
 split."""
 from __future__ import annotations
@@ -26,10 +27,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..dist.collectives import copy_to_model, reduce_from_model
+from ..dist.collectives import all_gather, copy_to_model, reduce_from_model
 
 __all__ = ["rms_norm", "layer_norm", "apply_norm", "softcap", "rope", "apply_mlp",
-           "embed_tokens", "unembed", "vocab_start"]
+           "embed_tokens", "unembed", "gather_vocab", "vocab_start"]
 
 
 def rms_norm(x, scale, eps: float = 1e-6):
@@ -164,3 +165,13 @@ def unembed(cfg, embed, x, tp=None):
     else:
         logits = torch.einsum("bsd,vd->bsv", x, embed["tok"].to(x.dtype))
     return softcap(logits, cfg.final_softcap)
+
+
+def gather_vocab(logits, tp=None):
+    """The whole vocabulary's logits from this rank's slice of them: one
+    all-gather over the model group, the slices in rank order (row
+    ``start`` of rank r is ``r · n_local``); ``logits`` themselves where
+    the vocabulary is not split."""
+    if vocab_start(logits.shape[-1], tp) is None:
+        return logits
+    return all_gather(logits.contiguous(), tp.model_group, dim=logits.ndim - 1)

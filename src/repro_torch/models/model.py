@@ -18,9 +18,12 @@ source from ``aux_inputs`` — the whole encoder, or the projector — and
 each cross-attention layer its K/V; nothing of the source is cached.
 
 A module on the ``model`` axis (``params.shard_model``: ``model.tp``)
-trains on its shards: the layers reduce over the model group, and
+trains and serves on its shards: the layers reduce over the model group,
 ``train_loss`` takes the vocab-parallel cross-entropy of its slice of
-the logits (``_xent``).  Its serving raises (ROADMAP 6a)."""
+the logits (``_xent``), and ``prefill`` and ``decode_step`` all-gather
+the logits they return over the vocabulary (``layers.gather_vocab``) —
+with ``last_only``, the last position's alone, which is all a server
+samples.  Its caches hold its KV heads (``init_decode_caches(tp=)``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -34,7 +37,8 @@ from ..device import resolve_device
 from .attention import chunked_attention, project_qkv
 from .blocks import apply_layer
 from ..dist.collectives import max_over_model, reduce_from_model
-from .layers import apply_mlp, apply_norm, embed_tokens, rms_norm, unembed, vocab_start
+from .layers import (apply_mlp, apply_norm, embed_tokens, gather_vocab, rms_norm, unembed,
+                     vocab_start)
 from .params import encoder_cfg
 from .stack import _tree, apply_stack, init_stack_caches
 
@@ -98,16 +102,16 @@ def source_embeds(cfg, model, aux_inputs):
 
 
 def forward(cfg, model, tokens, *, mode="train", caches=None, aux_inputs=None,
-            target_len: int = 0):
+            target_len: int = 0, last_only: bool = False):
     """tokens: (B, S) integer; ``aux_inputs`` the stubbed modality
     embeddings of a model with a cross-attention source.  Returns
     (logits, new_caches, aux, hidden); ``new_caches`` is None in
     training, and in decode mode it is ``caches``, updated in place;
     ``aux`` is the fp32 sum of the MoE layers' load-balance losses (zero
-    without MoE layers)."""
+    without MoE layers).  ``last_only``: the last position's logits
+    (B, 1, V) alone.  On the ``model`` axis the logits are the rank's
+    vocabulary rows in training and the whole vocabulary when serving."""
     tp = model_axis(model)
-    if tp is not None and mode != "train":
-        raise NotImplementedError("serving on the model axis is not ported (ROADMAP 6a)")
     tokens = _as_tokens(tokens, model.embed.tok.device)
     x = embed_tokens(cfg, model.embed.tok, tokens, tp)
     source = source_embeds(cfg, model, aux_inputs)
@@ -117,7 +121,10 @@ def forward(cfg, model, tokens, *, mode="train", caches=None, aux_inputs=None,
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     hidden = apply_norm(_tree(model.final_norm), x)
     embed = dict(model.embed.named_parameters())
-    return unembed(cfg, embed, hidden, tp), new_caches, aux, hidden
+    logits = unembed(cfg, embed, hidden[:, -1:] if last_only else hidden, tp)
+    if mode != "train":
+        logits = gather_vocab(logits, tp)
+    return logits, new_caches, aux, hidden
 
 
 def model_axis(model):
@@ -204,13 +211,18 @@ def _mtp_loss(cfg, model, tokens, hidden):
 
 # ---------------------------------------------------------------- serving
 @torch.no_grad()
-def prefill(cfg, model, tokens, aux_inputs=None, target_len: int = 0):
-    """tokens: (B, S).  Returns (logits, caches): every position's logits,
+def prefill(cfg, model, tokens, aux_inputs=None, target_len: int = 0,
+            last_only: bool = False):
+    """tokens: (B, S).  Returns (logits, caches): every position's logits
+    (B, S, V) — the last position's alone (B, 1, V) with ``last_only`` —
     and per-segment caches of capacity ``max(target_len, S + 1)`` holding
     the prompt's K/V uncast (the activations' dtype) with ``pos`` = S
-    (None for a cross-attention mixer)."""
+    (None for a cross-attention mixer).  A sharded module gathers the
+    logits over the model group: a server passes ``last_only``, so the
+    prompt's other positions are neither projected nor gathered."""
     logits, caches, _, _ = forward(cfg, model, tokens, mode="prefill",
-                                   aux_inputs=aux_inputs, target_len=target_len)
+                                   aux_inputs=aux_inputs, target_len=target_len,
+                                   last_only=last_only)
     return logits, caches
 
 
@@ -228,15 +240,17 @@ def decode_step(cfg, model, caches, token, aux_inputs=None):
 
 def init_decode_caches(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
                        filled: Optional[int] = None, row_pos: bool = False,
-                       device="cuda"):
+                       device="cuda", tp=None):
     """Decode caches of capacity ``seq_len`` marked as holding ``filled``
     tokens (default ``seq_len - 1``: a full-but-one cache).  ``row_pos``
     makes every ``pos`` leaf one entry per batch row — ``(B,)`` for a
     single layer, ``(L, B)`` for a run or a pattern's position, Mamba's
     and xLSTM's as attention's — the serving slab's layout, where each slot decodes
-    at its own depth.  A cross-attention mixer's entry is None."""
+    at its own depth.  A cross-attention mixer's entry is None.  ``tp``
+    (a sharded module's ``model.tp``): the caches of that rank's KV
+    heads."""
     dev = resolve_device(device)
-    caches = init_stack_caches(cfg, batch, seq_len, dtype, dev)
+    caches = init_stack_caches(cfg, batch, seq_len, dtype, dev, tp)
     fill = seq_len - 1 if filled is None else int(filled)
     for seg in caches:
         for tree in (seg if isinstance(seg, list) else [seg]):  # a pattern: p trees

@@ -226,13 +226,15 @@ def apply_stack(cfg, stack, x, *, mode="train", caches=None, source=None,
     return x, (caches if mode == "decode" else new_caches), aux
 
 
-def init_stack_caches(cfg, batch: int, seq_len: int, dtype=torch.bfloat16, device="cuda"):
+def init_stack_caches(cfg, batch: int, seq_len: int, dtype=torch.bfloat16, device="cuda",
+                      tp=None):
     """Empty per-segment caches of capacity ``seq_len`` (``min(window,
     seq_len)`` for a windowed layer; a Mamba or xLSTM layer's fixed-size
     state; None for a cross-attention mixer), leaves stacked along axis 0
-    for a run and for each position of a pattern."""
+    for a run and for each position of a pattern; ``tp``: a sharded
+    module's ``ModelSplit`` (``init_layer_cache``)."""
     def one(spec):
-        return init_layer_cache(cfg, spec, batch, seq_len, dtype, device)
+        return init_layer_cache(cfg, spec, batch, seq_len, dtype, device, tp)
 
     out = []
     for seg in plan_segments(cfg.layers):

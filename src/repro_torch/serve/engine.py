@@ -16,8 +16,23 @@ The reference jits its entry points and counts retraces
 (``trace_counts``, ``clear_jit_cache``); the port runs eagerly, has
 nothing to count and leaves both out.  The slab is written in place:
 a decode step writes each layer's K/V at ``[layer, rows, pos % cap]``
-and copies nothing else.  The host reads one ``(B,)`` token tensor per
-engine step and one token per admission.
+and copies nothing else.  The host reads one token tensor per engine
+step: the step's decoded tokens, and its admissions' first tokens beside
+them.
+
+On a mesh (``mesh=``; a module from ``params.shard_model`` or
+``init_shards`` brings its own) every rank runs the same scheduler, the
+same coded tier (seeded alike) and the same simulated clock, so
+admissions, slots and timestamps agree on every rank with no exchange.
+The slab's slots are split over the data ranks by the ``batch`` rule
+(``dist.sharding.batch_rows``: equal blocks where they divide the slots,
+else every rank holds every slot), and a sharded module's slab holds the
+rank's KV heads.  An admission prefills on the ranks that hold its slot
+(its whole model group: the model ranks' collectives pair up); a decode
+step runs every rank's rows, with the logits gathered over the
+vocabulary; the step's tokens are then gathered over the data ranks
+(``dist.collectives.gather_rows``), so every rank's ``Request``s fill in
+alike.
 
 Determinism contract: a request's token stream is a pure function of
 (prompt, seed, params) on one device, independent of batch composition
@@ -44,6 +59,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..dist.collectives import gather_rows
+from ..dist.sharding import batch_rows
 from ..models.model import decode_step, has_source, prefill
 from .coded import CodedDecode
 from .request import DONE, RUNNING, Request
@@ -137,13 +154,15 @@ class ServeEngine:
     not charged, so ``step_latencies`` is exactly the coded tier's stream.
 
     ``params`` is a ``GCLM``; the engine runs on its device, which must
-    be of the kind ``device`` names (default the card).  A model with a
-    cross-attention source raises: the engine takes no aux inputs
-    (``generate(aux_inputs=)`` serves it).
+    be of the kind ``device`` names (default the card).  ``mesh``: this
+    rank's ``dist.mesh.Mesh`` (a sharded ``params`` defaults to its own;
+    a mesh with a ``model`` axis takes only params cut for it).
+    A model with a cross-attention source raises: the engine takes no aux
+    inputs (``generate(aux_inputs=)`` serves it).
     """
 
     def __init__(self, cfg, params, serve: Optional[ServeConfig] = None, *,
-                 coded: Optional[CodedDecode] = None, device="cuda"):
+                 coded: Optional[CodedDecode] = None, device="cuda", mesh=None):
         if has_source(cfg):
             raise ValueError(f"{cfg.name} cross-attends to a source and the engine takes no "
                              "aux inputs: serve it with generate(aux_inputs=...)")
@@ -151,19 +170,29 @@ class ServeEngine:
         self.device = params.embed.tok.device
         if self.device.type != dev.type:
             raise ValueError(f"params are on {self.device}, engine device is {dev}")
+        tp = params.tp
+        if tp is not None and mesh is not None and tp.mesh is not mesh:
+            raise ValueError("params are cut for another mesh than the engine's")
+        if tp is None and mesh is not None and mesh.model > 1:
+            raise ValueError(f"a mesh of model {mesh.model} serves only a sharded module: cut "
+                             "the params with params.init_shards or shard_model")
+        self.mesh = tp.mesh if mesh is None and tp is not None else mesh
         self.cfg = cfg
         self.params = params
         self.serve = serve or ServeConfig()
         self.coded = coded
         self.scheduler = Scheduler(self.serve.n_slots)
-        self.slab = make_slab(cfg, self.serve.n_slots, self.serve.max_len,
-                              dtype=self.serve.dtype, device=self.device)
+        b = self.serve.n_slots
+        #: the slots this rank's slab holds (all of them off a mesh)
+        self.rows = batch_rows(b, self.mesh)
+        self.slab = make_slab(cfg, len(self.rows.rows), self.serve.max_len,
+                              dtype=self.serve.dtype, device=self.device, tp=tp)
         self.now = 0.0
         self.finished: List[Request] = []
         self.step_latencies: List[float] = []
         self._running = {}                      # slot -> Request
-        b = self.serve.n_slots
-        self._tok = torch.zeros(b, dtype=torch.long, device=self.device)  # last token
+        self._tok = torch.zeros(len(self.rows.rows), dtype=torch.long,
+                                device=self.device)  # last token of each local row
         self._steps = np.ones(b, np.int64)      # next token index per slot
         self._temps = np.zeros(b, np.float32)
         self._seeds = [0] * b
@@ -200,10 +229,26 @@ class ServeEngine:
             admitted = self.scheduler.admit(self.now)
         for req, slot in admitted:
             self._admit(req, slot)
-        if not self._running:        # every admission completed at token 0
+        cols = [self._tok.clone()] if admitted else []  # the admissions' first tokens
+        for req, slot in admitted:
+            if req.max_new <= 1:  # complete at token 0, before this step's decode
+                self._finish(slot)
+        decoding = sorted(self._running)
+        if decoding:
+            cols.append(self._decode_step())
+        if not cols:
             return len(self.scheduler) > 0
-        self._decode_step()
-        return True
+        host = self._read(cols)
+        for req, slot in admitted:
+            req.tokens.append(int(host[slot, 0]))
+        for slot in decoding:
+            req = self._running[slot]
+            req.tokens.append(int(host[slot, -1]))
+            req.n_steps += 1
+            self._steps[slot] += 1
+            if len(req.tokens) >= req.max_new:
+                self._finish(slot)
+        return bool(decoding) or len(self.scheduler) > 0
 
     def run(self) -> List[Request]:
         """Drain the engine; returns every finished request (in
@@ -213,44 +258,52 @@ class ServeEngine:
         return self.finished
 
     # ------------------------------------------------------------ internals
+    def _local(self, slot: int):
+        """The slab row of global ``slot`` on this rank, or None when
+        another rank holds it."""
+        return slot - self.rows.rows.start if slot in self.rows.rows else None
+
     def _admit(self, req: Request, slot: int) -> None:
-        tokens = torch.from_numpy(req.prompt[None, :]).to(self.device)
-        logits, caches = prefill(self.cfg, self.params, tokens,
-                                 target_len=self.serve.max_len)
-        insert_request(self.cfg, self.slab, caches, slot)
-        tok0 = _sample_row(logits[0, -1], req.seed, 0, req.temperature)
-        self._tok[slot] = tok0
+        """Prefill ``req`` into ``slot`` (on the ranks holding it) and
+        sample its first token into the slot's row of ``_tok``; the host
+        reads it with the step's tokens."""
+        row = self._local(slot)
+        if row is not None:
+            tokens = torch.from_numpy(req.prompt[None, :]).to(self.device)
+            logits, caches = prefill(self.cfg, self.params, tokens,
+                                     target_len=self.serve.max_len, last_only=True)
+            insert_request(self.cfg, self.slab, caches, row)
+            self._tok[row] = _sample_row(logits[0, -1], req.seed, 0, req.temperature)
         req.state = RUNNING
         req.slot = slot
         req.t_admit = req.t_first = self.now
-        req.tokens.append(int(tok0))
         self._running[slot] = req
         self._seeds[slot] = req.seed
         self._steps[slot] = 1
         self._temps[slot] = float(req.temperature)
-        if len(req.tokens) >= req.max_new:
-            self._finish(slot)
 
-    def _decode_step(self) -> None:
+    def _decode_step(self) -> torch.Tensor:
+        """One lockstep decode of this rank's rows; returns their next
+        tokens (on the device) and advances the simulated clock."""
         logits, _ = decode_step(self.cfg, self.params, self.slab, self._tok[:, None])
         last = logits[:, -1]
         nxt = last.argmax(-1)
         for slot in self._running:
-            if self._temps[slot] > 0.0:
-                nxt[slot] = _sample_row(last[slot], self._seeds[slot],
-                                        int(self._steps[slot]), float(self._temps[slot]))
+            row = self._local(slot)
+            if row is not None and self._temps[slot] > 0.0:
+                nxt[row] = _sample_row(last[row], self._seeds[slot],
+                                       int(self._steps[slot]), float(self._temps[slot]))
         self._tok = nxt
         lat = self.coded.draw_step() if self.coded is not None else 1.0
         self.now += lat
         self.step_latencies.append(lat)
-        nxt_host = nxt.cpu().numpy()  # the step's one read on the host
-        for slot in sorted(self._running):
-            req = self._running[slot]
-            req.tokens.append(int(nxt_host[slot]))
-            req.n_steps += 1
-            self._steps[slot] += 1
-            if len(req.tokens) >= req.max_new:
-                self._finish(slot)
+        return nxt
+
+    def _read(self, cols: list) -> np.ndarray:
+        """The step's tokens of every slot, (n_slots, len(cols)) on the
+        host: this rank's rows gathered over the data ranks, then the
+        step's one read."""
+        return gather_rows(torch.stack(cols, dim=-1), self.mesh, self.rows).cpu().numpy()
 
     def _finish(self, slot: int) -> None:
         req = self._running.pop(slot)
@@ -265,14 +318,15 @@ class ServeEngine:
 # ---------------------------------------------------------------- generate
 def generate(cfg, params, prompt_tokens, max_new: int = 32, *,
              temperature: float = 0.0, seed: int = 0, aux_inputs=None,
-             device="cuda"):
+             device="cuda", mesh=None):
     """prompt_tokens: (B, S) -> (B, S + max_new) int32 tokens (a CPU
-    tensor), through ``ServeEngine``: each prompt row is one request with
+    tensor), through ``ServeEngine`` (on ``mesh`` when given: every rank
+    returns every row): each prompt row is one request with
     its own seed (row 0 keeps ``seed``; row r > 0 uses
     ``fold_seed(seed, 2**30 + r)``).  With ``aux_inputs`` (B, ...) —
     the modality embeddings of a model with a cross-attention source —
-    the reference's direct loop instead (``_generate_direct``), with the
-    same row seeds."""
+    the reference's direct loop instead (``_generate_direct``, every row
+    on every rank), with the same row seeds."""
     if max_new <= 0:
         return prompt_tokens
     if isinstance(prompt_tokens, torch.Tensor):
@@ -283,7 +337,7 @@ def generate(cfg, params, prompt_tokens, max_new: int = 32, *,
                                 aux_inputs, device)
     b, s = prompts.shape
     eng = ServeEngine(cfg, params, ServeConfig(n_slots=b, max_len=s + max_new),
-                      device=device)
+                      device=device, mesh=mesh)
     reqs = [eng.submit(prompts[r], max_new=max_new, temperature=temperature,
                        seed=_row_seed(seed, r)) for r in range(b)]
     eng.run()
@@ -304,7 +358,8 @@ def _generate_direct(cfg, params, prompts, max_new: int, temperature: float, see
     seeds = [_row_seed(seed, r) for r in range(b)]
     aux = torch.as_tensor(aux_inputs, device=params.embed.tok.device)
     tokens = torch.from_numpy(prompts.astype(np.int64)).to(params.embed.tok.device)
-    logits, caches = prefill(cfg, params, tokens, aux_inputs=aux, target_len=s + max_new)
+    logits, caches = prefill(cfg, params, tokens, aux_inputs=aux, target_len=s + max_new,
+                             last_only=True)
 
     def sample(last, j):
         return torch.stack([_sample_row(last[r], seeds[r], j, temperature) for r in range(b)])

@@ -27,6 +27,11 @@ next admission overwrites every leaf; attention masks a stale K/V row on
 the slot's own ``pos``.  A cross-attention mixer has no cache: its entry
 is None on both sides and is skipped.
 
+On a mesh (``serve.engine.ServeEngine(mesh=)``) a rank's slab holds its
+block of the slots (``dist.sharding.batch_rows``) and, for a sharded
+module, its KV heads (``make_slab(tp=)``); the engine maps a global
+slot to the local row it passes to ``insert_request``.
+
 ``caches_from_numpy`` / ``caches_to_numpy`` carry the reference's cache
 trees (the same list of per-segment entries of arrays) across.
 """
@@ -42,11 +47,13 @@ from ..models.stack import Run, plan_segments
 __all__ = ["make_slab", "insert_request", "caches_from_numpy", "caches_to_numpy"]
 
 
-def make_slab(cfg, n_slots: int, max_len: int, dtype=torch.bfloat16, device="cuda"):
+def make_slab(cfg, n_slots: int, max_len: int, dtype=torch.bfloat16, device="cuda",
+              tp=None):
     """Empty shared cache slab: capacity ``max_len`` per slot, per-row
-    ``pos`` leaves initialized to 0."""
+    ``pos`` leaves initialized to 0; ``tp`` (a sharded module's
+    ``model.tp``): this rank's KV heads."""
     return init_decode_caches(cfg, n_slots, max_len, dtype=dtype, filled=0,
-                              row_pos=True, device=device)
+                              row_pos=True, device=device, tp=tp)
 
 
 @torch.no_grad()

@@ -400,12 +400,40 @@ def test_model_mesh_ranks_share_one_card_over_gloo(cuda, tmp_path):
     assert len({o[2] for o in out}) == 1
 
 
-def _serve_run(cfg, model, device, dtype=torch.float32):
-    """Six greedy requests over three slots, Poisson arrivals, the coded
-    tier of an 8-worker env; returns (engine, requests)."""
+def _tp_serve_rank(rank, world):
+    """One rank of a (data 2, model 2) serving mesh on card 0: reduced
+    gc-lm-110m's shards (seed 0) through ``_serve_run``'s requests."""
+    from repro_torch.models.params import init_shards
+
+    mesh = make_local_mesh(2, model=2, device="cuda:0", backend="gloo")
+    cfg = get_config("gc-lm-110m").reduced(n_layers=2, d_model=128)
+    local = init_shards(cfg, mesh, device=mesh.device, seed=0)
+    eng, reqs = _serve_run(cfg, local, "cuda", mesh=mesh, n_slots=4)
+    return ([(r.tokens, r.t_admit, r.t_done, r.n_steps) for r in reqs], eng.step_latencies,
+            [tuple(t["k"].shape) for t in eng.slab])
+
+
+def test_serving_mesh_ranks_share_one_card_over_gloo(cuda, tmp_path):
+    """Four ranks of a (data 2, model 2) serving mesh on card 0 over gloo,
+    fp32 slab, greedy: every rank's tokens, timestamps and step latencies
+    equal the one-rank engine's on the same weights; a rank's slab holds 2
+    of the 4 slots and 1 of the 2 KV heads."""
+    cfg = get_config("gc-lm-110m").reduced(n_layers=2, d_model=128)
+    eng, reqs = _serve_run(cfg, GCLM(cfg, device="cuda", seed=0), "cuda", n_slots=4)
+    want = [(r.tokens, r.t_admit, r.t_done, r.n_steps) for r in reqs]
+    out = spawn(_tp_serve_rank, 4, store_dir=str(tmp_path), backend="gloo", timeout=600.0)
+    for got, latencies, shapes in out:
+        assert got == want and latencies == eng.step_latencies
+        assert shapes == [(cfg.n_layers, 2, 32, cfg.n_kv_heads // 2, cfg.head_dim)]
+
+
+def _serve_run(cfg, model, device, dtype=torch.float32, mesh=None, n_slots=3):
+    """Six greedy requests over ``n_slots`` slots, Poisson arrivals, the
+    coded tier of an 8-worker env, on ``mesh`` when given; returns
+    (engine, requests)."""
     env = Env.iid(ShiftedExponential(mu=1e-3, t0=50.0), 8)
-    eng = ServeEngine(cfg, model, ServeConfig(n_slots=3, max_len=32, dtype=dtype),
-                      coded=CodedDecode.solve(env, seed=0), device=device)
+    eng = ServeEngine(cfg, model, ServeConfig(n_slots=n_slots, max_len=32, dtype=dtype),
+                      coded=CodedDecode.solve(env, seed=0), device=device, mesh=mesh)
     prompts = np.random.default_rng(0).integers(0, cfg.vocab, size=(6, 12))
     times = poisson_arrivals(6, 2e-3, seed=0)
     reqs = [eng.submit(p, max_new=n, arrival=float(t))

@@ -56,6 +56,7 @@ from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.dist.mesh import meta_mesh
 from repro_torch.models.model import prefill
 from repro_torch.models.params import GCLM, params_from_numpy, shard_model
+from repro_torch.serve import ServeEngine
 from repro_torch.train.coded import (make_coded_grad_fn, per_shard_grad_rows, scatter_dims,
                                      uncoded_grad_fn)
 from repro_torch.train.state import init_train_state
@@ -580,8 +581,14 @@ def test_unported_and_impossible_meshes_raise(monkeypatch, tmp_path):
             Trainer(_cfg(), TrainConfig(), SE, n_workers=N, device="meta", mode="spmd",
                     mesh=tp, **kw)
     local = shard_model(GCLM(_cfg(), device="meta"), tp)
-    with pytest.raises(NotImplementedError, match="ROADMAP 6a"):
-        prefill(_cfg(), local, torch.zeros((1, 4), dtype=torch.long, device="meta"))
+    logits, caches = prefill(_cfg(), local, torch.zeros((1, 4), dtype=torch.long, device="meta"),
+                             last_only=True)  # serving runs on the axis: whole rows, its heads
+    assert logits.shape == (1, 1, _cfg().vocab)
+    assert caches[0]["k"].shape[-2] == _cfg().n_kv_heads // 2
+    with pytest.raises(ValueError, match="another mesh"):
+        ServeEngine(_cfg(), local, device="meta", mesh=meta_mesh(data=N, model=2))
+    with pytest.raises(ValueError, match="serves only a sharded module"):
+        ServeEngine(_cfg(), GCLM(_cfg(), device="meta"), device="meta", mesh=tp)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(ValueError, match="one rank per card"):

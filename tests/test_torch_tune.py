@@ -8,7 +8,12 @@ the same candidates in the same order, the same memory estimates, the
 same pruned entries and reasons, the same best — with straggler times
 bit-equal under ``eq2`` (an i.i.d. env) and within 1e-6 relative under
 ``mc`` (a heterogeneous env; torch fp32 against jax fp32).
-``estimate_memory`` is equal field by field.  ``Trainer(scheme="auto")``
+``estimate_memory`` is equal field by field.  Both searches price the
+same schemes: the reference's registry is held to the entries the
+port's registry has (``same_schemes``), so a scheme another test file
+registers in the reference's process-wide registry (the run's workers
+share processes between files) does not change the reference's search.
+``Trainer(scheme="auto")``
 adopts the reference's knobs and plan, its first two losses match the
 reference trainer's, and the launcher's ``--autotune --hbm-gb`` prints
 the reference launcher's ``autotune: ...`` line.
@@ -21,6 +26,7 @@ import pytest
 import torch
 
 import repro.core as J
+import repro.core.schemes as J_schemes
 import repro_torch.core as T
 from repro.configs import get_config as jax_get_config
 from repro.data.pipeline import DataConfig as JDataConfig
@@ -64,6 +70,23 @@ def tpu_hw(monkeypatch):
     packages price the same roofline overhead."""
     monkeypatch.setattr(tmesh.HW, "HBM_BW", JHW.HBM_BW)
     monkeypatch.setattr(tmesh.HW, "ICI_BW", JHW.ICI_BW)
+
+
+def _port_schemes_only(monkeypatch) -> None:
+    """The reference's scheme registry (and aliases), for the test, cut to
+    the schemes the port's registry has."""
+    keep = set(T.available_schemes())
+    monkeypatch.setattr(J_schemes, "_REGISTRY",
+                        {k: v for k, v in J_schemes._REGISTRY.items() if k in keep})
+    monkeypatch.setattr(J_schemes, "_ALIASES",
+                        {a: k for a, k in J_schemes._ALIASES.items() if k in keep})
+
+
+@pytest.fixture
+def same_schemes(monkeypatch):
+    """Both searches price the same schemes, whatever else the process
+    registered in the reference's registry before."""
+    _port_schemes_only(monkeypatch)
 
 
 def _cfgs():
@@ -126,7 +149,7 @@ def test_estimate_memory_equal_field_by_field():
 
 
 @pytest.mark.parametrize("kind,rtol", [("iid", 0.0), ("heterogeneous", 1e-6)])
-def test_autotune_report_equals_reference(tpu_hw, kind, rtol):
+def test_autotune_report_equals_reference(tpu_hw, same_schemes, kind, rtol):
     """The full search (every scheme but spsg x every s_cap x the three
     knob axes) under a cap that prunes some and admits some."""
     cfg_t, cfg_j = _cfgs()
@@ -149,7 +172,7 @@ def test_autotune_report_equals_reference(tpu_hw, kind, rtol):
 
 
 @pytest.mark.parametrize("kind,rtol", [("iid", 0.0), ("heterogeneous", 1e-6)])
-def test_autotune_plan_and_plan_build_auto_equal_reference(tpu_hw, kind, rtol):
+def test_autotune_plan_and_plan_build_auto_equal_reference(tpu_hw, same_schemes, kind, rtol):
     env_t, env_j = _envs(kind)
     for s_cap in (None, 1):
         plan_t = autotune_plan(COSTS, env_t, s_cap=s_cap, steps=40, device="cpu")
@@ -165,7 +188,7 @@ def test_autotune_plan_and_plan_build_auto_equal_reference(tpu_hw, kind, rtol):
         T.Plan.build(COSTS, env_t, scheme="xf", budget=budget_t)
 
 
-def test_trainer_auto_adopts_reference_knobs_and_losses(tpu_hw):
+def test_trainer_auto_adopts_reference_knobs_and_losses(tpu_hw, same_schemes):
     cfg_t, cfg_j = _cfgs()
     seq = 32
     budget = 64.0
@@ -194,6 +217,30 @@ def test_trainer_auto_adopts_reference_knobs_and_losses(tpu_hw):
     with pytest.raises(ValueError, match="scheme='auto'"):
         Trainer(cfg_t, TrainConfig(), T.ShiftedExponential(), n_workers=N, scheme="xf",
                 budget=MemBudget.from_gb(1), device="cpu")
+
+
+def test_reference_registry_extension_leaves_the_comparison_whole(tpu_hw, monkeypatch):
+    """A scheme registered in the reference's registry first — as
+    ``tests/test_schemes_plan.py`` registers one for good — is priced by
+    the reference's search and not by the port's; with the registry held
+    to the port's schemes the reports are equal again."""
+    monkeypatch.setattr(J_schemes, "_REGISTRY", dict(J_schemes._REGISTRY))
+    monkeypatch.setattr(J_schemes, "_ALIASES", dict(J_schemes._ALIASES))
+
+    @J_schemes.register_scheme("test-only-extra", kind="extra", aliases=("test-extra",))
+    def _extra(dist, n_workers, total, *, cost=None, rng=0, s_cap=None):
+        return np.full(n_workers, total / n_workers)
+
+    assert "test-only-extra" in J.available_schemes()
+    assert "test-only-extra" not in T.available_schemes()
+    env_t, env_j = _envs("iid")
+    kw = dict(s_cap=1, steps=40)
+    plan_t = autotune_plan(COSTS, env_t, device="cpu", **kw)
+    wider = j_autotune_plan(COSTS, env_j, **kw).tune_report
+    assert wider.to_dict()["n_candidates"] > plan_t.tune_report.to_dict()["n_candidates"]
+    _port_schemes_only(monkeypatch)
+    assert J.available_schemes() == T.available_schemes()
+    _reports_equal(plan_t.tune_report, j_autotune_plan(COSTS, env_j, **kw).tune_report, 0.0)
 
 
 def test_launcher_autotune_flags(capsys):
