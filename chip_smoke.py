@@ -130,6 +130,32 @@ port's sources beside it.  Phases; any failure raises:
    the first; the save, restore, snapshot and training times, the pieces
    of the save and the restore, and the host's peak RSS after each are
    printed.
+7a. tp-state: a sharded state on the model axis, eight ranks on card 0
+   over gloo, (data 4, model 2), each a full-width ``Trainer(mode="spmd")``
+   over its shards (seed 0), run by the job of 6f' after tp (so the
+   ranks start once); the parent's parts, (b) and (d)'s search, run
+   after 7.  (a) ``adapt=AdaptConfig()`` and
+   ``CodedSpec(4, 1)`` checkpoints every 4 steps, worker 1 1000x slower
+   from round 4, 9 steps with every count set to 0 just before: the
+   DeathWatch trips after step 8 and the forced re-plan's x is the CPU's
+   (``TP_SWAP_X``); rank 0's model group gathers each leaf to it for the
+   step-4 save, rank 0 alone reads and decodes the restore (the
+   survivors' encode through ``gc_encode``) and broadcasts each full
+   leaf; every rank's restored shards are byte-equal to its shards at
+   the save and the replayed loss equals the first; ``gc_fused`` once
+   per rank per step, ``gc_encode`` twice on rank 0 and never elsewhere.
+   Save and restore times and every rank's host peak RSS.  (b) One
+   process (model 1) restores that checkpoint on the card byte-equal to
+   the state gathered at the save and saves it again: the same crc32s.
+   (c) a fresh trainer at staleness 0, byte-equal (shards and moments) to
+   (a)'s first 3 steps — barrier steps from the same weights and draws,
+   before any save, death or swap — then 4 rounds at staleness 1 (deferred): the
+   executed events are the ``WaveTrace``, one ``gc_fused`` launch per
+   rank per round.  (d) ``scheme="auto"`` on an i.i.d. env (eq2 on the
+   host) under ``TUNE_HBM_GB``: the ranks' report equals the same search
+   in the parent process, the step-0 coded gradients gathered equal rank
+   0's sim mode on the full weights (1e-5), 1 step with one launch per
+   rank; a rank's peak allocation beside the tuner's estimate.
 8. encode: ``gc_encode`` at the checkpoint's shapes (NB = 1, K = 3 and
    2, the stripe's integer digits) equal to its plain version and to an
    int64 host product, and at ragged widths in fp32 and bf16 (NB = 3,
@@ -164,9 +190,10 @@ port's sources beside it.  Phases; any failure raises:
    served on one rank, then by four ranks on card 0 over gloo, a (data 2,
    model 2) mesh: each draws its shards (``init_shards``: 68,930,304
    parameters) and holds 4 of the 8 slots and 6 of the 12 KV heads.
-   9a's requests, arrivals and tier on an fp32 slab with fp32
+   16 requests drawn as 9a draws its 32, 9a's tier, on an fp32 slab with fp32
    activations, every count set to 0 just before: every rank's tokens,
-   slots, timestamps and step latencies equal the one-rank engine's; the
+   slots, timestamps and step latencies equal the one-rank engine's, and
+   a slot serves a second request; the
    collectives of every engine step on every rank equal the formula
    (per decode step 25 all-reduces of (4, 1, 768), one all-gather of the
    logits, one gather of the step's tokens over the data ranks; per
@@ -200,8 +227,9 @@ port's sources beside it.  Phases; any failure raises:
    pattern of 6 over 2 repeats and a tail run of 2) in a ``ServeEngine``
    (8 slots, bf16 slab, the launcher's coded tier), 16 requests of
    1,536-token prompts and 64 new tokens, greedy, counts set to 0 just
-   before: every request completes, the clock is the tier's stream, the
-   local layers' rings wrap, no ``gc_*`` launch; seconds and tokens/s.
+   before: every request completes, the clock is the tier's stream, a
+   slot serves a second request (so in every ``_serve_run`` phase below),
+   the local layers' rings wrap, no ``gc_*`` launch; seconds and tokens/s.
    Teacher forcing: fp32 activations on an fp32 slab within 1e-4 of the
    largest logit, the config's bf16 on a bf16 slab within 2e-2.
 12a. gemma3-tp-serve: gemma3-27b at full width cut to one 5:1 period (6
@@ -217,7 +245,7 @@ port's sources beside it.  Phases; any failure raises:
    steps at 12's bounds.
 14. qwen-serve: full-width qwen1.5-32b (d_model 5120, 40 heads, head_dim
    128, d_ff 27,392, vocab 152,064, QKV biases, an untied head, bf16
-   activations) cut to 16 of 64 layers, its biases — and only they — set
+   activations) cut to 8 of 64 layers, its biases — and only they — set
    to seeded normal values (std 0.02; the reference initializes them to
    zero), in a ``ServeEngine`` (8 slots, bf16 slab, the launcher's coded
    tier): 16 requests of 512-token prompts, 64 new tokens each, greedy,
@@ -228,7 +256,7 @@ port's sources beside it.  Phases; any failure raises:
    as 9a checks it: fp32 activations on a bf16 slab (the slab's rounding)
    within 2e-2, fp32 on fp32 within 1e-4; the config's bf16 activations
    on a bf16 slab measured and printed (at 16 layers their own rounding
-   reaches 2e-2: ROADMAP 3.17).
+   reached 2e-2: ROADMAP 3.17).
 15. mixtral-serve: full-width mixtral-8x22b (d_model 6144, 48 heads over 8
    KV, 8 experts top-2 of d_ff 16,384, windows of 4,096, vocab 32,768, an
    untied head) cut to 4 of 56 layers at the published capacity factor
@@ -292,12 +320,12 @@ port's sources beside it.  Phases; any failure raises:
    32; finite loss, xent and aux); on the card ``remat="full"``
    bit-equal to ``"none"`` and two runs of one forward+backward
    byte-equal.
-21. xlstm-serve: full-width, full-depth xlstm-1.3b (48 layers: one
+21. xlstm-serve: full-width xlstm-1.3b cut to 16 of its 48 layers (one
    pattern of 8 — seven mLSTM layers of d_inner 4,096 over 4 heads of
-   1,024, an sLSTM layer — over 6 repeats; no FFN sublayers; vocab
-   50,304, tied, bf16 activations), 1,917,544,784 parameters: 16 requests
+   1,024, an sLSTM layer — over 2 repeats; no FFN sublayers; vocab
+   50,304, tied, bf16 activations), 707,864,688 parameters: 16 requests
    of 512-token prompts (two chunks of 256 of the chunkwise mLSTM), 32 new
-   tokens, with 14's gates; the slab's fixed state per slot (706,560,672
+   tokens, with 14's gates; the slab's fixed state per slot (235,520,224
    bytes: ``C``/``n``/``m`` and the sLSTM state fp32, ``conv`` bf16); a
    2,048-token prefill at B = 1 timed whole and in its pieces (one mLSTM
    mixer, one sLSTM mixer — a Python loop over tokens — and the rest) and
@@ -307,8 +335,8 @@ port's sources beside it.  Phases; any failure raises:
    memory.
 22. xlstm-train: coded training of xlstm-1.3b at full width cut to its
    first 8 of 48 layers (7 mLSTM, 1 sLSTM; 405,444,664 parameters in 22
-   leaves, bf16 activations, ``remat="dots"``) with 2's plan settings:
-   coded == uncoded at step 0 with 0 and s_max stragglers (``b_i``, whose
+   leaves, bf16 activations, ``remat="dots"``) with 2's plan settings at
+   seq 256: coded == uncoded at step 0 with 0 and s_max stragglers (``b_i``, whose
    gradient is zero in exact arithmetic, against its layer's ``b_f``
    scale); 3 steps with the counts set to 0 just before (one grouped
    ``gc_fused`` launch per step); ``remat`` "none", "dots" and "full"
@@ -418,6 +446,22 @@ TP_DATA, TP_MODEL = 4, 2
 #: the port's PlanSimulator and DeathWatch alone)
 DEATH = dict(worker=1, factor=1000.0, from_round=0)
 CKPT_STEPS = 5
+#: [tp-state]: worker 1 dies from round 4, so the DeathWatch trips after
+#: step 8 and the forced re-plan estimates from 4 rounds (the newest half
+#: of 8; fewer than 4 and it declines); the last save before it is step
+#: 4's.  The trip step and the re-plan's x were found on the CPU (the
+#: port's PlanSimulator, DeathWatch and AdaptiveController over
+#: full-width gc-lm-110m's plan on a meta model, seed 0)
+TP_DEATH = dict(worker=1, factor=1000.0, from_round=4)
+TP_CKPT_EVERY = 4
+TP_DEATH_STEP = 8
+TP_SWAP_X = [46, 4000, 3130, 12824]
+TP_STATE_STEPS = 9
+TP_WAVE_ROUNDS = 4
+#: [tp-state]'s trainers and its search run at 128 tokens, not make_trainer's
+#: 256: a step's model-group all-reduces through gloo set its time, and
+#: the checkpoint's size is the parameters', whatever the sequence
+TP_STATE_SEQ = 128
 #: the [serve] phase: slab, load and the launcher's default coded tier
 SERVE = dict(n_slots=8, max_len=320, n_requests=32, prompt_len=256, max_new=64,
              rate=2e-3, workers=8, profile_step=120)
@@ -430,11 +474,14 @@ SERVE_BF16_REL = 2e-2
 SERVE_FP32_REL = 1e-4
 #: [tp-serve]: full-width gc-lm-110m on a (data 2, model 2) mesh of four
 #: ranks on card 0 over gloo, [serve]'s slots, prompts, arrivals and tier
-#: on an fp32 slab (a rank: 4 of the 8 slots, 6 of the 12 KV heads)
-TP_SERVE = dict(data=2, model=2, n_slots=8, max_len=320, n_requests=32, prompt_len=256,
+#: on an fp32 slab (a rank: 4 of the 8 slots, 6 of the 12 KV heads); 16
+#: requests drawn as [serve] draws its 32, so the slots serve a second
+#: request each (re-admission into a used slot: a rank's row mapping and
+#: the overwrite of its KV heads)
+TP_SERVE = dict(data=2, model=2, n_slots=8, max_len=320, n_requests=16, prompt_len=256,
                 max_new=64, rate=2e-3, workers=8)
 #: [tp-serve]'s bf16-activation comparison (printed, not gated) serves the
-#: first 8 requests only: at ~40 tokens/s over gloo all 32 took ~55 s
+#: first 8 requests: at ~40 tokens/s over gloo all 32 took ~55 s
 TP_SERVE_BF16 = dict(TP_SERVE, n_requests=8)
 #: [gemma3-tp-serve]: gemma3-27b at full width cut to one 5:1 period (6
 #: layers), fp32 activations on an fp32 slab, 2 ranks at model 2 (8 of the
@@ -460,15 +507,18 @@ GEMMA3_SERVE = dict(n_layers=14, n_slots=8, n_requests=16, prompt_len=1536, max_
 #: 4,352-token prompt past the 4,096 window
 GEMMA2 = dict(n_layers=4, prompt_len=4352, decode_steps=16)
 #: Qwen 1.5 and Mixtral at their published widths, cut in depth only.
-#: [qwen-serve]: qwen1.5-32b at 16 of 64 layers (one run): 9,967,129,600
-#: parameters, 39.87 GB fp32
-QWEN_SERVE = dict(n_layers=16, n_slots=8, n_requests=16, prompt_len=512, max_new=64,
+#: [qwen-serve]: qwen1.5-32b at 8 of 64 layers (one run; 16 before
+#: [tp-state] joined the script): 5,762,135,040 parameters, 23.05 GB fp32
+QWEN_SERVE = dict(n_layers=8, n_slots=8, n_requests=16, prompt_len=512, max_new=64,
                   rate=2e-3, workers=8)
 #: [mixtral-serve]: mixtral-8x22b at 4 of 56 layers: 10,418,903,040
 #: parameters, 41.68 GB fp32, at the published capacity factor 1.25;
 #: 4,352-token prompts past the 4,096 window
 MIXTRAL_SERVE = dict(n_layers=4, n_slots=8, n_requests=16, prompt_len=4352, max_new=32,
                      rate=2e-3, workers=8)
+#: every ``_serve_run`` phase serves 16 requests over 8 slots: a slot serves
+#: a second request (the reset of a used slot's state is what its token and
+#: teacher-forcing checks hold)
 #: DeepSeek-V3 at its published widths, cut in depth only.
 #: [deepseek-serve]: deepseek-v3-671b at its first 4 of 61 layers (the 3
 #: dense ones and the first MoE layer) without the MTP module, which
@@ -494,12 +544,14 @@ JAMBA_SERVE = dict(n_layers=8, n_slots=8, n_requests=16, prompt_len=2048, max_ne
 #: layer's 16 fp32 rows would be 180 GB
 JAMBA_TRAIN_LAYERS = 8
 #: xLSTM at its published widths.
-#: [xlstm-serve]: xlstm-1.3b at full depth (48 layers: one pattern of 8
-#: over 6 repeats), 1,917,544,784 parameters, 7.67 GB fp32; a fixed state
-#: of 706,560,672 bytes per slot (42 mLSTM matrix memories of 16.8 MB
-#: fp32), 5.65 GB for 8 slots; 512-token prompts (two mLSTM chunks of
-#: 256), and one 2,048-token prefill timed in its pieces
-XLSTM_SERVE = dict(n_layers=48, n_slots=8, n_requests=16, prompt_len=512, max_new=32,
+#: [xlstm-serve]: xlstm-1.3b at its published widths cut to its first 16
+#: of 48 layers (the pattern of 8 over 2 repeats; all 48 before [tp-state]
+#: joined the script, cut to hold its time), 707,864,688
+#: parameters, 2.83 GB fp32; a fixed state of 235,520,224 bytes per slot
+#: (14 mLSTM matrix memories of 16.8 MB fp32), 1.88 GB for 8 slots;
+#: 512-token prompts (two mLSTM chunks of 256), and one 2,048-token
+#: prefill timed in its pieces
+XLSTM_SERVE = dict(n_layers=16, n_slots=8, n_requests=16, prompt_len=512, max_new=32,
                    rate=2e-3, workers=8, prefill_len=2048)
 #: [xlstm-train]: the published widths cut to the first 8 of 48 layers
 #: (one period: 405,444,664 parameters in 22 leaves, one grouped launch)
@@ -696,9 +748,10 @@ def phase_device():
             f"spilling entries {len(spills)}")
 
 
-def make_trainer(env=None, scheme="xf", **kw):
-    """Full-width gc-lm-110m in a ``Trainer`` on the card (seed 0); ``kw``
-    goes to the ``Trainer`` (ckpt, adapt, wave, params, budget)."""
+def make_trainer(env=None, scheme="xf", seq_len=256, **kw):
+    """Full-width gc-lm-110m in a ``Trainer`` on the card (seed 0) at
+    ``seq_len`` tokens; ``kw`` goes to the ``Trainer`` (ckpt, adapt, wave,
+    params, budget)."""
     from repro_torch.configs import get_config
     from repro_torch.core import ShiftedExponential
     from repro_torch.train.trainer import TrainConfig, Trainer
@@ -707,7 +760,7 @@ def make_trainer(env=None, scheme="xf", **kw):
     return Trainer(cfg, TrainConfig(lr=3e-4, warmup=10, total_steps=300),
                    env or ShiftedExponential(mu=1e-3, t0=50.0), n_workers=4,
                    scheme=scheme, global_batch=8, seed=0, device="cuda",
-                   seq_len=256, **kw)
+                   seq_len=seq_len, **kw)
 
 
 def phase_setup():
@@ -1829,9 +1882,30 @@ def _digest(tensors) -> str:
     return h.hexdigest()
 
 
-def _tp_rank(rank, world, train_losses):
-    """One rank of the [tp] phase (``dist.spawn``: every rank on card 0
-    over gloo), a (data 4, model 2) mesh.  Rank 0 logs; every check
+def _tp_job(rank, world, train_losses, ckpt_dir):
+    """One rank of the eight-rank job (``dist.spawn``: every rank on card
+    0 over gloo, a (data 4, model 2) mesh) that runs [tp] and then
+    [tp-state]'s trainers: one job, so the ranks start, reach the card
+    and join the process group once.  Returns this rank's results of
+    each, and the seconds of each."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+
+    mesh = make_local_mesh(TP_DATA, model=TP_MODEL, device="cuda:0", backend="gloo")
+    out, t0 = {}, time.perf_counter()
+    out["tp"] = _tp_rank(rank, world, mesh, train_losses)
+    torch.cuda.empty_cache()
+    dist.barrier()
+    t1 = time.perf_counter()
+    out["tp-state"] = _tp_state_rank(rank, world, mesh, ckpt_dir)
+    out["seconds"] = {"tp": t1 - t0, "tp-state": time.perf_counter() - t1}
+    return out
+
+
+def _tp_rank(rank, world, mesh, train_losses):
+    """[tp] on one rank of ``_tp_job``.  Rank 0 logs; every check
     raises, and a rank's failure fails the whole job.  Returns this rank's
     launches, counts, bytes and times."""
     import torch
@@ -1839,12 +1913,10 @@ def _tp_rank(rank, world, train_losses):
 
     from repro_torch.data.pipeline import coded_worker_batches
     from repro_torch.dist import collectives
-    from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models.params import gather_model
     from repro_torch.train.coded import local_layout, make_coded_grad_fn
 
     say = log if rank == 0 else (lambda *args: None)
-    mesh = make_local_mesh(TP_DATA, model=TP_MODEL, device="cuda:0", backend="gloo")
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats(mesh.device)
     trainer = make_trainer(mesh=mesh, mode="spmd")
@@ -1948,7 +2020,7 @@ def _tp_rank(rank, world, train_losses):
     dist.barrier()
     if rank == 0:
         times = _rank_combine_times("tp", rows, plan, layout, mesh)
-    del rows
+    del rows, trainer, local
     dist.barrier()
     return {"launches": launches["gc_fused"], "counts": counts, "model_counts": model_counts,
             "walls": walls, "mem": mem, "data_bytes": data_bytes, "model_bytes": model_bytes,
@@ -1958,30 +2030,37 @@ def _tp_rank(rank, world, train_losses):
 def phase_tp(train_losses):
     """spmd coded training on a model axis on one card: a (data 4, model
     2) mesh of eight ranks on card 0 over gloo, each a full-width
-    ``Trainer(mode="spmd")`` over its shards.  Returns the ranks'
-    gc_fused launches on the main path, summed, and rank 0's combine
-    times."""
+    ``Trainer(mode="spmd")`` over its shards; the same job then runs
+    [tp-state]'s trainers (``_tp_job``), whose checkpoint stays in the
+    returned work directory for ``phase_tp_state``.  Returns the ranks'
+    gc_fused launches on [tp]'s main path, summed, rank 0's combine
+    times, every rank's [tp-state] results and the work directory."""
     from repro_torch.dist.spawn import spawn
 
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    store = tempfile.mkdtemp(prefix="chip_smoke_tp_", dir=os.path.join(ROOT, "build"))
+    work = tempfile.mkdtemp(prefix="chip_smoke_tp_", dir=os.path.join(ROOT, "build"))
     t0 = time.perf_counter()
     try:
-        ranks = spawn(_tp_rank, TP_DATA * TP_MODEL, train_losses, store_dir=store,
-                      backend="gloo", timeout=SPMD_LIMIT_S)
-    finally:
-        shutil.rmtree(store, ignore_errors=True)
+        jobs = spawn(_tp_job, TP_DATA * TP_MODEL, train_losses, os.path.join(work, "ckpt"),
+                     store_dir=os.path.join(work, "spawn"), backend="gloo",
+                     timeout=SPMD_LIMIT_S)
+    except BaseException:
+        shutil.rmtree(work, ignore_errors=True)
+        raise
+    ranks = [j["tp"] for j in jobs]
     launches = sum(r["launches"] for r in ranks)
     if launches != STEPS * TP_DATA * TP_MODEL:
         raise AssertionError(f"[tp] {launches} gc_fused launches, expected "
                              f"{STEPS * TP_DATA * TP_MODEL}")
-    log(f"[tp] {len(ranks)} ranks done in {time.perf_counter() - t0:.1f} s; per rank "
+    log(f"[tp] {len(ranks)} ranks done in {time.perf_counter() - t0:.1f} s ([tp] "
+        f"{jobs[0]['seconds']['tp']:.1f} s and [tp-state]'s trainers "
+        f"{jobs[0]['seconds']['tp-state']:.1f} s of rank 0's job); per rank "
         f"gc_fused launches {[r['launches'] for r in ranks]} ({launches} in all), step "
         f"wall_s {[[round(w, 3) for w in r['walls']] for r in ranks]}, max_memory_allocated "
         f"{[r['mem'] for r in ranks]} bytes, data-group bytes per rank per step "
         f"{sorted({r['data_bytes'] for r in ranks})}, model-group "
         f"{sorted({r['model_bytes'] for r in ranks})}")
-    return launches, ranks[0]["times"]
+    return launches, ranks[0]["times"], [j["tp-state"] for j in jobs], work
 
 
 def _snapshot(tree) -> dict:
@@ -2056,6 +2135,45 @@ def _peak_rss_gb() -> float:
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
 
 
+class _RssPeak:
+    """The peak of this process's resident set (``VmRSS``), GB, sampled
+    every 20 ms on a thread while the block runs: a spawned rank's
+    ``ru_maxrss`` starts at its parent's peak, so it cannot tell one
+    rank's own."""
+
+    def __init__(self):
+        import threading
+
+        self.gb, self._stop = 0.0, threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+
+    @staticmethod
+    def _now() -> float:
+        try:
+            with open("/proc/self/status") as f:
+                for line in f:
+                    if line.startswith("VmRSS:"):
+                        return int(line.split()[1]) * 1024 / 1e9
+        except OSError:
+            pass
+        return float("nan")
+
+    def _sample(self):
+        while True:
+            self.gb = max(self.gb, self._now())
+            if self._stop.wait(0.02):
+                return
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.gb = max(self.gb, self._now())
+
+
 def _pieces_line(total: float, pieces: dict) -> str:
     rest = total - sum(pieces.values())
     return ", ".join(f"{k} {v:.3f}" for k, v in pieces.items()) + f", rest {rest:.3f}"
@@ -2064,7 +2182,7 @@ def _pieces_line(total: float, pieces: dict) -> str:
 #: the host and device pieces of a coded save and restore, timed apart
 SAVE_PIECES = ("_leaf_records", "_encode_digits", "_pack_uints", "_crc", "write_durable")
 RESTORE_PIECES = ("_read_shard", "_crc", "_unpack_uints", "_encode_digits", "_solve_digits",
-                  "_digits_to_stripe", "loaded_array", "fill_tree")
+                  "_digits_to_stripe", "loaded_array")
 
 
 def phase_ckpt():
@@ -2088,43 +2206,43 @@ def phase_ckpt():
         trainer.sim.env = trainer.env.with_faults(DegradedWorker(**DEATH))
         log(f"[ckpt] trainer with CodedSpec(4, 1) every 2 steps, {DEATH}; "
             f"{time.perf_counter() - t0:.2f} s; host peak RSS {_peak_rss_gb():.2f} GB")
-        manager = trainer.manager
         saved, restored = {}, {}
         spent = {"save": 0.0, "restore": 0.0, "snapshot": 0.0}
         pieces = {}
-        orig_save, orig_restore = manager.save, manager.restore_from_survivors
+        orig_save, orig_restore = trainer.save_checkpoint, trainer.restore_checkpoint
 
-        def snapshot(into, step, tree):
+        def snapshot(into, step):
             t = time.perf_counter()
-            into[step] = _snapshot(tree)
+            into[step] = _snapshot(trainer.state)
             torch.cuda.synchronize()
             spent["snapshot"] += time.perf_counter() - t
 
-        def save(step, tree, extra=None):
-            snapshot(saved, int(step), tree)
+        def save():
+            step = int(trainer.state.step)
+            snapshot(saved, step)
             t = time.perf_counter()
             with Pieces(coded, SAVE_PIECES) as timer:
-                path = orig_save(step, tree, extra=extra)
+                path = orig_save()
             spent["save"] += time.perf_counter() - t
             pieces["save"] = timer.take()
             log(f"[ckpt] save at step {step}: {spent['save']:.2f} s; host peak RSS "
                 f"{_peak_rss_gb():.2f} GB")
             return path
 
-        def restore(template, missing, step=None):
+        def restore(missing=()):
             torch.cuda.synchronize()
             t = time.perf_counter()
             with Pieces(coded, RESTORE_PIECES) as timer:
-                state, at = orig_restore(template, missing, step)
+                at = orig_restore(missing=missing)
                 torch.cuda.synchronize()
             spent["restore"] += time.perf_counter() - t
             pieces["restore"] = timer.take()
             log(f"[ckpt] restore of step {at}: {spent['restore']:.2f} s; host peak RSS "
                 f"{_peak_rss_gb():.2f} GB")
-            snapshot(restored, at, state)
-            return state, at
+            snapshot(restored, at)
+            return at
 
-        manager.save, manager.restore_from_survivors = save, restore
+        trainer.save_checkpoint, trainer.restore_checkpoint = save, restore
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
@@ -2172,6 +2290,301 @@ def phase_ckpt():
     del trainer, saved, restored
     torch.cuda.empty_cache()
     return launches, manifest["stripe_bytes"] // 2
+
+
+def _tp_state_rank(rank, world, mesh, ckpt_dir):
+    """[tp-state] on one rank of ``_tp_job``: (a) coded checkpoints, worker
+    1's death, a forced re-plan, the restore and the replay; (c) the wave
+    loop; (d) ``scheme="auto"``.  Rank 0 logs; every check raises, and a
+    rank's failure fails the job.  Returns this rank's counts, digests,
+    times and peaks."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.adapt import AdaptConfig
+    from repro_torch.checkpoint import CkptConfig, CodedSpec
+    from repro_torch.core import DegradedWorker, Env, ShiftedExponential
+    from repro_torch.data.pipeline import coded_worker_batches
+    from repro_torch.models.params import gather_model
+    from repro_torch.train.coded import make_coded_grad_fn
+    from repro_torch.train.wave import WaveConfig, WaveRunner
+    from repro_torch.tune import MemBudget
+
+    say = log if rank == 0 else (lambda *args: None)
+    out = {"launches": {}}
+
+    def counted(trainer, steps, part):
+        torch.cuda.synchronize()
+        dist.barrier()
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer.run(steps, log_every=0)
+        torch.cuda.synchronize()
+        out["launches"][part] = read_counts()
+        return time.perf_counter() - t0
+
+    # (a) coded checkpoints, a death, a forced re-plan, the restore
+    trainer = make_trainer(mesh=mesh, mode="spmd", adapt=AdaptConfig(), seq_len=TP_STATE_SEQ,
+                           ckpt=CkptConfig(dir=ckpt_dir, every=TP_CKPT_EVERY,
+                                           coded=CodedSpec(n_shards=4, parity=1)))
+    trainer.sim.env = trainer.env.with_faults(DegradedWorker(**TP_DEATH))
+    saved, restored, gathered, spent, rss = {}, {}, {}, {}, {}
+    save, restore, manager_save = (trainer.save_checkpoint, trainer.restore_checkpoint,
+                                   trainer.manager.save)
+
+    def timed(what, fn, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _RssPeak() as peak:
+            got = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+        spent[what] = spent.get(what, 0.0) + time.perf_counter() - t0
+        rss[what] = peak.gb
+        return got
+
+    def timed_save():
+        path = timed("save", save)
+        saved[int(trainer.state.step)] = trainer.state.digest()
+        return path
+
+    def timed_restore(missing=()):
+        step = timed("restore", restore, missing=missing)
+        restored[step] = trainer.state.digest()
+        return step
+
+    def teed_save(step, tree, extra=None, device=None):
+        """rank 0: the save, with a digest (``TrainState.digest``'s) of the
+        gathered leaves as they stream to the checkpoint."""
+        h = hashlib.sha256()
+
+        def tee():
+            for key, leaf in tree:
+                h.update(key.encode())
+                h.update(torch.as_tensor(leaf).contiguous().reshape(-1).view(torch.uint8)
+                         .numpy().tobytes())
+                yield key, leaf
+
+        path = manager_save(step, tee(), extra=extra, device=device)
+        gathered[int(step)] = h.digest()
+        return path
+
+    trainer.save_checkpoint, trainer.restore_checkpoint = timed_save, timed_restore
+    if rank == 0:
+        trainer.manager.save = teed_save
+    torch.cuda.synchronize()
+    dist.barrier()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer.run(3, log_every=0)  # no save, death or swap yet: 3 barrier steps, (c)'s reference
+    barrier = (trainer.state.digest(), [h["loss"] for h in trainer.history])
+    trainer.run(TP_STATE_STEPS - 3, log_every=0)
+    torch.cuda.synchronize()
+    out["launches"]["ckpt"] = read_counts()
+    wall = time.perf_counter() - t0
+    hist, evs = trainer.history, trainer.recoveries
+    steps = [h["step"] for h in hist]
+    want_steps = list(range(1, TP_DEATH_STEP + 1)) + [TP_CKPT_EVERY + 1]
+    if len(evs) != 1 or (evs[0].step, evs[0].dead_workers, evs[0].ckpt_step) != \
+            (TP_DEATH_STEP, (TP_DEATH["worker"],), TP_CKPT_EVERY) or evs[0].swap is None:
+        raise AssertionError(f"rank {rank}: recoveries {evs}, expected one of worker "
+                             f"{TP_DEATH['worker']} after step {TP_DEATH_STEP} to step "
+                             f"{TP_CKPT_EVERY}, with a forced re-plan")
+    swap = evs[0].swap
+    if swap.x_new.tolist() != TP_SWAP_X or trainer.plan.x.tolist() != TP_SWAP_X:
+        raise AssertionError(f"rank {rank}: the forced re-plan's x {swap.x_new.tolist()}, the "
+                             f"CPU's {TP_SWAP_X}")
+    if sorted(saved) != [TP_CKPT_EVERY] or sorted(restored) != [TP_CKPT_EVERY] \
+            or restored[TP_CKPT_EVERY] != saved[TP_CKPT_EVERY]:
+        raise AssertionError(f"rank {rank}: saves at {sorted(saved)}, restores to "
+                             f"{sorted(restored)}, or the restored shards differ from the saved")
+    first, replay = hist[TP_CKPT_EVERY]["loss"], hist[-1]["loss"]
+    if steps != want_steps or replay != first:
+        raise AssertionError(f"rank {rank}: steps {steps} (want {want_steps}), replayed loss "
+                             f"{replay} vs {first}")
+    launches = out["launches"]["ckpt"]
+    want_encode = 2 if rank == 0 else 0  # the save's parity, the survivors' encode
+    if launches["gc_fused"] != TP_STATE_STEPS or launches["gc_encode"] != want_encode:
+        raise AssertionError(f"rank {rank}: launches {launches}, expected gc_fused "
+                             f"{TP_STATE_STEPS} (one per step), gc_encode {want_encode}")
+    say(f"[tp-state] (a) {world} ranks, (data {TP_DATA}, model {TP_MODEL}), each a full-width "
+        f"Trainer(mode='spmd', adapt=AdaptConfig(), ckpt=CodedSpec(4, 1) every "
+        f"{TP_CKPT_EVERY}) on {TP_DEATH}: {TP_STATE_STEPS} steps in {wall:.2f} s, steps "
+        f"{steps}; DeathWatch tripped after step {evs[0].step} (the CPU's), forced re-plan x "
+        f"{swap.x_old.tolist()} -> {swap.x_new.tolist()} (the CPU's), restore of step "
+        f"{evs[0].ckpt_step} byte-equal to the save on every rank; replayed loss {replay} "
+        f"== {first}; rank 0 save {spent['save']:.2f} s, restore {spent['restore']:.2f} s; "
+        f"launches {launches}")
+    out.update(ckpt=dict(spent=spent, rss=rss, gathered=gathered.get(TP_CKPT_EVERY),
+                         saved=saved[TP_CKPT_EVERY], coords=(mesh.data_index, mesh.model_index)))
+    del trainer, save, restore, manager_save
+    torch.cuda.empty_cache()
+
+    # (c) the wave loop: a fresh trainer at staleness 0 byte-equal to (a)'s
+    # first 3 steps (barrier steps from the same weights and draws), then
+    # 4 rounds of it at staleness 1
+    trainer = make_trainer(mesh=mesh, mode="spmd", seq_len=TP_STATE_SEQ,
+                           wave=WaveConfig(staleness=0, **WAVE_COSTS))
+    counted(trainer, 3, "wave0")
+    if (trainer.state.digest(), [h["loss"] for h in trainer.history]) != barrier:
+        raise AssertionError(f"rank {rank}: staleness 0 differs from the barrier loop")
+    trainer.wave = WaveRunner(trainer, WaveConfig(staleness=1, **WAVE_COSTS))
+    first = len(trainer.history)
+    wall = counted(trainer, TP_WAVE_ROUNDS, "wave1")
+    [trace], [executed] = trainer.wave.traces, trainer.wave.executed
+    losses = [h["loss"] for h in trainer.history[first:]]
+    launches = out["launches"]["wave1"]
+    if executed != list(trace.events) or trainer.wave._strategy(trainer.plan) != "deferred":
+        raise AssertionError(f"rank {rank}: staleness 1 did not execute the WaveTrace deferred")
+    if launches["gc_fused"] != TP_WAVE_ROUNDS or len(losses) != TP_WAVE_ROUNDS or \
+            not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"rank {rank}: staleness 1 launches {launches}, losses {losses}")
+    say(f"[tp-state] (c) wave loop on the axis: staleness 0, 3 rounds, byte-equal to (a)'s 3 "
+        f"barrier steps (shards and moments, every rank); staleness 1 (deferred), "
+        f"{TP_WAVE_ROUNDS} rounds in {wall:.2f} s: executed events == WaveTrace "
+        f"({len(trace.events)} events), realized staleness "
+        f"{trace.realized_staleness().tolist()}, launches {launches} (one per round), losses "
+        f"{[round(x, 4) for x in losses]}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (d) scheme="auto" on an i.i.d. env (eq2 prices it on the host) under
+    # TUNE_HBM_GB; fp32 gradients pinned for the 1e-5 comparison
+    t0 = time.perf_counter()
+    budget = MemBudget.from_gb(TUNE_HBM_GB)
+    trainer = make_trainer(Env.iid(ShiftedExponential(mu=1e-3, t0=50.0), 4), scheme="auto",
+                           budget=budget, grad_dtype="fp32", mesh=mesh, mode="spmd",
+                           seq_len=TP_STATE_SEQ)
+    tune_s = time.perf_counter() - t0
+    cfg, plan, local = trainer.cfg, trainer.plan, trainer.state.params
+    paths = local.leaf_paths()
+    wb = coded_worker_batches(trainer.data, 0, TP_DATA, plan.s_max)
+    stragglers = sorted({0, plan.s_max})
+    full, sim = gather_model(local), {}
+    if rank == 0:
+        coded = make_coded_grad_fn(cfg, plan)
+        rows = coded.rows(full, wb)
+        for u in stragglers:
+            sim[u] = coded.combine(rows, _straggler_dec_w(plan, u))
+        del coded, rows
+        torch.cuda.synchronize()
+    del full
+    dist.barrier()
+    worst = {}
+    for u in stragglers:
+        got = gather_model(local, trainer.step_fn.grad_fn(local, wb, _straggler_dec_w(plan, u)))
+        if rank == 0:
+            worst[u] = _worst_rel(got.leaves(), sim[u], paths, 1e-5,
+                                  f"[tp-state] (d) gathered spmd vs sim mode, {u} stragglers")
+        del got
+    del sim
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    counted(trainer, 1, "auto")
+    peak = torch.cuda.max_memory_allocated(mesh.device)
+    launches = out["launches"]["auto"]
+    loss = trainer.history[0]["loss"]
+    if launches["gc_fused"] != 1 or not math.isfinite(loss):
+        raise AssertionError(f"rank {rank}: scheme='auto' step launches {launches}, loss {loss}")
+    best = trainer.tune_report.best
+    say(f"[tp-state] (d) Trainer(scheme='auto', budget={budget}) on the axis: every rank's "
+        f"search in {tune_s:.2f} s, winner {best.label()} x={best.x}, knobs "
+        f"{(trainer.pipeline, trainer.reduce_mode, trainer.grad_dtype)} (fp32 pinned); step 0, "
+        f"gathered coded gradients vs rank 0's sim mode (bound 1e-5): "
+        + ", ".join(f"{u} stragglers {w:.3e}" for u, w in worst.items())
+        + f"; 1 step, launches {launches}, loss {loss}")
+    out.update(auto=dict(report=trainer.tune_report.to_dict(), plan=plan.to_dict(),
+                         peak=peak, estimate=best.mem.total))
+    del trainer, local
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tp_state(ranks, work):
+    """A sharded state on the model axis: eight ranks on card 0 over gloo,
+    (data 4, model 2), each a full-width ``Trainer(mode="spmd")`` over its
+    shards — run in [tp]'s job, whose results ``ranks`` are — through (a)
+    coded checkpoints, worker 1's death, a forced re-plan, the restore
+    decoded on rank 0 alone and the replay; (b) the checkpoint (under
+    ``work``, removed here) restored by one process (model 1) and saved
+    again there; (c) the wave loop; (d) ``scheme="auto"``.  Returns the
+    ranks' launches on these paths, summed by kernel."""
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager, CkptConfig, CodedSpec
+    from repro_torch.core import Env, ShiftedExponential
+    from repro_torch.tune import MemBudget, autotune
+
+    ckpt_dir = os.path.join(work, "ckpt")
+    try:
+        ck = [r["ckpt"] for r in ranks]
+        log(f"[tp-state] (a) per rank (data, model): save s "
+            f"{[round(c['spent']['save'], 2) for c in ck]}, restore s "
+            f"{[round(c['spent']['restore'], 2) for c in ck]}; host peak RSS GB (VmRSS "
+            f"sampled every 20 ms) during the save {[round(c['rss']['save'], 2) for c in ck]}, "
+            f"during the restore {[round(c['rss']['restore'], 2) for c in ck]} (rank 0 reads and "
+            f"decodes; the others receive one broadcast per leaf)")
+        for c in ck:
+            if c["saved"] != ck[c["coords"][1]]["saved"]:  # data index 0, its model index
+                raise AssertionError(f"[tp-state] rank {c['coords']}: the saved shards differ "
+                                     "from its model index's data rank 0's")
+
+        # (b) the axis's checkpoint in one process (model 1), saved again
+        t0 = time.perf_counter()
+        one = make_trainer(ckpt=CkptConfig(dir=ckpt_dir), seq_len=TP_STATE_SEQ)
+        restore_s = time.perf_counter() - t0
+        if int(one.state.step) != TP_CKPT_EVERY or one.state.digest() != ck[0]["gathered"]:
+            raise AssertionError("[tp-state] (b) the one-process restore differs from the "
+                                 "gathered state at the save")
+        twin_dir = os.path.join(work, "twin")
+        one.manager = CheckpointManager(CkptConfig(dir=twin_dir,
+                                                   coded=CodedSpec(n_shards=4, parity=1)))
+        t0 = time.perf_counter()
+        one.save_checkpoint()
+        save_s = time.perf_counter() - t0
+        manifests = []
+        for d in (ckpt_dir, twin_dir):
+            with open(os.path.join(d, f"step_{TP_CKPT_EVERY:08d}", "manifest.json")) as f:
+                manifests.append(json.load(f))
+        axis, twin = manifests
+        if axis["shards"] != twin["shards"] or axis["leaves"] != twin["leaves"]:
+            raise AssertionError("[tp-state] (b) the axis's crc32s or leaf records differ from "
+                                 "a one-process save of the same state")
+        log(f"[tp-state] (b) one process (model 1) restored the axis's checkpoint of step "
+            f"{TP_CKPT_EVERY} byte-equal to the gathered state ({restore_s:.2f} s with the "
+            f"trainer's construction) and saved it again ({save_s:.2f} s): the same "
+            f"{len(axis['shards'])} crc32s and {len(axis['leaves'])} leaf records")
+        del one
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # (d) every rank's search == the same search in this process
+    from repro_torch.configs import get_config
+
+    cfg = get_config("gc-lm-110m").replace(max_seq=512)
+    res = autotune(cfg, Env.iid(ShiftedExponential(mu=1e-3, t0=50.0), 4),
+                   MemBudget.from_gb(TUNE_HBM_GB), global_batch=8, seq_len=TP_STATE_SEQ,
+                   seed=0, device="cuda")
+    if ranks[0]["auto"]["report"] != res.report.to_dict() or \
+            ranks[0]["auto"]["plan"] != res.plan.to_dict():
+        raise AssertionError("[tp-state] (d) the ranks' search differs from this process's")
+    peaks = [r["auto"]["peak"] for r in ranks]
+    log(f"[tp-state] (d) the ranks' report == autotune in this process ({res.report.backend}, "
+        f"{len(res.report.candidates)} admissible, {len(res.report.pruned)} pruned); a rank's "
+        f"max_memory_allocated over the step {max(peaks):,} bytes (ranks {peaks}) beside the "
+        f"tuner's per-worker estimate {ranks[0]['auto']['estimate']:,.0f} bytes (the whole "
+        f"worker, no model axis)")
+    total = {}
+    for r in ranks:
+        for part in r["launches"].values():
+            for k, v in part.items():
+                total[k] = total.get(k, 0) + v
+    by_part = {p: sum(r["launches"][p]["gc_fused"] for r in ranks) for p in ranks[0]["launches"]}
+    log(f"[tp-state] {len(ranks)} ranks (in [tp]'s job); launches on these paths, all "
+        f"ranks: {total}; gc_fused by path {by_part}")
+    return total
 
 
 def phase_encode(n_digits: int):
@@ -2740,6 +3153,7 @@ def phase_tp_serve():
         raise AssertionError(f"[tp-serve] teacher forcing on the bf16 slab {worst:.3e} > "
                              f"{SERVE_BF16_REL}")
     seen = _check_tp_serve("tp-serve", cfg, g, one, ranks)
+    reused = _reused_slots("tp-serve", one["slots"])  # every rank's slots are these
     differ = sum(a != b for x, y in zip(ranks[0]["bf16"]["reqs"], one16["reqs"], strict=True)
                  for a, b in zip(x[0], y[0], strict=True))
     n_tok16 = sum(len(x[0]) for x in one16["reqs"])
@@ -2753,7 +3167,8 @@ def phase_tp_serve():
         f"job {job_s:.1f} s")
     log(f"[tp-serve] fp32 activations, fp32 slab: tokens, slots, timestamps and step "
         f"latencies == the one-rank engine's on every rank ({len(run['reqs'])} requests, "
-        f"{n_tok} tokens, {len(run['latencies'])} decode steps); gc_* launches "
+        f"{n_tok} tokens, {len(run['latencies'])} decode steps; slots serving a second "
+        f"request {reused}); gc_* launches "
         f"{[r['fp32']['launches'] for r in ranks]}; {n_tok / run['wall']:.1f} tok/s by the "
         f"wall clock ({run['wall']:.3f} s; one rank {one['tokens_per_s']:.1f} tok/s); a decode "
         f"step (no admission) median {seen['median']:.3f} ms by the host clock (one rank "
@@ -3049,6 +3464,21 @@ def phase_gemma_train():
     return dict(times, launches=launches["gc_fused"], max_abs_err=max_err, peak=peak)
 
 
+def _reused_slots(tag, slot_steps) -> list:
+    """The slots that served more than one request, from each step's
+    slot of every request (None when not running); raises when none
+    did."""
+    served_by = {}
+    for step in slot_steps:
+        for i, slot in enumerate(step):
+            if slot is not None:
+                served_by.setdefault(slot, set()).add(i)
+    reused = sorted(slot for slot, reqs in served_by.items() if len(reqs) > 1)
+    if not reused:
+        raise AssertionError(f"[{tag}] no slot served a second request: {served_by}")
+    return reused
+
+
 def _serve_run(tag, cfg, model, g) -> dict:
     """``g["n_requests"]`` prompts of ``g["prompt_len"]`` random tokens
     (numpy, seed 0) and Poisson arrivals (seed 0) through a ``ServeEngine``
@@ -3076,8 +3506,14 @@ def _serve_run(tag, cfg, model, g) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
+    slot_steps = []
     t0 = time.perf_counter()
-    done = eng.run()
+    while True:
+        more = eng.step()
+        slot_steps.append([r.slot for r in reqs])
+        if not more:
+            break
+    done = eng.finished
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
@@ -3090,12 +3526,14 @@ def _serve_run(tag, cfg, model, g) -> dict:
         raise AssertionError(f"[{tag}] the engine's clock is not the coded tier's stream")
     if any(counts.values()):
         raise AssertionError(f"[{tag}] the serving path launched kernels: {counts}")
+    reused = _reused_slots(tag, slot_steps)
     log(f"[{tag}] {cfg.name} at full width, {cfg.n_layers} layers: "
         f"{sum(t.numel() for t in model.leaves())} params; coded tier R={coded.plan.r} "
         f"s={coded.plan.s}; {len(reqs)} requests x {g['prompt_len']}-token prompts, {n_tokens} "
         f"tokens in {wall:.3f} s over {len(eng.step_latencies)} decode steps: "
         f"{n_tokens / wall:.1f} tok/s; every request {g['max_new']} tokens; step latencies == "
-        f"the tier's stream; gc_* launches {counts}; max_memory_allocated {peak} bytes")
+        f"the tier's stream; slots serving a second request {reused}; gc_* launches "
+        f"{counts}; max_memory_allocated {peak} bytes")
     return {"eng": eng, "reqs": reqs, "prompts": prompts, "wall": wall, "peak": peak,
             "tokens_per_s": n_tokens / wall}
 
@@ -3365,7 +3803,7 @@ def _serve_times(tag, cfg, model, slab, prompt, expert_tokens=(0, 0)) -> dict:
 
 def phase_qwen_serve():
     """Full-width qwen1.5-32b (QKV biases, an untied head, bf16
-    activations) cut to 16 of 64 layers, its biases set to seeded normal
+    activations) cut to 8 of 64 layers, its biases set to seeded normal
     values (std 0.02; the reference initializes them to zero), in a
     ``ServeEngine``: 16 requests of 512-token prompts, 64 new tokens each
     (``_serve_run``'s gates); prefill and ``decode_step`` times; teacher
@@ -4207,10 +4645,10 @@ def _xlstm_teacher_forcing(cfg, model, outputs, s: int) -> dict:
 
 
 def phase_xlstm_serve():
-    """Full-width, full-depth xlstm-1.3b (d_model 2048; 48 layers: one
-    pattern of 8 — seven mLSTM layers of d_inner 4,096 over 4 heads of
-    1,024 and an sLSTM layer — over 6 repeats; no FFN sublayers; vocab
-    50,304, tied; bf16 activations), 1,917,544,784 parameters, in a
+    """Full-width xlstm-1.3b cut in depth (d_model 2048; 16 of 48 layers:
+    one pattern of 8 — seven mLSTM layers of d_inner 4,096 over 4 heads of
+    1,024 and an sLSTM layer — over 2 repeats; no FFN sublayers; vocab
+    50,304, tied; bf16 activations), 707,864,688 parameters, in a
     ``ServeEngine`` of 8 slots over a bf16 slab: 16 requests of 512-token
     prompts and 32 new tokens each (``_serve_run``'s gates).  The slab
     holds a fixed state per slot and no K/V: ``C``, ``n``, ``m`` and the
@@ -4229,24 +4667,27 @@ def phase_xlstm_serve():
     g = XLSTM_SERVE
     cfg = _cut("xlstm-1.3b", g["n_layers"])
     mixers = [l.mixer for l in cfg.layers]
-    if mixers != (["mlstm"] * 7 + ["slstm"]) * 6 or any(has_ffn(cfg, l) for l in cfg.layers):
+    periods = g["n_layers"] // 8
+    if mixers != (["mlstm"] * 7 + ["slstm"]) * periods or \
+            any(has_ffn(cfg, l) for l in cfg.layers):
         raise AssertionError(f"[xlstm-serve] not the published layout: {mixers}")
     model = GCLM(cfg, device="cuda", seed=0)
     n_params = sum(t.numel() for t in model.leaves())
-    if n_params != 1_917_544_784 or len(model.leaves()) != 94:
+    if n_params != 707_864_688 or len(model.leaves()) != 94:
         raise AssertionError(f"[xlstm-serve] {n_params} parameters in {len(model.leaves())} "
-                             "leaves, expected 1,917,544,784 in 94")
+                             "leaves, expected 707,864,688 in 94")
     run = _serve_run("xlstm-serve", cfg, model, g)
     eng, reqs = run["eng"], run["reqs"]
     (seg,) = eng.slab
     state = _xlstm_state_bytes(cfg, eng.slab)
     dtypes = {k: str(t.dtype) for tree in seg for k, t in tree.items() if k != "pos"}
-    if state != 706_560_672 or dtypes.pop("conv") != "torch.bfloat16" or \
+    if state != 235_520_224 or dtypes.pop("conv") != "torch.bfloat16" or \
             set(dtypes.values()) != {"torch.float32"}:
         raise AssertionError(f"[xlstm-serve] the slab's state: {state} bytes per slot, {dtypes}")
     log(f"[xlstm-serve] slab: no K/V; a fixed state of {state} bytes per slot whatever the "
-        f"length (42 mLSTM layers x (C {tuple(seg[0]['C'].shape[2:])} + n + m fp32, conv "
-        f"{tuple(seg[0]['conv'].shape[2:])} bf16) + 6 sLSTM layers x 4 x {cfg.d_model} fp32), "
+        f"length ({7 * periods} mLSTM layers x (C {tuple(seg[0]['C'].shape[2:])} + n + m fp32, "
+        f"conv {tuple(seg[0]['conv'].shape[2:])} bf16) + {periods} sLSTM layers x 4 x "
+        f"{cfg.d_model} fp32), "
         f"{state * g['n_slots']} bytes for {g['n_slots']} slots")
     times = _xlstm_times(cfg, model, eng.slab, g)
     tokens_per_s, peak = run["tokens_per_s"], run["peak"]
@@ -4255,7 +4696,7 @@ def phase_xlstm_serve():
     _free_card()
     tf = _xlstm_teacher_forcing(cfg, model, outputs, g["prompt_len"])
     log(f"[xlstm-serve] max_memory_allocated during the engine run {peak} bytes "
-        f"({peak / 1e9:.2f} GB: the weights 7.67 GB fp32, the slab "
+        f"({peak / 1e9:.2f} GB: the weights {4 * n_params / 1e9:.2f} GB fp32, the slab "
         f"{state * g['n_slots'] / 1e9:.2f} GB, the prefill's activations)")
     if not peak < 80e9:
         raise AssertionError(f"[xlstm-serve] peak {peak} bytes")
@@ -4800,8 +5241,9 @@ def main() -> int:
     wave_launches = timed("wave", phase_wave)
     tune_launches = timed("tune", phase_tune)
     spmd_launches, spmd_times = timed("spmd", phase_spmd, train_losses)
-    tp_launches, tp_times = timed("tp", phase_tp, train_losses)
+    tp_launches, tp_times, tp_state_ranks, tp_state_work = timed("tp", phase_tp, train_losses)
     ckpt_launches, n_digits = timed("ckpt", phase_ckpt)
+    tp_state_launches = timed("tp-state", phase_tp_state, tp_state_ranks, tp_state_work)
     enc_err, enc_times = timed("encode", phase_encode, n_digits)
     trip_launches, dec_err, dec_times = timed("decode", phase_decode)
     timed("serve", phase_serve)
@@ -4843,7 +5285,8 @@ def main() -> int:
                       "jamba": jamba["launches"], "xlstm": xlstm["launches"],
                       "whisper": whisper["launches"], "vision": vision["launches"],
                       "dryrun": dryrun["launches"], "tp-serve": tp_serve["launches"],
-                      "gemma3-tp-serve": gemma3_tp_serve["launches"]}
+                      "gemma3-tp-serve": gemma3_tp_serve["launches"],
+                      "tp-state": tp_state_launches["gc_fused"]}
     print(json.dumps({"kernels": [
         row("gc_fused", "src/repro/kernels/gc_fused.py:57", sum(fused_launches.values()),
             max(max_err, gemma["max_abs_err"]), kernel_times, launches_by_path=fused_launches,
@@ -4857,8 +5300,10 @@ def main() -> int:
             gemma_device_ms=gemma["device_ms"], gemma_ms=gemma["ms"],
             gemma_plain_ms=gemma["plain_ms"], gemma_library_ms=gemma["library_ms"],
             gemma_bound_ms=gemma["bound_ms"]),
-        row("gc_encode", "src/repro/kernels/gc_encode.py:56", ckpt_launches["gc_encode"],
-            enc_err, enc_times),
+        row("gc_encode", "src/repro/kernels/gc_encode.py:56",
+            ckpt_launches["gc_encode"] + tp_state_launches["gc_encode"], enc_err, enc_times,
+            launches_by_path={"ckpt": ckpt_launches["gc_encode"],
+                              "tp-state": tp_state_launches["gc_encode"]}),
         row("gc_decode", "src/repro/kernels/gc_decode.py:51", trip_launches["gc_decode"],
             dec_err, dec_times)]}))
     print(smi_line())

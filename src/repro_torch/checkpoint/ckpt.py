@@ -7,8 +7,10 @@ written by either package loads in the other.  ``tree_items`` flattens
 like ``jax.tree_util.tree_flatten_with_path``: dict keys sorted, list
 and tuple entries ``[i]``, NamedTuple fields in field order; an object
 with a ``checkpoint_tree()`` method (the port's ``TrainState``, whose
-pytree is the reference's ``TrainState``) stands for that tree.  Leaves
-are torch tensors (on any device), numpy arrays or Python numbers.
+pytree is the reference's ``TrainState``) stands for that tree, and an
+iterator of ``(key, leaf)`` pairs in that order (a leaf stream, such as
+a sharded state's gathered leaves) for the tree it walks.  Leaves are
+torch tensors (on any device), numpy arrays or Python numbers.
 Dtypes numpy lacks (bf16, fp8) are stored as same-width uint views and
 read back through torch, not ``ml_dtypes``.
 
@@ -30,6 +32,7 @@ import os
 import re
 import shutil
 import warnings
+from collections.abc import Iterator
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -102,10 +105,14 @@ def _stored(leaf) -> tuple[np.ndarray, str]:
 
 def flatten_with_paths(tree) -> tuple[dict, dict]:
     """Returns (key -> host array in its storage dtype, key -> dtype name);
-    bf16/fp8 leaves are same-width uint views (the reference's format)."""
+    bf16/fp8 leaves are same-width uint views (the reference's format).
+    ``tree`` may also be a leaf stream: an iterator of ``(key, leaf)`` in
+    ``tree_items`` order, each leaf copied to the host before the next
+    is asked for."""
     out, dtypes = {}, {}
-    for key, leaf in tree_items(tree):
+    for key, leaf in tree if isinstance(tree, Iterator) else tree_items(tree):
         out[key], dtypes[key] = _stored(leaf)
+        del leaf
     return out, dtypes
 
 

@@ -32,6 +32,7 @@ import json
 import os
 import sys
 import zlib
+from collections.abc import Iterator
 from dataclasses import dataclass
 from typing import Any, Callable, Optional, Sequence
 
@@ -248,13 +249,17 @@ def _state_device(tree) -> torch.device:
 # ------------------------------------------------------------------- save
 def save_coded_checkpoint(ckpt_dir: str, step: int, tree: Any,
                           spec: CodedSpec, extra: Optional[dict] = None, *,
+                          device=None,
                           _crash_hook: Optional[Callable[[str], None]] = None,
                           ) -> str:
     """Shard ``tree`` across ``spec.n_shards`` workers with ``spec.parity``
-    parity stripes; returns the published step dir.  The parity encode
-    runs on the state's device.  Atomicity and durability ride
-    ``ckpt.write_staged``."""
-    device = _state_device(tree)
+    parity stripes; returns the published step dir.  ``tree`` may be a
+    leaf stream (``ckpt.flatten_with_paths``).  The parity encode runs on
+    ``device``: by default the state's device, CUDA for a stream.
+    Atomicity and durability ride ``ckpt.write_staged``."""
+    if device is None:
+        device = "cuda" if isinstance(tree, Iterator) else _state_device(tree)
+    device = resolve_device(device)
     records, byte_leaves = _leaf_records(tree)
     layout = FlatLayout.for_bytes([r["nbytes"] for r in records], spec.k_data,
                                   lane=spec.lane)

@@ -8,7 +8,10 @@ under a ``CodedSpec``.  ``CheckpointManager.maybe_save`` fires on step
 boundaries, ``restore_latest`` resumes from the newest intact checkpoint
 of either kind, and ``restore_from_survivors`` is the worker-death entry
 point: dead workers' shard ids become ``missing`` and the coded decode
-rebuilds the exact state from the ``N - s`` survivors.
+rebuilds the exact state from the ``N - s`` survivors.  ``save`` also
+takes a leaf stream and ``load`` hands back the full leaves, so a
+sharded state (a rank's shards on a ``model`` axis) saves and restores
+the reference's full tree one leaf at a time.
 """
 from __future__ import annotations
 
@@ -17,8 +20,9 @@ import shutil
 from dataclasses import dataclass
 from typing import Any, Optional, Sequence
 
-from .ckpt import intact_steps, restore_train_state, save_checkpoint
-from .coded import CodedSpec, restore_coded_train_state, save_coded_checkpoint
+from .ckpt import intact_steps, load_checkpoint, restore_train_state, save_checkpoint
+from .coded import (CodedSpec, load_coded_checkpoint, restore_coded_train_state,
+                    save_coded_checkpoint)
 
 __all__ = ["CkptConfig", "CheckpointManager"]
 
@@ -55,11 +59,15 @@ class CheckpointManager:
         #: step of the last successful save this process made
         self.last_saved: Optional[int] = None
 
-    def save(self, step: int, tree: Any, extra: Optional[dict] = None) -> str:
-        """Unconditional save (kind per ``cfg.coded``), then retention."""
+    def save(self, step: int, tree: Any, extra: Optional[dict] = None, *,
+             device=None) -> str:
+        """Unconditional save (kind per ``cfg.coded``), then retention.
+        ``tree`` is a state or a leaf stream (``(key, leaf)`` pairs in
+        flattening order, consumed once); a coded save's parity encode
+        runs on ``device`` (default: the state's; CUDA for a stream)."""
         if self.cfg.coded is not None:
             path = save_coded_checkpoint(self.cfg.dir, step, tree, self.cfg.coded,
-                                         extra=extra)
+                                         extra=extra, device=device)
         else:
             path = save_checkpoint(self.cfg.dir, step, tree, extra=extra)
         self.last_saved = int(step)
@@ -89,11 +97,25 @@ class CheckpointManager:
         steps = intact_steps(self.cfg.dir)
         return steps[0] if steps else None
 
-    def restore(self, template: Any, step: Optional[int] = None, *,
-                missing: Sequence[int] = ()) -> tuple[Any, int]:
-        """Restore into ``template``; returns (state, step).  A coded
-        checkpoint decodes from whatever shards survive (``missing`` marks
-        known-dead workers' shards); a monolithic one ignores ``missing``."""
+    def load(self, step: Optional[int] = None, *, missing: Sequence[int] = (),
+             device="cuda") -> tuple[dict, int]:
+        """(key -> host array, step) of the newest (or given) intact
+        checkpoint, in flattening order: the leaf source of a restore that
+        fills its state itself, one leaf at a time (a sharded state cuts
+        each full leaf to its shard).  A coded checkpoint decodes from
+        whatever shards survive (``missing`` marks known-dead workers'
+        shards), the survivors' encode on ``device``; a monolithic one
+        ignores both."""
+        step, kind = self._find(step)
+        if kind == "coded":
+            arrays, _ = load_coded_checkpoint(self.cfg.dir, step, missing=missing,
+                                              device=device)
+        else:
+            arrays, _ = load_checkpoint(self.cfg.dir, step)
+        return arrays, int(step)
+
+    def _find(self, step: Optional[int]) -> tuple[int, str]:
+        """(step, kind) of the newest intact checkpoint, or of ``step``."""
         if step is None:
             found = self.latest()
             if found is None:
@@ -105,6 +127,14 @@ class CheckpointManager:
                 raise FileNotFoundError(f"no intact checkpoint for step {step} "
                                         f"under {self.cfg.dir}")
             kind = kinds[step]
+        return step, kind
+
+    def restore(self, template: Any, step: Optional[int] = None, *,
+                missing: Sequence[int] = ()) -> tuple[Any, int]:
+        """Restore into ``template``; returns (state, step).  A coded
+        checkpoint decodes from whatever shards survive (``missing`` marks
+        known-dead workers' shards); a monolithic one ignores ``missing``."""
+        step, kind = self._find(step)
         if kind == "coded":
             state = restore_coded_train_state(template, self.cfg.dir, step,
                                               missing=missing)

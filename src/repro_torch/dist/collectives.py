@@ -41,7 +41,7 @@ from ..launch import op_analysis
 from .mesh import MetaGroup
 
 __all__ = ["counts", "model_counts", "nbytes", "reset_counts", "psum", "psum_scatter",
-           "all_gather", "gather_rows", "check_replicated", "copy_to_model",
+           "all_gather", "gather_rows", "broadcast", "check_replicated", "copy_to_model",
            "reduce_from_model", "max_over_model"]
 
 #: collectives made by this module in this process, by kind
@@ -156,17 +156,35 @@ def gather_rows(x: torch.Tensor, mesh, split) -> torch.Tensor:
     return x
 
 
-def check_replicated(digest: bytes, device: torch.device, what: str) -> None:
-    """Raise unless ``digest`` equals rank 0's: one broadcast of its
-    bytes from rank 0 over the default group, on ``device`` (the
-    backend's device)."""
-    mine = torch.frombuffer(bytearray(digest), dtype=torch.uint8).to(device)
-    theirs = mine.clone()
-    dist.broadcast(theirs, src=0)
+def _first_rank(group) -> int:
+    """The global rank of ``group``'s first member (0 for the world and
+    a meta mesh's group)."""
+    if group is None or group is dist.group.WORLD or isinstance(group, MetaGroup):
+        return 0
+    return dist.get_global_rank(group, 0)
+
+
+def broadcast(t: torch.Tensor, group=None) -> torch.Tensor:
+    """``t`` of ``group``'s first rank (rank 0 over the default group)
+    written into ``t`` on every rank of the group, in place: one
+    broadcast.  Returns ``t``."""
+    if not _on_meta(group, t):
+        dist.broadcast(t, src=_first_rank(group), group=group)
     counts["broadcast"] += 1
-    nbytes["broadcast"] += _nbytes(theirs)
-    if not torch.equal(mine, theirs):
-        raise RuntimeError(f"rank {dist.get_rank()}: {what} differs from rank 0's")
+    nbytes["broadcast"] += _nbytes(t)
+    return t
+
+
+def check_replicated(digest: bytes, device: torch.device, what: str, group=None) -> None:
+    """Raise unless ``digest`` equals that of ``group``'s first rank
+    (rank 0 over the default group): one ``broadcast`` of its bytes, on
+    ``device`` (the backend's device).  A meta mesh's group (one rank's
+    view) has nothing to compare."""
+    mine = torch.frombuffer(bytearray(digest), dtype=torch.uint8).to(device)
+    theirs = broadcast(mine.clone(), group)
+    if mine.device.type != "meta" and not torch.equal(mine, theirs):
+        raise RuntimeError(f"rank {dist.get_rank()}: {what} differs from rank "
+                           f"{_first_rank(group)}'s")
 
 
 def _model_all_reduce(x: torch.Tensor, group, kind: str, op=dist.ReduceOp.SUM) -> torch.Tensor:

@@ -60,10 +60,22 @@ runs ``--data-par · M`` ranks:
     torchrun --nproc-per-node 8 -m repro_torch.launch.train --data-par 4 \
         --model-par 2 --backend gloo
 
-The model axis takes the dense families (gc-lm-110m, Gemma, Qwen 1.5);
-``--ckpt``, ``--adapt`` and ``--autotune`` raise on it (ROADMAP 6d), as
-do the other families (6b, 6c).  ``--uncoded`` trains the plain
-data-parallel step instead of the coded one.
+The model axis takes the dense families (gc-lm-110m, Gemma, Qwen 1.5;
+the other families raise, ROADMAP 6b and 6c), with every option of one
+process: ``--ckpt`` and ``--ckpt-coded`` (the checkpoint is the full
+tree, saved from rank 0's model group and restored by rank 0's
+broadcast of each leaf, so a run resumes from a checkpoint written at
+any ``--model-par``), ``--adapt``, ``--autotune`` and ``--hbm-gb``.  On
+the CPU, in a fresh directory (a run resumes from whatever checkpoint
+the directory holds):
+
+    rm -rf build/ck_tp
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --reduced \
+        --workers 2 --data-par 2 --model-par 2 --device cpu --backend gloo \
+        --ckpt build/ck_tp --ckpt-coded 1 --adapt
+
+``--uncoded`` trains the plain data-parallel step instead of the coded
+one.
 """
 from __future__ import annotations
 

@@ -73,8 +73,8 @@ from .stack import Run, plan_segments
 from .xlstm import mlstm_dims, slstm_dims
 
 __all__ = ["ParamNode", "GCLM", "encoder_cfg", "params_from_numpy", "params_to_numpy",
-           "count_params", "shard_dims", "local_shapes", "shard_model", "init_shards",
-           "gather_model"]
+           "count_params", "shard_dims", "local_shapes", "shard_of", "shard_model",
+           "init_shards", "gather_model"]
 
 
 class ParamNode(nn.Module):
@@ -477,6 +477,18 @@ def local_shapes(cfg, mesh) -> list:
     return out
 
 
+def shard_of(t: torch.Tensor, dim, mesh) -> torch.Tensor:
+    """This rank's shard of one full leaf ``t`` (a view, not a copy):
+    ``t`` narrowed on ``dim`` — the leaf's ``shard_dims`` entry — to the
+    rank's ``model_index``-th of ``mesh.model`` equal slices; ``t``
+    itself when ``dim`` is None (a replicated leaf)."""
+    t = t.detach()
+    if dim is None:
+        return t
+    n = t.shape[dim] // mesh.model
+    return t.narrow(dim, mesh.model_index * n, n)
+
+
 @torch.no_grad()
 def _cut(cfg, mesh, items) -> GCLM:
     """The rank's module from ``items`` — ``(path, full leaf)`` in leaf
@@ -485,13 +497,11 @@ def _cut(cfg, mesh, items) -> GCLM:
     dims = shard_dims(cfg, mesh)
     local, split = GCLM(cfg, device="meta"), set()
     for (path, t), axes, dim in zip(items, local.leaf_axes(), dims, strict=True):
-        piece = t.detach()
         if dim is not None:
-            n = t.shape[dim] // mesh.model
-            piece = piece.narrow(dim, mesh.model_index * n, n)
             split.add(axes[dim])
-        _set_leaf(local, path, piece.clone(memory_format=torch.contiguous_format))
-        del t, piece
+        _set_leaf(local, path, shard_of(t, dim, mesh).clone(
+            memory_format=torch.contiguous_format))
+        del t
     for axes, dim in zip(local.leaf_axes(), dims):  # a logical axis is split everywhere
         if any((a in split) != (d == dim) for d, a in enumerate(axes)):
             raise ValueError(f"{cfg.name}: the model axis splits {sorted(split)} in some "
@@ -519,14 +529,17 @@ def init_shards(cfg, mesh, *, device="cuda", seed: int = 0, params=None) -> GCLM
     the reference tree ``params``, numpy arrays, when given) without the
     full tree on ``device``: the leaves are drawn in order from the same
     generator, each cut to the rank's shard before the next, so at most
-    one full leaf lies there besides the shards."""
+    one full leaf lies there besides the shards.  On the meta device,
+    the shards' shapes alone."""
     if mesh.model == 1:
         model = GCLM(cfg, device=device, seed=seed)
         return model if params is None else params_from_numpy(model, params)
     dev = resolve_device(device)
     meta = GCLM(cfg, device="meta")
     paths = [path for path, _ in meta.leaf_items()]
-    if params is not None:
+    if dev.type == "meta":
+        items = meta.leaf_items()
+    elif params is not None:
         items = ((path, torch.from_numpy(np.array(_lookup(params, path), np.float32)).to(dev))
                  for path in paths)
     else:

@@ -7,6 +7,10 @@ state presents itself to ``repro_torch.checkpoint`` as the reference's
 ``params/<path>``, ``opt/count``, ``opt/m/<path>``, ``opt/v/<path>`` and
 ``step`` — list indices written ``[i]``, ``count`` and ``step`` int32
 0-d arrays — 35 leaves for gc-lm-110m.
+
+A state on a ``model`` axis holds a rank's shards; it still saves and
+restores that full tree, one leaf at a time (``full_leaves``,
+``fill_from_full``), never holding the whole of it on the device.
 """
 from __future__ import annotations
 
@@ -18,7 +22,8 @@ import numpy as np
 import torch
 
 from ..checkpoint.ckpt import tree_items
-from ..models.params import GCLM, _lookup, init_shards, params_from_numpy
+from ..dist.collectives import all_gather
+from ..models.params import GCLM, _lookup, init_shards, params_from_numpy, shard_of
 from ..optim.optim import adamw_init
 
 __all__ = ["TrainState", "StateTree", "init_train_state", "abstract_train_state",
@@ -59,6 +64,59 @@ class TrainState:
             t = torch.as_tensor(leaf).detach().contiguous().reshape(-1)
             h.update(t.view(torch.uint8).cpu().numpy().tobytes())
         return h.digest()
+
+    def leaf_splits(self) -> list:
+        """``(key, this rank's leaf, its split dimension or None)`` for
+        every leaf of ``checkpoint_tree``, in its order: a moment splits
+        as its parameter; ``count`` and ``step`` are whole."""
+        model = self.params
+        dims = list(model.shard_dims or (None,) * len(model.leaves()))
+        splits = StateTree(params=model.tree(dims),
+                           opt={"count": None, "m": model.tree(dims), "v": model.tree(dims)},
+                           step=None)
+        return [(key, leaf, dim) for (key, leaf), (_, dim)
+                in zip(tree_items(self.checkpoint_tree()), tree_items(splits), strict=True)]
+
+    def full_leaves(self, host: bool = True):
+        """The reference's full tree, one leaf at a time: ``(key, leaf)``
+        in ``checkpoint_tree`` order, each split leaf all-gathered over
+        the model group (every rank of the group iterates in step: the
+        gathers pair up), each copied to the host when ``host`` — so at
+        most one full leaf lies on the device besides the shards, and
+        none once the host holds it."""
+        for key, leaf, dim in self.leaf_splits():
+            if dim is not None:  # a view of the gathered leaf, laid out as gathered
+                leaf = all_gather(leaf.detach().contiguous(), self.params.tp.model_group,
+                                  dim=dim)
+            if host and isinstance(leaf, torch.Tensor):
+                leaf = leaf.detach().cpu()
+            yield key, leaf
+            del leaf
+
+    @torch.no_grad()
+    def fill_from_full(self, source) -> "TrainState":
+        """This state with every tensor filled in place from full leaves
+        that arrive one at a time: ``source(key, shape, dtype)`` returns
+        the full leaf ``key`` of the reference's tree (its full ``shape``
+        and this state's ``dtype``; ``count`` and ``step`` int32 0-d),
+        asked for in ``checkpoint_tree`` order; each split leaf is cut to
+        this rank's shard (``models.params.shard_of``) and let go before
+        the next is asked for."""
+        mesh = self.params.tp.mesh if self.params.tp is not None else None
+        scalars = {}
+        for key, leaf, dim in self.leaf_splits():
+            if not isinstance(leaf, torch.Tensor):
+                scalars[key] = int(source(key, (), torch.int32))
+                continue
+            shape = list(leaf.shape)
+            if dim is not None:
+                shape[dim] *= mesh.model
+            full = source(key, tuple(shape), leaf.dtype)
+            leaf.copy_(full if dim is None else shard_of(full, dim, mesh))
+            del full
+        return TrainState(params=self.params,
+                          opt=dict(self.opt, count=scalars["opt/count"]),
+                          step=scalars["step"])
 
     def from_checkpoint_tree(self, tree: StateTree) -> "TrainState":
         """This state after a restore filled its tensors in place from

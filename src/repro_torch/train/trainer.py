@@ -23,6 +23,7 @@ launch space with the autotuner (``repro_torch.tune``).
 from __future__ import annotations
 
 import hashlib
+import json
 import time
 from dataclasses import dataclass
 from typing import Callable
@@ -35,9 +36,9 @@ from ..adapt import AdaptiveController, DeathWatch, RecoveryEvent
 from ..checkpoint.manager import CheckpointManager
 from ..core import Env, Plan
 from ..data.pipeline import DataConfig, SyntheticTokens, coded_worker_batches
-from ..dist.collectives import check_replicated, psum
+from ..dist.collectives import broadcast, check_replicated, psum
 from ..models.model import has_source, train_loss
-from ..models.params import GCLM
+from ..models.params import GCLM, shard_of
 from ..optim.optim import adamw_update, clip_by_global_norm, cosine_schedule
 from .coded import make_coded_grad_fn
 from .state import TrainState, init_train_state
@@ -141,6 +142,11 @@ def coded_update(cfg, cfg_t: TrainConfig, state: TrainState, grads, worker_batch
     return _apply_update(cfg_t, state, grads, metrics)
 
 
+def _bytes_of(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s bytes, flat: equal bytes, not equal values (NaN, -0.0)."""
+    return t.contiguous().reshape(-1).view(torch.uint8)
+
+
 class Trainer:
     """The end-to-end coded-training loop.
 
@@ -163,8 +169,9 @@ class Trainer:
     boundaries (erasure-coded across the workers when ``ckpt.coded`` is
     set; in spmd rank 0 writes while the others wait at a barrier),
     resumes from the newest intact checkpoint on construction
-    (``ckpt.resume``; in spmd every rank restores and checks its state
-    against rank 0's), and arms
+    (``ckpt.resume``; in spmd rank 0 reads and decodes it and broadcasts
+    it leaf by leaf, and every rank checks its state against the data
+    ranks of its model index), and arms
     worker-death recovery: a ``DeathWatch`` over the realized round times
     triggers a restore from the surviving shards, recorded as a
     ``RecoveryEvent`` in ``self.recoveries``; with a controller the
@@ -182,14 +189,19 @@ class Trainer:
 
     On a mesh with a ``model`` axis the trainer holds this rank's shards
     of the initial parameters and their moments (``init_shards``: the
-    full tree never lies on the device) and binds the plan to the full
-    tree's shapes (a meta model); every model rank of a data index takes
-    that worker's batches.  ``scheme="auto"``, ``adapt``, ``wave``
-    and ``ckpt`` raise there (ROADMAP 6d).
+    full tree never lies on the device) and binds the plan — the
+    tuner's, the controller's re-plans — to the full tree's shapes (a
+    meta model); every model rank of a data index takes that worker's
+    batches.  Checkpoints hold the reference's full tree there too, in
+    the one format: saved from rank 0's model group's gathered leaves,
+    restored from rank 0's broadcast of each full leaf, so a checkpoint
+    written at one ``model`` size resumes at any other.
 
     ``scheme="auto"`` searches the joint launch space with
     ``repro_torch.tune.autotune`` (optionally under a ``budget=MemBudget``;
-    the ``mc`` backend of a non-i.i.d. env runs on ``device``): the
+    the ``mc`` backend of a non-i.i.d. env runs on ``device``; in spmd
+    every rank searches, and one broadcast checks that every rank's
+    winner is rank 0's): the
     winning candidate sets the plan AND every step knob the caller left
     at its open default — ``pipeline`` ('auto'), ``reduce_mode`` ('psum'),
     ``grad_dtype`` (None; the tuner's 'fp32' or 'bf16') — and the search
@@ -223,23 +235,18 @@ class Trainer:
                 n_workers = 8  # bare distribution: the reference's default
         env = Env.coerce(env, n_workers)
         sharded = mesh is not None and mesh.model > 1
-        if sharded:
-            used = [name for name, on in (("scheme='auto'", scheme == "auto"),
-                                          ("adapt", adapt is not None),
-                                          ("wave", wave is not None), ("ckpt", ckpt is not None))
-                    if on]
-            if used:
-                raise NotImplementedError(f"{', '.join(used)} on a model axis of {mesh.model} "
-                                          "is not ported (ROADMAP 6d)")
         self.cfg, self.cfg_t = cfg, cfg_t
         self.env = env
         self.n_workers = n_workers
         self.mesh, self.mode, self.pipeline = mesh, mode, pipeline
+        self.device = torch.device(device)
         self.reduce_mode, self.grad_dtype = reduce_mode, grad_dtype
         self.tune_report = None
         seq_len = min(cfg.max_seq, 512) if seq_len is None else seq_len
         self.state = init_train_state(cfg, device=device, seed=seed, params=params,
                                       mesh=mesh if sharded else None)
+        # plans bind the full tree's leaves; a rank holds its shards
+        tree = GCLM(cfg, device="meta") if sharded else self.state.params
         if scheme == "auto":
             # model-aware search: the winner sets the plan AND the step
             # knobs (pipeline/reduce_mode/grad_dtype) the user left open
@@ -256,11 +263,14 @@ class Trainer:
                 self.reduce_mode = best.reduce_mode
             if grad_dtype is None:
                 self.grad_dtype = best.grad_dtype
+            if mesh is not None:  # a deterministic search: every rank's winner is rank 0's
+                knobs = [self.pipeline, self.reduce_mode, str(self.grad_dtype)]
+                check_replicated(hashlib.sha256(json.dumps(
+                    [self.plan.to_dict(), knobs], sort_keys=True).encode()).digest(),
+                    mesh.device, "the tuned plan", mesh.world_group)
         elif budget is not None:
             raise ValueError("budget= requires scheme='auto'")
         else:
-            # the plan binds the full tree's leaves; a rank holds its shards
-            tree = GCLM(cfg, device="meta") if sharded else self.state.params
             self.plan = Plan.build(tree, env, scheme=scheme, rng=seed)
         self.sim = self.plan.simulator(env, seed=seed)
         self.data = SyntheticTokens(DataConfig(
@@ -269,7 +279,7 @@ class Trainer:
         self.step_fn = self._step_fn_for(self.plan)
         self.controller = None
         if adapt is not None:
-            self.controller = AdaptiveController(adapt, self.plan, self.state.params)
+            self.controller = AdaptiveController(adapt, self.plan, tree)
         self.history: list = []
         self.recoveries: list = []
         self.manager = self.deathwatch = None
@@ -299,28 +309,74 @@ class Trainer:
         if self.mesh is not None:
             digest = hashlib.sha256(np.asarray(dec_w, np.float64).tobytes()
                                     + np.asarray(times, np.float64).tobytes()).digest()
-            check_replicated(digest, self.mesh.device, "the straggler draw")
+            check_replicated(digest, self.mesh.device, "the straggler draw",
+                             self.mesh.world_group)
 
     def restore_checkpoint(self, missing=()) -> int:
         """Restore the newest checkpoint into the state, treating the shards
         ``missing`` as lost (a coded checkpoint decodes from the survivors);
-        returns its step.  In spmd every rank restores and checks its state
-        against rank 0's."""
-        self.state, step = self.manager.restore_from_survivors(self.state, missing=missing)
-        if self.mesh is not None:
-            check_replicated(self.state.digest(), self.mesh.device, "the restored state")
-        return step
+        returns its step.  One process — in spmd rank 0 alone — reads and
+        decodes it (the survivors' encode on the state's device; the
+        loader checks every crc32) and fills the state one full leaf at a
+        time (``TrainState.fill_from_full``); in spmd rank 0 broadcasts
+        each leaf and every rank keeps its shard.  The reader then checks
+        its state against the decoded leaves, cut as it holds them, and in
+        spmd every rank checks its state against the data ranks of its
+        model index."""
+        mesh, arrays = self.mesh, None
+        if mesh is None or mesh.rank == 0:
+            arrays, _ = self.manager.load(missing=missing, device=self.device)
+
+        def source(key, shape, dtype):
+            if arrays is None:  # rank 0's leaf
+                return broadcast(torch.empty(shape, dtype=dtype, device=self.device),
+                                 mesh.world_group)
+            value = torch.as_tensor(arrays[key]).to(dtype)
+            if tuple(value.shape) != shape:
+                raise ValueError(f"{key}: checkpoint shape {tuple(value.shape)}, the state's "
+                                 f"full leaf {shape}")
+            return value if mesh is None else broadcast(value.to(self.device), mesh.world_group)
+
+        self.state = self.state.fill_from_full(source)
+        if arrays is not None:
+            tp = self.state.params.tp
+            for key, leaf, dim in self.state.leaf_splits():
+                got = torch.as_tensor(leaf).detach().cpu()
+                want = torch.as_tensor(arrays.pop(key)).to(got.dtype)
+                if dim is not None:
+                    want = shard_of(want, dim, tp.mesh)
+                if not torch.equal(_bytes_of(got), _bytes_of(want)):
+                    raise RuntimeError(f"{key}: the restored state differs from the decoded "
+                                       "checkpoint")
+            if arrays:
+                raise ValueError(f"the checkpoint holds leaves the state lacks: {sorted(arrays)}")
+        if mesh is not None:
+            for group in (mesh.data_group, mesh.pod_group):
+                if group is not None:
+                    check_replicated(self.state.digest(), mesh.device, "the restored state",
+                                     group)
+        return int(self.state.step)
 
     def save_checkpoint(self):
-        """Checkpoint the state now, with the plan; returns the path.  In
-        spmd rank 0 writes and the other ranks wait for it at a barrier
-        (their path is ``None``)."""
-        step, path = int(self.state.step), None
-        if self.mesh is None or self.mesh.rank == 0:
-            path = self.manager.save(step, self.state, extra={"plan": self.plan.to_dict()})
-        else:
-            self.manager.last_saved = step
-        if self.mesh is not None:
+        """Checkpoint the state now, with the plan; returns the path.  The
+        reference's full tree streams to the checkpoint one leaf at a time
+        (``TrainState.full_leaves``).  In spmd rank 0 writes while the
+        other ranks wait at a barrier (their path is ``None``): on a
+        ``model`` axis its model group gathers each leaf to it (the other
+        data replicas hold the same bytes)."""
+        step, path, mesh = int(self.state.step), None, self.mesh
+        if mesh is None or (mesh.data_index == 0 and mesh.pod_index == 0):
+            writer = mesh is None or mesh.rank == 0
+            leaves = self.state.full_leaves(host=writer)
+            if writer:
+                path = self.manager.save(step, leaves, extra={"plan": self.plan.to_dict()},
+                                         device=self.device)
+            else:  # rank 0's model group: its gathers pair up with rank 0's
+                for _ in leaves:
+                    pass
+        if mesh is not None:
+            if mesh.rank != 0:
+                self.manager.last_saved = step
             dist.barrier()
         return path
 

@@ -31,8 +31,8 @@ function at each update event, so a run is bit-identical to
 (``staged``) combines per level at the decode events; the tree pipeline
 and spmd mode (``deferred``) combine the whole round at its update
 event, through the step's ``CodedGrads`` (in spmd: this rank's rows at
-the dispatch, the combine and its collectives at the update, in the
-trace's order on every rank).  In spmd a broadcast checks each round's
+the dispatch — on a ``model`` axis, of its shards — the combine and its
+collectives at the update, in the trace's order on every rank).  In spmd a broadcast checks each round's
 draw at its update, as the barrier loop checks each step's.
 
 Hot-swap quiesce: when the adaptive controller accepts a re-plan

@@ -400,6 +400,41 @@ def test_model_mesh_ranks_share_one_card_over_gloo(cuda, tmp_path):
     assert len({o[2] for o in out}) == 1
 
 
+def _tp_ckpt_rank(rank, world, ckpt_dir, device="cuda:0"):
+    """One rank of a (data 1, model 2) mesh on card 0: reduced
+    gc-lm-110m's shards through 2 steps, a coded save, a step on, and a
+    restore with the data stripe lost; returns the rank's model index,
+    its state's digest at the save and after the restore, and its
+    gc_encode launches."""
+    from repro_torch.checkpoint import CkptConfig
+
+    mesh = make_local_mesh(1, model=2, device=device, backend="gloo")
+    cfg = get_config("gc-lm-110m").reduced(n_layers=2, d_model=128)
+    tr = Trainer(cfg, TrainConfig(warmup=1, total_steps=10),
+                 Env.iid(ShiftedExponential(mu=1e-3, t0=50.0), 1), global_batch=8, seed=0,
+                 seq_len=32, mesh=mesh, mode="spmd", device=device,
+                 ckpt=CkptConfig(dir=ckpt_dir, coded=CodedSpec(n_shards=2, parity=1)))
+    before = gc_encode.launches
+    tr.run(2, log_every=0)
+    tr.save_checkpoint()
+    saved = tr.state.digest()
+    tr.run(1, log_every=0)
+    step = tr.restore_checkpoint(missing=(0,))
+    return mesh.model_index, step, saved, tr.state.digest(), gc_encode.launches - before
+
+
+def test_model_mesh_coded_checkpoint_round_trip_over_gloo(cuda, tmp_path):
+    """Two ranks of a (data 1, model 2) mesh on card 0: rank 0's model
+    group gathers the full tree to it, its card encodes the parity
+    (gc_encode), and a restore with the data stripe lost gives every
+    rank's shards back byte-equal."""
+    out = spawn(_tp_ckpt_rank, 2, str(tmp_path / "ck"), store_dir=str(tmp_path / "st"),
+                backend="gloo", timeout=600.0)
+    assert [o[:2] for o in out] == [(0, 2), (1, 2)]
+    assert all(o[2] == o[3] for o in out) and out[0][2] != out[1][2]
+    assert [o[4] for o in out] == [1, 0]   # the save's parity, on rank 0 alone
+
+
 def _tp_serve_rank(rank, world):
     """One rank of a (data 2, model 2) serving mesh on card 0: reduced
     gc-lm-110m's shards (seed 0) through ``_serve_run``'s requests."""

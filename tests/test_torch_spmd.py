@@ -26,9 +26,10 @@ the JAX reference's spmd mode, on the CPU.
   to the spmd barrier loop and staleness 1 executing the simulator's
   trace, in step with sim mode.
 * Errors: a model axis that does not divide the world, what the model
-  axis does not split yet (MoE, checkpoints, adapt, the wave loop,
-  serving, ``--model-par`` without spmd), two NCCL ranks on one card
-  and a rank's exception raise; a hung job is killed at its time limit.
+  axis does not split yet (MoE), serving's wrong meshes, ``--model-par``
+  without spmd, two NCCL ranks on one card and a rank's exception raise;
+  a hung job is killed at its time limit (checkpoints, adapt, the wave
+  loop and the tuner on the model axis: ``tests/test_torch_tp_state.py``).
 """
 import hashlib
 import itertools
@@ -575,11 +576,6 @@ def test_unported_and_impossible_meshes_raise(monkeypatch, tmp_path):
     tp = meta_mesh(data=N, model=2)
     with pytest.raises(NotImplementedError, match="ROADMAP 6b"):
         shard_model(GCLM(get_config("mixtral-8x22b").reduced(**KW), device="meta"), tp)
-    for kw in (dict(ckpt=CkptConfig(dir=str(tmp_path))), dict(adapt=AdaptConfig()),
-               dict(wave=WaveConfig()), dict(scheme="auto")):
-        with pytest.raises(NotImplementedError, match="ROADMAP 6d"):
-            Trainer(_cfg(), TrainConfig(), SE, n_workers=N, device="meta", mode="spmd",
-                    mesh=tp, **kw)
     local = shard_model(GCLM(_cfg(), device="meta"), tp)
     logits, caches = prefill(_cfg(), local, torch.zeros((1, 4), dtype=torch.long, device="meta"),
                              last_only=True)  # serving runs on the axis: whole rows, its heads
