@@ -44,17 +44,21 @@ port's sources beside it.  Phases; any failure raises:
 6b. tree: the tree pipeline (per-leaf torch ops) against the flat one on
    the same rows (1e-5 per leaf), both equal to the uncoded gradient
    (1e-4), with 0 and s_max stragglers; device-only time of each combine.
-6c. adapt: a fresh full-width ``Trainer(adapt=AdaptConfig(window=16,
-   min_rounds=8, check_every=2))`` on workers 2 and 3 five times slower
+6c. adapt: a fresh ``Trainer(adapt=AdaptConfig(window=16, min_rounds=8,
+   check_every=2))`` of gc-lm-110m at ``CUT_LAYERS`` (4) of its 12 layers
+   (the swap step is the same at either depth: a function of the time
+   stream, checked on the CPU) on workers 2 and 3 five times slower
    from round 2, 26 steps with the counts set to 0 just before: the
    controller swaps the plan after step 24 (the step the port's numpy
    layer predicts on the CPU: tests/test_torch_adapt.py), ``gc_fused``
    launches once per step across the swap, and the coded gradient under
    the new plan equals the uncoded one.
-6d. wave: 3 barrier steps, then a fresh trainer from the same weights
+6d. wave: 3 barrier steps of gc-lm-110m at 6c's depth, then a fresh
+   trainer from the same weights
    with ``WaveConfig(staleness=0)``: parameters and moments byte-equal;
    then 6 rounds at staleness 1: the executed events are the simulator's
-   ``WaveTrace``, one ``gc_fused`` launch per decode event (3 per round),
+   ``WaveTrace``, one ``gc_fused`` launch per decode event (one per level
+   and round: 4 levels at 4 layers, 3 at 12),
    finite losses, and the peak device memory.
 6e. tune: the autotuner at full width (gc-lm-110m, seq 256, global batch
    8) on workers 2 and 3 five times slower (``Env.heterogeneous``, N = 4,
@@ -72,8 +76,8 @@ port's sources beside it.  Phases; any failure raises:
    ``max_memory_allocated`` beside the tuner's per-worker estimate (sim
    mode holds all N·K rows on one card: no gate).
 6f. spmd: four ranks on card 0 over gloo (``repro_torch.dist.spawn``;
-   NCCL takes one card per rank), each a full-width
-   ``Trainer(mode="spmd")`` with K = s_max + 1 shards per rank.  A probe
+   NCCL takes one card per rank), each a ``Trainer(mode="spmd")`` of
+   gc-lm-110m at 6c's depth, with K = s_max + 1 shards per rank.  A probe
    says whether gloo reduce-scatters CUDA tensors on this torch
    (``psum_scatter`` runs only if it does).  At step 0, with 0 and s_max
    stragglers, the spmd gradient (``psum``, bf16, ``psum_scatter``) has
@@ -82,14 +86,15 @@ port's sources beside it.  Phases; any failure raises:
    (1e-4; bf16 5e-2).  Three steps with the counts set to 0 just
    before: one ``gc_fused`` launch per rank per step, one ``psum`` per
    level per step, parameters byte-equal across ranks after every step,
-   losses within 1e-4 of ``[train]``'s.  The time of one psum per level
+   losses within 1e-4 of a one-process trainer's at the same depth
+   (``_axis_losses``, run first).  The time of one psum per level
    (gloo, host-staged, one card: no collective figure); rank 0's
    per-rank combine (one launch into the level buffers, bit-equal to
    the allocating call) device-only against its bound and
    ``torch.matmul`` in turns.  A rank's failure fails the script.
 6f'. tp: eight ranks on card 0 over gloo, a (data 4, model 2) mesh: each
-   a full-width ``Trainer(mode="spmd")`` that binds the plan to the full
-   tree and keeps its tensor-parallel shards (heads, MLP width and
+   a ``Trainer(mode="spmd")`` of gc-lm-110m at 6f's depth that binds the
+   plan to the full tree and keeps its tensor-parallel shards (heads, MLP width and
    vocabulary split over the model axis; ``dist/sharding.py``).  At step
    0, with 0, 1 and s_max stragglers, the coded gradients all-gathered
    over each model group equal rank 0's sim-mode gradient of the full
@@ -98,11 +103,26 @@ port's sources beside it.  Phases; any failure raises:
    11 local leaves (24 in all), one ``psum`` per level per step over the
    data group, every leaf byte-equal across the four data ranks of a
    model index and the three replicated norm leaves across all eight
-   after every step, losses within 1e-5 of ``[train]``'s.  The step wall
+   after every step, losses within 1e-5 of 6f's one-process trainer's.  The step wall
    time, the data-group level bytes and the model-group bytes per rank
    per step (counted by ``dist/collectives.py``), and rank 0's combine
    over its local rows against its plain version, its bound and
    ``torch.matmul``.
+6f''. moe-tp, in 6f''s job after tp: ``mixtral-8x22b.reduced()`` (16's
+   config) in a ``Trainer(mode="spmd")`` on the same mesh, its experts
+   split as the reference's rule splits them: case (b), the published
+   ``shard_experts=False`` (each expert's FFN width over the model axis),
+   and case (a), ``shard_experts=True`` (the 4 experts).  At step 0, at
+   capacity factors 8 (nothing drops) and 1.25 (drops, counted), with 0,
+   1 and s_max stragglers, the model groups' gathered coded gradients
+   equal rank 0's sim mode on the full weights (1e-5 of each leaf's
+   scale).  Three steps with the counts set to 0 just before: one
+   ``gc_fused`` launch per rank per step (48 in all), the losses 16's
+   within 1e-5 (16 now runs before 6f), every leaf byte-equal across the
+   data ranks of a model index after every step, and every step's
+   collectives the formula (``_moe_counts``: per forward 2L + 3 model
+   all-reduces and in case (a) L all-gathers of the router's logits, per
+   backward 3L + 1).
 6g. dryrun: (a) the dry run (``repro_torch.launch.dryrun``) on meta of
    every arch at full width at every input shape on the single mesh
    (data 16), and the spmd coded step of gc-lm-110m and gemma-2b, in
@@ -131,9 +151,9 @@ port's sources beside it.  Phases; any failure raises:
    of the save and the restore, and the host's peak RSS after each are
    printed.
 7a. tp-state: a sharded state on the model axis, eight ranks on card 0
-   over gloo, (data 4, model 2), each a full-width ``Trainer(mode="spmd")``
-   over its shards (seed 0), run by the job of 6f' after tp (so the
-   ranks start once); the parent's parts, (b) and (d)'s search, run
+   over gloo, (data 4, model 2), each a ``Trainer(mode="spmd")`` of 6f's
+   gc-lm-110m over its shards (seed 0), run by the job of 6f' after tp
+   and moe-tp (so the ranks start once); the parent's parts, (b) and (d)'s search, run
    after 7.  (a) ``adapt=AdaptConfig()`` and
    ``CodedSpec(4, 1)`` checkpoints every 4 steps, worker 1 1000x slower
    from round 4, 9 steps with every count set to 0 just before: the
@@ -205,6 +225,27 @@ port's sources beside it.  Phases; any failure raises:
    the wall clock, the decode step's median by the host clock (gloo
    stages every collective through the host: not a collective figure)
    and each rank's peak memory.
+9c. moe-tp-serve: serving a MoE on the model axis.  mixtral-8x22b at its
+   published widths cut to 2 of 56 layers (5,410,781,184 parameters,
+   21.64 GB fp32), fp32 activations on an fp32 slab, served on one rank,
+   the model freed, then by four ranks on card 0 over gloo, a (data 2,
+   model 2) mesh, each drawing its shards (``init_shards``, one rank at a
+   time: a full stacked expert leaf is 6.44 GB) and holding 4 of the 8
+   slots: case (b) (2,705,455,104 parameters a rank), then the shards
+   re-cut in case (a) (2,705,405,952).  9b's load: 16 requests of
+   256-token prompts, 32 new tokens each.  Every rank's tokens, slots,
+   timestamps and step latencies equal the one-rank engine's, a slot
+   serves a second request, no ``gc_*`` launch, and every engine step's
+   collectives on every rank equal the formula (``_serve_collectives``:
+   9b's, plus per MoE layer and decode one all-gather of every slot's k
+   expert ids — the capacity counted over the whole slab, as one rank
+   counts it — and in case (a) one all-gather of the router's logits per
+   decode and prefill).  Prints each rank's peaks.  At 8 slots the
+   capacity is the floor of 8 whether counted over a rank's 4 rows or all
+   8, and top-2 over 8 rows puts at most 8 assignments on an expert, so
+   nothing can drop: the card shows the gathers, not what the global
+   count keeps.  That is held on the CPU, at 24 slots over 2 data ranks
+   (tests/test_torch_tp_moe_serve.py).
 10. reference: three training steps at a reduced size on the CPU (the
    plain versions) and on the card, from the same weights, agree; the
    same weights and prompts through ``ServeEngine`` (fp32 slab, greedy)
@@ -334,8 +375,8 @@ port's sources beside it.  Phases; any failure raises:
    (1e-4), the config's bf16 activations measured, not gated; peak
    memory.
 22. xlstm-train: coded training of xlstm-1.3b at full width cut to its
-   first 8 of 48 layers (7 mLSTM, 1 sLSTM; 405,444,664 parameters in 22
-   leaves, bf16 activations, ``remat="dots"``) with 2's plan settings at
+   layers 5 to 8 of 48 (3 mLSTM and the period's sLSTM; 254,212,120
+   parameters in 22 leaves, bf16 activations, ``remat="dots"``) with 2's plan settings at
    seq 256: coded == uncoded at step 0 with 0 and s_max stragglers (``b_i``, whose
    gradient is zero in exact arithmetic, against its layer's ``b_f``
    scale); 3 steps with the counts set to 0 just before (one grouped
@@ -365,19 +406,34 @@ port's sources beside it.  Phases; any failure raises:
    step; teacher forcing with fp32 activations on a bf16 slab (2e-2) and
    on an fp32 slab (1e-4), the config's bf16 activations measured, not
    gated.
-25. vision-serve: full-width, full-depth llama-3.2-vision-11b (40 layers:
-   one pattern of 5 over 8 repeats, gated cross-attention image layers at
-   3, 8, ..., 38 over 1,601 stubbed patches of width 7,680 projected by
-   ``vision_proj``; 32 heads over 8 KV heads, d_ff 14,336, vocab 128,256,
-   an untied head, bf16 activations; 9,806,614,536 parameters, 39.23 GB
-   fp32; gates open) through 24's steps: 4 prompts of 512 tokens + 32 new,
-   ~334 GFLOP per row and decode step (the projector and 8 layers' cross
-   K/V recomputed), peak memory under 80 GB.
+25. vision-serve: full-width llama-3.2-vision-11b cut to 10 of its 40
+   layers (one pattern of 5 over 2 repeats, gated cross-attention image
+   layers at 3 and 8 over 1,601 stubbed patches of width 7,680 projected
+   by ``vision_proj``; 32 heads over 8 KV heads, d_ff 14,336, vocab
+   128,256, an untied head, bf16 activations; 3,263,254,530 parameters,
+   13.05 GB fp32; gates open) through 24's steps: 4 prompts of 512 tokens
+   + 32 new (the projector and 2 layers' cross K/V recomputed every decode
+   step), peak memory under 80 GB.
 26. vision-train: coded training of ``llama-3.2-vision-11b.reduced(n_layers
    =10)`` (two periods: the cross layer stacked in a pattern; 50 leaves;
    full width needs 16 rows of 39 GB) with 16-patch aux rows, as 23 checks
    it: coded == uncoded, 3 steps with 2 ``gc_fused`` launches each, two
    forward+backward runs byte-equal.
+
+Order: 16 (moe-train) runs after 6e, before 6f, whose job 6f'' holds
+to its losses; 9c runs after 9b.
+
+Depth cuts that hold the phases to 820 s on an H100 host where they took
+961.4 s before the cuts (so that a host ~1.4x slower in every phase stays
+under the 1,200 s limit), each saving (predicted; PERF.md §6): 6c, 6d,
+6f, 6f' and 7a from 12 to 4 layers of gc-lm-110m, ~20, ~8, ~25, ~60 and
+~15 s (7a's parent part); 25 from 40 to 10 layers, ~13 s.  22 keeps
+the period's sLSTM (a loop over tokens, ~95 s) and drops layers 1 to 4,
+all mLSTM (~4 s).  6 reads the profiled call's kernels from the
+profiler's raw device events (``_device_kernels``) instead of
+``key_averages()``, which parsed every CPU op of the call into a tree
+first (~30 s; scripts/profiler_tables.py compares the two).  The new
+phases cost ~15 s (6f'') and ~30 s (9c).
 
 The line before the last is the card's name and power limit; before it
 a JSON line lists every kernel with its launches, error and times; the
@@ -439,8 +495,27 @@ DRYRUN_SKIPS = {(a, "long_500k") for a in ("deepseek-v3-671b", "gc-lm-110m", "ge
 #: rank) and the job's time limit, seconds
 SPMD_RANKS = 4
 SPMD_LIMIT_S = 600.0
+#: [adapt], [wave], [spmd], [tp] and [tp-state] run gc-lm-110m at its
+#: published widths cut to its first 4 of 12 layers (62,331,648
+#: parameters; 137,841,408 before the script's phases were held to 820
+#: s): the spmd phases' time is gloo's host
+#: staging of the data group's level buffers and the checkpoint's host
+#: path, in proportion to the parameters, and [adapt]'s and [wave]'s is
+#: 26 and 12 steps' passes.  The swap step, the wave trace and the death
+#: are functions of the numpy time stream, not of the model; the losses
+#: [spmd] and [tp] are held to are a one-process trainer's at that depth
+#: (``_axis_losses``).  Full depth stays in [train], [kernel], [breakdown],
+#: [dryrun], [tune], [ckpt] and [serve]
+CUT_LAYERS = 4
 #: the [tp] phase: a (data, model) mesh of ranks on one card over gloo
 TP_DATA, TP_MODEL = 4, 2
+#: [moe-tp], in [tp]'s job: ``mixtral-8x22b.reduced()`` ([moe-train]'s
+#: config; a full-width layer's spmd rank would hold ~7 x 2.906e9 fp32
+#: values) in case (b) (the published ``shard_experts=False``: each
+#: expert's FFN width split) and case (a) (``shard_experts=True``: the 4
+#: experts split), at the reduced capacity factor 8 and the published 1.25
+MOE_TP_CASES = (("b", False), ("a", True))
+MOE_TP_CAPACITIES = (8.0, 1.25)
 #: worker 1 dies (1000x slower from round 0): with seed 0 the DeathWatch
 #: (factor 20, 4 rounds) trips after the 4th step (found on the CPU with
 #: the port's PlanSimulator and DeathWatch alone)
@@ -483,6 +558,13 @@ TP_SERVE = dict(data=2, model=2, n_slots=8, max_len=320, n_requests=16, prompt_l
 #: [tp-serve]'s bf16-activation comparison (printed, not gated) serves the
 #: first 8 requests: at ~40 tokens/s over gloo all 32 took ~55 s
 TP_SERVE_BF16 = dict(TP_SERVE, n_requests=8)
+#: [moe-tp-serve]: mixtral-8x22b at its published widths cut to 2 of 56
+#: layers (5,410,781,184 parameters, 21.64 GB fp32), fp32 activations on an
+#: fp32 slab, [tp-serve]'s layout and load: (data 2, model 2), 8 slots, 16
+#: requests so that every slot serves a second; the experts in case (b),
+#: then re-cut in case (a) in the same job
+MOE_TP_SERVE = dict(n_layers=2, data=2, model=2, n_slots=8, max_len=288, n_requests=16,
+                    prompt_len=256, max_new=32, rate=2e-3, workers=8)
 #: [gemma3-tp-serve]: gemma3-27b at full width cut to one 5:1 period (6
 #: layers), fp32 activations on an fp32 slab, 2 ranks at model 2 (8 of the
 #: 16 KV heads each), 1,536-token prompts past the 1,024 window
@@ -553,9 +635,12 @@ JAMBA_TRAIN_LAYERS = 8
 #: prefill timed in its pieces
 XLSTM_SERVE = dict(n_layers=16, n_slots=8, n_requests=16, prompt_len=512, max_new=32,
                    rate=2e-3, workers=8, prefill_len=2048)
-#: [xlstm-train]: the published widths cut to the first 8 of 48 layers
-#: (one period: 405,444,664 parameters in 22 leaves, one grouped launch)
-XLSTM_TRAIN_LAYERS = 8
+#: [xlstm-train]: the published widths cut to layers 5 to 8 of 48 (three
+#: mLSTM layers and the period's sLSTM; the first 8 before the script's
+#: phases were held to 820 s).  The sLSTM takes most of the phase: a
+#: Python loop over the 256 tokens, forward and backward, in each of ~70
+#: passes (~95 of the 8 layers' 108.5 s)
+XLSTM_TRAIN_LAYERS = slice(4, 8)
 #: Whisper and Llama-3.2-vision at their published widths; the cross gates
 #: (zero at init: tanh closes every cross sublayer) drawn from U(0.3, 0.9).
 #: [whisper-train]: whisper-base at full width and depth (6 encoder and 6
@@ -566,10 +651,11 @@ WHISPER_TRAIN = dict(seq_len=224, global_batch=8)
 #: [whisper-serve]: 4 prompts of 128 tokens + 64 new through
 #: ``generate(aux_inputs=)``, each decode step re-running the encoder
 WHISPER_SERVE = dict(batch=4, prompt_len=128, max_new=64)
-#: [vision-serve]: llama-3.2-vision-11b at full depth (40 layers: a pattern of
-#: 5 over 8 repeats, cross layers 3, 8, ..., 38), 9,806,614,536 parameters,
-#: 39.23 GB fp32; 4 prompts of 512 tokens + 32 new
-VISION_SERVE = dict(n_layers=40, batch=4, prompt_len=512, max_new=32)
+#: [vision-serve]: llama-3.2-vision-11b cut to 10 of 40 layers (a pattern of
+#: 5 over 2 repeats, cross layers 3 and 8; all 40 before the script's
+#: phases were held to 820 s), 3,263,254,530 parameters, 13.05 GB fp32; 4
+#: prompts of 512 tokens + 32 new
+VISION_SERVE = dict(n_layers=10, batch=4, prompt_len=512, max_new=32)
 #: [vision-train]: ``reduced(n_layers=10)``, two periods: the cross layer
 #: stacked in a pattern, 50 leaves (2 launches); full width needs 16 rows
 #: of 39 GB (ROADMAP 3.14)
@@ -748,15 +834,24 @@ def phase_device():
             f"spilling entries {len(spills)}")
 
 
-def make_trainer(env=None, scheme="xf", seq_len=256, **kw):
-    """Full-width gc-lm-110m in a ``Trainer`` on the card (seed 0) at
-    ``seq_len`` tokens; ``kw`` goes to the ``Trainer`` (ckpt, adapt, wave,
-    params, budget)."""
+def _gc_lm(n_layers: int = None):
+    """gc-lm-110m at its published widths (``max_seq`` 512), cut to its
+    first ``n_layers`` layers when given."""
     from repro_torch.configs import get_config
+
+    cfg = get_config("gc-lm-110m").replace(max_seq=512)
+    return cfg if n_layers is None else cfg.replace(n_layers=n_layers,
+                                                    layers=cfg.layers[:n_layers])
+
+
+def make_trainer(env=None, scheme="xf", seq_len=256, n_layers=None, **kw):
+    """Full-width gc-lm-110m in a ``Trainer`` on the card (seed 0) at
+    ``seq_len`` tokens, cut to ``n_layers`` when given; ``kw`` goes to the
+    ``Trainer`` (ckpt, adapt, wave, params, budget)."""
     from repro_torch.core import ShiftedExponential
     from repro_torch.train.trainer import TrainConfig, Trainer
 
-    cfg = get_config("gc-lm-110m").replace(max_seq=512)
+    cfg = _gc_lm(n_layers)
     return Trainer(cfg, TrainConfig(lr=3e-4, warmup=10, total_steps=300),
                    env or ShiftedExponential(mu=1e-3, t0=50.0), n_workers=4,
                    scheme=scheme, global_batch=8, seed=0, device="cuda",
@@ -1023,7 +1118,6 @@ def phase_breakdown(trainer):
     Runs after the main path, whose counts are already read."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data.pipeline import coded_worker_batches
@@ -1079,16 +1173,29 @@ def phase_breakdown(trainer):
         grad_fn(model, wb, dec_w)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # kernels only: a CPU op's self device time repeats its kernels' time
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    kernels = _device_kernels(prof)
+    busy_ms = sum(us for _, us, _ in kernels) / 1e3
     log(f"[profile] coded grads under the profiler: wall {wall_ms:.1f} ms, device "
-        f"busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}), {len(events)} kernel kinds")
-    for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:10]:
-        log(f"[profile]   {e.self_device_time_total / 1e3:9.2f} ms  x{e.count:<5d} "
-            f"{e.key[:90]}")
+        f"busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}), {len(kernels)} kernel kinds")
+    for name, us, n in kernels[:10]:
+        log(f"[profile]   {us / 1e3:9.2f} ms  x{n:<5d} {name[:90]}")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "parts_ms": parts}
+
+
+def _device_kernels(prof) -> list:
+    """The device's work in a ``torch.profiler`` run: (name, total us,
+    count) per kernel or copy name, longest first, summed from the
+    profiler's raw device events.  ``key_averages()`` gives the same
+    table, but first parses every CPU op of the run into a tree: ~30 s
+    for a coded-gradient call (scripts/profiler_tables.py)."""
+    from torch.autograd import DeviceType
+
+    table = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            us, n = table.get(e.name(), (0.0, 0))
+            table[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+    return sorted(((k, us, n) for k, (us, n) in table.items()), key=lambda x: -x[1])
 
 
 def phase_levels(trainer):
@@ -1354,8 +1461,8 @@ def phase_dryrun(trainer, profile: dict) -> dict:
 
 
 def phase_adapt():
-    """Adaptive re-planning at full width: the swap comes after the
-    predicted step, ``gc_fused`` launches once per step across it, and
+    """Adaptive re-planning of gc-lm-110m at full width cut to
+    ``CUT_LAYERS`` layers: the swap comes after the predicted step, ``gc_fused`` launches once per step across it, and
     the coded gradient under the new plan equals the uncoded one.
     Returns the counts of this path."""
     import torch
@@ -1366,7 +1473,8 @@ def phase_adapt():
     env = Env.iid(ShiftedExponential(mu=1e-3, t0=50.0), 4).with_faults(
         *(DegradedWorker(**f) for f in ADAPT_FAULTS))
     t0 = time.perf_counter()
-    trainer = make_trainer(env, adapt=AdaptConfig(window=16, min_rounds=8, check_every=2))
+    trainer = make_trainer(env, adapt=AdaptConfig(window=16, min_rounds=8, check_every=2),
+                           n_layers=CUT_LAYERS)
     old = trainer.plan
     log(f"[adapt] trainer on {ADAPT_FAULTS}, AdaptConfig(window=16, min_rounds=8, "
         f"check_every=2); {time.perf_counter() - t0:.2f} s")
@@ -1401,7 +1509,8 @@ def phase_adapt():
 
 
 def phase_wave():
-    """The wave-pipelined loop at full width: staleness 0 is byte-equal
+    """The wave-pipelined loop of gc-lm-110m at full width cut to
+    ``CUT_LAYERS`` layers: staleness 0 is byte-equal
     to the barrier loop; at staleness 1 the executed events are the
     simulator's, with one ``gc_fused`` launch per decode event.  Returns
     the counts of the three runs, summed."""
@@ -1425,7 +1534,7 @@ def phase_wave():
             total[k] = total.get(k, 0) + v
         return got, wall
 
-    bar = make_trainer()
+    bar = make_trainer(n_layers=CUT_LAYERS)
     init = params_to_numpy(bar.state.params)
     bar_launches, bar_wall = counted(bar, 3)
     want = _snapshot(bar.state.checkpoint_tree())
@@ -1433,7 +1542,8 @@ def phase_wave():
     bar_times = [r["times"] for r in bar.sim.ledger]
     del bar
     torch.cuda.empty_cache()
-    trainer = make_trainer(params=init, wave=WaveConfig(staleness=0, **WAVE_COSTS))
+    trainer = make_trainer(params=init, wave=WaveConfig(staleness=0, **WAVE_COSTS),
+                           n_layers=CUT_LAYERS)
     del init
     wave0_launches, wave0_wall = counted(trainer, 3)
     if not _same_bytes(_snapshot(trainer.state.checkpoint_tree()), want):
@@ -1457,7 +1567,8 @@ def phase_wave():
     if executed != list(trace.events):
         raise AssertionError("staleness 1: the executed events differ from the WaveTrace")
     n_decode = sum(e.kind == "decode" for e in trace.events)
-    if wave1_launches["gc_fused"] != n_decode or n_decode != 3 * WAVE_ROUNDS:
+    n_levels = trainer.plan.flat_layout.n_levels  # one decode event per level and round
+    if wave1_launches["gc_fused"] != n_decode or n_decode != n_levels * WAVE_ROUNDS:
         raise AssertionError(f"staleness 1: {wave1_launches['gc_fused']} gc_fused launches for "
                              f"{n_decode} decode events")
     hist = trainer.history[first:]
@@ -1604,7 +1715,7 @@ def phase_tune():
     return launches
 
 
-def _spmd_rank(rank, world, train_losses):
+def _spmd_rank(rank, world, axis_losses):
     """One rank of the [spmd] phase (``dist.spawn``: every rank on card 0
     over gloo).  Rank 0 logs; every check raises, and a rank's failure
     fails the whole job.  Returns this rank's counts and times."""
@@ -1632,13 +1743,13 @@ def _spmd_rank(rank, world, train_losses):
         f"{'runs on the card' if scatter is None else 'waits for a four-card run'}")
 
     t0 = time.perf_counter()
-    trainer = make_trainer(mesh=mesh, mode="spmd")
+    trainer = make_trainer(mesh=mesh, mode="spmd", n_layers=CUT_LAYERS)
     cfg, plan, model = trainer.cfg, trainer.plan, trainer.state.params
     layout, paths = plan.flat_layout, model.leaf_paths()
     wb = coded_worker_batches(trainer.data, 0, world, plan.s_max)
     say(f"[spmd] {world} ranks on {torch.cuda.get_device_name(dev)} over gloo, each a "
-        f"full-width trainer (mode='spmd', K = {plan.k_shards} shards per rank); "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"full-width trainer of {cfg.n_layers} layers (mode='spmd', K = {plan.k_shards} "
+        f"shards per rank); {time.perf_counter() - t0:.2f} s")
 
     # step 0: spmd == sim mode (rank 0 computes it from the same weights
     # and batches while the other ranks wait) and == uncoded
@@ -1711,12 +1822,12 @@ def _spmd_rank(rank, world, train_losses):
         raise AssertionError(f"rank {rank}: collectives {counts} in {STEPS} steps, expected "
                              f"one psum per level and one draw check per step")
     losses = [h["loss"] for h in trainer.history]
-    for a, b in zip(losses, train_losses, strict=True):
+    for a, b in zip(losses, axis_losses, strict=True):
         if not abs(a - b) <= 1e-4 * abs(b):
-            raise AssertionError(f"spmd losses {losses} vs [train]'s {train_losses}")
+            raise AssertionError(f"spmd losses {losses} vs one process's {axis_losses}")
     walls = [h["wall_s"] for h in trainer.history]
-    say(f"[spmd] {STEPS} steps of Trainer(mode='spmd'): losses {losses} (== [train]'s within "
-        f"1e-4), parameters byte-equal across ranks after every step; rank 0 launches "
+    say(f"[spmd] {STEPS} steps of Trainer(mode='spmd'): losses {losses} (== one process's "
+        f"within 1e-4), parameters byte-equal across ranks after every step; rank 0 launches "
         f"{launches}, collectives {counts}, step wall_s {[round(w, 3) for w in walls]}, "
         f"max_memory_allocated {mem} bytes")
 
@@ -1850,18 +1961,36 @@ def _worst_bf16(got, want, scales, paths, what: str) -> float:
     return worst
 
 
-def phase_spmd(train_losses):
+def _axis_losses() -> list:
+    """The losses of ``STEPS`` steps of a one-process (sim-mode) trainer of
+    gc-lm-110m at ``CUT_LAYERS`` layers, the main path's settings and
+    weights: what [spmd] and [tp] are held to."""
+    import torch
+
+    trainer = make_trainer(n_layers=CUT_LAYERS)
+    trainer.run(STEPS, log_every=0)
+    losses = [h["loss"] for h in trainer.history]
+    del trainer
+    torch.cuda.empty_cache()
+    return losses
+
+
+def phase_spmd():
     """spmd coded training on one card: ``SPMD_RANKS`` ranks on card 0
     over gloo (NCCL takes one card per rank), each a full-width
-    ``Trainer(mode="spmd")``.  Returns the ranks' gc_fused launches on
-    the main path, summed, and rank 0's combine times."""
+    ``Trainer(mode="spmd")`` of ``CUT_LAYERS`` layers.  Returns the
+    ranks' gc_fused launches on the main path, summed, rank 0's combine
+    times, and the one-process losses at that depth (``_axis_losses``)."""
     from repro_torch.dist.spawn import spawn
 
+    axis_losses = _axis_losses()
+    log(f"[spmd] one process, gc-lm-110m at {CUT_LAYERS} of 12 layers: {STEPS} steps, "
+        f"losses {axis_losses} (what [spmd] and [tp] are held to)")
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     store = tempfile.mkdtemp(prefix="chip_smoke_spmd_", dir=os.path.join(ROOT, "build"))
     t0 = time.perf_counter()
     try:
-        ranks = spawn(_spmd_rank, SPMD_RANKS, train_losses, store_dir=store, backend="gloo",
+        ranks = spawn(_spmd_rank, SPMD_RANKS, axis_losses, store_dir=store, backend="gloo",
                       timeout=SPMD_LIMIT_S)
     finally:
         shutil.rmtree(store, ignore_errors=True)
@@ -1869,7 +1998,7 @@ def phase_spmd(train_losses):
         f"gc_fused launches {[r['launches'] for r in ranks]}, step wall_s "
         f"{[[round(w, 3) for w in r['walls']] for r in ranks]}, max_memory_allocated "
         f"{[r['mem'] for r in ranks]} bytes, psum ms per step {[r['coll_ms'] for r in ranks]}")
-    return sum(r["launches"] for r in ranks), ranks[0]["times"]
+    return sum(r["launches"] for r in ranks), ranks[0]["times"], axis_losses
 
 
 def _digest(tensors) -> str:
@@ -1882,11 +2011,11 @@ def _digest(tensors) -> str:
     return h.hexdigest()
 
 
-def _tp_job(rank, world, train_losses, ckpt_dir):
+def _tp_job(rank, world, axis_losses, moe_losses, ckpt_dir):
     """One rank of the eight-rank job (``dist.spawn``: every rank on card
-    0 over gloo, a (data 4, model 2) mesh) that runs [tp] and then
-    [tp-state]'s trainers: one job, so the ranks start, reach the card
-    and join the process group once.  Returns this rank's results of
+    0 over gloo, a (data 4, model 2) mesh) that runs [tp], [moe-tp] and
+    then [tp-state]'s trainers: one job, so the ranks start, reach the
+    card and join the process group once.  Returns this rank's results of
     each, and the seconds of each."""
     import torch
     import torch.distributed as dist
@@ -1894,17 +2023,20 @@ def _tp_job(rank, world, train_losses, ckpt_dir):
     from repro_torch.launch.mesh import make_local_mesh
 
     mesh = make_local_mesh(TP_DATA, model=TP_MODEL, device="cuda:0", backend="gloo")
-    out, t0 = {}, time.perf_counter()
-    out["tp"] = _tp_rank(rank, world, mesh, train_losses)
-    torch.cuda.empty_cache()
-    dist.barrier()
-    t1 = time.perf_counter()
-    out["tp-state"] = _tp_state_rank(rank, world, mesh, ckpt_dir)
-    out["seconds"] = {"tp": t1 - t0, "tp-state": time.perf_counter() - t1}
+    out, seconds = {}, {}
+    for part, fn, args in (("tp", _tp_rank, (axis_losses,)), ("moe-tp", _moe_tp_rank,
+                                                                (moe_losses,)),
+                           ("tp-state", _tp_state_rank, (ckpt_dir,))):
+        torch.cuda.empty_cache()
+        dist.barrier()
+        t0 = time.perf_counter()
+        out[part] = fn(rank, world, mesh, *args)
+        seconds[part] = time.perf_counter() - t0
+    out["seconds"] = seconds
     return out
 
 
-def _tp_rank(rank, world, mesh, train_losses):
+def _tp_rank(rank, world, mesh, axis_losses):
     """[tp] on one rank of ``_tp_job``.  Rank 0 logs; every check
     raises, and a rank's failure fails the whole job.  Returns this rank's
     launches, counts, bytes and times."""
@@ -1919,7 +2051,7 @@ def _tp_rank(rank, world, mesh, train_losses):
     say = log if rank == 0 else (lambda *args: None)
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats(mesh.device)
-    trainer = make_trainer(mesh=mesh, mode="spmd")
+    trainer = make_trainer(mesh=mesh, mode="spmd", n_layers=CUT_LAYERS)
     init_peak = torch.cuda.max_memory_allocated(mesh.device)
     cfg, plan, local = trainer.cfg, trainer.plan, trainer.state.params
     layout, paths = local_layout(cfg, plan, mesh), local.leaf_paths()
@@ -1929,9 +2061,10 @@ def _tp_rank(rank, world, mesh, train_losses):
                              f"{layout.n_leaves}, expected the 3 norm scales of 11")
     wb = coded_worker_batches(trainer.data, 0, TP_DATA, plan.s_max)
     say(f"[tp] {world} ranks on {torch.cuda.get_device_name(mesh.device)} over gloo, a "
-        f"(data {TP_DATA}, model {TP_MODEL}) mesh, each a full-width trainer (mode='spmd', "
-        f"K = {plan.k_shards} shards per rank) holding {layout.total_elems:,} of "
-        f"{plan.flat_layout.total_elems:,} parameters (replicated: {replicated}; level "
+        f"(data {TP_DATA}, model {TP_MODEL}) mesh, each a full-width trainer of "
+        f"{cfg.n_layers} layers (mode='spmd', K = {plan.k_shards} shards per rank) holding "
+        f"{layout.total_elems:,} of {plan.flat_layout.total_elems:,} parameters "
+        f"(replicated: {replicated}; level "
         f"buffers {list(layout.level_sizes)} of {list(plan.flat_layout.level_sizes)}); "
         f"{time.perf_counter() - t0:.2f} s; the trainer's peak allocation on the card "
         f"{init_peak:,} bytes (init_shards: shards, moments and one full leaf at a time; "
@@ -1997,14 +2130,15 @@ def _tp_rank(rank, world, mesh, train_losses):
                              "one psum per level over the data group and one draw check "
                              "per step")
     losses = [h["loss"] for h in trainer.history]
-    for a, b in zip(losses, train_losses, strict=True):
+    for a, b in zip(losses, axis_losses, strict=True):
         if not abs(a - b) <= 1e-5 * abs(b):
-            raise AssertionError(f"[tp] losses {losses} vs [train]'s {train_losses}")
+            raise AssertionError(f"[tp] losses {losses} vs one process's {axis_losses}")
     walls = [h["wall_s"] for h in trainer.history]
     data_bytes = nbytes["psum"] / STEPS
     model_bytes = sum(nbytes[k] for k in model_counts) / STEPS
-    say(f"[tp] {STEPS} steps of Trainer(mode='spmd'): losses {losses} (== [train]'s within "
-        f"1e-5), every leaf byte-equal across the {TP_DATA} data ranks of a model index and "
+    say(f"[tp] {STEPS} steps of Trainer(mode='spmd'): losses {losses} (== one process's "
+        f"within 1e-5), every leaf byte-equal across the {TP_DATA} data ranks of a model "
+        f"index and "
         f"the replicated leaves across all {world} after every step; rank 0 launches "
         f"{launches}, data-group collectives {counts}, model-group all-reduces "
         f"{model_counts}; step wall_s {[round(w, 3) for w in walls]}; bytes per rank per "
@@ -2027,13 +2161,147 @@ def _tp_rank(rank, world, mesh, train_losses):
             "times": times}
 
 
-def phase_tp(train_losses):
+def _moe_counts(k: int, layers: int, case: str, n_levels: int) -> dict:
+    """The collectives of one spmd step of a MoE model on the axis, per
+    rank: ``k`` passes forward and backward and the step's one monitoring
+    forward; per forward the model group's all-reduces of the
+    vocab-parallel embedding, attention's and the MoE's outputs (g) and
+    the loss's two (and its max), in case (a) an all-gather of the
+    router's logits per layer; per backward f's all-reduces of
+    attention's input, the gates' and the expert input's gradients and
+    the head's input; the clip's one all-reduce of the split leaves'
+    squares; one psum per level over the data group and one draw check."""
+    return dict(psum=n_levels, psum_scatter=0, broadcast=1,
+                all_gather=(k + 1) * layers if case == "a" else 0,
+                copy=k * (3 * layers + 1), reduce=(k + 1) * (2 * layers + 3) + 1, max=k + 1)
+
+
+def _moe_tp_rank(rank, world, mesh, moe_losses):
+    """[moe-tp] on one rank of ``_tp_job``: ``mixtral-8x22b.reduced()`` in
+    a ``Trainer(mode="spmd")`` over its shards in each of
+    ``MOE_TP_CASES``.  At step 0, at each of ``MOE_TP_CAPACITIES`` with 0,
+    1 and s_max stragglers, the model groups' gathered coded gradients
+    equal rank 0's sim mode on the full weights (1e-5 of each leaf's
+    scale); ``STEPS`` steps with the counts set to 0 just before: one
+    ``gc_fused`` launch per rank per step, the losses [moe-train]'s
+    (``moe_losses``, 1e-5), every leaf byte-equal across the data ranks
+    of a model index after every step, the collectives of every step the
+    formula (``_moe_counts``).  Rank 0 logs; every check raises."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import ShiftedExponential
+    from repro_torch.data.pipeline import coded_worker_batches
+    from repro_torch.dist import collectives
+    from repro_torch.models.moe import expert_split
+    from repro_torch.models.params import gather_model
+    from repro_torch.train.coded import local_layout, make_coded_grad_fn
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    out = {"launches": 0, "cases": {}}
+    for case, shard_experts in MOE_TP_CASES:
+        t0 = time.perf_counter()
+        base = get_config("mixtral-8x22b").reduced().replace(shard_experts=shard_experts)
+        trainer = Trainer(base, TrainConfig(lr=3e-4, warmup=10, total_steps=300),
+                          ShiftedExponential(mu=1e-3, t0=50.0), n_workers=TP_DATA,
+                          scheme="xf", global_batch=8, seed=0, device=mesh.device,
+                          seq_len=256, mesh=mesh, mode="spmd")
+        plan, local = trainer.plan, trainer.state.params
+        split = expert_split(local.tp)
+        if split != {"a": "experts", "b": "expert_mlp"}[case]:
+            raise AssertionError(f"[moe-tp] ({case}) the experts split on {split}")
+        paths, layout = local.leaf_paths(), local_layout(base, plan, mesh)
+        wb = coded_worker_batches(trainer.data, 0, TP_DATA, plan.s_max)
+        stragglers = sorted({0, 1, plan.s_max})
+        worst, dropped = {}, {}
+        for cf in MOE_TP_CAPACITIES:
+            cfg = _with_capacity(base, cf)
+            full, sim = gather_model(local), {}
+            if rank == 0:
+                coded = make_coded_grad_fn(cfg, plan)
+                with DropCensus() as census:
+                    rows = coded.rows(full, wb)
+                dropped[cf] = census.dropped()
+                for u in stragglers:
+                    sim[u] = coded.combine(rows, _straggler_dec_w(plan, u))
+                del coded, rows
+                torch.cuda.synchronize()
+            del full
+            dist.barrier()
+            fn = make_coded_grad_fn(cfg, plan, mode="spmd", mesh=mesh)
+            for u in stragglers:
+                got = gather_model(local, fn(local, wb, _straggler_dec_w(plan, u)))
+                if rank == 0:
+                    worst[cf, u] = _worst_rel(
+                        got.leaves(), sim[u], paths, 1e-5,
+                        f"[moe-tp] ({case}) capacity {cf}: gathered spmd vs sim mode, "
+                        f"{u} stragglers")
+                del got
+            del sim, fn
+        if rank == 0 and (dropped[8.0] or not dropped[1.25]):
+            raise AssertionError(f"[moe-tp] ({case}) dropped assignments by capacity factor: "
+                                 f"{dropped}")
+        torch.cuda.empty_cache()
+
+        # the main path: Trainer(mode="spmd") on the shards, counts set to 0 just before
+        torch.cuda.synchronize()
+        dist.barrier()
+        reset_counts()
+        steps = []
+        for i in range(STEPS):
+            collectives.reset_counts()
+            trainer.run(1, log_every=0)
+            torch.cuda.synchronize()
+            counts = {**collectives.counts, **collectives.model_counts}
+            want = _moe_counts(plan.k_shards, base.n_layers, case, layout.n_levels)
+            if counts != want:
+                raise AssertionError(f"[moe-tp] ({case}) rank {rank} step {i + 1}: "
+                                     f"collectives {counts}, the formula {want}")
+            steps.append(dict(collectives.nbytes))
+            every = [None] * world
+            dist.all_gather_object(every, _digest(trainer.state.params.leaves()))
+            if any(d != every[rank] for r, d in enumerate(every)
+                   if r % TP_MODEL == mesh.model_index):
+                raise AssertionError(f"[moe-tp] ({case}) rank {rank}: parameters differ from "
+                                     f"its model index's after step {i + 1}")
+        launches = read_counts()
+        if launches != {"gc_fused": STEPS, "gc_encode": 0, "gc_decode": 0}:
+            raise AssertionError(f"[moe-tp] ({case}) rank {rank}: launches {launches} in "
+                                 f"{STEPS} steps, expected one gc_fused launch per step")
+        losses = [h["loss"] for h in trainer.history]
+        for a, b in zip(losses, moe_losses, strict=True):
+            if not abs(a - b) <= 1e-5 * abs(b):
+                raise AssertionError(f"[moe-tp] ({case}) losses {losses} vs [moe-train]'s "
+                                     f"{moe_losses}")
+        out["launches"] += launches["gc_fused"]
+        out["cases"][case] = dict(split=split, losses=losses, seconds=time.perf_counter() - t0)
+        if rank == 0:  # dropped and worst are rank 0's
+            log(f"[moe-tp] ({case}) mixtral-8x22b reduced, experts split on {split!r} "
+                f"(shard_experts={shard_experts}): a rank holds {layout.total_elems:,} of "
+                f"{plan.flat_layout.total_elems:,} parameters; step 0, gathered coded gradients "
+                f"vs rank 0's sim mode (bound 1e-5): "
+                + "; ".join(f"capacity {cf} ({dropped[cf]} assignments dropped in the "
+                            f"{TP_DATA * plan.k_shards} passes) "
+                            + ", ".join(f"{u}: {worst[cf, u]:.3e}" for u in stragglers)
+                            for cf in MOE_TP_CAPACITIES)
+                + f"; {STEPS} steps: losses {losses} (== [moe-train]'s within 1e-5), leaves "
+                f"byte-equal over the data ranks of a model index, launches {launches}, "
+                f"collectives per step {counts} (the formula), bytes per step {steps[-1]}; "
+                f"{time.perf_counter() - t0:.1f} s")
+        del trainer, local
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_tp(axis_losses, moe_losses):
     """spmd coded training on a model axis on one card: a (data 4, model
     2) mesh of eight ranks on card 0 over gloo, each a full-width
-    ``Trainer(mode="spmd")`` over its shards; the same job then runs
-    [tp-state]'s trainers (``_tp_job``), whose checkpoint stays in the
-    returned work directory for ``phase_tp_state``.  Returns the ranks'
-    gc_fused launches on [tp]'s main path, summed, rank 0's combine
+    ``Trainer(mode="spmd")`` of ``CUT_LAYERS`` layers over its shards;
+    the same job then runs [moe-tp] and [tp-state]'s trainers
+    (``_tp_job``), whose checkpoint stays in the returned work directory
+    for ``phase_tp_state``.  Returns the ranks' gc_fused launches on
+    [tp]'s main path and on [moe-tp]'s, each summed, rank 0's combine
     times, every rank's [tp-state] results and the work directory."""
     from repro_torch.dist.spawn import spawn
 
@@ -2041,9 +2309,9 @@ def phase_tp(train_losses):
     work = tempfile.mkdtemp(prefix="chip_smoke_tp_", dir=os.path.join(ROOT, "build"))
     t0 = time.perf_counter()
     try:
-        jobs = spawn(_tp_job, TP_DATA * TP_MODEL, train_losses, os.path.join(work, "ckpt"),
-                     store_dir=os.path.join(work, "spawn"), backend="gloo",
-                     timeout=SPMD_LIMIT_S)
+        jobs = spawn(_tp_job, TP_DATA * TP_MODEL, axis_losses, moe_losses,
+                     os.path.join(work, "ckpt"), store_dir=os.path.join(work, "spawn"),
+                     backend="gloo", timeout=SPMD_LIMIT_S)
     except BaseException:
         shutil.rmtree(work, ignore_errors=True)
         raise
@@ -2052,15 +2320,22 @@ def phase_tp(train_losses):
     if launches != STEPS * TP_DATA * TP_MODEL:
         raise AssertionError(f"[tp] {launches} gc_fused launches, expected "
                              f"{STEPS * TP_DATA * TP_MODEL}")
+    moe = [j["moe-tp"] for j in jobs]
+    moe_launches = sum(r["launches"] for r in moe)
+    if moe_launches != len(MOE_TP_CASES) * STEPS * TP_DATA * TP_MODEL:
+        raise AssertionError(f"[moe-tp] {moe_launches} gc_fused launches, expected "
+                             f"{len(MOE_TP_CASES) * STEPS * TP_DATA * TP_MODEL}")
     log(f"[tp] {len(ranks)} ranks done in {time.perf_counter() - t0:.1f} s ([tp] "
-        f"{jobs[0]['seconds']['tp']:.1f} s and [tp-state]'s trainers "
-        f"{jobs[0]['seconds']['tp-state']:.1f} s of rank 0's job); per rank "
+        f"{jobs[0]['seconds']['tp']:.1f} s, [moe-tp] {jobs[0]['seconds']['moe-tp']:.1f} s and "
+        f"[tp-state]'s trainers {jobs[0]['seconds']['tp-state']:.1f} s of rank 0's job); "
+        f"[moe-tp] gc_fused launches per rank {[r['launches'] for r in moe]} ({moe_launches} "
+        f"in all); [tp] per rank "
         f"gc_fused launches {[r['launches'] for r in ranks]} ({launches} in all), step "
         f"wall_s {[[round(w, 3) for w in r['walls']] for r in ranks]}, max_memory_allocated "
         f"{[r['mem'] for r in ranks]} bytes, data-group bytes per rank per step "
         f"{sorted({r['data_bytes'] for r in ranks})}, model-group "
         f"{sorted({r['model_bytes'] for r in ranks})}")
-    return launches, ranks[0]["times"], [j["tp-state"] for j in jobs], work
+    return launches, moe_launches, ranks[0]["times"], [j["tp-state"] for j in jobs], work
 
 
 def _snapshot(tree) -> dict:
@@ -2326,6 +2601,7 @@ def _tp_state_rank(rank, world, mesh, ckpt_dir):
 
     # (a) coded checkpoints, a death, a forced re-plan, the restore
     trainer = make_trainer(mesh=mesh, mode="spmd", adapt=AdaptConfig(), seq_len=TP_STATE_SEQ,
+                           n_layers=CUT_LAYERS,
                            ckpt=CkptConfig(dir=ckpt_dir, every=TP_CKPT_EVERY,
                                            coded=CodedSpec(n_shards=4, parity=1)))
     trainer.sim.env = trainer.env.with_faults(DegradedWorker(**TP_DEATH))
@@ -2408,9 +2684,10 @@ def _tp_state_rank(rank, world, mesh, ckpt_dir):
         raise AssertionError(f"rank {rank}: launches {launches}, expected gc_fused "
                              f"{TP_STATE_STEPS} (one per step), gc_encode {want_encode}")
     say(f"[tp-state] (a) {world} ranks, (data {TP_DATA}, model {TP_MODEL}), each a full-width "
-        f"Trainer(mode='spmd', adapt=AdaptConfig(), ckpt=CodedSpec(4, 1) every "
-        f"{TP_CKPT_EVERY}) on {TP_DEATH}: {TP_STATE_STEPS} steps in {wall:.2f} s, steps "
-        f"{steps}; DeathWatch tripped after step {evs[0].step} (the CPU's), forced re-plan x "
+        f"trainer of {CUT_LAYERS} layers (mode='spmd', adapt=AdaptConfig(), "
+        f"ckpt=CodedSpec(4, 1) every {TP_CKPT_EVERY}) on {TP_DEATH}: {TP_STATE_STEPS} steps "
+        f"in {wall:.2f} s, steps {steps}; DeathWatch tripped after step {evs[0].step} (the "
+        f"CPU's), forced re-plan x "
         f"{swap.x_old.tolist()} -> {swap.x_new.tolist()} (the CPU's), restore of step "
         f"{evs[0].ckpt_step} byte-equal to the save on every rank; replayed loss {replay} "
         f"== {first}; rank 0 save {spent['save']:.2f} s, restore {spent['restore']:.2f} s; "
@@ -2423,7 +2700,7 @@ def _tp_state_rank(rank, world, mesh, ckpt_dir):
     # (c) the wave loop: a fresh trainer at staleness 0 byte-equal to (a)'s
     # first 3 steps (barrier steps from the same weights and draws), then
     # 4 rounds of it at staleness 1
-    trainer = make_trainer(mesh=mesh, mode="spmd", seq_len=TP_STATE_SEQ,
+    trainer = make_trainer(mesh=mesh, mode="spmd", seq_len=TP_STATE_SEQ, n_layers=CUT_LAYERS,
                            wave=WaveConfig(staleness=0, **WAVE_COSTS))
     counted(trainer, 3, "wave0")
     if (trainer.state.digest(), [h["loss"] for h in trainer.history]) != barrier:
@@ -2454,7 +2731,7 @@ def _tp_state_rank(rank, world, mesh, ckpt_dir):
     budget = MemBudget.from_gb(TUNE_HBM_GB)
     trainer = make_trainer(Env.iid(ShiftedExponential(mu=1e-3, t0=50.0), 4), scheme="auto",
                            budget=budget, grad_dtype="fp32", mesh=mesh, mode="spmd",
-                           seq_len=TP_STATE_SEQ)
+                           seq_len=TP_STATE_SEQ, n_layers=CUT_LAYERS)
     tune_s = time.perf_counter() - t0
     cfg, plan, local = trainer.cfg, trainer.plan, trainer.state.params
     paths = local.leaf_paths()
@@ -2532,7 +2809,8 @@ def phase_tp_state(ranks, work):
 
         # (b) the axis's checkpoint in one process (model 1), saved again
         t0 = time.perf_counter()
-        one = make_trainer(ckpt=CkptConfig(dir=ckpt_dir), seq_len=TP_STATE_SEQ)
+        one = make_trainer(ckpt=CkptConfig(dir=ckpt_dir), seq_len=TP_STATE_SEQ,
+                           n_layers=CUT_LAYERS)
         restore_s = time.perf_counter() - t0
         if int(one.state.step) != TP_CKPT_EVERY or one.state.digest() != ck[0]["gathered"]:
             raise AssertionError("[tp-state] (b) the one-process restore differs from the "
@@ -2561,10 +2839,7 @@ def phase_tp_state(ranks, work):
         shutil.rmtree(work, ignore_errors=True)
 
     # (d) every rank's search == the same search in this process
-    from repro_torch.configs import get_config
-
-    cfg = get_config("gc-lm-110m").replace(max_seq=512)
-    res = autotune(cfg, Env.iid(ShiftedExponential(mu=1e-3, t0=50.0), 4),
+    res = autotune(_gc_lm(CUT_LAYERS), Env.iid(ShiftedExponential(mu=1e-3, t0=50.0), 4),
                    MemBudget.from_gb(TUNE_HBM_GB), global_batch=8, seq_len=TP_STATE_SEQ,
                    seed=0, device="cuda")
     if ranks[0]["auto"]["report"] != res.report.to_dict() or \
@@ -2992,27 +3267,39 @@ def _tp_engine(cfg, model, g, slab_dtype, mesh=None) -> dict:
                 launches=launches, rows=eng.rows.rows)
 
 
-def _serve_collectives(cfg, g, local_split, step) -> dict:
+def _serve_collectives(cfg, g, local_split, step, experts=None) -> dict:
     """The collectives one engine step must make on a rank, with their
     bytes (fp32 activations): per decode of the rank's B rows one
     all-reduce of (B, 1, d) per layer for attention, one per layer for the
-    MLP, one for the vocab-parallel embedding, one all-gather of the
-    logits (B, 1, V) out; per prefill on the rank (an admission into its
-    rows) the same all-reduces of (1, S, d) and one all-gather of the last
-    position's logits (1, 1, V); and, where the slots split over the data
-    ranks, one gather of the step's int64 tokens (n_slots per column: the
-    decode's, and the admissions' first)."""
+    MLP or the MoE's output, one for the vocab-parallel embedding, one
+    all-gather of the logits (B, 1, V) out; per prefill on the rank (an
+    admission into its rows) the same all-reduces of (1, S, d) and one
+    all-gather of the last position's logits (1, 1, V); and, where the
+    slots split over the data ranks, one gather of the step's int64
+    tokens (n_slots per column: the decode's, and the admissions' first).
+    A MoE layer adds, per decode on data-parallel slots, one all-gather
+    of every slot's k int64 expert ids (the capacity's count), and with
+    its experts split (``experts`` is ``"experts"``: case a) one
+    all-gather of the router's fp32 logits, (rows, E) out, per decode and
+    per prefill."""
     b, rows = len(local_split), local_split
     mine = len([slot for slot in step["admitted"] if slot in rows])
     dec = step["decoded"]
     cols = bool(step["admitted"]) + dec
     n_red = 2 * cfg.n_layers + 1
     token_gather = int(g["data"] > 1 and cols > 0)
+    moe = cfg.layers[0].moe
+    ids = cfg.n_layers if moe is not None and g["data"] > 1 else 0
+    router = cfg.n_layers if experts == "experts" else 0
     counts = dict(psum=0, psum_scatter=0, broadcast=0, copy=0, max=0,
-                  all_gather=dec + mine + token_gather, reduce=n_red * (dec + mine))
+                  all_gather=dec * (1 + ids + router) + mine * (1 + router) + token_gather,
+                  reduce=n_red * (dec + mine))
+    per_router = 4 * moe.num_experts if router else 0
+    per_ids = 8 * g["n_slots"] * moe.top_k if ids else 0
     nbytes = dict(psum=0, psum_scatter=0, broadcast=0, copy=0, max=0,
                   all_gather=4 * cfg.vocab * (dec * b + mine) + 8 * g["n_slots"] * cols
-                  * token_gather,
+                  * token_gather + dec * (ids * per_ids + router * per_router * b)
+                  + mine * router * per_router * g["prompt_len"],
                   reduce=4 * cfg.d_model * n_red * (dec * b + mine * g["prompt_len"]))
     return dict(counts=counts, nbytes=nbytes)
 
@@ -3086,10 +3373,11 @@ def _spawn_tp_serve(arch: str, g: dict) -> list:
         shutil.rmtree(store, ignore_errors=True)
 
 
-def _check_tp_serve(tag, cfg, g, one, ranks) -> dict:
+def _check_tp_serve(tag, cfg, g, one, ranks, experts=None) -> dict:
     """Every rank's engine against the one-rank engine on the same weights:
     tokens, timestamps, slots and step latencies equal; no ``gc_*``
-    launch; each step's collectives equal ``_serve_collectives``.  Returns
+    launch; each step's collectives equal ``_serve_collectives`` (a MoE's
+    ``experts`` split as ``moe.expert_split`` names it).  Returns
     rank 0's decode-only step walls (host clock, ms) and its per-step
     collectives of the first decode-only step."""
     import numpy as np
@@ -3104,7 +3392,7 @@ def _check_tp_serve(tag, cfg, g, one, ranks) -> dict:
         if any(run["launches"].values()):
             raise AssertionError(f"[{tag}] rank {r}: the serving path launched {run['launches']}")
         for i, step in enumerate(run["steps"]):
-            want = _serve_collectives(cfg, g, run["rows"], step)
+            want = _serve_collectives(cfg, g, run["rows"], step, experts)
             got = dict(counts={k: step["counts"][k] for k in want["counts"]},
                        nbytes={k: step["nbytes"][k] for k in want["nbytes"]})
             if got != want or sum(step["counts"].values()) != sum(want["counts"].values()):
@@ -3182,6 +3470,136 @@ def phase_tp_serve():
         f"one-rank bf16 engine's (not gated), {ranks[0]['bf16']['tokens_per_s']:.1f} tok/s; "
         f"max_memory_allocated per rank {[r['peak'] for r in ranks]} bytes")
     return {"launches": sum(sum(r["fp32"]["launches"].values()) for r in ranks)}
+
+
+def _moe_tp_serve_cfg(shard_experts: bool):
+    """[moe-tp-serve]'s config: mixtral-8x22b at its published widths cut
+    to ``MOE_TP_SERVE["n_layers"]`` layers, fp32 activations."""
+    return _cut("mixtral-8x22b", MOE_TP_SERVE["n_layers"]).replace(
+        dtype="float32", shard_experts=shard_experts)
+
+
+def _moe_tp_serve_rank(rank, world):
+    """One rank of [moe-tp-serve] (``dist.spawn``: every rank on card 0 over
+    gloo, ``MOE_TP_SERVE``'s (data, model) mesh): per case of
+    ``MOE_TP_CASES`` its shards drawn by ``init_shards`` (seed 0; one rank
+    at a time, as a full stacked expert leaf of 6.44 GB lies beside its
+    cut while it is drawn), the engine on an fp32 slab with every count
+    set to 0 just before, then the shards let go before the next case's
+    are cut.  Returns what the rank saw; the parent holds it to the
+    one-rank engine."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.moe import expert_split
+    from repro_torch.models.params import count_params, init_shards
+
+    g = MOE_TP_SERVE
+    mesh = make_local_mesh(g["data"], model=g["model"], device="cuda:0", backend="gloo")
+    out = dict(coords=(mesh.pod_index, mesh.data_index, mesh.model_index), cases={})
+    for case, shard_experts in MOE_TP_CASES:
+        cfg = _moe_tp_serve_cfg(shard_experts)
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+        local = None
+        for r in range(world):
+            if r == rank:
+                free, total = torch.cuda.mem_get_info(mesh.device)
+                log(f"[moe-tp-serve] ({case}) rank {rank} draws its shards; the card has "
+                    f"{free:,} of {total:,} bytes free")
+                local = init_shards(cfg, mesh, device=mesh.device, seed=0)
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()  # the full leaves' blocks, for the next rank's draw
+            dist.barrier()
+        got = dict(params=count_params(local), split=expert_split(local.tp),
+                   init_s=time.perf_counter() - t0,
+                   init_peak=torch.cuda.max_memory_allocated(mesh.device))
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+        run = _tp_engine(cfg, local, g, torch.float32, mesh=mesh)
+        run.pop("eng")
+        got.update(fp32=run, peak=torch.cuda.max_memory_allocated(mesh.device))
+        out["cases"][case] = got
+        del local, run
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe_tp_serve():
+    """Serving a MoE on the model axis: mixtral-8x22b at its published
+    widths cut to 2 of 56 layers, fp32 activations on an fp32 slab, served
+    on one rank, the model freed, then by four ranks on card 0 over gloo
+    on a (data 2, model 2) mesh (4 of the 8 slots, 4 of the 8 KV heads and
+    half of every expert's FFN width each, case b; then re-cut with the
+    experts split, case a): equal tokens, slots, timestamps and step
+    latencies; the collectives of every step on every rank the formula
+    (``_serve_collectives``: the capacity's gather of every slot's expert
+    ids per MoE layer, and in case (a) the router's logits); no ``gc_*``
+    launch; each rank's peak."""
+    import torch
+
+    from repro_torch.dist.spawn import spawn
+    from repro_torch.models.params import GCLM
+
+    _free_card()
+    g = MOE_TP_SERVE
+    cfg = _moe_tp_serve_cfg(False)
+    model = GCLM(cfg, device="cuda", seed=0)
+    n_params = sum(t.numel() for t in model.leaves())
+    if n_params != 5_410_781_184:
+        raise AssertionError(f"[moe-tp-serve] {n_params} params, expected 5,410,781,184")
+    one = _tp_engine(cfg, model, g, torch.float32)
+    one.pop("eng")
+    one_peak = torch.cuda.max_memory_allocated()
+    del model
+    _free_card()
+    free, total = torch.cuda.mem_get_info()
+    log(f"[moe-tp-serve] one rank done, the model freed: this process holds "
+        f"{torch.cuda.memory_allocated():,} bytes ({torch.cuda.memory_reserved():,} reserved); "
+        f"the card has {free:,} of {total:,} bytes free")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    store = tempfile.mkdtemp(prefix="chip_smoke_moe_tp_serve_", dir=os.path.join(ROOT, "build"))
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn(_moe_tp_serve_rank, g["data"] * g["model"], store_dir=store,
+                      backend="gloo", timeout=SPMD_LIMIT_S)
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    job_s = time.perf_counter() - t0
+    if [r["coords"] for r in ranks] != [(0, d, m) for d in range(2) for m in range(2)]:
+        raise AssertionError(f"[moe-tp-serve] ranks {[r['coords'] for r in ranks]}")
+    reused = _reused_slots("moe-tp-serve", one["slots"])
+    n_tok = sum(len(x[0]) for x in one["reqs"])
+    log(f"[moe-tp-serve] {cfg.name} at full width, {cfg.n_layers} of 56 layers, fp32: "
+        f"{n_params:,} params; one rank: {one['tokens_per_s']:.1f} tok/s, peak {one_peak:,} "
+        f"bytes; {len(ranks)} ranks on {torch.cuda.get_device_name(0)} over gloo, (data "
+        f"{g['data']}, model {g['model']}); the job {job_s:.1f} s")
+    launches = 0
+    for case, shard_experts in MOE_TP_CASES:
+        got = [r["cases"][case] for r in ranks]
+        split = {"a": "experts", "b": "expert_mlp"}[case]
+        if {x["split"] for x in got} != {split}:
+            raise AssertionError(f"[moe-tp-serve] ({case}) the experts split on "
+                                 f"{[x['split'] for x in got]}, expected {split!r}")
+        seen = _check_tp_serve(f"moe-tp-serve ({case})", _moe_tp_serve_cfg(shard_experts), g,
+                               one, got, experts=split)
+        launches += sum(sum(x["fp32"]["launches"].values()) for x in got)
+        run = got[0]["fp32"]
+        per = seen["per_step"]
+        log(f"[moe-tp-serve] ({case}) experts split on {split!r}: a rank holds "
+            f"{[x['params'] for x in got]} params (init_shards one rank at a time, "
+            f"{got[0]['init_s']:.2f} s, peaks {[x['init_peak'] for x in got]} bytes), slots "
+            f"{[list(x['fp32']['rows']) for x in got]}; {len(run['reqs'])} requests x "
+            f"{g['prompt_len']}-token prompts: tokens, slots, timestamps and step latencies == "
+            f"the one-rank engine's on every rank ({n_tok} tokens, {len(run['latencies'])} "
+            f"decode steps; slots serving a second request {reused}); gc_* launches "
+            f"{[x['fp32']['launches'] for x in got]}; {n_tok / run['wall']:.1f} tok/s by the "
+            f"wall clock, a decode step (no admission) median {seen['median']:.3f} ms by the "
+            f"host clock (one rank {statistics.median(seen['one_walls']):.3f} ms); collectives "
+            f"per rank per decode step (== the formula on every step of every rank): "
+            f"{per['counts']}, bytes {per['nbytes']}; serving peaks "
+            f"{[x['peak'] for x in got]} bytes")
+    return {"launches": launches}
 
 
 def phase_gemma3_tp_serve():
@@ -3647,7 +4065,8 @@ class DropCensus:
     ``repro_torch.models.blocks.apply_moe`` also calls the port's routing
     function (``moe.route``) on the layer's input and keeps, per MoE layer
     call, (tokens, capacity, dropped assignments) — the last a device
-    tensor, read only by ``dropped``."""
+    tensor, read only by ``dropped``.  For a whole module off a mesh (a
+    sharded one routes over its model group)."""
 
     def __enter__(self):
         import torch
@@ -3656,11 +4075,11 @@ class DropCensus:
 
         self.calls, self._blocks, self._orig = [], blocks, blocks.apply_moe
 
-        def counting(cfg, p, x, spec):
+        def counting(cfg, p, x, spec, **kw):
             with torch.no_grad():
                 r = moe.route(p, x.reshape(-1, x.shape[-1]), spec.moe)
                 self.calls.append((x.shape[0] * x.shape[1], r.cap, (r.keep == 0).sum()))
-            return self._orig(cfg, p, x, spec)
+            return self._orig(cfg, p, x, spec, **kw)
 
         blocks.apply_moe = counting
         return self
@@ -4035,7 +4454,8 @@ def phase_moe_train():
         "two forward+backward runs at capacity 1.25 byte-equal")
     del trainer, model
     _free_card()
-    return {"launches": launches["gc_fused"], "gaps": gaps, "dropped": dropped}
+    return {"launches": launches["gc_fused"], "gaps": gaps, "dropped": dropped,
+            "losses": [h["loss"] for h in hist]}
 
 
 # ------------------------------------------------------------------ DeepSeek-V3
@@ -4733,9 +5153,9 @@ def _xlstm_worst_rel(got, want, paths, bound: float, what: str) -> float:
 
 def phase_xlstm_train():
     """Coded training of xlstm-1.3b at its published widths cut to its
-    first 8 of 48 layers (one period: a run of 7 mLSTM layers and an sLSTM
-    layer, 405,444,664 parameters in 22 leaves; 16 fp32 rows of 1.62 GB
-    per step), bf16 activations and ``remat="dots"`` as the config has
+    layers 5 to 8 of 48 (a run of 3 mLSTM layers and the period's sLSTM,
+    254,212,120 parameters in 22 leaves; 16 fp32 rows of 1.02 GB per
+    step), bf16 activations and ``remat="dots"`` as the config has
     them, in sim mode with the gc-lm-110m plan settings (N = 4, ``xf``,
     s_max = 3, seq 256: one mLSTM chunk, global batch 8).  At step 0 the
     coded gradient equals the uncoded one (``EXACT_RTOL`` per leaf;
@@ -4754,17 +5174,22 @@ def phase_xlstm_train():
     from repro_torch.train.trainer import TrainConfig, Trainer
 
     _free_card()
-    cfg = _cut("xlstm-1.3b", XLSTM_TRAIN_LAYERS)
+    from repro_torch.configs import get_config
+
+    full = get_config("xlstm-1.3b")
+    layers = full.layers[XLSTM_TRAIN_LAYERS]
+    cfg = full.replace(n_layers=len(layers), layers=layers)
     trainer = Trainer(cfg, TrainConfig(lr=3e-4, warmup=10, total_steps=300),
                       ShiftedExponential(mu=1e-3, t0=50.0), n_workers=4, scheme="xf",
                       global_batch=8, seed=0, device="cuda", seq_len=256)
     plan, model, n = trainer.plan, trainer.state.params, trainer.n_workers
     paths = model.leaf_paths()
     n_params = sum(t.numel() for t in model.leaves())
-    if len(paths) != 22 or n_params != 405_444_664 or cfg.dtype != "bfloat16" or \
-            cfg.remat != "dots":
+    mixers = [l.mixer for l in cfg.layers]
+    if len(paths) != 22 or n_params != 254_212_120 or cfg.dtype != "bfloat16" or \
+            cfg.remat != "dots" or mixers != ["mlstm"] * 3 + ["slstm"]:
         raise AssertionError(f"[xlstm-train] {n_params} params in {len(paths)} leaves, "
-                             f"{cfg.dtype}, remat {cfg.remat}")
+                             f"{cfg.dtype}, remat {cfg.remat}, mixers {mixers}")
     wb = coded_worker_batches(trainer.data, 0, n, plan.s_max)
     shards = np.stack([trainer.data.shard(0, i, n) for i in range(n)])
     rows = per_shard_grad_rows(cfg, model, wb)
@@ -4774,8 +5199,9 @@ def phase_xlstm_train():
                                 f"[xlstm-train] coded != uncoded, {u} stragglers")
             for u in (0, plan.s_max)}
     del rows, g_ref
-    log(f"[xlstm-train] xlstm-1.3b at full width, first {cfg.n_layers} of 48 layers "
-        f"({[l.mixer for l in cfg.layers].count('mlstm')} mLSTM, 1 sLSTM, bf16 activations, "
+    log(f"[xlstm-train] xlstm-1.3b at full width, layers {XLSTM_TRAIN_LAYERS.start + 1} to "
+        f"{XLSTM_TRAIN_LAYERS.stop} of 48 ({mixers.count('mlstm')} mLSTM, "
+        f"{mixers.count('slstm')} sLSTM, bf16 activations, "
         f"remat {cfg.remat}): {n_params} params in {len(paths)} leaves, "
         f"N*K={n * plan.k_shards}; step 0, coded == uncoded, worst leaf relative max error at "
         f"0 / s_max stragglers: {gaps[0]:.3e} / {gaps[plan.s_max]:.3e} (bound {EXACT_RTOL})")
@@ -5166,10 +5592,10 @@ def phase_whisper_serve():
 
 
 def phase_vision_serve():
-    """Full-width, full-depth llama-3.2-vision-11b (40 layers: a pattern of 5
-    over 8 repeats, cross layers 3, 8, ..., 38; d_model 4096, 32 heads over
+    """Full-width llama-3.2-vision-11b cut to 10 of its 40 layers (a pattern
+    of 5 over 2 repeats, cross layers 3 and 8; d_model 4096, 32 heads over
     8 KV heads, d_ff 14,336, vocab 128,256, an untied head, bf16
-    activations; 9,806,614,536 parameters, 39.23 GB fp32; random weights,
+    activations; 3,263,254,530 parameters, 13.05 GB fp32; random weights,
     seed 0, the gates open) through ``_cross_serve``: 4 prompts of 512
     tokens + 32 new, each row with 1,601 patches of width 7,680; peak
     memory under 80 GB."""
@@ -5181,14 +5607,14 @@ def phase_vision_serve():
     g = VISION_SERVE
     cfg = _cut("llama-3.2-vision-11b", g["n_layers"])
     segs = plan_segments(cfg.layers)
-    if len(segs) != 1 or not isinstance(segs[0], Pattern) or segs[0].repeats != 8 or \
+    if len(segs) != 1 or not isinstance(segs[0], Pattern) or segs[0].repeats != 2 or \
             [l.mixer for l in segs[0].specs] != ["attn"] * 3 + ["cross_attn", "attn"]:
         raise AssertionError(f"[vision-serve] not the published layout: {segs}")
     model = GCLM(cfg, device="cuda", seed=0)
     n_params = sum(t.numel() for t in model.leaves())
-    if n_params != 9_806_614_536 or len(model.leaves()) != 50:
+    if n_params != 3_263_254_530 or len(model.leaves()) != 50:
         raise AssertionError(f"[vision-serve] {n_params} parameters in {len(model.leaves())} "
-                             "leaves, expected 9,806,614,536 in 50")
+                             "leaves, expected 3,263,254,530 in 50")
     _open_gates(model, 2)
     out = _cross_serve("vision-serve", cfg, model, g, seed=0)
     if not out["peak"] < 80e9:
@@ -5229,7 +5655,6 @@ def main() -> int:
     max_err, kernel_times = timed("kernel", phase_kernel, trainer)
     timed("exactness", phase_exactness, trainer)
     launches = timed("train", phase_train, trainer)
-    train_losses = [h["loss"] for h in trainer.history]
     profile = timed("breakdown", phase_breakdown, trainer)
     rows, level_times = timed("levels", phase_levels, trainer)
     tree_times = timed("tree", phase_tree, trainer, rows)
@@ -5240,14 +5665,17 @@ def main() -> int:
     adapt_launches = timed("adapt", phase_adapt)
     wave_launches = timed("wave", phase_wave)
     tune_launches = timed("tune", phase_tune)
-    spmd_launches, spmd_times = timed("spmd", phase_spmd, train_losses)
-    tp_launches, tp_times, tp_state_ranks, tp_state_work = timed("tp", phase_tp, train_losses)
+    moe_train = timed("moe-train", phase_moe_train)
+    spmd_launches, spmd_times, axis_losses = timed("spmd", phase_spmd)
+    tp_launches, moe_tp_launches, tp_times, tp_state_ranks, tp_state_work = timed(
+        "tp", phase_tp, axis_losses, moe_train["losses"])
     ckpt_launches, n_digits = timed("ckpt", phase_ckpt)
     tp_state_launches = timed("tp-state", phase_tp_state, tp_state_ranks, tp_state_work)
     enc_err, enc_times = timed("encode", phase_encode, n_digits)
     trip_launches, dec_err, dec_times = timed("decode", phase_decode)
     timed("serve", phase_serve)
     tp_serve = timed("tp-serve", phase_tp_serve)
+    moe_tp_serve = timed("moe-tp-serve", phase_moe_tp_serve)
     timed("reference", phase_reference)
     gemma = timed("gemma-train", phase_gemma_train)
     timed("gemma3-serve", phase_gemma3_serve)
@@ -5255,7 +5683,6 @@ def main() -> int:
     timed("gemma2", phase_gemma2)
     timed("qwen-serve", phase_qwen_serve)
     timed("mixtral-serve", phase_mixtral_serve)
-    moe_train = timed("moe-train", phase_moe_train)
     timed("deepseek-serve", phase_deepseek_serve)
     deepseek = timed("deepseek-train", phase_deepseek_train)
     timed("jamba-serve", phase_jamba_serve)
@@ -5285,6 +5712,7 @@ def main() -> int:
                       "jamba": jamba["launches"], "xlstm": xlstm["launches"],
                       "whisper": whisper["launches"], "vision": vision["launches"],
                       "dryrun": dryrun["launches"], "tp-serve": tp_serve["launches"],
+                      "moe-tp": moe_tp_launches, "moe-tp-serve": moe_tp_serve["launches"],
                       "gemma3-tp-serve": gemma3_tp_serve["launches"],
                       "tp-state": tp_state_launches["gc_fused"]}
     print(json.dumps({"kernels": [

@@ -10,14 +10,18 @@ einsums: ``copy_to_model`` (the identity forward, the gradient
 all-reduced over the model ranks backward: a replicated input, or a
 replicated leaf, entering a sharded region) and ``reduce_from_model``
 (an all-reduce forward, the identity backward: the partial sums of a
-row-sharded product leaving it); and ``max_over_model``, the max
+row-sharded product leaving it); ``gather_from_model`` (an all-gather
+forward, the rank's slice of the gradient backward: a column-sharded
+product whose gathered output every rank then uses whole, as the router
+of experts split over ``model``); and ``max_over_model``, the max
 all-reduce of the vocab-parallel softmax (no gradient).
 
 ``counts`` counts the data-side calls by collective and
 ``model_counts`` the model group's all-reduces (``copy`` counts the
 backward all-reduces of *f*), as the kernel wrappers count launches
 (serving's gathers — a vocab-parallel head's logits over the model
-group, a step's tokens over the data group — count as ``all_gather``): a run
+group, a step's tokens and the MoE rows' expert ids over the data group
+— and ``gather_from_model``'s count as ``all_gather``): a run
 resets them to show how many collectives its path made; ``nbytes``
 adds up each kind's payload, one rank's buffer per call.
 No call copies a tensor to another device: a backend that refuses a
@@ -42,7 +46,7 @@ from .mesh import MetaGroup
 
 __all__ = ["counts", "model_counts", "nbytes", "reset_counts", "psum", "psum_scatter",
            "all_gather", "gather_rows", "broadcast", "check_replicated", "copy_to_model",
-           "reduce_from_model", "max_over_model"]
+           "reduce_from_model", "gather_from_model", "max_over_model"]
 
 #: collectives made by this module in this process, by kind
 counts = {"psum": 0, "psum_scatter": 0, "all_gather": 0, "broadcast": 0}
@@ -146,13 +150,13 @@ def all_gather(tile: torch.Tensor, group, dim: int = 0,
     return out if dim == 0 else out.movedim(0, dim)
 
 
-def gather_rows(x: torch.Tensor, mesh, split) -> torch.Tensor:
+def gather_rows(x: torch.Tensor, split) -> torch.Tensor:
     """Every rank's block of batch rows, in row order: ``x`` (this rank's
     rows of ``split``, a ``dist.sharding.RowSplit``) all-gathered over
-    each mesh axis that splits them, the minor axis first; ``x`` itself
-    when no axis splits them."""
+    each axis of ``split.mesh`` that splits them, the minor axis first;
+    ``x`` itself when no axis splits them."""
     for axis in reversed(split.axes):
-        x = all_gather(x, getattr(mesh, f"{axis}_group"))
+        x = all_gather(x, getattr(split.mesh, f"{axis}_group"))
     return x
 
 
@@ -235,6 +239,25 @@ def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
     gradient as it comes — for the partial sums of a product over
     sharded heads, widths or vocabulary rows."""
     return _ReduceFromModel.apply(x, group)
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, index, dim):
+        ctx.index, ctx.dim, ctx.n = index, dim, x.shape[dim]
+        return all_gather(x.contiguous(), group, dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.index * ctx.n, ctx.n), None, None, None
+
+
+def gather_from_model(x: torch.Tensor, group, index: int, dim: int) -> torch.Tensor:
+    """Every model rank's ``x`` concatenated along ``dim`` in rank order
+    (one ``all_gather``); backward, the slice of the gradient at this
+    rank's ``index`` — for a column shard's output that every rank then
+    uses whole, so each rank's gradient of it is already the whole one."""
+    return _GatherFromModel.apply(x, group, index, dim)
 
 
 def max_over_model(x: torch.Tensor, group) -> torch.Tensor:

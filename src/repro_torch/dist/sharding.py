@@ -22,6 +22,8 @@ dimension: ``None``, a mesh axis, or a tuple of mesh axes.
 
 The ``fsdp`` rule (``embed`` over ``data``) is kept with the rest and
 acted on nowhere: the port's ranks hold every leaf whole along ``data``.
+``shard_experts`` (false for Mixtral) empties the ``experts`` rule, so a
+MoE's experts split by their FFN width (``expert_mlp``) instead.
 
 Serving splits its slab's rows by the ``batch`` rule (``batch_rows``):
 a row count the ``("pod", "data")`` ranks divide is cut into equal
@@ -101,8 +103,9 @@ class ModelSplit:
     """Where a module lies on a mesh's ``model`` axis, as
     ``models.params.shard_model`` cut it: the mesh and the logical axes
     its leaves are split on (``"heads"``, ``"kv_heads"``, ``"mlp"``,
-    ``"vocab"``).  The layers ask ``name in split.axes`` which of their
-    products to reduce over the model group."""
+    ``"vocab"``, and a MoE's ``"experts"`` or ``"expert_mlp"``).  The
+    layers ask ``name in split.axes`` which of their products to reduce
+    over the model group."""
 
     mesh: object
     axes: frozenset
@@ -125,10 +128,12 @@ class ModelSplit:
 class RowSplit:
     """A rank's block of batch rows: the mesh axes that split them (major
     first, each of more than one rank; empty when every rank holds every
-    row) and the global rows ``rows`` this rank holds."""
+    row), the global rows ``rows`` this rank holds, and the ``mesh``
+    (None off a mesh)."""
 
     axes: tuple
     rows: range
+    mesh: object = None
 
 
 def batch_rows(n: int, mesh=None) -> RowSplit:
@@ -145,4 +150,4 @@ def batch_rows(n: int, mesh=None) -> RowSplit:
         index = index * mesh.shape[axis] + getattr(mesh, f"{axis}_index")
         size *= mesh.shape[axis]
     block = n // size
-    return RowSplit(axes, range(index * block, (index + 1) * block))
+    return RowSplit(axes, range(index * block, (index + 1) * block), mesh)

@@ -54,16 +54,20 @@ the rank and world from ``torchrun``'s environment:
 rank; ``gloo`` on the CPU; ``--backend gloo`` rehearses several ranks on
 one card).  Only rank 0 prints.  ``--model-par M`` splits each worker
 over M tensor-parallel ranks (the ``model`` axis: attention heads, MLP
-widths and the vocabulary, ``repro_torch.dist.sharding``), so the job
-runs ``--data-par · M`` ranks:
+widths, a MoE's experts and the vocabulary,
+``repro_torch.dist.sharding``), so the job runs ``--data-par · M``
+ranks:
 
     torchrun --nproc-per-node 8 -m repro_torch.launch.train --data-par 4 \
         --model-par 2 --backend gloo
 
-The model axis takes the dense families (gc-lm-110m, Gemma, Qwen 1.5;
-the other families raise, ROADMAP 6b and 6c), with every option of one
-process: ``--ckpt`` and ``--ckpt-coded`` (the checkpoint is the full
-tree, saved from rank 0's model group and restored by rank 0's
+The model axis takes the dense families (gc-lm-110m, Gemma, Qwen 1.5)
+and mixtral-8x22b (its experts split where the reference's rule splits
+them: by their FFN width at the published ``shard_experts=False``, and
+``--reduced``'s width of 341 stays whole at model 2); the other families
+raise before any process group exists (ROADMAP 6c), and every option of
+one process runs on the axis: ``--ckpt`` and ``--ckpt-coded`` (the
+checkpoint is the full tree, saved from rank 0's model group and restored by rank 0's
 broadcast of each leaf, so a run resumes from a checkpoint written at
 any ``--model-par``), ``--adapt``, ``--autotune`` and ``--hbm-gb``.  On
 the CPU, in a fresh directory (a run resumes from whatever checkpoint
@@ -90,9 +94,10 @@ from repro_torch.checkpoint import CkptConfig, CodedSpec
 from repro_torch.configs import get_config
 from repro_torch.core import Env, ShiftedExponential, available_schemes, get_scheme
 from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+from repro_torch.dist.mesh import meta_mesh
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models.model import has_source
-from repro_torch.models.params import GCLM, count_params
+from repro_torch.models.params import GCLM, count_params, shard_dims
 from repro_torch.train.state import init_train_state
 from repro_torch.train.trainer import TrainConfig, Trainer, make_train_step
 from repro_torch.tune import MemBudget
@@ -176,6 +181,8 @@ def main(argv=None):
     if args.model_par > 1 and args.data_par == 1 and not args.uncoded:
         raise ValueError(f"--model-par {args.model_par} splits spmd workers: pass "
                          f"--data-par {args.workers}")
+    if args.model_par > 1:  # the families off the axis raise here (ROADMAP 6c)
+        shard_dims(cfg, meta_mesh(args.data_par, model=args.model_par))
     mesh = None
     if args.data_par > 1 or args.model_par > 1:
         mesh = make_local_mesh(args.data_par, args.model_par, device=args.device,

@@ -53,7 +53,7 @@ def has_ffn(cfg, spec) -> bool:
 
 
 def apply_layer(cfg, p, x, spec, *, mode="train", cache=None, source=None,
-                target_len: int = 0, tp=None):
+                target_len: int = 0, tp=None, rows=None):
     """One layer: p is the layer's parameter dict (mixer, ffn, norms);
     ``source`` (B, Ssrc, d) is what cross-attention attends to (None for
     a layer without it).  Returns (x, cache, aux): the cache as the
@@ -61,14 +61,16 @@ def apply_layer(cfg, p, x, spec, *, mode="train", cache=None, source=None,
     MoE load-balance loss (fp32), or None for a dense FFN or none (the
     reference's zero, which adds nothing to the sum).  ``tp`` is the
     ``dist.sharding.ModelSplit`` of a module on the ``model`` axis
-    (``params.shard_model``): attention and the dense MLP then run on
-    this rank's shards."""
+    (``params.shard_model``): attention, the dense MLP and the MoE FFN
+    then run on this rank's shards.  ``rows``: the ``RowSplit`` of a
+    serving decode's rows over the data ranks, which a MoE FFN's capacity
+    counts (``moe.apply_moe``)."""
     h = apply_norm(p["norm_mix"], x)
     if spec.mixer == "cross_attn":
         h, new_cache = _cross(cfg, p["mixer"], h, source), cache
     else:
         forward, _ = _mixer(spec)
-        kw = {} if tp is None else {"tp": tp}  # shard_model lets only attention through
+        kw = {} if tp is None else {"tp": tp}  # of the mixers, only attention splits
         h, new_cache = forward(cfg, p["mixer"], h, spec, mode=mode, cache=cache,
                                target_len=target_len, **kw)
     if cfg.post_norm:
@@ -80,7 +82,7 @@ def apply_layer(cfg, p, x, spec, *, mode="train", cache=None, source=None,
         return x, new_cache, None
     h = apply_norm(p["norm_ffn"], x)
     if spec.moe is not None:
-        h, aux = apply_moe(cfg, p["ffn"], h, spec)
+        h, aux = apply_moe(cfg, p["ffn"], h, spec, tp=tp, rows=rows)
     else:
         h, aux = apply_mlp(cfg, p["ffn"], h, tp), None
     if cfg.post_norm:
@@ -99,5 +101,5 @@ def init_layer_cache(cfg, spec, batch: int, seq_len: int, dtype=torch.bfloat16,
     if spec.mixer == "cross_attn":
         return None
     _, init_cache = _mixer(spec)
-    kw = {} if tp is None else {"tp": tp}  # shard_model lets only attention through
+    kw = {} if tp is None else {"tp": tp}  # of the mixers, only attention splits
     return init_cache(cfg, spec, batch, seq_len, dtype, device, **kw)

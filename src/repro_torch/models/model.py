@@ -102,7 +102,7 @@ def source_embeds(cfg, model, aux_inputs):
 
 
 def forward(cfg, model, tokens, *, mode="train", caches=None, aux_inputs=None,
-            target_len: int = 0, last_only: bool = False):
+            target_len: int = 0, last_only: bool = False, rows=None):
     """tokens: (B, S) integer; ``aux_inputs`` the stubbed modality
     embeddings of a model with a cross-attention source.  Returns
     (logits, new_caches, aux, hidden); ``new_caches`` is None in
@@ -110,13 +110,17 @@ def forward(cfg, model, tokens, *, mode="train", caches=None, aux_inputs=None,
     ``aux`` is the fp32 sum of the MoE layers' load-balance losses (zero
     without MoE layers).  ``last_only``: the last position's logits
     (B, 1, V) alone.  On the ``model`` axis the logits are the rank's
-    vocabulary rows in training and the whole vocabulary when serving."""
+    vocabulary rows in training and the whole vocabulary when serving.
+    ``rows``: the ``dist.sharding.RowSplit`` of the B rows over the data
+    ranks when they are one call's block (a serving engine's decode on
+    data-parallel slots): a MoE layer counts its capacity over them all."""
     tp = model_axis(model)
     tokens = _as_tokens(tokens, model.embed.tok.device)
     x = embed_tokens(cfg, model.embed.tok, tokens, tp)
     source = source_embeds(cfg, model, aux_inputs)
     x, new_caches, aux = apply_stack(cfg, model.stack, x, mode=mode, caches=caches,
-                                     source=source, target_len=target_len, tp=tp)
+                                     source=source, target_len=target_len, tp=tp,
+                                     rows=rows)
     if aux is None:  # no MoE layer
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     hidden = apply_norm(_tree(model.final_norm), x)
@@ -227,14 +231,15 @@ def prefill(cfg, model, tokens, aux_inputs=None, target_len: int = 0,
 
 
 @torch.no_grad()
-def decode_step(cfg, model, caches, token, aux_inputs=None):
+def decode_step(cfg, model, caches, token, aux_inputs=None, rows=None):
     """token: (B, 1).  Returns (logits, caches): ``caches`` (from
     ``prefill`` or ``init_decode_caches``) is updated in place — this
     token's K/V written at ``pos % cap`` (a Mamba or xLSTM layer's state
     overwritten), ``pos`` advanced by one.  A model with a
-    cross-attention source recomputes it from ``aux_inputs``."""
+    cross-attention source recomputes it from ``aux_inputs``.  ``rows``:
+    the rows' ``RowSplit`` over the data ranks (``forward``)."""
     logits, caches, _, _ = forward(cfg, model, token, mode="decode", caches=caches,
-                                   aux_inputs=aux_inputs)
+                                   aux_inputs=aux_inputs, rows=rows)
     return logits, caches
 
 

@@ -6,10 +6,37 @@ always-on shared experts, and the switch-style load-balance loss
 ``aux_loss_coef · E · Σ_e f_e · P_e`` (f the top-1 assignment fraction,
 P the mean router probability).
 
-The reference's ``_apply_moe_manual`` is a ``shard_map`` over a mesh
-that falls back to ``_moe_core`` without one; on one device the port
-runs ``_moe_core``'s function (``cfg.moe_impl`` and ``shard_experts``
-are kept and have no effect).
+On the ``model`` axis (``tp``, a ``dist.sharding.ModelSplit``) the
+experts split where the reference's GSPMD splits them
+(``params.shard_dims``): (a) over ``experts`` — the router's columns and
+dim 0 of ``wi``/``wg``/``wo`` — where ``shard_experts`` holds and E
+divides the axis; else (b) over ``expert_mlp``, each expert's FFN width
+(Mixtral's ``shard_experts=False``); else (c) nowhere: every rank holds
+every expert and makes no collective.  Every rank of a model group holds
+the same tokens and routes them alike, so the dispatch stays on the rank
+(the port has no sequence split, so no all-to-all): in (a) a rank fills
+the slots of its experts only, in (b) every slot with its share of the
+width.  The collectives, per MoE layer: forward, one all-reduce of the
+combined (t, d) output (``reduce_from_model``), and in (a) one
+all-gather of the router's (t, E/m) logits (``gather_from_model``,
+whose backward keeps the rank's slice: everything after it is
+replicated); backward, the gates' (t, k) gradient all-reduced
+(``copy_to_model``: they weight a rank's partial expert outputs) and the
+expert input's (t, d) — in (a) that input is also the router's, whose
+column shard gives a partial gradient too, so one ``copy_to_model``
+serves both.  The load-balance loss reads the whole probabilities, so
+its gradient is whole on every rank and summed once.  Shared experts
+follow the dense MLP's ``mlp`` rule (``layers.apply_mlp``).
+
+Serving on data-parallel slots (``rows``: a ``dist.sharding.RowSplit``
+whose axes split the call's rows over the data ranks) counts the
+capacity over every rank's rows, as the reference's ``moe_impl="gspmd"``
+counts it over the call's global batch: one all-gather of each row's k
+expert ids over the data ranks (``collectives.gather_rows``), the
+positions counted over the whole stream, and the rank keeping its rows'.
+``moe_impl="manual"`` counts a rank's own rows, as the reference's
+``_apply_moe_manual`` does under its ``shard_map`` over the batch axes.
+Off a mesh the port runs ``_moe_core``'s function.
 
 What must match the reference exactly:
 
@@ -34,9 +61,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .layers import _act
+from ..dist.collectives import copy_to_model, gather_from_model, gather_rows, reduce_from_model
+from .layers import _act, apply_mlp
 
-__all__ = ["Routing", "capacity", "top_k", "route", "apply_moe"]
+__all__ = ["Routing", "capacity", "top_k", "route", "expert_split", "apply_moe"]
 
 
 def capacity(n_tokens: int, moe) -> int:
@@ -68,11 +96,37 @@ class Routing(NamedTuple):
     cap: int             # C, slots per expert
 
 
-def route(p, xt, moe) -> Routing:
-    """Route tokens xt (t, d) with the router ``p["router"]`` (d, E)."""
+def expert_split(tp):
+    """Which logical axis of the experts ``tp`` splits: ``"experts"``
+    (case a), ``"expert_mlp"`` (case b), or None (no ``tp``, or case c)."""
+    if tp is None:
+        return None
+    return next((a for a in ("experts", "expert_mlp") if a in tp.axes), None)
+
+
+def _global_ids(flat_e, rows):
+    """The (t·k,) expert ids of every rank's rows and where this rank's
+    begin among them: ``flat_e`` itself and 0 unless ``rows`` splits the
+    call's rows over the data ranks, then one all-gather of each row's
+    ids."""
+    if rows is None or not rows.axes:
+        return flat_e, 0
+    per_row = flat_e.view(len(rows.rows), -1)
+    every = gather_rows(per_row.contiguous(), rows).reshape(-1)
+    return every, rows.rows.start * per_row.shape[1]
+
+
+def route(p, xt, moe, tp=None, rows=None) -> Routing:
+    """Route tokens xt (t, d) with the router ``p["router"]`` (d, E): with
+    ``tp`` in case (a), the rank's (d, E/m) columns and the logits
+    all-gathered; with ``rows`` splitting the call's rows over the data
+    ranks, the capacity and positions counted over every rank's
+    rows."""
     t = xt.shape[0]
     e, k = moe.num_experts, moe.top_k
     logits = (xt @ p["router"].to(xt.dtype)).float()
+    if expert_split(tp) == "experts":
+        logits = gather_from_model(logits, tp.model_group, tp.model_index, dim=1)
     if moe.router == "sigmoid":
         scores = torch.sigmoid(logits)
         gate_vals, idx = top_k(scores, k)
@@ -81,23 +135,34 @@ def route(p, xt, moe) -> Routing:
         probs = torch.softmax(logits, dim=-1)
         gate_vals, idx = top_k(probs, k)
     gates = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
-    cap = capacity(t, moe)
     flat_e = idx.reshape(t * k)
-    pos = torch.cumsum(F.one_hot(flat_e, e), dim=0) - 1  # position within expert
-    pos = torch.gather(pos, 1, flat_e[:, None])[:, 0]
+    every, first = _global_ids(flat_e, rows)
+    cap = capacity(every.shape[0] // k, moe)
+    pos = torch.cumsum(F.one_hot(every, e), dim=0) - 1  # position within expert
+    pos = torch.gather(pos, 1, every[:, None])[first:first + t * k, 0]
     keep = (pos < cap).to(xt.dtype)
     dest = flat_e * cap + torch.clamp(pos, max=cap - 1)
     return Routing(idx, gates, probs, keep, dest, cap)
 
 
-def apply_moe(cfg, p, x, spec):
-    """x: (B, S, d) -> (out (B, S, d) in x's dtype, fp32 aux loss)."""
+def apply_moe(cfg, p, x, spec, tp=None, rows=None):
+    """x: (B, S, d) -> (out (B, S, d) in x's dtype, fp32 aux loss).  ``tp``:
+    the module's ``ModelSplit`` on a ``model`` axis; ``rows``: the
+    ``RowSplit`` of the call's B rows over the data ranks (a serving
+    engine's decode on data-parallel slots), for the capacity's count."""
     moe = spec.moe
     b, s, d = x.shape
     dt = x.dtype
     t, e, k = b * s, moe.num_experts, moe.top_k
+    split = expert_split(tp)
+    group = None if split is None else tp.model_group
     xt = x.reshape(t, d)
-    r = route(p, xt, moe)
+    if split == "experts":  # the router's columns and the rank's experts read it
+        xt = copy_to_model(xt, group)
+    if cfg.moe_impl == "manual":  # a data rank's own rows, as under the reference's shard_map
+        rows = None
+    r = route(p, xt, moe, tp, rows)
+    gates = r.gates if group is None else copy_to_model(r.gates, group)
 
     f_e = F.one_hot(r.idx[:, 0], e).float().mean(0)  # top-1 fraction
     p_e = r.probs.mean(0)
@@ -107,29 +172,40 @@ def apply_moe(cfg, p, x, spec):
     # Kept assignments own distinct slots; a dropped one is a zero row
     # clamped onto an occupied slot.  So the only collisions add zeros,
     # and index_add_'s atomic adds on CUDA give the same bits in any order.
-    gathered = xt[:, None, :].expand(t, k, d).reshape(t * k, d) * r.keep[:, None]
-    buf = torch.zeros((e * r.cap, d), dtype=dt, device=x.device).index_add(0, r.dest, gathered)
-    buf = buf.view(e, r.cap, d)
+    # Case (a): the rank's experts' slots only, another rank's assignment
+    # a zero row on slot 0.
+    keep, dest = r.keep, r.dest
+    n_local = p["wi"].shape[0]
+    if split == "experts":
+        first = tp.model_index * n_local
+        flat_e = r.idx.reshape(t * k)
+        mine = (flat_e >= first) & (flat_e < first + n_local)
+        keep = keep * mine.to(dt)
+        dest = torch.where(mine, dest - first * r.cap, 0)
+    x_in = copy_to_model(xt, group) if split == "expert_mlp" else xt
+    gathered = x_in[:, None, :].expand(t, k, d).reshape(t * k, d) * keep[:, None]
+    buf = torch.zeros((n_local * r.cap, d), dtype=dt, device=x.device).index_add(0, dest,
+                                                                                  gathered)
+    buf = buf.view(n_local, r.cap, d)
 
     # the gated expert FFNs: batched products over the experts
     h = torch.einsum("ecd,edf->ecf", buf, p["wi"].to(dt))
     g = torch.einsum("ecd,edf->ecf", buf, p["wg"].to(dt))
     h = _act(cfg, g) * h
-    out_buf = torch.einsum("ecf,efd->ecd", h, p["wo"].to(dt)).reshape(e * r.cap, d)
+    out_buf = torch.einsum("ecf,efd->ecd", h, p["wo"].to(dt)).reshape(n_local * r.cap, d)
 
     # combine: fp32 weighting, cast back, then each token's k rows summed
     # in index order from zeros — the reference's sequential scatter-add
     # over its sorted, contiguous token index, not an atomic scatter
-    back = torch.index_select(out_buf, 0, r.dest) * (r.keep * r.gates.reshape(t * k))[:, None]
+    back = torch.index_select(out_buf, 0, dest) * (keep * gates.reshape(t * k))[:, None]
     back = back.to(dt).view(t, k, d)
     out = torch.zeros((t, d), dtype=dt, device=x.device)
     for j in range(k):
         out = out + back[:, j]
+    if group is not None:  # a rank's experts, or its share of each one's width
+        out = reduce_from_model(out, group)
     out = out.view(b, s, d)
 
     if "shared" in p:
-        sp = p["shared"]
-        hs = torch.einsum("bsd,df->bsf", x, sp["wi"].to(dt))
-        gs = torch.einsum("bsd,df->bsf", x, sp["wg"].to(dt))
-        out = out + torch.einsum("bsf,fd->bsd", _act(cfg, gs) * hs, sp["wo"].to(dt))
+        out = out + apply_mlp(cfg, p["shared"], x, tp)
     return out, aux

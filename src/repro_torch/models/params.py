@@ -51,7 +51,8 @@ Every leaf carries its logical axes as the reference's ``Param.axes``
 names them (``GCLM.leaf_axes``; a stacked leaf's first is ``layers``),
 which ``dist/sharding.py``'s rules map onto a mesh (``shard_dims``).
 ``shard_model`` gives a rank of a ``model`` axis its shards (its heads,
-MLP columns or rows, vocabulary rows), ``init_shards`` draws them
+MLP columns or rows, vocabulary rows, a MoE's experts or their FFN
+columns or rows), ``init_shards`` draws them
 without the full tree on the device, and ``gather_model`` all-gathers
 them back.
 """
@@ -440,10 +441,8 @@ def _set_leaf(model, path, value) -> None:
 
 def _unported_on_model_axis(cfg):
     """What of ``cfg`` the port's ``model`` axis does not split yet, with
-    its ROADMAP item, or None: the dense families (per-head attention,
-    the MLP, the embedding and head) are ported."""
-    if any(spec.moe is not None for spec in cfg.layers):
-        return "expert parallelism of a mixture-of-experts FFN (ROADMAP 6b)"
+    its ROADMAP item, or None: per-head attention, the MLP, a MoE FFN's
+    experts, the embedding and head are ported."""
     for spec in cfg.layers:
         if spec.mixer != "attn" or spec.cross_source:
             return f"the {spec.mixer!r} mixer or cross-attention (ROADMAP 6c)"

@@ -164,20 +164,22 @@ def _add(total, aux):
 
 
 def apply_stack(cfg, stack, x, *, mode="train", caches=None, source=None,
-                target_len: int = 0, tp=None):
+                target_len: int = 0, tp=None, rows=None):
     """x: (B, S, d) through every layer of ``stack`` (the model's
     ``nn.ModuleList`` of segment nodes), ``source`` (B, Ssrc, d) the
     cross-attention source or None.  Returns (x, caches, aux):
     caches ``None`` in training, the prefill's new per-segment caches, or
     ``caches`` updated in place by a decode step; aux the summed MoE
     load-balance loss, or None when no layer is MoE.  ``tp``: the
-    ``ModelSplit`` of a module on the ``model`` axis (``apply_layer``)."""
+    ``ModelSplit`` of a module on the ``model`` axis, ``rows`` a serving
+    decode's ``RowSplit`` over the data ranks (``apply_layer``)."""
     new_caches = [] if mode == "prefill" else None
     aux = None
 
     def layer(spec, params, cache):
         return lambda x_, src: apply_layer(cfg, params, x_, spec, mode=mode, cache=cache,
-                                           source=src, target_len=target_len, tp=tp)
+                                           source=src, target_len=target_len, tp=tp,
+                                           rows=rows)
 
     for i, (seg, node) in enumerate(zip(plan_segments(cfg.layers), stack)):
         cache = caches[i] if caches is not None else None

@@ -30,7 +30,9 @@ else every rank holds every slot), and a sharded module's slab holds the
 rank's KV heads.  An admission prefills on the ranks that hold its slot
 (its whole model group: the model ranks' collectives pair up); a decode
 step runs every rank's rows, with the logits gathered over the
-vocabulary; the step's tokens are then gathered over the data ranks
+vocabulary — a MoE layer counts its capacity over every rank's rows, as
+the one-rank engine counts it over the whole slab (``moe.apply_moe``'s
+``rows``); the step's tokens are then gathered over the data ranks
 (``dist.collectives.gather_rows``), so every rank's ``Request``s fill in
 alike.
 
@@ -285,7 +287,8 @@ class ServeEngine:
     def _decode_step(self) -> torch.Tensor:
         """One lockstep decode of this rank's rows; returns their next
         tokens (on the device) and advances the simulated clock."""
-        logits, _ = decode_step(self.cfg, self.params, self.slab, self._tok[:, None])
+        logits, _ = decode_step(self.cfg, self.params, self.slab, self._tok[:, None],
+                                rows=self.rows)
         last = logits[:, -1]
         nxt = last.argmax(-1)
         for slot in self._running:
@@ -303,7 +306,7 @@ class ServeEngine:
         """The step's tokens of every slot, (n_slots, len(cols)) on the
         host: this rank's rows gathered over the data ranks, then the
         step's one read."""
-        return gather_rows(torch.stack(cols, dim=-1), self.mesh, self.rows).cpu().numpy()
+        return gather_rows(torch.stack(cols, dim=-1), self.rows).cpu().numpy()
 
     def _finish(self, slot: int) -> None:
         req = self._running.pop(slot)

@@ -26,7 +26,7 @@ the JAX reference's spmd mode, on the CPU.
   to the spmd barrier loop and staleness 1 executing the simulator's
   trace, in step with sim mode.
 * Errors: a model axis that does not divide the world, what the model
-  axis does not split yet (MoE), serving's wrong meshes, ``--model-par``
+  axis does not split yet (MLA), serving's wrong meshes, ``--model-par``
   without spmd, two NCCL ranks on one card and a rank's exception raise;
   a hung job is killed at its time limit (checkpoints, adapt, the wave
   loop and the tuner on the model axis: ``tests/test_torch_tp_state.py``).
@@ -574,8 +574,8 @@ def test_unported_and_impossible_meshes_raise(monkeypatch, tmp_path):
         make_local_mesh(4, model=3, device="cpu")
     monkeypatch.delenv("WORLD_SIZE")
     tp = meta_mesh(data=N, model=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP 6b"):
-        shard_model(GCLM(get_config("mixtral-8x22b").reduced(**KW), device="meta"), tp)
+    with pytest.raises(NotImplementedError, match="ROADMAP 6c"):
+        shard_model(GCLM(get_config("deepseek-v3-671b").reduced(**KW), device="meta"), tp)
     local = shard_model(GCLM(_cfg(), device="meta"), tp)
     logits, caches = prefill(_cfg(), local, torch.zeros((1, 4), dtype=torch.long, device="meta"),
                              last_only=True)  # serving runs on the axis: whole rows, its heads

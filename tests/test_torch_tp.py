@@ -88,8 +88,9 @@ GC = dict(arch="gc-lm-110m", reduced=dict(n_layers=2, d_model=128), data=4, mode
 TRAINERS = {"gemma-2b": dict(n_layers=2, d_model=128), "qwen1.5-32b": dict(n_layers=2),
             "gemma2-27b": dict(n_layers=2, d_model=128, seq_cap=32),
             "gemma3-27b": dict(n_layers=6, d_model=128, seq_cap=32)}
-#: the dense families, which the model axis splits
-DENSE = ("gc-lm-110m", "gemma-2b", "gemma2-27b", "gemma3-27b", "qwen1.5-32b")
+#: the families the model axis splits: the dense ones and Mixtral's experts
+ON_AXIS = ("gc-lm-110m", "gemma-2b", "gemma2-27b", "gemma3-27b", "qwen1.5-32b",
+           "mixtral-8x22b")
 #: the trainers' parameters against the reference's after three steps.
 #: Qwen's takes ``tests/test_torch_qwen.py``'s bound: AdamW's normalized
 #: step m/sqrt(v) turns a last-bit difference of a near-zero gradient
@@ -257,7 +258,7 @@ def test_pspecs_are_the_reference_s(arch, mesh):
     assert [pspec_for_axes(a, s, port, rules) for a, s in zip(axes, shapes)] == want
     dims = tuple(spec.index("model") if "model" in spec else None for spec in want)
     assert tuple(model_dim(a, s, port, rules) for a, s in zip(axes, shapes)) == dims
-    if arch in DENSE:  # the families the port splits: shard_model's cut
+    if arch in ON_AXIS:  # the families the port splits: shard_model's cut
         assert shard_dims(get_config(arch), port) == dims
         assert local_shapes(get_config(arch), port) == [
             s if d is None else s[:d] + (s[d] // kw["model"],) + s[d + 1:]
@@ -300,18 +301,19 @@ def test_full_width_local_level_slices_stay_on_the_tma_path(model):
 
 def test_unported_families_raise_on_the_model_axis():
     mesh = meta_mesh(data=2, model=2)
-    for arch, item in (("mixtral-8x22b", "6b"), ("deepseek-v3-671b", "6c"),
-                       ("jamba-v0.1-52b", "6b"), ("xlstm-1.3b", "6c"),
-                       ("whisper-base", "6c"), ("llama-3.2-vision-11b", "6c")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    for arch in ("deepseek-v3-671b", "jamba-v0.1-52b", "xlstm-1.3b", "whisper-base",
+                 "llama-3.2-vision-11b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP 6c"):
             shard_model(GCLM(get_config(arch).reduced(n_layers=2, d_model=128),
                              device="meta"), mesh)
+    experts = shard_model(GCLM(get_config("mixtral-8x22b").reduced(), device="meta"), mesh)
+    assert experts.tp.axes == {"heads", "kv_heads", "expert_mlp", "vocab"}
     local = shard_model(GCLM(_cfg("gc-lm-110m", GC["reduced"]), device="meta"), mesh)
     assert local.tp.mesh is mesh and sum(d is not None for d in local.shard_dims) == 8
     assert local.tp.axes == {"heads", "kv_heads", "mlp", "vocab"}
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ON_AXIS)
 def test_init_shards_are_shard_model_s(arch):
     """Each rank's ``init_shards`` (drawn leaf by leaf, or read from a
     reference tree) is ``shard_model`` of the full initial module, byte
