@@ -45,7 +45,7 @@ port's sources beside it.  Phases; any failure raises:
    the same rows (1e-5 per leaf), both equal to the uncoded gradient
    (1e-4), with 0 and s_max stragglers; device-only time of each combine.
 6c. adapt: a fresh ``Trainer(adapt=AdaptConfig(window=16, min_rounds=8,
-   check_every=2))`` of gc-lm-110m at ``CUT_LAYERS`` (4) of its 12 layers
+   check_every=2))`` of gc-lm-110m at ``CUT_LAYERS`` (2) of its 12 layers
    (the swap step is the same at either depth: a function of the time
    stream, checked on the CPU) on workers 2 and 3 five times slower
    from round 2, 26 steps with the counts set to 0 just before: the
@@ -58,7 +58,7 @@ port's sources beside it.  Phases; any failure raises:
    with ``WaveConfig(staleness=0)``: parameters and moments byte-equal;
    then 6 rounds at staleness 1: the executed events are the simulator's
    ``WaveTrace``, one ``gc_fused`` launch per decode event (one per level
-   and round: 4 levels at 4 layers, 3 at 12),
+   and round: 3 levels at 2 layers, 4 at 4, 3 at 12),
    finite losses, and the peak device memory.
 6e. tune: the autotuner at full width (gc-lm-110m, seq 256, global batch
    8) on workers 2 and 3 five times slower (``Env.heterogeneous``, N = 4,
@@ -120,9 +120,30 @@ port's sources beside it.  Phases; any failure raises:
    ``gc_fused`` launch per rank per step (48 in all), the losses 16's
    within 1e-5 (16 now runs before 6f), every leaf byte-equal across the
    data ranks of a model index after every step, and every step's
-   collectives the formula (``_moe_counts``: per forward 2L + 3 model
+   collectives the formula (``_step_counts``: per forward 2L + 3 model
    all-reduces and in case (a) L all-gathers of the router's logits, per
    backward 3L + 1).
+6f'''. mla-tp and mamba-tp, in 6f''s job after moe-tp: 18's config
+   (``deepseek-v3-671b.reduced(n_layers=4)``: 3 dense MLA layers, 1 MoE
+   layer split by expert, case (a), MTP depth 1) and 20's
+   (``jamba-v0.1-52b.reduced(n_layers=8)``: 7 Mamba layers, each
+   ``in_proj`` cut in 2 blocks, attention, 4 MoE layers split by
+   expert) in a ``Trainer(mode="spmd")`` on the same mesh
+   (``_family_tp_rank``): the shards gathered back equal the full model
+   drawn from the same seed, byte for byte; at step 0, with 0, 1 and
+   s_max stragglers, the model groups' gathered coded gradients equal 18's
+   and 20's sim-mode gradients of the same weights and batches (1e-5 of
+   each leaf's scale; 18 and 20 save them to the host and now run before
+   6f, so no rank recomputes them); three steps with the counts set to 0
+   just before: one grouped ``gc_fused`` call per rank per step (2 and 4
+   launches: 48 and 96 in all), the losses 18's and 20's within 1e-5,
+   every leaf byte-equal across the data ranks of a model index, every
+   step's collectives the formula (``_step_counts``: per pass an MLA
+   layer one reduce after ``wo`` and three copies — the query latent, the
+   KV latent and the RoPE key — a Mamba layer two reduces, ``x_proj``
+   and ``out_proj``, and two copies, its input and ``x_proj``'s reduced
+   output; an MLP where its own width divides the axis one of each; the
+   MTP module its embedding, layer, head and loss).
 6g. dryrun: (a) the dry run (``repro_torch.launch.dryrun``) on meta of
    every arch at full width at every input shape on the single mesh
    (data 16), and the spmd coded step of gc-lm-110m and gemma-2b, in
@@ -206,20 +227,21 @@ port's sources beside it.  Phases; any failure raises:
    ``torch.profiler`` (device-busy share, host syncs); peak device
    memory; the simulated step-latency p50 and p99 beside the tier's
    closed-form p99.
-9b. tp-serve: serving on the model axis.  Full-width gc-lm-110m (seed 0)
-   served on one rank, then by four ranks on card 0 over gloo, a (data 2,
-   model 2) mesh: each draws its shards (``init_shards``: 68,930,304
-   parameters) and holds 4 of the 8 slots and 6 of the 12 KV heads.
+9b. tp-serve: serving on the model axis.  gc-lm-110m at its published
+   widths cut to 8 of 12 layers (seed 0) served on one rank, then by four
+   ranks on card 0 over gloo, a (data 2, model 2) mesh: each draws its
+   shards (``init_shards``: 50,049,792 parameters) and holds 4 of the 8
+   slots and 6 of the 12 KV heads.
    16 requests drawn as 9a draws its 32, 9a's tier, on an fp32 slab with fp32
    activations, every count set to 0 just before: every rank's tokens,
    slots, timestamps and step latencies equal the one-rank engine's, and
    a slot serves a second request; the
    collectives of every engine step on every rank equal the formula
-   (per decode step 25 all-reduces of (4, 1, 768), one all-gather of the
+   (per decode step 17 all-reduces of (4, 1, 768), one all-gather of the
    logits, one gather of the step's tokens over the data ranks; per
-   prefill 25 all-reduces of (1, 256, 768) and one of the last position's
+   prefill 17 all-reduces of (1, 256, 768) and one of the last position's
    logits); no ``gc_*`` launch.  Teacher forcing on a rank's bf16 slab
-   (23,592,960 bytes) within ``SERVE_BF16_REL``; bf16 activations on a
+   (15,728,640 bytes) within ``SERVE_BF16_REL``; bf16 activations on a
    bf16 slab, the first 8 requests served on one rank and on the mesh:
    the tokens that differ are counted, not gated.  Prints tokens/s by
    the wall clock, the decode step's median by the host clock (gloo
@@ -246,6 +268,23 @@ port's sources beside it.  Phases; any failure raises:
    nothing can drop: the card shows the gathers, not what the global
    count keeps.  That is held on the CPU, at 24 slots over 2 data ranks
    (tests/test_torch_tp_moe_serve.py).
+9d. deepseek-tp-serve and jamba-tp-serve: 9c's steps and gates
+   (``phase_axis_tp_serve``: the three phases' one-rank runs, then one
+   job of four ranks serving all three, so the ranks start once) for
+   deepseek-v3-671b at its published widths cut to
+   its first 2 of 61 layers (dense MLA, d_ff 18,432; no MTP module:
+   3,020,332,032 parameters, 12.08 GB fp32; a rank's heads, the latent
+   slab whole on every rank) and jamba-v0.1-52b at its first 2 of 32
+   layers (Mamba of d_inner 8,192 with a dense MLP, and with the MoE FFN
+   of 16 experts top-2, split by expert: 3,742,306,304 parameters, 14.97
+   GB; a rank's channels of every Mamba leaf and of the slab's state):
+   one rank, the model freed, then four ranks drawing their shards one
+   at a time; every step's collectives the formula (a Mamba layer's
+   ``x_proj`` reduce of width dt_rank + 2·d_state = 288); each rank's
+   slab checked (``_check_axis_slab``) and its peaks printed.
+   DeepSeek's first MoE layer alone is 256 x 3 x 7168 x 2048 fp32, ~45
+   GB, and two data replicas of it do not fit one card: its split stays
+   with 6f''' and the CPU tests.
 10. reference: three training steps at a reduced size on the CPU (the
    plain versions) and on the card, from the same weights, agree; the
    same weights and prompts through ``ServeEngine`` (fp32 slab, greedy)
@@ -286,7 +325,7 @@ port's sources beside it.  Phases; any failure raises:
    steps at 12's bounds.
 14. qwen-serve: full-width qwen1.5-32b (d_model 5120, 40 heads, head_dim
    128, d_ff 27,392, vocab 152,064, QKV biases, an untied head, bf16
-   activations) cut to 8 of 64 layers, its biases — and only they — set
+   activations) cut to 4 of 64 layers, its biases — and only they — set
    to seeded normal values (std 0.02; the reference initializes them to
    zero), in a ``ServeEngine`` (8 slots, bf16 slab, the launcher's coded
    tier): 16 requests of 512-token prompts, 64 new tokens each, greedy,
@@ -361,12 +400,12 @@ port's sources beside it.  Phases; any failure raises:
    32; finite loss, xent and aux); on the card ``remat="full"``
    bit-equal to ``"none"`` and two runs of one forward+backward
    byte-equal.
-21. xlstm-serve: full-width xlstm-1.3b cut to 16 of its 48 layers (one
-   pattern of 8 — seven mLSTM layers of d_inner 4,096 over 4 heads of
-   1,024, an sLSTM layer — over 2 repeats; no FFN sublayers; vocab
-   50,304, tied, bf16 activations), 707,864,688 parameters: 16 requests
-   of 512-token prompts (two chunks of 256 of the chunkwise mLSTM), 32 new
-   tokens, with 14's gates; the slab's fixed state per slot (235,520,224
+21. xlstm-serve: full-width xlstm-1.3b cut to 8 of its 48 layers (one
+   period — seven mLSTM layers of d_inner 4,096 over 4 heads of 1,024, in
+   a stacked run, and an sLSTM layer; no FFN sublayers; vocab 50,304,
+   tied, bf16 activations), 405,444,664 parameters: 16 requests of
+   512-token prompts (two chunks of 256 of the chunkwise mLSTM), 32 new
+   tokens, with 14's gates; the slab's fixed state per slot (117,760,112
    bytes: ``C``/``n``/``m`` and the sLSTM state fp32, ``conv`` bf16); a
    2,048-token prefill at B = 1 timed whole and in its pieces (one mLSTM
    mixer, one sLSTM mixer — a Python loop over tokens — and the rest) and
@@ -420,8 +459,9 @@ port's sources beside it.  Phases; any failure raises:
    it: coded == uncoded, 3 steps with 2 ``gc_fused`` launches each, two
    forward+backward runs byte-equal.
 
-Order: 16 (moe-train) runs after 6e, before 6f, whose job 6f'' holds
-to its losses; 9c runs after 9b.
+Order: 16 (moe-train), 18 (deepseek-train) and 20 (jamba-train) run
+after 6e, before 6f, whose job's 6f'' and 6f''' hold to their losses;
+9c and 9d run after 9b.
 
 Depth cuts that hold the phases to 820 s on an H100 host where they took
 961.4 s before the cuts (so that a host ~1.4x slower in every phase stays
@@ -433,7 +473,17 @@ all mLSTM (~4 s).  6 reads the profiled call's kernels from the
 profiler's raw device events (``_device_kernels``) instead of
 ``key_averages()``, which parsed every CPU op of the call into a tree
 first (~30 s; scripts/profiler_tables.py compares the two).  The new
-phases cost ~15 s (6f'') and ~30 s (9c).
+phases cost ~15 s (6f'') and ~30 s (9c).  PR 29's phases (6f''' ~25-55
+s and 9d ~45-50 s in its runs, on hosts ~2x apart) are paid for by
+depth cuts, each rehearsed on the card, saving (predicted): 6c, 6d, 6f,
+6f' and 7a from 4 to 2 layers of gc-lm-110m (``CUT_LAYERS``), ~5, ~2,
+~10, ~3 and ~15-25 s; 9b from 12 to 8 layers, ~12-18 s (at 4 a near
+tie flipped a token); 14 from 8 to 4 layers, ~4-6 s; 21 from 16 to 8
+layers (one period), ~15-22 s; and by work shared: 18 and 20 save their
+sim-mode gradients for 6f''' (no rank recomputes them), and every part
+of 6f''s job runs a rank's per-shard passes once per gradient check,
+not once per straggler count (``_gathered_coded``), ~20-30 s; 9c and
+9d run in one job of four ranks, which start once, ~15-20 s.
 
 The line before the last is the card's name and power limit; before it
 a JSON line lists every kernel with its launches, error and times; the
@@ -496,9 +546,11 @@ DRYRUN_SKIPS = {(a, "long_500k") for a in ("deepseek-v3-671b", "gc-lm-110m", "ge
 SPMD_RANKS = 4
 SPMD_LIMIT_S = 600.0
 #: [adapt], [wave], [spmd], [tp] and [tp-state] run gc-lm-110m at its
-#: published widths cut to its first 4 of 12 layers (62,331,648
-#: parameters; 137,841,408 before the script's phases were held to 820
-#: s): the spmd phases' time is gloo's host
+#: published widths cut to its first 2 of 12 layers (43,454,208
+#: parameters, still a stacked run; 62,331,648 at the 4 layers of PR 28,
+#: 137,841,408 before the script's phases were held to 820 s; the plan's
+#: x, the swap after step 24 and the death's re-plan are the same at 2, 4
+#: and 12 layers on the CPU): the spmd phases' time is gloo's host
 #: staging of the data group's level buffers and the checkpoint's host
 #: path, in proportion to the parameters, and [adapt]'s and [wave]'s is
 #: 26 and 12 steps' passes.  The swap step, the wave trace and the death
@@ -506,7 +558,7 @@ SPMD_LIMIT_S = 600.0
 #: [spmd] and [tp] are held to are a one-process trainer's at that depth
 #: (``_axis_losses``).  Full depth stays in [train], [kernel], [breakdown],
 #: [dryrun], [tune], [ckpt] and [serve]
-CUT_LAYERS = 4
+CUT_LAYERS = 2
 #: the [tp] phase: a (data, model) mesh of ranks on one card over gloo
 TP_DATA, TP_MODEL = 4, 2
 #: [moe-tp], in [tp]'s job: ``mixtral-8x22b.reduced()`` ([moe-train]'s
@@ -547,24 +599,38 @@ SERVE = dict(n_slots=8, max_len=320, n_requests=32, prompt_len=256, max_new=64,
 #: slab sums the same fp32 terms in another order (the same card: 3.825e-6)
 SERVE_BF16_REL = 2e-2
 SERVE_FP32_REL = 1e-4
-#: [tp-serve]: full-width gc-lm-110m on a (data 2, model 2) mesh of four
+#: [tp-serve]: gc-lm-110m at its published widths cut to 8 of 12 layers (12
+#: before PR 29; at 4 one request's fp32 greedy tokens on the mesh differed
+#: from one rank's: a near tie) on a (data 2, model 2) mesh of four
 #: ranks on card 0 over gloo, [serve]'s slots, prompts, arrivals and tier
 #: on an fp32 slab (a rank: 4 of the 8 slots, 6 of the 12 KV heads); 16
 #: requests drawn as [serve] draws its 32, so the slots serve a second
 #: request each (re-admission into a used slot: a rank's row mapping and
 #: the overwrite of its KV heads)
-TP_SERVE = dict(data=2, model=2, n_slots=8, max_len=320, n_requests=16, prompt_len=256,
-                max_new=64, rate=2e-3, workers=8)
+TP_SERVE = dict(n_layers=8, data=2, model=2, n_slots=8, max_len=320, n_requests=16,
+                prompt_len=256, max_new=64, rate=2e-3, workers=8)
 #: [tp-serve]'s bf16-activation comparison (printed, not gated) serves the
 #: first 8 requests: at ~40 tokens/s over gloo all 32 took ~55 s
 TP_SERVE_BF16 = dict(TP_SERVE, n_requests=8)
-#: [moe-tp-serve]: mixtral-8x22b at its published widths cut to 2 of 56
-#: layers (5,410,781,184 parameters, 21.64 GB fp32), fp32 activations on an
-#: fp32 slab, [tp-serve]'s layout and load: (data 2, model 2), 8 slots, 16
-#: requests so that every slot serves a second; the experts in case (b),
-#: then re-cut in case (a) in the same job
-MOE_TP_SERVE = dict(n_layers=2, data=2, model=2, n_slots=8, max_len=288, n_requests=16,
-                    prompt_len=256, max_new=32, rate=2e-3, workers=8)
+#: the model axis's serving phases at published widths, cut to 2 layers,
+#: fp32 activations on an fp32 slab, [tp-serve]'s layout and load: (data 2,
+#: model 2), 8 slots, 16 requests so that every slot serves a second
+AXIS_TP_SERVE = dict(n_layers=2, data=2, model=2, n_slots=8, max_len=288, n_requests=16,
+                     prompt_len=256, max_new=32, rate=2e-3, workers=8)
+#: each of them: its arch, its cases (name -> config fields), its parameters.
+#: [moe-tp-serve]: mixtral-8x22b (21.64 GB fp32), the experts in case (b),
+#: then re-cut in case (a) in the same job; [deepseek-tp-serve]:
+#: deepseek-v3-671b's first 2 layers, dense MLA (12.08 GB; no MTP module,
+#: which serving does not run; its first MoE layer alone, 256 x 3 x 7168 x
+#: 2048 fp32, is ~45 GB, and two data replicas of it do not fit: that split
+#: stays with [mla-tp] and the CPU tests); [jamba-tp-serve]:
+#: jamba-v0.1-52b's first 2 layers, Mamba of d_inner 8,192 with a dense MLP
+#: and with the MoE FFN, 16 experts top-2 (14.97 GB)
+AXIS_SERVE_PHASES = {
+    "moe-tp-serve": ("mixtral-8x22b", {"b": dict(shard_experts=False),
+                                       "a": dict(shard_experts=True)}, 5_410_781_184),
+    "deepseek-tp-serve": ("deepseek-v3-671b", {"": dict(mtp_depth=0)}, 3_020_332_032),
+    "jamba-tp-serve": ("jamba-v0.1-52b", {"": {}}, 3_742_306_304)}
 #: [gemma3-tp-serve]: gemma3-27b at full width cut to one 5:1 period (6
 #: layers), fp32 activations on an fp32 slab, 2 ranks at model 2 (8 of the
 #: 16 KV heads each), 1,536-token prompts past the 1,024 window
@@ -589,9 +655,10 @@ GEMMA3_SERVE = dict(n_layers=14, n_slots=8, n_requests=16, prompt_len=1536, max_
 #: 4,352-token prompt past the 4,096 window
 GEMMA2 = dict(n_layers=4, prompt_len=4352, decode_steps=16)
 #: Qwen 1.5 and Mixtral at their published widths, cut in depth only.
-#: [qwen-serve]: qwen1.5-32b at 8 of 64 layers (one run; 16 before
-#: [tp-state] joined the script): 5,762,135,040 parameters, 23.05 GB fp32
-QWEN_SERVE = dict(n_layers=8, n_slots=8, n_requests=16, prompt_len=512, max_new=64,
+#: [qwen-serve]: qwen1.5-32b at 4 of 64 layers (one run; 16 before
+#: [tp-state] joined the script, 8 before PR 29): 3,659,637,760
+#: parameters, 14.64 GB fp32
+QWEN_SERVE = dict(n_layers=4, n_slots=8, n_requests=16, prompt_len=512, max_new=64,
                   rate=2e-3, workers=8)
 #: [mixtral-serve]: mixtral-8x22b at 4 of 56 layers: 10,418,903,040
 #: parameters, 41.68 GB fp32, at the published capacity factor 1.25;
@@ -626,14 +693,15 @@ JAMBA_SERVE = dict(n_layers=8, n_slots=8, n_requests=16, prompt_len=2048, max_ne
 #: layer's 16 fp32 rows would be 180 GB
 JAMBA_TRAIN_LAYERS = 8
 #: xLSTM at its published widths.
-#: [xlstm-serve]: xlstm-1.3b at its published widths cut to its first 16
-#: of 48 layers (the pattern of 8 over 2 repeats; all 48 before [tp-state]
-#: joined the script, cut to hold its time), 707,864,688
-#: parameters, 2.83 GB fp32; a fixed state of 235,520,224 bytes per slot
-#: (14 mLSTM matrix memories of 16.8 MB fp32), 1.88 GB for 8 slots;
+#: [xlstm-serve]: xlstm-1.3b at its published widths cut to its first 8 of
+#: 48 layers (one period: a run of 7 mLSTM layers and the sLSTM; all 48
+#: before [tp-state] joined the script, 16 — the period over 2 repeats —
+#: before PR 29, each cut to hold the script's time), 405,444,664
+#: parameters, 1.62 GB fp32; a fixed state of 117,760,112 bytes per slot
+#: (7 mLSTM matrix memories of 16.8 MB fp32), 0.94 GB for 8 slots;
 #: 512-token prompts (two mLSTM chunks of 256), and one 2,048-token
 #: prefill timed in its pieces
-XLSTM_SERVE = dict(n_layers=16, n_slots=8, n_requests=16, prompt_len=512, max_new=32,
+XLSTM_SERVE = dict(n_layers=8, n_slots=8, n_requests=16, prompt_len=512, max_new=32,
                    rate=2e-3, workers=8, prefill_len=2048)
 #: [xlstm-train]: the published widths cut to layers 5 to 8 of 48 (three
 #: mLSTM layers and the period's sLSTM; the first 8 before the script's
@@ -2011,12 +2079,27 @@ def _digest(tensors) -> str:
     return h.hexdigest()
 
 
-def _tp_job(rank, world, axis_losses, moe_losses, ckpt_dir):
+def _gathered_coded(local, grad_fn, wb, plan, stragglers):
+    """Yield ``(u, the model group's gathered spmd coded gradient)`` at each
+    straggler count ``u``: this rank's per-shard passes once (``grad_fn.
+    rows``: the same rows whatever the stragglers), then the spmd combine
+    and its collectives per count (``grad_fn.combine``), gathered
+    (``gather_model``) before the next combine reuses its buffers."""
+    from repro_torch.models.params import gather_model
+
+    rows = grad_fn.rows(local, wb)
+    for u in stragglers:
+        ys = grad_fn.combine(rows, _straggler_dec_w(plan, u))
+        yield u, gather_model(local, [y.reshape(t.shape) for y, t in zip(ys, local.leaves())])
+
+
+def _tp_job(rank, world, axis_losses, moe_losses, families, ckpt_dir):
     """One rank of the eight-rank job (``dist.spawn``: every rank on card
-    0 over gloo, a (data 4, model 2) mesh) that runs [tp], [moe-tp] and
-    then [tp-state]'s trainers: one job, so the ranks start, reach the
-    card and join the process group once.  Returns this rank's results of
-    each, and the seconds of each."""
+    0 over gloo, a (data 4, model 2) mesh) that runs [mla-tp] and
+    [mamba-tp] (``families``: tag -> what ``_family_tp_rank`` holds it
+    to), [tp], [moe-tp], then [tp-state]'s trainers: one job, so the
+    ranks start, reach the card and join the process group once.
+    Returns this rank's results of each, and the seconds of each."""
     import torch
     import torch.distributed as dist
 
@@ -2024,9 +2107,10 @@ def _tp_job(rank, world, axis_losses, moe_losses, ckpt_dir):
 
     mesh = make_local_mesh(TP_DATA, model=TP_MODEL, device="cuda:0", backend="gloo")
     out, seconds = {}, {}
-    for part, fn, args in (("tp", _tp_rank, (axis_losses,)), ("moe-tp", _moe_tp_rank,
-                                                                (moe_losses,)),
-                           ("tp-state", _tp_state_rank, (ckpt_dir,))):
+    parts = [(tag, _family_tp_rank, (tag, fam)) for tag, fam in families.items()]
+    parts += [("tp", _tp_rank, (axis_losses,)), ("moe-tp", _moe_tp_rank, (moe_losses,)),
+              ("tp-state", _tp_state_rank, (ckpt_dir,))]
+    for part, fn, args in parts:
         torch.cuda.empty_cache()
         dist.barrier()
         t0 = time.perf_counter()
@@ -2084,8 +2168,7 @@ def _tp_rank(rank, world, mesh, axis_losses):
     del full
     dist.barrier()
     worst = {}
-    for u in stragglers:
-        got = gather_model(local, trainer.step_fn.grad_fn(local, wb, _straggler_dec_w(plan, u)))
+    for u, got in _gathered_coded(local, trainer.step_fn.grad_fn, wb, plan, stragglers):
         if rank == 0:
             worst[u] = _worst_rel(got.leaves(), sim[u], paths, 1e-5,
                                   f"[tp] gathered spmd vs sim mode, {u} stragglers")
@@ -2161,19 +2244,63 @@ def _tp_rank(rank, world, mesh, axis_losses):
             "times": times}
 
 
-def _moe_counts(k: int, layers: int, case: str, n_levels: int) -> dict:
-    """The collectives of one spmd step of a MoE model on the axis, per
-    rank: ``k`` passes forward and backward and the step's one monitoring
-    forward; per forward the model group's all-reduces of the
-    vocab-parallel embedding, attention's and the MoE's outputs (g) and
-    the loss's two (and its max), in case (a) an all-gather of the
-    router's logits per layer; per backward f's all-reduces of
-    attention's input, the gates' and the expert input's gradients and
-    the head's input; the clip's one all-reduce of the split leaves'
-    squares; one psum per level over the data group and one draw check."""
-    return dict(psum=n_levels, psum_scatter=0, broadcast=1,
-                all_gather=(k + 1) * layers if case == "a" else 0,
-                copy=k * (3 * layers + 1), reduce=(k + 1) * (2 * layers + 3) + 1, max=k + 1)
+#: a mixer's model-group all-reduces per pass on the model axis: (forward
+#: reduces, backward copies).  Attention: the output projection, the
+#: input; MLA: the output projection, the query latent, the KV latent and
+#: the shared RoPE key; Mamba: ``x_proj`` and ``out_proj``, the input and
+#: ``x_proj``'s reduced output
+MIXER_COLLECTIVES = {"attn": (1, 1), "mla": (1, 3), "mamba": (2, 2)}
+
+
+def _layer_collectives(cfg, spec, model: int) -> dict:
+    """One layer's model-group collectives per pass, written from the
+    config: forward reduces and all-gathers, backward copies.  An MLP (a
+    dense FFN, or a MoE's shared experts at their own width) splits where
+    its width divides the axis: one reduce, one copy.  A MoE FFN split by
+    expert (case a: ``shard_experts`` and E divides the axis) or by each
+    expert's width (case b) reduces its output and copies its gates' and
+    its input's gradients, and in case (a) gathers its router's logits;
+    whole (case c) it makes none."""
+    red, cop = MIXER_COLLECTIVES[spec.mixer]
+    gather = 0
+
+    def mlp(width):
+        return (1, 1) if width % model == 0 else (0, 0)
+
+    moe = spec.moe
+    if moe is not None:
+        by_expert = cfg.shard_experts and moe.num_experts % model == 0
+        if by_expert or moe.d_ff % model == 0:
+            red, cop, gather = red + 1, cop + 2, int(by_expert)
+        if moe.num_shared:
+            r, k = mlp(moe.d_ff * moe.num_shared)
+            red, cop = red + r, cop + k
+    elif cfg.d_ff and spec.use_ffn:
+        r, k = mlp(cfg.d_ff)
+        red, cop = red + r, cop + k
+    return dict(reduce=red, copy=cop, all_gather=gather)
+
+
+def _step_counts(cfg, k: int, n_levels: int, model: int = TP_MODEL) -> dict:
+    """The collectives of one spmd step on a rank of the model axis: ``k``
+    passes forward and backward and the step's monitoring forward — per
+    forward every layer's (``_layer_collectives``), the vocab-parallel
+    embedding's reduce and the loss's two and its max, each multi-token
+    prediction module's embedding, layer (the last spec with a dense
+    FFN), loss and max; per backward every layer's copies, the head's and
+    each prediction module's head's — the clip's one reduce of the split
+    leaves' squares, one psum per level over the data group and one
+    check of the straggler draw."""
+    import dataclasses
+
+    specs = list(cfg.layers) + [dataclasses.replace(cfg.layers[-1], moe=None)] * cfg.mtp_depth
+    per = [_layer_collectives(cfg, spec, model) for spec in specs]
+    heads = 1 + cfg.mtp_depth
+    red = 3 * heads + sum(p["reduce"] for p in per)
+    cop = heads + sum(p["copy"] for p in per)
+    gather = sum(p["all_gather"] for p in per)
+    return dict(psum=n_levels, psum_scatter=0, broadcast=1, all_gather=(k + 1) * gather,
+                copy=k * cop, reduce=(k + 1) * red + 1, max=(k + 1) * heads)
 
 
 def _moe_tp_rank(rank, world, mesh, moe_losses):
@@ -2186,7 +2313,7 @@ def _moe_tp_rank(rank, world, mesh, moe_losses):
     ``gc_fused`` launch per rank per step, the losses [moe-train]'s
     (``moe_losses``, 1e-5), every leaf byte-equal across the data ranks
     of a model index after every step, the collectives of every step the
-    formula (``_moe_counts``).  Rank 0 logs; every check raises."""
+    formula (``_step_counts``).  Rank 0 logs; every check raises."""
     import torch
     import torch.distributed as dist
 
@@ -2230,8 +2357,7 @@ def _moe_tp_rank(rank, world, mesh, moe_losses):
             del full
             dist.barrier()
             fn = make_coded_grad_fn(cfg, plan, mode="spmd", mesh=mesh)
-            for u in stragglers:
-                got = gather_model(local, fn(local, wb, _straggler_dec_w(plan, u)))
+            for u, got in _gathered_coded(local, fn, wb, plan, stragglers):
                 if rank == 0:
                     worst[cf, u] = _worst_rel(
                         got.leaves(), sim[u], paths, 1e-5,
@@ -2254,7 +2380,7 @@ def _moe_tp_rank(rank, world, mesh, moe_losses):
             trainer.run(1, log_every=0)
             torch.cuda.synchronize()
             counts = {**collectives.counts, **collectives.model_counts}
-            want = _moe_counts(plan.k_shards, base.n_layers, case, layout.n_levels)
+            want = _step_counts(base, plan.k_shards, layout.n_levels)
             if counts != want:
                 raise AssertionError(f"[moe-tp] ({case}) rank {rank} step {i + 1}: "
                                      f"collectives {counts}, the formula {want}")
@@ -2294,14 +2420,119 @@ def _moe_tp_rank(rank, world, mesh, moe_losses):
     return out
 
 
-def phase_tp(axis_losses, moe_losses):
+def _family_tp_rank(rank, world, mesh, tag, fam):
+    """[mla-tp] or [mamba-tp] on one rank of ``_tp_job``: ``fam``'s config
+    (``[deepseek-train]``'s or ``[jamba-train]``'s, ``_family_cfg``) in a
+    ``Trainer(mode="spmd")`` over its shards, as [moe-tp] runs
+    Mixtral's.  The shards gathered back are the full model drawn from the
+    same seed, byte for byte (Mamba's ``in_proj`` cut in 2 blocks).  At
+    step 0, with 0, 1 and s_max stragglers, the model groups' gathered
+    coded gradients equal that phase's sim-mode gradients on the same
+    weights and batches (1e-5 of each leaf's scale; saved under
+    ``fam["sim"]`` by that phase, so no rank recomputes them).
+    ``STEPS`` steps with the counts set to 0 just before: one grouped
+    ``gc_fused`` call per rank per step (its launches of at most
+    ``MAX_LEAVES`` leaves), the losses that phase's (1e-5), every leaf
+    byte-equal across the data ranks of a model index after every step,
+    every step's collectives the formula (``_step_counts``).  Rank 0
+    logs; every check raises."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import ShiftedExponential
+    from repro_torch.data.pipeline import coded_worker_batches
+    from repro_torch.dist import collectives
+    from repro_torch.kernels import _pipe
+    from repro_torch.models.params import GCLM, gather_model
+    from repro_torch.train.coded import local_layout
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    t0 = time.perf_counter()
+    cfg = _family_cfg(fam["arch"])
+    trainer = Trainer(cfg, TrainConfig(lr=3e-4, warmup=10, total_steps=300),
+                      ShiftedExponential(mu=1e-3, t0=50.0), n_workers=TP_DATA, scheme="xf",
+                      global_batch=8, seed=0, device=mesh.device, seq_len=256, mesh=mesh,
+                      mode="spmd")
+    plan, local = trainer.plan, trainer.state.params
+    paths, layout = local.leaf_paths(), local_layout(cfg, plan, mesh)
+    blocked = [p for p, b in zip(paths, local.shard_blocks) if b > 1]
+    gathered = gather_model(local).leaves()
+    if rank == 0:
+        full = GCLM(cfg, device=mesh.device, seed=0).leaves()
+        if not all(torch.equal(a, b) for a, b in zip(gathered, full, strict=True)):
+            raise AssertionError(f"[{tag}] the gathered shards differ from the full model")
+        del full
+    del gathered
+    wb = coded_worker_batches(trainer.data, 0, TP_DATA, plan.s_max)
+    stragglers = sorted({0, 1, plan.s_max})
+    sim = torch.load(fam["sim"]) if rank == 0 else None
+    worst = {}
+    for u, got in _gathered_coded(local, trainer.step_fn.grad_fn, wb, plan, stragglers):
+        if rank == 0:
+            worst[u] = _worst_rel(got.leaves(), [t.to(mesh.device) for t in sim[u]], paths,
+                                  1e-5, f"[{tag}] gathered spmd vs sim mode, {u} stragglers")
+        del got
+    del sim
+    torch.cuda.empty_cache()
+
+    # the main path: Trainer(mode="spmd") on the shards, counts set to 0 just before
+    per_step = -(-len(paths) // _pipe.MAX_LEAVES)
+    want = _step_counts(cfg, plan.k_shards, layout.n_levels)
+    torch.cuda.synchronize()
+    dist.barrier()
+    reset_counts()
+    for i in range(STEPS):
+        collectives.reset_counts()
+        trainer.run(1, log_every=0)
+        torch.cuda.synchronize()
+        counts = {**collectives.counts, **collectives.model_counts}
+        if counts != want:
+            raise AssertionError(f"[{tag}] rank {rank} step {i + 1}: collectives {counts}, the "
+                                 f"formula {want}")
+        nbytes = dict(collectives.nbytes)
+        every = [None] * world
+        dist.all_gather_object(every, _digest(trainer.state.params.leaves()))
+        if any(d != every[rank] for r, d in enumerate(every) if r % TP_MODEL == mesh.model_index):
+            raise AssertionError(f"[{tag}] rank {rank}: parameters differ from its model "
+                                 f"index's after step {i + 1}")
+    launches = read_counts()
+    if launches != {"gc_fused": STEPS * per_step, "gc_encode": 0, "gc_decode": 0}:
+        raise AssertionError(f"[{tag}] rank {rank}: launches {launches} in {STEPS} steps, "
+                             f"expected one grouped gc_fused call per step ({per_step} "
+                             f"launches of at most {_pipe.MAX_LEAVES} of {len(paths)} leaves)")
+    losses = [h["loss"] for h in trainer.history]
+    for a, b in zip(losses, fam["losses"], strict=True):
+        if not abs(a - b) <= 1e-5 * abs(b):
+            raise AssertionError(f"[{tag}] losses {losses} vs [{fam['phase']}]'s "
+                                 f"{fam['losses']}")
+    if rank == 0:
+        log(f"[{tag}] {cfg.name} reduced ({cfg.n_layers} layers, mixers "
+            f"{sorted({l.mixer for l in cfg.layers})}, MTP depth {cfg.mtp_depth}) on (data "
+            f"{TP_DATA}, model {TP_MODEL}): split axes {sorted(local.tp.axes)}, blocked leaves "
+            f"{blocked}; a rank holds {layout.total_elems:,} of "
+            f"{plan.flat_layout.total_elems:,} parameters; the gathered shards == the full "
+            f"model byte for byte; step 0, gathered coded gradients vs [{fam['phase']}]'s sim "
+            f"mode (bound 1e-5): "
+            + ", ".join(f"{u} stragglers {w:.3e}" for u, w in worst.items())
+            + f"; {STEPS} steps: losses {losses} (== [{fam['phase']}]'s within 1e-5), leaves "
+            f"byte-equal over the data ranks of a model index, launches {launches}, "
+            f"collectives per step {counts} (the formula), bytes per step {nbytes}; "
+            f"{time.perf_counter() - t0:.1f} s")
+    del trainer, local
+    torch.cuda.empty_cache()
+    return {"launches": launches["gc_fused"], "losses": losses}
+
+
+def phase_tp(axis_losses, moe_losses, families):
     """spmd coded training on a model axis on one card: a (data 4, model
     2) mesh of eight ranks on card 0 over gloo, each a full-width
     ``Trainer(mode="spmd")`` of ``CUT_LAYERS`` layers over its shards;
-    the same job then runs [moe-tp] and [tp-state]'s trainers
+    the same job then runs [moe-tp], [mla-tp] and [mamba-tp] (``families``:
+    tag -> the config's phase, its losses and its saved sim-mode
+    gradients, which are removed after the job) and [tp-state]'s trainers
     (``_tp_job``), whose checkpoint stays in the returned work directory
     for ``phase_tp_state``.  Returns the ranks' gc_fused launches on
-    [tp]'s main path and on [moe-tp]'s, each summed, rank 0's combine
+    each part's main path, each summed over the ranks, rank 0's combine
     times, every rank's [tp-state] results and the work directory."""
     from repro_torch.dist.spawn import spawn
 
@@ -2309,33 +2540,41 @@ def phase_tp(axis_losses, moe_losses):
     work = tempfile.mkdtemp(prefix="chip_smoke_tp_", dir=os.path.join(ROOT, "build"))
     t0 = time.perf_counter()
     try:
-        jobs = spawn(_tp_job, TP_DATA * TP_MODEL, axis_losses, moe_losses,
+        jobs = spawn(_tp_job, TP_DATA * TP_MODEL, axis_losses, moe_losses, families,
                      os.path.join(work, "ckpt"), store_dir=os.path.join(work, "spawn"),
                      backend="gloo", timeout=SPMD_LIMIT_S)
     except BaseException:
         shutil.rmtree(work, ignore_errors=True)
         raise
+    finally:
+        for fam in families.values():
+            shutil.rmtree(os.path.dirname(fam["sim"]), ignore_errors=True)
     ranks = [j["tp"] for j in jobs]
-    launches = sum(r["launches"] for r in ranks)
-    if launches != STEPS * TP_DATA * TP_MODEL:
-        raise AssertionError(f"[tp] {launches} gc_fused launches, expected "
+    launches = {"tp": sum(r["launches"] for r in ranks)}
+    if launches["tp"] != STEPS * TP_DATA * TP_MODEL:
+        raise AssertionError(f"[tp] {launches['tp']} gc_fused launches, expected "
                              f"{STEPS * TP_DATA * TP_MODEL}")
     moe = [j["moe-tp"] for j in jobs]
-    moe_launches = sum(r["launches"] for r in moe)
-    if moe_launches != len(MOE_TP_CASES) * STEPS * TP_DATA * TP_MODEL:
-        raise AssertionError(f"[moe-tp] {moe_launches} gc_fused launches, expected "
+    launches["moe-tp"] = sum(r["launches"] for r in moe)
+    if launches["moe-tp"] != len(MOE_TP_CASES) * STEPS * TP_DATA * TP_MODEL:
+        raise AssertionError(f"[moe-tp] {launches['moe-tp']} gc_fused launches, expected "
                              f"{len(MOE_TP_CASES) * STEPS * TP_DATA * TP_MODEL}")
-    log(f"[tp] {len(ranks)} ranks done in {time.perf_counter() - t0:.1f} s ([tp] "
-        f"{jobs[0]['seconds']['tp']:.1f} s, [moe-tp] {jobs[0]['seconds']['moe-tp']:.1f} s and "
-        f"[tp-state]'s trainers {jobs[0]['seconds']['tp-state']:.1f} s of rank 0's job); "
-        f"[moe-tp] gc_fused launches per rank {[r['launches'] for r in moe]} ({moe_launches} "
-        f"in all); [tp] per rank "
-        f"gc_fused launches {[r['launches'] for r in ranks]} ({launches} in all), step "
+    for tag, fam in families.items():
+        launches[tag] = sum(j[tag]["launches"] for j in jobs)
+        if launches[tag] != fam["launches"] * TP_DATA * TP_MODEL:
+            raise AssertionError(f"[{tag}] {launches[tag]} gc_fused launches, expected "
+                                 f"[{fam['phase']}]'s {fam['launches']} on each of "
+                                 f"{TP_DATA * TP_MODEL} ranks")
+    sec = jobs[0]["seconds"]
+    log(f"[tp] {len(ranks)} ranks done in {time.perf_counter() - t0:.1f} s ("
+        + ", ".join(f"[{part}] {sec[part]:.1f} s" for part in sec)
+        + f" of rank 0's job); gc_fused launches, all ranks {launches}; [tp] per rank "
+        f"gc_fused launches {[r['launches'] for r in ranks]}, step "
         f"wall_s {[[round(w, 3) for w in r['walls']] for r in ranks]}, max_memory_allocated "
         f"{[r['mem'] for r in ranks]} bytes, data-group bytes per rank per step "
         f"{sorted({r['data_bytes'] for r in ranks})}, model-group "
         f"{sorted({r['model_bytes'] for r in ranks})}")
-    return launches, moe_launches, ranks[0]["times"], [j["tp-state"] for j in jobs], work
+    return launches, ranks[0]["times"], [j["tp-state"] for j in jobs], work
 
 
 def _snapshot(tree) -> dict:
@@ -2748,8 +2987,7 @@ def _tp_state_rank(rank, world, mesh, ckpt_dir):
     del full
     dist.barrier()
     worst = {}
-    for u in stragglers:
-        got = gather_model(local, trainer.step_fn.grad_fn(local, wb, _straggler_dec_w(plan, u)))
+    for u, got in _gathered_coded(local, trainer.step_fn.grad_fn, wb, plan, stragglers):
         if rank == 0:
             worst[u] = _worst_rel(got.leaves(), sim[u], paths, 1e-5,
                                   f"[tp-state] (d) gathered spmd vs sim mode, {u} stragglers")
@@ -3267,30 +3505,36 @@ def _tp_engine(cfg, model, g, slab_dtype, mesh=None) -> dict:
                 launches=launches, rows=eng.rows.rows)
 
 
-def _serve_collectives(cfg, g, local_split, step, experts=None) -> dict:
+def _serve_collectives(cfg, g, local_split, step) -> dict:
     """The collectives one engine step must make on a rank, with their
-    bytes (fp32 activations): per decode of the rank's B rows one
-    all-reduce of (B, 1, d) per layer for attention, one per layer for the
-    MLP or the MoE's output, one for the vocab-parallel embedding, one
-    all-gather of the logits (B, 1, V) out; per prefill on the rank (an
-    admission into its rows) the same all-reduces of (1, S, d) and one
-    all-gather of the last position's logits (1, 1, V); and, where the
-    slots split over the data ranks, one gather of the step's int64
-    tokens (n_slots per column: the decode's, and the admissions' first).
-    A MoE layer adds, per decode on data-parallel slots, one all-gather
-    of every slot's k int64 expert ids (the capacity's count), and with
-    its experts split (``experts`` is ``"experts"``: case a) one
+    bytes (fp32 activations): per decode of the rank's B rows, every
+    layer's forward all-reduces (``_layer_collectives``) of (B, 1, d) —
+    but Mamba's ``x_proj`` reduce, of width dt_rank + 2·d_state — and one
+    for the vocab-parallel embedding, one all-gather of the logits (B, 1,
+    V) out; per prefill on the rank (an admission into its rows) the same
+    all-reduces of (1, S, d) and one all-gather of the last position's
+    logits (1, 1, V); and, where the slots split over the data ranks, one
+    gather of the step's int64 tokens (n_slots per column: the decode's,
+    and the admissions' first).  A MoE layer adds, per decode on
+    data-parallel slots, one all-gather of every slot's k int64 expert
+    ids (the capacity's count), and split by expert (case a) one
     all-gather of the router's fp32 logits, (rows, E) out, per decode and
     per prefill."""
-    b, rows = len(local_split), local_split
+    b, rows, d = len(local_split), local_split, cfg.d_model
     mine = len([slot for slot in step["admitted"] if slot in rows])
     dec = step["decoded"]
     cols = bool(step["admitted"]) + dec
-    n_red = 2 * cfg.n_layers + 1
     token_gather = int(g["data"] > 1 and cols > 0)
-    moe = cfg.layers[0].moe
-    ids = cfg.n_layers if moe is not None and g["data"] > 1 else 0
-    router = cfg.n_layers if experts == "experts" else 0
+    wide = narrow = router = ids = 0
+    for spec in cfg.layers:
+        per = _layer_collectives(cfg, spec, g["model"])
+        narrow += spec.mixer == "mamba"
+        wide += per["reduce"] - (spec.mixer == "mamba")
+        router += per["all_gather"]
+        ids += spec.moe is not None and g["data"] > 1
+    moe = next((spec.moe for spec in cfg.layers if spec.moe is not None), None)
+    x_proj = narrow and (cfg.mamba.dt_rank or -(-d // 16)) + 2 * cfg.mamba.d_state
+    n_red = wide + narrow + 1
     counts = dict(psum=0, psum_scatter=0, broadcast=0, copy=0, max=0,
                   all_gather=dec * (1 + ids + router) + mine * (1 + router) + token_gather,
                   reduce=n_red * (dec + mine))
@@ -3300,15 +3544,14 @@ def _serve_collectives(cfg, g, local_split, step, experts=None) -> dict:
                   all_gather=4 * cfg.vocab * (dec * b + mine) + 8 * g["n_slots"] * cols
                   * token_gather + dec * (ids * per_ids + router * per_router * b)
                   + mine * router * per_router * g["prompt_len"],
-                  reduce=4 * cfg.d_model * n_red * (dec * b + mine * g["prompt_len"]))
+                  reduce=4 * ((wide + 1) * d + narrow * x_proj)
+                  * (dec * b + mine * g["prompt_len"]))
     return dict(counts=counts, nbytes=nbytes)
 
 
 def _tp_serve_cfg(arch: str):
-    from repro_torch.configs import get_config
-
     if arch == "gc-lm-110m":
-        return get_config(arch)
+        return _cut(arch, TP_SERVE["n_layers"])
     return _cut(arch, GEMMA3_TP_SERVE["n_layers"]).replace(dtype="float32")
 
 
@@ -3373,11 +3616,10 @@ def _spawn_tp_serve(arch: str, g: dict) -> list:
         shutil.rmtree(store, ignore_errors=True)
 
 
-def _check_tp_serve(tag, cfg, g, one, ranks, experts=None) -> dict:
+def _check_tp_serve(tag, cfg, g, one, ranks) -> dict:
     """Every rank's engine against the one-rank engine on the same weights:
     tokens, timestamps, slots and step latencies equal; no ``gc_*``
-    launch; each step's collectives equal ``_serve_collectives`` (a MoE's
-    ``experts`` split as ``moe.expert_split`` names it).  Returns
+    launch; each step's collectives equal ``_serve_collectives``.  Returns
     rank 0's decode-only step walls (host clock, ms) and its per-step
     collectives of the first decode-only step."""
     import numpy as np
@@ -3392,7 +3634,7 @@ def _check_tp_serve(tag, cfg, g, one, ranks, experts=None) -> dict:
         if any(run["launches"].values()):
             raise AssertionError(f"[{tag}] rank {r}: the serving path launched {run['launches']}")
         for i, step in enumerate(run["steps"]):
-            want = _serve_collectives(cfg, g, run["rows"], step, experts)
+            want = _serve_collectives(cfg, g, run["rows"], step)
             got = dict(counts={k: step["counts"][k] for k in want["counts"]},
                        nbytes={k: step["nbytes"][k] for k in want["nbytes"]})
             if got != want or sum(step["counts"].values()) != sum(want["counts"].values()):
@@ -3405,8 +3647,9 @@ def _check_tp_serve(tag, cfg, g, one, ranks, experts=None) -> dict:
 
 
 def phase_tp_serve():
-    """Serving on the model axis: full-width gc-lm-110m on a (data 2,
-    model 2) mesh of four ranks on card 0 over gloo, each holding its
+    """Serving on the model axis: gc-lm-110m at its published widths cut
+    to ``TP_SERVE["n_layers"]`` layers on a (data 2, model 2) mesh of four
+    ranks on card 0 over gloo, each holding its
     shards (``init_shards``), 4 of the 8 slots and 6 of the 12 KV heads,
     against the one-rank engine on the same weights (fp32 activations,
     fp32 slab)."""
@@ -3428,14 +3671,14 @@ def phase_tp_serve():
     job_s = time.perf_counter() - t0
     if [r["coords"] for r in ranks] != [(0, d, m) for d in range(2) for m in range(2)]:
         raise AssertionError(f"[tp-serve] ranks {[r['coords'] for r in ranks]}")
-    if {r["params"] for r in ranks} != {68_930_304} or {tuple(r["kv_heads"]) for r in ranks} \
+    if {r["params"] for r in ranks} != {50_049_792} or {tuple(r["kv_heads"]) for r in ranks} \
             != {(6,)}:
         raise AssertionError(f"[tp-serve] a rank holds {[r['params'] for r in ranks]} params, "
-                             f"KV heads {[r['kv_heads'] for r in ranks]}; expected 68,930,304 "
+                             f"KV heads {[r['kv_heads'] for r in ranks]}; expected 50,049,792 "
                              "and 6")
-    if {r["slab_bf16_bytes"] for r in ranks} != {23_592_960}:
+    if {r["slab_bf16_bytes"] for r in ranks} != {15_728_640}:
         raise AssertionError(f"[tp-serve] bf16 slab bytes {[r['slab_bf16_bytes'] for r in ranks]}"
-                             ", expected 23,592,960 (a quarter of 94,371,840)")
+                             ", expected 15,728,640 (a quarter of 62,914,560)")
     worst = max(r["teacher_bf16"] for r in ranks)
     if not worst <= SERVE_BF16_REL:
         raise AssertionError(f"[tp-serve] teacher forcing on the bf16 slab {worst:.3e} > "
@@ -3472,22 +3715,38 @@ def phase_tp_serve():
     return {"launches": sum(sum(r["fp32"]["launches"].values()) for r in ranks)}
 
 
-def _moe_tp_serve_cfg(shard_experts: bool):
-    """[moe-tp-serve]'s config: mixtral-8x22b at its published widths cut
-    to ``MOE_TP_SERVE["n_layers"]`` layers, fp32 activations."""
-    return _cut("mixtral-8x22b", MOE_TP_SERVE["n_layers"]).replace(
-        dtype="float32", shard_experts=shard_experts)
+def _axis_serve_cfg(arch: str, **kw):
+    """A model-axis serving phase's config: ``arch`` at its published
+    widths cut to ``AXIS_TP_SERVE["n_layers"]`` layers, fp32 activations,
+    ``kw`` replaced."""
+    return _cut(arch, AXIS_TP_SERVE["n_layers"], dtype="float32", **kw)
 
 
-def _moe_tp_serve_rank(rank, world):
-    """One rank of [moe-tp-serve] (``dist.spawn``: every rank on card 0 over
-    gloo, ``MOE_TP_SERVE``'s (data, model) mesh): per case of
-    ``MOE_TP_CASES`` its shards drawn by ``init_shards`` (seed 0; one rank
-    at a time, as a full stacked expert leaf of 6.44 GB lies beside its
-    cut while it is drawn), the engine on an fp32 slab with every count
-    set to 0 just before, then the shards let go before the next case's
-    are cut.  Returns what the rank saw; the parent holds it to the
-    one-rank engine."""
+def _slab_trees(slab) -> list:
+    """Every cache tree of a slab: a run's one, a pattern's p."""
+    return [tree for seg in slab for tree in (seg if isinstance(seg, list) else [seg])]
+
+
+def _slab_shapes(slab) -> dict:
+    """{leaf name: the set of its shapes over the slab's segments}."""
+    out = {}
+    for tree in _slab_trees(slab):
+        for name, leaf in tree.items():
+            out.setdefault(name, set()).add(tuple(leaf.shape))
+    return out
+
+
+def _axis_serve_rank(rank, world):
+    """One rank of the model axis's serving job (``dist.spawn``: every rank
+    on card 0 over gloo, ``AXIS_TP_SERVE``'s (data, model) mesh): per
+    phase of ``AXIS_SERVE_PHASES`` and per case its shards drawn by
+    ``init_shards`` (seed 0; one rank at a time, as a full leaf of up to
+    6.44 GB lies beside its cut while it is drawn), the engine on an fp32
+    slab with every count set to 0 just before, then the shards let go
+    before the next are cut.  Returns what the rank saw — per phase and
+    case its parameters, split, slab leaf shapes, engine run and peaks,
+    and each phase's seconds; the parent holds it to the one-rank
+    engine."""
     import torch
     import torch.distributed as dist
 
@@ -3495,111 +3754,172 @@ def _moe_tp_serve_rank(rank, world):
     from repro_torch.models.moe import expert_split
     from repro_torch.models.params import count_params, init_shards
 
-    g = MOE_TP_SERVE
+    g = AXIS_TP_SERVE
     mesh = make_local_mesh(g["data"], model=g["model"], device="cuda:0", backend="gloo")
-    out = dict(coords=(mesh.pod_index, mesh.data_index, mesh.model_index), cases={})
-    for case, shard_experts in MOE_TP_CASES:
-        cfg = _moe_tp_serve_cfg(shard_experts)
-        t0 = time.perf_counter()
-        torch.cuda.reset_peak_memory_stats(mesh.device)
-        local = None
-        for r in range(world):
-            if r == rank:
-                free, total = torch.cuda.mem_get_info(mesh.device)
-                log(f"[moe-tp-serve] ({case}) rank {rank} draws its shards; the card has "
-                    f"{free:,} of {total:,} bytes free")
-                local = init_shards(cfg, mesh, device=mesh.device, seed=0)
-                torch.cuda.synchronize()
-                torch.cuda.empty_cache()  # the full leaves' blocks, for the next rank's draw
-            dist.barrier()
-        got = dict(params=count_params(local), split=expert_split(local.tp),
-                   init_s=time.perf_counter() - t0,
-                   init_peak=torch.cuda.max_memory_allocated(mesh.device))
-        torch.cuda.reset_peak_memory_stats(mesh.device)
-        run = _tp_engine(cfg, local, g, torch.float32, mesh=mesh)
-        run.pop("eng")
-        got.update(fp32=run, peak=torch.cuda.max_memory_allocated(mesh.device))
-        out["cases"][case] = got
-        del local, run
-        torch.cuda.empty_cache()
+    out = dict(coords=(mesh.pod_index, mesh.data_index, mesh.model_index), phases={},
+               seconds={})
+    for tag, (arch, cases, _) in AXIS_SERVE_PHASES.items():
+        t_tag = time.perf_counter()
+        out["phases"][tag] = {}
+        for case, kw in cases.items():
+            cfg = _axis_serve_cfg(arch, **kw)
+            t0 = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats(mesh.device)
+            local = None
+            for r in range(world):
+                if r == rank:
+                    free, total = torch.cuda.mem_get_info(mesh.device)
+                    log(f"[{tag}] {case and f'({case}) '}rank {rank} draws its shards; the "
+                        f"card has {free:,} of {total:,} bytes free")
+                    local = init_shards(cfg, mesh, device=mesh.device, seed=0)
+                    torch.cuda.synchronize()
+                    torch.cuda.empty_cache()  # the full leaves' blocks, for the next draw
+                dist.barrier()
+            got = dict(params=count_params(local), split=expert_split(local.tp),
+                       axes=sorted(local.tp.axes), init_s=time.perf_counter() - t0,
+                       init_peak=torch.cuda.max_memory_allocated(mesh.device))
+            torch.cuda.reset_peak_memory_stats(mesh.device)
+            run = _tp_engine(cfg, local, g, torch.float32, mesh=mesh)
+            got["slab"] = _slab_shapes(run.pop("eng").slab)
+            got.update(fp32=run, peak=torch.cuda.max_memory_allocated(mesh.device))
+            out["phases"][tag][case] = got
+            del local, run
+            torch.cuda.empty_cache()
+        out["seconds"][tag] = time.perf_counter() - t_tag
     return out
 
 
-def phase_moe_tp_serve():
-    """Serving a MoE on the model axis: mixtral-8x22b at its published
-    widths cut to 2 of 56 layers, fp32 activations on an fp32 slab, served
-    on one rank, the model freed, then by four ranks on card 0 over gloo
-    on a (data 2, model 2) mesh (4 of the 8 slots, 4 of the 8 KV heads and
-    half of every expert's FFN width each, case b; then re-cut with the
-    experts split, case a): equal tokens, slots, timestamps and step
-    latencies; the collectives of every step on every rank the formula
-    (``_serve_collectives``: the capacity's gather of every slot's expert
-    ids per MoE layer, and in case (a) the router's logits); no ``gc_*``
-    launch; each rank's peak."""
+def _check_axis_slab(tag, cfg, g, got) -> str:
+    """A rank's slab on the axis: MLA's whole latent (``c_kv``, ``k_r``),
+    Mamba's state of the rank's channels (``conv``, and ``h`` of d_inner /
+    model), attention's KV heads of the rank; raises otherwise.  Returns
+    a line of the shapes."""
+    rows = g["n_slots"] // g["data"]
+    shapes = got["slab"]
+    want = {}
+    if any(spec.mixer == "mla" for spec in cfg.layers):
+        want.update(c_kv=(rows, g["max_len"], cfg.mla.kv_lora_rank),
+                    k_r=(rows, g["max_len"], cfg.mla.qk_rope_head_dim))
+    if any(spec.mixer == "mamba" for spec in cfg.layers):
+        half = cfg.mamba.expand * cfg.d_model // g["model"]
+        want.update(h=(rows, half, cfg.mamba.d_state), conv=(rows, cfg.mamba.d_conv - 1, half))
+    if any(spec.mixer == "attn" for spec in cfg.layers):
+        want.update(k=(rows, g["max_len"], cfg.n_kv_heads // g["model"], cfg.head_dim))
+    for name, shape in want.items():
+        if {s[-len(shape):] for s in shapes.get(name, ())} != {shape}:
+            raise AssertionError(f"[{tag}] slab leaf {name}: shapes {shapes.get(name)}, "
+                                 f"expected {shape} a layer")
+    return ", ".join(f"{name} {shape}" for name, shape in want.items())
+
+
+def _axis_serve_one(tag) -> dict:
+    """A model-axis serving phase's one-rank run: ``AXIS_SERVE_PHASES[tag]``'s
+    arch at its published widths cut to ``AXIS_TP_SERVE["n_layers"]``
+    layers (its first case's config), fp32 activations on an fp32 slab,
+    its parameters counted; the engine's record, the peak and the seconds,
+    the model freed."""
     import torch
 
-    from repro_torch.dist.spawn import spawn
     from repro_torch.models.params import GCLM
 
+    t0 = time.perf_counter()
     _free_card()
-    g = MOE_TP_SERVE
-    cfg = _moe_tp_serve_cfg(False)
+    arch, cases, n_want = AXIS_SERVE_PHASES[tag]
+    cfg = _axis_serve_cfg(arch, **next(iter(cases.values())))
     model = GCLM(cfg, device="cuda", seed=0)
     n_params = sum(t.numel() for t in model.leaves())
-    if n_params != 5_410_781_184:
-        raise AssertionError(f"[moe-tp-serve] {n_params} params, expected 5,410,781,184")
-    one = _tp_engine(cfg, model, g, torch.float32)
+    if n_params != n_want:
+        raise AssertionError(f"[{tag}] {n_params} params, expected {n_want:,}")
+    one = _tp_engine(cfg, model, AXIS_TP_SERVE, torch.float32)
     one.pop("eng")
-    one_peak = torch.cuda.max_memory_allocated()
+    one.update(peak=torch.cuda.max_memory_allocated(), n_params=n_params)
     del model
     _free_card()
+    one["s"] = time.perf_counter() - t0
+    return one
+
+
+def phase_axis_tp_serve():
+    """The model axis's serving phases — [moe-tp-serve] (mixtral-8x22b in
+    case (b), then re-cut in case (a)), [deepseek-tp-serve] (dense MLA, a
+    rank's heads, the latent slab whole on every rank) and
+    [jamba-tp-serve] (Mamba with a dense MLP and with 16 experts split by
+    expert, a rank's channels of every Mamba leaf and of the slab's
+    state), each at its published widths cut to 2 layers, fp32
+    activations on an fp32 slab: each served on one rank, the model freed
+    (``_axis_serve_one``), then all by one job of four ranks on card 0
+    over gloo on a (data 2, model 2) mesh (4 of the 8 slots each; the
+    ranks start once), case by case: equal tokens, slots, timestamps and
+    step latencies; the collectives of every step on every rank the
+    formula (``_serve_collectives``); the slab of a rank's state
+    (``_check_axis_slab``); a slot serving a second request; no ``gc_*``
+    launch; each rank's peaks.  Returns each phase's launches and seconds
+    (its one-rank run and its part of rank 0's job)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.spawn import spawn
+
+    g = AXIS_TP_SERVE
+    ones = {tag: _axis_serve_one(tag) for tag in AXIS_SERVE_PHASES}
     free, total = torch.cuda.mem_get_info()
-    log(f"[moe-tp-serve] one rank done, the model freed: this process holds "
+    log(f"[axis-tp-serve] one-rank runs done, each model freed: this process holds "
         f"{torch.cuda.memory_allocated():,} bytes ({torch.cuda.memory_reserved():,} reserved); "
         f"the card has {free:,} of {total:,} bytes free")
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    store = tempfile.mkdtemp(prefix="chip_smoke_moe_tp_serve_", dir=os.path.join(ROOT, "build"))
+    store = tempfile.mkdtemp(prefix="chip_smoke_axis_serve_", dir=os.path.join(ROOT, "build"))
     t0 = time.perf_counter()
     try:
-        ranks = spawn(_moe_tp_serve_rank, g["data"] * g["model"], store_dir=store,
+        ranks = spawn(_axis_serve_rank, g["data"] * g["model"], store_dir=store,
                       backend="gloo", timeout=SPMD_LIMIT_S)
     finally:
         shutil.rmtree(store, ignore_errors=True)
     job_s = time.perf_counter() - t0
     if [r["coords"] for r in ranks] != [(0, d, m) for d in range(2) for m in range(2)]:
-        raise AssertionError(f"[moe-tp-serve] ranks {[r['coords'] for r in ranks]}")
-    reused = _reused_slots("moe-tp-serve", one["slots"])
-    n_tok = sum(len(x[0]) for x in one["reqs"])
-    log(f"[moe-tp-serve] {cfg.name} at full width, {cfg.n_layers} of 56 layers, fp32: "
-        f"{n_params:,} params; one rank: {one['tokens_per_s']:.1f} tok/s, peak {one_peak:,} "
-        f"bytes; {len(ranks)} ranks on {torch.cuda.get_device_name(0)} over gloo, (data "
-        f"{g['data']}, model {g['model']}); the job {job_s:.1f} s")
-    launches = 0
-    for case, shard_experts in MOE_TP_CASES:
-        got = [r["cases"][case] for r in ranks]
-        split = {"a": "experts", "b": "expert_mlp"}[case]
-        if {x["split"] for x in got} != {split}:
-            raise AssertionError(f"[moe-tp-serve] ({case}) the experts split on "
-                                 f"{[x['split'] for x in got]}, expected {split!r}")
-        seen = _check_tp_serve(f"moe-tp-serve ({case})", _moe_tp_serve_cfg(shard_experts), g,
-                               one, got, experts=split)
-        launches += sum(sum(x["fp32"]["launches"].values()) for x in got)
-        run = got[0]["fp32"]
-        per = seen["per_step"]
-        log(f"[moe-tp-serve] ({case}) experts split on {split!r}: a rank holds "
-            f"{[x['params'] for x in got]} params (init_shards one rank at a time, "
-            f"{got[0]['init_s']:.2f} s, peaks {[x['init_peak'] for x in got]} bytes), slots "
-            f"{[list(x['fp32']['rows']) for x in got]}; {len(run['reqs'])} requests x "
-            f"{g['prompt_len']}-token prompts: tokens, slots, timestamps and step latencies == "
-            f"the one-rank engine's on every rank ({n_tok} tokens, {len(run['latencies'])} "
-            f"decode steps; slots serving a second request {reused}); gc_* launches "
-            f"{[x['fp32']['launches'] for x in got]}; {n_tok / run['wall']:.1f} tok/s by the "
-            f"wall clock, a decode step (no admission) median {seen['median']:.3f} ms by the "
-            f"host clock (one rank {statistics.median(seen['one_walls']):.3f} ms); collectives "
-            f"per rank per decode step (== the formula on every step of every rank): "
-            f"{per['counts']}, bytes {per['nbytes']}; serving peaks "
-            f"{[x['peak'] for x in got]} bytes")
-    return {"launches": launches}
+        raise AssertionError(f"[axis-tp-serve] ranks {[r['coords'] for r in ranks]}")
+    out = {}
+    for tag, (arch, cases, _) in AXIS_SERVE_PHASES.items():
+        one = ones[tag]
+        cfg = _axis_serve_cfg(arch, **next(iter(cases.values())))
+        reused = _reused_slots(tag, one["slots"])
+        n_tok = sum(len(x[0]) for x in one["reqs"])
+        part = ranks[0]["seconds"][tag]
+        log(f"[{tag}] {cfg.name} at full width, {cfg.n_layers} of {get_config(arch).n_layers} "
+            f"layers (mixers {[l.mixer for l in cfg.layers]}, MoE "
+            f"{[l.moe is not None for l in cfg.layers]}), fp32: {one['n_params']:,} params; one "
+            f"rank: {one['tokens_per_s']:.1f} tok/s, peak {one['peak']:,} bytes, {one['s']:.1f} "
+            f"s; {len(ranks)} ranks on {torch.cuda.get_device_name(0)} over gloo, (data "
+            f"{g['data']}, model {g['model']}): {part:.1f} s of rank 0's job ({job_s:.1f} s)")
+        launches = 0
+        for case, kw in cases.items():
+            got = [r["phases"][tag][case] for r in ranks]
+            name = f"{tag} ({case})" if case else tag
+            case_cfg = _axis_serve_cfg(arch, **kw)
+            if case and {x["split"] for x in got} != {{"a": "experts", "b": "expert_mlp"}[case]}:
+                raise AssertionError(f"[{name}] the experts split on "
+                                     f"{[x['split'] for x in got]}")
+            slab = _check_axis_slab(name, case_cfg, g, got[0])
+            seen = _check_tp_serve(name, case_cfg, g, one, got)
+            launches += sum(sum(x["fp32"]["launches"].values()) for x in got)
+            run = got[0]["fp32"]
+            per = seen["per_step"]
+            log(f"[{name}] split axes {got[0]['axes']} (experts: {got[0]['split']}); a rank "
+                f"holds {[x['params'] for x in got]} params (init_shards one rank at a time, "
+                f"{got[0]['init_s']:.2f} s, peaks {[x['init_peak'] for x in got]} bytes), slots "
+                f"{[list(x['fp32']['rows']) for x in got]}, a slab of {slab} a layer; "
+                f"{len(run['reqs'])} requests x {g['prompt_len']}-token prompts: tokens, "
+                f"slots, timestamps and step latencies == the one-rank engine's on every rank "
+                f"({n_tok} tokens, {len(run['latencies'])} decode steps; slots serving a second "
+                f"request {reused}); gc_* launches {[x['fp32']['launches'] for x in got]}; "
+                f"{n_tok / run['wall']:.1f} tok/s by the wall clock, a decode step (no "
+                f"admission) median {seen['median']:.3f} ms by the host clock (one rank "
+                f"{statistics.median(seen['one_walls']):.3f} ms); collectives per rank per "
+                f"decode step (== the formula on every step of every rank): {per['counts']}, "
+                f"bytes {per['nbytes']}; serving peaks {[x['peak'] for x in got]} bytes")
+        out[tag] = {"launches": launches, "s": one["s"] + part}
+    log("[axis-tp-serve] seconds by phase (its one-rank run and its part of the job): "
+        + ", ".join(f"[{tag}] {v['s']:.1f}" for tag, v in out.items()))
+    return out
 
 
 def phase_gemma3_tp_serve():
@@ -4222,7 +4542,7 @@ def _serve_times(tag, cfg, model, slab, prompt, expert_tokens=(0, 0)) -> dict:
 
 def phase_qwen_serve():
     """Full-width qwen1.5-32b (QKV biases, an untied head, bf16
-    activations) cut to 8 of 64 layers, its biases set to seeded normal
+    activations) cut to 4 of 64 layers, its biases set to seeded normal
     values (std 0.02; the reference initializes them to zero), in a
     ``ServeEngine``: 16 requests of 512-token prompts, 64 new tokens each
     (``_serve_run``'s gates); prefill and ``decode_step`` times; teacher
@@ -4549,6 +4869,42 @@ def phase_deepseek_serve():
             "bf16_activations": [row[-1] for row in bf16["rows"]], **times}
 
 
+def _family_cfg(arch: str):
+    """[deepseek-train]'s or [jamba-train]'s config (the reference's smoke
+    widths at ``DEEPSEEK_TRAIN_LAYERS`` or ``JAMBA_TRAIN_LAYERS``), which
+    [mla-tp] and [mamba-tp] train on the model axis."""
+    from repro_torch.configs import get_config
+
+    layers = {"deepseek-v3-671b": DEEPSEEK_TRAIN_LAYERS, "jamba-v0.1-52b": JAMBA_TRAIN_LAYERS}
+    return get_config(arch).reduced(n_layers=layers[arch])
+
+
+def _sim_grads(tag, plan, rows, g_ref, paths) -> tuple:
+    """[tag]'s step-0 sim-mode coded gradients at 0, 1 and s_max
+    stragglers, each held to the uncoded one (``EXACT_RTOL`` per leaf),
+    and copied to the host into a file in a new directory under
+    ``build/`` for the model axis's phase of the same config and batches
+    ([mla-tp], [mamba-tp]), which holds its gathered spmd gradients to
+    them: the work is shared, not redone on a rank.  Returns the gaps by
+    straggler count and the file."""
+    import torch
+
+    from repro_torch.train.coded import combine_rows
+
+    gaps, sim = {}, {}
+    for u in sorted({0, 1, plan.s_max}):
+        got = combine_rows(plan, rows, _straggler_dec_w(plan, u))
+        gaps[u] = _worst_rel(got, g_ref, paths, EXACT_RTOL,
+                             f"[{tag}] coded != uncoded, {u} stragglers")
+        sim[u] = [t.cpu() for t in got]
+        del got
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    path = os.path.join(tempfile.mkdtemp(prefix=f"chip_smoke_{tag}_",
+                                         dir=os.path.join(ROOT, "build")), "sim.pt")
+    torch.save(sim, path)
+    return gaps, path
+
+
 def phase_deepseek_train():
     """Coded training of ``deepseek-v3-671b.reduced(n_layers=4)`` (d_model
     256: 3 dense MLA layers and 1 MoE layer, sigmoid top-2 of 4 with one
@@ -4565,16 +4921,15 @@ def phase_deepseek_train():
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.core import ShiftedExponential
     from repro_torch.data.pipeline import coded_worker_batches
     from repro_torch.kernels import _pipe
     from repro_torch.models.model import train_loss
-    from repro_torch.train.coded import combine_rows, per_shard_grad_rows, uncoded_grad_fn
+    from repro_torch.train.coded import per_shard_grad_rows, uncoded_grad_fn
     from repro_torch.train.trainer import TrainConfig, Trainer
 
     _free_card()
-    cfg = get_config("deepseek-v3-671b").reduced(n_layers=DEEPSEEK_TRAIN_LAYERS)
+    cfg = _family_cfg("deepseek-v3-671b")
     trainer = Trainer(cfg, TrainConfig(lr=3e-4, warmup=10, total_steps=300),
                       ShiftedExponential(mu=1e-3, t0=50.0), n_workers=4, scheme="xf",
                       global_batch=8, seed=0, device="cuda", seq_len=256)
@@ -4588,9 +4943,7 @@ def phase_deepseek_train():
     shards = np.stack([trainer.data.shard(0, i, n) for i in range(n)])
     rows = per_shard_grad_rows(cfg, model, wb)
     g_ref = uncoded_grad_fn(cfg, n)(model, shards)
-    gaps = {u: _worst_rel(combine_rows(plan, rows, _straggler_dec_w(plan, u)), g_ref, paths,
-                          EXACT_RTOL, f"[deepseek-train] coded != uncoded, {u} stragglers")
-            for u in (0, plan.s_max)}
+    gaps, sim = _sim_grads("deepseek-train", plan, rows, g_ref, paths)
     del rows, g_ref
     log(f"[deepseek-train] deepseek-v3-671b reduced ({cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, MLA {cfg.mla.q_lora_rank}/{cfg.mla.kv_lora_rank}, "
@@ -4635,7 +4988,8 @@ def phase_deepseek_train():
         "bit-equal to 'none'; two forward+backward runs byte-equal")
     del trainer, model
     _free_card()
-    return {"launches": launches["gc_fused"], "gaps": gaps}
+    return {"launches": launches["gc_fused"], "gaps": gaps, "losses": [h["loss"] for h in hist],
+            "sim": sim, "arch": "deepseek-v3-671b", "phase": "deepseek-train"}
 
 
 def phase_jamba_serve():
@@ -4808,16 +5162,15 @@ def phase_jamba_train():
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.core import ShiftedExponential
     from repro_torch.data.pipeline import coded_worker_batches
     from repro_torch.kernels import _pipe
     from repro_torch.models.model import train_loss
-    from repro_torch.train.coded import combine_rows, per_shard_grad_rows, uncoded_grad_fn
+    from repro_torch.train.coded import per_shard_grad_rows, uncoded_grad_fn
     from repro_torch.train.trainer import TrainConfig, Trainer
 
     _free_card()
-    cfg = get_config("jamba-v0.1-52b").reduced(n_layers=JAMBA_TRAIN_LAYERS)
+    cfg = _family_cfg("jamba-v0.1-52b")
     trainer = Trainer(cfg, TrainConfig(lr=3e-4, warmup=10, total_steps=300),
                       ShiftedExponential(mu=1e-3, t0=50.0), n_workers=4, scheme="xf",
                       global_batch=8, seed=0, device="cuda", seq_len=256)
@@ -4830,9 +5183,7 @@ def phase_jamba_train():
     shards = np.stack([trainer.data.shard(0, i, n) for i in range(n)])
     rows = per_shard_grad_rows(cfg, model, wb)
     g_ref = uncoded_grad_fn(cfg, n)(model, shards)
-    gaps = {u: _worst_rel(combine_rows(plan, rows, _straggler_dec_w(plan, u)), g_ref, paths,
-                          EXACT_RTOL, f"[jamba-train] coded != uncoded, {u} stragglers")
-            for u in (0, plan.s_max)}
+    gaps, sim = _sim_grads("jamba-train", plan, rows, g_ref, paths)
     del rows, g_ref
     log(f"[jamba-train] jamba-v0.1-52b reduced ({cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"Mamba d_inner {cfg.mamba.expand * cfg.d_model} d_state {cfg.mamba.d_state}, scan "
@@ -4874,13 +5225,36 @@ def phase_jamba_train():
         "bit-equal to 'none'; two forward+backward runs byte-equal")
     del trainer, model
     _free_card()
-    return {"launches": launches["gc_fused"], "gaps": gaps}
+    return {"launches": launches["gc_fused"], "gaps": gaps, "losses": [h["loss"] for h in hist],
+            "sim": sim, "arch": "jamba-v0.1-52b", "phase": "jamba-train"}
 
 
 def _xlstm_state_bytes(cfg, slab) -> int:
-    """Bytes of one slot's state over every layer (``pos`` aside)."""
-    return sum(t.element_size() * t[:, 0].numel() for seg in slab for tree in seg
-               for k, t in tree.items() if k != "pos")
+    """Bytes of one slot's state over every layer (``pos`` aside): a
+    stacked tree's slot is its second axis (its ``pos`` is (layers, slots)),
+    a single layer's its first."""
+    return sum(t.element_size() * (t[:, 0] if tree["pos"].ndim == 2 else t[0]).numel()
+               for tree in _slab_trees(slab) for k, t in tree.items() if k != "pos")
+
+
+def _layer_mixer(cfg, model, i: int) -> dict:
+    """Layer ``i``'s mixer parameters, as ``stack.apply_stack`` hands them
+    to the layer: from a run of one, a stacked run at its index, or a
+    pattern's position at its repeat."""
+    from repro_torch.models.stack import Run, _tree, plan_segments
+
+    first = 0
+    for seg, node in zip(plan_segments(cfg.layers), model.stack):
+        n = seg.count if isinstance(seg, Run) else len(seg.specs) * seg.repeats
+        if i < first + n:
+            if isinstance(seg, Run) and seg.count == 1:
+                return _tree(node)["mixer"]
+            r, j = (i - first, None) if isinstance(seg, Run) else divmod(i - first,
+                                                                         len(seg.specs))
+            index = {id(t): t.unbind(0)[r] for t in node.parameters()}
+            return _tree(node if j is None else node[j], index)["mixer"]
+        first += n
+    raise IndexError(f"layer {i} of {cfg.n_layers}")
 
 
 def _xlstm_fp32_ops(cfg, s: int, b: int, decode: bool) -> int:
@@ -4923,7 +5297,6 @@ def _xlstm_times(cfg, model, slab, g) -> dict:
 
     from repro_torch.models import xlstm
     from repro_torch.models.model import decode_step, prefill
-    from repro_torch.models.stack import _tree
 
     n_params = sum(t.numel() for t in model.leaves())
     s, b = g["prefill_len"], g["n_slots"]
@@ -4931,7 +5304,8 @@ def _xlstm_times(cfg, model, slab, g) -> dict:
     vocab, d = cfg.vocab, cfg.d_model
     tok = torch.from_numpy(np.random.default_rng(1).integers(0, vocab, size=(1, s))).cuda()
     tokens = torch.arange(1, b + 1, device="cuda")[:, None]
-    caches = [[{k: v.clone() for k, v in tree.items()} for tree in seg] for seg in slab]
+    caches = [[{k: v.clone() for k, v in tree.items()} for tree in seg] if isinstance(seg, list)
+              else {k: v.clone() for k, v in seg.items()} for seg in slab]
     cases = {"prefill": (4 * n_params + state + 4 * s * vocab, 2 * n_params * s,
                          _xlstm_fp32_ops(cfg, s, 1, False), f"S={s} B=1"),
              "decode_step": (4 * n_params + 2 * state * b + 4 * b * vocab, 2 * n_params * b,
@@ -4960,13 +5334,11 @@ def _xlstm_times(cfg, model, slab, g) -> dict:
         del caches
         gen = torch.Generator(device="cuda").manual_seed(0)
         x = torch.randn((1, s, d), generator=gen, device="cuda").to(torch.bfloat16)
-        node = model.stack[0]
-        unbound = {id(t): t.unbind(0) for t in node.parameters()}
-        index = {k: v[0] for k, v in unbound.items()}
-        layers = {"mlstm": _tree(node[0], index)["mixer"], "slstm": _tree(node[7], index)["mixer"]}
+        first = {k: [l.mixer for l in cfg.layers].index(k) for k in ("mlstm", "slstm")}
+        layers = {k: _layer_mixer(cfg, model, i) for k, i in first.items()}
         pieces = {}
         for kind, fn in (("mlstm", xlstm.mlstm_forward), ("slstm", xlstm.slstm_forward)):
-            spec = cfg.layers[0 if kind == "mlstm" else 7]
+            spec = cfg.layers[first[kind]]
 
             def call(fn=fn, p=layers[kind], spec=spec):
                 return fn(cfg, p, x, spec, mode="prefill")
@@ -5065,10 +5437,10 @@ def _xlstm_teacher_forcing(cfg, model, outputs, s: int) -> dict:
 
 
 def phase_xlstm_serve():
-    """Full-width xlstm-1.3b cut in depth (d_model 2048; 16 of 48 layers:
-    one pattern of 8 — seven mLSTM layers of d_inner 4,096 over 4 heads of
-    1,024 and an sLSTM layer — over 2 repeats; no FFN sublayers; vocab
-    50,304, tied; bf16 activations), 707,864,688 parameters, in a
+    """Full-width xlstm-1.3b cut in depth (d_model 2048; 8 of 48 layers:
+    one period — a run of seven mLSTM layers of d_inner 4,096 over 4 heads
+    of 1,024 and an sLSTM layer; no FFN sublayers; vocab 50,304, tied;
+    bf16 activations), 405,444,664 parameters, in a
     ``ServeEngine`` of 8 slots over a bf16 slab: 16 requests of 512-token
     prompts and 32 new tokens each (``_serve_run``'s gates).  The slab
     holds a fixed state per slot and no K/V: ``C``, ``n``, ``m`` and the
@@ -5093,26 +5465,27 @@ def phase_xlstm_serve():
         raise AssertionError(f"[xlstm-serve] not the published layout: {mixers}")
     model = GCLM(cfg, device="cuda", seed=0)
     n_params = sum(t.numel() for t in model.leaves())
-    if n_params != 707_864_688 or len(model.leaves()) != 94:
+    if n_params != 405_444_664 or len(model.leaves()) != 22:
         raise AssertionError(f"[xlstm-serve] {n_params} parameters in {len(model.leaves())} "
-                             "leaves, expected 707,864,688 in 94")
+                             "leaves, expected 405,444,664 in 22")
     run = _serve_run("xlstm-serve", cfg, model, g)
     eng, reqs = run["eng"], run["reqs"]
-    (seg,) = eng.slab
+    trees = _slab_trees(eng.slab)
     state = _xlstm_state_bytes(cfg, eng.slab)
-    dtypes = {k: str(t.dtype) for tree in seg for k, t in tree.items() if k != "pos"}
-    if state != 235_520_224 or dtypes.pop("conv") != "torch.bfloat16" or \
+    dtypes = {k: str(t.dtype) for tree in trees for k, t in tree.items() if k != "pos"}
+    m_tree = next(tree for tree in trees if "C" in tree)
+    if state != 117_760_112 or dtypes.pop("conv") != "torch.bfloat16" or \
             set(dtypes.values()) != {"torch.float32"}:
         raise AssertionError(f"[xlstm-serve] the slab's state: {state} bytes per slot, {dtypes}")
     log(f"[xlstm-serve] slab: no K/V; a fixed state of {state} bytes per slot whatever the "
-        f"length ({7 * periods} mLSTM layers x (C {tuple(seg[0]['C'].shape[2:])} + n + m fp32, "
-        f"conv {tuple(seg[0]['conv'].shape[2:])} bf16) + {periods} sLSTM layers x 4 x "
+        f"length ({7 * periods} mLSTM layers x (C {tuple(m_tree['C'].shape[-3:])} + n + m "
+        f"fp32, conv {tuple(m_tree['conv'].shape[-2:])} bf16) + {periods} sLSTM layers x 4 x "
         f"{cfg.d_model} fp32), "
         f"{state * g['n_slots']} bytes for {g['n_slots']} slots")
     times = _xlstm_times(cfg, model, eng.slab, g)
     tokens_per_s, peak = run["tokens_per_s"], run["peak"]
     outputs = [r.output for r in reqs[:3]]
-    del run, eng, reqs, seg
+    del run, eng, reqs, trees, m_tree
     _free_card()
     tf = _xlstm_teacher_forcing(cfg, model, outputs, g["prompt_len"])
     log(f"[xlstm-serve] max_memory_allocated during the engine run {peak} bytes "
@@ -5666,16 +6039,19 @@ def main() -> int:
     wave_launches = timed("wave", phase_wave)
     tune_launches = timed("tune", phase_tune)
     moe_train = timed("moe-train", phase_moe_train)
+    deepseek = timed("deepseek-train", phase_deepseek_train)
+    jamba = timed("jamba-train", phase_jamba_train)
     spmd_launches, spmd_times, axis_losses = timed("spmd", phase_spmd)
-    tp_launches, moe_tp_launches, tp_times, tp_state_ranks, tp_state_work = timed(
-        "tp", phase_tp, axis_losses, moe_train["losses"])
+    tp_launches, tp_times, tp_state_ranks, tp_state_work = timed(
+        "tp", phase_tp, axis_losses, moe_train["losses"], {"mla-tp": deepseek,
+                                                           "mamba-tp": jamba})
     ckpt_launches, n_digits = timed("ckpt", phase_ckpt)
     tp_state_launches = timed("tp-state", phase_tp_state, tp_state_ranks, tp_state_work)
     enc_err, enc_times = timed("encode", phase_encode, n_digits)
     trip_launches, dec_err, dec_times = timed("decode", phase_decode)
     timed("serve", phase_serve)
     tp_serve = timed("tp-serve", phase_tp_serve)
-    moe_tp_serve = timed("moe-tp-serve", phase_moe_tp_serve)
+    axis_serve = timed("axis-tp-serve", phase_axis_tp_serve)
     timed("reference", phase_reference)
     gemma = timed("gemma-train", phase_gemma_train)
     timed("gemma3-serve", phase_gemma3_serve)
@@ -5684,9 +6060,7 @@ def main() -> int:
     timed("qwen-serve", phase_qwen_serve)
     timed("mixtral-serve", phase_mixtral_serve)
     timed("deepseek-serve", phase_deepseek_serve)
-    deepseek = timed("deepseek-train", phase_deepseek_train)
     timed("jamba-serve", phase_jamba_serve)
-    jamba = timed("jamba-train", phase_jamba_train)
     timed("xlstm-serve", phase_xlstm_serve)
     xlstm = timed("xlstm-train", phase_xlstm_train)
     whisper = timed("whisper-train", phase_whisper_train)
@@ -5707,12 +6081,14 @@ def main() -> int:
     # the tuned trainer, spmd (every rank's launches)
     fused_launches = {"train": launches["gc_fused"], "adapt": adapt_launches["gc_fused"],
                       "wave": wave_launches["gc_fused"], "tune": tune_launches["gc_fused"],
-                      "spmd": spmd_launches, "tp": tp_launches, "gemma": gemma["launches"],
+                      "spmd": spmd_launches, "tp": tp_launches["tp"], "gemma": gemma["launches"],
                       "moe": moe_train["launches"], "deepseek": deepseek["launches"],
                       "jamba": jamba["launches"], "xlstm": xlstm["launches"],
                       "whisper": whisper["launches"], "vision": vision["launches"],
                       "dryrun": dryrun["launches"], "tp-serve": tp_serve["launches"],
-                      "moe-tp": moe_tp_launches, "moe-tp-serve": moe_tp_serve["launches"],
+                      "moe-tp": tp_launches["moe-tp"],
+                      "mla-tp": tp_launches["mla-tp"], "mamba-tp": tp_launches["mamba-tp"],
+                      **{tag: v["launches"] for tag, v in axis_serve.items()},
                       "gemma3-tp-serve": gemma3_tp_serve["launches"],
                       "tp-state": tp_state_launches["gc_fused"]}
     print(json.dumps({"kernels": [

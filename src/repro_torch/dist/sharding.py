@@ -103,9 +103,10 @@ class ModelSplit:
     """Where a module lies on a mesh's ``model`` axis, as
     ``models.params.shard_model`` cut it: the mesh and the logical axes
     its leaves are split on (``"heads"``, ``"kv_heads"``, ``"mlp"``,
-    ``"vocab"``, and a MoE's ``"experts"`` or ``"expert_mlp"``).  The
-    layers ask ``name in split.axes`` which of their products to reduce
-    over the model group."""
+    ``"d_inner"``, ``"vocab"``, and a MoE's ``"experts"`` or
+    ``"expert_mlp"``).  The layers ask ``name in split.axes`` which of
+    their products to reduce over the model group (an MLP asks its own
+    width: ``layers.apply_mlp``)."""
 
     mesh: object
     axes: frozenset

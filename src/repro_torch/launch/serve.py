@@ -44,14 +44,18 @@ shards (``params.init_shards``, the one-rank launcher's weights cut), and
 rank 0 alone prints.  ``--backend`` defaults from the device (``nccl``,
 one card per rank; ``gloo`` on the CPU, or to rehearse several ranks on
 one card).  The model axis takes the dense families (gc-lm-110m, Gemma,
-Qwen 1.5) and mixtral-8x22b (its experts split by their FFN width, as
-the reference splits them; a MoE layer counts its capacity over every
-data rank's slots); the others raise before any process group exists
-(ROADMAP 6c: MLA, Mamba, xLSTM, cross-attention):
+Qwen 1.5), mixtral-8x22b (its experts split by their FFN width, as the
+reference splits them; a MoE layer counts its capacity over every data
+rank's slots), deepseek-v3-671b (MLA's heads split, the latent cache
+whole on every rank) and jamba-v0.1-52b (the Mamba mixers' channels and
+their state split); xLSTM and the cross-attention families (Whisper,
+Llama-3.2-vision) raise before any process group exists (ROADMAP 6c):
 
     torchrun --nproc-per-node 4 -m repro_torch.launch.serve --reduced \
         --device cpu --data-par 2 --model-par 2 --stream 8
     torchrun --nproc-per-node 4 -m repro_torch.launch.serve --arch mixtral-8x22b \
+        --reduced --device cpu --data-par 2 --model-par 2 --stream 8
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve --arch jamba-v0.1-52b \
         --reduced --device cpu --data-par 2 --model-par 2 --stream 8
 
     python -m repro_torch.launch.serve --arch gemma3-27b --reduced --device cpu
@@ -190,7 +194,7 @@ def main(argv=None):
     if args.stream > 0 and (cfg.vision is not None or cfg.encoder is not None):
         raise SystemExit("--stream serves text-only configs (the engine does not take "
                          "aux_inputs)")
-    if args.model_par > 1:  # the families off the axis raise here (ROADMAP 6c)
+    if args.model_par > 1:  # xLSTM and cross-attention raise here (ROADMAP 6c)
         shard_dims(cfg, meta_mesh(args.data_par, model=args.model_par))
     mesh = None
     if args.data_par > 1 or args.model_par > 1:

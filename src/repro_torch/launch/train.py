@@ -53,18 +53,20 @@ the rank and world from ``torchrun``'s environment:
 ``--backend`` defaults from the device (``nccl`` on CUDA, one card per
 rank; ``gloo`` on the CPU; ``--backend gloo`` rehearses several ranks on
 one card).  Only rank 0 prints.  ``--model-par M`` splits each worker
-over M tensor-parallel ranks (the ``model`` axis: attention heads, MLP
-widths, a MoE's experts and the vocabulary,
+over M tensor-parallel ranks (the ``model`` axis: attention and MLA
+heads, MLP widths, Mamba channels, a MoE's experts and the vocabulary,
 ``repro_torch.dist.sharding``), so the job runs ``--data-par · M``
 ranks:
 
     torchrun --nproc-per-node 8 -m repro_torch.launch.train --data-par 4 \
         --model-par 2 --backend gloo
 
-The model axis takes the dense families (gc-lm-110m, Gemma, Qwen 1.5)
-and mixtral-8x22b (its experts split where the reference's rule splits
+The model axis takes the dense families (gc-lm-110m, Gemma, Qwen 1.5),
+mixtral-8x22b (its experts split where the reference's rule splits
 them: by their FFN width at the published ``shard_experts=False``, and
-``--reduced``'s width of 341 stays whole at model 2); the other families
+``--reduced``'s width of 341 stays whole at model 2), deepseek-v3-671b
+(MLA's heads and its multi-token prediction module) and jamba-v0.1-52b
+(the Mamba mixers' channels); xLSTM and the cross-attention families
 raise before any process group exists (ROADMAP 6c), and every option of
 one process runs on the axis: ``--ckpt`` and ``--ckpt-coded`` (the
 checkpoint is the full tree, saved from rank 0's model group and restored by rank 0's
@@ -181,7 +183,7 @@ def main(argv=None):
     if args.model_par > 1 and args.data_par == 1 and not args.uncoded:
         raise ValueError(f"--model-par {args.model_par} splits spmd workers: pass "
                          f"--data-par {args.workers}")
-    if args.model_par > 1:  # the families off the axis raise here (ROADMAP 6c)
+    if args.model_par > 1:  # xLSTM and cross-attention raise here (ROADMAP 6c)
         shard_dims(cfg, meta_mesh(args.data_par, model=args.model_par))
     mesh = None
     if args.data_par > 1 or args.model_par > 1:

@@ -61,16 +61,16 @@ def apply_layer(cfg, p, x, spec, *, mode="train", cache=None, source=None,
     MoE load-balance loss (fp32), or None for a dense FFN or none (the
     reference's zero, which adds nothing to the sum).  ``tp`` is the
     ``dist.sharding.ModelSplit`` of a module on the ``model`` axis
-    (``params.shard_model``): attention, the dense MLP and the MoE FFN
-    then run on this rank's shards.  ``rows``: the ``RowSplit`` of a
-    serving decode's rows over the data ranks, which a MoE FFN's capacity
-    counts (``moe.apply_moe``)."""
+    (``params.shard_model``): attention, MLA, the Mamba mixer, the dense
+    MLP and the MoE FFN then run on this rank's shards.  ``rows``: the
+    ``RowSplit`` of a serving decode's rows over the data ranks, which a
+    MoE FFN's capacity counts (``moe.apply_moe``)."""
     h = apply_norm(p["norm_mix"], x)
     if spec.mixer == "cross_attn":
         h, new_cache = _cross(cfg, p["mixer"], h, source), cache
     else:
         forward, _ = _mixer(spec)
-        kw = {} if tp is None else {"tp": tp}  # of the mixers, only attention splits
+        kw = {} if tp is None else {"tp": tp}  # xLSTM's mixers never get one (6c)
         h, new_cache = forward(cfg, p["mixer"], h, spec, mode=mode, cache=cache,
                                target_len=target_len, **kw)
     if cfg.post_norm:
@@ -97,9 +97,10 @@ def init_layer_cache(cfg, spec, batch: int, seq_len: int, dtype=torch.bfloat16,
     ``C``/``n``/``m``/``conv`` for ``mlstm``, ``h``/``c``/``n``/``m`` for
     ``slstm``; None for ``cross_attn`` (its K/V come from the source,
     recomputed each step).  ``tp``: a sharded module's ``ModelSplit``
-    (attention then holds this rank's KV heads)."""
+    (attention then holds this rank's KV heads, MLA the whole latent,
+    Mamba the rank's channels)."""
     if spec.mixer == "cross_attn":
         return None
     _, init_cache = _mixer(spec)
-    kw = {} if tp is None else {"tp": tp}  # of the mixers, only attention splits
+    kw = {} if tp is None else {"tp": tp}  # xLSTM's mixers never get one (6c)
     return init_cache(cfg, spec, batch, seq_len, dtype, device, **kw)

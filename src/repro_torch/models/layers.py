@@ -13,8 +13,9 @@ column shards and ``wo`` a row shard, so the rank's output is a partial
 sum, all-reduced over the model group (``reduce_from_model``) while the
 input's gradient is all-reduced backward (``copy_to_model``); an MLP
 whose width the axis does not divide stays replicated and needs no
-collective.  The embedding is vocab-parallel — ids outside the rank's
-rows looked up as row 0 and zeroed, then all-reduced — and the head
+collective (decided per MLP, from its width).  The embedding is
+vocab-parallel — ids outside the rank's rows looked up as row 0 and
+zeroed, then all-reduced — and the head
 gives the rank's slice of the logits (``model._xent`` reduces them in
 training; serving all-gathers the rows it samples, ``gather_vocab``).
 ``tp.axes`` says which of the logical axes ``mlp`` and ``vocab`` are
@@ -95,12 +96,17 @@ def _act(cfg, x):
     return F.gelu(x, approximate="tanh")
 
 
-def apply_mlp(cfg, p, x, tp=None):
+def apply_mlp(cfg, p, x, tp=None, width: int = 0):
     """The MLP: gated, (act(x @ wg) * (x @ wi)) @ wo with act silu
     (SwiGLU) or gelu (GeGLU), when ``p`` has ``wg``; else ungated,
     act(x @ wi) @ wo (``activation="gelu_mlp"``: tanh gelu).  With
-    ``tp`` and split widths, this rank's columns, then the all-reduce."""
-    group = tp.model_group if tp is not None and "mlp" in tp.axes else None
+    ``tp``, where the rank holds fewer columns than the MLP's ``width``
+    (``cfg.d_ff`` when 0; a MoE's shared experts pass theirs), its
+    columns, then the all-reduce: the reference splits each MLP where its
+    own width divides the axis, so one model can split one and not
+    another (DeepSeek's dense MLP and shared experts)."""
+    split = tp is not None and p["wi"].shape[-1] != (width or cfg.d_ff)
+    group = tp.model_group if split else None
     if group is not None:
         x = copy_to_model(x, group)
     h = torch.einsum("bsd,df->bsf", x, p["wi"].to(x.dtype))

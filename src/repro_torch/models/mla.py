@@ -31,6 +31,21 @@ through ``W_uv``, then ``wo``.  ``pos`` is a scalar (the batch in
 lockstep) or a ``(B,)`` row vector (the serving slab); the step writes
 this token's ``c_kv``/``k_r`` **in place** at ``pos % cap`` per row and
 advances ``pos`` in place, as ``attention.py`` does for K/V.
+
+On the ``model`` axis (``tp``, a ``dist.sharding.ModelSplit`` that splits
+``heads``) a rank holds its heads' ``wq_b``, ``wk_b``, ``wv_b`` and
+``wo`` and the whole of ``wq_a``, ``q_a_norm``, ``wkv_a``, ``kv_a_norm``
+and ``wk_rope``, as the reference's rules split them.  Every rank
+computes the whole query latent ``cq``, the KV latent ``c_kv`` and the
+shared RoPE key ``k_r`` and uses them for its own heads only, so their
+gradients are partial: each passes through ``copy_to_model`` after its
+norm or RoPE (three all-reduces backward), which leaves the gradients of
+the input and of the replicated leaves whole on every rank with no
+other collective.  The output projection's partial sums are all-reduced
+once (``reduce_from_model``).  The decode cache stays whole on every
+rank (the reference's ``mla_cache_axes`` split nothing), and the
+absorbed decode runs the rank's heads against it, then the one
+all-reduce.
 """
 from __future__ import annotations
 
@@ -38,6 +53,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..dist.collectives import copy_to_model, reduce_from_model
 from .attention import kv_chunks, online_softmax, softmax_update
 from .layers import rms_norm, rope
 
@@ -46,42 +62,58 @@ __all__ = ["mla_forward", "init_mla_cache"]
 NEG_INF = -1e30
 
 
-def _queries(cfg, p, x, positions):
-    """x: (B,S,d) -> q_nope (B,S,H,nope), q_rope (B,S,H,rope) with RoPE."""
+def _model_group(tp):
+    """The model group when ``tp`` splits the heads, else None."""
+    return tp.model_group if tp is not None and "heads" in tp.axes else None
+
+
+def _to_heads(t, group):
+    """``t``, every head's shared input, as a rank's heads read it: behind
+    ``copy_to_model`` where the heads are split (its gradient summed over
+    the model group)."""
+    return t if group is None else copy_to_model(t, group)
+
+
+def _queries(cfg, p, x, positions, group=None):
+    """x: (B,S,d) -> q_nope (B,S,H,nope), q_rope (B,S,H,rope) with RoPE, of
+    the heads ``p["wq_b"]`` holds."""
     m = cfg.mla
     dt = x.dtype
     cq = rms_norm(torch.einsum("bsd,dr->bsr", x, p["wq_a"].to(dt)), p["q_a_norm"])
-    q = torch.einsum("bsr,rhx->bshx", cq, p["wq_b"].to(dt))
+    q = torch.einsum("bsr,rhx->bshx", _to_heads(cq, group), p["wq_b"].to(dt))
     q_nope = q[..., :m.qk_nope_head_dim]
     q_rope = rope(q[..., m.qk_nope_head_dim:], positions, cfg.rope_base)
     return q_nope, q_rope
 
 
-def _latents(cfg, p, x, positions):
+def _latents(cfg, p, x, positions, group=None):
     """x: (B,S,d) -> c_kv (B,S,kv_lora_rank), k_r (B,S,rope) with RoPE."""
     dt = x.dtype
     c_kv = rms_norm(torch.einsum("bsd,dr->bsr", x, p["wkv_a"].to(dt)), p["kv_a_norm"])
     k_r = rope(torch.einsum("bsd,dx->bsx", x, p["wk_rope"].to(dt)), positions, cfg.rope_base)
-    return c_kv, k_r
+    return _to_heads(c_kv, group), _to_heads(k_r, group)
 
 
 def _scale(cfg) -> float:
     return 1.0 / np.sqrt(cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim)
 
 
-def mla_forward(cfg, p, x, spec, *, mode="train", cache=None, target_len: int = 0):
+def mla_forward(cfg, p, x, spec, *, mode="train", cache=None, target_len: int = 0,
+                tp=None):
     """The MLA sublayer.  Returns (out, cache): ``None`` in training, the
     prefill's new cache of capacity ``max(target_len, S + 1)``, or the
-    decode cache updated in place."""
+    decode cache updated in place.  With ``tp``, this rank's heads, then
+    the all-reduce; the cache holds the whole latent."""
+    group = _model_group(tp)
     if mode == "decode":
-        return _decode(cfg, p, x, cache), cache
+        return _decode(cfg, p, x, cache, group), cache
     if mode not in ("train", "prefill"):
         raise ValueError(f"unknown mode {mode!r}")
     s = x.shape[1]
     dt = x.dtype
     positions = torch.arange(s, device=x.device)[None, :]
-    q_nope, q_rope = _queries(cfg, p, x, positions)
-    c_kv, k_r = _latents(cfg, p, x, positions)
+    q_nope, q_rope = _queries(cfg, p, x, positions, group)
+    c_kv, k_r = _latents(cfg, p, x, positions, group)
     k_nope = torch.einsum("bsr,rhx->bshx", c_kv, p["wk_b"].to(dt))
     v = torch.einsum("bsr,rhx->bshx", c_kv, p["wv_b"].to(dt))
     chunk, n_chunks, pad = kv_chunks(cfg, s)
@@ -103,6 +135,8 @@ def mla_forward(cfg, p, x, spec, *, mode="train", cache=None, target_len: int = 
 
     out = online_softmax(cfg, n_chunks, step).transpose(1, 2).to(dt)
     y = torch.einsum("bshx,hxd->bsd", out, p["wo"].to(dt))
+    if group is not None:
+        y = reduce_from_model(y, group)
     new_cache = None
     if mode == "prefill":
         pad = (0, 0, 0, max(target_len, s + 1) - s)
@@ -111,17 +145,18 @@ def mla_forward(cfg, p, x, spec, *, mode="train", cache=None, target_len: int = 
     return y, new_cache
 
 
-def _decode(cfg, p, x, cache):
+def _decode(cfg, p, x, cache, group=None):
     """x: (B, 1, d) against the latent cache; writes this token's latent
-    at ``pos % cap`` and advances ``pos``, both in place."""
+    at ``pos % cap`` and advances ``pos``, both in place.  With the model
+    ``group``, the rank's heads and the output projection's all-reduce."""
     b = x.shape[0]
     dt = x.dtype
     pos = cache["pos"]
     c_cache, kr_cache = cache["c_kv"], cache["k_r"]
     cap = c_cache.shape[1]
     pos_b = (pos.expand(b) if pos.ndim == 0 else pos).long()  # one position per row
-    q_nope, q_rope = _queries(cfg, p, x, pos_b[:, None])
-    c_new, kr_new = _latents(cfg, p, x, pos_b[:, None])
+    q_nope, q_rope = _queries(cfg, p, x, pos_b[:, None], group)
+    c_new, kr_new = _latents(cfg, p, x, pos_b[:, None], group)
     rows = torch.arange(b, device=x.device)
     slot = torch.remainder(pos_b, cap)
     c_cache.index_put_((rows, slot), c_new[:, 0].to(c_cache.dtype))
@@ -138,12 +173,14 @@ def _decode(cfg, p, x, cache):
     lat = torch.einsum("bhqc,bcr->bqhr", w, c_lat)  # attention in latent space
     out = torch.einsum("bqhr,rhx->bqhx", lat, p["wv_b"].to(dt))
     pos.add_(1)
-    return torch.einsum("bshx,hxd->bsd", out, p["wo"].to(dt))
+    y = torch.einsum("bshx,hxd->bsd", out, p["wo"].to(dt))
+    return y if group is None else reduce_from_model(y, group)
 
 
 def init_mla_cache(cfg, spec, batch: int, seq_len: int, dtype=torch.bfloat16,
-                   device="cuda"):
-    """An empty latent cache of capacity ``seq_len``."""
+                   device="cuda", tp=None):
+    """An empty latent cache of capacity ``seq_len``; the same whole latent
+    on every rank of a ``model`` axis (``tp``)."""
     m = cfg.mla
     return {
         "c_kv": torch.zeros((batch, seq_len, m.kv_lora_rank), dtype=dtype, device=device),

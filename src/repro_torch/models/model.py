@@ -23,7 +23,9 @@ trains and serves on its shards: the layers reduce over the model group,
 the logits (``_xent``), and ``prefill`` and ``decode_step`` all-gather
 the logits they return over the vocabulary (``layers.gather_vocab``) —
 with ``last_only``, the last position's alone, which is all a server
-samples.  Its caches hold its KV heads (``init_decode_caches(tp=)``)."""
+samples.  Its caches hold its KV heads, MLA's whole latent and its
+Mamba channels' state (``init_decode_caches(tp=)``); DeepSeek-V3's
+multi-token prediction loss runs on the shards too (``_mtp_loss``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -197,19 +199,24 @@ def _mtp_loss(cfg, model, tokens, hidden):
     from ``[norm_h(h_t) ; norm_e(emb(t+k))]`` through ``proj``, one extra
     layer (the last layer's spec with a dense FFN; outside the stack, no
     remat) and the shared final norm and head; sequential over depth, the
-    cross-entropies summed in fp32."""
+    cross-entropies summed in fp32.  On the ``model`` axis the embedding,
+    the layer, the head and the cross-entropy run on the rank's shards as
+    ``forward`` and ``train_loss`` run theirs; ``proj`` is replicated, and
+    its input's and output's gradients are whole on every rank."""
     spec = dataclasses.replace(cfg.layers[-1], moe=None)
+    tp = model_axis(model)
     embed = dict(model.embed.named_parameters())
     h, total = hidden, torch.zeros((), dtype=torch.float32, device=hidden.device)
     for k, node in enumerate(model.mtp, start=1):
         mp = _tree(node)
-        emb_next = embed_tokens(cfg, model.embed.tok, tokens[:, k:-1])
+        emb_next = embed_tokens(cfg, model.embed.tok, tokens[:, k:-1], tp)
         merged = torch.cat([rms_norm(h[:, :emb_next.shape[1]], mp["norm_h"]["scale"]),
                             rms_norm(emb_next, mp["norm_e"]["scale"])], dim=-1)
         h = torch.einsum("bsd,de->bse", merged, mp["proj"].to(merged.dtype))
-        h, _, _ = apply_layer(cfg, mp["layer"], h, spec)
-        logits = unembed(cfg, embed, rms_norm(h, model.final_norm.scale))
-        total = total + _xent(logits, tokens[:, 1 + k:])
+        h, _, _ = apply_layer(cfg, mp["layer"], h, spec, tp=tp)
+        logits = unembed(cfg, embed, rms_norm(h, model.final_norm.scale), tp)
+        total = total + _xent(logits, tokens[:, 1 + k:], None,
+                              vocab_start(logits.shape[-1], tp), tp)
     return total
 
 
@@ -253,7 +260,7 @@ def init_decode_caches(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
     and xLSTM's as attention's — the serving slab's layout, where each slot decodes
     at its own depth.  A cross-attention mixer's entry is None.  ``tp``
     (a sharded module's ``model.tp``): the caches of that rank's KV
-    heads."""
+    heads and Mamba channels (MLA's latent whole)."""
     dev = resolve_device(device)
     caches = init_stack_caches(cfg, batch, seq_len, dtype, dev, tp)
     fill = seq_len - 1 if filled is None else int(filled)

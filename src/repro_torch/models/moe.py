@@ -26,7 +26,8 @@ expert input's (t, d) — in (a) that input is also the router's, whose
 column shard gives a partial gradient too, so one ``copy_to_model``
 serves both.  The load-balance loss reads the whole probabilities, so
 its gradient is whole on every rank and summed once.  Shared experts
-follow the dense MLP's ``mlp`` rule (``layers.apply_mlp``).
+follow the dense MLP's ``mlp`` rule at their own width
+(``layers.apply_mlp``).
 
 Serving on data-parallel slots (``rows``: a ``dist.sharding.RowSplit``
 whose axes split the call's rows over the data ranks) counts the
@@ -207,5 +208,5 @@ def apply_moe(cfg, p, x, spec, tp=None, rows=None):
     out = out.view(b, s, d)
 
     if "shared" in p:
-        out = out + apply_mlp(cfg, p["shared"], x, tp)
+        out = out + apply_mlp(cfg, p["shared"], x, tp, moe.d_ff * moe.num_shared)
     return out, aux

@@ -50,11 +50,18 @@ with ``params_from_numpy``.
 Every leaf carries its logical axes as the reference's ``Param.axes``
 names them (``GCLM.leaf_axes``; a stacked leaf's first is ``layers``),
 which ``dist/sharding.py``'s rules map onto a mesh (``shard_dims``).
-``shard_model`` gives a rank of a ``model`` axis its shards (its heads,
-MLP columns or rows, vocabulary rows, a MoE's experts or their FFN
-columns or rows), ``init_shards`` draws them
-without the full tree on the device, and ``gather_model`` all-gathers
-them back.
+A leaf that fuses several outputs along one dimension says so where it
+is declared (``GCLM.leaf_blocks``: Mamba's ``in_proj``, the input x and
+the gate z side by side); the axis cuts each of those blocks, so a rank
+holds its slice of every one (``shard_blocks``), as Megatron's merged
+column-parallel linear does.  ``shard_model`` gives a rank of a
+``model`` axis its shards (its heads, MLP columns or rows, Mamba's
+channels, vocabulary rows, a MoE's experts or their FFN columns or
+rows), ``init_shards`` draws them without the full tree on the device,
+and ``gather_model`` all-gathers them back; ``shard_of`` and its inverse
+``gather_leaf`` are the one cut and the one gather of a leaf, which the
+checkpoint path uses too, so a gathered tree is the reference's layout
+byte for byte.
 """
 from __future__ import annotations
 
@@ -74,21 +81,25 @@ from .stack import Run, plan_segments
 from .xlstm import mlstm_dims, slstm_dims
 
 __all__ = ["ParamNode", "GCLM", "encoder_cfg", "params_from_numpy", "params_to_numpy",
-           "count_params", "shard_dims", "local_shapes", "shard_of", "shard_model",
-           "init_shards", "gather_model"]
+           "count_params", "shard_dims", "shard_blocks", "local_shapes", "shard_of",
+           "gather_leaf", "shard_model", "init_shards", "gather_model"]
 
 
 class ParamNode(nn.Module):
     """A dict node of the parameter tree: named parameters, given as
-    ``(tensor, logical axes)`` pairs, and children.  ``axes[name]`` is the
-    parameter's logical axes, the reference's ``Param.axes``."""
+    ``(tensor, logical axes, blocks)`` triples, and children.
+    ``axes[name]`` is the parameter's logical axes, the reference's
+    ``Param.axes``; ``blocks[name]``, for a leaf that fuses several
+    outputs, ``(dimension, count)``."""
 
     def __init__(self, params: dict = None, children: dict = None):
         super().__init__()
-        self.axes = {}
-        for name, (value, axes) in (params or {}).items():
+        self.axes, self.blocks = {}, {}
+        for name, (value, axes, blocks) in (params or {}).items():
             self.register_parameter(name, nn.Parameter(value))
             self.axes[name] = tuple(axes)
+            if blocks is not None:
+                self.blocks[name] = blocks
         for name, child in (children or {}).items():
             self.add_module(name, child)
 
@@ -98,15 +109,21 @@ def _zeros(shape, device):
 
 
 def _leaf_maker(device, count: int = 1):
-    """``z(axes, *shape)`` -> a zero leaf and its logical axes, with a
-    leading ``(count,)`` axis named ``layers`` when a segment stacks more
-    than one layer (the reference's ``stack_params``)."""
+    """``z(axes, *shape)`` -> a zero leaf, its logical axes and its blocks,
+    with a leading ``(count,)`` axis named ``layers`` when a segment
+    stacks more than one layer (the reference's ``stack_params``).  An
+    entry of ``shape`` given as a tuple of widths is a dimension that
+    fuses that many outputs side by side: its size is their sum, and the
+    blocks ``(that dimension, their number)``."""
     lead, lead_axes = ((count,), ("layers",)) if count > 1 else ((), ())
 
     def z(axes, *shape):
         if len(axes) != len(shape):
             raise ValueError(f"axes {axes} for shape {shape}")
-        return _zeros(lead + shape, device), lead_axes + tuple(axes)
+        blocks = next(((len(lead) + i, len(n)) for i, n in enumerate(shape)
+                       if isinstance(n, tuple)), None)
+        shape = tuple(sum(n) if isinstance(n, tuple) else n for n in shape)
+        return _zeros(lead + shape, device), lead_axes + tuple(axes), blocks
 
     return z
 
@@ -184,7 +201,8 @@ def _mamba_leaves(cfg, z) -> dict:
     """``repro/models/ssm.py::init_mamba``'s nine leaves."""
     m, d_inner, dt_rank = mamba_dims(cfg)
     d, di = cfg.d_model, "d_inner"
-    return {"in_proj": z((_E, di), d, 2 * d_inner), "conv_w": z(("conv", di), m.d_conv, d_inner),
+    return {"in_proj": z((_E, di), d, (d_inner, d_inner)),  # x and the gate z
+            "conv_w": z(("conv", di), m.d_conv, d_inner),
             "conv_b": z((di,), d_inner),
             "x_proj": z((di, "state"), d_inner, dt_rank + 2 * m.d_state),
             "dt_proj": z(("lora", di), dt_rank, d_inner), "dt_bias": z((di,), d_inner),
@@ -321,9 +339,10 @@ class GCLM(nn.Module):
         self.cfg = cfg
         self.axes = {}
         #: where ``shard_model`` cut this module on a ``model`` axis (a
-        #: ``dist.sharding.ModelSplit``) and each leaf's split dimension,
-        #: or None and no splits
-        self.tp, self.shard_dims = None, None
+        #: ``dist.sharding.ModelSplit``), each leaf's split dimension and
+        #: the blocks that dimension is cut in (``shard_blocks``), or None
+        #: and no splits
+        self.tp, self.shard_dims, self.shard_blocks = None, None, None
         z = _leaf_maker(dev)
         embed = {"tok": z(("vocab", _E), cfg.vocab, cfg.d_model)}
         if not cfg.tie_embeddings:
@@ -352,6 +371,13 @@ class GCLM(nn.Module):
         ``Param.axes`` names them (``("layers", "embed", "heads",
         "head_dim")`` for a stacked ``wq``)."""
         return [node.axes[path[-1]] for path, _, node in _walk(self, ())]
+
+    def leaf_blocks(self) -> list:
+        """Every leaf's fused outputs in leaf order: ``(dimension,
+        count)`` for a leaf whose dimension holds ``count`` outputs side
+        by side (Mamba's ``in_proj``: ``(1, 2)``, x then the gate z), else
+        None."""
+        return [node.blocks.get(path[-1]) for path, _, node in _walk(self, ())]
 
     def leaf_paths(self) -> list:
         return [".".join(p) for p, _ in self.leaf_items()]
@@ -441,13 +467,14 @@ def _set_leaf(model, path, value) -> None:
 
 def _unported_on_model_axis(cfg):
     """What of ``cfg`` the port's ``model`` axis does not split yet, with
-    its ROADMAP item, or None: per-head attention, the MLP, a MoE FFN's
-    experts, the embedding and head are ported."""
+    its ROADMAP item, or None: per-head attention, multi-head latent
+    attention and its multi-token prediction modules, the Mamba mixer,
+    the MLP, a MoE FFN's experts, the embedding and head are ported."""
     for spec in cfg.layers:
-        if spec.mixer != "attn" or spec.cross_source:
+        if spec.mixer not in ("attn", "mla", "mamba") or spec.cross_source:
             return f"the {spec.mixer!r} mixer or cross-attention (ROADMAP 6c)"
-    if cfg.encoder is not None or cfg.vision is not None or cfg.mtp_depth:
-        return "an encoder, a vision projector or multi-token prediction (ROADMAP 6c)"
+    if cfg.encoder is not None or cfg.vision is not None:
+        return "an encoder or a vision projector (ROADMAP 6c)"
     return None
 
 
@@ -465,6 +492,24 @@ def shard_dims(cfg, mesh) -> tuple:
                  for t, axes in zip(meta.leaves(), meta.leaf_axes(), strict=True))
 
 
+def shard_blocks(cfg, mesh) -> tuple:
+    """Beside ``shard_dims``: the blocks each leaf's split dimension is cut
+    in, in leaf order — the number of outputs the leaf fuses along that
+    dimension (``GCLM.leaf_blocks``: 2 for Mamba's ``in_proj``), else 1
+    (also for a leaf the axis leaves whole).  Raises ``ValueError`` where
+    a block's width does not split over the axis."""
+    meta = GCLM(cfg, device="meta")
+    out = []
+    for t, dim, fused in zip(meta.leaves(), shard_dims(cfg, mesh), meta.leaf_blocks(),
+                             strict=True):
+        n = fused[1] if dim is not None and fused is not None and fused[0] == dim else 1
+        if dim is not None and t.shape[dim] % (n * mesh.model):
+            raise ValueError(f"{cfg.name}: {n} blocks of dimension {dim} of a {tuple(t.shape)} "
+                             f"leaf do not split over a model axis of {mesh.model}")
+        out.append(n)
+    return tuple(out)
+
+
 def local_shapes(cfg, mesh) -> list:
     """One model rank's leaf shapes (``shard_dims``' splits)."""
     out = []
@@ -476,16 +521,55 @@ def local_shapes(cfg, mesh) -> list:
     return out
 
 
-def shard_of(t: torch.Tensor, dim, mesh) -> torch.Tensor:
-    """This rank's shard of one full leaf ``t`` (a view, not a copy):
-    ``t`` narrowed on ``dim`` — the leaf's ``shard_dims`` entry — to the
-    rank's ``model_index``-th of ``mesh.model`` equal slices; ``t``
-    itself when ``dim`` is None (a replicated leaf)."""
+def shard_of(t: torch.Tensor, dim, mesh, blocks: int = 1) -> torch.Tensor:
+    """This rank's shard of one full leaf ``t``: ``t`` cut on ``dim`` — the
+    leaf's ``shard_dims`` entry — into ``blocks`` equal blocks
+    (``shard_blocks``), each block narrowed to the rank's
+    ``model_index``-th of ``mesh.model`` equal slices, the slices
+    concatenated in block order: a view of ``t`` for one block, a copy
+    for more; ``t`` itself when ``dim`` is None (a replicated leaf)."""
     t = t.detach()
     if dim is None:
         return t
-    n = t.shape[dim] // mesh.model
-    return t.narrow(dim, mesh.model_index * n, n)
+    n = t.shape[dim] // (blocks * mesh.model)
+    if blocks == 1:
+        return t.narrow(dim, mesh.model_index * n, n)
+    parts = t.unflatten(dim, (blocks, mesh.model * n)).narrow(dim + 1, mesh.model_index * n, n)
+    return parts.flatten(dim, dim + 1)
+
+
+def gather_leaf(t: torch.Tensor, dim, group, blocks: int = 1) -> torch.Tensor:
+    """The inverse of ``shard_of``: the full leaf from every model rank's
+    shard ``t`` — one all-gather over ``group`` on ``dim``, then, for more
+    than one block, each block's slices put back side by side in rank
+    order (a copy), the reference's layout; ``t`` itself when ``dim`` is
+    None."""
+    if dim is None:
+        return t
+    full = all_gather(t.detach().contiguous(), group, dim=dim)
+    if blocks == 1:
+        return full
+    m, n = full.shape[dim] // t.shape[dim], t.shape[dim] // blocks
+    return full.unflatten(dim, (m, blocks, n)).transpose(dim, dim + 1).flatten(dim, dim + 2)
+
+
+def _check_split_axes(cfg, local, dims) -> set:
+    """The logical axes ``dims`` split, after checking that each is split
+    in every leaf that names it or in none — except ``mlp``, which the
+    reference's rule splits where an MLP's own width divides the axis
+    (DeepSeek's dense MLP and shared experts can differ): it must agree
+    within each MLP node, and ``layers.apply_mlp`` reads it from the
+    width."""
+    seen = {}
+    for path, axes, dim in zip(local.leaf_paths(), local.leaf_axes(), dims, strict=True):
+        node = path.rsplit(".", 1)[0]
+        for d, a in enumerate(axes):
+            seen.setdefault((node if a == "mlp" else "", a), set()).add(d == dim)
+    mixed = sorted({a for (_, a), split in seen.items() if len(split) > 1})
+    if mixed:
+        raise ValueError(f"{cfg.name}: the model axis splits {mixed} in some leaves but not "
+                         "in others")
+    return {a for (_, a), split in seen.items() if True in split}
 
 
 @torch.no_grad()
@@ -493,25 +577,21 @@ def _cut(cfg, mesh, items) -> GCLM:
     """The rank's module from ``items`` — ``(path, full leaf)`` in leaf
     order, consumed one at a time: each leaf's shard (or the whole leaf)
     is copied and the full leaf let go."""
-    dims = shard_dims(cfg, mesh)
-    local, split = GCLM(cfg, device="meta"), set()
-    for (path, t), axes, dim in zip(items, local.leaf_axes(), dims, strict=True):
-        if dim is not None:
-            split.add(axes[dim])
-        _set_leaf(local, path, shard_of(t, dim, mesh).clone(
+    dims, blocks = shard_dims(cfg, mesh), shard_blocks(cfg, mesh)
+    local = GCLM(cfg, device="meta")
+    for (path, t), dim, n in zip(items, dims, blocks, strict=True):
+        _set_leaf(local, path, shard_of(t, dim, mesh, n).clone(
             memory_format=torch.contiguous_format))
         del t
-    for axes, dim in zip(local.leaf_axes(), dims):  # a logical axis is split everywhere
-        if any((a in split) != (d == dim) for d, a in enumerate(axes)):
-            raise ValueError(f"{cfg.name}: the model axis splits {sorted(split)} in some "
-                             f"leaves but not in one of axes {axes}")
-    local.tp, local.shard_dims = ModelSplit(mesh, frozenset(split)), dims
+    local.tp = ModelSplit(mesh, frozenset(_check_split_axes(cfg, local, dims)))
+    local.shard_dims, local.shard_blocks = dims, blocks
     return local
 
 
 def shard_model(model: GCLM, mesh) -> GCLM:
-    """This rank's module on ``mesh``'s ``model`` axis: every leaf sliced
-    on its ``shard_dims`` dimension at the rank's ``model_index``,
+    """This rank's module on ``mesh``'s ``model`` axis: every leaf cut on
+    its ``shard_dims`` dimension at the rank's ``model_index``
+    (``shard_of``, block by block where the leaf fuses several outputs),
     copied; replicated leaves copied whole.  The result's ``tp`` (a
     ``dist.sharding.ModelSplit``) and ``shard_dims`` tell the layers which
     of their products to reduce over the model group.  ``mesh.model`` 1
@@ -551,16 +631,16 @@ def init_shards(cfg, mesh, *, device="cuda", seed: int = 0, params=None) -> GCLM
 @torch.no_grad()
 def gather_model(local: GCLM, tensors=None) -> GCLM:
     """The inverse of ``shard_model``: a full module whose leaves are the
-    model group's shards all-gathered (one all-gather per split leaf).
-    ``tensors`` (leaf order, local shapes: gradients, moments) gathers
-    those in place of the parameters."""
+    model group's shards gathered (``gather_leaf``: one all-gather per
+    split leaf).  ``tensors`` (leaf order, local shapes: gradients,
+    moments) gathers those in place of the parameters."""
     tensors = local.leaves() if tensors is None else list(tensors)
     dims = local.shard_dims or (None,) * len(tensors)
+    blocks = local.shard_blocks or (1,) * len(tensors)
     full = GCLM(local.cfg, device="meta")
-    for (path, _), t, dim in zip(local.leaf_items(), tensors, dims, strict=True):
-        t = t.detach()
-        if dim is not None:
-            t = all_gather(t.contiguous(), local.tp.model_group, dim=dim)
+    group = None if local.tp is None else local.tp.model_group
+    for (path, _), t, dim, n in zip(local.leaf_items(), tensors, dims, blocks, strict=True):
+        t = gather_leaf(t.detach(), dim, group, n)
         _set_leaf(full, path, t.clone(memory_format=torch.contiguous_format))
     return full
 

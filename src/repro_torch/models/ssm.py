@@ -32,6 +32,21 @@ into the views ``stack.py`` hands each layer, as ``attention.py`` writes
 K/V; the reference returns a new cache whose ``conv`` keeps the
 activations' dtype, where the port rounds it to the cache's (equal when
 they agree).
+
+On the ``model`` axis (``tp``, a ``dist.sharding.ModelSplit`` that splits
+``d_inner``) a rank holds its channels: ``in_proj`` cut block by block
+(``params.shard_of``: its slice of x's columns beside the same slice of
+the gate z's), ``conv_w``, ``conv_b``, ``dt_proj``'s columns,
+``dt_bias``, ``a_log``, ``d_skip``, and the rows of ``x_proj`` and
+``out_proj``.  The input enters through ``copy_to_model`` (``in_proj``
+is column-parallel: its gradient is summed backward).  ``x_proj`` is
+row-parallel: its (B, S, dt_rank + 2·d_state) output is a partial sum,
+all-reduced forward (``reduce_from_model``); dt then feeds the rank's
+columns of ``dt_proj`` and B and C its channels of the scan, so the
+reduced output passes through ``copy_to_model`` too (its gradient summed
+backward).  ``out_proj`` is row-parallel: one more all-reduce.  The
+decode state holds the rank's channels: ``conv`` (B, d_conv-1,
+d_inner/m) and ``h`` (B, d_inner/m, d_state), fp32.
 """
 from __future__ import annotations
 
@@ -39,6 +54,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..dist.collectives import copy_to_model, reduce_from_model
 from ..launch import op_analysis
 
 __all__ = ["mamba_forward", "init_mamba_cache", "mamba_dims", "a_log_init", "dt_bias_init"]
@@ -82,12 +98,15 @@ def _causal_conv(x, w, b, init_state=None):
     return out + b.to(x.dtype), xp[:, -(k - 1):]
 
 
-def _ssm_params(cfg, p, xc):
+def _ssm_params(cfg, p, xc, group=None):
     """Per-token delta (fp32 softplus), A, B and C (fp32) from the conv
-    output xc: (B,S,Di)."""
+    output xc: (B,S,Di) — with the model ``group``, the rank's channels,
+    whose ``x_proj`` product is all-reduced, then copied to them."""
     m, _, dt_rank = mamba_dims(cfg)
     dt = xc.dtype
     proj = torch.einsum("bsi,ir->bsr", xc, p["x_proj"].to(dt))
+    if group is not None:
+        proj = copy_to_model(reduce_from_model(proj, group), group)
     dt_raw, b_t, c_t = torch.split(proj, [dt_rank, m.d_state, m.d_state], dim=-1)
     pre = torch.einsum("bsr,ri->bsi", dt_raw, p["dt_proj"].to(dt)).float() + p["dt_bias"]
     delta = torch.logaddexp(pre, torch.zeros((), dtype=pre.dtype, device=pre.device))
@@ -148,23 +167,36 @@ def _scan_chunked(cfg, delta, a, b_t, c_t, x_in, h0):
     return torch.cat(ys, dim=1)[:, :s], h
 
 
-def mamba_forward(cfg, p, x, spec, *, mode="train", cache=None, target_len: int = 0):
+def _project_out(y, p, group):
+    """``out_proj`` of the gated y, all-reduced over the model ``group``
+    (row-parallel) when there is one."""
+    out = torch.einsum("bsi,id->bsd", y, p["out_proj"].to(y.dtype))
+    return out if group is None else reduce_from_model(out, group)
+
+
+def mamba_forward(cfg, p, x, spec, *, mode="train", cache=None, target_len: int = 0,
+                  tp=None):
     """The Mamba sublayer.  Returns (out, cache): ``None`` in training, the
     prefill's new ``{"conv", "h", "pos"}`` (``target_len`` unused: the
-    state has no sequence axis), or the decode cache updated in place."""
-    m, d_inner, _ = mamba_dims(cfg)
+    state has no sequence axis), or the decode cache updated in place.
+    With ``tp``, this rank's channels and their state."""
+    m = cfg.mamba
+    group = tp.model_group if tp is not None and "d_inner" in tp.axes else None
+    d_inner = p["d_skip"].shape[-1]  # the rank's channels
     b, s, _ = x.shape
     dt = x.dtype
+    if group is not None:
+        x = copy_to_model(x, group)
     xz = torch.einsum("bsd,di->bsi", x, p["in_proj"].to(dt))
     x_in, z = xz.split(d_inner, dim=-1)
     if mode in ("train", "prefill"):
         xc, conv_state = _causal_conv(x_in, p["conv_w"], p["conv_b"])
         xc = F.silu(xc)
-        delta, a, b_t, c_t = _ssm_params(cfg, p, xc)
+        delta, a, b_t, c_t = _ssm_params(cfg, p, xc, group)
         h0 = torch.zeros((b, d_inner, m.d_state), dtype=torch.float32, device=x.device)
         y, h_last = _scan_chunked(cfg, delta, a, b_t, c_t, xc, h0)
         y = y.to(dt) + xc * p["d_skip"].to(dt)
-        out = torch.einsum("bsi,id->bsd", y * F.silu(z), p["out_proj"].to(dt))
+        out = _project_out(y * F.silu(z), p, group)
         new_cache = None
         if mode == "prefill":
             new_cache = {"conv": conv_state.to(dt), "h": h_last,
@@ -174,13 +206,13 @@ def mamba_forward(cfg, p, x, spec, *, mode="train", cache=None, target_len: int 
         raise ValueError(f"unknown mode {mode!r}")
     xc_seq, conv_state = _causal_conv(x_in, p["conv_w"], p["conv_b"], init_state=cache["conv"])
     xc = F.silu(xc_seq)
-    delta, a, b_t, c_t = _ssm_params(cfg, p, xc)
+    delta, a, b_t, c_t = _ssm_params(cfg, p, xc, group)
     da = torch.exp(delta[:, 0, :, None] * a)  # (B, Di, Ns)
     dbx = (delta[:, 0] * xc[:, 0].float())[..., None] * b_t[:, 0, None, :]
     h = da * cache["h"] + dbx
     y = torch.einsum("bin,bn->bi", h, c_t[:, 0])[:, None]  # (B, 1, Di)
     y = y.to(dt) + xc * p["d_skip"].to(dt)
-    out = torch.einsum("bsi,id->bsd", y * F.silu(z), p["out_proj"].to(dt))
+    out = _project_out(y * F.silu(z), p, group)
     cache["conv"].copy_(conv_state)
     cache["h"].copy_(h)
     cache["pos"].add_(1)
@@ -188,10 +220,12 @@ def mamba_forward(cfg, p, x, spec, *, mode="train", cache=None, target_len: int 
 
 
 def init_mamba_cache(cfg, spec, batch: int, seq_len: int, dtype=torch.bfloat16,
-                     device="cuda"):
+                     device="cuda", tp=None):
     """An empty state: ``conv`` in ``dtype``, ``h`` in fp32 (``seq_len``
-    unused)."""
+    unused); with ``tp``, the rank's channels (``ModelSplit.local``)."""
     m, d_inner, _ = mamba_dims(cfg)
+    if tp is not None:
+        d_inner = tp.local("d_inner", d_inner)
     return {
         "conv": torch.zeros((batch, m.d_conv - 1, d_inner), dtype=dtype, device=device),
         "h": torch.zeros((batch, d_inner, m.d_state), dtype=torch.float32, device=device),

@@ -27,8 +27,9 @@ admissions, slots and timestamps agree on every rank with no exchange.
 The slab's slots are split over the data ranks by the ``batch`` rule
 (``dist.sharding.batch_rows``: equal blocks where they divide the slots,
 else every rank holds every slot), and a sharded module's slab holds the
-rank's KV heads.  An admission prefills on the ranks that hold its slot
-(its whole model group: the model ranks' collectives pair up); a decode
+rank's KV heads and Mamba channels beside MLA's whole latent.  An
+admission prefills on the ranks that hold its slot (its whole model
+group: the model ranks' collectives pair up); a decode
 step runs every rank's rows, with the logits gathered over the
 vocabulary — a MoE layer counts its capacity over every rank's rows, as
 the one-rank engine counts it over the whole slab (``moe.apply_moe``'s

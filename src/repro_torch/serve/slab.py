@@ -29,7 +29,8 @@ is None on both sides and is skipped.
 
 On a mesh (``serve.engine.ServeEngine(mesh=)``) a rank's slab holds its
 block of the slots (``dist.sharding.batch_rows``) and, for a sharded
-module, its KV heads (``make_slab(tp=)``); the engine maps a global
+module, its KV heads, MLA's whole latent and its Mamba channels' state
+(``make_slab(tp=)``); the engine maps a global
 slot to the local row it passes to ``insert_request``.
 
 ``caches_from_numpy`` / ``caches_to_numpy`` carry the reference's cache
@@ -51,7 +52,8 @@ def make_slab(cfg, n_slots: int, max_len: int, dtype=torch.bfloat16, device="cud
               tp=None):
     """Empty shared cache slab: capacity ``max_len`` per slot, per-row
     ``pos`` leaves initialized to 0; ``tp`` (a sharded module's
-    ``model.tp``): this rank's KV heads."""
+    ``model.tp``): this rank's KV heads and Mamba channels (MLA's latent
+    whole)."""
     return init_decode_caches(cfg, n_slots, max_len, dtype=dtype, filled=0,
                               row_pos=True, device=device, tp=tp)
 

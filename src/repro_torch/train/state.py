@@ -22,8 +22,7 @@ import numpy as np
 import torch
 
 from ..checkpoint.ckpt import tree_items
-from ..dist.collectives import all_gather
-from ..models.params import GCLM, _lookup, init_shards, params_from_numpy, shard_of
+from ..models.params import GCLM, _lookup, gather_leaf, init_shards, params_from_numpy, shard_of
 from ..optim.optim import adamw_init
 
 __all__ = ["TrainState", "StateTree", "init_train_state", "abstract_train_state",
@@ -66,28 +65,36 @@ class TrainState:
         return h.digest()
 
     def leaf_splits(self) -> list:
-        """``(key, this rank's leaf, its split dimension or None)`` for
-        every leaf of ``checkpoint_tree``, in its order: a moment splits
-        as its parameter; ``count`` and ``step`` are whole."""
+        """``(key, this rank's leaf, its split dimension or None, the blocks
+        that dimension is cut in)`` for every leaf of ``checkpoint_tree``,
+        in its order (``models.params.shard_blocks``): a moment splits as
+        its parameter; ``count`` and ``step`` are whole."""
         model = self.params
-        dims = list(model.shard_dims or (None,) * len(model.leaves()))
-        splits = StateTree(params=model.tree(dims),
-                           opt={"count": None, "m": model.tree(dims), "v": model.tree(dims)},
-                           step=None)
-        return [(key, leaf, dim) for (key, leaf), (_, dim)
-                in zip(tree_items(self.checkpoint_tree()), tree_items(splits), strict=True)]
+        n = len(model.leaves())
+
+        def per_leaf(values, whole):
+            """``values`` (one per parameter) laid out as the state's tree."""
+            return tree_items(StateTree(params=model.tree(values),
+                                        opt={"count": whole, "m": model.tree(values),
+                                             "v": model.tree(values)}, step=whole))
+
+        dims = per_leaf(model.shard_dims or (None,) * n, None)
+        blocks = per_leaf(model.shard_blocks or (1,) * n, 1)
+        return [(key, leaf, dim, b) for (key, leaf), (_, dim), (_, b)
+                in zip(tree_items(self.checkpoint_tree()), dims, blocks, strict=True)]
 
     def full_leaves(self, host: bool = True):
         """The reference's full tree, one leaf at a time: ``(key, leaf)``
-        in ``checkpoint_tree`` order, each split leaf all-gathered over
-        the model group (every rank of the group iterates in step: the
-        gathers pair up), each copied to the host when ``host`` — so at
-        most one full leaf lies on the device besides the shards, and
-        none once the host holds it."""
-        for key, leaf, dim in self.leaf_splits():
-            if dim is not None:  # a view of the gathered leaf, laid out as gathered
-                leaf = all_gather(leaf.detach().contiguous(), self.params.tp.model_group,
-                                  dim=dim)
+        in ``checkpoint_tree`` order, each split leaf gathered over the
+        model group (``models.params.gather_leaf``, the reference's layout;
+        every rank of the group iterates in step: the gathers pair up),
+        each copied to the host when ``host`` — so at most one full leaf
+        lies on the device besides the shards, and none once the host
+        holds it."""
+        group = None if self.params.tp is None else self.params.tp.model_group
+        for key, leaf, dim, blocks in self.leaf_splits():
+            if dim is not None:
+                leaf = gather_leaf(leaf, dim, group, blocks)
             if host and isinstance(leaf, torch.Tensor):
                 leaf = leaf.detach().cpu()
             yield key, leaf
@@ -104,7 +111,7 @@ class TrainState:
         the next is asked for."""
         mesh = self.params.tp.mesh if self.params.tp is not None else None
         scalars = {}
-        for key, leaf, dim in self.leaf_splits():
+        for key, leaf, dim, blocks in self.leaf_splits():
             if not isinstance(leaf, torch.Tensor):
                 scalars[key] = int(source(key, (), torch.int32))
                 continue
@@ -112,7 +119,7 @@ class TrainState:
             if dim is not None:
                 shape[dim] *= mesh.model
             full = source(key, tuple(shape), leaf.dtype)
-            leaf.copy_(full if dim is None else shard_of(full, dim, mesh))
+            leaf.copy_(full if dim is None else shard_of(full, dim, mesh, blocks))
             del full
         return TrainState(params=self.params,
                           opt=dict(self.opt, count=scalars["opt/count"]),

@@ -340,11 +340,11 @@ class Trainer:
         self.state = self.state.fill_from_full(source)
         if arrays is not None:
             tp = self.state.params.tp
-            for key, leaf, dim in self.state.leaf_splits():
+            for key, leaf, dim, blocks in self.state.leaf_splits():
                 got = torch.as_tensor(leaf).detach().cpu()
                 want = torch.as_tensor(arrays.pop(key)).to(got.dtype)
                 if dim is not None:
-                    want = shard_of(want, dim, tp.mesh)
+                    want = shard_of(want, dim, tp.mesh, blocks)
                 if not torch.equal(_bytes_of(got), _bytes_of(want)):
                     raise RuntimeError(f"{key}: the restored state differs from the decoded "
                                        "checkpoint")

@@ -400,6 +400,57 @@ def test_model_mesh_ranks_share_one_card_over_gloo(cuda, tmp_path):
     assert len({o[2] for o in out}) == 1
 
 
+def _tp_jamba_rank(rank, world):
+    """A rank of a (data 2, model 2) mesh on card 0 over gloo with reduced
+    Jamba at three layers (Mamba, Mamba with the MoE FFN, attention): its
+    shards, Mamba's ``in_proj`` cut in 2 blocks, gathered back byte-equal
+    to the full model; one grouped combine per coded gradient (its
+    launches of at most ``_pipe.MAX_LEAVES`` leaves), the gathered
+    gradient equal to sim mode's on the full model.  Returns the rank's
+    model index and its digest."""
+    import hashlib
+
+    from repro_torch.models.params import gather_model, init_shards
+
+    mesh = make_local_mesh(2, model=2, device="cuda:0", backend="gloo")
+    base = get_config("jamba-v0.1-52b").reduced(n_layers=8, d_model=128)
+    cfg = base.replace(n_layers=3, layers=(base.layers[0], base.layers[1], base.layers[4]))
+    full = GCLM(cfg, device="cuda", seed=0)
+    local = init_shards(cfg, mesh, device="cuda", seed=0)
+    assert sorted(b for b in local.shard_blocks if b > 1) == [2, 2]  # the two in_proj leaves
+    assert all(torch.equal(a, b) for a, b in zip(gather_model(local).leaves(), full.leaves(),
+                                                 strict=True))
+    plan = Plan.build(full, ShiftedExponential(mu=1e-3, t0=50.0), 2)
+    data = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=8))
+    wb = coded_worker_batches(data, 0, 2, plan.s_max)
+    spmd = make_coded_grad_fn(cfg, plan, mode="spmd", mesh=mesh)
+    sim = make_coded_grad_fn(cfg, plan)
+    per_call = -(-len(full.leaves()) // _pipe.MAX_LEAVES)
+    h = hashlib.sha256()
+    for u in (0, plan.s_max):
+        times = np.ones(2)
+        times[:u] = 1e6
+        dec_w = plan.decode_weights(times).astype(np.float32)
+        before = gc_fused.launches
+        g = spmd(local, wb, dec_w)
+        torch.cuda.synchronize()
+        assert gc_fused.launches == before + per_call
+        for t in g:
+            h.update(t.reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
+        for a, b in zip(gather_model(local, g).leaves(), sim(full, wb, dec_w), strict=True):
+            assert a.is_cuda and float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    return mesh.model_index, h.hexdigest()
+
+
+def test_jamba_on_a_model_mesh_shares_one_card_over_gloo(cuda, tmp_path):
+    """Four ranks of a (data 2, model 2) mesh on card 0 over gloo, reduced
+    Jamba: the blocked cut round-trips, the gathered coded gradient equals
+    sim mode's, the data ranks of a model index hold the same bytes."""
+    out = spawn(_tp_jamba_rank, 4, store_dir=str(tmp_path), backend="gloo", timeout=600.0)
+    assert [o[0] for o in out] == [0, 1, 0, 1]
+    assert out[0][1] == out[2][1] and out[1][1] == out[3][1] and out[0][1] != out[1][1]
+
+
 def _tp_ckpt_rank(rank, world, ckpt_dir, device="cuda:0"):
     """One rank of a (data 1, model 2) mesh on card 0: reduced
     gc-lm-110m's shards through 2 steps, a coded save, a step on, and a

@@ -257,9 +257,9 @@ def test_model_1_checkpoint_resumes_on_the_axis(ranks, work):
         mesh = meta_mesh(data=R.N, model=2, rank=rank)
         local = shard_model(GCLM(R.cfg(), device="meta"), mesh)
         splits = TrainState(params=local, opt=adamw_init(local.leaves()), step=0).leaf_splits()
-        assert [k for k, _, _ in splits] == list(r["from_m1"]["shards"]) == list(arrays)
-        for key, _, dim in splits:
-            want = shard_of(torch.as_tensor(arrays[key]), dim, mesh).numpy()
+        assert [k for k, *_ in splits] == list(r["from_m1"]["shards"]) == list(arrays)
+        for key, _, dim, blocks in splits:
+            want = shard_of(torch.as_tensor(arrays[key]), dim, mesh, blocks).numpy()
             assert np.array_equal(r["from_m1"]["shards"][key], want), (rank, key)
 
 

@@ -133,7 +133,7 @@ def state_rank(rank, world, paths):
     tr = trainer(mesh, tree, ckpt=CkptConfig(dir=paths["m1"]))
     out["from_m1"] = dict(step=int(tr.state.step), digest=tr.state.digest(),
                           shards={k: np.array(v.detach() if isinstance(v, torch.Tensor) else v)
-                                  for k, v, _ in tr.state.leaf_splits()})
+                                  for k, v, *_ in tr.state.leaf_splits()})
 
     # worker 0 dies: the DeathWatch, a forced re-plan, a coded restore
     # from the survivor, the replay
