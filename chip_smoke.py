@@ -144,6 +144,40 @@ port's sources beside it.  Phases; any failure raises:
    and ``out_proj``, and two copies, its input and ``x_proj``'s reduced
    output; an MLP where its own width divides the axis one of each; the
    MTP module its embedding, layer, head and loss).
+6f''''. xlstm-tp and cross-tp, in 6f''s job with 6f''' (``_family_tp_rank``):
+   xlstm-tp trains ``xlstm-1.3b.reduced(n_layers=8, d_model=384)`` (7
+   mLSTM layers, ``up`` cut in 2 blocks, and the sLSTM, ``w_gates`` and
+   ``b_gates`` in 4, its GeGLU 512 wide split) at 64 tokens, held to
+   xlstm-tp-sim (its one-process sim-mode run, before 6f: the coded
+   gradient == the uncoded one at step 0, ``b_i`` — zero in exact
+   arithmetic — at its ``b_f``'s; 3 steps' losses); cross-tp trains
+   whisper-base at the reference's smoke widths with its published
+   51,865-row vocabulary (whole on the axis) in fp32 at 64 tokens, held
+   to whisper-tp-sim (the same in one process; 23 trains the full width
+   in the config's bf16, which the axis's split sums would move past
+   1e-5, and the full width in fp32 costs ~25 s more than the budget
+   holds: ``WHISPER_TP_SEQ``), and
+   26's ``llama-3.2-vision-11b.reduced(n_layers=10)``, held to 26 (now
+   run before 6f), each with its gates opened from the seed and each
+   step's ``worker_aux`` from the seed, stepped by ``Trainer.step_fn``
+   with the trainer's draws as 23 and 26 step: the same gates as 6f'''
+   (the gathered shards, 3 steps' losses within 1e-5, one grouped
+   ``gc_fused`` call per rank per step, and, from the rows of the main
+   path's own step 0, the gathered coded gradients at 0, 1 and s_max
+   stragglers within 1e-5 of the sim-mode ones — xlstm-tp's within
+   ``XLSTM_TP_REL``, 6e-5, twice its worst reading on an H100: the axis
+   sums every row-parallel product in another order, and the xLSTM
+   stack amplifies rounding at a random init, so 1e-5 does not hold;
+   xlstm-tp-sim prints the smaller distance of another exact form of
+   one process's stack, the mLSTM's chunks halved — leaves
+   byte-equal over the data ranks of a model index, every step's
+   collectives ``_step_counts``: per pass an mLSTM layer 2 reduces — the
+   gates, reduced then copied, and ``down`` — and 2 copies, the input and
+   the gates; the sLSTM a copy of its input, an all-gather of h and its
+   GeGLU's reduce and copy where it splits; a cross-attention a reduce
+   and a copy, the source one copy a pass; an encoder layer 2 and 2;
+   whisper-base's 51,865-row vocabulary whole: no embedding, loss or head
+   term).
 6g. dryrun: (a) the dry run (``repro_torch.launch.dryrun``) on meta of
    every arch at full width at every input shape on the single mesh
    (data 16), and the spmd coded step of gc-lm-110m and gemma-2b, in
@@ -285,6 +319,30 @@ port's sources beside it.  Phases; any failure raises:
    DeepSeek's first MoE layer alone is 256 x 3 x 7168 x 2048 fp32, ~45
    GB, and two data replicas of it do not fit one card: its split stays
    with 6f''' and the CPU tests.
+9e. xlstm-tp-serve, whisper-tp-serve and vision-tp-serve, in 9d's job:
+   xlstm-1.3b at full width cut to 21's 8 of 48 layers (one period: 7
+   mLSTM and the sLSTM, whose GeGLU, 2,731 wide, stays whole; 405,444,664
+   parameters, 1.62 GB fp32) through 9c's engine steps and gates (the slab
+   of a rank's mLSTM heads and channels and of its sLSTM heads; per
+   decode an mLSTM layer's gates, 2·heads wide, and ``down`` reduced, the
+   sLSTM's h all-gathered), but that a request's tokens may part from one
+   rank's at a near tie — the one-rank logits rank the two tokens first
+   and second within 1e-4 of the largest — and the mesh, fed one rank's
+   tokens of that request, then gives one rank's tokens after the part
+   but at such ties (``_forced_tokens``); whisper-base at full width and depth
+   (70,646,278 parameters; the encoder over 1,500 frames on the shards
+   every forward; the vocabulary whole) and llama-3.2-vision-11b at 5 of
+   40 layers (the cross layer at index 3, 2,172,694,529 parameters, 8.69
+   GB fp32; ``vision_proj`` whole) through ``generate(aux_inputs=)``, 2
+   and 4 prompts of 128 and 512 tokens + 16 new, gates opened from the seed,
+   fp32: one rank, the model freed, then the four ranks (every rank runs
+   every row: the direct loop has no slots) — tokens equal on every rank,
+   the entry point's prefill and every decode step counted (its
+   collectives and bytes == ``_cross_serve_collectives``), no ``gc_*``
+   launch; a decode step's host wall on the mesh beside one rank's, and
+   the device's busy time in one decode step (the profiler's device
+   events) beside one rank's, whose device-only time (a replayed CUDA
+   graph) is printed too.
 10. reference: three training steps at a reduced size on the CPU (the
    plain versions) and on the card, from the same weights, agree; the
    same weights and prompts through ``ServeEngine`` (fp32 slab, greedy)
@@ -459,8 +517,9 @@ port's sources beside it.  Phases; any failure raises:
    it: coded == uncoded, 3 steps with 2 ``gc_fused`` launches each, two
    forward+backward runs byte-equal.
 
-Order: 16 (moe-train), 18 (deepseek-train) and 20 (jamba-train) run
-after 6e, before 6f, whose job's 6f'' and 6f''' hold to their losses;
+Order: 16 (moe-train), 18 (deepseek-train), 20 (jamba-train),
+xlstm-tp-sim, whisper-tp-sim and 26 (vision-train) run after 6e, before
+6f, whose job's 6f'', 6f''' and 6f'''' hold to their losses;
 9c and 9d run after 9b.
 
 Depth cuts that hold the phases to 820 s on an H100 host where they took
@@ -483,7 +542,17 @@ layers (one period), ~15-22 s; and by work shared: 18 and 20 save their
 sim-mode gradients for 6f''' (no rank recomputes them), and every part
 of 6f''s job runs a rank's per-shard passes once per gradient check,
 not once per straggler count (``_gathered_coded``), ~20-30 s; 9c and
-9d run in one job of four ranks, which start once, ~15-20 s.
+9d run in one job of four ranks, which start once, ~15-20 s.  The
+xLSTM and cross-attention phases on the axis (6f'''' ~43 s, 9e ~46 s
+and their one-process references ~39 s on an H100, 864.3 s of phases
+beside 762.5 without them, in one call) are paid for by work shared
+and by the new phases' own sizes, each rehearsed on the card: every
+sim-mode training phase (18, 20, 22, 23, 26, xlstm-tp-sim and
+whisper-tp-sim) and every family part of 6f''s job holds the
+per-shard rows of the trainer's own step 0 to the uncoded gradient or
+to sim mode after its run (``_keep_step0_rows``), so those passes run
+once (~16-20 s in 22, a quarter of a rank's passes in 6f''' and
+6f''''); xlstm-tp at 64 tokens; whisper-tp-serve over 2 rows (~40 s).
 
 The line before the last is the card's name and power limit; before it
 a JSON line lists every kernel with its launches, error and times; the
@@ -630,7 +699,24 @@ AXIS_SERVE_PHASES = {
     "moe-tp-serve": ("mixtral-8x22b", {"b": dict(shard_experts=False),
                                        "a": dict(shard_experts=True)}, 5_410_781_184),
     "deepseek-tp-serve": ("deepseek-v3-671b", {"": dict(mtp_depth=0)}, 3_020_332_032),
-    "jamba-tp-serve": ("jamba-v0.1-52b", {"": {}}, 3_742_306_304)}
+    "jamba-tp-serve": ("jamba-v0.1-52b", {"": {}}, 3_742_306_304),
+    # [xlstm-serve]'s 8 of 48 layers (one period: 7 mLSTM and the sLSTM,
+    # whose GeGLU, 2,731 wide, stays whole at model 2); 1.62 GB fp32
+    "xlstm-tp-serve": ("xlstm-1.3b", {"": dict(n_layers=8)}, 405_444_664)}
+#: the model axis's serving phases of the cross-attention families, through
+#: ``generate(aux_inputs=)`` (the engine takes no aux inputs) in the same
+#: job: fp32, gates opened from the seed, every row on every rank (a data
+#: replica runs all of them: the direct loop has no slots); per phase its
+#: arch, depth, parameters and load.  [whisper-tp-serve]: whisper-base at
+#: full width and depth, the encoder over 1,500 frames on the shards every
+#: forward, the vocabulary (51,865 rows: odd) whole; [vision-tp-serve]:
+#: llama-3.2-vision-11b at 5 of 40 layers (the cross layer at index 3,
+#: 1,601 patches of width 7,680 through the whole ``vision_proj``)
+CROSS_TP_SERVE = {
+    "whisper-tp-serve": ("whisper-base", 6, 70_646_278, dict(batch=2, prompt_len=128,
+                                                             max_new=16)),
+    "vision-tp-serve": ("llama-3.2-vision-11b", 5, 2_172_694_529,
+                        dict(batch=4, prompt_len=512, max_new=16))}
 #: [gemma3-tp-serve]: gemma3-27b at full width cut to one 5:1 period (6
 #: layers), fp32 activations on an fp32 slab, 2 ranks at model 2 (8 of the
 #: 16 KV heads each), 1,536-token prompts past the 1,024 window
@@ -728,6 +814,32 @@ VISION_SERVE = dict(n_layers=10, batch=4, prompt_len=512, max_new=32)
 #: stacked in a pattern, 50 leaves (2 launches); full width needs 16 rows
 #: of 39 GB (ROADMAP 3.14)
 VISION_TRAIN_LAYERS = 10
+#: [xlstm-tp] (in [tp]'s job, data 4 x model 2) and its one-process
+#: reference [xlstm-tp-sim]: xlstm-1.3b.reduced(n_layers=8, d_model=384) —
+#: 7 mLSTM layers and the sLSTM, whose GeGLU (512 wide) splits at model 2 —
+#: at 64 tokens (one mLSTM chunk; the chunks' carry is a head's own, which
+#: the axis leaves alone): the sLSTM's token loop runs 16 passes a step on
+#: every rank (128 tokens cost ~16 s more on an H100)
+XLSTM_TP = dict(n_layers=8, d_model=384, seq_len=64)
+#: [cross-tp]'s Whisper ([whisper-tp-sim]): whisper-base at the reference's
+#: smoke widths (``reduced()``: 2 + 2 layers, d_model 256, 64 frames) with
+#: the published vocabulary of 51,865 rows, which the model axis leaves
+#: whole (odd), at 64 tokens.  Full width and depth in fp32 at
+#: [whisper-train]'s 224 tokens meet the same gates on an H100 80GB HBM3
+#: at 700.00 W (1.301e-6 to 1.328e-6 of sim mode) but took 11.3 s in
+#: [whisper-tp-sim] and 23.2 s of [tp]'s job against 3.3 and 4.4 s here:
+#: ~25 s more, past the script's 820 s budget (PERF.md, PR 30 run 4)
+WHISPER_TP_SEQ = 64
+#: [xlstm-tp]'s bound against its sim mode, per leaf of the gathered
+#: gradient: twice the worst of its readings on an H100 80GB HBM3 at
+#: 700.00 W (2.821e-5 at 64 tokens; 1.280e-5 to 1.869e-5 at 128).  1e-5
+#: does not hold there: the axis sums every row-parallel product of every
+#: layer in another order, forward and backward, where another exact form
+#: of one process's stack (the mLSTM's chunks halved) moves only the
+#: mLSTM's chunk sums (4.940e-6 to 7.083e-6 on the same card), and each
+#: mLSTM layer's group norm lifts a small h to unit scale, so the stack
+#: amplifies either (ROADMAP 3.20)
+XLSTM_TP_REL = 6e-5
 GATE_RANGE = (0.3, 0.9)
 #: bf16 dense peak of the card's tensor cores (the data sheet, 700 W): the
 #: operations bound of the bf16 serving phases
@@ -2079,15 +2191,14 @@ def _digest(tensors) -> str:
     return h.hexdigest()
 
 
-def _gathered_coded(local, grad_fn, wb, plan, stragglers):
+def _gathered_coded(local, grad_fn, rows, plan, stragglers):
     """Yield ``(u, the model group's gathered spmd coded gradient)`` at each
-    straggler count ``u``: this rank's per-shard passes once (``grad_fn.
-    rows``: the same rows whatever the stragglers), then the spmd combine
-    and its collectives per count (``grad_fn.combine``), gathered
+    straggler count ``u`` from this rank's per-shard ``rows`` (its passes
+    run once: the same rows whatever the stragglers): the spmd combine and
+    its collectives per count (``grad_fn.combine``), gathered
     (``gather_model``) before the next combine reuses its buffers."""
     from repro_torch.models.params import gather_model
 
-    rows = grad_fn.rows(local, wb)
     for u in stragglers:
         ys = grad_fn.combine(rows, _straggler_dec_w(plan, u))
         yield u, gather_model(local, [y.reshape(t.shape) for y, t in zip(ys, local.leaves())])
@@ -2095,10 +2206,11 @@ def _gathered_coded(local, grad_fn, wb, plan, stragglers):
 
 def _tp_job(rank, world, axis_losses, moe_losses, families, ckpt_dir):
     """One rank of the eight-rank job (``dist.spawn``: every rank on card
-    0 over gloo, a (data 4, model 2) mesh) that runs [mla-tp] and
-    [mamba-tp] (``families``: tag -> what ``_family_tp_rank`` holds it
-    to), [tp], [moe-tp], then [tp-state]'s trainers: one job, so the
-    ranks start, reach the card and join the process group once.
+    0 over gloo, a (data 4, model 2) mesh) that runs [mla-tp], [mamba-tp],
+    [xlstm-tp] and [cross-tp]'s two parts (``families``: tag -> what
+    ``_family_tp_rank`` holds it to), [tp], [moe-tp], then [tp-state]'s
+    trainers: one job, so the ranks start, reach the card and join the
+    process group once.
     Returns this rank's results of each, and the seconds of each."""
     import torch
     import torch.distributed as dist
@@ -2168,7 +2280,8 @@ def _tp_rank(rank, world, mesh, axis_losses):
     del full
     dist.barrier()
     worst = {}
-    for u, got in _gathered_coded(local, trainer.step_fn.grad_fn, wb, plan, stragglers):
+    fn = trainer.step_fn.grad_fn
+    for u, got in _gathered_coded(local, fn, fn.rows(local, wb), plan, stragglers):
         if rank == 0:
             worst[u] = _worst_rel(got.leaves(), sim[u], paths, 1e-5,
                                   f"[tp] gathered spmd vs sim mode, {u} stragglers")
@@ -2245,33 +2358,44 @@ def _tp_rank(rank, world, mesh, axis_losses):
 
 
 #: a mixer's model-group all-reduces per pass on the model axis: (forward
-#: reduces, backward copies).  Attention: the output projection, the
-#: input; MLA: the output projection, the query latent, the KV latent and
-#: the shared RoPE key; Mamba: ``x_proj`` and ``out_proj``, the input and
-#: ``x_proj``'s reduced output
-MIXER_COLLECTIVES = {"attn": (1, 1), "mla": (1, 3), "mamba": (2, 2)}
+#: reduces, backward copies).  Attention and a cross-attention mixer: the
+#: output projection, the input; MLA: the output projection, the query
+#: latent, the KV latent and the shared RoPE key; Mamba: ``x_proj`` and
+#: ``out_proj``, the input and ``x_proj``'s reduced output; the mLSTM: the
+#: gates (reduced, then copied) and ``down``, the input and the gates; the
+#: sLSTM: none and the input (it gathers h: ``_layer_collectives``)
+MIXER_COLLECTIVES = {"attn": (1, 1), "cross_attn": (1, 1), "mla": (1, 3), "mamba": (2, 2),
+                     "mlstm": (2, 2), "slstm": (0, 1)}
 
 
 def _layer_collectives(cfg, spec, model: int) -> dict:
     """One layer's model-group collectives per pass, written from the
     config: forward reduces and all-gathers, backward copies.  An MLP (a
-    dense FFN, or a MoE's shared experts at their own width) splits where
-    its width divides the axis: one reduce, one copy.  A MoE FFN split by
-    expert (case a: ``shard_experts`` and E divides the axis) or by each
-    expert's width (case b) reduces its output and copies its gates' and
-    its input's gradients, and in case (a) gathers its router's logits;
-    whole (case c) it makes none."""
+    dense FFN, a MoE's shared experts or the sLSTM's GeGLU at their own
+    width) splits where its width divides the axis: one reduce, one copy.
+    The sLSTM gathers its h over the heads: one all-gather.  A
+    ``cross_source`` sublayer (Whisper's decoder) is a cross-attention:
+    one reduce, one copy.  A MoE FFN split by expert (case a:
+    ``shard_experts`` and E divides the axis) or by each expert's width
+    (case b) reduces its output and copies its gates' and its input's
+    gradients, and in case (a) gathers its router's logits; whole (case
+    c) it makes none."""
     red, cop = MIXER_COLLECTIVES[spec.mixer]
-    gather = 0
+    gather = int(spec.mixer == "slstm")
 
     def mlp(width):
         return (1, 1) if width % model == 0 else (0, 0)
 
+    if spec.mixer == "slstm":
+        r, k = mlp(int(round(4.0 / 3.0 * cfg.d_model)))
+        red, cop = red + r, cop + k
+    if spec.cross_source:
+        red, cop = red + 1, cop + 1
     moe = spec.moe
     if moe is not None:
         by_expert = cfg.shard_experts and moe.num_experts % model == 0
         if by_expert or moe.d_ff % model == 0:
-            red, cop, gather = red + 1, cop + 2, int(by_expert)
+            red, cop, gather = red + 1, cop + 2, gather + int(by_expert)
         if moe.num_shared:
             r, k = mlp(moe.d_ff * moe.num_shared)
             red, cop = red + r, cop + k
@@ -2281,26 +2405,32 @@ def _layer_collectives(cfg, spec, model: int) -> dict:
     return dict(reduce=red, copy=cop, all_gather=gather)
 
 
-def _step_counts(cfg, k: int, n_levels: int, model: int = TP_MODEL) -> dict:
+def _step_counts(cfg, k: int, n_levels: int, model: int = TP_MODEL, broadcast: int = 1) -> dict:
     """The collectives of one spmd step on a rank of the model axis: ``k``
     passes forward and backward and the step's monitoring forward — per
-    forward every layer's (``_layer_collectives``), the vocab-parallel
+    forward every layer's (``_layer_collectives``), each encoder layer's
+    attention and MLP reduces, and where the vocabulary splits the
     embedding's reduce and the loss's two and its max, each multi-token
     prediction module's embedding, layer (the last spec with a dense
-    FFN), loss and max; per backward every layer's copies, the head's and
-    each prediction module's head's — the clip's one reduce of the split
-    leaves' squares, one psum per level over the data group and one
-    check of the straggler draw."""
+    FFN), loss and max; per backward every layer's and encoder layer's
+    copies, the source's one, and where the vocabulary splits the head's
+    and each prediction module's head's — the clip's one reduce of the
+    split leaves' squares, one psum per level over the data group and
+    ``broadcast`` checks of the straggler draw (``Trainer.run``'s one; 0
+    for a loop that draws its own)."""
     import dataclasses
 
     specs = list(cfg.layers) + [dataclasses.replace(cfg.layers[-1], moe=None)] * cfg.mtp_depth
     per = [_layer_collectives(cfg, spec, model) for spec in specs]
-    heads = 1 + cfg.mtp_depth
-    red = 3 * heads + sum(p["reduce"] for p in per)
-    cop = heads + sum(p["copy"] for p in per)
+    heads = (1 + cfg.mtp_depth) * int(cfg.vocab % model == 0)
+    enc = 0 if cfg.encoder is None else cfg.encoder.n_layers * (1 + int(cfg.d_ff % model == 0))
+    source = int(any(spec.mixer == "cross_attn" or spec.cross_source for spec in cfg.layers))
+    red = 3 * heads + sum(p["reduce"] for p in per) + enc
+    cop = heads + sum(p["copy"] for p in per) + enc + source
     gather = sum(p["all_gather"] for p in per)
-    return dict(psum=n_levels, psum_scatter=0, broadcast=1, all_gather=(k + 1) * gather,
-                copy=k * cop, reduce=(k + 1) * red + 1, max=(k + 1) * heads)
+    return dict(psum=n_levels, psum_scatter=0, broadcast=broadcast,
+                all_gather=(k + 1) * gather, copy=k * cop, reduce=(k + 1) * red + 1,
+                max=(k + 1) * heads)
 
 
 def _moe_tp_rank(rank, world, mesh, moe_losses):
@@ -2357,7 +2487,7 @@ def _moe_tp_rank(rank, world, mesh, moe_losses):
             del full
             dist.barrier()
             fn = make_coded_grad_fn(cfg, plan, mode="spmd", mesh=mesh)
-            for u, got in _gathered_coded(local, fn, wb, plan, stragglers):
+            for u, got in _gathered_coded(local, fn, fn.rows(local, wb), plan, stragglers):
                 if rank == 0:
                     worst[cf, u] = _worst_rel(
                         got.leaves(), sim[u], paths, 1e-5,
@@ -2421,21 +2551,30 @@ def _moe_tp_rank(rank, world, mesh, moe_losses):
 
 
 def _family_tp_rank(rank, world, mesh, tag, fam):
-    """[mla-tp] or [mamba-tp] on one rank of ``_tp_job``: ``fam``'s config
-    (``[deepseek-train]``'s or ``[jamba-train]``'s, ``_family_cfg``) in a
-    ``Trainer(mode="spmd")`` over its shards, as [moe-tp] runs
-    Mixtral's.  The shards gathered back are the full model drawn from the
-    same seed, byte for byte (Mamba's ``in_proj`` cut in 2 blocks).  At
-    step 0, with 0, 1 and s_max stragglers, the model groups' gathered
-    coded gradients equal that phase's sim-mode gradients on the same
-    weights and batches (1e-5 of each leaf's scale; saved under
-    ``fam["sim"]`` by that phase, so no rank recomputes them).
-    ``STEPS`` steps with the counts set to 0 just before: one grouped
+    """[mla-tp], [mamba-tp], [xlstm-tp] or a part of [cross-tp] on one rank
+    of ``_tp_job``: ``fam["cfg"]`` (``[deepseek-train]``'s,
+    ``[jamba-train]``'s, ``[xlstm-tp-sim]``'s, ``[whisper-tp-sim]``'s or
+    ``[vision-train]``'s config) in a ``Trainer(mode="spmd")`` over its
+    shards at ``fam["seq_len"]`` tokens, as [moe-tp] runs Mixtral's; a
+    model with a cross-attention source with its gates opened from the
+    seed (``_open_gates``) and each step's ``worker_aux`` from the seed
+    (``_worker_aux``).  The shards gathered back are the full model drawn
+    from the same seed, byte for byte (Mamba's ``in_proj`` and the mLSTM's
+    ``up`` cut in 2 blocks, the sLSTM's ``w_gates`` and ``b_gates`` in 4).
+    ``STEPS`` steps with the counts set to 0 just before — ``Trainer.run``,
+    or for a model with a source ``Trainer.step_fn`` with the trainer's
+    straggler draws and ``worker_aux``, as that phase steps — one grouped
     ``gc_fused`` call per rank per step (its launches of at most
     ``MAX_LEAVES`` leaves), the losses that phase's (1e-5), every leaf
     byte-equal across the data ranks of a model index after every step,
-    every step's collectives the formula (``_step_counts``).  Rank 0
-    logs; every check raises."""
+    every step's collectives the formula (``_step_counts``).  Then, from
+    the per-shard rows of the trainer's own step 0 (``_keep_step0_rows``),
+    with 0, 1 and s_max stragglers, the model groups' gathered coded
+    gradients equal that phase's sim-mode gradients on the same weights
+    and batches (``fam["bound"]``, else 1e-5, of each leaf's scale; a leaf
+    whose gradient is zero in exact arithmetic at ``fam["partner"]``'s;
+    saved under ``fam["sim"]`` by that phase, so no rank recomputes
+    them).  Rank 0 logs; every check raises."""
     import torch
     import torch.distributed as dist
 
@@ -2443,47 +2582,53 @@ def _family_tp_rank(rank, world, mesh, tag, fam):
     from repro_torch.data.pipeline import coded_worker_batches
     from repro_torch.dist import collectives
     from repro_torch.kernels import _pipe
+    from repro_torch.models.model import has_source
     from repro_torch.models.params import GCLM, gather_model
     from repro_torch.train.coded import local_layout
     from repro_torch.train.trainer import TrainConfig, Trainer
 
     t0 = time.perf_counter()
-    cfg = _family_cfg(fam["arch"])
+    cfg, source = fam["cfg"], has_source(fam["cfg"])
     trainer = Trainer(cfg, TrainConfig(lr=3e-4, warmup=10, total_steps=300),
                       ShiftedExponential(mu=1e-3, t0=50.0), n_workers=TP_DATA, scheme="xf",
-                      global_batch=8, seed=0, device=mesh.device, seq_len=256, mesh=mesh,
-                      mode="spmd")
+                      global_batch=8, seed=0, device=mesh.device, seq_len=fam["seq_len"],
+                      mesh=mesh, mode="spmd")
     plan, local = trainer.plan, trainer.state.params
+    if source:
+        _open_gates(local, 0)
     paths, layout = local.leaf_paths(), local_layout(cfg, plan, mesh)
     blocked = [p for p, b in zip(paths, local.shard_blocks) if b > 1]
     gathered = gather_model(local).leaves()
     if rank == 0:
-        full = GCLM(cfg, device=mesh.device, seed=0).leaves()
-        if not all(torch.equal(a, b) for a, b in zip(gathered, full, strict=True)):
+        full = GCLM(cfg, device=mesh.device, seed=0)
+        if source:
+            _open_gates(full, 0)
+        if not all(torch.equal(a, b) for a, b in zip(gathered, full.leaves(), strict=True)):
             raise AssertionError(f"[{tag}] the gathered shards differ from the full model")
         del full
     del gathered
-    wb = coded_worker_batches(trainer.data, 0, TP_DATA, plan.s_max)
-    stragglers = sorted({0, 1, plan.s_max})
-    sim = torch.load(fam["sim"]) if rank == 0 else None
-    worst = {}
-    for u, got in _gathered_coded(local, trainer.step_fn.grad_fn, wb, plan, stragglers):
-        if rank == 0:
-            worst[u] = _worst_rel(got.leaves(), [t.to(mesh.device) for t in sim[u]], paths,
-                                  1e-5, f"[{tag}] gathered spmd vs sim mode, {u} stragglers")
-        del got
-    del sim
-    torch.cuda.empty_cache()
-
+    rows = trainer.data.cfg.global_batch // TP_DATA
+    inputs = [(coded_worker_batches(trainer.data, i, TP_DATA, plan.s_max),
+               _worker_aux(cfg, i, TP_DATA, plan.s_max, rows)[1] if source else None)
+              for i in range(STEPS)]
     # the main path: Trainer(mode="spmd") on the shards, counts set to 0 just before
+    take = _keep_step0_rows(trainer.step_fn.grad_fn)
     per_step = -(-len(paths) // _pipe.MAX_LEAVES)
-    want = _step_counts(cfg, plan.k_shards, layout.n_levels)
+    want = _step_counts(cfg, plan.k_shards, layout.n_levels, broadcast=int(not source))
     torch.cuda.synchronize()
     dist.barrier()
     reset_counts()
+    losses = []
     for i in range(STEPS):
         collectives.reset_counts()
-        trainer.run(1, log_every=0)
+        if source:  # as _cross_train steps: the trainer's draws, the step's worker_aux
+            dec_w, _ = trainer.sim.step()
+            wb, wa = inputs[i]
+            trainer.state, metrics = trainer.step_fn(trainer.state, wb, dec_w, wa)
+            losses.append(float(metrics["loss"]))
+        else:
+            trainer.run(1, log_every=0)
+            losses.append(trainer.history[-1]["loss"])
         torch.cuda.synchronize()
         counts = {**collectives.counts, **collectives.model_counts}
         if counts != want:
@@ -2500,19 +2645,34 @@ def _family_tp_rank(rank, world, mesh, tag, fam):
         raise AssertionError(f"[{tag}] rank {rank}: launches {launches} in {STEPS} steps, "
                              f"expected one grouped gc_fused call per step ({per_step} "
                              f"launches of at most {_pipe.MAX_LEAVES} of {len(paths)} leaves)")
-    losses = [h["loss"] for h in trainer.history]
     for a, b in zip(losses, fam["losses"], strict=True):
         if not abs(a - b) <= 1e-5 * abs(b):
             raise AssertionError(f"[{tag}] losses {losses} vs [{fam['phase']}]'s "
                                  f"{fam['losses']}")
+    # step 0's gradient check on the main path's own rows
+    stragglers = sorted({0, 1, plan.s_max})
+    sim = torch.load(fam["sim"]) if rank == 0 else None
+    partner = fam.get("partner") or (lambda p: None)
+    bound = fam.get("bound", 1e-5)
+    worst = {}
+    for u, got in _gathered_coded(local, trainer.step_fn.grad_fn, take(*inputs[0]), plan,
+                                  stragglers):
+        if rank == 0:
+            worst[u] = _worst_rel_held(got.leaves(), [t.to(mesh.device) for t in sim[u]],
+                                       paths, bound,
+                                       f"[{tag}] gathered spmd vs sim mode, {u} stragglers",
+                                       partner)
+        del got
+    del sim
     if rank == 0:
-        log(f"[{tag}] {cfg.name} reduced ({cfg.n_layers} layers, mixers "
-            f"{sorted({l.mixer for l in cfg.layers})}, MTP depth {cfg.mtp_depth}) on (data "
-            f"{TP_DATA}, model {TP_MODEL}): split axes {sorted(local.tp.axes)}, blocked leaves "
-            f"{blocked}; a rank holds {layout.total_elems:,} of "
+        log(f"[{tag}] {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, mixers "
+            f"{sorted({l.mixer for l in cfg.layers})}, {cfg.dtype}, MTP depth "
+            f"{cfg.mtp_depth}{', worker_aux' if source else ''}) on (data {TP_DATA}, model "
+            f"{TP_MODEL}) at {fam['seq_len']} tokens: split axes {sorted(local.tp.axes)}, "
+            f"blocked leaves {blocked}; a rank holds {layout.total_elems:,} of "
             f"{plan.flat_layout.total_elems:,} parameters; the gathered shards == the full "
             f"model byte for byte; step 0, gathered coded gradients vs [{fam['phase']}]'s sim "
-            f"mode (bound 1e-5): "
+            f"mode (bound {bound:.3e}): "
             + ", ".join(f"{u} stragglers {w:.3e}" for u, w in worst.items())
             + f"; {STEPS} steps: losses {losses} (== [{fam['phase']}]'s within 1e-5), leaves "
             f"byte-equal over the data ranks of a model index, launches {launches}, "
@@ -2527,9 +2687,10 @@ def phase_tp(axis_losses, moe_losses, families):
     """spmd coded training on a model axis on one card: a (data 4, model
     2) mesh of eight ranks on card 0 over gloo, each a full-width
     ``Trainer(mode="spmd")`` of ``CUT_LAYERS`` layers over its shards;
-    the same job then runs [moe-tp], [mla-tp] and [mamba-tp] (``families``:
-    tag -> the config's phase, its losses and its saved sim-mode
-    gradients, which are removed after the job) and [tp-state]'s trainers
+    the same job then runs [moe-tp], [mla-tp], [mamba-tp], [xlstm-tp] and
+    [cross-tp] (``families``: tag -> the config's phase, its losses and its
+    saved sim-mode gradients, which are removed after the job) and
+    [tp-state]'s trainers
     (``_tp_job``), whose checkpoint stays in the returned work directory
     for ``phase_tp_state``.  Returns the ranks' gc_fused launches on
     each part's main path, each summed over the ranks, rank 0's combine
@@ -2987,7 +3148,8 @@ def _tp_state_rank(rank, world, mesh, ckpt_dir):
     del full
     dist.barrier()
     worst = {}
-    for u, got in _gathered_coded(local, trainer.step_fn.grad_fn, wb, plan, stragglers):
+    fn = trainer.step_fn.grad_fn
+    for u, got in _gathered_coded(local, fn, fn.rows(local, wb), plan, stragglers):
         if rank == 0:
             worst[u] = _worst_rel(got.leaves(), sim[u], paths, 1e-5,
                                   f"[tp-state] (d) gathered spmd vs sim mode, {u} stragglers")
@@ -3509,43 +3671,49 @@ def _serve_collectives(cfg, g, local_split, step) -> dict:
     """The collectives one engine step must make on a rank, with their
     bytes (fp32 activations): per decode of the rank's B rows, every
     layer's forward all-reduces (``_layer_collectives``) of (B, 1, d) —
-    but Mamba's ``x_proj`` reduce, of width dt_rank + 2·d_state — and one
-    for the vocab-parallel embedding, one all-gather of the logits (B, 1,
-    V) out; per prefill on the rank (an admission into its rows) the same
-    all-reduces of (1, S, d) and one all-gather of the last position's
-    logits (1, 1, V); and, where the slots split over the data ranks, one
-    gather of the step's int64 tokens (n_slots per column: the decode's,
-    and the admissions' first).  A MoE layer adds, per decode on
-    data-parallel slots, one all-gather of every slot's k int64 expert
-    ids (the capacity's count), and split by expert (case a) one
-    all-gather of the router's fp32 logits, (rows, E) out, per decode and
-    per prefill."""
+    but Mamba's ``x_proj`` reduce, of width dt_rank + 2·d_state, and the
+    mLSTM's gates, of width 2·heads — and one for the vocab-parallel
+    embedding, one all-gather of the logits (B, 1, V) out, and per sLSTM
+    one all-gather of its h (B, 1, d) out; per prefill on the rank (an
+    admission into its rows) the same of (1, S, ·) and one all-gather of
+    the last position's logits (1, 1, V); and, where the slots split over
+    the data ranks, one gather of the step's int64 tokens (n_slots per
+    column: the decode's, and the admissions' first).  A MoE layer adds,
+    per decode on data-parallel slots, one all-gather of every slot's k
+    int64 expert ids (the capacity's count), and split by expert (case a)
+    one all-gather of the router's fp32 logits, (rows, E) out, per decode
+    and per prefill."""
     b, rows, d = len(local_split), local_split, cfg.d_model
     mine = len([slot for slot in step["admitted"] if slot in rows])
     dec = step["decoded"]
     cols = bool(step["admitted"]) + dec
     token_gather = int(g["data"] > 1 and cols > 0)
-    wide = narrow = router = ids = 0
+    wide = router = ids = hs = 0
+    narrow = []  # the widths of the reduces narrower than d
     for spec in cfg.layers:
         per = _layer_collectives(cfg, spec, g["model"])
-        narrow += spec.mixer == "mamba"
-        wide += per["reduce"] - (spec.mixer == "mamba")
-        router += per["all_gather"]
+        if spec.mixer == "mamba":
+            narrow.append((cfg.mamba.dt_rank or -(-d // 16)) + 2 * cfg.mamba.d_state)
+        elif spec.mixer == "mlstm":
+            narrow.append(2 * cfg.n_heads)
+        wide += per["reduce"] - (spec.mixer in ("mamba", "mlstm"))
+        hs += spec.mixer == "slstm"
+        router += per["all_gather"] - (spec.mixer == "slstm")
         ids += spec.moe is not None and g["data"] > 1
     moe = next((spec.moe for spec in cfg.layers if spec.moe is not None), None)
-    x_proj = narrow and (cfg.mamba.dt_rank or -(-d // 16)) + 2 * cfg.mamba.d_state
-    n_red = wide + narrow + 1
+    n_red = wide + len(narrow) + 1
     counts = dict(psum=0, psum_scatter=0, broadcast=0, copy=0, max=0,
-                  all_gather=dec * (1 + ids + router) + mine * (1 + router) + token_gather,
+                  all_gather=dec * (1 + ids + router + hs) + mine * (1 + router + hs)
+                  + token_gather,
                   reduce=n_red * (dec + mine))
     per_router = 4 * moe.num_experts if router else 0
     per_ids = 8 * g["n_slots"] * moe.top_k if ids else 0
+    positions = dec * b + mine * g["prompt_len"]
     nbytes = dict(psum=0, psum_scatter=0, broadcast=0, copy=0, max=0,
                   all_gather=4 * cfg.vocab * (dec * b + mine) + 8 * g["n_slots"] * cols
                   * token_gather + dec * (ids * per_ids + router * per_router * b)
-                  + mine * router * per_router * g["prompt_len"],
-                  reduce=4 * ((wide + 1) * d + narrow * x_proj)
-                  * (dec * b + mine * g["prompt_len"]))
+                  + mine * router * per_router * g["prompt_len"] + 4 * d * hs * positions,
+                  reduce=4 * ((wide + 1) * d + sum(narrow)) * positions)
     return dict(counts=counts, nbytes=nbytes)
 
 
@@ -3616,21 +3784,42 @@ def _spawn_tp_serve(arch: str, g: dict) -> list:
         shutil.rmtree(store, ignore_errors=True)
 
 
-def _check_tp_serve(tag, cfg, g, one, ranks) -> dict:
+def _check_tp_serve(tag, cfg, g, one, ranks, near_ties=None) -> dict:
     """Every rank's engine against the one-rank engine on the same weights:
     tokens, timestamps, slots and step latencies equal; no ``gc_*``
-    launch; each step's collectives equal ``_serve_collectives``.  Returns
-    rank 0's decode-only step walls (host clock, ms) and its per-step
-    collectives of the first decode-only step."""
+    launch; each step's collectives equal ``_serve_collectives``.  With
+    ``near_ties`` (a model whose stack amplifies rounding: xLSTM), a
+    request's tokens may part from one rank's at a near tie alone: its
+    timestamps stay equal, and the rank's ``forced`` tokens of it
+    (``_forced_tokens``: the mesh fed one rank's tokens) must equal one
+    rank's after the part too; ``near_ties`` holds the one-rank logits at
+    the first differing token and at every forced token that differs
+    (``_near_ties``).  Returns rank 0's decode-only step walls (host
+    clock, ms), its per-step collectives of the first decode-only step,
+    the requests that parted (request, token) and the near ties."""
     import numpy as np
 
+    parted, ties = set(), set()
     for r, rank in enumerate(ranks):
         run = rank["fp32"]
         for key in ("reqs", "slots", "latencies"):
-            if run[key] != one[key]:
-                diff = sum(a != b for a, b in zip(run[key], one[key]))
-                raise AssertionError(f"[{tag}] rank {r}: {key} differ from the one-rank "
-                                     f"engine's ({diff} of {len(one[key])})")
+            if run[key] == one[key]:
+                continue
+            if key == "reqs" and near_ties is not None and all(
+                    a[1:] == b[1:] for a, b in zip(run[key], one[key], strict=True)):
+                for i, (a, b) in enumerate(zip(run[key], one[key])):
+                    if a[0] != b[0]:
+                        j = next(j for j, (x, y) in enumerate(zip(a[0], b[0])) if x != y)
+                        parted.add((i, j))
+                        ties.add((i, j, a[0][j], b[0][j]))
+                        # forced[t] follows one rank's token t: it predicts token t + 1
+                        ties.update((i, t + 1, x, y) for t, (x, y) in
+                                    enumerate(zip(run["forced"][i], b[0][1:], strict=True))
+                                    if x != y)
+                continue
+            diff = sum(a != b for a, b in zip(run[key], one[key]))
+            raise AssertionError(f"[{tag}] rank {r}: {key} differ from the one-rank "
+                                 f"engine's ({diff} of {len(one[key])})")
         if any(run["launches"].values()):
             raise AssertionError(f"[{tag}] rank {r}: the serving path launched {run['launches']}")
         for i, step in enumerate(run["steps"]):
@@ -3640,10 +3829,68 @@ def _check_tp_serve(tag, cfg, g, one, ranks) -> dict:
             if got != want or sum(step["counts"].values()) != sum(want["counts"].values()):
                 raise AssertionError(f"[{tag}] rank {r} step {i}: collectives {step} vs the "
                                      f"formula {want}")
+    if ties:
+        near_ties(sorted(ties))
     steady = [s for s in ranks[0]["fp32"]["steps"] if s["decoded"] and not s["admitted"]]
     return dict(walls=[s["ms"] for s in steady], per_step=steady[0],
                 one_walls=[s["ms"] for s in one["steps"] if s["decoded"] and not s["admitted"]],
-                median=float(np.median([s["ms"] for s in steady])))
+                median=float(np.median([s["ms"] for s in steady])), parted=sorted(parted),
+                ties=sorted(ties))
+
+
+def _forced_tokens(cfg, model, run, want, g, device) -> dict:
+    """For each request of the engine's ``run`` whose tokens part from
+    ``want`` (one rank's prompt and tokens, by request), the greedy tokens
+    of ``model`` fed ``want``'s tokens (``teacher_forced_tokens``: each
+    row prefilled, then a decode step per token, fp32 slab): {request:
+    the ``max_new`` - 1 tokens, the t-th following ``want``'s token t}.
+    Every rank of a model group holds the same tokens, so its ranks run
+    the same forwards."""
+    import numpy as np
+    import torch
+
+    parted = [i for i, (a, b) in enumerate(zip(run["outputs"], want, strict=True))
+              if not np.array_equal(a, b)]
+    if not parted:
+        return {}
+    toks = torch.from_numpy(np.stack([want[i] for i in parted]).astype(np.int64)).to(device)
+    steps, _ = teacher_forced_tokens(cfg, model, toks, g["prompt_len"], torch.float32, device)
+    return {i: steps[:, k].argmax(-1).tolist() for k, i in enumerate(parted)}
+
+
+def _near_ties(tag, cfg, outputs, prompt_len: int):
+    """The check of ``_check_tp_serve``'s ``near_ties`` for ``cfg`` (its
+    one-rank model drawn again from seed 0): at each token where the mesh
+    and one rank differ (request, token, mesh's, one rank's), the one-rank
+    model's fp32 logits of its prefix (``prefill``, last position), from
+    ``outputs`` (each request's prompt and one rank's tokens), rank the two
+    tokens first and second, within ``SERVE_FP32_REL`` of the largest
+    logit of each other (the fp32 cache and step's own rounding: the
+    teacher-forcing bound).  Raises otherwise; logs each tie."""
+    import torch
+
+    from repro_torch.models.model import prefill
+    from repro_torch.models.params import GCLM
+
+    def check(parted):
+        model = GCLM(cfg, device="cuda", seed=0)
+        for i, j, got, want in parted:
+            prefix = torch.as_tensor(outputs[i][:prompt_len + j], device="cuda")[None].long()
+            logits, _ = prefill(cfg, model, prefix, last_only=True)
+            top = logits[0, -1].float()
+            vals, ids = top.topk(2)
+            margin = ((vals[0] - vals[1]) / top.abs().max()).item()
+            if sorted(ids.tolist()) != sorted([got, want]) or not margin <= SERVE_FP32_REL:
+                raise AssertionError(f"[{tag}] request {i}, token {j}: the mesh's {got} vs one "
+                                     f"rank's {want}: top-2 {ids.tolist()} apart by "
+                                     f"{margin:.3e} of the largest logit (bound "
+                                     f"{SERVE_FP32_REL})")
+            log(f"[{tag}] request {i}, token {j}: the mesh's {got} vs one rank's {want}: a "
+                f"near tie, the two top-2 and {margin:.3e} of the largest logit apart")
+        del model
+        torch.cuda.empty_cache()
+
+    return check
 
 
 def phase_tp_serve():
@@ -3715,11 +3962,11 @@ def phase_tp_serve():
     return {"launches": sum(sum(r["fp32"]["launches"].values()) for r in ranks)}
 
 
-def _axis_serve_cfg(arch: str, **kw):
+def _axis_serve_cfg(arch: str, n_layers: int = AXIS_TP_SERVE["n_layers"], **kw):
     """A model-axis serving phase's config: ``arch`` at its published
-    widths cut to ``AXIS_TP_SERVE["n_layers"]`` layers, fp32 activations,
-    ``kw`` replaced."""
-    return _cut(arch, AXIS_TP_SERVE["n_layers"], dtype="float32", **kw)
+    widths cut to ``n_layers`` layers (``AXIS_TP_SERVE``'s by default),
+    fp32 activations, ``kw`` replaced."""
+    return _cut(arch, n_layers, dtype="float32", **kw)
 
 
 def _slab_trees(slab) -> list:
@@ -3736,17 +3983,19 @@ def _slab_shapes(slab) -> dict:
     return out
 
 
-def _axis_serve_rank(rank, world):
+def _axis_serve_rank(rank, world, forced):
     """One rank of the model axis's serving job (``dist.spawn``: every rank
     on card 0 over gloo, ``AXIS_TP_SERVE``'s (data, model) mesh): per
     phase of ``AXIS_SERVE_PHASES`` and per case its shards drawn by
     ``init_shards`` (seed 0; one rank at a time, as a full leaf of up to
     6.44 GB lies beside its cut while it is drawn), the engine on an fp32
-    slab with every count set to 0 just before, then the shards let go
-    before the next are cut.  Returns what the rank saw — per phase and
-    case its parameters, split, slab leaf shapes, engine run and peaks,
-    and each phase's seconds; the parent holds it to the one-rank
-    engine."""
+    slab with every count set to 0 just before — for a phase in
+    ``forced`` (tag -> one rank's prompts and tokens), then the mesh fed
+    one rank's tokens of each request that parted (``_forced_tokens``) —
+    then the shards let go before the next are cut.  Returns what the
+    rank saw — per phase and case its parameters, split, slab leaf
+    shapes, engine run and peaks, and each phase's seconds; the parent
+    holds it to the one-rank engine."""
     import torch
     import torch.distributed as dist
 
@@ -3781,19 +4030,179 @@ def _axis_serve_rank(rank, world):
             torch.cuda.reset_peak_memory_stats(mesh.device)
             run = _tp_engine(cfg, local, g, torch.float32, mesh=mesh)
             got["slab"] = _slab_shapes(run.pop("eng").slab)
+            if tag in forced:
+                run["forced"] = _forced_tokens(cfg, local, run, forced[tag], g, mesh.device)
             got.update(fp32=run, peak=torch.cuda.max_memory_allocated(mesh.device))
             out["phases"][tag][case] = got
             del local, run
             torch.cuda.empty_cache()
         out["seconds"][tag] = time.perf_counter() - t_tag
+    for tag, (arch, n_layers, _, load) in CROSS_TP_SERVE.items():
+        t_tag = time.perf_counter()
+        cfg = _axis_serve_cfg(arch, n_layers)
+        local = None
+        for r in range(world):
+            if r == rank:
+                local = init_shards(cfg, mesh, device=mesh.device, seed=0)
+                _open_gates(local, 0)
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+            dist.barrier()
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+        run = _cross_generate(cfg, local, load, busy=True, profile=rank == 0)
+        out["phases"][tag] = dict(run, params=count_params(local), axes=sorted(local.tp.axes),
+                                  peak=torch.cuda.max_memory_allocated(mesh.device))
+        del local, run
+        torch.cuda.empty_cache()
+        out["seconds"][tag] = time.perf_counter() - t_tag
     return out
+
+
+def _cross_generate(cfg, model, g, busy: bool = False, profile: bool = False) -> dict:
+    """``g``'s rows through ``generate(aux_inputs=)`` — prompts (numpy, seed
+    0) and modality embeddings (``_aux_rows``, seed 1) — greedy, with the
+    ``gc_*`` counts set to 0 just before, and the entry point's prefill
+    and each decode step counted: its collectives with their bytes and its
+    host wall (synchronized).  With ``busy``, one more decode step of every
+    row at the last position of caches of capacity S + max_new, the
+    device's busy time in it read from the profiler's raw device events
+    (``_device_kernels``) where ``profile`` (every rank of a model group
+    runs the step: its collectives pair up)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.dist import collectives
+    from repro_torch.models.model import decode_step, prefill
+    from repro_torch.serve import engine as serve_engine
+
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, size=(g["batch"], g["prompt_len"]))
+    aux = _aux_rows(cfg, g["batch"], 1)
+    real = {"prefill": serve_engine.prefill, "decode": serve_engine.decode_step}
+    calls = []
+
+    def counted(kind):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            collectives.reset_counts()
+            t0 = time.perf_counter()
+            result = real[kind](*args, **kwargs)
+            torch.cuda.synchronize()
+            calls.append(dict(kind=kind, ms=(time.perf_counter() - t0) * 1e3,
+                              counts={**collectives.counts, **collectives.model_counts},
+                              nbytes=dict(collectives.nbytes)))
+            return result
+        return call
+
+    serve_engine.prefill, serve_engine.decode_step = counted("prefill"), counted("decode")
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        tokens = serve_engine.generate(cfg, model, prompts, g["max_new"], aux_inputs=aux,
+                                       device="cuda")
+    finally:
+        serve_engine.prefill, serve_engine.decode_step = real["prefill"], real["decode"]
+    out = dict(tokens=tokens.numpy(), calls=calls, wall=time.perf_counter() - t0,
+               launches=read_counts(), busy_ms=None)
+    if busy:
+        cap = g["prompt_len"] + g["max_new"]
+        with torch.no_grad():
+            _, caches = prefill(cfg, model, torch.from_numpy(prompts).cuda(), aux_inputs=aux,
+                                target_len=cap, last_only=True)
+            for seg in caches:
+                for tree in (seg if isinstance(seg, list) else [seg]):
+                    if tree is not None:
+                        tree["pos"].fill_(cap - 1)
+            step = torch.from_numpy(prompts[:, -1:]).cuda()
+            decode_step(cfg, model, caches, step, aux_inputs=aux)  # warm
+            for tree in (t for seg in caches for t in (seg if isinstance(seg, list) else [seg])):
+                if tree is not None:
+                    tree["pos"].fill_(cap - 1)
+            torch.cuda.synchronize()
+            if profile:
+                with torch.profiler.profile(
+                        activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    decode_step(cfg, model, caches, step, aux_inputs=aux)
+                    torch.cuda.synchronize()
+                out["busy_ms"] = sum(us for _, us, _ in _device_kernels(prof)) / 1e3
+            else:
+                decode_step(cfg, model, caches, step, aux_inputs=aux)
+                torch.cuda.synchronize()
+        del caches
+    return out
+
+
+def _cross_serve_collectives(cfg, g, kind: str, model: int) -> dict:
+    """The collectives of one forward of ``generate(aux_inputs=)`` on a rank
+    (fp32, every row): the prefill of the B prompts (S tokens) or a decode
+    step (1) makes every decoder layer's forward reduces
+    (``_layer_collectives``) of (B, S, d), and where the vocabulary splits
+    the embedding's; each of Whisper's encoder layers its attention's and
+    MLP's reduces of (B, frames, d) — the encoder runs again every
+    forward; where the vocabulary splits, one all-gather of the last
+    position's logits, (B, V) out.  The projector and the gates make
+    none; no backward, so no copy."""
+    rows, d = g["batch"], cfg.d_model
+    tokens = g["prompt_len"] if kind == "prefill" else 1
+    vocab = int(cfg.vocab % model == 0)
+    dec = sum(_layer_collectives(cfg, spec, model)["reduce"] for spec in cfg.layers)
+    enc, frames = 0, 0
+    if cfg.encoder is not None:
+        enc = cfg.encoder.n_layers * (1 + int(cfg.d_ff % model == 0))
+        frames = cfg.encoder.n_frames
+    zero = dict(psum=0, psum_scatter=0, broadcast=0, copy=0, max=0)
+    return dict(counts=dict(zero, all_gather=vocab, reduce=vocab + dec + enc),
+                nbytes=dict(zero, all_gather=4 * cfg.vocab * rows * vocab,
+                            reduce=4 * d * rows * (tokens * (vocab + dec) + frames * enc)))
+
+
+def _cross_serve_one(tag) -> dict:
+    """A cross phase's one-rank run: its arch at full width cut to its
+    depth, fp32, gates opened from the seed, its parameters counted;
+    ``_cross_generate`` and a decode step's device-only time (a replayed
+    CUDA graph, ``device_ms``) and device-busy time (the profiler's), the
+    peak and the seconds; the model freed."""
+    import torch
+
+    from repro_torch.models.model import decode_step, prefill
+    from repro_torch.models.params import GCLM
+
+    t0 = time.perf_counter()
+    _free_card()
+    arch, n_layers, n_want, g = CROSS_TP_SERVE[tag]
+    cfg = _axis_serve_cfg(arch, n_layers)
+    model = GCLM(cfg, device="cuda", seed=0)
+    _open_gates(model, 0)
+    n_params = sum(t.numel() for t in model.leaves())
+    if n_params != n_want:
+        raise AssertionError(f"[{tag}] {n_params} params, expected {n_want:,}")
+    one = _cross_generate(cfg, model, g, busy=True, profile=True)
+    cap = g["prompt_len"] + g["max_new"]
+    aux = _aux_rows(cfg, g["batch"], 1)
+    with torch.no_grad():
+        tok = torch.arange(1, g["batch"] + 1, device="cuda")[:, None]
+        _, caches = prefill(cfg, model, tok.expand(-1, g["prompt_len"]).contiguous(),
+                            aux_inputs=aux, target_len=cap)
+        for seg in caches:
+            for tree in (seg if isinstance(seg, list) else [seg]):
+                if tree is not None:
+                    tree["pos"].fill_(cap - 1)
+        one["device_ms"] = device_ms(lambda: decode_step(cfg, model, caches, tok,
+                                                         aux_inputs=aux), 3)
+    del caches
+    one.update(peak=torch.cuda.max_memory_allocated(), n_params=n_params)
+    del model
+    _free_card()
+    one["s"] = time.perf_counter() - t0
+    return one
 
 
 def _check_axis_slab(tag, cfg, g, got) -> str:
     """A rank's slab on the axis: MLA's whole latent (``c_kv``, ``k_r``),
     Mamba's state of the rank's channels (``conv``, and ``h`` of d_inner /
-    model), attention's KV heads of the rank; raises otherwise.  Returns
-    a line of the shapes."""
+    model), attention's KV heads of the rank, the mLSTM's state of its
+    heads (``C``; ``conv`` of its channels) and the sLSTM's (``h``, ``c``
+    of d_model / model); raises otherwise.  Returns a line of the
+    shapes."""
     rows = g["n_slots"] // g["data"]
     shapes = got["slab"]
     want = {}
@@ -3805,6 +4214,14 @@ def _check_axis_slab(tag, cfg, g, got) -> str:
         want.update(h=(rows, half, cfg.mamba.d_state), conv=(rows, cfg.mamba.d_conv - 1, half))
     if any(spec.mixer == "attn" for spec in cfg.layers):
         want.update(k=(rows, g["max_len"], cfg.n_kv_heads // g["model"], cfg.head_dim))
+    if any(spec.mixer == "mlstm" for spec in cfg.layers):
+        from repro_torch.models.xlstm import mlstm_dims
+
+        spec, d_inner, nh, dh = mlstm_dims(cfg)
+        want.update(C=(rows, nh // g["model"], dh, dh),
+                    conv=(rows, spec.conv_kernel - 1, d_inner // g["model"]))
+    if any(spec.mixer == "slstm" for spec in cfg.layers):
+        want.update(h=(rows, cfg.d_model // g["model"]), c=(rows, cfg.d_model // g["model"]))
     for name, shape in want.items():
         if {s[-len(shape):] for s in shapes.get(name, ())} != {shape}:
             raise AssertionError(f"[{tag}] slab leaf {name}: shapes {shapes.get(name)}, "
@@ -3845,7 +4262,9 @@ def phase_axis_tp_serve():
     rank's heads, the latent slab whole on every rank) and
     [jamba-tp-serve] (Mamba with a dense MLP and with 16 experts split by
     expert, a rank's channels of every Mamba leaf and of the slab's
-    state), each at its published widths cut to 2 layers, fp32
+    state) and [xlstm-tp-serve] (xLSTM at 8 layers: a rank's mLSTM and
+    sLSTM heads of the slab), each at its published widths cut to 2
+    layers (xLSTM 8), fp32
     activations on an fp32 slab: each served on one rank, the model freed
     (``_axis_serve_one``), then all by one job of four ranks on card 0
     over gloo on a (data 2, model 2) mesh (4 of the 8 slots each; the
@@ -3853,8 +4272,13 @@ def phase_axis_tp_serve():
     step latencies; the collectives of every step on every rank the
     formula (``_serve_collectives``); the slab of a rank's state
     (``_check_axis_slab``); a slot serving a second request; no ``gc_*``
-    launch; each rank's peaks.  Returns each phase's launches and seconds
-    (its one-rank run and its part of rank 0's job)."""
+    launch; each rank's peaks.  The same job then runs [whisper-tp-serve]
+    and [vision-tp-serve] through ``generate(aux_inputs=)`` against their
+    one-rank runs (``_cross_serve_one``, ``_cross_generate``: tokens equal,
+    every forward's collectives ``_cross_serve_collectives``).  Returns
+    each phase's launches and seconds (its one-rank run and its part of
+    rank 0's job)."""
+    import numpy as np
     import torch
 
     from repro_torch.configs import get_config
@@ -3862,6 +4286,11 @@ def phase_axis_tp_serve():
 
     g = AXIS_TP_SERVE
     ones = {tag: _axis_serve_one(tag) for tag in AXIS_SERVE_PHASES}
+    ones.update({tag: _cross_serve_one(tag) for tag in CROSS_TP_SERVE})
+    # the xLSTM stack amplifies rounding: a request may part from one rank's
+    # tokens at a near tie, and the mesh is then fed one rank's tokens
+    forced = {tag: ones[tag]["outputs"] for tag, (arch, _, _) in AXIS_SERVE_PHASES.items()
+              if get_config(arch).xlstm_blocks}
     free, total = torch.cuda.mem_get_info()
     log(f"[axis-tp-serve] one-rank runs done, each model freed: this process holds "
         f"{torch.cuda.memory_allocated():,} bytes ({torch.cuda.memory_reserved():,} reserved); "
@@ -3870,7 +4299,7 @@ def phase_axis_tp_serve():
     store = tempfile.mkdtemp(prefix="chip_smoke_axis_serve_", dir=os.path.join(ROOT, "build"))
     t0 = time.perf_counter()
     try:
-        ranks = spawn(_axis_serve_rank, g["data"] * g["model"], store_dir=store,
+        ranks = spawn(_axis_serve_rank, g["data"] * g["model"], forced, store_dir=store,
                       backend="gloo", timeout=SPMD_LIMIT_S)
     finally:
         shutil.rmtree(store, ignore_errors=True)
@@ -3899,7 +4328,10 @@ def phase_axis_tp_serve():
                 raise AssertionError(f"[{name}] the experts split on "
                                      f"{[x['split'] for x in got]}")
             slab = _check_axis_slab(name, case_cfg, g, got[0])
-            seen = _check_tp_serve(name, case_cfg, g, one, got)
+            ties = None
+            if tag in forced:
+                ties = _near_ties(name, case_cfg, one["outputs"], g["prompt_len"])
+            seen = _check_tp_serve(name, case_cfg, g, one, got, ties)
             launches += sum(sum(x["fp32"]["launches"].values()) for x in got)
             run = got[0]["fp32"]
             per = seen["per_step"]
@@ -3910,13 +4342,56 @@ def phase_axis_tp_serve():
                 f"{len(run['reqs'])} requests x {g['prompt_len']}-token prompts: tokens, "
                 f"slots, timestamps and step latencies == the one-rank engine's on every rank "
                 f"({n_tok} tokens, {len(run['latencies'])} decode steps; slots serving a second "
-                f"request {reused}); gc_* launches {[x['fp32']['launches'] for x in got]}; "
+                f"request {reused}; requests parted at a near tie (request, token) "
+                f"{seen['parted']}, and the mesh fed one rank's tokens of each gives them "
+                f"after it but at the near ties (request, token, mesh, one rank) "
+                f"{seen['ties']}); gc_* launches "
+                f"{[x['fp32']['launches'] for x in got]}; "
                 f"{n_tok / run['wall']:.1f} tok/s by the wall clock, a decode step (no "
                 f"admission) median {seen['median']:.3f} ms by the host clock (one rank "
                 f"{statistics.median(seen['one_walls']):.3f} ms); collectives per rank per "
                 f"decode step (== the formula on every step of every rank): {per['counts']}, "
                 f"bytes {per['nbytes']}; serving peaks {[x['peak'] for x in got]} bytes")
         out[tag] = {"launches": launches, "s": one["s"] + part}
+    for tag, (arch, n_layers, _, load) in CROSS_TP_SERVE.items():
+        one, part = ones[tag], ranks[0]["seconds"][tag]
+        cfg = _axis_serve_cfg(arch, n_layers)
+        got = [r["phases"][tag] for r in ranks]
+        for r, x in enumerate(got):
+            if not np.array_equal(x["tokens"], one["tokens"]):
+                diff = int((x["tokens"] != one["tokens"]).sum())
+                raise AssertionError(f"[{tag}] rank {r}: {diff} tokens differ from one rank's")
+            if any(x["launches"].values()):
+                raise AssertionError(f"[{tag}] rank {r}: the serving path launched "
+                                     f"{x['launches']}")
+            if [c["kind"] for c in x["calls"]] != ["prefill"] + ["decode"] * (load["max_new"] - 1):
+                raise AssertionError(f"[{tag}] rank {r}: calls {[c['kind'] for c in x['calls']]}")
+            for i, call in enumerate(x["calls"]):
+                want = _cross_serve_collectives(cfg, load, call["kind"], g["model"])
+                if {"counts": call["counts"], "nbytes": call["nbytes"]} != want:
+                    raise AssertionError(f"[{tag}] rank {r} forward {i} ({call['kind']}): "
+                                         f"collectives {call} vs the formula {want}")
+        steps = [c["ms"] for c in got[0]["calls"][1:]]
+        one_steps = [c["ms"] for c in one["calls"][1:]]
+        per = got[0]["calls"][1]
+        log(f"[{tag}] {cfg.name} at full width, {cfg.n_layers} of {get_config(arch).n_layers} "
+            f"layers (mixers {[l.mixer for l in cfg.layers]}, cross sublayers "
+            f"{sum(l.cross_source for l in cfg.layers)}{', encoder ' if cfg.encoder else ''}"
+            f"{cfg.encoder.n_layers if cfg.encoder else ''}), fp32, gates open: "
+            f"{one['n_params']:,} params; generate(aux_inputs=) {load['batch']} x "
+            f"{load['prompt_len']} + {load['max_new']} tokens, one rank {one['s']:.1f} s (peak "
+            f"{one['peak']:,} bytes); {len(ranks)} ranks (data {g['data']}, model {g['model']}: "
+            f"every rank runs every row) over gloo: split axes {got[0]['axes']}, a rank holds "
+            f"{[x['params'] for x in got]} params; tokens == one rank's on every rank; gc_* "
+            f"launches {[x['launches'] for x in got]}; collectives of every forward == the "
+            f"formula, a decode step {per['counts']} bytes {per['nbytes']}; a decode step "
+            f"median {statistics.median(steps):.3f} ms by the host clock (one rank "
+            f"{statistics.median(one_steps):.3f} ms); device busy in one decode step "
+            f"{got[0]['busy_ms']:.4f} ms on rank 0 (one rank {one['busy_ms']:.4f} ms; its "
+            f"device-only {one['device_ms']:.4f} ms by a replayed graph); serving peaks "
+            f"{[x['peak'] for x in got]} bytes; {part:.1f} s of rank 0's job")
+        out[tag] = {"launches": sum(sum(x["launches"].values()) for x in got),
+                    "s": one["s"] + part}
     log("[axis-tp-serve] seconds by phase (its one-rank run and its part of the job): "
         + ", ".join(f"[{tag}] {v['s']:.1f}" for tag, v in out.items()))
     return out
@@ -4872,37 +5347,73 @@ def phase_deepseek_serve():
 def _family_cfg(arch: str):
     """[deepseek-train]'s or [jamba-train]'s config (the reference's smoke
     widths at ``DEEPSEEK_TRAIN_LAYERS`` or ``JAMBA_TRAIN_LAYERS``), which
-    [mla-tp] and [mamba-tp] train on the model axis."""
+    [mla-tp] and [mamba-tp] train on the model axis (``fam["cfg"]``)."""
     from repro_torch.configs import get_config
 
     layers = {"deepseek-v3-671b": DEEPSEEK_TRAIN_LAYERS, "jamba-v0.1-52b": JAMBA_TRAIN_LAYERS}
     return get_config(arch).reduced(n_layers=layers[arch])
 
 
-def _sim_grads(tag, plan, rows, g_ref, paths) -> tuple:
-    """[tag]'s step-0 sim-mode coded gradients at 0, 1 and s_max
-    stragglers, each held to the uncoded one (``EXACT_RTOL`` per leaf),
-    and copied to the host into a file in a new directory under
-    ``build/`` for the model axis's phase of the same config and batches
-    ([mla-tp], [mamba-tp]), which holds its gathered spmd gradients to
-    them: the work is shared, not redone on a rank.  Returns the gaps by
-    straggler count and the file."""
+def _keep_step0_rows(grad_fn):
+    """Keep the per-shard rows that a trainer's own first step computes:
+    its ``grad_fn.rows`` runs as the step runs it, and the step's combine
+    gets them as before, while a reference to them stays here; later steps
+    call ``grad_fn.rows`` directly.  A phase holds these rows — the main
+    path's own — to the uncoded gradient or to sim mode after the run, so
+    those passes run once.  Returns ``take(wb, wa=None)``, which checks
+    that the first step was given the worker batches ``wb`` (and the
+    ``worker_aux`` ``wa``) and hands the rows over."""
+    import numpy as np
     import torch
 
+    real, kept = grad_fn.rows, {}
+
+    def first(model, worker_batches, worker_aux=None):
+        grad_fn.rows = real
+        kept.update(rows=real(model, worker_batches, worker_aux), wb=np.array(worker_batches),
+                    wa=worker_aux)
+        return kept["rows"]
+
+    def take(wb, wa=None) -> list:
+        if "rows" not in kept or not np.array_equal(kept["wb"], wb) or \
+                (wa is None) != (kept["wa"] is None) or \
+                (wa is not None and not torch.equal(kept["wa"], wa)):
+            raise AssertionError("the trainer's first step did not run on step 0's inputs")
+        return kept.pop("rows")
+
+    grad_fn.rows = first
+    return take
+
+
+def _sim_grads(tag, plan, rows, g_ref, paths, partner=lambda p: None) -> tuple:
+    """[tag]'s step-0 sim-mode coded gradients from the per-shard ``rows``
+    at 0, 1 and s_max stragglers, each held to the uncoded one
+    (``EXACT_RTOL`` per leaf; a leaf whose gradient is zero in exact
+    arithmetic at ``partner``'s, ``_worst_rel_held``).  Returns the gaps by
+    straggler count and the gradients by straggler count, on the card."""
     from repro_torch.train.coded import combine_rows
 
     gaps, sim = {}, {}
     for u in sorted({0, 1, plan.s_max}):
-        got = combine_rows(plan, rows, _straggler_dec_w(plan, u))
-        gaps[u] = _worst_rel(got, g_ref, paths, EXACT_RTOL,
-                             f"[{tag}] coded != uncoded, {u} stragglers")
-        sim[u] = [t.cpu() for t in got]
-        del got
+        sim[u] = combine_rows(plan, rows, _straggler_dec_w(plan, u))
+        gaps[u] = _worst_rel_held(sim[u], g_ref, paths, EXACT_RTOL,
+                                  f"[{tag}] coded != uncoded, {u} stragglers", partner)
+    return gaps, sim
+
+
+def _save_sim(tag, sim) -> str:
+    """``_sim_grads``'s gradients copied to the host into a file in a new
+    directory under ``build/``, for the model axis's phase of the same
+    config and batches ([mla-tp], [mamba-tp], [xlstm-tp], [cross-tp]),
+    which holds its gathered spmd gradients to them: the work is shared,
+    not redone on a rank.  Returns the file."""
+    import torch
+
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     path = os.path.join(tempfile.mkdtemp(prefix=f"chip_smoke_{tag}_",
                                          dir=os.path.join(ROOT, "build")), "sim.pt")
-    torch.save(sim, path)
-    return gaps, path
+    torch.save({u: [t.cpu() for t in g] for u, g in sim.items()}, path)
+    return path
 
 
 def phase_deepseek_train():
@@ -4925,7 +5436,7 @@ def phase_deepseek_train():
     from repro_torch.data.pipeline import coded_worker_batches
     from repro_torch.kernels import _pipe
     from repro_torch.models.model import train_loss
-    from repro_torch.train.coded import per_shard_grad_rows, uncoded_grad_fn
+    from repro_torch.train.coded import uncoded_grad_fn
     from repro_torch.train.trainer import TrainConfig, Trainer
 
     _free_card()
@@ -4941,17 +5452,8 @@ def phase_deepseek_train():
                              f"{[l.moe is None for l in cfg.layers]}, {mtp}")
     wb = coded_worker_batches(trainer.data, 0, n, plan.s_max)
     shards = np.stack([trainer.data.shard(0, i, n) for i in range(n)])
-    rows = per_shard_grad_rows(cfg, model, wb)
-    g_ref = uncoded_grad_fn(cfg, n)(model, shards)
-    gaps, sim = _sim_grads("deepseek-train", plan, rows, g_ref, paths)
-    del rows, g_ref
-    log(f"[deepseek-train] deepseek-v3-671b reduced ({cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, MLA {cfg.mla.q_lora_rank}/{cfg.mla.kv_lora_rank}, "
-        f"{cfg.layers[-1].moe.num_experts} experts top-{cfg.layers[-1].moe.top_k}, MTP depth "
-        f"{cfg.mtp_depth}): {sum(t.numel() for t in model.leaves())} params in {len(paths)} "
-        f"leaves ({len(mtp)} of MTP), N*K={n * plan.k_shards}; step 0, coded == uncoded, worst "
-        f"leaf relative max error at 0 / s_max stragglers: {gaps[0]:.3e} / "
-        f"{gaps[plan.s_max]:.3e} (bound {EXACT_RTOL})")
+    g_ref = uncoded_grad_fn(cfg, n)(model, shards)  # step 0's parameters
+    take = _keep_step0_rows(trainer.step_fn.grad_fn)
 
     # one grouped combine per step; a launch holds at most MAX_LEAVES leaves
     per_step = -(-len(paths) // _pipe.MAX_LEAVES)
@@ -4959,6 +5461,17 @@ def phase_deepseek_train():
     trainer.run(STEPS, log_every=1, log_fn=lambda m: log(f"[deepseek-train] {m}"))
     torch.cuda.synchronize()
     launches = read_counts()
+    gaps, sim = _sim_grads("deepseek-train", plan, take(wb), g_ref, paths)
+    sim = _save_sim("deepseek-train", sim)
+    del g_ref
+    log(f"[deepseek-train] deepseek-v3-671b reduced ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, MLA {cfg.mla.q_lora_rank}/{cfg.mla.kv_lora_rank}, "
+        f"{cfg.layers[-1].moe.num_experts} experts top-{cfg.layers[-1].moe.top_k}, MTP depth "
+        f"{cfg.mtp_depth}): {sum(t.numel() for t in model.leaves())} params in {len(paths)} "
+        f"leaves ({len(mtp)} of MTP), N*K={n * plan.k_shards}; step 0 (the trainer's own "
+        f"rows), coded == uncoded, worst leaf relative max error at 0 / 1 / s_max "
+        f"stragglers: " + " / ".join(f"{v:.3e}" for v in gaps.values())
+        + f" (bound {EXACT_RTOL})")
     hist = trainer.history
     if launches != {"gc_fused": STEPS * per_step, "gc_encode": 0, "gc_decode": 0}:
         raise AssertionError(f"[deepseek-train] launches {launches} in {STEPS} steps, expected "
@@ -4989,7 +5502,7 @@ def phase_deepseek_train():
     del trainer, model
     _free_card()
     return {"launches": launches["gc_fused"], "gaps": gaps, "losses": [h["loss"] for h in hist],
-            "sim": sim, "arch": "deepseek-v3-671b", "phase": "deepseek-train"}
+            "sim": sim, "cfg": cfg, "seq_len": 256, "phase": "deepseek-train"}
 
 
 def phase_jamba_serve():
@@ -5166,7 +5679,7 @@ def phase_jamba_train():
     from repro_torch.data.pipeline import coded_worker_batches
     from repro_torch.kernels import _pipe
     from repro_torch.models.model import train_loss
-    from repro_torch.train.coded import per_shard_grad_rows, uncoded_grad_fn
+    from repro_torch.train.coded import uncoded_grad_fn
     from repro_torch.train.trainer import TrainConfig, Trainer
 
     _free_card()
@@ -5181,23 +5694,24 @@ def phase_jamba_train():
                              f"{[l.mixer for l in cfg.layers]}")
     wb = coded_worker_batches(trainer.data, 0, n, plan.s_max)
     shards = np.stack([trainer.data.shard(0, i, n) for i in range(n)])
-    rows = per_shard_grad_rows(cfg, model, wb)
-    g_ref = uncoded_grad_fn(cfg, n)(model, shards)
-    gaps, sim = _sim_grads("jamba-train", plan, rows, g_ref, paths)
-    del rows, g_ref
-    log(f"[jamba-train] jamba-v0.1-52b reduced ({cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"Mamba d_inner {cfg.mamba.expand * cfg.d_model} d_state {cfg.mamba.d_state}, scan "
-        f"chunks of {cfg.scan_chunk}, {cfg.layers[1].moe.num_experts} experts "
-        f"top-{cfg.layers[1].moe.top_k}): {sum(t.numel() for t in model.leaves())} params in "
-        f"{len(paths)} leaves, N*K={n * plan.k_shards}; step 0, coded == uncoded, worst leaf "
-        f"relative max error at 0 / s_max stragglers: {gaps[0]:.3e} / {gaps[plan.s_max]:.3e} "
-        f"(bound {EXACT_RTOL})")
+    g_ref = uncoded_grad_fn(cfg, n)(model, shards)  # step 0's parameters
+    take = _keep_step0_rows(trainer.step_fn.grad_fn)
 
     per_step = -(-len(paths) // _pipe.MAX_LEAVES)
     reset_counts()
     trainer.run(STEPS, log_every=1, log_fn=lambda m: log(f"[jamba-train] {m}"))
     torch.cuda.synchronize()
     launches = read_counts()
+    gaps, sim = _sim_grads("jamba-train", plan, take(wb), g_ref, paths)
+    sim = _save_sim("jamba-train", sim)
+    del g_ref
+    log(f"[jamba-train] jamba-v0.1-52b reduced ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"Mamba d_inner {cfg.mamba.expand * cfg.d_model} d_state {cfg.mamba.d_state}, scan "
+        f"chunks of {cfg.scan_chunk}, {cfg.layers[1].moe.num_experts} experts "
+        f"top-{cfg.layers[1].moe.top_k}): {sum(t.numel() for t in model.leaves())} params in "
+        f"{len(paths)} leaves, N*K={n * plan.k_shards}; step 0 (the trainer's own rows), "
+        f"coded == uncoded, worst leaf relative max error at 0 / 1 / s_max stragglers: "
+        + " / ".join(f"{v:.3e}" for v in gaps.values()) + f" (bound {EXACT_RTOL})")
     hist = trainer.history
     if launches != {"gc_fused": STEPS * per_step, "gc_encode": 0, "gc_decode": 0}:
         raise AssertionError(f"[jamba-train] launches {launches} in {STEPS} steps, expected "
@@ -5226,7 +5740,7 @@ def phase_jamba_train():
     del trainer, model
     _free_card()
     return {"launches": launches["gc_fused"], "gaps": gaps, "losses": [h["loss"] for h in hist],
-            "sim": sim, "arch": "jamba-v0.1-52b", "phase": "jamba-train"}
+            "sim": sim, "cfg": cfg, "seq_len": 256, "phase": "jamba-train"}
 
 
 def _xlstm_state_bytes(cfg, slab) -> int:
@@ -5516,25 +6030,18 @@ def _worst_rel_held(got, want, paths, bound: float, what: str, partner) -> float
     return worst
 
 
-def _xlstm_worst_rel(got, want, paths, bound: float, what: str) -> float:
-    """``_worst_rel_held`` with a ``b_i`` leaf — whose gradient is zero in
-    exact arithmetic: a shift of every log_i of a head moves C, n and e^m
-    alike — held at ``bound`` of its layer's ``b_f`` gradient."""
-    return _worst_rel_held(got, want, paths, bound, what,
-                           lambda p: p[:-1] + "f" if p.endswith("b_i") else None)
-
-
 def phase_xlstm_train():
     """Coded training of xlstm-1.3b at its published widths cut to its
     layers 5 to 8 of 48 (a run of 3 mLSTM layers and the period's sLSTM,
     254,212,120 parameters in 22 leaves; 16 fp32 rows of 1.02 GB per
     step), bf16 activations and ``remat="dots"`` as the config has
     them, in sim mode with the gc-lm-110m plan settings (N = 4, ``xf``,
-    s_max = 3, seq 256: one mLSTM chunk, global batch 8).  At step 0 the
-    coded gradient equals the uncoded one (``EXACT_RTOL`` per leaf;
-    ``_xlstm_worst_rel``) with 0 and s_max stragglers.  ``Trainer.run``
+    s_max = 3, seq 256: one mLSTM chunk, global batch 8).  ``Trainer.run``
     for 3 steps with the counts set to 0 just before: one grouped
-    ``gc_fused`` launch per step, finite ``loss`` and ``xent``.  On the
+    ``gc_fused`` launch per step, finite ``loss`` and ``xent``; the rows
+    of its step 0 give a coded gradient equal to the uncoded one
+    (``EXACT_RTOL`` per leaf; ``b_i``, zero in exact arithmetic, at its
+    ``b_f``'s) with 0, 1 and s_max stragglers.  On the
     card: ``remat`` "none", "dots" and "full" bit-equal, and two runs of
     one forward+backward byte-equal."""
     import numpy as np
@@ -5543,7 +6050,7 @@ def phase_xlstm_train():
     from repro_torch.core import ShiftedExponential
     from repro_torch.data.pipeline import coded_worker_batches
     from repro_torch.models.model import train_loss
-    from repro_torch.train.coded import combine_rows, per_shard_grad_rows, uncoded_grad_fn
+    from repro_torch.train.coded import uncoded_grad_fn
     from repro_torch.train.trainer import TrainConfig, Trainer
 
     _free_card()
@@ -5565,24 +6072,22 @@ def phase_xlstm_train():
                              f"{cfg.dtype}, remat {cfg.remat}, mixers {mixers}")
     wb = coded_worker_batches(trainer.data, 0, n, plan.s_max)
     shards = np.stack([trainer.data.shard(0, i, n) for i in range(n)])
-    rows = per_shard_grad_rows(cfg, model, wb)
-    g_ref = uncoded_grad_fn(cfg, n)(model, shards)
-    gaps = {u: _xlstm_worst_rel(combine_rows(plan, rows, _straggler_dec_w(plan, u)), g_ref,
-                                paths, EXACT_RTOL,
-                                f"[xlstm-train] coded != uncoded, {u} stragglers")
-            for u in (0, plan.s_max)}
-    del rows, g_ref
-    log(f"[xlstm-train] xlstm-1.3b at full width, layers {XLSTM_TRAIN_LAYERS.start + 1} to "
-        f"{XLSTM_TRAIN_LAYERS.stop} of 48 ({mixers.count('mlstm')} mLSTM, "
-        f"{mixers.count('slstm')} sLSTM, bf16 activations, "
-        f"remat {cfg.remat}): {n_params} params in {len(paths)} leaves, "
-        f"N*K={n * plan.k_shards}; step 0, coded == uncoded, worst leaf relative max error at "
-        f"0 / s_max stragglers: {gaps[0]:.3e} / {gaps[plan.s_max]:.3e} (bound {EXACT_RTOL})")
+    g_ref = uncoded_grad_fn(cfg, n)(model, shards)  # step 0's parameters
+    take = _keep_step0_rows(trainer.step_fn.grad_fn)
 
     reset_counts()
     trainer.run(STEPS, log_every=1, log_fn=lambda m: log(f"[xlstm-train] {m}"))
     torch.cuda.synchronize()
     launches = read_counts()
+    gaps, _ = _sim_grads("xlstm-train", plan, take(wb), g_ref, paths, _b_i_partner)
+    del g_ref
+    log(f"[xlstm-train] xlstm-1.3b at full width, layers {XLSTM_TRAIN_LAYERS.start + 1} to "
+        f"{XLSTM_TRAIN_LAYERS.stop} of 48 ({mixers.count('mlstm')} mLSTM, "
+        f"{mixers.count('slstm')} sLSTM, bf16 activations, "
+        f"remat {cfg.remat}): {n_params} params in {len(paths)} leaves, "
+        f"N*K={n * plan.k_shards}; step 0 (the trainer's own rows), coded == uncoded, worst "
+        f"leaf relative max error at 0 / 1 / s_max stragglers: "
+        + " / ".join(f"{v:.3e}" for v in gaps.values()) + f" (bound {EXACT_RTOL})")
     hist = trainer.history
     if launches != {"gc_fused": STEPS, "gc_encode": 0, "gc_decode": 0}:
         raise AssertionError(f"[xlstm-train] launches {launches} in {STEPS} steps, expected "
@@ -5657,14 +6162,15 @@ def _worker_aux(cfg, step: int, n_workers: int, s_max: int, rows: int):
 def _cross_train(tag, cfg, partner=lambda p: None, seq_len: int = 256) -> dict:
     """Coded training of a model with a cross-attention source in sim mode
     with the gc-lm-110m plan settings (N = 4, ``xf``, s_max = 3, global
-    batch 8), the gates open, ``worker_aux`` per step from the seed.  At
-    step 0 the coded gradient equals the uncoded one (``EXACT_RTOL`` per
-    leaf; ``partner`` names the leaf against whose gradient a leaf that is
-    zero in exact arithmetic is held) with 0 and s_max stragglers; then
+    batch 8), the gates open, ``worker_aux`` per step from the seed:
     ``make_coded_train_step``'s step with ``worker_aux`` for 3 steps with
     the counts set to 0 just before: ceil(leaves / 32) ``gc_fused``
-    launches per step, finite losses; two runs of one forward+backward
-    byte-equal."""
+    launches per step, finite losses; the rows of its step 0 give a coded
+    gradient equal to the uncoded one (``_sim_grads``: ``EXACT_RTOL`` per
+    leaf; ``partner`` names the leaf against whose gradient a leaf that is
+    zero in exact arithmetic is held) with 0, 1 and s_max stragglers
+    (returned under ``"sim"``, on the card); two runs of one
+    forward+backward byte-equal."""
     import numpy as np
     import torch
 
@@ -5672,7 +6178,7 @@ def _cross_train(tag, cfg, partner=lambda p: None, seq_len: int = 256) -> dict:
     from repro_torch.data.pipeline import coded_worker_batches
     from repro_torch.kernels import _pipe
     from repro_torch.models.model import train_loss
-    from repro_torch.train.coded import combine_rows, per_shard_grad_rows, uncoded_grad_fn
+    from repro_torch.train.coded import uncoded_grad_fn
     from repro_torch.train.trainer import TrainConfig, Trainer
 
     trainer = Trainer(cfg, TrainConfig(lr=3e-4, warmup=10, total_steps=300),
@@ -5687,20 +6193,11 @@ def _cross_train(tag, cfg, partner=lambda p: None, seq_len: int = 256) -> dict:
     wb = coded_worker_batches(trainer.data, 0, n, plan.s_max)
     shards = np.stack([trainer.data.shard(0, i, n) for i in range(n)])
     shard_aux, wa = _worker_aux(cfg, 0, n, plan.s_max, rows_per_shard)
-    rows = per_shard_grad_rows(cfg, model, wb, wa)
-    g_ref = uncoded_grad_fn(cfg, n)(model, shards, shard_aux)
-    gaps = {u: _worst_rel_held(combine_rows(plan, rows, _straggler_dec_w(plan, u)), g_ref,
-                               paths, EXACT_RTOL, f"[{tag}] coded != uncoded, {u} stragglers",
-                               partner)
-            for u in (0, plan.s_max)}
-    del rows, g_ref
-    log(f"[{tag}] {cfg.name}: {n_params} params in {len(paths)} leaves, {cfg.n_layers} "
-        f"layers, {cfg.dtype} activations, remat {cfg.remat}, aux {tuple(wa.shape)} fp32, "
-        f"N*K={n * plan.k_shards}; step 0, coded == uncoded, worst leaf relative max error at "
-        f"0 / s_max stragglers: {gaps[0]:.3e} / {gaps[plan.s_max]:.3e} (bound {EXACT_RTOL})")
+    g_ref = uncoded_grad_fn(cfg, n)(model, shards, shard_aux)  # step 0's parameters
+    take = _keep_step0_rows(trainer.step_fn.grad_fn)
 
-    inputs = []
-    for i in range(STEPS):
+    inputs = [(wb, wa)]
+    for i in range(1, STEPS):
         wb_i = coded_worker_batches(trainer.data, i, n, plan.s_max)
         inputs.append((wb_i, _worker_aux(cfg, i, n, plan.s_max, rows_per_shard)[1]))
     torch.cuda.synchronize()
@@ -5721,6 +6218,13 @@ def _cross_train(tag, cfg, partner=lambda p: None, seq_len: int = 256) -> dict:
                              f"{per_step} gc_fused launches per step ({len(paths)} leaves)")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"[{tag}] losses {losses}")
+    gaps, sim = _sim_grads(tag, plan, take(wb, wa), g_ref, paths, partner)
+    del g_ref
+    log(f"[{tag}] {cfg.name}: {n_params} params in {len(paths)} leaves, {cfg.n_layers} "
+        f"layers, {cfg.dtype} activations, remat {cfg.remat}, aux {tuple(wa.shape)} fp32, "
+        f"N*K={n * plan.k_shards}; step 0 (the trainer's own rows), coded == uncoded, worst "
+        f"leaf relative max error at 0 / 1 / s_max stragglers: "
+        + " / ".join(f"{v:.3e}" for v in gaps.values()) + f" (bound {EXACT_RTOL})")
 
     tokens = torch.as_tensor(wb[0, 0], device="cuda")
     batch = {"tokens": tokens, "aux_inputs": wa[0, 0]}
@@ -5734,10 +6238,11 @@ def _cross_train(tag, cfg, partner=lambda p: None, seq_len: int = 256) -> dict:
         raise AssertionError(f"[{tag}] two runs of one forward+backward differ")
     log(f"[{tag}] {STEPS} steps of make_coded_train_step with worker_aux: losses {losses}, "
         f"step wall_s {[round(w, 4) for w in walls]}, launches {launches} ({per_step} per step: "
-        f"{len(paths)} leaves); max_memory_allocated {peak} bytes ({peak / 1e9:.2f} GB); two "
-        "forward+backward runs byte-equal")
+        f"{len(paths)} leaves); max_memory_allocated {peak} bytes ({peak / 1e9:.2f} GB, step "
+        "0's rows and the uncoded gradient held for the check); two forward+backward runs "
+        "byte-equal")
     out = {"launches": launches["gc_fused"], "gaps": gaps, "step_s": walls, "peak": peak,
-           "model": model, "batch": batch, "trainer": trainer}
+           "model": model, "batch": batch, "trainer": trainer, "losses": losses, "sim": sim}
     return out
 
 
@@ -5758,8 +6263,7 @@ def phase_whisper_train():
     _free_card()
     cfg = get_config("whisper-base")
     run = _cross_train("whisper-train", cfg, seq_len=WHISPER_TRAIN["seq_len"],
-                       partner=lambda p: p[:-1] + "q" if p.startswith("encoder.")
-                       and p.endswith(".bk") else None)
+                       partner=_encoder_bk_partner)
     model, batch = run["model"], run["batch"]
     n_params = sum(t.numel() for t in model.leaves())
     if len(model.leaves()) != 103 or n_params != 70_646_278 or cfg.dtype != "bfloat16" or \
@@ -5792,7 +6296,10 @@ def phase_vision_train():
     """Coded training of ``llama-3.2-vision-11b.reduced(n_layers=10)`` (two
     periods: the cross layer stacked in a pattern; 50 leaves) with 16-patch
     aux rows (``_cross_train``): coded == uncoded at step 0, 3 steps with 2
-    ``gc_fused`` launches each, two forward+backward runs byte-equal."""
+    ``gc_fused`` launches each, two forward+backward runs byte-equal.  It
+    runs before [spmd] and saves its step-0 sim-mode gradients for
+    [cross-tp], which trains the same config, weights, gates and batches
+    on the model axis (``_save_sim``)."""
     from repro_torch.configs import get_config
 
     _free_card()
@@ -5800,10 +6307,122 @@ def phase_vision_train():
     run = _cross_train("vision-train", cfg)
     if len(run["model"].leaves()) != 50:
         raise AssertionError(f"[vision-train] {len(run['model'].leaves())} leaves, expected 50")
-    out = {k: run[k] for k in ("launches", "gaps", "step_s", "peak")}
+    out = {k: run[k] for k in ("launches", "gaps", "step_s", "peak", "losses")}
+    out["sim"] = _save_sim("vision-train", run["sim"])
     del run
     _free_card()
-    return out
+    return {**out, "cfg": cfg, "seq_len": 256, "phase": "vision-train"}
+
+
+def phase_whisper_tp_sim():
+    """[cross-tp]'s Whisper in one process, sim mode: whisper-base at the
+    reference's smoke widths with its published vocabulary (``reduced()``,
+    fp32: 2 encoder and 2 decoder layers, d_model 256, 64 frames, 51,865
+    rows, whole on the model axis: odd) at ``WHISPER_TP_SEQ`` tokens
+    (``_cross_train``: 3 steps with 2 ``gc_fused`` launches each, coded ==
+    uncoded at step 0, the encoder's ``bk`` held at its ``bq``'s); its
+    step-0 sim-mode gradients saved for [cross-tp].  [whisper-train]
+    trains the full width in the config's bf16, whose rounding the axis's
+    split sums would move past the 1e-5 gate; the full width in fp32 costs
+    more than the script's budget holds (``WHISPER_TP_SEQ``)."""
+    from repro_torch.configs import get_config
+
+    _free_card()
+    cfg = get_config("whisper-base").reduced().replace(vocab=get_config("whisper-base").vocab)
+    run = _cross_train("whisper-tp-sim", cfg, partner=_encoder_bk_partner,
+                       seq_len=WHISPER_TP_SEQ)
+    out = {k: run[k] for k in ("launches", "gaps", "losses")}
+    out["sim"] = _save_sim("whisper-tp-sim", run["sim"])
+    del run
+    _free_card()
+    return {**out, "cfg": cfg, "seq_len": WHISPER_TP_SEQ, "phase": "whisper-tp-sim",
+            "partner": _encoder_bk_partner}
+
+
+def _encoder_bk_partner(path):
+    """An encoder ``bk``'s partner, its layer's ``bq`` (its gradient is zero
+    in exact arithmetic: no RoPE, a key bias shifts a query row's scores
+    alike), else None."""
+    return path[:-1] + "q" if path.startswith("encoder.") and path.endswith(".bk") else None
+
+
+def _b_i_partner(path):
+    """An mLSTM ``b_i``'s partner, its layer's ``b_f`` (its gradient is
+    zero in exact arithmetic: a shift of every log_i of a head moves C, n
+    and e^m alike), else None."""
+    return path[:-1] + "f" if path.endswith("b_i") else None
+
+
+def phase_xlstm_tp_sim():
+    """[xlstm-tp]'s config in one process, sim mode:
+    ``xlstm-1.3b.reduced(n_layers=8, d_model=384)`` (7 mLSTM layers and the
+    sLSTM, 4 heads, the GeGLU 512 wide: split at model 2) with the
+    gc-lm-110m plan settings (N = 4, ``xf``, s_max = 3, global batch 8) at
+    ``XLSTM_TP["seq_len"]`` tokens.  ``Trainer.run`` for 3 steps with the
+    counts set to 0 just before: one grouped ``gc_fused`` call per step,
+    finite losses; the rows of its step 0 give a coded gradient equal to
+    the uncoded one (``EXACT_RTOL``; ``b_i`` at its ``b_f``'s) with 0, 1
+    and s_max stragglers, saved for [xlstm-tp] (``_save_sim``).  The
+    stack amplifies rounding at this random init (ROADMAP 3.20): one
+    shard's gradient by another exact form — the mLSTM's chunks halved —
+    lies a few 1e-6 of a leaf's scale away (printed beside [xlstm-tp]'s
+    distance, which ``XLSTM_TP_REL`` bounds)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import ShiftedExponential
+    from repro_torch.data.pipeline import coded_worker_batches
+    from repro_torch.kernels import _pipe
+    from repro_torch.models.model import train_loss
+    from repro_torch.train.coded import uncoded_grad_fn
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    _free_card()
+    g = XLSTM_TP
+    cfg = get_config("xlstm-1.3b").reduced(n_layers=g["n_layers"], d_model=g["d_model"])
+    trainer = Trainer(cfg, TrainConfig(lr=3e-4, warmup=10, total_steps=300),
+                      ShiftedExponential(mu=1e-3, t0=50.0), n_workers=4, scheme="xf",
+                      global_batch=8, seed=0, device="cuda", seq_len=g["seq_len"])
+    plan, model, n = trainer.plan, trainer.state.params, trainer.n_workers
+    paths = model.leaf_paths()
+    wb = coded_worker_batches(trainer.data, 0, n, plan.s_max)
+    shards = np.stack([trainer.data.shard(0, i, n) for i in range(n)])
+    g_ref = uncoded_grad_fn(cfg, n)(model, shards)  # step 0's parameters
+    # the stack's own rounding: one shard's gradient by two exact forms, the
+    # mLSTM's chunks halved in the second (printed beside [xlstm-tp]'s distance)
+    tokens = {"tokens": torch.as_tensor(wb[0, 0], device="cuda")}
+    one, halved = (torch.autograd.grad(train_loss(c, model, tokens)[0], model.leaves())
+                   for c in (cfg, cfg.replace(scan_chunk=cfg.scan_chunk // 2)))
+    own_rel = max(((a - b).abs().max() / a.abs().max()).item()
+                  for p, a, b in zip(paths, one, halved) if _b_i_partner(p) is None)
+    del one, halved
+    take = _keep_step0_rows(trainer.step_fn.grad_fn)
+    per_step = -(-len(paths) // _pipe.MAX_LEAVES)
+    reset_counts()
+    trainer.run(STEPS, log_every=0)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    losses = [h["loss"] for h in trainer.history]
+    if launches != {"gc_fused": STEPS * per_step, "gc_encode": 0, "gc_decode": 0} or \
+            not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"[xlstm-tp-sim] launches {launches}, losses {losses}")
+    gaps, sim = _sim_grads("xlstm-tp-sim", plan, take(wb), g_ref, paths, _b_i_partner)
+    sim = _save_sim("xlstm-tp-sim", sim)
+    del g_ref
+    log(f"[xlstm-tp-sim] {cfg.name} reduced ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"mixers {[l.mixer for l in cfg.layers]}) at {g['seq_len']} tokens: "
+        f"{sum(t.numel() for t in model.leaves())} params in {len(paths)} leaves; step 0, coded "
+        f"== uncoded at 0 / 1 / s_max stragglers: "
+        + " / ".join(f"{v:.3e}" for v in gaps.values())
+        + f" (bound {EXACT_RTOL}); one shard's gradient with the mLSTM's chunks halved "
+        f"(another exact form) lies {own_rel:.3e} of a leaf's scale from it; {STEPS} steps: "
+        f"losses {losses}, launches {launches}")
+    del trainer, model
+    _free_card()
+    return {"launches": launches["gc_fused"], "gaps": gaps, "losses": losses, "sim": sim,
+            "cfg": cfg, "seq_len": g["seq_len"], "phase": "xlstm-tp-sim",
+            "partner": _b_i_partner, "bound": XLSTM_TP_REL, "own": own_rel}
 
 
 def _cross_bounds(cfg, model, b: int, s: int, cap: int, decode: bool) -> tuple:
@@ -6041,10 +6660,14 @@ def main() -> int:
     moe_train = timed("moe-train", phase_moe_train)
     deepseek = timed("deepseek-train", phase_deepseek_train)
     jamba = timed("jamba-train", phase_jamba_train)
+    xlstm_sim = timed("xlstm-tp-sim", phase_xlstm_tp_sim)
+    whisper_sim = timed("whisper-tp-sim", phase_whisper_tp_sim)
+    vision = timed("vision-train", phase_vision_train)
     spmd_launches, spmd_times, axis_losses = timed("spmd", phase_spmd)
     tp_launches, tp_times, tp_state_ranks, tp_state_work = timed(
-        "tp", phase_tp, axis_losses, moe_train["losses"], {"mla-tp": deepseek,
-                                                           "mamba-tp": jamba})
+        "tp", phase_tp, axis_losses, moe_train["losses"],
+        {"mla-tp": deepseek, "mamba-tp": jamba, "xlstm-tp": xlstm_sim,
+         "cross-tp/whisper": whisper_sim, "cross-tp/vision": vision})
     ckpt_launches, n_digits = timed("ckpt", phase_ckpt)
     tp_state_launches = timed("tp-state", phase_tp_state, tp_state_ranks, tp_state_work)
     enc_err, enc_times = timed("encode", phase_encode, n_digits)
@@ -6066,7 +6689,6 @@ def main() -> int:
     whisper = timed("whisper-train", phase_whisper_train)
     timed("whisper-serve", phase_whisper_serve)
     timed("vision-serve", phase_vision_serve)
-    vision = timed("vision-train", phase_vision_train)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s; seconds by "
         f"phase {spent}")
 
@@ -6088,6 +6710,10 @@ def main() -> int:
                       "dryrun": dryrun["launches"], "tp-serve": tp_serve["launches"],
                       "moe-tp": tp_launches["moe-tp"],
                       "mla-tp": tp_launches["mla-tp"], "mamba-tp": tp_launches["mamba-tp"],
+                      "xlstm-tp-sim": xlstm_sim["launches"], "xlstm-tp": tp_launches["xlstm-tp"],
+                      "whisper-tp-sim": whisper_sim["launches"],
+                      "cross-tp": tp_launches["cross-tp/whisper"]
+                      + tp_launches["cross-tp/vision"],
                       **{tag: v["launches"] for tag, v in axis_serve.items()},
                       "gemma3-tp-serve": gemma3_tp_serve["launches"],
                       "tp-state": tp_state_launches["gc_fused"]}

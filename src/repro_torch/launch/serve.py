@@ -43,13 +43,16 @@ experts and vocabulary over its M model ranks; each rank draws only its
 shards (``params.init_shards``, the one-rank launcher's weights cut), and
 rank 0 alone prints.  ``--backend`` defaults from the device (``nccl``,
 one card per rank; ``gloo`` on the CPU, or to rehearse several ranks on
-one card).  The model axis takes the dense families (gc-lm-110m, Gemma,
-Qwen 1.5), mixtral-8x22b (its experts split by their FFN width, as the
-reference splits them; a MoE layer counts its capacity over every data
-rank's slots), deepseek-v3-671b (MLA's heads split, the latent cache
-whole on every rank) and jamba-v0.1-52b (the Mamba mixers' channels and
-their state split); xLSTM and the cross-attention families (Whisper,
-Llama-3.2-vision) raise before any process group exists (ROADMAP 6c):
+one card).  The model axis takes every family: the dense ones
+(gc-lm-110m, Gemma, Qwen 1.5), mixtral-8x22b (its experts split by
+their FFN width, as the reference splits them; a MoE layer counts its
+capacity over every data rank's slots), deepseek-v3-671b (MLA's heads
+split, the latent cache whole on every rank), jamba-v0.1-52b (the Mamba
+mixers' channels and their state split), xlstm-1.3b (the mLSTM's and
+the sLSTM's heads and their state split) and the cross-attention
+families (Whisper's encoder and decoder heads, Llama-3.2-vision's; the
+source whole on every rank), which batch mode serves through
+``generate(aux_inputs=)``, every row on every rank:
 
     torchrun --nproc-per-node 4 -m repro_torch.launch.serve --reduced \
         --device cpu --data-par 2 --model-par 2 --stream 8
@@ -57,6 +60,10 @@ Llama-3.2-vision) raise before any process group exists (ROADMAP 6c):
         --reduced --device cpu --data-par 2 --model-par 2 --stream 8
     torchrun --nproc-per-node 4 -m repro_torch.launch.serve --arch jamba-v0.1-52b \
         --reduced --device cpu --data-par 2 --model-par 2 --stream 8
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve --arch xlstm-1.3b \
+        --reduced --device cpu --data-par 2 --model-par 2 --stream 8
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve --arch whisper-base \
+        --reduced --device cpu --model-par 2
 
     python -m repro_torch.launch.serve --arch gemma3-27b --reduced --device cpu
     python -m repro_torch.launch.serve --arch mixtral-8x22b --reduced --device cpu
@@ -80,7 +87,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import Env, ShiftedExponential
 from repro_torch.dist.mesh import meta_mesh
 from repro_torch.launch.mesh import make_local_mesh
-from repro_torch.models.params import GCLM, init_shards, shard_dims
+from repro_torch.models.params import GCLM, init_shards, shard_blocks
 from repro_torch.serve import CodedDecode, ServeConfig, ServeEngine, fold_seed, generate
 from repro_torch.sim.arrivals import poisson_arrivals
 
@@ -194,8 +201,8 @@ def main(argv=None):
     if args.stream > 0 and (cfg.vision is not None or cfg.encoder is not None):
         raise SystemExit("--stream serves text-only configs (the engine does not take "
                          "aux_inputs)")
-    if args.model_par > 1:  # xLSTM and cross-attention raise here (ROADMAP 6c)
-        shard_dims(cfg, meta_mesh(args.data_par, model=args.model_par))
+    if args.model_par > 1:  # a fused leaf whose blocks do not split raises here
+        shard_blocks(cfg, meta_mesh(args.data_par, model=args.model_par))
     mesh = None
     if args.data_par > 1 or args.model_par > 1:
         mesh = make_local_mesh(args.data_par, args.model_par, device=args.device,

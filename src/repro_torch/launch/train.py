@@ -53,22 +53,26 @@ the rank and world from ``torchrun``'s environment:
 ``--backend`` defaults from the device (``nccl`` on CUDA, one card per
 rank; ``gloo`` on the CPU; ``--backend gloo`` rehearses several ranks on
 one card).  Only rank 0 prints.  ``--model-par M`` splits each worker
-over M tensor-parallel ranks (the ``model`` axis: attention and MLA
-heads, MLP widths, Mamba channels, a MoE's experts and the vocabulary,
+over M tensor-parallel ranks (the ``model`` axis: attention, MLA and
+xLSTM heads, MLP widths, Mamba channels, a MoE's experts and the vocabulary,
 ``repro_torch.dist.sharding``), so the job runs ``--data-par · M``
 ranks:
 
     torchrun --nproc-per-node 8 -m repro_torch.launch.train --data-par 4 \
         --model-par 2 --backend gloo
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch xlstm-1.3b \
+        --reduced --workers 2 --data-par 2 --model-par 2 --device cpu --backend gloo
 
 The model axis takes the dense families (gc-lm-110m, Gemma, Qwen 1.5),
 mixtral-8x22b (its experts split where the reference's rule splits
 them: by their FFN width at the published ``shard_experts=False``, and
 ``--reduced``'s width of 341 stays whole at model 2), deepseek-v3-671b
-(MLA's heads and its multi-token prediction module) and jamba-v0.1-52b
-(the Mamba mixers' channels); xLSTM and the cross-attention families
-raise before any process group exists (ROADMAP 6c), and every option of
-one process runs on the axis: ``--ckpt`` and ``--ckpt-coded`` (the
+(MLA's heads and its multi-token prediction module), jamba-v0.1-52b
+(the Mamba mixers' channels) and xlstm-1.3b (the mLSTM's and the
+sLSTM's heads); the cross-attention families train on the axis through
+``make_coded_grad_fn``/``Trainer.step_fn`` with ``worker_aux``, which
+this launcher does not feed (it refuses them, as the reference's does).
+Every option of one process runs on the axis: ``--ckpt`` and ``--ckpt-coded`` (the
 checkpoint is the full tree, saved from rank 0's model group and restored by rank 0's
 broadcast of each leaf, so a run resumes from a checkpoint written at
 any ``--model-par``), ``--adapt``, ``--autotune`` and ``--hbm-gb``.  On
@@ -99,7 +103,7 @@ from repro_torch.data.pipeline import DataConfig, SyntheticTokens
 from repro_torch.dist.mesh import meta_mesh
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models.model import has_source
-from repro_torch.models.params import GCLM, count_params, shard_dims
+from repro_torch.models.params import GCLM, count_params, shard_blocks
 from repro_torch.train.state import init_train_state
 from repro_torch.train.trainer import TrainConfig, Trainer, make_train_step
 from repro_torch.tune import MemBudget
@@ -183,8 +187,8 @@ def main(argv=None):
     if args.model_par > 1 and args.data_par == 1 and not args.uncoded:
         raise ValueError(f"--model-par {args.model_par} splits spmd workers: pass "
                          f"--data-par {args.workers}")
-    if args.model_par > 1:  # xLSTM and cross-attention raise here (ROADMAP 6c)
-        shard_dims(cfg, meta_mesh(args.data_par, model=args.model_par))
+    if args.model_par > 1:  # a fused leaf whose blocks do not split raises here
+        shard_blocks(cfg, meta_mesh(args.data_par, model=args.model_par))
     mesh = None
     if args.data_par > 1 or args.model_par > 1:
         mesh = make_local_mesh(args.data_par, args.model_par, device=args.device,

@@ -46,7 +46,8 @@ sums are all-reduced once (``reduce_from_model``).  Its KV heads are its
 share where the axis splits them; where it leaves them whole (gemma-2b's
 one KV head) the rank computes and caches all of them and its query heads
 read the ones they map to.  So a rank's cache holds ``tp.local(
-"kv_heads", n_kv_heads)`` heads.
+"kv_heads", n_kv_heads)`` heads.  ``cross_attention`` splits alike, its
+gate applied after the all-reduce.
 """
 from __future__ import annotations
 
@@ -264,7 +265,7 @@ def local_attention(cfg, q, k, v, *, window: int, cap: float = 0.0):
     return torch.cat(outs, dim=1).reshape(b, n_chunks * cq, h, dh)[:, :sq]
 
 
-def cross_attention(cfg, p, x, source):
+def cross_attention(cfg, p, x, source, tp=None):
     """Bidirectional attention of x (B, S, d) over a ``source`` (B, Ssrc,
     d_src), gated: ``tanh(gate)`` — in fp32, cast to the activations'
     dtype — times the output projection.  ``p`` holds ``wq``, ``wk``,
@@ -272,19 +273,34 @@ def cross_attention(cfg, p, x, source):
     closed).  No mask, no RoPE, no biases; the scores are taken in the
     activations' dtype, then scaled in fp32 and put through an fp32
     softmax whose probabilities are cast back, as the reference's
-    ``_sdpa`` rounds them."""
+    ``_sdpa`` rounds them.  With ``tp`` splitting the heads: x copied to
+    the rank's query heads, its KV heads over the source (all of them,
+    behind ``copy_to_model``, where the axis leaves them whole: the query
+    heads read theirs by ``_kv_select``), ``wo``'s partial sums
+    all-reduced, then the replicated gate, so its gradient is whole on
+    every rank.  The source comes in whole: its gradient from this rank's
+    K/V heads is a partial sum, which ``model.source_embeds``' copy sums
+    once a pass."""
     dt = x.dtype
+    group = _model_group(tp)
+    if group is not None:
+        p = _shard_leaves(cfg, p, tp)
+        x = copy_to_model(x, group)
     src = source.to(dt)
     q = torch.einsum("bsd,dhx->bshx", x, p["wq"].to(dt))
     k = torch.einsum("bcd,dkx->bckx", src, p["wk"].to(dt))
     v = torch.einsum("bcd,dkx->bckx", src, p["wv"].to(dt))
     b, sq, h, dh = q.shape
+    sel = _kv_select(cfg, tp, h)
+    k, v = _kv_heads(k, sel), _kv_heads(v, sel)
     kvh = k.shape[2]
     qg = q.reshape(b, sq, kvh, h // kvh, dh)
     s = torch.einsum("bqkgd,bckd->bkgqc", qg, k).float() * (1.0 / np.sqrt(cfg.head_dim))
     w = torch.softmax(s, dim=-1).to(dt)
     out = torch.einsum("bkgqc,bckd->bqkgd", w, v).reshape(b, sq, h, dh)
     y = torch.einsum("bshx,hxd->bsd", out, p["wo"].to(dt))
+    if group is not None:
+        y = reduce_from_model(y, group)
     return torch.tanh(p["gate"].float()).to(dt) * y
 
 

@@ -40,11 +40,11 @@ def _mixer(spec):
     return _MIXERS[spec.mixer]
 
 
-def _cross(cfg, p, h, source):
+def _cross(cfg, p, h, source, tp):
     if source is None:
         raise ValueError(f"{cfg.name}: a cross-attention layer needs its source: pass "
                          "aux_inputs (the stubbed frame or patch embeddings)")
-    return cross_attention(cfg, p, h, source)
+    return cross_attention(cfg, p, h, source, tp)
 
 
 def has_ffn(cfg, spec) -> bool:
@@ -61,23 +61,22 @@ def apply_layer(cfg, p, x, spec, *, mode="train", cache=None, source=None,
     MoE load-balance loss (fp32), or None for a dense FFN or none (the
     reference's zero, which adds nothing to the sum).  ``tp`` is the
     ``dist.sharding.ModelSplit`` of a module on the ``model`` axis
-    (``params.shard_model``): attention, MLA, the Mamba mixer, the dense
+    (``params.shard_model``): every mixer, the cross-attention, the dense
     MLP and the MoE FFN then run on this rank's shards.  ``rows``: the
     ``RowSplit`` of a serving decode's rows over the data ranks, which a
     MoE FFN's capacity counts (``moe.apply_moe``)."""
     h = apply_norm(p["norm_mix"], x)
     if spec.mixer == "cross_attn":
-        h, new_cache = _cross(cfg, p["mixer"], h, source), cache
+        h, new_cache = _cross(cfg, p["mixer"], h, source, tp), cache
     else:
         forward, _ = _mixer(spec)
-        kw = {} if tp is None else {"tp": tp}  # xLSTM's mixers never get one (6c)
         h, new_cache = forward(cfg, p["mixer"], h, spec, mode=mode, cache=cache,
-                               target_len=target_len, **kw)
+                               target_len=target_len, tp=tp)
     if cfg.post_norm:
         h = apply_norm(p["norm_mix_post"], h)
     x = x + h
     if spec.cross_source:
-        x = x + _cross(cfg, p["cross"], apply_norm(p["norm_cross"], x), source)
+        x = x + _cross(cfg, p["cross"], apply_norm(p["norm_cross"], x), source, tp)
     if "ffn" not in p:
         return x, new_cache, None
     h = apply_norm(p["norm_ffn"], x)
@@ -98,9 +97,9 @@ def init_layer_cache(cfg, spec, batch: int, seq_len: int, dtype=torch.bfloat16,
     ``slstm``; None for ``cross_attn`` (its K/V come from the source,
     recomputed each step).  ``tp``: a sharded module's ``ModelSplit``
     (attention then holds this rank's KV heads, MLA the whole latent,
-    Mamba the rank's channels)."""
+    Mamba the rank's channels, the mLSTM and the sLSTM the rank's
+    heads)."""
     if spec.mixer == "cross_attn":
         return None
     _, init_cache = _mixer(spec)
-    kw = {} if tp is None else {"tp": tp}  # xLSTM's mixers never get one (6c)
-    return init_cache(cfg, spec, batch, seq_len, dtype, device, **kw)
+    return init_cache(cfg, spec, batch, seq_len, dtype, device, tp=tp)

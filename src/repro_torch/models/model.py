@@ -23,9 +23,12 @@ trains and serves on its shards: the layers reduce over the model group,
 the logits (``_xent``), and ``prefill`` and ``decode_step`` all-gather
 the logits they return over the vocabulary (``layers.gather_vocab``) —
 with ``last_only``, the last position's alone, which is all a server
-samples.  Its caches hold its KV heads, MLA's whole latent and its
-Mamba channels' state (``init_decode_caches(tp=)``); DeepSeek-V3's
-multi-token prediction loss runs on the shards too (``_mtp_loss``)."""
+samples.  Its caches hold its KV heads, MLA's whole latent, its
+Mamba channels' state and its mLSTM and sLSTM heads' state
+(``init_decode_caches(tp=)``); DeepSeek-V3's multi-token prediction loss
+runs on the shards too (``_mtp_loss``), and so do Whisper's encoder
+(``run_encoder``) and the cross-attention layers over a source that is
+whole on every rank (``source_embeds``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -38,7 +41,7 @@ import torch
 from ..device import resolve_device
 from .attention import chunked_attention, project_qkv
 from .blocks import apply_layer
-from ..dist.collectives import max_over_model, reduce_from_model
+from ..dist.collectives import copy_to_model, max_over_model, reduce_from_model
 from .layers import (apply_mlp, apply_norm, embed_tokens, gather_vocab, rms_norm, unembed,
                      vocab_start)
 from .params import encoder_cfg
@@ -73,17 +76,23 @@ def run_encoder(cfg, model, frames):
     with QKV biases and no RoPE (``chunked_attention``: chunks of
     ``attn_chunk``, the tail padded and masked), residual, a layer norm,
     the MLP, residual; the final layer norm.  Outside the stack: no
-    remat, as in the reference."""
+    remat, as in the reference.  A sharded module runs every layer on its
+    heads and MLP columns, as the decoder's attention and MLP run theirs:
+    per layer the two inputs copied, ``wo``'s and the MLP's partial sums
+    all-reduced."""
     ecfg = encoder_cfg(cfg)
+    tp = model_axis(model)
+    group = tp.model_group if tp is not None and "heads" in tp.axes else None
     dt = getattr(torch, cfg.dtype)
     x = frames.to(dt) + _sinusoid(frames.shape[1], cfg.d_model, frames.device).to(dt)
     for node in model.encoder.layers:
         lp = _tree(node)
         h = apply_norm(lp["norm_mix"], x)
-        q, k, v = project_qkv(ecfg, lp["mixer"], h, None, 0.0)  # RoPE base 0: no positions
+        q, k, v = project_qkv(ecfg, lp["mixer"], h, None, 0.0, tp)  # RoPE base 0: none
         out = chunked_attention(ecfg, q, k, v, causal=False)
-        x = x + torch.einsum("bshx,hxd->bsd", out, lp["mixer"]["wo"].to(dt))
-        x = x + apply_mlp(ecfg, lp["ffn"], apply_norm(lp["norm_ffn"], x))
+        y = torch.einsum("bshx,hxd->bsd", out, lp["mixer"]["wo"].to(dt))
+        x = x + (y if group is None else reduce_from_model(y, group))
+        x = x + apply_mlp(ecfg, lp["ffn"], apply_norm(lp["norm_ffn"], x), tp)
     return apply_norm(_tree(model.encoder.final_norm), x)
 
 
@@ -91,16 +100,25 @@ def source_embeds(cfg, model, aux_inputs):
     """The cross-attention source from the stubbed modality embeddings:
     the projected patches (``aux_inputs @ vision_proj`` in the activations'
     dtype) for a vision config, the encoder's output for Whisper, else
-    None (also when ``aux_inputs`` is None)."""
+    None (also when ``aux_inputs`` is None).  On a sharded module the
+    source is whole on every rank and feeds only the rank's K/V heads of
+    every cross layer: it goes through one ``copy_to_model`` a pass, so
+    the gradient reaching the encoder or ``vision_proj`` is every rank's
+    heads' sum."""
     if aux_inputs is None:
         return None
     aux = torch.as_tensor(aux_inputs, device=model.embed.tok.device)
     if cfg.vision is not None:
         dt = getattr(torch, cfg.dtype)
-        return torch.einsum("bpd,de->bpe", aux.to(dt), model.vision_proj.to(dt))
-    if cfg.encoder is not None:
-        return run_encoder(cfg, model, aux)
-    return None
+        source = torch.einsum("bpd,de->bpe", aux.to(dt), model.vision_proj.to(dt))
+    elif cfg.encoder is not None:
+        source = run_encoder(cfg, model, aux)
+    else:
+        return None
+    tp = model_axis(model)
+    if tp is not None and "heads" in tp.axes:
+        source = copy_to_model(source, tp.model_group)
+    return source
 
 
 def forward(cfg, model, tokens, *, mode="train", caches=None, aux_inputs=None,
@@ -260,7 +278,8 @@ def init_decode_caches(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
     and xLSTM's as attention's — the serving slab's layout, where each slot decodes
     at its own depth.  A cross-attention mixer's entry is None.  ``tp``
     (a sharded module's ``model.tp``): the caches of that rank's KV
-    heads and Mamba channels (MLA's latent whole)."""
+    heads, Mamba channels and mLSTM and sLSTM heads (MLA's latent
+    whole)."""
     dev = resolve_device(device)
     caches = init_stack_caches(cfg, batch, seq_len, dtype, dev, tp)
     fill = seq_len - 1 if filled is None else int(filled)

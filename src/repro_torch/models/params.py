@@ -51,14 +51,16 @@ Every leaf carries its logical axes as the reference's ``Param.axes``
 names them (``GCLM.leaf_axes``; a stacked leaf's first is ``layers``),
 which ``dist/sharding.py``'s rules map onto a mesh (``shard_dims``).
 A leaf that fuses several outputs along one dimension says so where it
-is declared (``GCLM.leaf_blocks``: Mamba's ``in_proj``, the input x and
-the gate z side by side); the axis cuts each of those blocks, so a rank
-holds its slice of every one (``shard_blocks``), as Megatron's merged
-column-parallel linear does.  ``shard_model`` gives a rank of a
-``model`` axis its shards (its heads, MLP columns or rows, Mamba's
-channels, vocabulary rows, a MoE's experts or their FFN columns or
-rows), ``init_shards`` draws them without the full tree on the device,
-and ``gather_model`` all-gathers them back; ``shard_of`` and its inverse
+is declared (``GCLM.leaf_blocks``: Mamba's ``in_proj`` and the mLSTM's
+``up``, the input and the gate z side by side; the sLSTM's ``w_gates``
+and ``b_gates``, its four gates, each head-major); the axis cuts each of
+those blocks, so a rank holds its slice of every one (``shard_blocks``),
+as Megatron's merged column-parallel linear does.  ``shard_model`` gives
+a rank of a ``model`` axis its shards (its heads, MLP columns or rows,
+Mamba's and the mLSTM's channels, vocabulary rows, a MoE's experts or
+their FFN columns or rows, an encoder's heads), ``init_shards`` draws
+them without the full tree on the device, and ``gather_model``
+all-gathers them back; ``shard_of`` and its inverse
 ``gather_leaf`` are the one cut and the one gather of a leaf, which the
 checkpoint path uses too, so a gathered tree is the reference's layout
 byte for byte.
@@ -215,7 +217,8 @@ def _mlstm_leaves(cfg, z) -> dict:
     (block-diagonal) ``wq``/``wk``/``wv`` (nh, dh, dh)."""
     spec, d_inner, nh, dh = mlstm_dims(cfg)
     d, di = cfg.d_model, "d_inner"
-    return {"up": z((_E, di), d, 2 * d_inner), "conv_w": z(("conv", di), spec.conv_kernel, d_inner),
+    return {"up": z((_E, di), d, (d_inner, d_inner)),  # x_m and the gate z
+            "conv_w": z(("conv", di), spec.conv_kernel, d_inner),
             "conv_b": z((di,), d_inner), "wq": z((_H, None, _DH), nh, dh, dh),
             "wk": z((_H, None, _DH), nh, dh, dh), "wv": z((_H, None, _DH), nh, dh, dh),
             "w_if": z((di, _H), d_inner, 2 * nh), "b_i": z((_H,), nh), "b_f": z((_H,), nh),
@@ -228,9 +231,10 @@ def _slstm_leaves(cfg, z) -> dict:
     GeGLU of width round(4/3·d)."""
     nh, dh, d_up = slstm_dims(cfg)
     d = cfg.d_model
-    return {"w_gates": z((_E, "d_inner"), d, 4 * d),
+    gates = (d, d, d, d)  # i, f, z, o, each head-major
+    return {"w_gates": z((_E, "d_inner"), d, gates),
             "r_gates": z((_H, None, "d_inner"), nh, dh, 4 * dh),
-            "b_gates": z(("d_inner",), 4 * d), "gn_scale": z((_E,), d),
+            "b_gates": z(("d_inner",), gates), "gn_scale": z((_E,), d),
             "up1": z((_E, "mlp"), d, d_up), "up2": z((_E, "mlp"), d, d_up),
             "down": z(("mlp", _E), d_up, d)}
 
@@ -337,7 +341,7 @@ class GCLM(nn.Module):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
-        self.axes = {}
+        self.axes, self.blocks = {}, {}
         #: where ``shard_model`` cut this module on a ``model`` axis (a
         #: ``dist.sharding.ModelSplit``), each leaf's split dimension and
         #: the blocks that dimension is cut in (``shard_blocks``), or None
@@ -375,7 +379,8 @@ class GCLM(nn.Module):
     def leaf_blocks(self) -> list:
         """Every leaf's fused outputs in leaf order: ``(dimension,
         count)`` for a leaf whose dimension holds ``count`` outputs side
-        by side (Mamba's ``in_proj``: ``(1, 2)``, x then the gate z), else
+        by side (Mamba's ``in_proj`` and the mLSTM's ``up``: ``(1, 2)``, x
+        then the gate z; the sLSTM's ``w_gates``: ``(1, 4)``), else
         None."""
         return [node.blocks.get(path[-1]) for path, _, node in _walk(self, ())]
 
@@ -465,28 +470,10 @@ def _set_leaf(model, path, value) -> None:
     setattr(node, path[-1], nn.Parameter(value))
 
 
-def _unported_on_model_axis(cfg):
-    """What of ``cfg`` the port's ``model`` axis does not split yet, with
-    its ROADMAP item, or None: per-head attention, multi-head latent
-    attention and its multi-token prediction modules, the Mamba mixer,
-    the MLP, a MoE FFN's experts, the embedding and head are ported."""
-    for spec in cfg.layers:
-        if spec.mixer not in ("attn", "mla", "mamba") or spec.cross_source:
-            return f"the {spec.mixer!r} mixer or cross-attention (ROADMAP 6c)"
-    if cfg.encoder is not None or cfg.vision is not None:
-        return "an encoder or a vision projector (ROADMAP 6c)"
-    return None
-
-
 def shard_dims(cfg, mesh) -> tuple:
     """Each leaf's dimension that ``mesh``'s ``model`` axis splits, or
     None, in leaf order: ``dist.sharding.model_dim`` under
-    ``make_rules(cfg)`` — the one place the port decides a split.  Raises
-    ``NotImplementedError`` for what the axis does not split yet."""
-    why = _unported_on_model_axis(cfg)
-    if why is not None:
-        raise NotImplementedError(f"{cfg.name} on a model axis of {mesh.model}: {why} is "
-                                  "not ported")
+    ``make_rules(cfg)`` — the one place the port decides a split."""
     meta, rules = GCLM(cfg, device="meta"), make_rules(cfg)
     return tuple(model_dim(axes, t.shape, mesh, rules)
                  for t, axes in zip(meta.leaves(), meta.leaf_axes(), strict=True))
@@ -495,7 +482,8 @@ def shard_dims(cfg, mesh) -> tuple:
 def shard_blocks(cfg, mesh) -> tuple:
     """Beside ``shard_dims``: the blocks each leaf's split dimension is cut
     in, in leaf order — the number of outputs the leaf fuses along that
-    dimension (``GCLM.leaf_blocks``: 2 for Mamba's ``in_proj``), else 1
+    dimension (``GCLM.leaf_blocks``: 2 for Mamba's ``in_proj`` and the
+    mLSTM's ``up``, 4 for the sLSTM's ``w_gates`` and ``b_gates``), else 1
     (also for a leaf the axis leaves whole).  Raises ``ValueError`` where
     a block's width does not split over the axis."""
     meta = GCLM(cfg, device="meta")
@@ -559,11 +547,17 @@ def _check_split_axes(cfg, local, dims) -> set:
     reference's rule splits where an MLP's own width divides the axis
     (DeepSeek's dense MLP and shared experts can differ): it must agree
     within each MLP node, and ``layers.apply_mlp`` reads it from the
-    width."""
-    seen = {}
+    width.  A dimension after a leaf's split one says nothing: the
+    reference's rule skips a mesh axis an earlier dimension took (the
+    mLSTM's ``w_if`` splits on ``d_inner``, so its ``heads`` stay whole;
+    the sLSTM's ``r_gates`` on ``heads``, so its ``d_inner`` stays
+    whole)."""
+    rules, seen = make_rules(cfg), {}
     for path, axes, dim in zip(local.leaf_paths(), local.leaf_axes(), dims, strict=True):
         node = path.rsplit(".", 1)[0]
         for d, a in enumerate(axes):
+            if dim is not None and d > dim and "model" in rules.get(a, ()):
+                continue  # the model axis is taken
             seen.setdefault((node if a == "mlp" else "", a), set()).add(d == dim)
     mixed = sorted({a for (_, a), split in seen.items() if len(split) > 1})
     if mixed:
@@ -595,8 +589,7 @@ def shard_model(model: GCLM, mesh) -> GCLM:
     copied; replicated leaves copied whole.  The result's ``tp`` (a
     ``dist.sharding.ModelSplit``) and ``shard_dims`` tell the layers which
     of their products to reduce over the model group.  ``mesh.model`` 1
-    returns ``model`` itself.  Raises ``NotImplementedError`` for what
-    the axis does not split yet."""
+    returns ``model`` itself."""
     if mesh.model == 1:
         return model
     return _cut(model.cfg, mesh, model.leaf_items())

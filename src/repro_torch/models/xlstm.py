@@ -55,6 +55,21 @@ dh, dh), ``n``, ``m`` always fp32, ``m`` starting at -1e30; ``conv`` in
 the cache's dtype), ``{"h", "c", "n", "m", "pos"}`` for the sLSTM (all
 fp32).  The step writes every leaf and advances ``pos`` **in place**,
 into the views ``stack.py`` hands each layer, as ``ssm.py`` does.
+
+**The model axis** (``tp``, a ``dist.sharding.ModelSplit``): a rank runs
+whole heads — its ``d_inner / model`` channels are its heads'
+(``_split``).  The mLSTM's ``up`` and the sLSTM's ``w_gates``/``b_gates``
+are cut block by block (``params.shard_blocks``), so a rank holds its
+channels of x_m and of z, and its heads of each of the four gates.  The
+mLSTM copies its input to the rank, reduces ``w_if``'s row-parallel
+gates and copies them back (every head's gates feed from every channel;
+the rank takes its i and f columns from both halves), and reduces
+``down``; its state is the rank's heads'.  The sLSTM copies its input,
+runs the block-diagonal recurrence on the rank's heads (their state),
+all-gathers h, and runs the group norm and the GeGLU on the whole h:
+replicated where the GeGLU's width does not split over the axis (its
+leaves' gradients are then whole on every rank), else Megatron's MLP
+(``layers.apply_mlp``).
 """
 from __future__ import annotations
 
@@ -63,7 +78,9 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import XLSTMSpec
+from ..dist.collectives import copy_to_model, gather_from_model, reduce_from_model
 from ..launch import op_analysis
+from .layers import apply_mlp
 from .ssm import _causal_conv
 
 __all__ = ["xlstm_spec", "mlstm_dims", "slstm_dims", "mlstm_forward", "slstm_forward",
@@ -107,17 +124,30 @@ def _group_norm(x, scale, nh: int):
 
 
 # ================================================================ mLSTM
-def _mlstm_inputs(p, xc, x_raw, nh: int, dh: int):
-    """q, k, v (B,S,nh,dh) and log_i, log_f (B,S,nh), all fp32."""
+def _mlstm_inputs(p, xc, x_raw, nh: int, dh: int, tp=None):
+    """q, k, v (B,S,nh,dh) and log_i, log_f (B,S,nh), all fp32.  With
+    ``tp``, ``nh`` is the rank's heads and ``xc`` its channels: the gates'
+    row-parallel product is all-reduced, then copied to the rank's heads
+    (each takes only its own, while ``w_if``'s rows feed every head), and
+    the rank's i and f columns are taken from both halves of
+    ``[i of every head | f of every head]``."""
     dt = xc.dtype
     b, s = xc.shape[:2]
     xc_h, xr_h = xc.reshape(b, s, nh, dh), x_raw.reshape(b, s, nh, dh)
     q = torch.einsum("bshi,hij->bshj", xc_h, p["wq"].to(dt))
     k = torch.einsum("bshi,hij->bshj", xc_h, p["wk"].to(dt)).float() / np.sqrt(dh)
     v = torch.einsum("bshi,hij->bshj", xr_h, p["wv"].to(dt))
-    gates = torch.einsum("bsi,ih->bsh", xc, p["w_if"].to(dt)).float()
-    log_i = gates[..., :nh] + p["b_i"]
-    log_f = F.logsigmoid(gates[..., nh:] + p["b_f"])
+    gates = torch.einsum("bsi,ih->bsh", xc, p["w_if"].to(dt))
+    i_cols = f_cols = slice(0, nh)
+    if tp is not None:
+        gates = copy_to_model(reduce_from_model(gates, tp.model_group), tp.model_group)
+        first = tp.model_index * nh
+        i_cols = slice(first, first + nh)
+    total = gates.shape[-1] // 2  # every head's
+    f_cols = slice(total + i_cols.start, total + i_cols.stop)
+    gates = gates.float()
+    log_i = gates[..., i_cols] + p["b_i"]
+    log_f = F.logsigmoid(gates[..., f_cols] + p["b_f"])
     return q.float(), k, v.float(), log_i, log_f
 
 
@@ -195,21 +225,43 @@ def _mlstm_step(cache, q, k, v, log_i, log_f):
     return num / den
 
 
-def mlstm_forward(cfg, p, x, spec, *, mode="train", cache=None, target_len: int = 0):
+def _split(tp, axis: str):
+    """``tp`` where it splits the logical ``axis``, else None.  The mixers
+    split their channels by whole heads: an axis that splits ``d_inner``
+    and leaves the heads whole (more model ranks than heads) raises."""
+    if tp is None or axis not in tp.axes:
+        return None
+    if "heads" not in tp.axes:
+        raise ValueError(f"a model axis of {tp.mesh.model} splits xLSTM's channels but not "
+                         "its heads: the mixers run whole heads on a rank")
+    return tp
+
+
+def mlstm_forward(cfg, p, x, spec, *, mode="train", cache=None, target_len: int = 0,
+                  tp=None):
     """The mLSTM sublayer.  Returns (out, cache): ``None`` in training, the
     prefill's new ``{"C", "n", "m", "conv", "pos"}`` (``target_len``
     unused: the state has no sequence axis), or the decode cache updated
-    in place."""
-    _, d_inner, nh, dh = mlstm_dims(cfg)
+    in place.  With ``tp`` splitting ``d_inner`` (and so the heads, which
+    lie contiguous in it): the input copied to the rank's channels, ``up``
+    column-parallel (its x_m and z blocks), the conv, the recurrence and
+    the group norm on the rank's channels and heads, the gates reduced
+    and copied (``_mlstm_inputs``), ``down`` row-parallel and all-reduced;
+    the state is the rank's heads'."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
+    tp = _split(tp, "d_inner")
+    _, d_inner, nh, dh = mlstm_dims(cfg)
+    if tp is not None:
+        d_inner, nh = tp.local("d_inner", d_inner), tp.local("heads", nh)
+        x = copy_to_model(x, tp.model_group)
     b, s, _ = x.shape
     dt = x.dtype
     x_m, z = torch.einsum("bsd,di->bsi", x, p["up"].to(dt)).split(d_inner, dim=-1)
     decode = mode == "decode"
     xc, conv_state = _causal_conv(x_m, p["conv_w"], p["conv_b"],
                                   init_state=cache["conv"] if decode else None)
-    q, k, v, log_i, log_f = _mlstm_inputs(p, F.silu(xc), x_m, nh, dh)
+    q, k, v, log_i, log_f = _mlstm_inputs(p, F.silu(xc), x_m, nh, dh, tp)
     if decode:
         h = _mlstm_step(cache, q[:, 0], k[:, 0], v[:, 0], log_i[:, 0], log_f[:, 0])[:, None]
         cache["conv"].copy_(conv_state)
@@ -222,14 +274,19 @@ def mlstm_forward(cfg, p, x, spec, *, mode="train", cache=None, target_len: int 
             new_cache = {"C": state[0], "n": state[1], "m": state[2], "conv": conv_state.to(dt),
                          "pos": torch.full((), s, dtype=torch.int32, device=x.device)}
     h = _group_norm(h.reshape(b, -1, d_inner).to(dt), p["gn_scale"], nh)
-    return torch.einsum("bsi,id->bsd", h * F.silu(z), p["down"].to(dt)), new_cache
+    out = torch.einsum("bsi,id->bsd", h * F.silu(z), p["down"].to(dt))
+    return (out if tp is None else reduce_from_model(out, tp.model_group)), new_cache
 
 
 def init_mlstm_cache(cfg, spec, batch: int, seq_len: int, dtype=torch.bfloat16,
-                     device="cuda"):
+                     device="cuda", tp=None):
     """An empty state: ``C``, ``n`` zero and ``m`` -1e30 in fp32, ``conv``
-    in ``dtype`` (``seq_len`` unused)."""
+    in ``dtype`` (``seq_len`` unused); with ``tp``, the rank's heads and
+    channels (``ModelSplit.local``)."""
     xspec, d_inner, nh, dh = mlstm_dims(cfg)
+    tp = _split(tp, "d_inner")
+    if tp is not None:
+        d_inner, nh = tp.local("d_inner", d_inner), tp.local("heads", nh)
     f32 = dict(dtype=torch.float32, device=device)
     return {"C": torch.zeros((batch, nh, dh, dh), **f32),
             "n": torch.zeros((batch, nh, dh), **f32),
@@ -258,14 +315,28 @@ def _slstm_cell(h, c, n, m, wx_t, r, b_gates, nh: int, dh: int):
     return h_new, c_new, n_new, m_new
 
 
-def slstm_forward(cfg, p, x, spec, *, mode="train", cache=None, target_len: int = 0):
+def slstm_forward(cfg, p, x, spec, *, mode="train", cache=None, target_len: int = 0,
+                  tp=None):
     """The sLSTM sublayer.  Returns (out, cache): ``None`` in training, the
     prefill's new ``{"h", "c", "n", "m", "pos"}``, or the decode cache
-    updated in place."""
-    nh, dh, _ = slstm_dims(cfg)
+    updated in place.  With ``tp`` splitting the heads: the input copied
+    to the rank's heads, ``w_gates`` column-parallel (its four gate
+    blocks), the block-diagonal recurrence on the rank's heads, h gathered
+    over them (``gather_from_model``: its backward is the rank's slice),
+    then the group norm and the GeGLU on the whole h — replicated on every
+    rank where the GeGLU's width does not split, else Megatron's MLP
+    (``layers.apply_mlp`` decides from the width); the state is the rank's
+    heads'."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
-    b, s, d = x.shape
+    nh, dh, d_up = slstm_dims(cfg)
+    mlp_tp, tp = tp, _split(tp, "d_inner")
+    full_nh = nh
+    if tp is not None:
+        nh = tp.local("heads", nh)
+        x = copy_to_model(x, tp.model_group)
+    b, s, _ = x.shape
+    d = nh * dh  # the rank's width of the state
     dt = x.dtype
     wx = torch.einsum("bsd,dj->bsj", x, p["w_gates"].to(dt)).float()
     r = p["r_gates"].float()
@@ -290,17 +361,23 @@ def slstm_forward(cfg, p, x, spec, *, mode="train", cache=None, target_len: int 
         if mode == "prefill":
             new_cache = dict(zip(("h", "c", "n", "m"), state),
                              pos=torch.full((), s, dtype=torch.int32, device=x.device))
-    h_seq = _group_norm(h_seq.to(dt), p["gn_scale"], nh)
-    u = F.gelu(torch.einsum("bsd,df->bsf", h_seq, p["up1"].to(dt)), approximate="tanh")
-    g = torch.einsum("bsd,df->bsf", h_seq, p["up2"].to(dt))
-    return torch.einsum("bsf,fd->bsd", u * g, p["down"].to(dt)), new_cache
+    h_seq = h_seq.to(dt)
+    if tp is not None:
+        h_seq = gather_from_model(h_seq, tp.model_group, tp.model_index, dim=2)
+    h_seq = _group_norm(h_seq, p["gn_scale"], full_nh)
+    # the GeGLU gelu_tanh(h @ up1) * (h @ up2) @ down: the gated MLP's form under
+    # xlstm-1.3b's activation, the tanh gelu
+    geglu = {"wi": p["up2"], "wg": p["up1"], "wo": p["down"]}
+    return apply_mlp(cfg, geglu, h_seq, mlp_tp, width=d_up), new_cache
 
 
 def init_slstm_cache(cfg, spec, batch: int, seq_len: int, dtype=torch.bfloat16,
-                     device="cuda"):
+                     device="cuda", tp=None):
     """An empty state, all fp32: ``h``, ``c``, ``n`` zero, ``m`` -1e30
-    (``dtype`` and ``seq_len`` unused)."""
-    d = cfg.d_model
+    (``dtype`` and ``seq_len`` unused); with ``tp``, the rank's heads'
+    (``ModelSplit.local``)."""
+    nh, dh, _ = slstm_dims(cfg)
+    d = (nh if _split(tp, "d_inner") is None else tp.local("heads", nh)) * dh
     f32 = dict(dtype=torch.float32, device=device)
     return {"h": torch.zeros((batch, d), **f32), "c": torch.zeros((batch, d), **f32),
             "n": torch.zeros((batch, d), **f32), "m": torch.full((batch, d), NEG, **f32),

@@ -27,7 +27,8 @@ admissions, slots and timestamps agree on every rank with no exchange.
 The slab's slots are split over the data ranks by the ``batch`` rule
 (``dist.sharding.batch_rows``: equal blocks where they divide the slots,
 else every rank holds every slot), and a sharded module's slab holds the
-rank's KV heads and Mamba channels beside MLA's whole latent.  An
+rank's KV heads, Mamba channels and mLSTM and sLSTM heads beside MLA's
+whole latent.  An
 admission prefills on the ranks that hold its slot (its whole model
 group: the model ranks' collectives pair up); a decode
 step runs every rank's rows, with the logits gathered over the
@@ -51,7 +52,9 @@ checkpoint's metadata.
 A model with a cross-attention source (Whisper, Llama-3.2-vision) is
 served by ``generate(aux_inputs=)``'s direct loop — one prefill, then a
 ``decode_step`` per token, each recomputing the source — not by the
-engine, which takes no aux inputs (nor does the reference's).
+engine, which takes no aux inputs (nor does the reference's).  A sharded
+module runs the loop on its shards, every row on every rank: the source
+whole, the encoder and the layers on the rank's heads.
 """
 from __future__ import annotations
 

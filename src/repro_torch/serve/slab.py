@@ -29,9 +29,11 @@ is None on both sides and is skipped.
 
 On a mesh (``serve.engine.ServeEngine(mesh=)``) a rank's slab holds its
 block of the slots (``dist.sharding.batch_rows``) and, for a sharded
-module, its KV heads, MLA's whole latent and its Mamba channels' state
-(``make_slab(tp=)``); the engine maps a global
-slot to the local row it passes to ``insert_request``.
+module, its KV heads, MLA's whole latent, its Mamba channels' state and
+its mLSTM and sLSTM heads' state (``make_slab(tp=)``: the sLSTM's h, c,
+n, m of d_model / model, where the reference's cache axes keep them
+whole: a rank's recurrence reads only its heads'); the engine maps a
+global slot to the local row it passes to ``insert_request``.
 
 ``caches_from_numpy`` / ``caches_to_numpy`` carry the reference's cache
 trees (the same list of per-segment entries of arrays) across.
@@ -52,8 +54,8 @@ def make_slab(cfg, n_slots: int, max_len: int, dtype=torch.bfloat16, device="cud
               tp=None):
     """Empty shared cache slab: capacity ``max_len`` per slot, per-row
     ``pos`` leaves initialized to 0; ``tp`` (a sharded module's
-    ``model.tp``): this rank's KV heads and Mamba channels (MLA's latent
-    whole)."""
+    ``model.tp``): this rank's KV heads, Mamba channels and mLSTM and
+    sLSTM heads (MLA's latent whole)."""
     return init_decode_caches(cfg, n_slots, max_len, dtype=dtype, filled=0,
                               row_pos=True, device=device, tp=tp)
 

@@ -88,9 +88,8 @@ GC = dict(arch="gc-lm-110m", reduced=dict(n_layers=2, d_model=128), data=4, mode
 TRAINERS = {"gemma-2b": dict(n_layers=2, d_model=128), "qwen1.5-32b": dict(n_layers=2),
             "gemma2-27b": dict(n_layers=2, d_model=128, seq_cap=32),
             "gemma3-27b": dict(n_layers=6, d_model=128, seq_cap=32)}
-#: the families the model axis splits: the dense ones and Mixtral's experts
-ON_AXIS = ("gc-lm-110m", "gemma-2b", "gemma2-27b", "gemma3-27b", "qwen1.5-32b",
-           "mixtral-8x22b")
+#: the families the model axis splits: all of them
+ON_AXIS = tuple(list_archs())
 #: the trainers' parameters against the reference's after three steps.
 #: Qwen's takes ``tests/test_torch_qwen.py``'s bound: AdamW's normalized
 #: step m/sqrt(v) turns a last-bit difference of a near-zero gradient
@@ -300,16 +299,52 @@ def test_full_width_local_level_slices_stay_on_the_tma_path(model):
 
 
 def test_unported_families_raise_on_the_model_axis():
+    """No family is left off the axis: xLSTM, Whisper and vision, which
+    raised naming ROADMAP 6c before, shard at model 2 — their heads,
+    xLSTM's channels and the vocabulary where its rows divide the axis."""
     mesh = meta_mesh(data=2, model=2)
-    for arch in ("xlstm-1.3b", "whisper-base", "llama-3.2-vision-11b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP 6c"):
-            shard_model(GCLM(get_config(arch).reduced(n_layers=2, d_model=128),
-                             device="meta"), mesh)
+    for arch, axes in (("xlstm-1.3b", {"heads", "d_inner", "vocab"}),
+                       ("whisper-base", {"heads", "kv_heads", "mlp", "vocab"}),
+                       ("llama-3.2-vision-11b", {"heads", "kv_heads", "mlp", "vocab"})):
+        local = shard_model(GCLM(get_config(arch).reduced(n_layers=2, d_model=128),
+                                 device="meta"), mesh)
+        assert local.tp.axes == axes, arch
     experts = shard_model(GCLM(get_config("mixtral-8x22b").reduced(), device="meta"), mesh)
     assert experts.tp.axes == {"heads", "kv_heads", "expert_mlp", "vocab"}
     local = shard_model(GCLM(_cfg("gc-lm-110m", GC["reduced"]), device="meta"), mesh)
     assert local.tp.mesh is mesh and sum(d is not None for d in local.shard_dims) == 8
     assert local.tp.axes == {"heads", "kv_heads", "mlp", "vocab"}
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_model_dims(arch: str, reduced: bool) -> tuple:
+    cfg = ref_config(arch).reduced() if reduced else ref_config(arch)
+    shapes, axes = abstract_train_state(cfg)
+    shapes = [tuple(l.shape) for l in jax.tree.leaves(shapes.params)]
+    axes = [tuple(a) for a in jax.tree.leaves(axes.params, is_leaf=lambda v: hasattr(v, "axes"))]
+    with use_mesh(AbstractMesh((2, 2), ("data", "model")), ref_rules(cfg)):
+        specs = [tuple(ref_pspec(a, s)) for a, s in zip(axes, shapes)]
+    return tuple(spec.index("model") if "model" in spec else None for spec in specs)
+
+
+@pytest.mark.parametrize("size", ["full", "reduced"])
+@pytest.mark.parametrize("arch", list_archs())
+def test_shard_dims_take_every_config_at_model_2(arch, size):
+    """``shard_dims`` and ``init_shards`` take each of the eleven configs at
+    model 2, at full width and ``reduced()``: every leaf's split the
+    reference's ``pspec_for_axes`` on (data 2, model 2), the split check
+    passed, every fused leaf's blocks split."""
+    cfg = get_config(arch).reduced() if size == "reduced" else get_config(arch)
+    mesh = meta_mesh(data=2, model=2)
+    dims = shard_dims(cfg, mesh)
+    assert dims == _reference_model_dims(arch, size == "reduced")
+    local = init_shards(cfg, mesh, device="meta")
+    assert local.shard_dims == dims and local.tp.axes
+    for t, mine, dim, n in zip(GCLM(cfg, device="meta").leaves(), local.leaves(), dims,
+                               local.shard_blocks):
+        assert dim is not None or n == 1
+        if dim is not None:
+            assert mine.shape[dim] * 2 == t.shape[dim] and t.shape[dim] % (2 * n) == 0
 
 
 @pytest.mark.parametrize("arch", ON_AXIS)

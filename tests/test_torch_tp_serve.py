@@ -30,7 +30,8 @@ biases drawn from a seed (they start at zero):
   vocab-parallel embedding, one all-gather of the last position's
   logits, and the engine's one gather of the step's tokens over the data
   ranks;
-* the families the axis does not split raise, naming ROADMAP 6c;
+* xLSTM's and the cross-attention families' shards are drawn, and the
+  launcher takes them (they serve on the axis since ROADMAP 6c);
 * ``torchrun`` of ``launch.serve --data-par 2 --model-par 2 --stream 8``
   prints the one-rank launcher's lines, once.
 """
@@ -266,16 +267,17 @@ def test_batch_rows_follow_the_reference_s_batch_rule(shape, n):
 @pytest.mark.parametrize("arch,layers,item", [
     ("xlstm-1.3b", 2, "6c"), ("whisper-base", 2, "6c"), ("llama-3.2-vision-11b", 2, "6c")])
 def test_unported_families_raise_naming_their_item(arch, layers, item):
-    """xLSTM and cross-attention (6c) do not serve on the axis: their
-    shards cannot be drawn, and the launcher says so before any process
-    group exists."""
+    """xLSTM and cross-attention, which ROADMAP 6c (``item``) put on the
+    axis, serve there: their shards are drawn, and the launcher takes the
+    family, stopping only at the world, which has one rank where
+    ``--model-par 2`` needs two — before any process group exists
+    (``tests/test_torch_tp_xlstm_cross_launch.py`` runs it under
+    torchrun)."""
     cfg = get_config(arch).reduced(n_layers=layers)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        init_shards(cfg, meta_mesh(data=2, model=2), device="cpu")
-    if layers == 2:
-        with pytest.raises(NotImplementedError, match="ROADMAP 6c"):
-            launch_serve.main(["--arch", arch, "--reduced", "--device", "cpu",
-                               "--model-par", "2"])
+    local = init_shards(cfg, meta_mesh(data=2, model=2), device="cpu")
+    assert "heads" in local.tp.axes, item
+    with pytest.raises(ValueError, match="needs 2 ranks, the world has 1"):
+        launch_serve.main(["--arch", arch, "--reduced", "--device", "cpu", "--model-par", "2"])
     assert not torch.distributed.is_initialized()
 
 
