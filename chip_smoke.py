@@ -107,7 +107,13 @@ port's sources beside it.  Phases; any failure raises:
    time, the data-group level bytes and the model-group bytes per rank
    per step (counted by ``dist/collectives.py``), and rank 0's combine
    over its local rows against its plain version, its bound and
-   ``torch.matmul``.
+   ``torch.matmul``.  Rank 0's first step runs under the op counter
+   (``analyze_ops`` around its ``step_fn``): its FLOPs, transcendentals,
+   bytes and collectives by kind and bytes equal, op for op, the dry
+   run's rank 0 of the same (data 4, model 2) mesh on meta
+   (``launch.dryrun.build_case``, coded, the trainer's rows and int32
+   tokens, the same plan), with one counted ``gc_fused`` call for its one
+   launch: the dry run's model axis is the card's.
 6f''. moe-tp, in 6f''s job after tp: ``mixtral-8x22b.reduced()`` (16's
    config) in a ``Trainer(mode="spmd")`` on the same mesh, its experts
    split as the reference's rule splits them: case (b), the published
@@ -178,13 +184,30 @@ port's sources beside it.  Phases; any failure raises:
    and a copy, the source one copy a pass; an encoder layer 2 and 2;
    whisper-base's 51,865-row vocabulary whole: no embedding, loss or head
    term).
+6f'''''. xlstm-wide, in 6f''s job after xlstm-tp: the job's eight ranks
+   as a (data 2, model 4) mesh (``build_mesh`` over the same process
+   group), each a ``Trainer(mode="spmd")`` of xlstm-tp's config with 2
+   heads (``XLSTM_WIDE``): the axis splits ``d_inner`` and leaves the
+   heads whole, each head's channels on 2 ranks, as the reference's rule
+   splits xlstm-1.3b's 4 heads at model 8 and 16.  One step with the
+   counts set to 0 just before: one grouped ``gc_fused`` call a rank, the
+   collectives the formula (``_step_counts`` at model 4: per pass an
+   mLSTM layer 2 reduces, 3 copies, a gather of its conv's output and
+   x_m and its reduce-scatter; the sLSTM a copy and 3 gathers, its
+   GeGLU's reduce and copy).  From that step's own rows, at 0 and s_max
+   stragglers, the gathered coded gradients within ``XLSTM_WIDE_REL`` of
+   each leaf's scale of a one-process sim-mode step of the same config
+   (made in xlstm-tp-sim, ``_xlstm_wide_sim``).
 6g. dryrun: (a) the dry run (``repro_torch.launch.dryrun``) on meta of
-   every arch at full width at every input shape on the single mesh
-   (data 16), and the spmd coded step of gc-lm-110m and gemma-2b, in
-   worker processes beside the card's work: no case fails, and the skips
-   are the reference's (``long_500k`` without a sub-quadratic layer); a
-   line per case with its FLOPs, bytes, collective bytes, argument
-   bytes, roofline terms and trace seconds.  (b) the main path's coded
+   every arch at full width at every input shape on the reference's
+   single mesh (data 16, model 16: rank 0's shards, caches and
+   collectives), and the spmd coded step of gc-lm-110m and gemma-2b, in
+   8 worker processes beside the card's work, the longest cases first:
+   no case fails — xLSTM's four shapes included, its 4 heads whole on
+   the ranks of their channels — and the skips are the reference's
+   (``long_500k`` without a sub-quadratic layer); a line per case with
+   its mesh shape, the rank's parameters, FLOPs, bytes, collective
+   bytes, argument bytes, roofline terms and trace seconds.  (b) the main path's coded
    step (phase 2's setup, one step of a fresh state) under the op
    counter (``launch/op_analysis.py``) on the card, with the counts set
    to 0 just before, and on meta: FLOPs, transcendentals, bytes and
@@ -601,11 +624,12 @@ WAVE_ROUNDS = 6
 TUNE_HBM_GB = 3.0
 TUNE_SIM_STEPS = 20_000
 MC_EQ2_RTOL = 1e-4
-#: the [dryrun] phase: the sweep's worker processes, the coded cases, and
-#: the reference's skips (``shape_supported``: ``long_500k`` needs a
-#: recurrent or windowed layer; tests/test_torch_specs.py holds the port's
-#: skips to the reference's)
-DRYRUN_WORKERS = 6
+#: the [dryrun] phase: the sweep's worker processes (one per core of the
+#: host; the main process's card work meanwhile is short), the coded
+#: cases, and the reference's skips (``shape_supported``: ``long_500k``
+#: needs a recurrent or windowed layer; tests/test_torch_specs.py holds the
+#: port's skips to the reference's)
+DRYRUN_WORKERS = 8
 DRYRUN_CODED = ("gc-lm-110m", "gemma-2b")
 DRYRUN_SKIPS = {(a, "long_500k") for a in ("deepseek-v3-671b", "gc-lm-110m", "gemma-2b",
                                            "llama-3.2-vision-11b", "qwen1.5-32b",
@@ -840,6 +864,20 @@ WHISPER_TP_SEQ = 64
 #: mLSTM layer's group norm lifts a small h to unit scale, so the stack
 #: amplifies either (ROADMAP 3.20)
 XLSTM_TP_REL = 6e-5
+#: [xlstm-wide] (in [tp]'s job, its 8 ranks as data 2 x model 4) and its
+#: one-process reference (in [xlstm-tp-sim]): [xlstm-tp]'s config with 2
+#: heads, so the model axis splits the channels and leaves the heads whole
+#: (each head on 2 ranks), as the reference's rule splits xlstm-1.3b's 4
+#: heads at model 8 and 16; N = 2 workers
+XLSTM_WIDE = dict(n_heads=2, data=2, model=4)
+#: [xlstm-wide]'s bound against its sim mode, per leaf of the gathered
+#: gradient: twice its worst reading on an H100 80GB HBM3 at 700.00 W
+#: (2.033e-4, at the first mLSTM's gn_scale).  With float64 activations on
+#: both sides the same check reads 1.655e-6 there (1.930e-6 on the CPU,
+#: whose fp32 reading is 7.022e-5): no term of the split is wrong, and the
+#: stack amplifies the split sums' rounding (ROADMAP 3.20) more with 2 heads
+#: of 384 channels each than [xlstm-tp]'s 4 of 192 (XLSTM_TP_REL's 6e-5)
+XLSTM_WIDE_REL = 4.1e-4
 GATE_RANGE = (0.3, 0.9)
 #: bf16 dense peak of the card's tensor cores (the data sheet, 700 W): the
 #: operations bound of the bf16 serving phases
@@ -1509,7 +1547,8 @@ def _dryrun_sweep_line(rec: dict) -> str:
     head = f"[dryrun] {rec['arch']:22s} {rec['shape']:12s} {rec['step']:11s} {rec['status']:4s}"
     if rec["status"] != "ok":
         return f"{head} {rec.get('reason') or rec.get('error', '')}"
-    return (f"{head} flops {rec['per_device_flops']:.6e} bytes {rec['per_device_bytes']:.6e} "
+    return (f"{head} mesh_shape {rec['mesh_shape']} local_params {rec['local_params']} flops "
+            f"{rec['per_device_flops']:.6e} bytes {rec['per_device_bytes']:.6e} "
             f"collective_bytes {rec['collective_bytes']:.6e} argument_bytes "
             f"{rec['memory']['argument_bytes']} compute_s {rec['compute_s']:.6e} memory_s "
             f"{rec['memory_s']:.6e} collective_s {rec['collective_s']:.6e} trace_s "
@@ -1526,14 +1565,12 @@ def _same_costs(cuda, meta) -> list:
 def phase_dryrun(trainer, profile: dict) -> dict:
     """(a) the meta sweep in worker processes; (b) the main path's coded
     step counted on the card and on meta; (c) its memory on the card;
-    (d) its device time beside the roofline time."""
-    import concurrent.futures
-    import multiprocessing
-
+    (d) its device time beside the roofline time; then, while the sweep
+    ends, [tp]'s dry-run rank (``_tp_dryrun_rank``), returned as
+    ``tp_ref``."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import INPUT_SHAPES, list_archs
     from repro_torch.data.pipeline import coded_worker_batches
     from repro_torch.launch.dryrun import roofline
     from repro_torch.launch.op_analysis import analyze_ops
@@ -1544,14 +1581,7 @@ def phase_dryrun(trainer, profile: dict) -> dict:
     from repro_torch.tune.memory import tree_bytes
 
     t0 = time.perf_counter()
-    out_dir = os.path.join(ROOT, "artifacts", "dryrun_torch")
-    cases = [(a, s, False) for a in list_archs() for s in INPUT_SHAPES]
-    cases += [(a, "train_4k", True) for a in DRYRUN_CODED]
-    pool = concurrent.futures.ProcessPoolExecutor(
-        max_workers=min(DRYRUN_WORKERS, os.cpu_count() or 1),
-        mp_context=multiprocessing.get_context("spawn"), initializer=_dryrun_init,
-        initargs=(SRC,))
-    futures = [pool.submit(_dryrun_case, a, s, c, out_dir) for a, s, c in cases]
+    sweep = _dryrun_sweep_start()
 
     # (b) the main path's coded step, counted on the card and on meta
     cfg, plan = trainer.cfg, trainer.plan
@@ -1623,7 +1653,39 @@ def phase_dryrun(trainer, profile: dict) -> dict:
     del state, wb, cuda, mem
     torch.cuda.empty_cache()
 
-    # (a) the sweep's records
+    tp_ref = _tp_dryrun_rank()  # [tp]'s reference, while the sweep runs
+    _dryrun_sweep_finish(sweep)
+    log(f"[dryrun] phase {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches["gc_fused"], "tp_ref": tp_ref}
+
+
+def _dryrun_sweep_start():
+    """[dryrun] (a): every (arch, shape) case and the coded cases submitted
+    to ``DRYRUN_WORKERS`` worker processes, the training and prefill
+    cases first (the longest), so the pool's tail is short.  Returns the
+    pool, its futures and the start time."""
+    import concurrent.futures
+    import multiprocessing
+
+    from repro_torch.configs import INPUT_SHAPES, list_archs
+
+    out_dir = os.path.join(ROOT, "artifacts", "dryrun_torch")
+    cases = [(a, s, False) for a in list_archs() for s in INPUT_SHAPES]
+    cases += [(a, "train_4k", True) for a in DRYRUN_CODED]
+    first = {"train": 0, "prefill": 1, "decode": 2}
+    cases.sort(key=lambda c: first[INPUT_SHAPES[c[1]].kind])
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=min(DRYRUN_WORKERS, os.cpu_count() or 1),
+        mp_context=multiprocessing.get_context("spawn"), initializer=_dryrun_init,
+        initargs=(SRC,))
+    return pool, [pool.submit(_dryrun_case, a, s, c, out_dir) for a, s, c in cases], \
+        time.perf_counter()
+
+
+def _dryrun_sweep_finish(sweep) -> list:
+    """[dryrun] (a)'s records: a line each; no case fails, and the skips
+    are the reference's.  Returns the records."""
+    pool, futures, t0 = sweep
     recs = [f.result() for f in futures]
     pool.shutdown()
     for rec in recs:
@@ -1634,10 +1696,12 @@ def phase_dryrun(trainer, profile: dict) -> dict:
         raise AssertionError(f"dry-run cases failed: {fails}")
     if skips != DRYRUN_SKIPS:
         raise AssertionError(f"skips {sorted(skips)}, the reference's {sorted(DRYRUN_SKIPS)}")
-    log(f"[dryrun] {len(recs)} cases: {len(recs) - len(skips)} ok, {len(skips)} skipped as "
-        f"the reference skips them; slowest {max(r['wall_s'] for r in recs):.1f} s; phase "
+    meshes = {tuple(r["mesh_shape"]) for r in recs if r["status"] == "ok"}
+    log(f"[dryrun] {len(recs)} cases on {sorted(meshes)} ({DRYRUN_WORKERS} workers): "
+        f"{len(recs) - len(skips)} ok, {len(skips)} skipped as the reference skips them; "
+        f"slowest {max(r['wall_s'] for r in recs):.1f} s; the sweep "
         f"{time.perf_counter() - t0:.1f} s")
-    return {"launches": launches["gc_fused"]}
+    return recs
 
 
 def phase_adapt():
@@ -2204,13 +2268,15 @@ def _gathered_coded(local, grad_fn, rows, plan, stragglers):
         yield u, gather_model(local, [y.reshape(t.shape) for y, t in zip(ys, local.leaves())])
 
 
-def _tp_job(rank, world, axis_losses, moe_losses, families, ckpt_dir):
+def _tp_job(rank, world, axis_losses, moe_losses, families, ckpt_dir, tp_ref):
     """One rank of the eight-rank job (``dist.spawn``: every rank on card
     0 over gloo, a (data 4, model 2) mesh) that runs [mla-tp], [mamba-tp],
     [xlstm-tp] and [cross-tp]'s two parts (``families``: tag -> what
-    ``_family_tp_rank`` holds it to), [tp], [moe-tp], then [tp-state]'s
+    ``_family_tp_rank`` holds it to), [xlstm-wide] (the same ranks as
+    data 2 x model 4), [tp], [moe-tp], then [tp-state]'s
     trainers: one job, so the ranks start, reach the card and join the
-    process group once.
+    process group once.  ``tp_ref`` is [tp]'s dry-run rank
+    (``_tp_dryrun_rank``).
     Returns this rank's results of each, and the seconds of each."""
     import torch
     import torch.distributed as dist
@@ -2220,7 +2286,9 @@ def _tp_job(rank, world, axis_losses, moe_losses, families, ckpt_dir):
     mesh = make_local_mesh(TP_DATA, model=TP_MODEL, device="cuda:0", backend="gloo")
     out, seconds = {}, {}
     parts = [(tag, _family_tp_rank, (tag, fam)) for tag, fam in families.items()]
-    parts += [("tp", _tp_rank, (axis_losses,)), ("moe-tp", _moe_tp_rank, (moe_losses,)),
+    if "xlstm-tp" in families:
+        parts.append(("xlstm-wide", _xlstm_wide_rank, (families["xlstm-tp"]["wide"],)))
+    parts += [("tp", _tp_rank, (axis_losses, tp_ref)), ("moe-tp", _moe_tp_rank, (moe_losses,)),
               ("tp-state", _tp_state_rank, (ckpt_dir,))]
     for part, fn, args in parts:
         torch.cuda.empty_cache()
@@ -2232,7 +2300,85 @@ def _tp_job(rank, world, axis_losses, moe_losses, families, ckpt_dir):
     return out
 
 
-def _tp_rank(rank, world, mesh, axis_losses):
+def _xlstm_wide_rank(rank, world, mesh, wide):
+    """[xlstm-wide] on one rank of ``_tp_job``: the job's ranks as a (data
+    2, model 4) mesh (``build_mesh`` over the same process group), each a
+    ``Trainer(mode="spmd")`` of ``wide["cfg"]`` (2 heads: the axis splits
+    ``d_inner`` and leaves the heads whole, each head on 2 ranks) at
+    ``wide["seq_len"]`` tokens.  One step with the counts set to 0 just
+    before: one grouped ``gc_fused`` call a rank, a finite loss, the
+    collectives the formula (``_step_counts`` at model 4: per pass an
+    mLSTM layer's gather of its conv's output and x_m, its reduce-scatter
+    and 3 copies, the sLSTM's 3 gathers).  From that step's own rows, at
+    0 and s_max stragglers, the model groups' gathered coded gradients
+    within ``XLSTM_WIDE_REL`` of each leaf's scale of the one-process
+    sim-mode ones (``_xlstm_wide_sim``; ``b_i`` at its ``b_f``'s).  Rank 0
+    logs; every check raises."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import ShiftedExponential
+    from repro_torch.data.pipeline import coded_worker_batches
+    from repro_torch.dist import collectives
+    from repro_torch.dist.mesh import build_mesh
+    from repro_torch.kernels import _pipe
+    from repro_torch.train.coded import local_layout
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    t0 = time.perf_counter()
+    w, cfg = XLSTM_WIDE, wide["cfg"]
+    wide_mesh = build_mesh(w["data"], 1, mesh.device, model=w["model"])
+    trainer = Trainer(cfg, TrainConfig(lr=3e-4, warmup=10, total_steps=300),
+                      ShiftedExponential(mu=1e-3, t0=50.0), n_workers=w["data"], scheme="xf",
+                      global_batch=8, seed=0, device=mesh.device, seq_len=wide["seq_len"],
+                      mesh=wide_mesh, mode="spmd")
+    plan, local = trainer.plan, trainer.state.params
+    if [int(v) for v in plan.x] != wide["x"] or local.tp.axes != {"d_inner", "mlp", "vocab"}:
+        raise AssertionError(f"[xlstm-wide] rank {rank}: plan x {plan.x} (sim mode's "
+                             f"{wide['x']}), split axes {sorted(local.tp.axes)}")
+    paths, layout = local.leaf_paths(), local_layout(cfg, plan, wide_mesh)
+    wb = coded_worker_batches(trainer.data, 0, w["data"], plan.s_max)
+    take = _keep_step0_rows(trainer.step_fn.grad_fn)
+    want = _step_counts(cfg, plan.k_shards, layout.n_levels, model=w["model"])
+    per_step = -(-len(paths) // _pipe.MAX_LEAVES)
+    torch.cuda.synchronize()
+    dist.barrier()
+    reset_counts()
+    collectives.reset_counts()
+    trainer.run(1, log_every=0)
+    torch.cuda.synchronize()
+    counts = {**collectives.counts, **collectives.model_counts}
+    launches, loss = read_counts(), trainer.history[-1]["loss"]
+    if counts != want or launches["gc_fused"] != per_step or not math.isfinite(loss):
+        raise AssertionError(f"[xlstm-wide] rank {rank}: collectives {counts} (the formula "
+                             f"{want}), launches {launches} (want {per_step}), loss {loss}")
+    sim = torch.load(wide["sim"]) if rank == 0 else None
+    worst = {}
+    for u, got in _gathered_coded(local, trainer.step_fn.grad_fn, take(wb), plan,
+                                  sorted({0, plan.s_max})):
+        if rank == 0:
+            worst[u] = _worst_rel_held(got.leaves(), [t.to(mesh.device) for t in sim[u]],
+                                       paths, XLSTM_WIDE_REL,
+                                       f"[xlstm-wide] gathered spmd vs sim mode, {u} "
+                                       "stragglers", _b_i_partner)
+        del got
+    if rank == 0:
+        log(f"[xlstm-wide] {cfg.name} reduced ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+            f"{cfg.n_heads} heads) on (data {w['data']}, model {w['model']}) at "
+            f"{wide['seq_len']} tokens: split axes {sorted(local.tp.axes)} (the heads whole, "
+            f"each on {w['model'] // cfg.n_heads} ranks); a rank holds {layout.total_elems:,} "
+            f"of {plan.flat_layout.total_elems:,} parameters; one step: loss {loss}, "
+            f"launches {launches}, collectives {counts} (the formula), bytes "
+            f"{dict(collectives.nbytes)}; its rows' gathered coded gradients vs sim mode "
+            f"(bound {XLSTM_WIDE_REL:.1e}): "
+            + ", ".join(f"{u} stragglers {v:.3e}" for u, v in worst.items())
+            + f"; {time.perf_counter() - t0:.1f} s")
+    del trainer, local, sim
+    torch.cuda.empty_cache()
+    return {"launches": launches["gc_fused"], "worst": worst}
+
+
+def _tp_rank(rank, world, mesh, axis_losses, tp_ref):
     """[tp] on one rank of ``_tp_job``.  Rank 0 logs; every check
     raises, and a rank's failure fails the whole job.  Returns this rank's
     launches, counts, bytes and times."""
@@ -2292,7 +2438,9 @@ def _tp_rank(rank, world, mesh, axis_losses):
         f"(worst leaf relative max error, bound 1e-5): "
         + ", ".join(f"{u} stragglers {w:.3e}" for u, w in worst.items()))
 
-    # the main path: Trainer(mode="spmd") on the shards, counts set to 0 just before
+    # the main path: Trainer(mode="spmd") on the shards, counts set to 0 just
+    # before; rank 0's first step under the op counter (_tp_counted_step)
+    counted = _tp_counted_step(trainer) if rank == 0 else {}
     torch.cuda.synchronize()
     dist.barrier()
     torch.cuda.reset_peak_memory_stats(mesh.device)
@@ -2329,6 +2477,8 @@ def _tp_rank(rank, world, mesh, axis_losses):
     for a, b in zip(losses, axis_losses, strict=True):
         if not abs(a - b) <= 1e-5 * abs(b):
             raise AssertionError(f"[tp] losses {losses} vs one process's {axis_losses}")
+    if rank == 0:
+        _tp_check_counted(trainer, counted, wb, tp_ref)
     walls = [h["wall_s"] for h in trainer.history]
     data_bytes = nbytes["psum"] / STEPS
     model_bytes = sum(nbytes[k] for k in model_counts) / STEPS
@@ -2357,6 +2507,80 @@ def _tp_rank(rank, world, mesh, axis_losses):
             "times": times}
 
 
+def _tp_counted_step(trainer) -> dict:
+    """Run the trainer's next step under the op counter
+    (``analyze_ops`` around its ``step_fn``, once): returns a dict that
+    the step fills with its ``OpCost`` and its ``gc_fused`` launches."""
+    from repro_torch.launch.op_analysis import analyze_ops
+
+    inner, counted = trainer.step_fn, {}
+
+    def step(*args):
+        trainer.step_fn = inner
+        before = read_counts()["gc_fused"]
+        counted["cost"] = analyze_ops(inner, *args, device=trainer.mesh.device)
+        counted["launches"] = read_counts()["gc_fused"] - before
+        return counted["cost"].output
+
+    step.grad_fn = inner.grad_fn
+    trainer.step_fn = step
+    return counted
+
+
+def _tp_dryrun_rank() -> dict:
+    """[tp]'s reference for its counted step: the dry run's rank 0 of (data
+    ``TP_DATA``, model ``TP_MODEL``) on meta (``launch.dryrun.build_case``,
+    coded) at ``make_trainer``'s config and rows with the trainer's int32
+    tokens, priced in the main process before the ranks start (a fresh
+    rank's first meta op imports torch's compiler, ~13 s on the card's host
+    while its peers wait; ``phase_dryrun`` prices it while its sweep
+    runs).  Returns its ``OpCost`` (without the output),
+    the plan's x, the worker batches' shape and the parameter counts."""
+    import torch
+
+    from repro_torch.configs import InputShape
+    from repro_torch.dist.mesh import meta_mesh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.op_analysis import analyze_ops
+
+    fn, args, extra = dryrun.build_case(_gc_lm(CUT_LAYERS), InputShape("tp", 256, 8, "train"),
+                                        meta_mesh(TP_DATA, model=TP_MODEL), coded=True)
+    wb = torch.empty(args[1].shape, dtype=torch.int32, device="meta")
+    cost = analyze_ops(fn, args[0], wb, args[2])
+    cost.output = None
+    return {"cost": cost, "x": extra["x"], "wb_shape": tuple(wb.shape),
+            "local_params": extra["local_params"], "params_b": extra["params_b"]}
+
+
+def _tp_check_counted(trainer, counted, wb, ref) -> None:
+    """[tp]: rank 0's step counted on the card (``_tp_counted_step``)
+    equals the dry run's rank 0 on meta at (data 4, model 2)
+    (``_tp_dryrun_rank``, on the same plan and inputs): FLOPs,
+    transcendentals, collectives by kind and bytes, bytes, op for op, and
+    one counted ``gc_fused`` call per launch."""
+    cuda, meta = counted["cost"], ref["cost"]
+    if ref["x"] != [int(v) for v in trainer.plan.x] or ref["wb_shape"] != tuple(wb.shape):
+        raise AssertionError(f"[tp] the dry run's plan x {ref['x']} and batches "
+                             f"{ref['wb_shape']}, the trainer's {trainer.plan.x} and {wb.shape}")
+    diff = _same_costs(cuda, meta)
+    log(f"[tp] rank 0's first step counted on the card: flops {cuda.flops:.6e} bytes "
+        f"{cuda.bytes:.6e} transcendentals {cuda.transcendentals:.6e} collectives "
+        f"{cuda.collective_counts} bytes {cuda.collective_bytes} kernel calls "
+        f"{cuda.kernel_calls}, gc_fused launches {counted['launches']}; the dry run's rank 0 "
+        f"of (data {TP_DATA}, model {TP_MODEL}) on meta: flops {meta.flops:.6e} bytes "
+        f"{meta.bytes:.6e} transcendentals {meta.transcendentals:.6e} local params "
+        f"{ref['local_params']:,} of {ref['params_b']:,}; ops that differ {diff}")
+    if (cuda.flops, cuda.transcendentals, cuda.collective_bytes, cuda.collective_counts,
+            cuda.bytes) != (meta.flops, meta.transcendentals, meta.collective_bytes,
+                            meta.collective_counts, meta.bytes) or diff:
+        raise AssertionError(f"[tp] the card's step differs from the dry run's rank: {diff}")
+    if not (counted["launches"] == cuda.kernel_calls.get("gc_fused") ==
+            meta.kernel_calls.get("gc_fused") == 1):
+        raise AssertionError(f"[tp] gc_fused launched {counted['launches']} times, counted "
+                             f"{cuda.kernel_calls} on the card and {meta.kernel_calls} on "
+                             "meta: want one counted combine per launch")
+
+
 #: a mixer's model-group all-reduces per pass on the model axis: (forward
 #: reduces, backward copies).  Attention and a cross-attention mixer: the
 #: output projection, the input; MLA: the output projection, the query
@@ -2370,22 +2594,32 @@ MIXER_COLLECTIVES = {"attn": (1, 1), "cross_attn": (1, 1), "mla": (1, 3), "mamba
 
 def _layer_collectives(cfg, spec, model: int) -> dict:
     """One layer's model-group collectives per pass, written from the
-    config: forward reduces and all-gathers, backward copies.  An MLP (a
-    dense FFN, a MoE's shared experts or the sLSTM's GeGLU at their own
-    width) splits where its width divides the axis: one reduce, one copy.
-    The sLSTM gathers its h over the heads: one all-gather.  A
-    ``cross_source`` sublayer (Whisper's decoder) is a cross-attention:
-    one reduce, one copy.  A MoE FFN split by expert (case a:
-    ``shard_experts`` and E divides the axis) or by each expert's width
-    (case b) reduces its output and copies its gates' and its input's
-    gradients, and in case (a) gathers its router's logits; whole (case
-    c) it makes none."""
+    config: forward reduces and all-gathers, backward copies and
+    reduce-scatters.  An MLP (a dense FFN, a MoE's shared experts or the
+    sLSTM's GeGLU at their own width) splits where its width divides the
+    axis: one reduce, one copy.  The sLSTM gathers its h over the heads:
+    one all-gather.  Where the axis splits xLSTM's channels but not its
+    heads (more ranks than heads), the mLSTM also gathers its conv's
+    output and x_m (an all-gather forward, a reduce-scatter backward) and
+    copies its replicated leaves' gradients in one all-reduce, and the
+    sLSTM gathers its gates' input, ``b_gates`` and, where the rule splits
+    it, ``r_gates`` instead of h.  A ``cross_source`` sublayer (Whisper's
+    decoder) is a cross-attention: one reduce, one copy.  A MoE FFN split
+    by expert (case a: ``shard_experts`` and E divides the axis) or by
+    each expert's width (case b) reduces its output and copies its gates'
+    and its input's gradients, and in case (a) gathers its router's
+    logits; whole (case c) it makes none."""
     red, cop = MIXER_COLLECTIVES[spec.mixer]
-    gather = int(spec.mixer == "slstm")
+    gather, scatter = int(spec.mixer == "slstm"), 0
 
     def mlp(width):
         return (1, 1) if width % model == 0 else (0, 0)
 
+    if spec.mixer in ("mlstm", "slstm") and cfg.n_heads % model:
+        if spec.mixer == "mlstm":
+            cop, gather, scatter = cop + 1, 1, 1
+        else:
+            gather = 2 + int(4 * (cfg.d_model // cfg.n_heads) % model == 0)
     if spec.mixer == "slstm":
         r, k = mlp(int(round(4.0 / 3.0 * cfg.d_model)))
         red, cop = red + r, cop + k
@@ -2402,7 +2636,7 @@ def _layer_collectives(cfg, spec, model: int) -> dict:
     elif cfg.d_ff and spec.use_ffn:
         r, k = mlp(cfg.d_ff)
         red, cop = red + r, cop + k
-    return dict(reduce=red, copy=cop, all_gather=gather)
+    return dict(reduce=red, copy=cop, all_gather=gather, psum_scatter=scatter)
 
 
 def _step_counts(cfg, k: int, n_levels: int, model: int = TP_MODEL, broadcast: int = 1) -> dict:
@@ -2413,11 +2647,12 @@ def _step_counts(cfg, k: int, n_levels: int, model: int = TP_MODEL, broadcast: i
     embedding's reduce and the loss's two and its max, each multi-token
     prediction module's embedding, layer (the last spec with a dense
     FFN), loss and max; per backward every layer's and encoder layer's
-    copies, the source's one, and where the vocabulary splits the head's
-    and each prediction module's head's — the clip's one reduce of the
-    split leaves' squares, one psum per level over the data group and
-    ``broadcast`` checks of the straggler draw (``Trainer.run``'s one; 0
-    for a loop that draws its own)."""
+    copies and reduce-scatters, the source's one copy, and where the
+    vocabulary splits the head's and each prediction module's head's
+    copy — the clip's one reduce of the split leaves' squares, one psum
+    per level over the data group and ``broadcast`` checks of the
+    straggler draw (``Trainer.run``'s one; 0 for a loop that draws its
+    own)."""
     import dataclasses
 
     specs = list(cfg.layers) + [dataclasses.replace(cfg.layers[-1], moe=None)] * cfg.mtp_depth
@@ -2428,9 +2663,9 @@ def _step_counts(cfg, k: int, n_levels: int, model: int = TP_MODEL, broadcast: i
     red = 3 * heads + sum(p["reduce"] for p in per) + enc
     cop = heads + sum(p["copy"] for p in per) + enc + source
     gather = sum(p["all_gather"] for p in per)
-    return dict(psum=n_levels, psum_scatter=0, broadcast=broadcast,
-                all_gather=(k + 1) * gather, copy=k * cop, reduce=(k + 1) * red + 1,
-                max=(k + 1) * heads)
+    return dict(psum=n_levels, psum_scatter=k * sum(p["psum_scatter"] for p in per),
+                broadcast=broadcast, all_gather=(k + 1) * gather, copy=k * cop,
+                reduce=(k + 1) * red + 1, max=(k + 1) * heads)
 
 
 def _moe_tp_rank(rank, world, mesh, moe_losses):
@@ -2683,7 +2918,7 @@ def _family_tp_rank(rank, world, mesh, tag, fam):
     return {"launches": launches["gc_fused"], "losses": losses}
 
 
-def phase_tp(axis_losses, moe_losses, families):
+def phase_tp(axis_losses, moe_losses, families, tp_ref):
     """spmd coded training on a model axis on one card: a (data 4, model
     2) mesh of eight ranks on card 0 over gloo, each a full-width
     ``Trainer(mode="spmd")`` of ``CUT_LAYERS`` layers over its shards;
@@ -2692,7 +2927,8 @@ def phase_tp(axis_losses, moe_losses, families):
     saved sim-mode gradients, which are removed after the job) and
     [tp-state]'s trainers
     (``_tp_job``), whose checkpoint stays in the returned work directory
-    for ``phase_tp_state``.  Returns the ranks' gc_fused launches on
+    for ``phase_tp_state``; ``tp_ref`` is [tp]'s dry-run rank
+    (``_tp_dryrun_rank``).  Returns the ranks' gc_fused launches on
     each part's main path, each summed over the ranks, rank 0's combine
     times, every rank's [tp-state] results and the work directory."""
     from repro_torch.dist.spawn import spawn
@@ -2702,14 +2938,17 @@ def phase_tp(axis_losses, moe_losses, families):
     t0 = time.perf_counter()
     try:
         jobs = spawn(_tp_job, TP_DATA * TP_MODEL, axis_losses, moe_losses, families,
-                     os.path.join(work, "ckpt"), store_dir=os.path.join(work, "spawn"),
-                     backend="gloo", timeout=SPMD_LIMIT_S)
+                     os.path.join(work, "ckpt"), tp_ref,
+                     store_dir=os.path.join(work, "spawn"), backend="gloo",
+                     timeout=SPMD_LIMIT_S)
     except BaseException:
         shutil.rmtree(work, ignore_errors=True)
         raise
     finally:
         for fam in families.values():
             shutil.rmtree(os.path.dirname(fam["sim"]), ignore_errors=True)
+            if "wide" in fam:
+                shutil.rmtree(os.path.dirname(fam["wide"]["sim"]), ignore_errors=True)
     ranks = [j["tp"] for j in jobs]
     launches = {"tp": sum(r["launches"] for r in ranks)}
     if launches["tp"] != STEPS * TP_DATA * TP_MODEL:
@@ -2726,6 +2965,11 @@ def phase_tp(axis_losses, moe_losses, families):
             raise AssertionError(f"[{tag}] {launches[tag]} gc_fused launches, expected "
                                  f"[{fam['phase']}]'s {fam['launches']} on each of "
                                  f"{TP_DATA * TP_MODEL} ranks")
+    if "xlstm-tp" in families:
+        launches["xlstm-wide"] = sum(j["xlstm-wide"]["launches"] for j in jobs)
+        if launches["xlstm-wide"] != TP_DATA * TP_MODEL:
+            raise AssertionError(f"[xlstm-wide] {launches['xlstm-wide']} gc_fused launches, "
+                                 f"expected one on each of {TP_DATA * TP_MODEL} ranks")
     sec = jobs[0]["seconds"]
     log(f"[tp] {len(ranks)} ranks done in {time.perf_counter() - t0:.1f} s ("
         + ", ".join(f"[{part}] {sec[part]:.1f} s" for part in sec)
@@ -6409,7 +6653,8 @@ def phase_xlstm_tp_sim():
         raise AssertionError(f"[xlstm-tp-sim] launches {launches}, losses {losses}")
     gaps, sim = _sim_grads("xlstm-tp-sim", plan, take(wb), g_ref, paths, _b_i_partner)
     sim = _save_sim("xlstm-tp-sim", sim)
-    del g_ref
+    del g_ref, trainer
+    wide = _xlstm_wide_sim(cfg, g["seq_len"])
     log(f"[xlstm-tp-sim] {cfg.name} reduced ({cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"mixers {[l.mixer for l in cfg.layers]}) at {g['seq_len']} tokens: "
         f"{sum(t.numel() for t in model.leaves())} params in {len(paths)} leaves; step 0, coded "
@@ -6418,11 +6663,42 @@ def phase_xlstm_tp_sim():
         + f" (bound {EXACT_RTOL}); one shard's gradient with the mLSTM's chunks halved "
         f"(another exact form) lies {own_rel:.3e} of a leaf's scale from it; {STEPS} steps: "
         f"losses {losses}, launches {launches}")
-    del trainer, model
+    del model
     _free_card()
     return {"launches": launches["gc_fused"], "gaps": gaps, "losses": losses, "sim": sim,
             "cfg": cfg, "seq_len": g["seq_len"], "phase": "xlstm-tp-sim",
-            "partner": _b_i_partner, "bound": XLSTM_TP_REL, "own": own_rel}
+            "partner": _b_i_partner, "bound": XLSTM_TP_REL, "own": own_rel, "wide": wide}
+
+
+def _xlstm_wide_sim(base, seq_len: int) -> dict:
+    """[xlstm-wide]'s reference in one process: ``base`` with
+    ``XLSTM_WIDE["n_heads"]`` heads in a sim-mode trainer of
+    ``XLSTM_WIDE["data"]`` workers; step 0's coded gradients at 0 and
+    s_max stragglers from its per-shard rows, saved (``_save_sim``) for
+    the ranks."""
+    from repro_torch.core import ShiftedExponential
+    from repro_torch.data.pipeline import coded_worker_batches
+    from repro_torch.train.coded import combine_rows
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    t0 = time.perf_counter()
+    w = XLSTM_WIDE
+    cfg = base.replace(n_heads=w["n_heads"], n_kv_heads=w["n_heads"])
+    trainer = Trainer(cfg, TrainConfig(lr=3e-4, warmup=10, total_steps=300),
+                      ShiftedExponential(mu=1e-3, t0=50.0), n_workers=w["data"], scheme="xf",
+                      global_batch=8, seed=0, device="cuda", seq_len=seq_len)
+    plan = trainer.plan
+    rows = trainer.step_fn.grad_fn.rows(trainer.state.params,
+                                        coded_worker_batches(trainer.data, 0, w["data"],
+                                                             plan.s_max))
+    sim = {u: combine_rows(plan, rows, _straggler_dec_w(plan, u))
+           for u in sorted({0, plan.s_max})}
+    path = _save_sim("xlstm-wide", sim)
+    log(f"[xlstm-tp-sim] [xlstm-wide]'s reference: {cfg.n_heads} heads, N = {w['data']} "
+        f"(s_max {plan.s_max}, x {[int(v) for v in plan.x]}), step 0's sim-mode coded "
+        f"gradients at {sorted(sim)} stragglers saved; {time.perf_counter() - t0:.1f} s")
+    del trainer, rows, sim
+    return {"cfg": cfg, "seq_len": seq_len, "sim": path, "x": [int(v) for v in plan.x]}
 
 
 def _cross_bounds(cfg, model, b: int, s: int, cap: int, decode: bool) -> tuple:
@@ -6667,7 +6943,7 @@ def main() -> int:
     tp_launches, tp_times, tp_state_ranks, tp_state_work = timed(
         "tp", phase_tp, axis_losses, moe_train["losses"],
         {"mla-tp": deepseek, "mamba-tp": jamba, "xlstm-tp": xlstm_sim,
-         "cross-tp/whisper": whisper_sim, "cross-tp/vision": vision})
+         "cross-tp/whisper": whisper_sim, "cross-tp/vision": vision}, dryrun["tp_ref"])
     ckpt_launches, n_digits = timed("ckpt", phase_ckpt)
     tp_state_launches = timed("tp-state", phase_tp_state, tp_state_ranks, tp_state_work)
     enc_err, enc_times = timed("encode", phase_encode, n_digits)
@@ -6711,6 +6987,7 @@ def main() -> int:
                       "moe-tp": tp_launches["moe-tp"],
                       "mla-tp": tp_launches["mla-tp"], "mamba-tp": tp_launches["mamba-tp"],
                       "xlstm-tp-sim": xlstm_sim["launches"], "xlstm-tp": tp_launches["xlstm-tp"],
+                      "xlstm-wide": tp_launches["xlstm-wide"],
                       "whisper-tp-sim": whisper_sim["launches"],
                       "cross-tp": tp_launches["cross-tp/whisper"]
                       + tp_launches["cross-tp/vision"],

@@ -10,10 +10,15 @@ einsums: ``copy_to_model`` (the identity forward, the gradient
 all-reduced over the model ranks backward: a replicated input, or a
 replicated leaf, entering a sharded region) and ``reduce_from_model``
 (an all-reduce forward, the identity backward: the partial sums of a
-row-sharded product leaving it); ``gather_from_model`` (an all-gather
+row-sharded product leaving it); ``copy_leaves_to_model`` (*f* of
+several replicated leaves at once: one all-reduce of their gradients);
+``gather_from_model`` (an all-gather
 forward, the rank's slice of the gradient backward: a column-sharded
 product whose gathered output every rank then uses whole, as the router
-of experts split over ``model``); and ``max_over_model``, the max
+of experts split over ``model``); ``gather_reduce_scatter`` (an
+all-gather forward, a reduce-scatter backward: a gathered tensor each
+rank uses only in part, as a head's channels on the ranks that share
+the head); and ``max_over_model``, the max
 all-reduce of the vocab-parallel softmax (no gradient).
 
 ``counts`` counts the data-side calls by collective and
@@ -21,7 +26,8 @@ all-reduce of the vocab-parallel softmax (no gradient).
 backward all-reduces of *f*), as the kernel wrappers count launches
 (serving's gathers — a vocab-parallel head's logits over the model
 group, a step's tokens and the MoE rows' expert ids over the data group
-— and ``gather_from_model``'s count as ``all_gather``): a run
+— and ``gather_from_model``'s and ``gather_reduce_scatter``'s count
+as ``all_gather``, the latter's backward as ``psum_scatter``): a run
 resets them to show how many collectives its path made; ``nbytes``
 adds up each kind's payload, one rank's buffer per call.
 No call copies a tensor to another device: a backend that refuses a
@@ -31,7 +37,9 @@ raises.
 On a meta mesh (``dist.mesh.meta_mesh``: its groups are ``MetaGroup``s)
 the collectives take meta tensors only, make no ``torch.distributed``
 call and return what the real ones would in shape; a real tensor there
-raises, and so does a meta tensor on a real group.  Under an op counter
+raises, and so does a meta tensor on a real group.  On a solo mesh
+(``dist.mesh.solo_mesh``: ``SoloGroup``s) they take real tensors, make
+no call, and return this rank's own data in the real ones' shape.  Under an op counter
 (``repro_torch.launch.op_analysis``) every call records its kind and
 bytes under the reference's names (``all-reduce``, ``reduce-scatter``,
 ``all-gather``), on either kind of mesh.
@@ -42,11 +50,12 @@ import torch
 import torch.distributed as dist
 
 from ..launch import op_analysis
-from .mesh import MetaGroup
+from .mesh import MetaGroup, SoloGroup
 
 __all__ = ["counts", "model_counts", "nbytes", "reset_counts", "psum", "psum_scatter",
            "all_gather", "gather_rows", "broadcast", "check_replicated", "copy_to_model",
-           "reduce_from_model", "gather_from_model", "max_over_model"]
+           "reduce_from_model", "copy_leaves_to_model", "gather_from_model",
+           "gather_reduce_scatter", "max_over_model"]
 
 #: collectives made by this module in this process, by kind
 counts = {"psum": 0, "psum_scatter": 0, "all_gather": 0, "broadcast": 0}
@@ -75,7 +84,13 @@ def _on_meta(group, *tensors) -> bool:
 
 
 def _size(group) -> int:
-    return group.size if isinstance(group, MetaGroup) else dist.get_world_size(group)
+    if isinstance(group, (MetaGroup, SoloGroup)):
+        return group.size
+    return dist.get_world_size(group)
+
+
+def _solo(group) -> bool:
+    return isinstance(group, SoloGroup)
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -88,7 +103,7 @@ def psum(bufs: list, group) -> list:
     for b in bufs:
         meta = _on_meta(group, b)
         with op_analysis.collective("all-reduce", _nbytes(b), _nbytes(b)):
-            if not meta:
+            if not (meta or _solo(group)):
                 dist.all_reduce(b, group=group)
         counts["psum"] += 1
         nbytes["psum"] += _nbytes(b)
@@ -118,7 +133,9 @@ def psum_scatter(buf: torch.Tensor, group, dim: int = 0,
         raise ValueError(f"psum_scatter: out{tuple(out.shape)} at dim {dim}, want {shape} "
                          "at dim 0")
     with op_analysis.collective("reduce-scatter", _nbytes(src), _nbytes(out)):
-        if not meta:
+        if _solo(group):
+            out.copy_(src[:shape[0]])
+        elif not meta:
             reduce_scatter = (getattr(dist, "reduce_scatter_single", None)
                               or dist.reduce_scatter_tensor)
             reduce_scatter(out, src, group=group)
@@ -142,7 +159,9 @@ def all_gather(tile: torch.Tensor, group, dim: int = 0,
         raise ValueError(f"all_gather: out{tuple(out.shape)} at dim {dim}, want {shape} "
                          "at dim 0")
     with op_analysis.collective("all-gather", _nbytes(src), _nbytes(out)):
-        if not meta:
+        if _solo(group):
+            out.view(n, *src.shape).copy_(src.expand(n, *src.shape))
+        elif not meta:
             gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
             gather(out, src, group=group)
     counts["all_gather"] += 1
@@ -163,7 +182,7 @@ def gather_rows(x: torch.Tensor, split) -> torch.Tensor:
 def _first_rank(group) -> int:
     """The global rank of ``group``'s first member (0 for the world and
     a meta mesh's group)."""
-    if group is None or group is dist.group.WORLD or isinstance(group, MetaGroup):
+    if group is None or group is dist.group.WORLD or isinstance(group, (MetaGroup, SoloGroup)):
         return 0
     return dist.get_global_rank(group, 0)
 
@@ -172,7 +191,7 @@ def broadcast(t: torch.Tensor, group=None) -> torch.Tensor:
     """``t`` of ``group``'s first rank (rank 0 over the default group)
     written into ``t`` on every rank of the group, in place: one
     broadcast.  Returns ``t``."""
-    if not _on_meta(group, t):
+    if not (_on_meta(group, t) or _solo(group)):
         dist.broadcast(t, src=_first_rank(group), group=group)
     counts["broadcast"] += 1
     nbytes["broadcast"] += _nbytes(t)
@@ -197,7 +216,7 @@ def _model_all_reduce(x: torch.Tensor, group, kind: str, op=dist.ReduceOp.SUM) -
     out = x.clone(memory_format=torch.contiguous_format)
     meta = _on_meta(group, out)
     with op_analysis.collective("all-reduce", _nbytes(out), _nbytes(out)):
-        if not meta:
+        if not (meta or _solo(group)):
             dist.all_reduce(out, op=op, group=group)
     model_counts[kind] += 1
     nbytes[kind] += _nbytes(out)
@@ -239,6 +258,49 @@ def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
     gradient as it comes — for the partial sums of a product over
     sharded heads, widths or vocabulary rows."""
     return _ReduceFromModel.apply(x, group)
+
+
+class _CopyLeavesToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, *leaves):
+        ctx.group = group
+        ctx.shapes = [t.shape for t in leaves]
+        return tuple(t.view_as(t) for t in leaves)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        summed = _model_all_reduce(flat, ctx.group, "copy").split(
+            [g.numel() for g in grads])
+        return (None, *(t.view(shape) for t, shape in zip(summed, ctx.shapes)))
+
+
+def copy_leaves_to_model(leaves, group) -> list:
+    """*f* of replicated ``leaves`` (one dtype) that each model rank uses
+    only in part: the leaves forward; backward, their gradients summed
+    over the model group ``group`` in one all-reduce of the gradients
+    laid end to end (counted as one ``copy``)."""
+    return list(_CopyLeavesToModel.apply(group, *leaves))
+
+
+class _GatherReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(x.contiguous(), group, dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return psum_scatter(grad.contiguous(), ctx.group, dim=ctx.dim), None, None
+
+
+def gather_reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every model rank's ``x`` concatenated along ``dim`` in rank order
+    (one ``all_gather``); backward, the gradient summed over the group
+    and this rank's slice kept (one ``psum_scatter``) — for a gathered
+    tensor each rank uses only in part, so that each rank's gradient of
+    it is a partial sum."""
+    return _GatherReduceScatter.apply(x, group, dim)
 
 
 class _GatherFromModel(torch.autograd.Function):

@@ -18,6 +18,9 @@ order (``torch.distributed.new_group`` is collective).
 (``repro_torch.launch.dryrun``): one rank's view, on the meta device,
 whose groups are ``MetaGroup``s; the collectives make no
 ``torch.distributed`` call on it (``dist/collectives.py``).
+``solo_mesh`` is one rank's view on a real device whose groups are
+``SoloGroup``s: the rank runs alone, its collectives return what one
+rank's would in shape (the dry run's ``--measure``).
 
 The reference's coded region keeps ``model`` an auto axis that GSPMD
 splits by its sharding rules; the port splits it explicitly by the same
@@ -31,8 +34,8 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 
-__all__ = ["Mesh", "MetaGroup", "build_mesh", "meta_mesh", "default_backend",
-           "check_backend"]
+__all__ = ["Mesh", "MetaGroup", "SoloGroup", "build_mesh", "meta_mesh", "solo_mesh",
+           "default_backend", "check_backend"]
 
 BACKENDS = ("nccl", "gloo")
 
@@ -85,15 +88,38 @@ class MetaGroup:
     size: int
 
 
+@dataclass(frozen=True)
+class SoloGroup:
+    """A group of ``size`` ranks of which only this one runs: its
+    collectives make no ``torch.distributed`` call and return what this
+    rank's would in shape — an all-reduce or a broadcast its input, an
+    all-gather its tile repeated, a reduce-scatter its first tile — so
+    the values are not the mesh's."""
+
+    size: int
+
+
+def _view(data: int, pod: int, rank: int, model: int, device, group) -> Mesh:
+    if data < 1 or pod < 1 or model < 1 or not 0 <= rank < data * pod * model:
+        raise ValueError(f"a (pod={pod}, data={data}, model={model}) mesh has no rank {rank}")
+    return Mesh(data=data, pod=pod, rank=rank, device=torch.device(device),
+                world_group=group(data * pod * model), data_group=group(data),
+                pod_group=group(pod) if pod > 1 else None, model=model,
+                model_group=group(model) if model > 1 else None)
+
+
 def meta_mesh(data: int, pod: int = 1, rank: int = 0, model: int = 1) -> Mesh:
     """Rank ``rank``'s view of a ``(pod, data, model)`` mesh on the meta
     device: the shapes of spmd steps, no process group and no storage."""
-    if data < 1 or pod < 1 or model < 1 or not 0 <= rank < data * pod * model:
-        raise ValueError(f"a (pod={pod}, data={data}, model={model}) mesh has no rank {rank}")
-    return Mesh(data=data, pod=pod, rank=rank, device=torch.device("meta"),
-                world_group=MetaGroup(data * pod * model), data_group=MetaGroup(data),
-                pod_group=MetaGroup(pod) if pod > 1 else None, model=model,
-                model_group=MetaGroup(model) if model > 1 else None)
+    return _view(data, pod, rank, model, "meta", MetaGroup)
+
+
+def solo_mesh(data: int, pod: int = 1, rank: int = 0, model: int = 1,
+              device="cuda") -> Mesh:
+    """Rank ``rank``'s view of a ``(pod, data, model)`` mesh on ``device``
+    with ``SoloGroup``s: the rank's step runs alone, with its own shapes
+    and memory, and no process group."""
+    return _view(data, pod, rank, model, device, SoloGroup)
 
 
 def default_backend(device: torch.device) -> str:

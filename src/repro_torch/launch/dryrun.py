@@ -5,41 +5,59 @@ roofline terms — after ``repro/launch/dryrun.py``.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma-2b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--mesh both] [--coded]
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh-shape 16x1  # data only
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gc-lm-110m --measure  # a card
 
 Each case runs the port's step once, at full width, on meta tensors
 (``launch/specs.py``) under the op counter (``launch/op_analysis.py``):
 nothing is allocated and nothing is computed, so it needs no card, as
-the reference lowers on placeholder devices.  The mesh is the
-reference's data axes without ``model`` (not priced yet, ROADMAP 6e):
-``single`` is (data 16), ``multi`` (pod 2, data 16), one rank's view
-(``dist.mesh.meta_mesh``), and the figures are per device:
+the reference lowers on placeholder devices.  The meshes are the
+reference's: ``single`` is (data 16, model 16) on 256 chips, ``multi``
+(pod 2, data 16, model 16) on 512; ``--mesh-shape DxM`` replaces the
+per-pod (data, model), as the reference's does (``16x1``: the data
+axes alone).  The figures are one rank's (``dist.mesh.meta_mesh``, rank
+0): on a ``model`` axis the rank holds its shards of the parameters and
+of the two moments (``models.params.init_shards``: the reference's rule
+splits a leaf only where ``model`` divides it), its KV heads' and
+states' caches, and every step reduces over the model group as well:
 
 * ``train``: ``make_train_step`` over the mesh — the rank's rows of the
-  global batch, then one all-reduce of the gradients;
+  global batch, then one all-reduce of the gradients over the data
+  ranks (and the pod ranks);
 * ``train_coded``: ``make_coded_train_step(mode="spmd")`` — the rank's
   K = s_max + 1 per-shard passes, the combine into the level buffers
   (one ``gc_fused`` launch on a card) and the per-level collectives, on
-  the ``xf`` plan of ``ShiftedExponential(mu=1e-3, t0=50)``;
+  the ``xf`` plan of ``ShiftedExponential(mu=1e-3, t0=50)`` over N =
+  ``data`` workers, bound to the full tree as ``Trainer`` binds it;
 * ``prefill``: ``models.model.prefill`` of the rank's rows,
-  ceil(B / ranks);
+  ceil(B / (data · pod)) — the model ranks of a replica read the same
+  rows;
 * ``serve``: one ``make_serve_step`` decode step of the rank's rows
   against caches of capacity S (bf16) — never the engine loop, which
   reads tokens back to the host.
 
+A modality input (vision patches, encoder frames) is whole on every
+model rank, as cross-attention's source is.
+
 A record keeps the reference's keys where they mean something here:
 ``status`` (``ok``, ``skip`` with ``reason`` — the reference's
 ``shape_supported`` skips — or ``fail`` with ``error``), ``params_b``
-(the parameter count), ``s_max``/``n_levels``/``x`` (coded),
+(the full parameter count), ``n_chips`` (the mesh's ranks),
+``mesh_shape``, ``s_max``/``n_levels``/``x`` (coded),
 ``per_device_flops``, ``per_device_bytes`` (operands plus outputs of
 every eager op: above XLA's fused figure), ``collectives``,
-``collective_bytes``, ``loop_trips`` (for ``while_trips``), ``memory``
-(argument and output bytes) and ``compute_s`` (each dtype's FLOPs over
-its peak), ``memory_s`` and ``collective_s`` by ``launch.mesh.HW`` (the
-H100 data sheet's figures).  ``trace_s`` replaces ``lower_s`` and
+``collective_bytes`` (over the data, pod and model groups alike),
+``loop_trips`` (for ``while_trips``), ``memory`` (the rank's argument
+and output bytes) and ``compute_s`` (each dtype's FLOPs over its peak),
+``memory_s`` and ``collective_s`` by ``launch.mesh.HW`` (the H100 data
+sheet's figures; every collective at one link's rate, ``HW.ICI_BW``,
+though a model group of 16 spans two 8-card hosts).  ``local_params``
+is the rank's parameter count.  ``trace_s`` replaces ``lower_s`` and
 ``compile_s``.  ``--measure`` runs each case that fits on the card once
-more, as rank 0 with its collectives over a process group of one (the
-peak of one rank, without its peers' traffic), through
+more, as rank 0 of a solo mesh (``dist.mesh.solo_mesh``: every group's
+collectives return this rank's own data in the mesh's shapes, so the
+peak is one rank's without its peers' traffic and the values are not
+the mesh's; the record says ``"groups": "solo"``), through
 ``tune.memory.analyze_memory``, adding ``memory.peak_bytes`` and
 ``memory.temp_bytes``; a case that does not fit records that.
 
@@ -61,11 +79,11 @@ import torch
 
 from ..configs import INPUT_SHAPES, get_config, list_archs, shape_supported
 from ..core import Plan, ShiftedExponential
-from ..dist.mesh import Mesh, meta_mesh
+from ..dist.mesh import Mesh, meta_mesh, solo_mesh
 from ..models.model import prefill
-from ..models.params import count_params
+from ..models.params import GCLM, count_params
 from ..serve.engine import make_serve_step
-from ..train.state import abstract_train_state, init_train_state
+from ..train.state import init_train_state
 from ..train.trainer import TrainConfig, make_coded_train_step, make_train_step
 from ..tune.memory import analyze_memory, tree_bytes
 from .mesh import HW
@@ -74,7 +92,7 @@ from .specs import input_specs, step_kind
 
 __all__ = ["build_case", "run_case", "roofline", "main"]
 
-MESHES = {"single": (16, 1), "multi": (16, 2)}  # (data, pod)
+MESHES = {"single": (16, 1, 16), "multi": (16, 2, 16)}  # (data, pod, model)
 _LOW_PRECISION = ("bfloat16", "float16")
 
 
@@ -110,15 +128,16 @@ def build_case(cfg, shape, mesh: Mesh, *, coded: bool, coded_opts: dict = None,
                device="meta"):
     """Returns (fn, args tuple, extra record fields) for one case on
     ``mesh``'s rank; the state lives on ``device`` (meta, or the card
-    for a measured run), the data inputs are meta specs (materialized by
-    the caller for a measured run)."""
-    state = abstract_train_state(cfg) if device == "meta" else \
-        init_train_state(cfg, device=device, seed=0)
-    extra = {"params_b": count_params(state.params)}
-    ranks = mesh.size
+    for a measured run) — on a ``model`` axis the rank's shards and
+    moments of their shapes — and the data inputs are meta specs
+    (materialized by the caller for a measured run)."""
+    sharded = mesh.model > 1
+    state = init_train_state(cfg, device=device, seed=0, mesh=mesh if sharded else None)
+    full = GCLM(cfg, device="meta") if sharded else state.params
+    extra = {"params_b": count_params(full), "local_params": count_params(state.params)}
     if shape.kind == "train" and coded:
         opts = dict(coded_opts or {})
-        plan = Plan.build(state.params, ShiftedExponential(mu=1e-3, t0=50.0), mesh.data,
+        plan = Plan.build(full, ShiftedExponential(mu=1e-3, t0=50.0), mesh.data,
                           scheme="xf", s_cap=opts.pop("s_cap", None))
         extra.update(s_max=plan.s_max, n_levels=len(plan.used_levels),
                      x=[int(v) for v in plan.x])
@@ -141,10 +160,10 @@ def build_case(cfg, shape, mesh: Mesh, *, coded: bool, coded_opts: dict = None,
         specs, _ = input_specs(cfg, shape)
         return make_train_step(cfg, TrainConfig(), mesh=mesh), (state, specs), extra
 
-    rows = max(1, math.ceil(shape.global_batch / ranks))
+    rows = max(1, math.ceil(shape.global_batch / (mesh.data * mesh.pod)))
     extra["rows"] = rows
     local = type(shape)(shape.name, shape.seq_len, rows, shape.kind)
-    specs, _ = input_specs(cfg, local)
+    specs, _ = input_specs(cfg, local, tp=state.params.tp)
     aux = specs.get("aux_inputs")
     if shape.kind == "prefill":
         def fn(params, tokens, aux_inputs=None):
@@ -162,56 +181,36 @@ def build_case(cfg, shape, mesh: Mesh, *, coded: bool, coded_opts: dict = None,
     return fn, args + (() if aux is None else (aux,)), extra
 
 
-def _solo_group():
-    """A process group of one on the card (its own, on a free local
-    port), or the default group when one exists; and whether it was made
-    here."""
-    import socket
-
-    import torch.distributed as dist
-
-    if dist.is_initialized():
-        return dist.group.WORLD, False
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1,
-                            rank=0)
-    return dist.group.WORLD, True
-
-
-def _measure(cfg, shape, data: int, pod: int, coded: bool, coded_opts, arg_bytes: int) -> dict:
+def _measure(cfg, shape, mesh_shape: tuple, coded: bool, coded_opts, arg_bytes: int) -> dict:
     """The case once on the card through ``analyze_memory``, as rank 0 of
-    the mesh with its collectives over a group of one; or why not."""
-    import torch.distributed as dist
-
+    a solo mesh of ``mesh_shape`` (data, pod, model); or why not."""
     free, _ = torch.cuda.mem_get_info()
     if arg_bytes > free:
-        return {"measured": "does not fit", "free_bytes": int(free)}
-    group, made = _solo_group()
-    mesh = Mesh(data=data, pod=pod, rank=0, device=torch.device("cuda"), world_group=group,
-                data_group=group, pod_group=group if pod > 1 else None)
+        return {"measured": "does not fit", "free_bytes": int(free), "groups": "solo"}
+    data, pod, model = mesh_shape
     try:
-        fn, args, _ = build_case(cfg, shape, mesh, coded=coded,
-                                 coded_opts=dict(coded_opts or {}), device="cuda")
+        fn, args, _ = build_case(cfg, shape, solo_mesh(data, pod, model=model, device="cuda"),
+                                 coded=coded, coded_opts=dict(coded_opts or {}),
+                                 device="cuda")
         args = _materialize(args, "cuda", torch.Generator(device="cuda").manual_seed(0))
         mem = analyze_memory(fn, *args, device="cuda")
-        return {"measured": "ok", "peak_bytes": mem["peak_bytes"],
-                "temp_bytes": mem["temp_bytes"], "measured_argument_bytes": mem["argument_bytes"]}
+        return {"measured": "ok", "groups": "solo", "peak_bytes": mem["peak_bytes"],
+                "temp_bytes": mem["temp_bytes"],
+                "measured_argument_bytes": mem["argument_bytes"]}
     except torch.cuda.OutOfMemoryError as e:
-        return {"measured": "does not fit", "error": str(e)[:300]}
+        return {"measured": "does not fit", "groups": "solo", "error": str(e)[:300]}
     finally:
-        if made:
-            dist.destroy_process_group()
         torch.cuda.empty_cache()
 
 
 def run_case(arch: str, shape_name: str, mesh_kind: str, *, coded: bool, out_dir: str,
-             skip_existing: bool = True, tag: str = "", cfg_overrides: dict = None,
-             coded_opts: dict = None, measure: bool = False, cfg=None) -> dict:
+             skip_existing: bool = True, mesh_shape: tuple = None, tag: str = "",
+             cfg_overrides: dict = None, coded_opts: dict = None, measure: bool = False,
+             cfg=None) -> dict:
     """One case's record, written to ``out_dir`` (and read back from
-    there when ``skip_existing`` and it exists).  ``cfg`` replaces the
-    registry's config of ``arch`` (a reduced one, in tests)."""
+    there when ``skip_existing`` and it exists).  ``mesh_shape`` = (data,
+    model) per pod replaces the reference's (16, 16); ``cfg`` replaces
+    the registry's config of ``arch`` (a reduced one, in tests)."""
     shape = INPUT_SHAPES[shape_name]
     step_tag = "train_coded" if coded else step_kind(shape)
     name = f"{arch}__{shape_name}__{mesh_kind}__{step_tag}".replace("/", "_")
@@ -230,16 +229,19 @@ def run_case(arch: str, shape_name: str, mesh_kind: str, *, coded: bool, out_dir
     if not ok:
         _dump(path, rec)
         return rec
-    data, pod = MESHES[mesh_kind]
+    data, pod, model = MESHES[mesh_kind]
+    if mesh_shape is not None:
+        data, model = (int(v) for v in mesh_shape)
     try:
-        fn, args, extra = build_case(cfg, shape, meta_mesh(data, pod), coded=coded,
-                                     coded_opts=dict(coded_opts or {}))
+        fn, args, extra = build_case(cfg, shape, meta_mesh(data, pod, model=model),
+                                     coded=coded, coded_opts=dict(coded_opts or {}))
         t0 = time.perf_counter()
         cost = analyze_ops(fn, *args, device="meta")
         trace_s = time.perf_counter() - t0
         arg_b, out_b = tree_bytes(args), tree_bytes(cost.output)
         rec.update(
-            status="ok", n_chips=data * pod, trace_s=round(trace_s, 2),
+            status="ok", n_chips=data * pod * model,
+            mesh_shape=([pod] if pod > 1 else []) + [data, model], trace_s=round(trace_s, 2),
             per_device_flops=cost.flops, per_device_bytes=cost.bytes,
             transcendentals=cost.transcendentals, flops_by_dtype=cost.flops_by_dtype,
             kernel_calls=cost.kernel_calls,
@@ -252,7 +254,8 @@ def run_case(arch: str, shape_name: str, mesh_kind: str, *, coded: bool, out_dir
         if cost.unpriced:
             rec["unpriced"] = cost.unpriced
         if measure:
-            rec["memory"].update(_measure(cfg, shape, data, pod, coded, coded_opts, arg_b))
+            rec["memory"].update(_measure(cfg, shape, (data, pod, model), coded, coded_opts,
+                                          arg_b))
     except Exception as e:  # noqa: BLE001 — record the failure, keep sweeping
         rec.update(status="fail", error=f"{type(e).__name__}: {e}",
                    traceback=traceback.format_exc()[-4000:])
@@ -293,6 +296,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="artifacts/dryrun_torch")
     ap.add_argument("--no-skip", action="store_true")
     ap.add_argument("--tag", default="", help="artifact filename suffix for variants")
+    ap.add_argument("--mesh-shape", default=None,
+                    help="per-pod (data, model) in place of 16x16, e.g. '16x1' or '32x8'")
     ap.add_argument("--set", action="append", default=[],
                     help="config override key=value (e.g. remat=dots)")
     ap.add_argument("--coded-reduce", default="psum", choices=["psum", "psum_scatter"])
@@ -305,6 +310,11 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     overrides = _overrides(args.set)
+    mesh_shape = None
+    if args.mesh_shape:
+        mesh_shape = tuple(int(v) for v in args.mesh_shape.lower().split("x"))
+        if len(mesh_shape) != 2 or min(mesh_shape) < 1:
+            ap.error(f"--mesh-shape {args.mesh_shape!r}: want DxM, e.g. 16x16")
     archs = list_archs() if (args.all or args.arch is None) else [args.arch]
     archs = [a for a in archs if a != "gc-lm-110m" or args.arch == "gc-lm-110m"]
     shapes = list(INPUT_SHAPES) if (args.all or args.shape is None) else [args.shape]
@@ -325,7 +335,8 @@ def main(argv=None) -> int:
             for mesh_kind in meshes:
                 t0 = time.perf_counter()
                 rec = run_case(arch, shape, mesh_kind, coded=args.coded, out_dir=args.out,
-                               skip_existing=not args.no_skip, tag=args.tag,
+                               skip_existing=not args.no_skip, mesh_shape=mesh_shape,
+                               tag=args.tag,
                                cfg_overrides=overrides or None, coded_opts=coded_opts,
                                measure=args.measure)
                 msg = rec.get("reason") or rec.get("error", "")

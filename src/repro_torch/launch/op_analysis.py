@@ -170,6 +170,13 @@ class _Counter(TorchDispatchMode):
     """The dispatch mode behind ``analyze_ops``; ``mult`` scales every
     record (0 suspends counting)."""
 
+    @classmethod
+    def _should_skip_dynamo(cls) -> bool:
+        # torch wraps a mode's __torch_dispatch__ to keep its compiler out,
+        # importing torch._dynamo at the first op (seconds, in every fresh
+        # process); nothing here is compiled
+        return False
+
     def __init__(self, device: torch.device):
         super().__init__()
         self.device = device

@@ -66,14 +66,16 @@ def _cache_axes(cfg: ModelConfig) -> list:
 
 
 def input_specs(cfg: ModelConfig, shape: InputShape, *, coded: bool = False,
-                n_workers: int = 16, s_max: int = 0):
+                n_workers: int = 16, s_max: int = 0, tp=None):
     """Returns (specs dict, axes dict) for the step's data inputs: a
     training step's tokens (B, S+1) — or, ``coded``, the workers' shards
     (N, K, B/N, S+1) with K = s_max + 1, and a ``dec_w`` the caller fills
     (it needs the plan's levels) — a prefill's tokens (B, S), or a decode
     step's caches of capacity S (bf16) and its token (B, 1); plus the
     modality embeddings ``aux_inputs`` of a model with a cross-attention
-    source (vision patches, or encoder frames)."""
+    source (vision patches, or encoder frames).  ``tp`` (a sharded
+    module's ``model.tp``): the caches of that rank's KV heads and
+    states (``init_decode_caches(tp=)``)."""
     b, s = shape.global_batch, shape.seq_len
     aux, aux_ax = _aux_specs(cfg, b)
     if shape.kind == "train":
@@ -90,7 +92,8 @@ def input_specs(cfg: ModelConfig, shape: InputShape, *, coded: bool = False,
         specs = {"tokens": _spec((b, s), torch.int64)}
         axes = {"tokens": ("batch", None)}
     else:  # decode: one new token against a seq_len cache
-        specs = {"caches": init_decode_caches(cfg, b, s, dtype=torch.bfloat16, device="meta"),
+        specs = {"caches": init_decode_caches(cfg, b, s, dtype=torch.bfloat16, device="meta",
+                                              tp=tp),
                  "token": _spec((b, 1), torch.int64)}
         axes = {"caches": _cache_axes(cfg), "token": ("batch", None)}
     if aux is not None:

@@ -56,20 +56,36 @@ the cache's dtype), ``{"h", "c", "n", "m", "pos"}`` for the sLSTM (all
 fp32).  The step writes every leaf and advances ``pos`` **in place**,
 into the views ``stack.py`` hands each layer, as ``ssm.py`` does.
 
-**The model axis** (``tp``, a ``dist.sharding.ModelSplit``): a rank runs
-whole heads — its ``d_inner / model`` channels are its heads'
-(``_split``).  The mLSTM's ``up`` and the sLSTM's ``w_gates``/``b_gates``
-are cut block by block (``params.shard_blocks``), so a rank holds its
-channels of x_m and of z, and its heads of each of the four gates.  The
-mLSTM copies its input to the rank, reduces ``w_if``'s row-parallel
-gates and copies them back (every head's gates feed from every channel;
-the rank takes its i and f columns from both halves), and reduces
-``down``; its state is the rank's heads'.  The sLSTM copies its input,
-runs the block-diagonal recurrence on the rank's heads (their state),
-all-gathers h, and runs the group norm and the GeGLU on the whole h:
-replicated where the GeGLU's width does not split over the axis (its
-leaves' gradients are then whole on every rank), else Megatron's MLP
-(``layers.apply_mlp``).
+**The model axis** (``tp``, a ``dist.sharding.ModelSplit``): a rank holds
+``d_inner / model`` channels.  The mLSTM's ``up`` and the sLSTM's
+``w_gates``/``b_gates`` are cut block by block (``params.shard_blocks``),
+so a rank holds its channels of x_m and of z, and its slice of each of
+the four gates.  Where the axis splits the heads too (``_split``), a
+rank's channels are its heads': the mLSTM copies its input to the rank,
+reduces ``w_if``'s row-parallel gates and copies them back (every head's
+gates feed from every channel; the rank takes its i and f columns from
+both halves), and reduces ``down``; its state is the rank's heads'.  The
+sLSTM copies its input, runs the block-diagonal recurrence on the rank's
+heads (their state), all-gathers h, and runs the group norm and the
+GeGLU on the whole h: replicated where the GeGLU's width does not split
+over the axis (its leaves' gradients are then whole on every rank), else
+Megatron's MLP (``layers.apply_mlp``).
+
+Where the axis splits ``d_inner`` but not the heads (more model ranks
+than heads, as the reference's rule splits xlstm-1.3b's 4 heads at
+model 8 and 16), each head runs whole on the ranks that hold its
+channels (``_heads_of``).  The mLSTM runs its conv on the rank's
+channels, all-gathers the conv's output and x_m over the model group
+(``gather_reduce_scatter``: the ranks of a head each use a slice of its
+output, so the backward sums and scatters), runs q, k, v, the gates,
+the recurrence and the group norm on the heads that hold its channels
+(the replicated ``wq``/``wk``/``wv``/``b_i``/``b_f`` sliced to them; their
+gradients summed over the group in one all-reduce,
+``copy_leaves_to_model``), and keeps its own channels for the z gate and
+the row-parallel ``down``; its state is those heads'.  The sLSTM
+all-gathers its gates' input ``x @ w_gates`` and ``b_gates`` (and
+``r_gates`` where the rule split it) and runs every head on every rank,
+whose state it holds whole; what follows is as above.
 """
 from __future__ import annotations
 
@@ -78,7 +94,8 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import XLSTMSpec
-from ..dist.collectives import copy_to_model, gather_from_model, reduce_from_model
+from ..dist.collectives import (copy_leaves_to_model, copy_to_model, gather_from_model,
+                                gather_reduce_scatter, reduce_from_model)
 from ..launch import op_analysis
 from .layers import apply_mlp
 from .ssm import _causal_conv
@@ -113,14 +130,15 @@ def slstm_dims(cfg):
     return cfg.n_heads, cfg.d_model // cfg.n_heads, int(round(4.0 / 3.0 * cfg.d_model))
 
 
-def _group_norm(x, scale, nh: int):
-    """Per-head group norm of (B, S, D) in fp32, cast back to x's dtype."""
+def _group_norm(x, scale, nh: int, cols: slice = slice(None)):
+    """Per-head group norm of (B, S, D) in fp32, cast back to x's dtype;
+    only the channels ``cols`` of the result (``scale`` is theirs)."""
     b, s, d = x.shape
     xh = x.reshape(b, s, nh, d // nh).float()
     mu = xh.mean(-1, keepdim=True)
     var = (xh - mu).square().mean(-1, keepdim=True)
     out = (xh - mu) * torch.rsqrt(var + 1e-5)
-    return (out.reshape(b, s, d) * scale).to(x.dtype)
+    return (out.reshape(b, s, d)[..., cols] * scale).to(x.dtype)
 
 
 # ================================================================ mLSTM
@@ -226,15 +244,44 @@ def _mlstm_step(cache, q, k, v, log_i, log_f):
 
 
 def _split(tp, axis: str):
-    """``tp`` where it splits the logical ``axis``, else None.  The mixers
-    split their channels by whole heads: an axis that splits ``d_inner``
-    and leaves the heads whole (more model ranks than heads) raises."""
-    if tp is None or axis not in tp.axes:
-        return None
-    if "heads" not in tp.axes:
-        raise ValueError(f"a model axis of {tp.mesh.model} splits xLSTM's channels but not "
-                         "its heads: the mixers run whole heads on a rank")
-    return tp
+    """``tp`` where it splits the logical ``axis``, else None."""
+    return None if tp is None or axis not in tp.axes else tp
+
+
+def _heads_of(tp, d_inner: int, dh: int) -> tuple:
+    """Where the axis splits ``d_inner`` but not the heads: (first,
+    count) of the heads whose channels overlap the rank's ``d_inner /
+    model``, and the channels of the rank within theirs."""
+    c = d_inner // tp.mesh.model
+    lo = tp.model_index * c
+    first = lo // dh
+    count = (lo + c - 1) // dh - first + 1
+    return first, count, slice(lo - first * dh, lo - first * dh + c)
+
+
+def _mlstm_wide_inputs(p, xc, x_raw, heads: tuple, nh: int, dh: int, tp):
+    """``_mlstm_inputs`` of the heads ``heads`` = (first, count) from the
+    rank's channels ``xc`` and ``x_raw``: both all-gathered over the model
+    group (``gather_reduce_scatter``), the head's channels taken; the
+    replicated leaves sliced to the heads (their gradients summed over the
+    group); the gates as ``_mlstm_inputs`` reduces and copies them."""
+    first, count = heads
+    dt = xc.dtype
+    b, s, c = xc.shape
+    group, model = tp.model_group, tp.mesh.model
+    both = gather_reduce_scatter(torch.cat([xc, x_raw], -1), group, dim=2)
+    both = both.unflatten(-1, (model, 2, c)).transpose(2, 3).flatten(-2)  # (B, S, 2, d_inner)
+    both = both[..., first * dh:(first + count) * dh].unflatten(-1, (count, dh))
+    wq, wk, wv, b_i, b_f = (t[first:first + count] for t in copy_leaves_to_model(
+        [p[k] for k in ("wq", "wk", "wv", "b_i", "b_f")], group))
+    q = torch.einsum("bshi,hij->bshj", both[:, :, 0], wq.to(dt))
+    k = torch.einsum("bshi,hij->bshj", both[:, :, 0], wk.to(dt)).float() / np.sqrt(dh)
+    v = torch.einsum("bshi,hij->bshj", both[:, :, 1], wv.to(dt))
+    gates = torch.einsum("bsi,ih->bsh", xc, p["w_if"].to(dt))
+    gates = copy_to_model(reduce_from_model(gates, group), group).float()
+    log_i = gates[..., first:first + count] + b_i
+    log_f = F.logsigmoid(gates[..., nh + first:nh + first + count] + b_f)
+    return q.float(), k, v.float(), log_i, log_f
 
 
 def mlstm_forward(cfg, p, x, spec, *, mode="train", cache=None, target_len: int = 0,
@@ -242,18 +289,25 @@ def mlstm_forward(cfg, p, x, spec, *, mode="train", cache=None, target_len: int 
     """The mLSTM sublayer.  Returns (out, cache): ``None`` in training, the
     prefill's new ``{"C", "n", "m", "conv", "pos"}`` (``target_len``
     unused: the state has no sequence axis), or the decode cache updated
-    in place.  With ``tp`` splitting ``d_inner`` (and so the heads, which
-    lie contiguous in it): the input copied to the rank's channels, ``up``
-    column-parallel (its x_m and z blocks), the conv, the recurrence and
-    the group norm on the rank's channels and heads, the gates reduced
-    and copied (``_mlstm_inputs``), ``down`` row-parallel and all-reduced;
-    the state is the rank's heads'."""
+    in place.  With ``tp`` splitting ``d_inner``: the input copied to the
+    rank's channels, ``up`` column-parallel (its x_m and z blocks), the
+    conv on the rank's channels; where the heads split too, the
+    recurrence and the group norm on the rank's heads and the gates
+    reduced and copied (``_mlstm_inputs``), else on the heads that hold
+    its channels, gathered (``_mlstm_wide_inputs``), keeping its own
+    channels; ``down`` row-parallel and all-reduced; the state is the
+    heads' the rank runs."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     tp = _split(tp, "d_inner")
     _, d_inner, nh, dh = mlstm_dims(cfg)
+    heads, cols = None, slice(None)
     if tp is not None:
-        d_inner, nh = tp.local("d_inner", d_inner), tp.local("heads", nh)
+        if "heads" in tp.axes:
+            nh = tp.local("heads", nh)
+        else:
+            *heads, cols = _heads_of(tp, d_inner, dh)
+        d_inner = tp.local("d_inner", d_inner)
         x = copy_to_model(x, tp.model_group)
     b, s, _ = x.shape
     dt = x.dtype
@@ -261,7 +315,11 @@ def mlstm_forward(cfg, p, x, spec, *, mode="train", cache=None, target_len: int 
     decode = mode == "decode"
     xc, conv_state = _causal_conv(x_m, p["conv_w"], p["conv_b"],
                                   init_state=cache["conv"] if decode else None)
-    q, k, v, log_i, log_f = _mlstm_inputs(p, F.silu(xc), x_m, nh, dh, tp)
+    if heads is None:
+        q, k, v, log_i, log_f = _mlstm_inputs(p, F.silu(xc), x_m, nh, dh, tp)
+    else:
+        q, k, v, log_i, log_f = _mlstm_wide_inputs(p, F.silu(xc), x_m, heads, nh, dh, tp)
+        nh = heads[1]
     if decode:
         h = _mlstm_step(cache, q[:, 0], k[:, 0], v[:, 0], log_i[:, 0], log_f[:, 0])[:, None]
         cache["conv"].copy_(conv_state)
@@ -273,7 +331,7 @@ def mlstm_forward(cfg, p, x, spec, *, mode="train", cache=None, target_len: int 
         if mode == "prefill":
             new_cache = {"C": state[0], "n": state[1], "m": state[2], "conv": conv_state.to(dt),
                          "pos": torch.full((), s, dtype=torch.int32, device=x.device)}
-    h = _group_norm(h.reshape(b, -1, d_inner).to(dt), p["gn_scale"], nh)
+    h = _group_norm(h.reshape(b, -1, nh * dh).to(dt), p["gn_scale"], nh, cols)
     out = torch.einsum("bsi,id->bsd", h * F.silu(z), p["down"].to(dt))
     return (out if tp is None else reduce_from_model(out, tp.model_group)), new_cache
 
@@ -281,12 +339,13 @@ def mlstm_forward(cfg, p, x, spec, *, mode="train", cache=None, target_len: int 
 def init_mlstm_cache(cfg, spec, batch: int, seq_len: int, dtype=torch.bfloat16,
                      device="cuda", tp=None):
     """An empty state: ``C``, ``n`` zero and ``m`` -1e30 in fp32, ``conv``
-    in ``dtype`` (``seq_len`` unused); with ``tp``, the rank's heads and
-    channels (``ModelSplit.local``)."""
+    in ``dtype`` (``seq_len`` unused); with ``tp``, the rank's channels
+    and the heads it runs (its own, or those that hold its channels)."""
     xspec, d_inner, nh, dh = mlstm_dims(cfg)
     tp = _split(tp, "d_inner")
     if tp is not None:
-        d_inner, nh = tp.local("d_inner", d_inner), tp.local("heads", nh)
+        nh = tp.local("heads", nh) if "heads" in tp.axes else _heads_of(tp, d_inner, dh)[1]
+        d_inner = tp.local("d_inner", d_inner)
     f32 = dict(dtype=torch.float32, device=device)
     return {"C": torch.zeros((batch, nh, dh, dh), **f32),
             "n": torch.zeros((batch, nh, dh), **f32),
@@ -315,34 +374,50 @@ def _slstm_cell(h, c, n, m, wx_t, r, b_gates, nh: int, dh: int):
     return h_new, c_new, n_new, m_new
 
 
+def _gather_blocks(t: torch.Tensor, tp, blocks: int) -> torch.Tensor:
+    """The whole of a tensor whose last dimension holds the rank's slice
+    of each of ``blocks`` blocks (``params.shard_of``'s cut), gathered
+    over the model group (``gather_from_model``: every rank then uses it
+    whole) and put back block by block."""
+    whole = gather_from_model(t, tp.model_group, tp.model_index, dim=t.dim() - 1)
+    return whole.unflatten(-1, (tp.mesh.model, blocks, -1)).transpose(-3, -2).flatten(-3)
+
+
 def slstm_forward(cfg, p, x, spec, *, mode="train", cache=None, target_len: int = 0,
                   tp=None):
     """The sLSTM sublayer.  Returns (out, cache): ``None`` in training, the
     prefill's new ``{"h", "c", "n", "m", "pos"}``, or the decode cache
-    updated in place.  With ``tp`` splitting the heads: the input copied
-    to the rank's heads, ``w_gates`` column-parallel (its four gate
-    blocks), the block-diagonal recurrence on the rank's heads, h gathered
-    over them (``gather_from_model``: its backward is the rank's slice),
-    then the group norm and the GeGLU on the whole h — replicated on every
-    rank where the GeGLU's width does not split, else Megatron's MLP
-    (``layers.apply_mlp`` decides from the width); the state is the rank's
-    heads'."""
+    updated in place.  With ``tp`` splitting ``d_inner``: the input copied
+    to the rank, ``w_gates`` column-parallel (its four gate blocks); where
+    the heads split too, the block-diagonal recurrence on the rank's heads
+    and h gathered over them (``gather_from_model``: its backward is the
+    rank's slice), else the gates' input, ``b_gates`` and a split
+    ``r_gates`` gathered and every head run on every rank; then the group
+    norm and the GeGLU on the whole h — replicated on every rank where the
+    GeGLU's width does not split, else Megatron's MLP (``layers.apply_mlp``
+    decides from the width); the state is the heads' the rank runs."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     nh, dh, d_up = slstm_dims(cfg)
     mlp_tp, tp = tp, _split(tp, "d_inner")
     full_nh = nh
+    wide = tp is not None and "heads" not in tp.axes
     if tp is not None:
         nh = tp.local("heads", nh)
         x = copy_to_model(x, tp.model_group)
     b, s, _ = x.shape
     d = nh * dh  # the rank's width of the state
     dt = x.dtype
-    wx = torch.einsum("bsd,dj->bsj", x, p["w_gates"].to(dt)).float()
-    r = p["r_gates"].float()
+    wx = torch.einsum("bsd,dj->bsj", x, p["w_gates"].to(dt))
+    r, b_gates = p["r_gates"], p["b_gates"]
+    if wide:
+        wx, b_gates = _gather_blocks(wx, tp, 4), _gather_blocks(b_gates, tp, 4)
+        if r.shape[-1] != 4 * dh:
+            r = gather_from_model(r, tp.model_group, tp.model_index, dim=2)
+    wx, r = wx.float(), r.float()
     if mode == "decode":
         state = _slstm_cell(cache["h"], cache["c"], cache["n"], cache["m"], wx[:, 0], r,
-                            p["b_gates"], nh, dh)
+                            b_gates, nh, dh)
         for name, t in zip(("h", "c", "n", "m"), state):
             cache[name].copy_(t)
         cache["pos"].add_(1)
@@ -356,13 +431,13 @@ def slstm_forward(cfg, p, x, spec, *, mode="train", cache=None, target_len: int 
             state = _slstm_cell(*state, wx[:, t], r, b_gates, nh, dh)
             return state, state[0]
 
-        state, hs = op_analysis.scan(step, s, state, (wx, r, p["b_gates"]))
+        state, hs = op_analysis.scan(step, s, state, (wx, r, b_gates))
         h_seq, new_cache = torch.stack(hs, dim=1), None
         if mode == "prefill":
             new_cache = dict(zip(("h", "c", "n", "m"), state),
                              pos=torch.full((), s, dtype=torch.int32, device=x.device))
     h_seq = h_seq.to(dt)
-    if tp is not None:
+    if tp is not None and not wide:
         h_seq = gather_from_model(h_seq, tp.model_group, tp.model_index, dim=2)
     h_seq = _group_norm(h_seq, p["gn_scale"], full_nh)
     # the GeGLU gelu_tanh(h @ up1) * (h @ up2) @ down: the gated MLP's form under
@@ -374,8 +449,8 @@ def slstm_forward(cfg, p, x, spec, *, mode="train", cache=None, target_len: int 
 def init_slstm_cache(cfg, spec, batch: int, seq_len: int, dtype=torch.bfloat16,
                      device="cuda", tp=None):
     """An empty state, all fp32: ``h``, ``c``, ``n`` zero, ``m`` -1e30
-    (``dtype`` and ``seq_len`` unused); with ``tp``, the rank's heads'
-    (``ModelSplit.local``)."""
+    (``dtype`` and ``seq_len`` unused); with ``tp`` splitting the heads,
+    the rank's heads' (``ModelSplit.local``), else every head's."""
     nh, dh, _ = slstm_dims(cfg)
     d = (nh if _split(tp, "d_inner") is None else tp.local("heads", nh)) * dh
     f32 = dict(dtype=torch.float32, device=device)

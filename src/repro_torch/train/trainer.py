@@ -133,8 +133,11 @@ def coded_update(cfg, cfg_t: TrainConfig, state: TrainState, grads, worker_batch
     """The coded step after its gradients: the monitoring loss on shard 0
     (with ``worker_aux[0, 0]`` as its ``aux_inputs`` when given) with the
     pre-update parameters, then clip, AdamW and the cosine LR (in place).
-    Returns (state, metrics)."""
-    mon = {"tokens": worker_batches[0, 0]}
+    Shard 0's tokens are copied to the device as they are, as the passes
+    copy theirs, so their conversion runs there (an op counter sees the
+    step the same on meta and on a card).  Returns (state, metrics)."""
+    mon = {"tokens": torch.as_tensor(worker_batches[0, 0],
+                                     device=state.params.embed.tok.device)}
     if worker_aux is not None:
         mon["aux_inputs"] = worker_aux[0, 0]
     with torch.no_grad():

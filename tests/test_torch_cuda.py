@@ -1249,5 +1249,6 @@ def test_dryrun_measure_records_the_peak(cuda, tmp_path):
                           out_dir=str(tmp_path), cfg=cfg, measure=True)
     assert rec["status"] == "ok", rec.get("error")
     mem = rec["memory"]
-    assert mem["measured"] == "ok"
+    assert (mem["measured"], mem["groups"], rec["mesh_shape"]) == ("ok", "solo", [16, 16])
+    assert rec["local_params"] < rec["params_b"]  # a (16, 16) rank's shards
     assert mem["peak_bytes"] >= mem["argument_bytes"] == mem["measured_argument_bytes"]

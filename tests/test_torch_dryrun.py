@@ -127,18 +127,31 @@ def test_spmd_coded_collectives_follow_the_plans_levels(reduce_mode, pod):
     assert 1 + extra["s_max"] in cost.loop_trips  # the rank's K passes
 
 
+@pytest.mark.parametrize("mesh_shape", [(16, 1), (16, 16)], ids=["16x1", "16x16"])
 @pytest.mark.parametrize("arch", ["xlstm-1.3b", "jamba-v0.1-52b"])
-def test_full_width_training_dry_run_within_its_time(arch, tmp_path):
+def test_full_width_training_dry_run_within_its_time(arch, mesh_shape, tmp_path):
     """The sLSTM's 4,096 tokens and the Mamba and mLSTM chunks run three
     trips each on meta: the full-width train_4k dry run ends in under
-    30 s here."""
-    rec = dryrun.run_case(arch, "train_4k", "single", coded=False, out_dir=str(tmp_path))
+    30 s here, on the data axes alone (one all-reduce of the gradients)
+    and on the reference's (16, 16), where the rank holds its shards and
+    reduces over the model group too (xLSTM's 4 heads whole on the ranks
+    of their channels: its mLSTM layers reduce-scatter)."""
+    rec = dryrun.run_case(arch, "train_4k", "single", coded=False, out_dir=str(tmp_path),
+                          mesh_shape=mesh_shape)
     assert rec["status"] == "ok", rec.get("error")
     assert rec["trace_s"] < 30.0
     assert 4096 in rec["loop_trips"] or arch != "xlstm-1.3b"
-    assert rec["collectives"]["all-reduce"]["count"] == 1
+    if mesh_shape == (16, 1):
+        assert rec["collectives"]["all-reduce"]["count"] == 1
+        assert rec["local_params"] == rec["params_b"]
+    else:
+        assert rec["collectives"]["all-reduce"]["count"] > 1
+        assert rec["local_params"] < rec["params_b"]
+        scatters = rec["collectives"]["reduce-scatter"]["count"]
+        assert scatters == (42 if arch == "xlstm-1.3b" else 0)  # 42 mLSTM layers
+    assert (rec["n_chips"], rec["mesh_shape"]) == (16 * mesh_shape[1], list(mesh_shape))
     assert rec["compute_s"] > 0 and rec["memory_s"] > 0 and rec["collective_s"] > 0
-    assert rec["memory"]["argument_bytes"] > 12 * rec["params_b"]  # state + tokens
+    assert rec["memory"]["argument_bytes"] > 12 * rec["local_params"]  # state + tokens
 
 
 def test_cli_writes_records(tmp_path, capsys):
@@ -147,7 +160,7 @@ def test_cli_writes_records(tmp_path, capsys):
     out = capsys.readouterr().out
     assert rc == 0 and "done: 2 ok, 0 skip, 0 fail" in out
     recs = [json.loads(p.read_text()) for p in sorted(tmp_path.glob("*.json"))]
-    assert [(r["mesh"], r["n_chips"], r["rows"]) for r in recs] == [("multi", 32, 4),
-                                                                     ("single", 16, 8)]
+    assert [(r["mesh"], r["n_chips"], r["rows"]) for r in recs] == [("multi", 512, 4),
+                                                                     ("single", 256, 8)]
     for r in recs:
         assert r["per_device_flops"] > 0 and r["memory"]["argument_bytes"] > 0

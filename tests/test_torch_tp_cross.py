@@ -276,8 +276,8 @@ def test_collectives_per_pass_equal_the_formula(job, name):
                                                                          max=0),
             "vision": dict(reduce=13, copy=12, max=1)}[name]
     want = dict(psum=0, psum_scatter=0, broadcast=0, all_gather=0, **want)
-    assert X.pass_counts(C.cfg(name), 2) == {k: want[k] for k in ("reduce", "copy",
-                                                                  "all_gather", "max")}
+    assert X.pass_counts(C.cfg(name), 2) == {k: want[k] for k in (
+        "reduce", "copy", "all_gather", "max", "psum_scatter")}
     assert all(r[name]["counts"] == want for r in ranks), [r[name]["counts"] for r in ranks]
 
 

@@ -277,7 +277,7 @@ def test_collectives_per_pass_equal_the_formula(job, d):
     want = dict(psum=0, psum_scatter=0, broadcast=0, all_gather=1, copy=16 + up,
                 reduce=17 + up, max=1)
     assert X.pass_counts(X.cfg(d), 2) == {k: want[k] for k in ("reduce", "copy", "all_gather",
-                                                                "max")}
+                                                                "max", "psum_scatter")}
     assert all(r[d]["counts"] == want for r in ranks), [r[d]["counts"] for r in ranks]
 
 

@@ -40,16 +40,27 @@ def _split(width: int, model: int) -> int:
 
 
 def layer_counts(c, spec, model: int) -> dict:
-    """One layer's model-group collectives per pass, with the heads split:
-    forward reduces and all-gathers, backward copies.  Attention and a
-    cross-attention mixer: the output projection, the input; the mLSTM:
-    the gates (reduced, then copied) and ``down``, the input and the
-    gates; the sLSTM: the input's copy and the gather of h, and its GeGLU
-    a reduce and a copy where its width splits; a ``cross_source``
-    sublayer (Whisper's decoder) the same as a cross mixer; a dense MLP
-    one of each where its width splits."""
+    """One layer's model-group collectives per pass: forward reduces and
+    all-gathers, backward copies and reduce-scatters.  With the heads
+    split — attention and a cross-attention mixer: the output projection,
+    the input; the mLSTM: the gates (reduced, then copied) and ``down``,
+    the input and the gates; the sLSTM: the input's copy and the gather of
+    h.  Where the axis splits xLSTM's channels but not its heads (more
+    ranks than heads): the mLSTM also gathers its conv's output and x_m
+    (an all-gather forward, a reduce-scatter backward) and copies its
+    replicated leaves' gradients in one all-reduce; the sLSTM gathers its
+    gates' input, ``b_gates`` and, where the rule splits it, ``r_gates``,
+    and no h.  The sLSTM's GeGLU a reduce and a copy where its width
+    splits; a ``cross_source`` sublayer (Whisper's decoder) the same as a
+    cross mixer; a dense MLP one of each where its width splits."""
     red, cop, gather = {"attn": (1, 1, 0), "cross_attn": (1, 1, 0), "mlstm": (2, 2, 0),
                         "slstm": (0, 1, 1)}[spec.mixer]
+    scatter = 0
+    if spec.mixer in ("mlstm", "slstm") and c.n_heads % model:
+        if spec.mixer == "mlstm":
+            cop, gather, scatter = cop + 1, 1, 1
+        else:
+            gather = 2 + _split(4 * slstm_dims(c)[1], model)
     if spec.mixer == "slstm":
         up = _split(slstm_dims(c)[2], model)
         red, cop = red + up, cop + up
@@ -57,7 +68,7 @@ def layer_counts(c, spec, model: int) -> dict:
         red, cop = red + 1, cop + 1
     if spec.use_ffn and c.d_ff:
         red, cop = red + _split(c.d_ff, model), cop + _split(c.d_ff, model)
-    return dict(reduce=red, copy=cop, all_gather=gather)
+    return dict(reduce=red, copy=cop, all_gather=gather, psum_scatter=scatter)
 
 
 def pass_counts(c, model: int) -> dict:
@@ -68,7 +79,7 @@ def pass_counts(c, model: int) -> dict:
     attention's reduce and copy and its MLP's; and one copy of the
     cross-attention source a pass."""
     vocab = _split(c.vocab, model)
-    total = dict(reduce=3 * vocab, copy=vocab, all_gather=0, max=vocab)
+    total = dict(reduce=3 * vocab, copy=vocab, all_gather=0, max=vocab, psum_scatter=0)
     for spec in c.layers:
         for k, v in layer_counts(c, spec, model).items():
             total[k] += v
@@ -87,14 +98,15 @@ def step_counts(c, model: int, k: int, n_levels: int) -> dict:
     split leaves' squares, one psum per level over the data group and one
     check of the straggler draw."""
     p = pass_counts(c, model)
-    return dict(psum=n_levels, psum_scatter=0, broadcast=1, all_gather=(k + 1) * p["all_gather"],
-                copy=k * p["copy"], reduce=(k + 1) * p["reduce"] + 1, max=(k + 1) * p["max"])
+    return dict(psum=n_levels, psum_scatter=k * p["psum_scatter"], broadcast=1,
+                all_gather=(k + 1) * p["all_gather"], copy=k * p["copy"],
+                reduce=(k + 1) * p["reduce"] + 1, max=(k + 1) * p["max"])
 
 
 def serve_counts(c, model: int, step: dict, rows: range, n_slots: int, prompt_len: int,
                  data: int) -> dict:
     """One engine step's collectives on a rank holding the slots ``rows``
-    (fp32): per decode of its B rows and per prefill of an admission into
+    (fp32), with the heads split: per decode of its B rows and per prefill of an admission into
     them, the forward reduces — the embedding's (B, 1, d) where the
     vocabulary splits, each mLSTM's gates (B, 1, 2·heads) and ``down``,
     each sLSTM's GeGLU where it splits — and all-gathers — each sLSTM's h
