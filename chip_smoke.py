@@ -198,6 +198,22 @@ port's sources beside it.  Phases; any failure raises:
    stragglers, the gathered coded gradients within ``XLSTM_WIDE_REL`` of
    each leaf's scale of a one-process sim-mode step of the same config
    (made in xlstm-tp-sim, ``_xlstm_wide_sim``).
+6f''''''. fsdp, in 6f''s job after 7a's trainers: the reference's ``fsdp``
+   rule (``embed`` over ``data``) on the (data 4, model 2) mesh.
+   gemma2-27b with ``fsdp`` set (``FSDP_KW``: its local and global layer,
+   softcaps and sandwich norms at d_model 512; every one of its 24 leaves
+   cut by ``data``), a ``Trainer(mode="spmd")`` whose ranks each hold
+   their (data, model) slice of every leaf and of both AdamW moments,
+   then the same with ``fsdp`` off.  ``FSDP_STEPS`` steps each, the
+   launch counts set to 0 just before the fsdp run: one ``gc_fused``
+   launch per rank per step on the working layout; every rank's slice of
+   each parameter and moment with fsdp on within ``FSDP_OFF_REL`` of the
+   same slice of its fsdp-off shard (no tree is gathered for it), the
+   losses within 1e-6.  The fsdp trainer's checkpoint (each leaf gathered
+   over the data and model groups) restores into it byte-equal and, after
+   its own run, into the fsdp-off trainer, whose slices are then the
+   saved state byte for byte.  Each rank's state bytes and ``max_memory_allocated``, fsdp on
+   and off, beside the card's name and power limit.
 6g. dryrun: (a) the dry run (``repro_torch.launch.dryrun``) on meta of
    every arch at full width at every input shape on the reference's
    single mesh (data 16, model 16: rank 0's shards, caches and
@@ -576,6 +592,11 @@ per-shard rows of the trainer's own step 0 to the uncoded gradient or
 to sim mode after its run (``_keep_step0_rows``), so those passes run
 once (~16-20 s in 22, a quarter of a rank's passes in 6f''' and
 6f''''); xlstm-tp at 64 tokens; whisper-tp-serve over 2 rows (~40 s).
+PR 32's fsdp phase (6f'''''', 9.4 and 14.1 s in two calls when it
+gathered both runs' trees to compare them) is paid for by its own
+shape: each rank compares its slices in place (no tree gathered but
+the checkpoint's), and the fsdp-off trainer takes the second restore
+after its run (no third trainer).
 
 The line before the last is the card's name and power limit; before it
 a JSON line lists every kernel with its launches, error and times; the
@@ -878,6 +899,18 @@ XLSTM_WIDE = dict(n_heads=2, data=2, model=4)
 #: stack amplifies the split sums' rounding (ROADMAP 3.20) more with 2 heads
 #: of 384 channels each than [xlstm-tp]'s 4 of 192 (XLSTM_TP_REL's 6e-5)
 XLSTM_WIDE_REL = 4.1e-4
+#: [fsdp] (in [tp]'s job, data 4 x model 2): gemma2-27b (a local and a
+#: global layer, softcaps, sandwich norms; every one of its 24 leaves cut
+#: by ``data``) reduced to ``d_model`` 512 with ``fsdp`` set: at its
+#: published width one rank's working shard of a layer pair and the
+#: 256,000-row embedding is 1.16e9 fp32 values, so eight ranks' state,
+#: K rows and gathered trees do not fit one 80 GB card even with fsdp on
+FSDP_KW = dict(n_layers=2, d_model=512)
+FSDP_SEQ = 64
+FSDP_STEPS = 2
+#: [fsdp]'s gate against the same job's fsdp-off run: the clip norm's sum
+#: is all that differs (tests/test_torch_fsdp.py's 1e-6 of a leaf's scale)
+FSDP_OFF_REL = 1e-6
 GATE_RANGE = (0.3, 0.9)
 #: bf16 dense peak of the card's tensor cores (the data sheet, 700 W): the
 #: operations bound of the bf16 serving phases
@@ -2289,7 +2322,8 @@ def _tp_job(rank, world, axis_losses, moe_losses, families, ckpt_dir, tp_ref):
     if "xlstm-tp" in families:
         parts.append(("xlstm-wide", _xlstm_wide_rank, (families["xlstm-tp"]["wide"],)))
     parts += [("tp", _tp_rank, (axis_losses, tp_ref)), ("moe-tp", _moe_tp_rank, (moe_losses,)),
-              ("tp-state", _tp_state_rank, (ckpt_dir,))]
+              ("tp-state", _tp_state_rank, (ckpt_dir,)),
+              ("fsdp", _fsdp_rank, (ckpt_dir + "_fsdp",))]
     for part, fn, args in parts:
         torch.cuda.empty_cache()
         dist.barrier()
@@ -2298,6 +2332,118 @@ def _tp_job(rank, world, axis_losses, moe_losses, families, ckpt_dir, tp_ref):
         seconds[part] = time.perf_counter() - t0
     out["seconds"] = seconds
     return out
+
+
+def _fsdp_rank(rank, world, mesh, ckpt_dir):
+    """[fsdp] on one rank of ``_tp_job``: gemma2-27b at ``FSDP_KW`` with
+    ``fsdp`` set, a ``Trainer(mode="spmd")`` on the (data 4, model 2) mesh
+    whose state each rank holds cut by ``data`` and ``model``
+    (``init_shards(..., over_data=True)``), and the same trainer with
+    ``fsdp`` off.  Each runs ``FSDP_STEPS`` steps, the launch counts set to 0
+    just before the fsdp run (one ``gc_fused`` launch a step, on the
+    working layout).  Every rank holds its slice of each parameter and
+    moment with fsdp on within ``FSDP_OFF_REL`` of the same slice of its
+    fsdp-off shard (the slice's scale, no larger than the leaf's), losses
+    within 1e-6.  The fsdp trainer's checkpoint (every cut leaf gathered
+    over both groups) restores into it, and into the fsdp-off trainer
+    after its run, each byte-equal to what was saved.  Returns this rank's
+    launches, worst errors, state bytes, peaks and step times."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import CkptConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core import ShiftedExponential
+    from repro_torch.models.params import GCLM, data_dims, data_shard_of
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    say = log if rank == 0 else (lambda *args: None)
+    base = get_config("gemma2-27b").reduced(**FSDP_KW)
+    paths = GCLM(base, device="meta").leaf_paths()
+    cut = data_dims(base.replace(fsdp=True), mesh)
+
+    def trainer(fsdp, **kw):
+        return Trainer(base.replace(fsdp=fsdp), TrainConfig(lr=3e-4, warmup=1, total_steps=10),
+                       ShiftedExponential(mu=1e-3, t0=50.0), n_workers=TP_DATA, scheme="xf",
+                       global_batch=8, seed=0, device=mesh.device, mesh=mesh, mode="spmd",
+                       seq_len=FSDP_SEQ, **kw)
+
+    def trees(state, sliced=False):
+        """The parameters and both moments, each cut to the rank's data
+        slice when ``sliced`` (a state with fsdp off)."""
+        out = [state.params.leaves(), state.opt["m"], state.opt["v"]]
+        return [[data_shard_of(t, d, mesh) for t, d in zip(ts, cut)] for ts in out] if sliced \
+            else out
+
+    out, runs, worst = {}, {}, {}
+    for fsdp in (True, False):
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+        tr = trainer(fsdp, ckpt=CkptConfig(dir=ckpt_dir, resume=False))
+        state_bytes = sum(t.numel() * t.element_size() for t in
+                          tr.state.params.leaves() + tr.state.opt["m"] + tr.state.opt["v"])
+        torch.cuda.synchronize()
+        dist.barrier()
+        if fsdp:
+            reset_counts()
+        tr.run(FSDP_STEPS, log_every=0)
+        torch.cuda.synchronize()
+        runs[fsdp] = dict(state_bytes=state_bytes,
+                          mem=torch.cuda.max_memory_allocated(mesh.device),
+                          walls=[h["wall_s"] for h in tr.history],
+                          losses=[h["loss"] for h in tr.history])
+        if fsdp:
+            out["launches"] = read_counts()["gc_fused"]
+            if out["launches"] != FSDP_STEPS:
+                raise AssertionError(f"[fsdp] rank {rank}: gc_fused launched "
+                                     f"{out['launches']} times in {FSDP_STEPS} steps, expected one "
+                                     "per step")
+            if tr.state.params.fsdp.dims != cut or None in cut:
+                raise AssertionError(f"[fsdp] rank {rank}: leaves cut by data on "
+                                     f"{tr.state.params.fsdp.dims}, expected every leaf on {cut}")
+            # the checkpoint of the cut state, restored into itself
+            saved = [[t.detach().clone() for t in ts] for ts in trees(tr.state)]
+            mine = tr.state.digest()
+            tr.save_checkpoint()
+            t0 = time.perf_counter()
+            tr.restore_checkpoint()
+            out["restore_s"] = time.perf_counter() - t0
+            if tr.state.digest() != mine:
+                raise AssertionError(f"[fsdp] rank {rank}: the restored shards differ from "
+                                     "the saved ones")
+        else:
+            for name, a, b in zip(("params", "m", "v"), saved, trees(tr.state, sliced=True)):
+                worst[name] = _worst_rel(a, b, paths, FSDP_OFF_REL,
+                                         f"[fsdp] rank {rank}'s {name} slices, fsdp on vs off")
+            # the fsdp checkpoint restored with fsdp off: the rank's slices are
+            # the fsdp state's at the save, byte for byte
+            if tr.restore_checkpoint() != FSDP_STEPS or _digest(
+                    [t for ts in trees(tr.state, sliced=True) for t in ts]) != _digest(
+                    [t for ts in saved for t in ts]):
+                raise AssertionError(f"[fsdp] rank {rank}: the fsdp checkpoint restored with "
+                                     "fsdp off differs from the saved state")
+        del tr
+    on, off = runs[True], runs[False]
+    for a, b in zip(on["losses"], off["losses"], strict=True):
+        if not abs(a - b) <= 1e-6 * abs(b):
+            raise AssertionError(f"[fsdp] losses {on['losses']} with fsdp on vs "
+                                 f"{off['losses']} off")
+    say(f"[fsdp] {smi_line() if rank == 0 else ''}: {world} ranks, (data {TP_DATA}, model "
+        f"{TP_MODEL}), gemma2-27b at {FSDP_KW}, "
+        f"{FSDP_SEQ} tokens: {FSDP_STEPS} steps with fsdp on (one gc_fused launch a step) and off, "
+        f"rank 0's slices of params, m and v within {FSDP_OFF_REL} of the slice's scale (worst "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + f"); losses {on['losses']}; rank 0's state (params and two moments) "
+        f"{on['state_bytes']:,} bytes on vs {off['state_bytes']:,} off, max_memory_allocated "
+        f"{on['mem']:,} vs {off['mem']:,}; step wall_s {[round(w, 3) for w in on['walls']]} "
+        f"vs {[round(w, 3) for w in off['walls']]}; the fsdp checkpoint restored into itself "
+        f"and, after its run, into the fsdp-off trainer byte-equal ({out['restore_s']:.2f} s "
+        "restore)")
+    dist.barrier()
+    return dict(out, worst=worst, state_bytes=(on["state_bytes"], off["state_bytes"]),
+                mem=(on["mem"], off["mem"]), walls=(on["walls"], off["walls"]))
 
 
 def _xlstm_wide_rank(rank, world, mesh, wide):
@@ -2970,6 +3116,11 @@ def phase_tp(axis_losses, moe_losses, families, tp_ref):
         if launches["xlstm-wide"] != TP_DATA * TP_MODEL:
             raise AssertionError(f"[xlstm-wide] {launches['xlstm-wide']} gc_fused launches, "
                                  f"expected one on each of {TP_DATA * TP_MODEL} ranks")
+    fsdp = [j["fsdp"] for j in jobs]
+    launches["fsdp"] = sum(r["launches"] for r in fsdp)
+    if launches["fsdp"] != FSDP_STEPS * TP_DATA * TP_MODEL:
+        raise AssertionError(f"[fsdp] {launches['fsdp']} gc_fused launches, expected "
+                             f"{FSDP_STEPS * TP_DATA * TP_MODEL}")
     sec = jobs[0]["seconds"]
     log(f"[tp] {len(ranks)} ranks done in {time.perf_counter() - t0:.1f} s ("
         + ", ".join(f"[{part}] {sec[part]:.1f} s" for part in sec)
@@ -2978,7 +3129,11 @@ def phase_tp(axis_losses, moe_losses, families, tp_ref):
         f"wall_s {[[round(w, 3) for w in r['walls']] for r in ranks]}, max_memory_allocated "
         f"{[r['mem'] for r in ranks]} bytes, data-group bytes per rank per step "
         f"{sorted({r['data_bytes'] for r in ranks})}, model-group "
-        f"{sorted({r['model_bytes'] for r in ranks})}")
+        f"{sorted({r['model_bytes'] for r in ranks})}; [fsdp] worst slice error over the ranks "
+        f"{ {k: max(r['worst'][k] for r in fsdp) for k in fsdp[0]['worst']} }, per rank state "
+        "bytes (on, off) "
+        f"{[r['state_bytes'] for r in fsdp]}, max_memory_allocated (on, off) "
+        f"{[r['mem'] for r in fsdp]} bytes")
     return launches, ranks[0]["times"], [j["tp-state"] for j in jobs], work
 
 
@@ -3249,7 +3404,7 @@ def _tp_state_rank(rank, world, mesh, ckpt_dir):
                            ckpt=CkptConfig(dir=ckpt_dir, every=TP_CKPT_EVERY,
                                            coded=CodedSpec(n_shards=4, parity=1)))
     trainer.sim.env = trainer.env.with_faults(DegradedWorker(**TP_DEATH))
-    saved, restored, gathered, spent, rss = {}, {}, {}, {}, {}
+    saved, saved_alike, restored, gathered, spent, rss = {}, {}, {}, {}, {}, {}
     save, restore, manager_save = (trainer.save_checkpoint, trainer.restore_checkpoint,
                                    trainer.manager.save)
 
@@ -3266,6 +3421,9 @@ def _tp_state_rank(rank, world, mesh, ckpt_dir):
     def timed_save():
         path = timed("save", save)
         saved[int(trainer.state.step)] = trainer.state.digest()
+        # what the data ranks of a model index hold alike (all of it here:
+        # the config does not set fsdp), for the parent's check that they agree
+        saved_alike[int(trainer.state.step)] = trainer.state.replicated_digest()
         return path
 
     def timed_restore(missing=()):
@@ -3337,7 +3495,8 @@ def _tp_state_rank(rank, world, mesh, ckpt_dir):
         f"== {first}; rank 0 save {spent['save']:.2f} s, restore {spent['restore']:.2f} s; "
         f"launches {launches}")
     out.update(ckpt=dict(spent=spent, rss=rss, gathered=gathered.get(TP_CKPT_EVERY),
-                         saved=saved[TP_CKPT_EVERY], coords=(mesh.data_index, mesh.model_index)))
+                         saved=saved_alike[TP_CKPT_EVERY],
+                         coords=(mesh.data_index, mesh.model_index)))
     del trainer, save, restore, manager_save
     torch.cuda.empty_cache()
 
@@ -6987,7 +7146,7 @@ def main() -> int:
                       "moe-tp": tp_launches["moe-tp"],
                       "mla-tp": tp_launches["mla-tp"], "mamba-tp": tp_launches["mamba-tp"],
                       "xlstm-tp-sim": xlstm_sim["launches"], "xlstm-tp": tp_launches["xlstm-tp"],
-                      "xlstm-wide": tp_launches["xlstm-wide"],
+                      "xlstm-wide": tp_launches["xlstm-wide"], "fsdp": tp_launches["fsdp"],
                       "whisper-tp-sim": whisper_sim["launches"],
                       "cross-tp": tp_launches["cross-tp/whisper"]
                       + tp_launches["cross-tp/vision"],

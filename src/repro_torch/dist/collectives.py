@@ -190,7 +190,11 @@ def _first_rank(group) -> int:
 def broadcast(t: torch.Tensor, group=None) -> torch.Tensor:
     """``t`` of ``group``'s first rank (rank 0 over the default group)
     written into ``t`` on every rank of the group, in place: one
-    broadcast.  Returns ``t``."""
+    broadcast.  Returns ``t``; raises on a non-contiguous ``t``, whose
+    storage a process group would send and fill in memory order."""
+    if not t.is_contiguous():
+        raise ValueError(f"broadcast of a non-contiguous {tuple(t.shape)} tensor "
+                         f"(strides {t.stride()})")
     if not (_on_meta(group, t) or _solo(group)):
         dist.broadcast(t, src=_first_rank(group), group=group)
     counts["broadcast"] += 1

@@ -20,8 +20,15 @@ mesh axis to size, the port's ``dist.mesh.Mesh`` or a
 ``jax.sharding.Mesh`` alike.  A spec is a tuple with one entry per
 dimension: ``None``, a mesh axis, or a tuple of mesh axes.
 
-The ``fsdp`` rule (``embed`` over ``data``) is kept with the rest and
-acted on nowhere: the port's ranks hold every leaf whole along ``data``.
+The ``fsdp`` rule (``embed`` over ``data``) cuts a training state a
+second time: where a config sets ``fsdp`` and the ``data`` axis divides a
+leaf's ``embed`` dimension (``data_dim``), a rank keeps only its
+``data_index``-th slice of that leaf and of both its AdamW moments, and
+all-gathers the leaf over the data group at the start of a step
+(``models.params.gather_data``), as GSPMD gathers the reference's
+``state_shardings``.  A pod's replicas hold the same data shards.
+Serving holds every leaf whole along ``data``, as the reference's
+``launch/serve.py`` draws its parameters unplaced.
 ``shard_experts`` (false for Mixtral) empties the ``experts`` rule, so a
 MoE's experts split by their FFN width (``expert_mlp``) instead.
 
@@ -34,7 +41,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-__all__ = ["make_rules", "pspec_for_axes", "model_dim", "ModelSplit", "RowSplit", "batch_rows"]
+__all__ = ["make_rules", "pspec_for_axes", "model_dim", "data_dim", "ModelSplit", "DataSplit",
+           "RowSplit", "batch_rows"]
 
 
 def make_rules(cfg=None) -> dict:
@@ -98,6 +106,18 @@ def model_dim(axes, shape, mesh, rules: dict):
     return spec.index("model") if "model" in spec else None
 
 
+def data_dim(axes, shape, mesh, rules: dict):
+    """The one dimension of a leaf that ``mesh``'s ``data`` axis cuts under
+    ``rules`` (the ``fsdp`` rule's ``embed``), or ``None`` (whole over
+    ``data``, also when the axis has size 1).  The same greedy spec as
+    ``model_dim``'s: a dimension that takes ``model`` never takes
+    ``data``, and ``data`` is taken only where it divides."""
+    if mesh.shape.get("data", 1) == 1:
+        return None
+    spec = pspec_for_axes(axes, shape, mesh, rules)
+    return spec.index("data") if "data" in spec else None
+
+
 @dataclass(frozen=True)
 class ModelSplit:
     """Where a module lies on a mesh's ``model`` axis, as
@@ -123,6 +143,26 @@ class ModelSplit:
         """This rank's share of ``n`` along a logical ``axis``: ``n /
         model`` where the module is split on it, else ``n``."""
         return n // self.mesh.model if axis in self.axes else n
+
+
+@dataclass(frozen=True)
+class DataSplit:
+    """Where a training state lies on a mesh's ``data`` axis, as
+    ``models.params.init_shards(..., over_data=True)`` cut it: the mesh
+    and each leaf's cut dimension (``data_dim``) or None, in leaf order.
+    A cut leaf holds the rank's ``data_index``-th of ``data`` equal
+    contiguous slices of its dimension."""
+
+    mesh: object
+    dims: tuple
+
+    @property
+    def data_group(self):
+        return self.mesh.data_group
+
+    @property
+    def data_index(self) -> int:
+        return self.mesh.data_index
 
 
 @dataclass(frozen=True)

@@ -19,7 +19,12 @@ axes alone).  The figures are one rank's (``dist.mesh.meta_mesh``, rank
 0): on a ``model`` axis the rank holds its shards of the parameters and
 of the two moments (``models.params.init_shards``: the reference's rule
 splits a leaf only where ``model`` divides it), its KV heads' and
-states' caches, and every step reduces over the model group as well:
+states' caches, and every step reduces over the model group as well.
+Where the config sets ``fsdp``, the rank's parameters and moments are
+also cut over ``data`` on their ``embed`` dimension wherever ``data``
+divides it (the reference's ``state_shardings``: every record's
+arguments), and each step first all-gathers the cut leaves over the
+data group into the working module (``models.params.gather_data``):
 
 * ``train``: ``make_train_step`` over the mesh — the rank's rows of the
   global batch, then one all-reduce of the gradients over the data
@@ -81,7 +86,7 @@ from ..configs import INPUT_SHAPES, get_config, list_archs, shape_supported
 from ..core import Plan, ShiftedExponential
 from ..dist.mesh import Mesh, meta_mesh, solo_mesh
 from ..models.model import prefill
-from ..models.params import GCLM, count_params
+from ..models.params import GCLM, count_params, gather_data
 from ..serve.engine import make_serve_step
 from ..train.state import init_train_state
 from ..train.trainer import TrainConfig, make_coded_train_step, make_train_step
@@ -128,11 +133,12 @@ def build_case(cfg, shape, mesh: Mesh, *, coded: bool, coded_opts: dict = None,
                device="meta"):
     """Returns (fn, args tuple, extra record fields) for one case on
     ``mesh``'s rank; the state lives on ``device`` (meta, or the card
-    for a measured run) — on a ``model`` axis the rank's shards and
-    moments of their shapes — and the data inputs are meta specs
-    (materialized by the caller for a measured run)."""
-    sharded = mesh.model > 1
-    state = init_train_state(cfg, device=device, seed=0, mesh=mesh if sharded else None)
+    for a measured run) — on a ``model`` axis, or cut over ``data`` by
+    the ``fsdp`` rule, the rank's shards and moments of their shapes —
+    and the data inputs are meta specs (materialized by the caller for a
+    measured run)."""
+    state = init_train_state(cfg, device=device, seed=0, mesh=mesh)
+    sharded = state.params.tp is not None or state.params.fsdp is not None
     full = GCLM(cfg, device="meta") if sharded else state.params
     extra = {"params_b": count_params(full), "local_params": count_params(state.params)}
     if shape.kind == "train" and coded:
@@ -167,7 +173,7 @@ def build_case(cfg, shape, mesh: Mesh, *, coded: bool, coded_opts: dict = None,
     aux = specs.get("aux_inputs")
     if shape.kind == "prefill":
         def fn(params, tokens, aux_inputs=None):
-            return prefill(cfg, params, tokens, aux_inputs=aux_inputs,
+            return prefill(cfg, gather_data(params), tokens, aux_inputs=aux_inputs,
                            target_len=shape.seq_len + 1)
 
         args = (state.params, specs["tokens"])
@@ -175,7 +181,7 @@ def build_case(cfg, shape, mesh: Mesh, *, coded: bool, coded_opts: dict = None,
         serve = make_serve_step(cfg)
 
         def fn(params, caches, token, aux_inputs=None):
-            return serve(params, caches, token, aux_inputs=aux_inputs)
+            return serve(gather_data(params), caches, token, aux_inputs=aux_inputs)
 
         args = (state.params, specs["caches"], specs["token"])
     return fn, args + (() if aux is None else (aux,)), extra

@@ -64,6 +64,18 @@ all-gathers them back; ``shard_of`` and its inverse
 ``gather_leaf`` are the one cut and the one gather of a leaf, which the
 checkpoint path uses too, so a gathered tree is the reference's layout
 byte for byte.
+
+A training state is cut once more where the config sets ``fsdp``: the
+``data`` axis takes a leaf's ``embed`` dimension wherever it divides it
+(``data_dims``, the reference's ``state_shardings``), and
+``init_shards(..., over_data=True)`` keeps the rank's (data, model)
+shard — a contiguous slice at its ``data_index`` (``data_shard_of``) of
+its model shard.  Two shapes then differ: the *working* shapes
+(``local_shapes``, the ``model`` cut alone), which the forward and
+backward passes and a plan's rank layout bind, and the *state* shapes
+(``state_shapes``), which the rank keeps between steps.
+``gather_data`` all-gathers a state's cut leaves into the working
+module, and ``gather_model`` gathers both cuts back into the full tree.
 """
 from __future__ import annotations
 
@@ -76,7 +88,7 @@ from torch import nn
 from ..configs.base import LayerSpec
 from ..device import resolve_device
 from ..dist.collectives import all_gather
-from ..dist.sharding import ModelSplit, make_rules, model_dim
+from ..dist.sharding import DataSplit, ModelSplit, data_dim, make_rules, model_dim
 from .blocks import has_ffn
 from .ssm import a_log_init, dt_bias_init, mamba_dims
 from .stack import Run, plan_segments
@@ -84,7 +96,8 @@ from .xlstm import mlstm_dims, slstm_dims
 
 __all__ = ["ParamNode", "GCLM", "encoder_cfg", "params_from_numpy", "params_to_numpy",
            "count_params", "shard_dims", "shard_blocks", "local_shapes", "shard_of",
-           "gather_leaf", "shard_model", "init_shards", "gather_model"]
+           "gather_leaf", "shard_model", "init_shards", "gather_model", "data_dims",
+           "state_shapes", "data_shard_of", "gather_data_leaf", "gather_data"]
 
 
 class ParamNode(nn.Module):
@@ -345,8 +358,10 @@ class GCLM(nn.Module):
         #: where ``shard_model`` cut this module on a ``model`` axis (a
         #: ``dist.sharding.ModelSplit``), each leaf's split dimension and
         #: the blocks that dimension is cut in (``shard_blocks``), or None
-        #: and no splits
+        #: and no splits; ``fsdp``: where ``init_shards(..., over_data=True)``
+        #: cut it on a ``data`` axis (a ``dist.sharding.DataSplit``), or None
         self.tp, self.shard_dims, self.shard_blocks = None, None, None
+        self.fsdp = None
         z = _leaf_maker(dev)
         embed = {"tok": z(("vocab", _E), cfg.vocab, cfg.d_model)}
         if not cfg.tie_embeddings:
@@ -509,6 +524,54 @@ def local_shapes(cfg, mesh) -> list:
     return out
 
 
+def data_dims(cfg, mesh) -> tuple:
+    """Each leaf's dimension that ``mesh``'s ``data`` axis cuts in a
+    training state, or None, in leaf order: ``dist.sharding.data_dim``
+    under ``make_rules(cfg)`` — the ``embed`` dimension where ``cfg.fsdp``
+    maps it onto ``data`` and ``data`` divides it.  It is never a
+    dimension the ``model`` axis splits nor one that fuses several
+    outputs (``GCLM.leaf_blocks``), so the cut is one contiguous slice."""
+    meta, rules = GCLM(cfg, device="meta"), make_rules(cfg)
+    out = []
+    for t, axes, fused, mdim in zip(meta.leaves(), meta.leaf_axes(), meta.leaf_blocks(),
+                                    shard_dims(cfg, mesh), strict=True):
+        dim = data_dim(axes, t.shape, mesh, rules)
+        assert dim is None or (dim != mdim and (fused is None or fused[0] != dim)), \
+            (cfg.name, axes, dim, mdim, fused)
+        out.append(dim)
+    return tuple(out)
+
+
+def state_shapes(cfg, mesh) -> list:
+    """One rank's leaf shapes in a training state: ``local_shapes`` (the
+    ``model`` cut), each ``data_dims`` dimension then cut by ``mesh.data``."""
+    out = []
+    for shape, dim in zip(local_shapes(cfg, mesh), data_dims(cfg, mesh), strict=True):
+        if dim is not None:
+            shape = shape[:dim] + (shape[dim] // mesh.data,) + shape[dim + 1:]
+        out.append(shape)
+    return out
+
+
+def data_shard_of(t: torch.Tensor, dim, mesh) -> torch.Tensor:
+    """This rank's slice of ``t`` on its ``data_dims`` dimension ``dim``:
+    the ``data_index``-th of ``mesh.data`` equal contiguous slices (a
+    view); ``t`` itself when ``dim`` is None."""
+    if dim is None:
+        return t
+    n = t.shape[dim] // mesh.data
+    return t.narrow(dim, mesh.data_index * n, n)
+
+
+def gather_data_leaf(t: torch.Tensor, dim, group) -> torch.Tensor:
+    """The inverse of ``data_shard_of``: every data rank's slice,
+    concatenated on ``dim`` in rank order (one all-gather over ``group``,
+    contiguous); ``t`` itself when ``dim`` is None."""
+    if dim is None:
+        return t
+    return all_gather(t.detach().contiguous(), group, dim=dim).contiguous()
+
+
 def shard_of(t: torch.Tensor, dim, mesh, blocks: int = 1) -> torch.Tensor:
     """This rank's shard of one full leaf ``t``: ``t`` cut on ``dim`` — the
     leaf's ``shard_dims`` entry — into ``blocks`` equal blocks
@@ -566,19 +629,29 @@ def _check_split_axes(cfg, local, dims) -> set:
     return {a for (_, a), split in seen.items() if True in split}
 
 
+def _data_cut(cfg, mesh, over_data: bool) -> tuple:
+    """``data_dims`` when ``over_data``, else no cut."""
+    return data_dims(cfg, mesh) if over_data else (None,) * len(shard_dims(cfg, mesh))
+
+
 @torch.no_grad()
-def _cut(cfg, mesh, items) -> GCLM:
+def _cut(cfg, mesh, items, over_data: bool = False) -> GCLM:
     """The rank's module from ``items`` — ``(path, full leaf)`` in leaf
     order, consumed one at a time: each leaf's shard (or the whole leaf)
-    is copied and the full leaf let go."""
+    is copied and the full leaf let go; with ``over_data``, each shard
+    cut once more on its ``data_dims`` dimension (``data_shard_of``)."""
     dims, blocks = shard_dims(cfg, mesh), shard_blocks(cfg, mesh)
+    ddims = _data_cut(cfg, mesh, over_data)
     local = GCLM(cfg, device="meta")
-    for (path, t), dim, n in zip(items, dims, blocks, strict=True):
-        _set_leaf(local, path, shard_of(t, dim, mesh, n).clone(
+    for (path, t), dim, n, ddim in zip(items, dims, blocks, ddims, strict=True):
+        _set_leaf(local, path, data_shard_of(shard_of(t, dim, mesh, n), ddim, mesh).clone(
             memory_format=torch.contiguous_format))
         del t
-    local.tp = ModelSplit(mesh, frozenset(_check_split_axes(cfg, local, dims)))
-    local.shard_dims, local.shard_blocks = dims, blocks
+    if mesh.model > 1:
+        local.tp = ModelSplit(mesh, frozenset(_check_split_axes(cfg, local, dims)))
+        local.shard_dims, local.shard_blocks = dims, blocks
+    if any(d is not None for d in ddims):
+        local.fsdp = DataSplit(mesh, ddims)
     return local
 
 
@@ -596,14 +669,17 @@ def shard_model(model: GCLM, mesh) -> GCLM:
 
 
 @torch.no_grad()
-def init_shards(cfg, mesh, *, device="cuda", seed: int = 0, params=None) -> GCLM:
+def init_shards(cfg, mesh, *, device="cuda", seed: int = 0, params=None,
+                over_data: bool = False) -> GCLM:
     """``shard_model(GCLM(cfg, device=device, seed=seed), mesh)`` (or of
     the reference tree ``params``, numpy arrays, when given) without the
     full tree on ``device``: the leaves are drawn in order from the same
     generator, each cut to the rank's shard before the next, so at most
     one full leaf lies there besides the shards.  On the meta device,
-    the shards' shapes alone."""
-    if mesh.model == 1:
+    the shards' shapes alone.  ``over_data`` (a training state) cuts each
+    shard on its ``data_dims`` dimension too, and records the cut as the
+    module's ``fsdp``; serving leaves it whole along ``data``."""
+    if mesh.model == 1 and not any(d is not None for d in _data_cut(cfg, mesh, over_data)):
         model = GCLM(cfg, device=device, seed=seed)
         return model if params is None else params_from_numpy(model, params)
     dev = resolve_device(device)
@@ -618,24 +694,45 @@ def init_shards(cfg, mesh, *, device="cuda", seed: int = 0, params=None) -> GCLM
         gen = torch.Generator(device=dev).manual_seed(int(seed))
         items = _drawn(cfg, paths, ((path, torch.empty(t.shape, device=dev))
                                     for path, t in meta.leaf_items()), gen)
-    return _cut(cfg, mesh, items)
+    return _cut(cfg, mesh, items, over_data)
 
 
 @torch.no_grad()
 def gather_model(local: GCLM, tensors=None) -> GCLM:
-    """The inverse of ``shard_model``: a full module whose leaves are the
-    model group's shards gathered (``gather_leaf``: one all-gather per
-    split leaf).  ``tensors`` (leaf order, local shapes: gradients,
-    moments) gathers those in place of the parameters."""
+    """The inverse of ``shard_model`` and ``init_shards``: a full module
+    whose leaves are the data group's slices gathered (``gather_data_leaf``,
+    where the module is cut over ``data``), then the model group's
+    shards (``gather_leaf``): one all-gather per cut.  ``tensors`` (leaf
+    order, the module's shapes: gradients, moments) gathers those in
+    place of the parameters."""
     tensors = local.leaves() if tensors is None else list(tensors)
     dims = local.shard_dims or (None,) * len(tensors)
     blocks = local.shard_blocks or (1,) * len(tensors)
+    ddims = local.fsdp.dims if local.fsdp is not None else (None,) * len(tensors)
+    dgroup = None if local.fsdp is None else local.fsdp.data_group
     full = GCLM(local.cfg, device="meta")
     group = None if local.tp is None else local.tp.model_group
-    for (path, _), t, dim, n in zip(local.leaf_items(), tensors, dims, blocks, strict=True):
-        t = gather_leaf(t.detach(), dim, group, n)
+    for (path, _), t, dim, n, ddim in zip(local.leaf_items(), tensors, dims, blocks, ddims,
+                                          strict=True):
+        t = gather_leaf(gather_data_leaf(t.detach(), ddim, dgroup), dim, group, n)
         _set_leaf(full, path, t.clone(memory_format=torch.contiguous_format))
     return full
+
+
+@torch.no_grad()
+def gather_data(model: GCLM) -> GCLM:
+    """The working module of a state cut over ``data``: each cut leaf
+    all-gathered over the data group on its dimension (one all-gather a
+    leaf, ``gather_data_leaf``), every other leaf the state's own tensor,
+    the ``model`` split kept — what the forward and backward passes
+    bind.  ``model`` itself when it is not cut over ``data``."""
+    if model.fsdp is None:
+        return model
+    work = GCLM(model.cfg, device="meta")
+    for (path, t), dim in zip(model.leaf_items(), model.fsdp.dims, strict=True):
+        _set_leaf(work, path, gather_data_leaf(t.detach(), dim, model.fsdp.data_group))
+    work.tp, work.shard_dims, work.shard_blocks = model.tp, model.shard_dims, model.shard_blocks
+    return work
 
 
 def _lookup(tree, path):

@@ -8,7 +8,9 @@ and the parameters in place (it saves a full copy of the model and its
 two moments per step); the arithmetic is the reference's, op for op.
 On the ``model`` axis the clip's norm adds up the split leaves' squares
 over the model group and counts each replicated leaf once, so every
-rank clips by the same scale.
+rank clips by the same scale; on a state cut over ``data`` (the
+``fsdp`` rule) the cut leaves' squares are added up over the data group
+as well, so the norm counts every element once.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import math
 
 import torch
 
-from ..dist.collectives import reduce_from_model
+from ..dist.collectives import psum, reduce_from_model
 
 __all__ = ["adamw_init", "adamw_update", "clip_by_global_norm", "global_norm",
            "cosine_schedule"]
@@ -49,24 +51,41 @@ def adamw_update(grads, opt_state, params, lr, *, b1=0.9, b2=0.95, eps=1e-8,
     return {"m": opt_state["m"], "v": opt_state["v"], "count": count}
 
 
-def global_norm(tensors, group=None, split=None) -> torch.Tensor:
+def global_norm(tensors, group=None, split=None, data_group=None,
+                data_split=None) -> torch.Tensor:
     """The l2 norm of all ``tensors``.  With a model ``group``,
     ``split[j]`` says whether tensor j is this rank's shard of a split
     leaf: those squares are summed over the group (one all-reduce), the
-    replicated ones added once."""
+    replicated ones added once.  With a ``data_group``, ``data_split[j]``
+    says whether tensor j is this rank's slice of a leaf cut over
+    ``data``: those squares are summed over the data group first (one
+    all-reduce of two values: the leaves cut by both axes, and by
+    ``data`` alone)."""
     squares = [torch.sum(torch.square(t.float())) for t in tensors]
-    if group is None:
+    if group is None and data_group is None:
         return torch.sqrt(sum(squares))
     zero = torch.zeros((), dtype=torch.float32, device=squares[0].device)
-    shards = sum((q for q, s in zip(squares, split, strict=True) if s), zero)
-    whole = sum((q for q, s in zip(squares, split) if not s), zero)
-    return torch.sqrt(reduce_from_model(shards, group) + whole)
+    split = split or (False,) * len(squares)
+    if data_group is None:
+        shards = sum((q for q, s in zip(squares, split, strict=True) if s), zero)
+        whole = sum((q for q, s in zip(squares, split) if not s), zero)
+        return torch.sqrt(reduce_from_model(shards, group) + whole)
+    kinds = list(zip(squares, split, data_split, strict=True))
+    both, by_data = psum([torch.stack([
+        sum((q for q, s, d in kinds if s and d), zero),
+        sum((q for q, s, d in kinds if d and not s), zero)])], data_group)[0]
+    whole = sum((q for q, s, d in kinds if not (s or d)), zero) + by_data
+    if group is None:
+        return torch.sqrt(whole)
+    by_model = sum((q for q, s, d in kinds if s and not d), zero) + both
+    return torch.sqrt(reduce_from_model(by_model, group) + whole)
 
 
-def clip_by_global_norm(grads, max_norm, group=None, split=None):
-    """(grads * min(1, max_norm / norm), norm); ``group`` and ``split`` as
+def clip_by_global_norm(grads, max_norm, group=None, split=None, data_group=None,
+                        data_split=None):
+    """(grads * min(1, max_norm / norm), norm); the groups and splits as
     ``global_norm``'s."""
-    norm = global_norm(grads, group, split)
+    norm = global_norm(grads, group, split, data_group, data_split)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return [g * scale.to(g.dtype) for g in grads], norm
 

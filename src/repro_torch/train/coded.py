@@ -56,6 +56,18 @@ the shards' shapes would put leaves on other levels.  Every rank of a
 model index returns the same bytes, and a replicated leaf's gradient is
 byte-equal across the model ranks.
 
+Where the config sets ``fsdp`` and the ``data`` axis cuts a leaf
+(``models.params.data_dims``), the rank's state holds its data slice of
+that leaf (``init_shards(..., over_data=True)``).  The passes then run
+on the working module (``gather_data``: one all-gather per cut leaf,
+once a step), the combine and the collectives run over the working
+layout exactly as above, and the rank keeps its slice of each cut
+leaf's decoded gradient; the tree pipeline's ``psum_scatter`` scatters a
+cut leaf on that same dimension and keeps the tile (``scatter_dims``
+prefers ``embed``), without the all-gather.  The gradients then take
+the state's shapes, and the data ranks of a model index hold different
+slices.
+
 For every straggler realization the result equals the plain
 data-parallel mean gradient over the same global batch (tested).
 
@@ -80,7 +92,7 @@ from ..dist.collectives import all_gather, psum, psum_scatter
 from ..kernels import ops
 from ..launch import op_analysis
 from ..models.model import has_source, train_loss
-from ..models.params import GCLM, local_shapes
+from ..models.params import GCLM, data_dims, data_shard_of, gather_data, local_shapes
 
 __all__ = ["make_coded_grad_fn", "uncoded_grad_fn", "per_shard_grad_rows",
            "level_weights", "combine_rows", "combine_level", "combine_grads",
@@ -237,16 +249,22 @@ def combine_grads(plan: Plan, g_rows, dec_w, *, pipeline: str = "flat",
     return [y.reshape(shape) for y, shape in zip(ys, plan.flat_layout.leaf_shapes)]
 
 
-def scatter_dims(leaf_shapes, n_workers: int) -> list:
+def scatter_dims(leaf_shapes, n_workers: int, leaf_axes=None) -> list:
     """Per leaf, the dimension the tree pipeline's ``psum_scatter`` splits:
-    the first one divisible by N (and at least N), else ``None`` (that
-    leaf takes a plain ``psum``) — the reference's ``_scatter_dims``
-    without logical axis names, which the port's parameters do not
-    carry."""
+    the leaf's first ``embed`` dimension that N divides (``leaf_axes``,
+    ``GCLM.leaf_axes()``: the ``fsdp`` dimension, whose tile is a rank's
+    data slice), else the first one divisible by N (and at least N), else
+    ``None`` (that leaf takes a plain ``psum``) — the reference's
+    ``_scatter_dims``."""
+    leaf_axes = [None] * len(leaf_shapes) if leaf_axes is None else leaf_axes
     out = []
-    for shape in leaf_shapes:
-        out.append(next((i for i, n in enumerate(shape) if n % n_workers == 0
-                         and n >= n_workers), None))
+    for shape, axes in zip(leaf_shapes, leaf_axes, strict=True):
+        pick = next((i for i, (a, n) in enumerate(zip(axes or (), shape))
+                     if a == "embed" and n % n_workers == 0), None)
+        if pick is None:
+            pick = next((i for i, n in enumerate(shape) if n % n_workers == 0
+                         and n >= n_workers), None)
+        out.append(pick)
     return out
 
 
@@ -279,8 +297,11 @@ class CodedGrads:
     def __init__(self, rows: Callable, combine: Callable):
         self.rows, self.combine = rows, combine
 
-    def __call__(self, model, worker_batches, dec_w, worker_aux=None) -> list:
-        ys = self.combine(self.rows(model, worker_batches, worker_aux), dec_w)
+    def __call__(self, model, worker_batches, dec_w, worker_aux=None, work=None) -> list:
+        """``work``: ``model``'s working module when the caller gathered it
+        already (``gather_data``); the gradients take ``model``'s shapes."""
+        ys = self.combine(self.rows(model if work is None else work, worker_batches,
+                                    worker_aux), dec_w)
         return [y.reshape(t.shape) for y, t in zip(ys, model.leaves())]
 
 
@@ -309,7 +330,10 @@ def make_coded_grad_fn(cfg, plan: Plan, *, mode: str = "sim", mesh=None,
     The flat spmd gradients are views of level buffers that the next
     call overwrites.  On a mesh with a ``model`` axis, ``grad_fn`` takes
     the rank's module (``shard_model``) and returns its shards'
-    gradients; ``plan`` is still the full tree's.
+    gradients; ``plan`` is still the full tree's.  Where ``cfg.fsdp``
+    cuts leaves over the mesh's ``data`` axis (``data_dims``), it takes
+    the rank's state module (``init_shards(..., over_data=True)``), or its
+    working module, and returns the state's slices.
     """
     if reduce_mode not in REDUCE_MODES:
         raise ValueError(f"unknown reduce_mode {reduce_mode!r}; expected one of {REDUCE_MODES}")
@@ -331,14 +355,20 @@ def make_coded_grad_fn(cfg, plan: Plan, *, mode: str = "sim", mesh=None,
         raise ValueError(f"the plan codes {plan.n_workers} workers, the mesh has "
                          f"{mesh.data} data ranks")
     d, p = mesh.data_index, mesh.pod_index
+    cut = data_dims(cfg, mesh)
+    cut = cut if any(dim is not None for dim in cut) else None
 
     def rows(model, worker_batches, worker_aux=None):
         n_rows = worker_batches.shape[2]
         if n_rows % mesh.pod:
             raise ValueError(f"{n_rows} rows per shard do not split over {mesh.pod} pods")
+        if model.fsdp is not None and model.fsdp.dims != cut:
+            raise ValueError("the module is cut over data otherwise than the config's "
+                             "fsdp rule on this mesh")
+        work = gather_data(model)
         h = n_rows // mesh.pod
         mine = (slice(d, d + 1), slice(None), slice(p * h, (p + 1) * h))
-        return per_shard_grad_rows(cfg, model, worker_batches[mine],
+        return per_shard_grad_rows(cfg, work, worker_batches[mine],
                                    None if worker_aux is None else worker_aux[mine])
 
     layout = plan.flat_layout
@@ -347,15 +377,25 @@ def make_coded_grad_fn(cfg, plan: Plan, *, mode: str = "sim", mesh=None,
             raise ValueError("a model axis needs the plan's leaf shapes (Plan.build(model, "
                              "...) on the full tree)")
         layout = local_layout(cfg, plan, mesh)
-    make = _flat_spmd_combine if pipeline == "flat" else _tree_spmd_combine
-    return CodedGrads(rows, make(plan, layout, mesh, reduce_mode, grad_dtype))
+    if cut is not None and layout is None:
+        raise ValueError(f"{cfg.name}'s fsdp cut needs the plan's leaf shapes (Plan.build("
+                         "model, ...) on the full tree)")
+    if pipeline == "flat":
+        combine = _flat_spmd_combine(plan, layout, mesh, reduce_mode, grad_dtype, cut)
+    else:
+        axes = GCLM(cfg, device="meta").leaf_axes() if layout is not None else None
+        combine = _tree_spmd_combine(plan, layout, mesh, reduce_mode, grad_dtype, cut, axes)
+    return CodedGrads(rows, combine)
 
 
-def _flat_spmd_combine(plan: Plan, layout, mesh, reduce_mode: str, grad_dtype) -> Callable:
+def _flat_spmd_combine(plan: Plan, layout, mesh, reduce_mode: str, grad_dtype,
+                       cut=None) -> Callable:
     """The flat spmd combine over ``layout``'s level buffers (the plan's,
     or a model rank's ``local_layout``), allocated here, once: the
     grouped launch writes each leaf into its slice, so the launch's
-    pointers stay put from step to step (the launch cache hits)."""
+    pointers stay put from step to step (the launch cache hits).  ``cut``
+    (``data_dims``, or None): the rank keeps its slice of each cut leaf
+    after the reduction."""
     dev, n = mesh.device, plan.n_workers
     bufs = [torch.zeros(size, dtype=torch.float32, device=dev) for size in layout.level_sizes]
     views = [None] * layout.n_leaves
@@ -384,24 +424,32 @@ def _flat_spmd_combine(plan: Plan, layout, mesh, reduce_mode: str, grad_dtype) -
             for s, t in zip(send, tiles):
                 psum_scatter(s, mesh.data_group, out=t)
                 all_gather(t, mesh.data_group, out=s)
-        return layout.unpack(send)
+        ys = layout.unpack(send)
+        return ys if cut is None else [data_shard_of(y, dim, mesh) for y, dim in zip(ys, cut)]
 
     return combine
 
 
-def _tree_spmd_combine(plan: Plan, layout, mesh, reduce_mode: str, grad_dtype) -> Callable:
+def _tree_spmd_combine(plan: Plan, layout, mesh, reduce_mode: str, grad_dtype, cut=None,
+                       leaf_axes=None) -> Callable:
     """The tree spmd combine: per leaf, this rank's encode and decode
     weight in plain torch, the cast, then one collective per leaf
     (over the pod ranks first when there are any).  ``layout`` (the
-    plan's, or a model rank's ``local_layout``) gives the leaves' shapes."""
+    plan's, or a model rank's ``local_layout``) gives the leaves' shapes
+    and ``leaf_axes`` their logical axes.  ``cut`` (``data_dims``, or
+    None): the rank keeps its slice of each cut leaf — under
+    ``psum_scatter`` the tile of a scatter on that dimension, gathered no
+    further."""
     dev, n = mesh.device, plan.n_workers
     level_idx = plan.level_index().tolist()
     dims = [None] * len(level_idx)
+    cut = [None] * len(level_idx) if cut is None else list(cut)
     if reduce_mode == "psum_scatter":
         if layout is None:
             raise ValueError("pipeline='tree' with reduce_mode='psum_scatter' needs the "
                              "plan's leaf shapes (Plan.build(model, ...))")
-        dims = scatter_dims(layout.leaf_shapes, n)
+        dims = scatter_dims(layout.leaf_shapes, n, leaf_axes)
+        assert all(c is None or c == d for c, d in zip(cut, dims)), (cut, dims)
     b_rows = torch.as_tensor(plan.b_rows[mesh.data_index], dtype=torch.float32, device=dev)
     denom = n * mesh.pod
 
@@ -416,10 +464,12 @@ def _tree_spmd_combine(plan: Plan, layout, mesh, reduce_mode: str, grad_dtype) -
                 psum([c], mesh.pod_group)
             if dims[j] is None:
                 psum([c], mesh.data_group)
+                if cut[j] is not None:
+                    c = data_shard_of(c.reshape(layout.leaf_shapes[j]), cut[j], mesh)
             else:
-                c = c.reshape(layout.leaf_shapes[j])
-                c = all_gather(psum_scatter(c, mesh.data_group, dim=dims[j]),
-                               mesh.data_group, dim=dims[j])
+                c = psum_scatter(c.reshape(layout.leaf_shapes[j]), mesh.data_group, dim=dims[j])
+                if cut[j] is None:
+                    c = all_gather(c, mesh.data_group, dim=dims[j])
             out.append(c / denom)
         return out
 

@@ -8,9 +8,13 @@ state presents itself to ``repro_torch.checkpoint`` as the reference's
 ``step`` — list indices written ``[i]``, ``count`` and ``step`` int32
 0-d arrays — 35 leaves for gc-lm-110m.
 
-A state on a ``model`` axis holds a rank's shards; it still saves and
-restores that full tree, one leaf at a time (``full_leaves``,
-``fill_from_full``), never holding the whole of it on the device.
+A state on a ``model`` axis holds a rank's shards, and where the config
+sets ``fsdp`` each shard's data slice too (``init_shards(...,
+over_data=True)``); it still saves and restores that full tree, one leaf
+at a time (``full_leaves``, ``fill_from_full``), never holding the whole
+of it on the device.  The data ranks of a state cut over ``data`` hold
+different slices, so they compare ``replicated_digest`` — not
+``digest`` — to prove that they agree.
 """
 from __future__ import annotations
 
@@ -22,11 +26,12 @@ import numpy as np
 import torch
 
 from ..checkpoint.ckpt import tree_items
-from ..models.params import GCLM, _lookup, gather_leaf, init_shards, params_from_numpy, shard_of
+from ..models.params import (GCLM, _lookup, data_shard_of, gather_data_leaf, gather_leaf,
+                             init_shards, params_from_numpy, shard_of)
 from ..optim.optim import adamw_init
 
 __all__ = ["TrainState", "StateTree", "init_train_state", "abstract_train_state",
-           "opt_from_numpy"]
+           "opt_from_numpy", "cut_leaf"]
 
 
 class StateTree(NamedTuple):
@@ -57,8 +62,22 @@ class TrainState:
     def digest(self) -> bytes:
         """sha256 over every leaf of ``checkpoint_tree`` (key and bytes):
         two states with one digest are byte-equal."""
+        return self._digest(tree_items(self.checkpoint_tree()))
+
+    def replicated_digest(self) -> bytes:
+        """``digest`` over what the data ranks of a model index hold alike:
+        every leaf no ``data`` cut touches, ``count`` and ``step`` — all of
+        ``checkpoint_tree`` (``digest`` itself) unless the state is cut
+        over ``data``."""
+        if self.params.fsdp is None:
+            return self.digest()
+        return self._digest((key, leaf) for key, leaf, *_, ddim in self._leaf_cuts()
+                            if ddim is None)
+
+    @staticmethod
+    def _digest(items) -> bytes:
         h = hashlib.sha256()
-        for key, leaf in tree_items(self.checkpoint_tree()):
+        for key, leaf in items:
             h.update(key.encode())
             t = torch.as_tensor(leaf).detach().contiguous().reshape(-1)
             h.update(t.view(torch.uint8).cpu().numpy().tobytes())
@@ -69,6 +88,11 @@ class TrainState:
         that dimension is cut in)`` for every leaf of ``checkpoint_tree``,
         in its order (``models.params.shard_blocks``): a moment splits as
         its parameter; ``count`` and ``step`` are whole."""
+        return [cut[:4] for cut in self._leaf_cuts()]
+
+    def _leaf_cuts(self) -> list:
+        """``leaf_splits`` with a fifth entry: the leaf's ``data`` cut
+        dimension (``models.params.data_dims``) or None."""
         model = self.params
         n = len(model.leaves())
 
@@ -80,19 +104,29 @@ class TrainState:
 
         dims = per_leaf(model.shard_dims or (None,) * n, None)
         blocks = per_leaf(model.shard_blocks or (1,) * n, 1)
-        return [(key, leaf, dim, b) for (key, leaf), (_, dim), (_, b)
-                in zip(tree_items(self.checkpoint_tree()), dims, blocks, strict=True)]
+        ddims = per_leaf(model.fsdp.dims if model.fsdp is not None else (None,) * n, None)
+        return [(key, leaf, dim, b, dd) for (key, leaf), (_, dim), (_, b), (_, dd)
+                in zip(tree_items(self.checkpoint_tree()), dims, blocks, ddims, strict=True)]
+
+    def _mesh(self):
+        """The mesh the state is cut on, or None."""
+        cut = self.params.tp or self.params.fsdp
+        return None if cut is None else cut.mesh
 
     def full_leaves(self, host: bool = True):
         """The reference's full tree, one leaf at a time: ``(key, leaf)``
-        in ``checkpoint_tree`` order, each split leaf gathered over the
-        model group (``models.params.gather_leaf``, the reference's layout;
-        every rank of the group iterates in step: the gathers pair up),
-        each copied to the host when ``host`` — so at most one full leaf
-        lies on the device besides the shards, and none once the host
-        holds it."""
+        in ``checkpoint_tree`` order, each leaf cut over ``data`` gathered
+        over the data group (``models.params.gather_data_leaf``), each
+        split leaf then over the model group (``gather_leaf``, the
+        reference's layout; every rank of a group iterates in step: the
+        gathers pair up), each copied to the host when ``host`` — so at
+        most one full leaf lies on the device besides the shards, and
+        none once the host holds it."""
         group = None if self.params.tp is None else self.params.tp.model_group
-        for key, leaf, dim, blocks in self.leaf_splits():
+        dgroup = None if self.params.fsdp is None else self.params.fsdp.data_group
+        for key, leaf, dim, blocks, ddim in self._leaf_cuts():
+            if ddim is not None:
+                leaf = gather_data_leaf(leaf, ddim, dgroup)
             if dim is not None:
                 leaf = gather_leaf(leaf, dim, group, blocks)
             if host and isinstance(leaf, torch.Tensor):
@@ -106,20 +140,21 @@ class TrainState:
         that arrive one at a time: ``source(key, shape, dtype)`` returns
         the full leaf ``key`` of the reference's tree (its full ``shape``
         and this state's ``dtype``; ``count`` and ``step`` int32 0-d),
-        asked for in ``checkpoint_tree`` order; each split leaf is cut to
-        this rank's shard (``models.params.shard_of``) and let go before
-        the next is asked for."""
-        mesh = self.params.tp.mesh if self.params.tp is not None else None
+        asked for in ``checkpoint_tree`` order; each leaf is cut to this
+        rank's shard (``cut_leaf``) and let go before the next is asked for."""
+        mesh = self._mesh()
         scalars = {}
-        for key, leaf, dim, blocks in self.leaf_splits():
+        for key, leaf, dim, blocks, ddim in self._leaf_cuts():
             if not isinstance(leaf, torch.Tensor):
                 scalars[key] = int(source(key, (), torch.int32))
                 continue
             shape = list(leaf.shape)
             if dim is not None:
                 shape[dim] *= mesh.model
+            if ddim is not None:
+                shape[ddim] *= mesh.data
             full = source(key, tuple(shape), leaf.dtype)
-            leaf.copy_(full if dim is None else shard_of(full, dim, mesh, blocks))
+            leaf.copy_(cut_leaf(full, mesh, dim, blocks, ddim))
             del full
         return TrainState(params=self.params,
                           opt=dict(self.opt, count=scalars["opt/count"]),
@@ -133,15 +168,27 @@ class TrainState:
                           step=int(tree.step))
 
 
+def cut_leaf(full: torch.Tensor, mesh, dim, blocks: int, ddim) -> torch.Tensor:
+    """A rank's shard of one full leaf: its ``model`` shard on ``dim`` in
+    ``blocks`` blocks (``models.params.shard_of``), then its ``data``
+    slice on ``ddim`` (``data_shard_of``) — the cut ``init_shards(...,
+    over_data=True)`` makes; ``full`` itself when neither cuts it."""
+    if dim is not None:
+        full = shard_of(full, dim, mesh, blocks)
+    return data_shard_of(full, ddim, mesh)
+
+
 def init_train_state(cfg, *, device="cuda", seed: int = 0, params=None,
                      mesh=None) -> TrainState:
     """Fresh state: parameters from ``seed`` on ``device``, or copied from
     ``params`` (a reference parameter tree of numpy arrays) when given.
-    On a ``mesh`` with a ``model`` axis, this rank's shards of those
-    parameters (``init_shards``: the full tree never lies on ``device``)
-    and moments of the shards' shapes."""
+    On a ``mesh`` with a ``model`` axis, or whose ``data`` axis the
+    config's ``fsdp`` rule cuts leaves on, this rank's shards of those
+    parameters (``init_shards(..., over_data=True)``: the full tree never
+    lies on ``device``) and moments of the shards' shapes."""
     if mesh is not None:
-        model = init_shards(cfg, mesh, device=device, seed=seed, params=params)
+        model = init_shards(cfg, mesh, device=device, seed=seed, params=params,
+                            over_data=True)
     else:
         model = GCLM(cfg, device=device, seed=seed)
         if params is not None:

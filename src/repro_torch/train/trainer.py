@@ -38,10 +38,10 @@ from ..core import Env, Plan
 from ..data.pipeline import DataConfig, SyntheticTokens, coded_worker_batches
 from ..dist.collectives import broadcast, check_replicated, psum
 from ..models.model import has_source, train_loss
-from ..models.params import GCLM, shard_of
+from ..models.params import GCLM, data_shard_of, gather_data
 from ..optim.optim import adamw_update, clip_by_global_norm, cosine_schedule
 from .coded import make_coded_grad_fn
-from .state import TrainState, init_train_state
+from .state import TrainState, cut_leaf, init_train_state
 
 __all__ = ["TrainConfig", "make_train_step", "make_coded_train_step", "Trainer"]
 
@@ -59,12 +59,13 @@ class TrainConfig:
 
 def _apply_update(cfg_t: TrainConfig, state: TrainState, grads, metrics):
     lr = cosine_schedule(state.step, cfg_t.lr, cfg_t.warmup, cfg_t.total_steps)
-    tp, dims = state.params.tp, state.params.shard_dims
-    if tp is None:
-        grads, gnorm = clip_by_global_norm(grads, cfg_t.clip_norm)
-    else:
-        grads, gnorm = clip_by_global_norm(grads, cfg_t.clip_norm, tp.model_group,
-                                           [d is not None for d in dims])
+    tp, dims, fsdp = state.params.tp, state.params.shard_dims, state.params.fsdp
+    groups = {}
+    if tp is not None:
+        groups.update(group=tp.model_group, split=[d is not None for d in dims])
+    if fsdp is not None:
+        groups.update(data_group=fsdp.data_group, data_split=[d is not None for d in fsdp.dims])
+    grads, gnorm = clip_by_global_norm(grads, cfg_t.clip_norm, **groups)
     opt = adamw_update(grads, state.opt, state.params.leaves(), lr,
                        b1=cfg_t.b1, b2=cfg_t.b2, weight_decay=cfg_t.weight_decay)
     metrics = dict(metrics, grad_norm=gnorm, lr=lr)
@@ -80,9 +81,12 @@ def make_train_step(cfg, cfg_t: TrainConfig, *, mesh=None) -> Callable:
     ``all_reduce`` over the data ranks, then one over the pod ranks,
     sums the gradients and the metrics before the mean: the plain
     data-parallel step.  On a ``model`` axis the state holds the rank's
-    shards."""
+    shards; a state cut over ``data`` (``fsdp``) is gathered into its
+    working module first (``gather_data``), and the rank keeps its slice
+    of each cut leaf's reduced gradient."""
     def step(state: TrainState, batch):
-        leaves = state.params.leaves()
+        work = gather_data(state.params)
+        leaves = work.leaves()
         part = {k: batch[k] for k in ("tokens", "aux_inputs") if k in batch}
         if mesh is not None:
             n_rows, replicas = part["tokens"].shape[0], mesh.data * mesh.pod
@@ -90,8 +94,9 @@ def make_train_step(cfg, cfg_t: TrainConfig, *, mesh=None) -> Callable:
                 raise ValueError(f"{n_rows} rows do not split over {replicas} ranks")
             h, i = n_rows // replicas, mesh.pod_index * mesh.data + mesh.data_index
             part = {k: v[i * h:(i + 1) * h] for k, v in part.items()}
-        loss, metrics = train_loss(cfg, state.params, part)
+        loss, metrics = train_loss(cfg, work, part)
         grads = list(torch.autograd.grad(loss, leaves))
+        del work, leaves
         keys = sorted(metrics)
         values = torch.stack([metrics[k].detach().float() for k in keys])
         if mesh is not None:
@@ -103,6 +108,8 @@ def make_train_step(cfg, cfg_t: TrainConfig, *, mesh=None) -> Callable:
             parts = torch.split(flat, [g.numel() for g in grads] + [len(keys)])
             grads = [part.view_as(g) for part, g in zip(parts, grads)]
             values = parts[-1]
+        if state.params.fsdp is not None:
+            grads = [data_shard_of(g, d, mesh) for g, d in zip(grads, state.params.fsdp.dims)]
         return _apply_update(cfg_t, state, grads, dict(zip(keys, values)))
 
     return step
@@ -116,13 +123,19 @@ def make_coded_train_step(cfg, cfg_t: TrainConfig, plan: Plan, *,
     ``worker_aux`` (N, K, rows, ...) carries the modality embeddings of a
     model with a cross-attention source.  The keywords go to
     ``make_coded_grad_fn``, whose ``CodedGrads`` the step keeps as
-    ``step.grad_fn``."""
+    ``step.grad_fn``.  A state cut over ``data`` (``fsdp``) is gathered
+    into its working module once a step (``gather_data``): the per-shard
+    passes, the combine and the monitoring forward bind it, and it is
+    let go before the update."""
     grad_fn = make_coded_grad_fn(cfg, plan, mode=mode, mesh=mesh, reduce_mode=reduce_mode,
                                  grad_dtype=grad_dtype, pipeline=pipeline)
 
     def step(state: TrainState, worker_batches, dec_w, worker_aux=None):
-        grads = grad_fn(state.params, worker_batches, dec_w, worker_aux)
-        return coded_update(cfg, cfg_t, state, grads, worker_batches, worker_aux)
+        work = gather_data(state.params)
+        grads = grad_fn(state.params, worker_batches, dec_w, worker_aux, work=work)
+        metrics = _monitor(cfg, work, worker_batches, worker_aux)
+        del work
+        return _apply_update(cfg_t, state, grads, metrics)
 
     step.grad_fn = grad_fn
     return step
@@ -131,18 +144,24 @@ def make_coded_train_step(cfg, cfg_t: TrainConfig, plan: Plan, *,
 def coded_update(cfg, cfg_t: TrainConfig, state: TrainState, grads, worker_batches,
                  worker_aux=None):
     """The coded step after its gradients: the monitoring loss on shard 0
-    (with ``worker_aux[0, 0]`` as its ``aux_inputs`` when given) with the
-    pre-update parameters, then clip, AdamW and the cosine LR (in place).
-    Shard 0's tokens are copied to the device as they are, as the passes
-    copy theirs, so their conversion runs there (an op counter sees the
-    step the same on meta and on a card).  Returns (state, metrics)."""
-    mon = {"tokens": torch.as_tensor(worker_batches[0, 0],
-                                     device=state.params.embed.tok.device)}
+    (``_monitor``) with the pre-update parameters (gathered into the
+    working module when the state is cut over ``data``), then clip, AdamW
+    and the cosine LR (in place).  Returns (state, metrics)."""
+    metrics = _monitor(cfg, gather_data(state.params), worker_batches, worker_aux)
+    return _apply_update(cfg_t, state, grads, metrics)
+
+
+def _monitor(cfg, work, worker_batches, worker_aux=None) -> dict:
+    """The monitoring metrics: ``train_loss`` of the module ``work`` on
+    shard 0 (with ``worker_aux[0, 0]`` as its ``aux_inputs`` when given),
+    without gradients.  Shard 0's tokens are copied to the device as they
+    are, as the passes copy theirs, so their conversion runs there (an op
+    counter sees the step the same on meta and on a card)."""
+    mon = {"tokens": torch.as_tensor(worker_batches[0, 0], device=work.embed.tok.device)}
     if worker_aux is not None:
         mon["aux_inputs"] = worker_aux[0, 0]
     with torch.no_grad():
-        _, metrics = train_loss(cfg, state.params, mon)
-    return _apply_update(cfg_t, state, grads, metrics)
+        return train_loss(cfg, work, mon)[1]
 
 
 def _bytes_of(t: torch.Tensor) -> torch.Tensor:
@@ -237,7 +256,6 @@ class Trainer:
             else:
                 n_workers = 8  # bare distribution: the reference's default
         env = Env.coerce(env, n_workers)
-        sharded = mesh is not None and mesh.model > 1
         self.cfg, self.cfg_t = cfg, cfg_t
         self.env = env
         self.n_workers = n_workers
@@ -246,9 +264,9 @@ class Trainer:
         self.reduce_mode, self.grad_dtype = reduce_mode, grad_dtype
         self.tune_report = None
         seq_len = min(cfg.max_seq, 512) if seq_len is None else seq_len
-        self.state = init_train_state(cfg, device=device, seed=seed, params=params,
-                                      mesh=mesh if sharded else None)
+        self.state = init_train_state(cfg, device=device, seed=seed, params=params, mesh=mesh)
         # plans bind the full tree's leaves; a rank holds its shards
+        sharded = self.state.params.tp is not None or self.state.params.fsdp is not None
         tree = GCLM(cfg, device="meta") if sharded else self.state.params
         if scheme == "auto":
             # model-aware search: the winner sets the plan AND the step
@@ -325,7 +343,9 @@ class Trainer:
         each leaf and every rank keeps its shard.  The reader then checks
         its state against the decoded leaves, cut as it holds them, and in
         spmd every rank checks its state against the data ranks of its
-        model index."""
+        model index (``TrainState.replicated_digest``: what they hold
+        alike, when the state is cut over ``data``) and the pod ranks of
+        its (data, model) index."""
         mesh, arrays = self.mesh, None
         if mesh is None or mesh.rank == 0:
             arrays, _ = self.manager.load(missing=missing, device=self.device)
@@ -334,7 +354,10 @@ class Trainer:
             if arrays is None:  # rank 0's leaf
                 return broadcast(torch.empty(shape, dtype=dtype, device=self.device),
                                  mesh.world_group)
-            value = torch.as_tensor(arrays[key]).to(dtype)
+            # contiguous: a broadcast sends the storage in memory order, and a
+            # leaf gathered on a later dimension is saved transposed (Fortran
+            # order) and loads so
+            value = torch.as_tensor(arrays[key]).to(dtype).contiguous()
             if tuple(value.shape) != shape:
                 raise ValueError(f"{key}: checkpoint shape {tuple(value.shape)}, the state's "
                                  f"full leaf {shape}")
@@ -342,22 +365,22 @@ class Trainer:
 
         self.state = self.state.fill_from_full(source)
         if arrays is not None:
-            tp = self.state.params.tp
-            for key, leaf, dim, blocks in self.state.leaf_splits():
+            on = self.state._mesh()
+            for key, leaf, dim, blocks, ddim in self.state._leaf_cuts():
                 got = torch.as_tensor(leaf).detach().cpu()
-                want = torch.as_tensor(arrays.pop(key)).to(got.dtype)
-                if dim is not None:
-                    want = shard_of(want, dim, tp.mesh, blocks)
+                want = cut_leaf(torch.as_tensor(arrays.pop(key)).to(got.dtype), on, dim, blocks,
+                                ddim)
                 if not torch.equal(_bytes_of(got), _bytes_of(want)):
                     raise RuntimeError(f"{key}: the restored state differs from the decoded "
                                        "checkpoint")
             if arrays:
                 raise ValueError(f"the checkpoint holds leaves the state lacks: {sorted(arrays)}")
         if mesh is not None:
-            for group in (mesh.data_group, mesh.pod_group):
-                if group is not None:
-                    check_replicated(self.state.digest(), mesh.device, "the restored state",
-                                     group)
+            check_replicated(self.state.replicated_digest(), mesh.device, "the restored state",
+                             mesh.data_group)
+            if mesh.pod_group is not None:
+                check_replicated(self.state.digest(), mesh.device, "the restored state",
+                                 mesh.pod_group)
         return int(self.state.step)
 
     def save_checkpoint(self):
@@ -366,15 +389,18 @@ class Trainer:
         (``TrainState.full_leaves``).  In spmd rank 0 writes while the
         other ranks wait at a barrier (their path is ``None``): on a
         ``model`` axis its model group gathers each leaf to it (the other
-        data replicas hold the same bytes)."""
+        data replicas hold the same bytes); a state cut over ``data``
+        gathers each cut leaf over the data groups of pod 0 first (the
+        other pods hold the same slices)."""
         step, path, mesh = int(self.state.step), None, self.mesh
-        if mesh is None or (mesh.data_index == 0 and mesh.pod_index == 0):
+        over_data = self.state.params.fsdp is not None
+        if mesh is None or (mesh.pod_index == 0 and (mesh.data_index == 0 or over_data)):
             writer = mesh is None or mesh.rank == 0
             leaves = self.state.full_leaves(host=writer)
             if writer:
                 path = self.manager.save(step, leaves, extra={"plan": self.plan.to_dict()},
                                          device=self.device)
-            else:  # rank 0's model group: its gathers pair up with rank 0's
+            else:  # rank 0's groups: their gathers pair up with rank 0's
                 for _ in leaves:
                     pass
         if mesh is not None:

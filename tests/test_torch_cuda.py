@@ -575,6 +575,53 @@ def test_model_mesh_coded_checkpoint_round_trip_over_gloo(cuda, tmp_path):
     assert [o[4] for o in out] == [1, 0]   # the save's parity, on rank 0 alone
 
 
+def _fsdp_rank(rank, world, device="cuda:0"):
+    """One rank of a (data 2, model 2) mesh on card 0: reduced gemma2-27b
+    (``fsdp`` set: every leaf cut by ``data`` too) and its fsdp-off twin,
+    2 coded steps each from seed 0; returns each run's gathered
+    parameters and moments (rank 0), the fsdp run's gc_fused launches and
+    state shapes."""
+    import dataclasses
+
+    from repro_torch.models.params import gather_model
+
+    mesh = make_local_mesh(2, model=2, device=device, backend="gloo")
+    out = {}
+    for fsdp in (True, False):
+        cfg = dataclasses.replace(get_config("gemma2-27b").reduced(d_model=128), fsdp=fsdp)
+        tr = Trainer(cfg, TrainConfig(warmup=1, total_steps=10),
+                     Env.iid(ShiftedExponential(mu=1e-3, t0=50.0), 2), global_batch=8, seed=0,
+                     seq_len=32, mesh=mesh, mode="spmd", device=device)
+        before = gc_fused.launches
+        tr.run(2, log_every=0)
+        full = [[t.detach().cpu() for t in gather_model(tr.state.params, tensors).leaves()]
+                for tensors in (None, tr.state.opt["m"], tr.state.opt["v"])]
+        out[fsdp] = dict(full=full if rank == 0 else None, launches=gc_fused.launches - before,
+                         cut=tr.state.params.fsdp is not None,
+                         shapes=[tuple(t.shape) for t in tr.state.opt["m"]])
+    return out
+
+
+def test_fsdp_state_trains_as_fsdp_off_on_the_card(cuda, tmp_path):
+    """Four ranks of a (data 2, model 2) mesh on card 0 over gloo: with
+    ``fsdp`` each rank holds its data slice of every leaf and both
+    moments (a quarter of the working shard's rows or columns, on
+    ``embed``), launches gc_fused once a step, and after 2 steps the
+    gathered parameters and moments are within 1e-6 of each leaf's scale
+    of the fsdp-off run's (only the clip norm's summation order
+    differs)."""
+    out = spawn(_fsdp_rank, 4, store_dir=str(tmp_path), backend="gloo", timeout=600.0)
+    for o in out:
+        assert o[True]["cut"] and not o[False]["cut"]
+        assert o[True]["launches"] == o[False]["launches"] == 2
+        on, off = o[True]["shapes"], o[False]["shapes"]
+        assert [np.prod(a) * 2 for a in on] == [np.prod(b) for b in off]
+    for a_tree, b_tree in zip(out[0][True]["full"], out[0][False]["full"], strict=True):
+        for a, b in zip(a_tree, b_tree, strict=True):
+            scale = float(b.abs().max())
+            assert float((a - b).abs().max()) <= 1e-6 * scale
+
+
 def _tp_serve_rank(rank, world):
     """One rank of a (data 2, model 2) serving mesh on card 0: reduced
     gc-lm-110m's shards (seed 0) through ``_serve_run``'s requests."""

@@ -23,6 +23,7 @@ from repro_torch.configs import INPUT_SHAPES, InputShape, get_config, list_archs
 from repro_torch.dist.mesh import meta_mesh
 from repro_torch.launch import dryrun
 from repro_torch.launch.op_analysis import analyze_ops
+from repro_torch.models.params import data_dims
 from repro_torch.train.state import abstract_train_state
 from repro_torch.train.trainer import TrainConfig, make_train_step
 from repro_torch.tune import analyze_memory
@@ -132,8 +133,10 @@ def test_spmd_coded_collectives_follow_the_plans_levels(reduce_mode, pod):
 def test_full_width_training_dry_run_within_its_time(arch, mesh_shape, tmp_path):
     """The sLSTM's 4,096 tokens and the Mamba and mLSTM chunks run three
     trips each on meta: the full-width train_4k dry run ends in under
-    30 s here, on the data axes alone (one all-reduce of the gradients)
-    and on the reference's (16, 16), where the rank holds its shards and
+    30 s here, on the data axes alone (one all-reduce of the gradients;
+    Jamba sets ``fsdp``, so its rank also all-gathers each leaf the data
+    axis cuts and adds up the clip's squares over the data group) and on
+    the reference's (16, 16), where the rank holds its shards and
     reduces over the model group too (xLSTM's 4 heads whole on the ranks
     of their channels: its mLSTM layers reduce-scatter)."""
     rec = dryrun.run_case(arch, "train_4k", "single", coded=False, out_dir=str(tmp_path),
@@ -142,8 +145,11 @@ def test_full_width_training_dry_run_within_its_time(arch, mesh_shape, tmp_path)
     assert rec["trace_s"] < 30.0
     assert 4096 in rec["loop_trips"] or arch != "xlstm-1.3b"
     if mesh_shape == (16, 1):
-        assert rec["collectives"]["all-reduce"]["count"] == 1
-        assert rec["local_params"] == rec["params_b"]
+        cut = sum(d is not None for d in data_dims(get_config(arch), meta_mesh(16)))
+        assert (cut > 0) == get_config(arch).fsdp
+        assert rec["collectives"]["all-reduce"]["count"] == 1 + (cut > 0)
+        assert rec["collectives"]["all-gather"]["count"] == cut
+        assert (rec["local_params"] == rec["params_b"]) == (cut == 0)
     else:
         assert rec["collectives"]["all-reduce"]["count"] > 1
         assert rec["local_params"] < rec["params_b"]

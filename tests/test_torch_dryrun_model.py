@@ -2,17 +2,20 @@
 ``single`` (data 16, model 16) and ``multi`` (pod 2, data 16, model 16)
 meshes, one rank's shards, caches and collectives, on the CPU.
 
-* The split of every arch at (16, 16) and (2, 16, 16): ``shard_dims``
-  equals the reference's ``pspec_for_axes`` on an ``AbstractMesh`` leaf
-  for leaf, and ``local_shapes`` the full shapes cut on the ``model``
-  entry of the reference's spec (its ``data`` entries — the ``fsdp``
-  rule — are ROADMAP 6f's).  ``repro.launch.dryrun`` is never imported:
-  it sets ``XLA_FLAGS`` to 512 host devices at import.
+* The split of every arch at (16, 16) and (2, 16, 16): the port's spec
+  (``shard_dims``' ``model`` entry and ``data_dims``' ``data`` entry,
+  the ``fsdp`` rule's) equals the reference's ``pspec_for_axes`` on an
+  ``AbstractMesh`` on every entry of every leaf, ``local_shapes`` (the
+  working shapes) are the full shapes cut on the ``model`` entry and
+  ``state_shapes`` cut on both; a mixtral-8x22b rank of (16, 16) holds
+  7.09 GB of parameters and moments, not the 113.44 GB of its working
+  shapes.  ``repro.launch.dryrun`` is never imported: it sets
+  ``XLA_FLAGS`` to 512 host devices at import.
 * At data 4 x model 2 on reduced gc-lm-110m: the coded, uncoded and
   decode records' collectives — counts and bytes — equal the formulas
   of ``tests/torch_tp_mla_ranks.py`` (``step_counts``, ``serve_counts``)
   with the bytes of each term written from the config, and the rank's
-  argument bytes are its local shapes three times (parameters and two
+  argument bytes are its state shapes three times (parameters and two
   moments) plus the inputs.
 * The CLI's records: ``n_chips`` 256 and 512 by default, and
   ``--mesh-shape`` honoured; at 16x1 the rank holds the whole tree.
@@ -38,7 +41,7 @@ from repro_torch.dist import collectives
 from repro_torch.dist.mesh import meta_mesh, solo_mesh
 from repro_torch.launch import dryrun
 from repro_torch.launch.op_analysis import analyze_ops
-from repro_torch.models.params import local_shapes, shard_dims
+from repro_torch.models.params import data_dims, local_shapes, shard_dims, state_shapes
 from repro_torch.train.coded import local_layout
 from repro_torch.tune.memory import tree_bytes
 
@@ -79,11 +82,33 @@ def test_shards_on_the_reference_s_meshes_follow_its_rule(arch, mesh_kind):
     shapes, specs = _reference_specs(arch, mesh_kind)
     mesh = meta_mesh(**MESHES[mesh_kind][1])
     cfg = get_config(arch)
-    want_dims = tuple(s.index("model") if "model" in s else None for s in specs)
-    assert shard_dims(cfg, mesh) == want_dims
-    want_shapes = [tuple(n // 16 if d == dim else n for d, n in enumerate(shape))
-                   for shape, dim in zip(shapes, want_dims)]
-    assert local_shapes(cfg, mesh) == want_shapes
+    port = []
+    for shape, mdim, ddim in zip(shapes, shard_dims(cfg, mesh), data_dims(cfg, mesh),
+                                 strict=True):
+        port.append(tuple("model" if d == mdim else "data" if d == ddim else None
+                          for d in range(len(shape))))
+    assert port == specs
+    assert local_shapes(cfg, mesh) == [
+        tuple(n // 16 if s == "model" else n for n, s in zip(shape, spec))
+        for shape, spec in zip(shapes, specs)]
+    assert state_shapes(cfg, mesh) == [
+        tuple(n // 16 if s else n for n, s in zip(shape, spec))
+        for shape, spec in zip(shapes, specs)]
+    assert any("data" in s for s in specs) == cfg.fsdp
+
+
+def test_a_mixtral_rank_holds_its_fsdp_cut():
+    """mixtral-8x22b's rank 0 of (16, 16): its parameters and two fp32
+    moments come to 7.09 GB cut by ``data`` and ``model``, against
+    113.44 GB cut by ``model`` alone; the dry run's record says so."""
+    cfg, mesh = get_config("mixtral-8x22b"), meta_mesh(16, model=16)
+    state = 12 * sum(math.prod(s) for s in state_shapes(cfg, mesh))
+    working = 12 * sum(math.prod(s) for s in local_shapes(cfg, mesh))
+    assert (round(state / 1e9, 2), round(working / 1e9, 2)) == (7.09, 113.44)
+    args, extra = dryrun.build_case(cfg, InputShape("t", 8, 16, "decode"), mesh,
+                                    coded=False)[1:]
+    assert 12 * extra["local_params"] == state
+    assert tree_bytes(args[0]) == state // 3
 
 
 # ------------------------------------------------ data 4 x model 2, reduced
@@ -140,7 +165,7 @@ def test_coded_record_s_collectives_and_memory_are_the_formula_s():
     rows = B // 4
     assert cost.collective_bytes["all-reduce"] == (k * _pass_bytes(c, rows)
                                                   + _pass_bytes(c, rows, False) + 4 + levels)
-    local = sum(math.prod(s) for s in local_shapes(c, MESH))
+    local = sum(math.prod(s) for s in state_shapes(c, MESH))
     assert extra["local_params"] == local
     assert extra["params_b"] == dryrun.count_params(dryrun.GCLM(c, device="meta"))
     wb, dec_w = args[1], args[2]
